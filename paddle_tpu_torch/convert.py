@@ -8,6 +8,11 @@ Both keep Paddle's (in, out) Linear layout, so names and shapes match one
 to one and nothing is transposed.  Tied parameters (BERT's MLM decoder
 weight is the word-embedding table) appear once in the JAX dict and once
 in `named_parameters()`; filling that one entry keeps the tie.
+
+`load_jax_train_state(module, jax_state)` carries a train state over: the
+{"params", "m", "v", "t"} of paddle_tpu's `build_pretrain_step`, as numpy,
+becomes the state of the port's `build_pretrain_step`, so a JAX run can
+continue in the port.
 """
 
 from __future__ import annotations
@@ -19,6 +24,23 @@ import torch
 from torch import nn
 
 
+def _check(params: Dict[str, torch.Tensor], state: Dict[str, np.ndarray],
+           strict: bool, what: str = "state") -> None:
+    """KeyError on missing or (with strict) unexpected keys, ValueError on
+    a shape mismatch."""
+    missing = sorted(set(params) - set(state))
+    unexpected = sorted(set(state) - set(params))
+    if missing:
+        raise KeyError(f"missing keys in {what}: {missing}")
+    if strict and unexpected:
+        raise KeyError(f"unexpected keys in {what}: {unexpected}")
+    for name, p in params.items():
+        shape = tuple(np.shape(state[name]))
+        if shape != tuple(p.shape):
+            raise ValueError(f"{name}: {what} has shape {shape}, parameter "
+                             f"has {tuple(p.shape)}")
+
+
 def load_jax_state(module: nn.Module, state: Dict[str, np.ndarray],
                    strict: bool = True) -> nn.Module:
     """Copy `state` into `module`'s parameters (cast to each parameter's
@@ -26,18 +48,32 @@ def load_jax_state(module: nn.Module, state: Dict[str, np.ndarray],
     unexpected keys and ValueError on a shape mismatch; nothing is
     written unless every check passes."""
     params = dict(module.named_parameters())
-    missing = sorted(set(params) - set(state))
-    unexpected = sorted(set(state) - set(params))
-    if missing:
-        raise KeyError(f"missing keys in state: {missing}")
-    if strict and unexpected:
-        raise KeyError(f"unexpected keys in state: {unexpected}")
-    for name, p in params.items():
-        shape = tuple(np.shape(state[name]))
-        if shape != tuple(p.shape):
-            raise ValueError(f"{name}: state has shape {shape}, parameter "
-                             f"has {tuple(p.shape)}")
+    _check(params, state, strict)
     with torch.no_grad():
         for name, p in params.items():
             p.copy_(torch.from_numpy(np.array(state[name])))
     return module
+
+
+def load_jax_train_state(module: nn.Module, jax_state) -> dict:
+    """The port's train state from paddle_tpu's: `jax_state` is the
+    {"params", "m", "v", "t"} of its `build_pretrain_step` (numpy
+    arrays).  Returns {"params", "m", "v": f32 tensors on the module's
+    device, by name; "t": host int}, the state the port's step_fn takes.
+    Each of params, m and v is checked against `module`'s parameters as
+    `load_jax_state` checks (all keys, no extra ones, shapes); nothing is
+    built unless every check passes.  The module's own weights are not
+    touched."""
+    params = dict(module.named_parameters())
+    missing = sorted({"params", "m", "v", "t"} - set(jax_state))
+    if missing:
+        raise KeyError(f"missing keys in train state: {missing}")
+    for part in ("params", "m", "v"):
+        _check(params, jax_state[part], True, f"train state[{part!r}]")
+    device = next(module.parameters()).device
+    out = {part: {name: torch.tensor(np.asarray(jax_state[part][name]),
+                                     dtype=torch.float32, device=device)
+                  for name in params}
+           for part in ("params", "m", "v")}
+    out["t"] = int(np.asarray(jax_state["t"]))
+    return out

@@ -1,14 +1,18 @@
-"""BERT (counterpart of paddle_tpu/models/bert.py), forward only.
+"""BERT pretraining (counterpart of paddle_tpu/models/bert.py).
 
 The encoder rides nn.TransformerEncoderLayer, whose attention core is the
-flash-attention kernel and whose FFN is the fused FFN kernel on the card.
-Parameter names and shapes match paddle_tpu's one to one, so
-`convert.load_jax_state` can carry a JAX model's weights over.
+flash-attention kernels and whose FFN is the fused FFN kernels on the
+card, forward and backward.  Parameter names and shapes match
+paddle_tpu's one to one, so `convert.load_jax_state` can carry a JAX
+model's weights over, and `convert.load_jax_train_state` a JAX train
+state.
 
 Weights are made on the CPU in float32 from an explicit torch.Generator
 seeded with `seed`, then moved to `device` (default cuda; raises without
-CUDA unless device="cpu") and cast to `dtype`.  The pretraining
-criterion and train step come with the training slice.
+CUDA unless device="cpu") and cast to `dtype`.
+
+`build_pretrain_step` is the train step: forward, backward and AdamW over
+fp32 masters, the forward on their bf16 cast.
 """
 
 from __future__ import annotations
@@ -20,8 +24,10 @@ import torch
 from torch import nn
 
 from .. import device as _device
+from ..jit import functional_call, functional_state
 from ..nn import (GELU, Dropout, Embedding, LayerNorm, Linear, ReLU, Tanh,
                   TransformerEncoder, TransformerEncoderLayer)
+from ..nn import functional as F
 from ..nn.initializer import TruncatedNormal
 
 
@@ -181,6 +187,155 @@ class BertForPretraining(nn.Module):
         encoded, pooled = self.bert(input_ids, token_type_ids,
                                     attention_mask=attention_mask)
         return self.cls(encoded, pooled, masked_positions)
+
+
+class BertPretrainingCriterion(nn.Module):
+    """Mean masked-LM loss plus mean next-sentence loss, log-softmax in
+    f32 whatever the logits' dtype."""
+
+    def __init__(self, vocab_size):
+        super().__init__()
+        self.vocab_size = vocab_size
+
+    def forward(self, mlm_logits, nsp_logits, masked_labels, nsp_labels):
+        def nll(logits, labels):
+            lp = torch.log_softmax(logits.float(), dim=-1)
+            return -torch.gather(lp, -1, labels.long()[..., None]).mean()
+
+        return nll(mlm_logits, masked_labels) + nll(nsp_logits, nsp_labels)
+
+
+def bert_step_flops(cfg, batch, seq, n_masked):
+    """Model FLOPs of one train step (fwd + bwd ~= 3x fwd cost): the
+    formula of the repo's BERT benchmark."""
+    h, l, inter, v = (cfg.hidden_size, cfg.num_hidden_layers,
+                      cfg.intermediate_size, cfg.vocab_size)
+    per_layer = 4 * h * h + 2 * h * inter          # qkvo + ffn weights
+    matmul_params = l * per_layer
+    fwd_tok = 2 * matmul_params + l * 4 * seq * h  # + attention scores/pv
+    fwd = batch * seq * fwd_tok
+    fwd += 2 * batch * n_masked * h * v            # MLM head matmul
+    return 3 * fwd
+
+
+_ADAM_B1, _ADAM_B2, _ADAM_EPS = 0.9, 0.999, 1e-8
+_DROPOUT_KEY = 20  # JAX folds PRNGKey(20) with the step count
+_M64 = (1 << 64) - 1
+
+
+def _step_seed(key: int, t: int) -> int:
+    """A 63-bit seed from (key, t): splitmix64 of the pair, the port's
+    `fold_in(PRNGKey(key), t)` (other bits than JAX's, the same role)."""
+    z = (((key << 32) ^ t) + 0x9E3779B97F4A7C15) & _M64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _M64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _M64
+    return (z ^ (z >> 31)) >> 1
+
+
+def _decays(name: str, p: torch.Tensor) -> bool:
+    """AdamW's weight-decay rule: none for biases and norms (ndim <= 1)
+    nor for stacked biases named `.b1`/`.b2`."""
+    return p.ndim > 1 and not name.endswith((".b1", ".b2"))
+
+
+def _to_device(a, device) -> torch.Tensor:
+    t = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.asarray(a))
+    return t.to(device, non_blocking=True)
+
+
+def build_pretrain_step(model: BertForPretraining, weight_decay=0.01,
+                        bf16=True, remat=False, device=None, mesh=None,
+                        mp_axis=None, sp_axis=None, use_ring_attention=False,
+                        use_ulysses=False):
+    """The BERT pretraining step: forward, backward and AdamW.
+
+    Returns (step_fn, state), with
+      state = {"params", "m", "v", "t"}: fp32 masters and Adam moments by
+      parameter name (the tied decoder weight once, under
+      `bert.embeddings.word_embeddings.weight`), and the step count t, a
+      host int;
+      step_fn(state, batch, lr) -> (state, loss).
+    `batch` holds paddle_tpu's fake_batch keys as numpy arrays or tensors;
+    `lr` is a float or a 0-d tensor.  `loss` is a 0-d tensor on the device:
+    nothing in the step reads a device value back to the host.  The step
+    UPDATES `state` IN PLACE (masters and moments) and returns it; the
+    model's own parameters are never touched.
+
+    With `bf16`, the forward runs on a bf16 cast of the masters and the
+    cast's backward hands f32 gradients to them.  AdamW is paddle_tpu's:
+    b1 0.9, b2 0.999, eps 1e-8, bias correction by t, `upd + wd * p`, no
+    decay for tensors of ndim <= 1 or names ending in `.b1`/`.b2`; the
+    tied weight gets the sum of both uses' gradients.  Dropout draws from
+    `rng_scope(seed(20, t))`, so a step is deterministic in t.  The model
+    runs in its current mode (train() by default).
+
+    `device`: where the state lives (default: the model's device).
+    `remat`, `mesh` (data parallelism), `mp_axis` (tensor parallelism),
+    `sp_axis` with ring/Ulysses attention and Switch-MoE models are not
+    ported yet and raise NotImplementedError."""
+    asked = {"remat": remat, "mesh": mesh is not None,
+             "mp_axis": mp_axis is not None, "sp_axis": sp_axis is not None,
+             "use_ring_attention": use_ring_attention,
+             "use_ulysses": use_ulysses,
+             "moe_experts": getattr(model.bert.config, "moe_experts", 0)}
+    missing = [k for k, v in asked.items() if v]
+    if missing:
+        raise NotImplementedError(
+            f"build_pretrain_step: {', '.join(missing)} not ported yet")
+    dev = (next(model.parameters()).device if device is None
+           else _device.resolve(device))
+    criterion = BertPretrainingCriterion(model.bert.config.vocab_size)
+    params = {k: v.to(dev, torch.float32, copy=True)
+              for k, v in functional_state(model).items()}
+    names = list(params)
+    decay = [k for k in names if weight_decay and _decays(k, params[k])]
+    state = {"params": params,
+             "m": {k: torch.zeros_like(v) for k, v in params.items()},
+             "v": {k: torch.zeros_like(v) for k, v in params.items()},
+             "t": 0}
+
+    def loss_fn(masters, batch):
+        cast = {k: v.to(torch.bfloat16) if bf16 and v.dtype == torch.float32
+                else v for k, v in masters.items()}
+        am = batch.get("attention_mask")
+        if am is not None:
+            am = (am != 0)[:, None, None, :]
+        (mlm, nsp), _ = functional_call(
+            model, cast, batch["input_ids"], batch["token_type_ids"],
+            attention_mask=am, masked_positions=batch["masked_positions"])
+        return criterion(mlm, nsp, batch["masked_labels"],
+                         batch["nsp_labels"])
+
+    def step_fn(state, batch, lr):
+        t = state["t"] + 1
+        batch = {k: _to_device(v, dev) for k, v in batch.items()}
+        leaves = [state["params"][k].detach().requires_grad_(True)
+                  for k in names]
+        with F.rng_scope(_step_seed(_DROPOUT_KEY, t)):
+            loss = loss_fn(dict(zip(names, leaves)), batch)
+        grads = [g.float() for g in torch.autograd.grad(loss, leaves)]
+        p, m, v = ([state[s][k] for k in names] for s in ("params", "m", "v"))
+        with torch.no_grad():
+            torch._foreach_mul_(m, _ADAM_B1)
+            torch._foreach_add_(m, grads, alpha=1 - _ADAM_B1)
+            torch._foreach_mul_(v, _ADAM_B2)
+            torch._foreach_addcmul_(v, grads, grads, value=1 - _ADAM_B2)
+            denom = torch._foreach_div(v, 1 - _ADAM_B2 ** t)
+            torch._foreach_sqrt_(denom)
+            torch._foreach_add_(denom, _ADAM_EPS)
+            upd = torch._foreach_div(m, 1 - _ADAM_B1 ** t)
+            torch._foreach_div_(upd, denom)
+            by_name = dict(zip(names, upd))
+            if decay:
+                torch._foreach_add_([by_name[k] for k in decay],
+                                    [state["params"][k] for k in decay],
+                                    alpha=weight_decay)
+            torch._foreach_mul_(upd, lr)
+            torch._foreach_sub_(p, upd)
+        state["t"] = t
+        return state, loss.detach()
+
+    return step_fn, state
 
 
 def fake_batch(cfg, batch_size, seq_len, num_masked=20, seed=0):

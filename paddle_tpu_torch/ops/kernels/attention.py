@@ -1,12 +1,16 @@
-"""Flash-attention forward (counterpart of paddle_tpu/ops/pallas/attention.py,
-forward part).
+"""Flash attention, forward and backward (counterpart of
+paddle_tpu/ops/pallas/attention.py).
 
 `flash_forward` is the wrapper of the hand-written CUDA kernel
-`csrc/flash_fwd.cu` (which replaces the Pallas `_flash_fwd_kernel`): on a
-CUDA tensor it launches the kernel or raises; on a CPU tensor it runs the
-plain PyTorch version `flash_forward_reference`, which computes the same
-function.  `flash_attention` is the shim around it, and
-`scaled_dot_product_attention` the dispatcher the nn layers call.
+`csrc/flash_fwd.cu` (which replaces the Pallas `_flash_fwd_kernel`), and
+`flash_backward` the wrapper of the two kernels of `csrc/flash_bwd.cu`
+(which replace `_flash_bwd_dkv_kernel` and `_flash_bwd_dq_kernel`): on a
+CUDA tensor each launches its kernels or raises; on a CPU tensor it runs
+the plain PyTorch version (`flash_forward_reference`,
+`flash_backward_reference`), which computes the same function.
+`FlashAttentionFunction` ties the two together for autograd (the
+`custom_vjp` of the JAX package), `flash_attention` is the shim around
+it, and `scaled_dot_product_attention` the dispatcher the nn layers call.
 
 Layout contract (paddle 2.x MultiHeadAttention): q/k/v are
 (batch, seq, num_heads, head_dim).  The kernel reads that layout in place
@@ -30,6 +34,8 @@ from .build import LaunchCounter, check, library
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 
 FLASH_FWD = LaunchCounter("flash_fwd")
+FLASH_BWD_DKV = LaunchCounter("flash_bwd_dkv")
+FLASH_BWD_DQ = LaunchCounter("flash_bwd_dq")
 
 _M32 = 0xFFFFFFFF
 _KERNEL_HEAD_DIMS = (16, 32, 64, 128)
@@ -77,6 +83,21 @@ def _keep_mask3(seed, bh0, q0, k0, block_h, block_q, block_k, dropout_p,
 
 # -- plain PyTorch version ------------------------------------------------------
 
+def _scores(q, k, key_bias, causal, causal_offset, scale):
+    """(B, H, Sq, Sk) f32 scores as the kernels form them: q k^T * scale
+    + key bias, DEFAULT_MASK_VALUE above the causal diagonal."""
+    sq, sk = q.shape[1], k.shape[1]
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if key_bias is not None:
+        s = s + key_bias.float()[:, None, None, :]
+    if causal:
+        qi = torch.arange(sq, device=q.device)[:, None]
+        ki = torch.arange(sk, device=q.device)[None, :]
+        s = torch.where(qi + causal_offset >= ki, s,
+                        torch.full_like(s, DEFAULT_MASK_VALUE))
+    return s
+
+
 def flash_forward_reference(q, k, v, key_bias=None, seed=0, causal=False,
                             causal_offset=None, scale=None, dropout_p=0.0):
     """Plain PyTorch version of the flash forward kernel.
@@ -90,14 +111,7 @@ def flash_forward_reference(q, k, v, key_bias=None, seed=0, causal=False,
     scale = scale if scale is not None else 1.0 / (d ** 0.5)
     if causal_offset is None:
         causal_offset = sk - sq
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
-    if key_bias is not None:
-        s = s + key_bias.float()[:, None, None, :]
-    if causal:
-        qi = torch.arange(sq, device=q.device)[:, None]
-        ki = torch.arange(sk, device=q.device)[None, :]
-        s = torch.where(qi + causal_offset >= ki, s,
-                        torch.full_like(s, DEFAULT_MASK_VALUE))
+    s = _scores(q, k, key_bias, causal, causal_offset, scale)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
@@ -192,6 +206,168 @@ def flash_forward(q, k, v, key_bias=None, seed=0, causal=False,
                                    causal_offset, scale, dropout_p)
 
 
+# -- backward: plain version -----------------------------------------------------
+
+def flash_backward_reference(q, k, v, key_bias, seed, out, lse, g,
+                             causal=False, causal_offset=None, scale=None,
+                             dropout_p=0.0):
+    """Plain PyTorch version of the two flash backward kernels: the
+    formulas of paddle_tpu's `_flash_bwd_dkv_kernel` and
+    `_flash_bwd_dq_kernel` in the (B, S, H, D) layout, scores in f32,
+    from the forward's saved out and lse (not autograd through the
+    forward).  Returns (dq, dk, dv) in the dtypes of q, k, v."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    scale = scale if scale is not None else 1.0 / (d ** 0.5)
+    if causal_offset is None:
+        causal_offset = sk - sq
+    s = _scores(q, k, key_bias, causal, causal_offset, scale)
+    p = torch.exp(s - lse.float()[..., None])
+    dp = torch.einsum("bqhd,bkhd->bhqk", g.float(), v.float())
+    if dropout_p > 0.0:
+        keep = _keep_mask3(seed, 0, 0, 0, b * h, sq, sk, dropout_p,
+                           device=q.device).view(b, h, sq, sk)
+        inv = 1.0 / (1.0 - dropout_p)
+        p_drop = torch.where(keep, p * inv, torch.zeros_like(p))
+        dp = torch.where(keep, dp * inv, torch.zeros_like(dp))
+    else:
+        p_drop = p
+    delta = (g.float() * out.float()).sum(-1).permute(0, 2, 1)  # (B,H,Sq)
+    ds = p * (dp - delta[..., None]) * scale
+    dv = torch.einsum("bhqk,bqhd->bkhd", p_drop.to(g.dtype).float(),
+                      g.float())
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds.to(q.dtype).float(), q.float())
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds.to(k.dtype).float(), k.float())
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+# -- backward: the CUDA kernels' wrapper -----------------------------------------
+
+def _bwd_lib():
+    lib = library("flash_bwd")
+    for fn in (lib.flash_bwd_dkv_bf16, lib.flash_bwd_dq_bf16):
+        if fn.argtypes is None:
+            vp, ci = ctypes.c_void_p, ctypes.c_int
+            outs = [vp, vp] if fn is lib.flash_bwd_dkv_bf16 else [vp]
+            fn.argtypes = ([vp] * 7 + outs + [ci] * 5
+                           + [ctypes.POINTER(ctypes.c_longlong), ci, ci,
+                              ctypes.c_float, ctypes.c_uint, ctypes.c_float,
+                              ctypes.c_uint, vp])
+            fn.restype = ci
+    return lib
+
+
+def _flash_bwd_launchers(q, k, v, key_bias, seed, out, lse, g, causal,
+                         causal_offset, scale, dropout_p):
+    """Check the operands, allocate dq/dk/dv and compute delta; return
+    ((dq, dk, dv), launch_dkv, launch_dq), each launcher running its
+    kernel once (chip_smoke times the two kernels apart)."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    if not all(t.dtype == torch.bfloat16 for t in (q, k, v, out, g)):
+        raise NotImplementedError(
+            "flash_bwd kernels take bf16 q/k/v/out/g, got "
+            + "/".join(str(t.dtype) for t in (q, k, v, out, g)))
+    if d not in _KERNEL_HEAD_DIMS:
+        raise NotImplementedError(
+            f"flash_bwd kernels take head_dim in {_KERNEL_HEAD_DIMS}, got {d}")
+    if (k.shape != (b, sk, h, d) or v.shape != k.shape
+            or out.shape != q.shape or g.shape != q.shape
+            or lse.shape != (b, h, sq)):
+        raise ValueError("flash_bwd operand shapes do not match q "
+                         f"{tuple(q.shape)}")
+    if sk < 1 or b * h > 65535:
+        raise ValueError(f"flash_bwd kernels need Sk >= 1 and B*H <= 65535 "
+                         f"(got Sk={sk}, B*H={b * h})")
+    q, k, v, g = (_kernel_ready(t) for t in (q, k, v, g))
+    if key_bias is not None:
+        key_bias = key_bias.to(torch.float32).contiguous()
+        if key_bias.shape != (b, sk):
+            raise ValueError(f"key_bias must be (B, Sk)=({b}, {sk}), got "
+                             f"{tuple(key_bias.shape)}")
+    lse = lse.to(torch.float32).contiguous()
+    # delta = rowsum(g * out), outside the kernels as in JAX (:395)
+    delta = (g.float() * out.float()).sum(-1).permute(0, 2, 1).contiguous()
+    dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, sk, h, d), dtype=k.dtype, device=q.device)
+    dv = torch.empty((b, sk, h, d), dtype=v.dtype, device=q.device)
+    strides = (ctypes.c_longlong * 12)(
+        *(st for t in (q, k, v, g) for st in t.stride()[:3]))
+    thresh = _threshold(dropout_p) if dropout_p > 0.0 else 0
+    lib = _bwd_lib()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+              None if key_bias is None else key_bias.data_ptr(),
+              lse.data_ptr(), delta.data_ptr())
+    tail = (b, h, sq, sk, d, strides, int(bool(causal)), int(causal_offset),
+            float(scale), thresh, float(1.0 / (1.0 - dropout_p)),
+            int(seed) & _M32, stream)
+    keep = (q, k, v, g, key_bias, lse, delta)  # alive while launchers are
+
+    def launch_dkv():
+        err = lib.flash_bwd_dkv_bf16(*common, dk.data_ptr(), dv.data_ptr(),
+                                     *tail)
+        check(lib, err, "flash_bwd_dkv")
+        FLASH_BWD_DKV.add()
+        return keep
+
+    def launch_dq():
+        err = lib.flash_bwd_dq_bf16(*common, dq.data_ptr(), *tail)
+        check(lib, err, "flash_bwd_dq")
+        FLASH_BWD_DQ.add()
+        return keep
+
+    return (dq, dk, dv), launch_dkv, launch_dq
+
+
+def _flash_backward_cuda(*args):
+    grads, launch_dkv, launch_dq = _flash_bwd_launchers(*args)
+    launch_dkv()
+    launch_dq()
+    return grads
+
+
+def flash_backward(q, k, v, key_bias, seed, out, lse, g, causal=False,
+                   causal_offset=None, scale=None, dropout_p=0.0):
+    """(dq, dk, dv) of the flash forward: the CUDA kernels for CUDA
+    tensors, the plain version for CPU tensors (and nothing else for
+    either)."""
+    d = q.shape[-1]
+    scale = scale if scale is not None else 1.0 / (d ** 0.5)
+    if causal_offset is None:
+        causal_offset = k.shape[1] - q.shape[1]
+    if q.is_cuda:
+        return _flash_backward_cuda(q, k, v, key_bias, seed, out, lse, g,
+                                    causal, causal_offset, scale,
+                                    float(dropout_p))
+    return flash_backward_reference(q, k, v, key_bias, seed, out, lse, g,
+                                    causal, causal_offset, scale,
+                                    float(dropout_p))
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """Flash attention with the kernels' own backward (the custom_vjp of
+    paddle_tpu's `_flash_attention`): saves q, k, v, key bias, out, lse
+    and the host seed; key bias and seed get no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, key_bias, seed, causal, causal_offset, scale,
+                dropout_p):
+        out, lse = flash_forward(q, k, v, key_bias, seed, causal,
+                                 causal_offset, scale, dropout_p)
+        ctx.save_for_backward(q, k, v, key_bias, out, lse)
+        ctx.args = (seed, causal, causal_offset, scale, dropout_p)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, key_bias, out, lse = ctx.saved_tensors
+        seed, causal, causal_offset, scale, dropout_p = ctx.args
+        dq, dk, dv = flash_backward(q, k, v, key_bias, seed, out, lse, g,
+                                    causal, causal_offset, scale, dropout_p)
+        return dq, dk, dv, None, None, None, None, None, None
+
+
 # -- shim, mask normalization, dispatcher ---------------------------------------
 
 def flash_attention(q, k, v, key_bias=None, is_causal=False, scale=None,
@@ -200,15 +376,16 @@ def flash_attention(q, k, v, key_bias=None, is_causal=False, scale=None,
 
     key_bias: optional (B, Sk) additive bias applied to every query row
     (the kernel's form of a key-padding mask), treated as a constant.
-    Any Sq/Sk is accepted: the kernel masks the ragged edges, so there is
-    no padding of the inputs and no slicing of the output."""
+    Any Sq/Sk is accepted: the kernels mask the ragged edges, so there is
+    no padding of the inputs and no slicing of the output.
+    Differentiable in q, k and v through the backward kernels."""
     if key_bias is not None:
         key_bias = key_bias.detach().to(torch.float32)
     seed = 0 if (dropout_p <= 0.0 or dropout_seed is None) \
         else int(dropout_seed)
-    out, _ = flash_forward(q, k, v, key_bias, seed, is_causal,
-                           k.shape[1] - q.shape[1], scale, float(dropout_p))
-    return out
+    return FlashAttentionFunction.apply(
+        q, k, v, key_bias, seed, is_causal, k.shape[1] - q.shape[1], scale,
+        float(dropout_p))
 
 
 def _mask_as_key_bias(mask, batch, sk) -> Optional[torch.Tensor]:
@@ -237,8 +414,8 @@ def _mask_as_key_bias(mask, batch, sk) -> Optional[torch.Tensor]:
 def scaled_dot_product_attention(q, k, v, mask=None, is_causal=False,
                                  scale=None, dropout_p=0.0,
                                  dropout_seed=None):
-    """Dispatcher: the flash kernel for CUDA tensors, its plain version for
-    CPU tensors.  Key-padding masks (any form constant over query and
+    """Dispatcher: the flash kernels for CUDA tensors, their plain
+    versions for CPU tensors.  Key-padding masks (any form constant over query and
     head dims, bool or additive) run in the kernel as a key bias; a mask
     that varies per query or per head raises NotImplementedError.
     q/k/v: (batch, seq, heads, head_dim)."""

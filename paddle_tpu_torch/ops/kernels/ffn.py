@@ -1,15 +1,19 @@
-"""Fused transformer FFN forward (counterpart of paddle_tpu/ops/pallas/ffn.py,
-forward part).
+"""Fused transformer FFN, forward and backward (counterpart of
+paddle_tpu/ops/pallas/ffn.py).
 
     out = dropout(act(x @ w1 + b1), p) @ w2 + b2
 
 `ffn_forward` is the wrapper of the hand-written CUDA kernel
-`csrc/ffn_fwd.cu` (which replaces the Pallas `_fwd_kernel`): on a CUDA
-tensor it launches the kernel or raises; on a CPU tensor it runs the
-plain PyTorch version `ffn_forward_reference`, which computes the same
-function.  The (tokens, d_ff) hidden activation of the kernel never
-reaches device memory.  Dropout uses `_ffn_keep`, the TPU kernel's
-stateless hash of (seed, token, d_ff column), bit for bit.
+`csrc/ffn_fwd.cu` (which replaces the Pallas `_fwd_kernel`), and
+`ffn_backward` the wrapper of the two kernels of `csrc/ffn_bwd.cu`
+(which replace `_bwd_dw_kernel` and `_bwd_dx_kernel`): on a CUDA tensor
+each launches its kernels or raises; on a CPU tensor it runs the plain
+PyTorch version (`ffn_forward_reference`, `ffn_backward_reference`),
+which computes the same function.  `FusedFFNFunction` ties the two
+together for autograd.  The (tokens, d_ff) hidden activation never
+reaches device memory: the backward recomputes it per tile from x.
+Dropout uses `_ffn_keep`, the TPU kernel's stateless hash of (seed,
+token, d_ff column), bit for bit.
 """
 
 from __future__ import annotations
@@ -22,10 +26,16 @@ from .attention import _M32, _finalize, _mul32, _threshold
 from .build import LaunchCounter, check, library
 
 FFN_FWD = LaunchCounter("ffn_fwd")
+FFN_BWD_DW = LaunchCounter("ffn_bwd_dw")
+FFN_BWD_DX = LaunchCounter("ffn_bwd_dx")
 
 _ACT_IDS = {"gelu": 0, "gelu_tanh": 1, "relu": 2}
 _KERNEL_HIDDEN = (128, 256, 512, 768, 1024)
-_BLOCK_F = 64  # the kernel's d_ff step
+# the backward kernels hold x and g tiles side by side in shared memory,
+# which leaves no room at d_model 1024
+_KERNEL_HIDDEN_BWD = (128, 256, 512, 768)
+_BLOCK_F = 64  # the kernels' d_ff step
+_DW_BLOCK_T, _DW_BLOCK_F = 32, 16  # the dW kernel's token tile and slice
 
 
 def _erf(x: torch.Tensor) -> torch.Tensor:
@@ -48,6 +58,22 @@ def _act(h: torch.Tensor, activation: str) -> torch.Tensor:
         return h * (0.5 * (1.0 + torch.tanh(c * (h + 0.044715 * h ** 3))))
     if activation == "relu":
         return torch.relu(h)
+    raise NotImplementedError(activation)
+
+
+def _act_grad(pre: torch.Tensor, activation: str) -> torch.Tensor:
+    """d act(pre) / d pre in f32 (paddle_tpu's `_act_grad`)."""
+    if activation == "relu":
+        return (pre > 0).to(pre.dtype)
+    if activation == "gelu":
+        cdf = 0.5 * (1.0 + _erf(pre * 0.7071067811865476))
+        pdf = 0.3989422804014327 * torch.exp(-0.5 * pre * pre)
+        return cdf + pre * pdf
+    if activation == "gelu_tanh":
+        c = 0.7978845608028654  # sqrt(2/pi)
+        t = torch.tanh(c * (pre + 0.044715 * pre ** 3))
+        return 0.5 * (1 + t) + 0.5 * pre * (1 - t ** 2) * c * (
+            1 + 3 * 0.044715 * pre ** 2)
     raise NotImplementedError(activation)
 
 
@@ -133,12 +159,155 @@ def ffn_forward(x, w1, b1, w2, b2, activation="gelu", dropout_p=0.0,
                                  float(dropout_p), seed)
 
 
+# -- backward -------------------------------------------------------------------
+
+def ffn_backward_reference(x, w1, b1, w2, b2, seed, g, activation="gelu",
+                           dropout_p=0.0):
+    """Plain PyTorch version of the two FFN backward kernels (paddle_tpu's
+    `_ffn_backward`): the hidden tile is recomputed from x, never saved.
+    Returns (dx, dw1, db1, dw2, db2) in the dtypes of x, w1, b1, w2, b2;
+    products accumulate in f32, and h and dpre are cast to the operand
+    dtype before the products that take them, as in the kernels."""
+    pre = x.float() @ w1.float() + b1.float()
+    h = _act(pre, activation)
+    dh = g.float() @ w2.float().t()
+    if dropout_p > 0.0:
+        keep = _ffn_keep(seed, 0, 0, x.shape[0], w1.shape[1], dropout_p,
+                         device=x.device)
+        h = torch.where(keep, h / (1.0 - dropout_p), torch.zeros_like(h))
+        dh = torch.where(keep, dh / (1.0 - dropout_p), torch.zeros_like(dh))
+    dpre = dh * _act_grad(pre, activation)
+    dpre_c = dpre.to(x.dtype).float()
+    dw2 = h.to(g.dtype).float().t() @ g.float()
+    dw1 = x.float().t() @ dpre_c
+    dx = dpre_c @ w1.float().t()
+    return (dx.to(x.dtype), dw1.to(w1.dtype), dpre.sum(0).to(b1.dtype),
+            dw2.to(w2.dtype), g.float().sum(0).to(b2.dtype))
+
+
+def _bwd_lib():
+    lib = library("ffn_bwd")
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    tail = [ctypes.c_uint, ctypes.c_float, ctypes.c_uint, vp]
+    if lib.ffn_bwd_dw_bf16.argtypes is None:
+        lib.ffn_bwd_dw_bf16.argtypes = [vp] * 9 + [ci] * 5 + tail
+        lib.ffn_bwd_dw_bf16.restype = ci
+    if lib.ffn_bwd_dx_bf16.argtypes is None:
+        lib.ffn_bwd_dx_bf16.argtypes = [vp] * 6 + [ci] * 4 + tail
+        lib.ffn_bwd_dx_bf16.restype = ci
+    return lib
+
+
+def _dw_splits(t: int, f: int, device) -> int:
+    """Token splits of the dW kernel: enough CTAs for two per SM, each
+    split summing its own f32 partials (reduced in a fixed order)."""
+    n_f = f // _DW_BLOCK_F
+    n_t = -(-t // _DW_BLOCK_T)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, min(n_t, -(-2 * sms // n_f)))
+
+
+def _ffn_bwd_launchers(x, w1, b1, w2, b2, seed, g, activation, dropout_p):
+    """Check the operands and allocate the outputs; return
+    ((dx, dw1, db1, dw2, db2), launch_dw, launch_dx), each launcher
+    running its kernel once (the dW launcher: the dW pass and its reduce
+    over token splits).  db2 = sum g is a torch reduction, outside the
+    kernels as in JAX (:325)."""
+    t, h = x.shape
+    f = w1.shape[1]
+    ts = (x, w1, b1, w2, b2, g)
+    if any(a.dtype != torch.bfloat16 for a in ts):
+        raise NotImplementedError(
+            "ffn_bwd kernels take bf16 x/w1/b1/w2/b2/g, got "
+            + "/".join(str(a.dtype) for a in ts))
+    if activation not in _ACT_IDS:
+        raise NotImplementedError(activation)
+    if h not in _KERNEL_HIDDEN_BWD or f % _BLOCK_F:
+        raise NotImplementedError(
+            f"ffn_bwd kernels take d_model in {_KERNEL_HIDDEN_BWD} and d_ff "
+            f"a multiple of {_BLOCK_F}, got {h} and {f}")
+    if (w1.shape != (h, f) or b1.shape != (f,) or w2.shape != (f, h)
+            or b2.shape != (h,) or g.shape != x.shape):
+        raise ValueError("ffn backward operand shapes do not match x")
+    x, w1, b1, w2, g = (a.contiguous() for a in (x, w1, b1, w2, g))
+    n_split = _dw_splits(t, f, x.device)
+    dx = torch.empty_like(x)
+    dw1, db1, dw2 = (torch.empty_like(a) for a in (w1, b1, w2))
+    ws = torch.empty((n_split, 2 * h * f + f), dtype=torch.float32,
+                     device=x.device)
+    db2 = g.float().sum(0).to(b2.dtype)
+    thresh = _threshold(dropout_p) if dropout_p > 0.0 else 0
+    rng = (thresh, float(1.0 / (1.0 - dropout_p)), int(seed) & _M32,
+           torch.cuda.current_stream(x.device).cuda_stream)
+    ins = (x.data_ptr(), g.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+           w2.data_ptr())
+    lib = _bwd_lib()
+    keep = (x, w1, b1, w2, g, ws)  # alive while the launchers are
+
+    def launch_dw():
+        err = lib.ffn_bwd_dw_bf16(*ins, dw1.data_ptr(), db1.data_ptr(),
+                                  dw2.data_ptr(), ws.data_ptr(), t, h, f,
+                                  _ACT_IDS[activation], n_split, *rng)
+        check(lib, err, "ffn_bwd_dw")
+        FFN_BWD_DW.add()
+        return keep
+
+    def launch_dx():
+        err = lib.ffn_bwd_dx_bf16(*ins, dx.data_ptr(), t, h, f,
+                                  _ACT_IDS[activation], *rng)
+        check(lib, err, "ffn_bwd_dx")
+        FFN_BWD_DX.add()
+        return keep
+
+    return (dx, dw1, db1, dw2, db2), launch_dw, launch_dx
+
+
+def _ffn_backward_cuda(*args):
+    grads, launch_dw, launch_dx = _ffn_bwd_launchers(*args)
+    launch_dw()
+    launch_dx()
+    return grads
+
+
+def ffn_backward(x, w1, b1, w2, b2, seed, g, activation="gelu",
+                 dropout_p=0.0):
+    """(dx, dw1, db1, dw2, db2) of ffn_forward: the CUDA kernels for CUDA
+    tensors, the plain version for CPU tensors (and nothing else for
+    either)."""
+    if x.is_cuda:
+        return _ffn_backward_cuda(x, w1, b1, w2, b2, seed, g, activation,
+                                  float(dropout_p))
+    return ffn_backward_reference(x, w1, b1, w2, b2, seed, g, activation,
+                                  float(dropout_p))
+
+
+class FusedFFNFunction(torch.autograd.Function):
+    """The fused FFN with the kernels' own backward (the custom_vjp of
+    paddle_tpu's `_fused_ffn`): saves only x, the weights and the host
+    seed; the hidden activation is recomputed, never kept."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2, activation, dropout_p, seed):
+        ctx.save_for_backward(x, w1, b1, w2, b2)
+        ctx.args = (seed, activation, dropout_p)
+        return ffn_forward(x, w1, b1, w2, b2, activation, dropout_p, seed)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w1, b1, w2, b2 = ctx.saved_tensors
+        seed, activation, dropout_p = ctx.args
+        grads = ffn_backward(x, w1, b1, w2, b2, seed, g, activation,
+                             dropout_p)
+        return (*grads, None, None, None)
+
+
 def fused_ffn(x, w1, b1, w2, b2, activation="gelu", dropout_p=0.0,
               dropout_seed=None):
-    """dropout(act(x @ w1 + b1), p) @ w2 + b2 over any leading dims.
-    x: (..., H); w1 (H, F); w2 (F, H).  Returns (..., H)."""
+    """dropout(act(x @ w1 + b1), p) @ w2 + b2 over any leading dims,
+    differentiable in x and the four weights.  x: (..., H); w1 (H, F);
+    w2 (F, H).  Returns (..., H)."""
     lead = x.shape[:-1]
     seed = 0 if dropout_seed is None else int(dropout_seed)
-    out = ffn_forward(x.reshape(-1, x.shape[-1]), w1, b1, w2, b2,
-                      activation, dropout_p, seed)
+    out = FusedFFNFunction.apply(x.reshape(-1, x.shape[-1]), w1, b1, w2, b2,
+                                 activation, float(dropout_p), seed)
     return out.reshape(*lead, x.shape[-1])

@@ -1,8 +1,8 @@
 """The port's CUDA kernels on the card, against their plain PyTorch
 versions on the same inputs: every compiled instantiation (head dims,
-model widths, activations), dropout, causal offsets, ragged and strided
-inputs, the shapes and types the wrappers refuse, and tiny BERT served on
-the card.  These need an NVIDIA GPU with nvcc; the `cuda` fixture skips
+model widths, activations) forward and backward, dropout, causal offsets,
+ragged and strided inputs, the shapes and types the wrappers refuse, tiny
+BERT served on the card, and tiny BERT's train step on the card.  These need an NVIDIA GPU with nvcc; the `cuda` fixture skips
 them, with a reason, where there is none.  Run them on the card with
 
     python -m pytest --noconftest -q -p no:cacheprovider tests/test_torch_cuda.py
@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from paddle_tpu_torch.models import bert
+from paddle_tpu_torch.nn import functional as Fn
 from paddle_tpu_torch.ops.kernels import COUNTERS
 from paddle_tpu_torch.ops.kernels import attention as A
 from paddle_tpu_torch.ops.kernels import ffn as F
@@ -25,6 +26,16 @@ from paddle_tpu_torch.serving import Engine, EngineConfig
 # bf16 outputs: kernel and plain version round the same f32 math to bf16
 # after different summation orders: two bf16 units in the last place
 BF16 = dict(atol=2 ** -6, rtol=2 ** -6)
+# bf16 gradients are sums of products of bf16 tiles (p~, dS, h, dpre)
+# whose f32 inputs differ in summation order, so a tile element may round
+# the other way; a flip moves a sum by one bf16 unit of a TERM, and terms
+# scale with the gradient's largest entries, not with an entry that
+# cancels to near 0.  Each element: within 2^-6 of the largest |entry|
+# (plus 2^-6 relative); the mean error: within 2^-7 of the mean |entry|.
+# GRAD_FLOOR: a gradient that is 0 in exact arithmetic (one key: dS =
+# p (dP - delta) cancels) keeps the f32 rounding of dP - delta.
+GRAD_FRAC = 2 ** -6
+GRAD_FLOOR = 2 ** -16
 # f32 log-sum-exp: summation order only
 LSE = dict(atol=1e-4, rtol=1e-5)
 
@@ -45,6 +56,16 @@ def _bf16(g, *shape, scale=1.0):
 
 def _close(got, want, tol):
     torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+def _close_grad(got, want):
+    got, want = got.float(), want.float()
+    scale = float(want.abs().max())
+    torch.testing.assert_close(got, want,
+                               atol=GRAD_FRAC * scale + GRAD_FLOOR,
+                               rtol=GRAD_FRAC)
+    err = float((got - want).abs().mean())
+    assert err <= GRAD_FRAC / 2 * float(want.abs().mean()) + GRAD_FLOOR, err
 
 
 def _bias(g, b, sk):
@@ -170,7 +191,103 @@ def test_each_launch_is_counted_once(cuda):
                   _bf16(cuda, 256, 128), _bf16(cuda, 128))
     A.flash_forward_reference(q, q, q)
     assert {n: c.value for n, c in COUNTERS.items()} == {
-        "flash_fwd": 2, "ffn_fwd": 1}
+        "flash_fwd": 2, "flash_bwd_dkv": 0, "flash_bwd_dq": 0,
+        "ffn_fwd": 1, "ffn_bwd_dw": 0, "ffn_bwd_dx": 0}
+
+
+# -- backward kernels -----------------------------------------------------------
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("causal,p", [(False, 0.0), (True, 0.0),
+                                      (False, 0.2), (True, 0.1)])
+def test_flash_backward_matches_plain(cuda, d, causal, p):
+    q, k, v, g = (_bf16(cuda, 2, 130, 3, d) for _ in range(4))
+    bias = _bias(cuda, 2, 130)
+    out, lse = A.flash_forward(q, k, v, bias, 99, causal, None, None, p)
+    got = A.flash_backward(q, k, v, bias, 99, out, lse, g, causal, None,
+                           None, p)
+    want = A.flash_backward_reference(q, k, v, bias, 99, out, lse, g,
+                                      causal, None, None, p)
+    for gt, w in zip(got, want):
+        _close_grad(gt, w)
+
+
+@pytest.mark.parametrize("sq,sk", [(70, 200), (200, 70), (64, 1)])
+def test_flash_backward_ragged_and_strided(cuda, sq, sk):
+    """Sq != Sk with causal offsets, and q/k/v/g as strided views."""
+    qg = _bf16(cuda, 2, sq, 2, 2, 64)
+    kv = _bf16(cuda, 2, sk, 2, 2, 64)
+    q, g, k, v = qg[:, :, 0], qg[:, :, 1], kv[:, :, 0], kv[:, :, 1]
+    for causal in (False, True):
+        out, lse = A.flash_forward(q, k, v, None, 0, causal)
+        got = A.flash_backward(q, k, v, None, 0, out, lse, g, causal)
+        want = A.flash_backward_reference(q, k, v, None, 0, out, lse, g,
+                                          causal)
+        for gt, w in zip(got, want):
+            _close_grad(gt, w)
+
+
+@pytest.mark.parametrize("h", [128, 256, 512, 768])
+@pytest.mark.parametrize("act", ["gelu", "gelu_tanh", "relu"])
+def test_ffn_backward_matches_plain(cuda, h, act):
+    t, f = 100, 4 * h
+    x, g = _bf16(cuda, t, h), _bf16(cuda, t, h)
+    w1, b1 = _bf16(cuda, h, f, scale=h ** -0.5), _bf16(cuda, f, scale=0.1)
+    w2, b2 = _bf16(cuda, f, h, scale=f ** -0.5), _bf16(cuda, h, scale=0.1)
+    for p in (0.0, 0.1):
+        got = F.ffn_backward(x, w1, b1, w2, b2, 7, g, act, p)
+        want = F.ffn_backward_reference(x, w1, b1, w2, b2, 7, g, act, p)
+        for gt, w in zip(got, want):
+            assert gt.dtype == w.dtype == torch.bfloat16
+            _close_grad(gt, w)
+
+
+def test_backward_refuses_what_it_cannot_compute(cuda):
+    q = torch.randn(1, 16, 2, 64, device="cuda")
+    out, lse = torch.zeros_like(q), torch.zeros(1, 2, 16, device="cuda")
+    with pytest.raises(NotImplementedError, match="bf16"):
+        A.flash_backward(q, q, q, None, 0, out, lse, q)
+    x = _bf16(cuda, 8, 1024)
+    w1, w2 = _bf16(cuda, 1024, 2048), _bf16(cuda, 2048, 1024)
+    b1, b2 = _bf16(cuda, 2048), _bf16(cuda, 1024)
+    with pytest.raises(NotImplementedError, match="d_model"):
+        F.ffn_backward(x, w1, b1, w2, b2, 0, x)
+    with pytest.raises(NotImplementedError, match="bf16"):
+        F.ffn_backward(x.float()[:, :128], w1.float()[:128, :256],
+                       b1.float()[:256], w2.float()[:256, :128],
+                       b2.float()[:128], 0, x.float()[:, :128])
+
+
+def test_autograd_launches_each_backward_kernel_once(cuda):
+    for c in COUNTERS.values():
+        c.reset()
+    q, k, v = (_bf16(cuda, 2, 64, 2, 64).requires_grad_() for _ in range(3))
+    A.flash_attention(q, k, v, dropout_p=0.1, dropout_seed=3).sum() \
+        .backward()
+    x = _bf16(cuda, 2, 40, 128).requires_grad_()
+    ws = [_bf16(cuda, 128, 256), _bf16(cuda, 256), _bf16(cuda, 256, 128),
+          _bf16(cuda, 128)]
+    for w in ws:
+        w.requires_grad_()
+    F.fused_ffn(x, *ws, dropout_p=0.1, dropout_seed=4).sum().backward()
+    assert all(t.grad is not None and torch.isfinite(t.grad.float()).all()
+               for t in (q, k, v, x, *ws))
+    assert {n: c.value for n, c in COUNTERS.items()} == {
+        n: 1 for n in COUNTERS}
+
+
+def test_dropout_draws_on_the_card_from_a_host_generator(cuda):
+    """The repair: a layer's CPU generator seeds a generator on the card
+    instead of being refused by torch.rand on a CUDA tensor."""
+    x = torch.ones(256, 256, device="cuda")
+    gen = torch.Generator().manual_seed(1)
+    y = Fn.dropout(x, 0.5, generator=gen)
+    assert y.is_cuda and 0.4 < float((y == 0).float().mean()) < 0.6
+    with Fn.rng_scope(7):
+        a = Fn.dropout(x, 0.5, generator=gen)
+    with Fn.rng_scope(7):
+        b = Fn.dropout(x, 0.5, generator=gen)
+    assert torch.equal(a, b)
 
 
 # -- tiny BERT on the card ---------------------------------------------------------
@@ -220,3 +337,44 @@ def test_engine_serves_tiny_bert_on_the_card(cuda):
             np.testing.assert_allclose(pooled,
                                        d_pooled.float().cpu().numpy(),
                                        atol=0.05, rtol=0)
+
+
+def test_tiny_bert_train_steps_on_the_card(cuda):
+    """train() mode with dropout 0.1 (which raised on the card before the
+    dropout repair): finite falling losses, each kernel launched once per
+    layer per step, finite moments (so no NaN gradient)."""
+    cfg = bert.BertConfig.tiny(**TINY)
+    model = bert.BertForPretraining(cfg, seed=2)
+    step, state = bert.build_pretrain_step(model)
+    fb = bert.fake_batch(cfg, 4, 64, num_masked=8, seed=3)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in fb.items()}
+    for c in COUNTERS.values():
+        c.reset()
+    losses = []
+    for _ in range(3):
+        state, loss = step(state, batch, 1e-3)
+        losses.append(float(loss))
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0]
+    assert {n: c.value for n, c in COUNTERS.items()} == {
+        n: 3 * cfg.num_hidden_layers for n in COUNTERS}
+    assert all(torch.isfinite(m).all() for m in state["m"].values())
+
+
+def test_tiny_bert_train_step_on_the_card_matches_the_cpu(cuda):
+    """One bf16 step on the card against one f32 step on the CPU from the
+    same weights, dropout 0: the loss, and the updated parameters.  A
+    first Adam step moves an element by lr times the sign of its
+    gradient, so a near-zero gradient whose sign differs between bf16 and
+    f32 moves it 2 lr apart, and no further."""
+    cfg = bert.BertConfig.tiny(hidden_dropout_prob=0.0,
+                               attention_probs_dropout_prob=0.0, **TINY)
+    fb = bert.fake_batch(cfg, 4, 64, num_masked=8, seed=5)
+    runs = {}
+    for dev, bf16 in (("cuda", True), ("cpu", False)):
+        model = bert.BertForPretraining(cfg, device=dev, seed=6)
+        step, state = bert.build_pretrain_step(model, bf16=bf16)
+        state, loss = step(state, fb, 1e-3)
+        runs[dev] = (float(loss), state["params"])
+    assert abs(runs["cuda"][0] - runs["cpu"][0]) < 0.05
+    for k, p in runs["cpu"][1].items():
+        assert float((runs["cuda"][1][k].cpu() - p).abs().max()) <= 2.01e-3

@@ -53,7 +53,8 @@ def test_no_jax_or_reference_import(path):
 def test_the_walk_sees_the_whole_package():
     names = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
     assert {"ops/kernels/attention.py", "ops/kernels/ffn.py",
-            "serving/engine.py", "models/bert.py", "convert.py"} <= names
+            "serving/engine.py", "models/bert.py", "convert.py",
+            "jit.py"} <= names
 
 
 def _run(code_or_args, cwd, timeout=120):
@@ -69,7 +70,8 @@ def test_importing_the_port_loads_no_jax():
     code = ("import sys\n"
             "import paddle_tpu_torch, paddle_tpu_torch.serving, "
             "paddle_tpu_torch.models.bert, paddle_tpu_torch.convert, "
-            "paddle_tpu_torch.nn, paddle_tpu_torch.obs\n"
+            "paddle_tpu_torch.nn, paddle_tpu_torch.obs, "
+            "paddle_tpu_torch.jit\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu'))\n"
             "print(bad)\n")

@@ -208,12 +208,15 @@ def test_erf_matches_jax_formula():
 def test_cpu_tensors_take_the_plain_version_without_launching():
     for c in COUNTERS.values():
         c.reset()
-    q, k, v = _qkv(13, 1, 16, 16, 2, 16)
-    TA.flash_forward(_t(q), _t(k), _t(v))
-    x, w1, b1, w2, b2 = _ffn_inputs(14, t=16, h=16, f=32)
-    TF.ffn_forward(*map(_t, (x, w1, b1, w2, b2)))
+    q, k, v = (_t(a).requires_grad_() for a in _qkv(13, 1, 16, 16, 2, 16))
+    TA.flash_attention(q, k, v).sum().backward()
+    x, w1, b1, w2, b2 = (_t(a).requires_grad_()
+                         for a in _ffn_inputs(14, t=16, h=16, f=32))
+    TF.fused_ffn(x, w1, b1, w2, b2).sum().backward()
+    assert all(t.grad is not None for t in (q, k, v, x, w1, b1, w2, b2))
     assert {n: c.value for n, c in COUNTERS.items()} == {
-        "flash_fwd": 0, "ffn_fwd": 0}
+        "flash_fwd": 0, "flash_bwd_dkv": 0, "flash_bwd_dq": 0,
+        "ffn_fwd": 0, "ffn_bwd_dw": 0, "ffn_bwd_dx": 0}
 
 
 def test_build_without_nvcc_raises(tmp_path, monkeypatch):
@@ -234,8 +237,8 @@ class _NoCudaPath(type(build.CSRC)):
 
 
 def test_kernel_sources_are_present():
-    assert {p.stem for p in build.CSRC.glob("*.cu")} == {"flash_fwd",
-                                                        "ffn_fwd"}
+    assert {p.stem for p in build.CSRC.glob("*.cu")} == {
+        "flash_fwd", "flash_bwd", "ffn_fwd", "ffn_bwd"}
 
 
 def test_launch_counter_loses_no_update_across_threads():
@@ -258,3 +261,113 @@ def test_launch_counter_loses_no_update_across_threads():
         sys.setswitchinterval(old)
     assert not any(t.is_alive() for t in threads)
     assert counter.value == 16 * 2000
+
+
+# -- backward: the plain versions against the Pallas backward kernels ---------------
+
+# f32 on both sides, differing only in summation order: attention
+# gradients (up to ~5) sum 128 keys or queries (measured 1e-6); the FFN
+# weight gradients (up to ~60) sum 256 tokens (measured 2.5e-5)
+FLASH_BWD_ATOL = 1e-5
+FFN_BWD_ATOL = 1e-4
+
+
+@pytest.mark.parametrize("causal,p", [(False, 0.0), (True, 0.0),
+                                      (False, 0.1), (True, 0.1)])
+def test_flash_backward_reference_matches_pallas_vjp(causal, p):
+    """Block-multiple lengths (no padding inside the JAX shim) and a key
+    padding bias that leaves every row some key; the same dropout seed on
+    both sides, so the hash drops the same probabilities."""
+    import jax
+
+    b, s, h, d = 2, 128, 2, 32
+    q, k, v = _qkv(21, b, s, s, h, d)
+    g = _rand(np.random.default_rng(22), b, s, h, d)
+    bias = _key_bias(23, b, s)
+    seed = 9001
+    _, vjp = jax.vjp(
+        lambda q_, k_, v_: JA.flash_attention(
+            q_, k_, v_, key_bias=bias, is_causal=causal, dropout_p=p,
+            dropout_seed=seed, interpret=True), q, k, v)
+    want = vjp(g)
+    out, lse = TA.flash_forward_reference(_t(q), _t(k), _t(v), _t(bias),
+                                          seed, causal, None, None, p)
+    got = TA.flash_backward_reference(_t(q), _t(k), _t(v), _t(bias), seed,
+                                      out, lse, _t(g), causal, None, None, p)
+    for name, gt, w in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(gt.numpy(), np.asarray(w),
+                                   atol=FLASH_BWD_ATOL, rtol=0, err_msg=name)
+
+
+@pytest.mark.parametrize("activation,p", [
+    ("gelu", 0.0), ("gelu_tanh", 0.0), ("relu", 0.0), ("gelu", 0.1),
+    ("gelu_tanh", 0.1), ("relu", 0.1)])
+def test_ffn_backward_reference_matches_pallas_interpret(activation, p):
+    x, w1, b1, w2, b2 = _ffn_inputs(31, t=256, h=128, f=256)
+    g = _rand(np.random.default_rng(32), 256, 128)
+    seed = 4711
+    want = JF._ffn_backward(x, w1, b1, w2, b2, jnp.array([seed], jnp.int32),
+                            g, activation=activation, dropout_p=p,
+                            block_t=128, block_f=128, interpret=True)
+    got = TF.ffn_backward_reference(*map(_t, (x, w1, b1, w2, b2)), seed,
+                                    _t(g), activation, p)
+    for name, gt, w in zip(("dx", "dw1", "db1", "dw2", "db2"), got, want):
+        np.testing.assert_allclose(gt.numpy(), np.asarray(w),
+                                   atol=FFN_BWD_ATOL, rtol=0, err_msg=name)
+
+
+def test_act_grad_matches_jax_formula():
+    """f32 formulas; XLA's and torch's tanh and cube differ in the last
+    bits, which the derivative's (1 - t^2) * x amplifies to ~4e-6 at
+    |x| near 3"""
+    x = np.linspace(-6, 6, 2001).astype(np.float32)
+    for act in ("gelu", "gelu_tanh", "relu"):
+        np.testing.assert_allclose(TF._act_grad(_t(x), act).numpy(),
+                                   np.asarray(JF._act_grad(x, act)),
+                                   atol=1e-5, rtol=0, err_msg=act)
+
+
+# -- the autograd Functions on the CPU against autograd through the plain forward --
+
+# f32; the Functions' formulas vs autograd's chain through the same forward:
+# summation order, and (gelu) the derivative of the A-S erf approximation
+# against the exact Gaussian density the backward uses (both ~1e-7)
+GRAD_ATOL = 2e-5
+
+
+@pytest.mark.parametrize("causal,p", [(False, 0.0), (True, 0.1)])
+def test_flash_function_backward_matches_autograd(causal, p):
+    b, s, h, d = 2, 40, 3, 16
+    q, k, v = (_t(a).requires_grad_() for a in _qkv(41, b, s, s, h, d))
+    bias = _t(_key_bias(42, b, s))
+    g = _t(_rand(np.random.default_rng(43), b, s, h, d))
+    out = TA.flash_attention(q, k, v, key_bias=bias, is_causal=causal,
+                             dropout_p=p, dropout_seed=77)
+    got = torch.autograd.grad(out, (q, k, v), g)
+    ref, _ = TA.flash_forward_reference(q, k, v, bias, 77, causal, None,
+                                        None, p)
+    want = torch.autograd.grad(ref, (q, k, v), g)
+    np.testing.assert_array_equal(out.detach().numpy(),
+                                  ref.detach().numpy())
+    for gt, w in zip(got, want):
+        np.testing.assert_allclose(gt.numpy(), w.numpy(), atol=GRAD_ATOL,
+                                   rtol=0)
+
+
+@pytest.mark.parametrize("activation,p", [("gelu", 0.0), ("relu", 0.1),
+                                          ("gelu_tanh", 0.1)])
+def test_ffn_function_backward_matches_autograd(activation, p):
+    ts = [_t(a).requires_grad_() for a in _ffn_inputs(44, t=2 * 24, h=32,
+                                                      f=64)]
+    x3 = ts[0].view(2, 24, 32)
+    g = _t(_rand(np.random.default_rng(45), 2, 24, 32))
+    out = TF.fused_ffn(x3, *ts[1:], activation=activation, dropout_p=p,
+                       dropout_seed=5)
+    got = torch.autograd.grad(out, ts, g)
+    ref = TF.ffn_forward_reference(ts[0], *ts[1:], activation, p, 5)
+    want = torch.autograd.grad(ref, ts, g.view(48, 32))
+    np.testing.assert_array_equal(out.detach().numpy().reshape(48, 32),
+                                  ref.detach().numpy())
+    for gt, w in zip(got, want):
+        np.testing.assert_allclose(gt.numpy(), w.numpy(), atol=GRAD_ATOL,
+                                   rtol=0)
