@@ -1,7 +1,8 @@
 """Drive paddle_tpu_torch on one NVIDIA GPU: build the hand-written
 kernels, hold each against its plain PyTorch version at BERT-base shapes,
-serve BERT-base through serving.Engine, take BERT-base pretraining steps,
-and check what comes out.
+serve BERT-base through serving.Engine, decode with BERT-base as a causal
+decoder through serving.AutoregressiveEngine, take BERT-base pretraining
+steps, and check what comes out.
 
     python3 chip_smoke.py
 
@@ -9,24 +10,39 @@ Phases, in order (any failure exits non-zero and prints no result):
   1. card     nvidia-smi name and power limit
   2. build    nvcc for sm_90a, every csrc/*.cu in parallel
   3. kernels  each kernel (flash forward, dkv and dq backward; FFN
-              forward, dW and dx backward) vs its plain version on the
-              card at the path's shapes (stated tolerances), timed beside
-              its plain version, a PyTorch library call computing the
-              same function, and its bound
+              forward, dW and dx backward; ragged paged attention) vs its
+              plain version on the card at the paths' shapes (stated
+              tolerances), timed beside its plain version, a PyTorch
+              library call computing the same function, and its bound
   4. slice    BertModel(BertConfig.base()) in bf16 with seeded weights,
               served through serving.Engine(max_batch_size=32) to
               requests of 1-16 rows at S=512 from several client threads;
               every response finite and equal to a direct forward of the
               same rows; each forward kernel launched 12 times per call
-  5. train    build_pretrain_step on BertForPretraining(BertConfig.base())
+  5. decode   BertForPretraining(BertConfig.base()) in bf16 with seeded
+              weights as a causal LayeredDecoder (bert_decoder below)
+              through serving.AutoregressiveEngine: 16 slots, 513 pages
+              of 16 tokens, prompt buckets 64/128/256, chunk 256.  Part A:
+              16 requests (prompts 64-256, 96 new tokens each); once all
+              16 decode, 32 steps timed with CUDA events under
+              torch.cuda.set_sync_debug_mode("error"), then 8 steps under
+              torch.profiler.  Part B: 16 more requests (prompts 16-448,
+              four over 256, 16-64 new tokens) submitted while part A
+              decodes, run until idle.  Checks: exact token counts, each
+              token's logit within DECODE_LOGIT_TOL of the largest logit
+              of a dense causal forward of its prefix (teacher forcing),
+              every page freed, one device->host sync per retirement, and
+              exact launch counts of every kernel
+  6. train    build_pretrain_step on BertForPretraining(BertConfig.base())
               (fp32 masters, bf16 forward, dropout 0.1, AdamW lr 1e-4) at
               B=32, S=512, 76 masked positions: 1 warm-up and 5 timed
               steps on one batch; finite falling loss, finite moments (no
-              NaN gradient), each of the six kernels launched 12 times a
-              step; step ms, tokens/s, MFU, kernel shares, peak memory
-  6. profile  one more train step under torch.profiler: device time by
+              NaN gradient), each of the six training kernels launched 12
+              times a step; step ms, tokens/s, MFU, kernel shares, peak
+              memory
+  7. profile  one more train step under torch.profiler: device time by
               kernel and the device's idle share
-  7. check    the same model at base width, 2 layers, on the card (bf16)
+  8. check    the same model at base width, 2 layers, on the card (bf16)
               against the plain path on the CPU (f32)
 
 The last two lines of stdout are a {"kernels": [...]} summary and the
@@ -49,11 +65,14 @@ import torch
 
 from paddle_tpu_torch import profiler
 from paddle_tpu_torch.models import bert
+from paddle_tpu_torch.nn.layer.transformer import _dense_ffn_block
 from paddle_tpu_torch.ops.kernels import COUNTERS, build
 from paddle_tpu_torch.ops.kernels import attention as A
 from paddle_tpu_torch.ops.kernels import ffn as F
-from paddle_tpu_torch.serving import (Engine, EngineConfig, latency_stats,
-                                      mean_occupancy, reset_latency)
+from paddle_tpu_torch.serving import (AutoregressiveEngine, Engine,
+                                      EngineConfig, LayeredDecoder,
+                                      latency_stats, mean_occupancy,
+                                      reset_latency)
 
 # published H100 SXM peaks (dense): bf16 tensor cores, HBM3
 PEAK_BF16_FLOPS = 989e12
@@ -85,10 +104,25 @@ SERVE_MEAN_ABS = 0.01
 REF_MAX_ABS = 0.15
 REF_MEAN_ABS = 0.02
 
+# a decoded token's logit against the largest logit of a dense causal
+# forward of its prefix: bf16 logits near 2 carry a unit of 2^-6 in the
+# last place, and the engine (bucket-padded flash prefill, paged decode,
+# other batch shapes in cuBLAS) rounds the hidden states at other places
+# than the dense forward through 12 layers: 8 such units.  Random weights
+# make near-ties common, so exact argmax agreement is printed, not held
+DECODE_LOGIT_TOL = 0.125
+
 SEQ = 512
 LAYERS = 12  # BertConfig.base(): one launch of each kernel per layer
 TRAIN_LR = 1e-4
 FORWARD_KERNELS = ("flash_fwd", "ffn_fwd")
+TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq", "ffn_fwd",
+                 "ffn_bwd_dw", "ffn_bwd_dx")
+# the decode configuration: pages, slots, buckets (the pool is 12 x 513
+# x 16 x 768 x 2 B x 2, about 303 MB)
+PAGE_SIZE, NUM_PAGES, SLOTS, ROW_PAGES = 16, 513, 16, 32
+PROMPT_BUCKETS, PREFILL_CHUNK = (64, 128, 256), 256
+TIMED_STEPS, PROFILED_STEPS = 32, 8
 FAILURES = []
 
 
@@ -124,6 +158,34 @@ def time_ms(fn, iters=10, warmup=2):
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1) / iters
+
+
+def time_cycle(fn, args, rounds=4, graph=True):
+    """ms of one fn(a) call, cycling through `args` in turn: the 12
+    layers' weights or KV pools, whose working set is past the 50 MB L2
+    as in a decode step, where each layer finds its own operands cold.
+    With `graph`, one cycle is captured in a CUDA graph and replayed, so
+    the time is the device's alone: at the decode shapes a kernel is
+    shorter than the host's dispatch of its Python wrapper, and timing
+    the eager loop would time the host."""
+    for a in args:
+        fn(a)
+    torch.cuda.synchronize()
+    run = lambda: [fn(a) for a in args]
+    if graph:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g, capture_error_mode="relaxed"):
+            run()
+        run = g.replay
+        run()
+        torch.cuda.synchronize()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    for _ in range(rounds):
+        run()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / (rounds * len(args))
 
 
 def close(got, want, atol, rtol):
@@ -198,8 +260,9 @@ def kernels():
 
     # -- flash forward ------------------------------------------------------
     h, d = 12, 64
-    cases = [  # (B, S, causal, dropout_p)
-        (8, SEQ, False, 0.0), (2, SEQ, True, 0.1), (2, 200, False, 0.0),
+    cases = [  # (B, S, causal, dropout_p); B=1 causal: the decode prefills
+        (8, SEQ, False, 0.0), (2, SEQ, True, 0.1), (2, 200, False, 0.0)] + [
+        (1, tb, True, 0.0) for tb in PROMPT_BUCKETS] + [
         (32, SEQ, False, 0.0)]
     worst = 0.0
     for b, s, causal, p in cases:
@@ -244,8 +307,11 @@ def kernels():
     # -- FFN forward ----------------------------------------------------------
     hid, ff = 768, 3072
     worst = 0.0
+    # T = 64/128/256: the decode path's prefill buckets and chunks
     for t, p, act in [(8 * SEQ, 0.0, "gelu"), (8 * SEQ, 0.1, "gelu"),
-                      (1000, 0.0, "relu"), (32 * SEQ, 0.0, "gelu")]:
+                      (1000, 0.0, "relu")] + [
+                      (tb, 0.0, "gelu") for tb in PROMPT_BUCKETS] + [
+                      (32 * SEQ, 0.0, "gelu")]:
         x = _rand(g, t, hid)
         w1, b1 = _rand(g, hid, ff, scale=0.03), _rand(g, ff, scale=0.1)
         w2, b2 = _rand(g, ff, hid, scale=0.03), _rand(g, hid, scale=0.1)
@@ -275,7 +341,10 @@ def kernels():
         library_ms=library_ms,
         shape=f"x ({t},{hid}) W1 ({hid},{ff}) W2 ({ff},{hid}) bf16, gelu",
         flops=flops, bytes=nbytes, tolerance=BF16_TOL))
+    rows[-1].update(_ffn_decode_shape(g, hid, ff))
     del x, w1, b1, w2, b2, out, ref
+    torch.cuda.empty_cache()
+    rows.append(_ragged_row(g))
     torch.cuda.empty_cache()
     rows += _flash_backward_rows(g)
     torch.cuda.empty_cache()
@@ -286,6 +355,151 @@ def kernels():
             f"library {r['library_ms']:.4f}, bound {r['bound_ms']:.4f} "
             f"{r['bound_by']}) at {r['shape']}")
     return rows
+
+
+def _ffn_decode_shape(g, hid, ff):
+    """ffn_fwd at the decode step's shape, 16 tokens, cycling through 12
+    layers' weights (113 MB), beside the cuBLAS addmm -> gelu -> addmm
+    arm at the same shape."""
+    xs = _rand(g, SLOTS, hid)
+    ws = [(_rand(g, hid, ff, scale=0.03), _rand(g, ff, scale=0.1),
+           _rand(g, ff, hid, scale=0.03), _rand(g, hid, scale=0.1))
+          for _ in range(LAYERS)]
+    ok, err = close(F.ffn_forward(xs, *ws[0]),
+                    F.ffn_forward_reference(xs, *ws[0]), **BF16_TOL)
+    if not ok:
+        raise AssertionError(f"ffn_fwd disagrees with its plain version at "
+                             f"T={SLOTS} (err {err})")
+    ms = time_cycle(lambda w: F.ffn_forward(xs, *w), ws)
+    lib_ms = time_cycle(lambda w: torch.addmm(w[3], torch.nn.functional.gelu(
+        torch.addmm(w[1], xs, w[0])), w[2]), ws)
+    nbytes = (2 * SLOTS * hid + 2 * hid * ff + ff + hid) * 2
+    bound_ms, bound_by = bound(4 * SLOTS * hid * ff, nbytes)
+    log(f"ffn_fwd at T={SLOTS} (decode step), 12 layers' weights in turn: "
+        f"{ms:.4f} ms, cuBLAS arm {lib_ms:.4f} ms, bound {bound_ms:.4f} "
+        f"{bound_by}; err {err:.3g}")
+    return dict(decode_t16_ms=ms, decode_t16_library_ms=lib_ms,
+                decode_t16_bound_ms=bound_ms)
+
+
+def _paged_inputs(g, lengths, t, qpos0=None, h=12, d=64, s=PAGE_SIZE,
+                  w=ROW_PAGES, layers=LAYERS):
+    """A random page pool of `layers` layers, (L, P, S, H, D), or one
+    (P, S, H, D) pool with layers=None (scratch page 0 included); page
+    rows of `w` entries over a shuffled set of pages (each sequence its
+    own, unused entries -> page 0); q; and the query positions: lengths
+    - T .. lengths - 1, or qpos0 .. qpos0 + T - 1.  All on the card,
+    rows/lengths/qpos int32.
+
+    Also the work the function needs, for the bound: `kv_rows`, the K
+    and V rows it must read (a lane reads its keys up to its last query
+    position, capped at its length and row; a lane with no such key
+    reads page 0's V alone, for the uniform softmax), and `flops`: 4 H D
+    per (query, key <= qpos) pair, 2 H D S per query with no key."""
+    b = len(lengths)
+    need = [-(-n // s) for n in lengths]
+    n_pages = 1 + sum(need)
+    perm = (torch.randperm(n_pages - 1, generator=g) + 1).to(torch.int32)
+    rows = torch.zeros(b, w, dtype=torch.int32)
+    nxt = 0
+    for i, n in enumerate(need):
+        rows[i, :n] = perm[nxt:nxt + n]
+        nxt += n
+    lens = torch.tensor(lengths, dtype=torch.int32)
+    ar = torch.arange(t, dtype=torch.int32)
+    qpos = lens[:, None] - t + ar if qpos0 is None \
+        else (qpos0 + ar).expand(b, t)
+    cap = lens.clamp(max=w * s)[:, None]
+    pairs = torch.minimum(qpos + 1, cap).clamp(min=0)  # (B, T) keys
+    k_rows = int(pairs.max(1).values.sum())
+    v_rows = k_rows + s * int((pairs.max(1).values == 0).sum())
+    flops = (4 * h * d * int(pairs.sum())
+             + 2 * h * d * s * int((pairs == 0).sum()))
+    pool = (n_pages, s, h, d) if layers is None else (layers, n_pages, s, h, d)
+    return dict(rows=rows.cuda(), lens=lens.cuda(), q=_rand(g, b, t, h, d),
+                kc=_rand(g, *pool), vc=_rand(g, *pool),
+                qpos=qpos.contiguous().cuda(), kv_rows=k_rows + v_rows,
+                flops=flops)
+
+
+def _ragged_case(c, name):
+    """Check the kernel against its plain version on every lane (layers
+    0 and 11), then time kernel, plain version and the library yardstick
+    (index_select of the pages, then SDPA with a bool mask), each cycling
+    through the 12 layers' pools."""
+    rows, lens, q, kc, vc, qpos = (c[k] for k in ("rows", "lens", "q", "kc",
+                                                   "vc", "qpos"))
+    b, t, h, d = q.shape
+    s = kc.shape[2]
+    scale = d ** -0.5
+    worst = 0.0
+    for li in (0, LAYERS - 1):
+        out = A.ragged_paged_forward(rows, lens, q, kc[li], vc[li], qpos,
+                                     scale)
+        torch.cuda.synchronize()
+        ref = A.ragged_paged_reference(rows, lens, q, kc[li], vc[li], qpos,
+                                       scale)
+        ok, err = close(out, ref, **BF16_TOL)
+        worst = max(worst, err)
+        if not ok:
+            raise AssertionError(f"ragged_paged disagrees with its plain "
+                                 f"version at {name} (layer {li}, err {err})")
+    layers = range(LAYERS)
+    ms = time_cycle(lambda li: A.ragged_paged_forward(
+        rows, lens, q, kc[li], vc[li], qpos, scale), layers)
+    plain_ms = time_cycle(lambda li: A.ragged_paged_reference(
+        rows, lens, q, kc[li], vc[li], qpos, scale), layers, rounds=1,
+        graph=False)
+    pos = torch.arange(ROW_PAGES * s, device="cuda")
+    flat = (rows.long()[:, pos // s] * s + pos % s).reshape(-1)
+    keep = (pos[None, None, :] <= qpos.long()[:, :, None])[:, None]
+    qt = q.transpose(1, 2)
+
+    def library(li):
+        k, v = (pool[li].view(-1, h, d).index_select(0, flat)
+                .view(b, -1, h, d).transpose(1, 2) for pool in (kc, vc))
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, k, v, attn_mask=keep, scale=scale)
+
+    library_ms = time_cycle(library, layers)
+    flops = c["flops"]
+    nbytes = (c["kv_rows"] * h * d * 2 + 2 * b * t * h * d * 2
+              + rows.numel() * 4 + b * 4 + b * t * 4)
+    bound_ms, bound_by = bound(flops, nbytes)
+    log(f"ragged_paged {name}: err {worst:.3g} ok; {ms:.4f} ms (plain "
+        f"{plain_ms:.4f}, library {library_ms:.4f}, bound {bound_ms:.4f} "
+        f"{bound_by}), {c['kv_rows']} K and V rows needed")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound_ms, bound_by=bound_by, err=worst, flops=flops,
+                bytes=nbytes)
+
+
+def _ragged_row(g):
+    """The ragged paged-attention kernel at the decode path's two shapes:
+    (a) a decode step, B=16, T=1, ragged lengths over 1-511 with one
+    length-0 lane and one exact page multiple; (b) a chunk step, B=1,
+    T=256, query positions 256..511 over length 512.  12 heads of 64,
+    pages of 16, rows of 32 pages."""
+    lengths = [0, 256] + sorted(
+        torch.randint(1, 512, (SLOTS - 2,), generator=g).tolist())
+    a = _ragged_case(_paged_inputs(g, lengths, 1), "(a) decode B=16 T=1")
+    torch.cuda.empty_cache()
+    bc = _ragged_case(_paged_inputs(g, [512], 256, qpos0=256),
+                      "(b) chunk B=1 T=256")
+    return dict(
+        name="ragged_paged", route="cuda",
+        source="paddle_tpu_torch/csrc/ragged_paged.cu",
+        replaces="paddle_tpu/ops/pallas/attention.py:895",
+        max_abs_err=max(a["err"], bc["err"]), ms=a["ms"],
+        plain_ms=a["plain_ms"], bound_ms=a["bound_ms"],
+        bound_by=a["bound_by"], library_ms=a["library_ms"],
+        shape=f"(a) q (16,1,12,64), pools (P,16,12,64) bf16, lengths "
+              f"{lengths}, W=32",
+        flops=a["flops"], bytes=a["bytes"],
+        chunk_shape="(b) q (1,256,12,64), qpos 256..511, length 512",
+        chunk_ms=bc["ms"], chunk_plain_ms=bc["plain_ms"],
+        chunk_library_ms=bc["library_ms"], chunk_bound_ms=bc["bound_ms"],
+        chunk_bound_by=bc["bound_by"], tolerance=BF16_TOL)
 
 
 def _flash_backward_rows(g):
@@ -554,6 +768,263 @@ def serve_slice(kernel_ms):
     return launches
 
 
+def bert_decoder(model) -> LayeredDecoder:
+    """BertForPretraining as a causal LayeredDecoder: the embeddings at
+    the given positions, each encoder layer as (q/k/v split into heads,
+    post-LN attention-output and FFN halves), the tied MLM head as the
+    unembedding.  The engine's masking makes it causal."""
+    bert_, cls = model.bert, model.cls
+    top = bert_.config.max_position_embeddings - 1
+
+    def embed(tokens, positions):
+        # padded rows of a bucket may run past the position table
+        return bert_.embeddings(tokens,
+                                position_ids=positions.clamp(max=top))
+
+    def make_layer(layer):
+        sa = layer.self_attn
+
+        def qkv(x, positions):
+            return tuple(sa._split_heads(p(x))
+                         for p in (sa.q_proj, sa.k_proj, sa.v_proj))
+
+        def merge(x, attn):
+            b, t = attn.shape[0], attn.shape[1]
+            h = layer.norm1(x + sa.out_proj(attn.reshape(b, t, -1)))
+            return layer.norm2(h + _dense_ffn_block(layer, h))
+
+        return qkv, merge
+
+    def unembed(x):
+        y = cls.layer_norm(cls.activation(cls.transform(x)))
+        return torch.matmul(y, cls.decoder_weight.t()) + cls.decoder_bias
+
+    return LayeredDecoder(embed, [make_layer(lyr) for lyr in
+                                  bert_.encoder.layers], unembed)
+
+
+def _decode_traffic(vocab):
+    """Part A: 16 prompts of 64-256 tokens, 96 new tokens each.  Part B:
+    16 prompts of 16-448 tokens (the first 448, three more over 256, so
+    four take the chunk path), 16-64 new tokens each."""
+    rng = np.random.default_rng(5)
+    toks = lambda n: rng.integers(0, vocab, n).astype(np.int32)
+    part_a = [(toks(int(n)), 96) for n in rng.integers(64, 257, SLOTS)]
+    lens_b = [448] + [int(n) for n in rng.integers(257, 449, 3)] + \
+        [int(n) for n in rng.integers(16, 257, SLOTS - 4)]
+    part_b = [(toks(n), int(m)) for n, m in
+              zip(lens_b, rng.integers(16, 65, SLOTS))]
+    return part_a, part_b
+
+
+def _teacher_forced(dec, prompt, tokens):
+    """Logits of a dense causal forward of prompt + tokens[:-1] through
+    the same decoder on the card (attention: the plain dense version),
+    at the positions that produced each generated token."""
+    seq = np.concatenate([prompt, np.asarray(tokens[:-1], np.int32)])
+    n = len(seq)
+    pos = torch.arange(n, dtype=torch.int32, device="cuda")[None]
+    x = dec.embed(torch.from_numpy(seq).cuda()[None], pos)
+    for qkv, merge in dec.layers:
+        q, k, v = qkv(x, pos)
+        x = merge(x, A.dense_attention(q, k, v, is_causal=True))
+    return dec.unembed(x)[0, len(prompt) - 1:].float()
+
+
+@phase("decode")
+def decode(kernel_rows):
+    cfg = bert.BertConfig.base()
+    t0 = time.perf_counter()
+    model = bert.BertForPretraining(cfg, dtype=torch.bfloat16, seed=0).eval()
+    dec = bert_decoder(model)
+    part_a, part_b = _decode_traffic(cfg.vocab_size)
+    log(f"BertForPretraining(base) bf16 as a causal decoder, built in "
+        f"{time.perf_counter() - t0:.1f} s; prompts A "
+        f"{sorted(len(p) for p, _ in part_a)}, B "
+        f"{[len(p) for p, _ in part_b]}, new tokens B "
+        f"{[m for _, m in part_b]}")
+    profiler.stat_reset()
+    profiler.time_reset()
+    reset_latency()
+    torch.cuda.synchronize()
+    for c in COUNTERS.values():
+        c.reset()
+    # -- the main path: counters at 0 before, read right after --------------
+    eng = AutoregressiveEngine(
+        model=dec, num_heads=cfg.num_attention_heads,
+        head_dim=cfg.hidden_size // cfg.num_attention_heads,
+        num_pages=NUM_PAGES, page_size=PAGE_SIZE, max_slots=SLOTS,
+        max_pages_per_seq=ROW_PAGES, max_queue=64,
+        prompt_buckets=PROMPT_BUCKETS, prefill_chunk=PREFILL_CHUNK,
+        dtype=torch.bfloat16)
+    log(f"KV pool {tuple(eng.kv.k.shape)} x2 bf16: "
+        f"{2 * eng.kv.k.numel() * 2 / 1e6:.1f} MB")
+    t_fill = time.perf_counter()
+    reqs = [eng.submit(p, m) for p, m in part_a]
+    warm_steps = 0
+    while eng._pending or eng._prefilling:
+        eng.step()
+        warm_steps += 1
+    torch.cuda.synchronize()
+    fill_s = time.perf_counter() - t_fill
+    # part A, steady state: 16 slots decoding, no admission or retirement
+    torch.cuda.synchronize()
+    decoding0 = profiler.get_int_stats().get("serving_decode_steps", 0)
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    h0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        e0.record()
+        for _ in range(TIMED_STEPS):
+            eng.step()
+        e1.record()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - h0) * 1e3 / TIMED_STEPS
+    step_ms = e0.elapsed_time(e1) / TIMED_STEPS
+    stats = profiler.get_int_stats()
+    if stats["serving_decode_steps"] - decoding0 != TIMED_STEPS \
+            or stats.get("serving_completed_total", 0) or eng._pending:
+        raise AssertionError("the timed window was not 32 decode steps of "
+                             "16 slots")
+    busy, wall_ms, top = _profile_steps(eng)
+    # part B: mixed traffic, submitted while part A decodes
+    reset_latency("serving_ttft_ms")
+    reset_latency("serving_prefill_chunk_ms")
+    steps_b = profiler.get_int_stats()["serving_decode_steps"]
+    tokens_a = sum(eng._slot_gen)  # generated so far (the host mirror)
+    t_b = time.perf_counter()
+    reqs += [eng.submit(p, m) for p, m in part_b]
+    eng.run_until_idle()
+    torch.cuda.synchronize()
+    wall_b = time.perf_counter() - t_b
+    launches = {n: c.value for n, c in COUNTERS.items()}
+    # ------------------------------------------------------------------------
+    stats = profiler.get_int_stats()
+    times = profiler.get_time_stats()
+    prompts = [p for p, _ in part_a + part_b]
+    results = [r.result(timeout=0) for r in reqs]
+    steps_b = stats["serving_decode_steps"] - steps_b
+    tokens_b = sum(len(r) for r in results) - tokens_a
+    log(f"decode: {len(reqs)} requests, {sum(len(r) for r in results)} "
+        f"tokens; part A filled {SLOTS} slots in {warm_steps} steps "
+        f"({fill_s:.2f} s host clock, first calls included); part B, from "
+        f"its submission until idle: {steps_b} decode steps and "
+        f"{tokens_b} tokens in {wall_b:.2f} s host clock "
+        f"({tokens_b / wall_b:.0f} tokens/s)")
+    log(f"steady state, 16 slots: decode step {step_ms:.3f} ms (CUDA "
+        f"events; host clock {host_ms:.3f} ms), "
+        f"{SLOTS / (step_ms / 1e3):.0f} tokens/s; no host sync in "
+        f"{TIMED_STEPS} steps (sync debug mode 'error')")
+    shares = {}
+    for name, key in (("ragged_paged", "ms"), ("ffn_fwd", "decode_t16_ms")):
+        ms = (kernel_rows or {}).get(name, {}).get(key, float("nan"))
+        shares[name] = LAYERS * ms / step_ms
+        log(f"  {name}: {LAYERS} x {ms:.4f} ms = {100 * shares[name]:.1f}% "
+            f"of the step")
+    log(f"profiled {PROFILED_STEPS} decode steps: {wall_ms:.3f} ms host "
+        f"clock, device busy {busy:.3f} ms (idle "
+        f"{100 * max(0.0, 1 - busy / wall_ms):.1f}%)")
+    for key, ms, count in top:
+        log(f"  {ms:9.3f} ms {100 * ms / busy:5.1f}% x{count:<5d} {key[:90]}")
+    ttft = latency_stats("serving_ttft_ms")
+    chunk = latency_stats("serving_prefill_chunk_ms")
+    log(f"part B: TTFT p50 {ttft['p50_ms']:.2f} ms p99 {ttft['p99_ms']:.2f}"
+        f" ms; serving_prefill_chunk_ms (host clock) p50 "
+        f"{chunk['p50_ms']:.3f} p99 {chunk['p99_ms']:.3f} max "
+        f"{chunk['max_ms']:.3f}")
+    log("serving_* int stats: " + json.dumps(
+        {k: v for k, v in sorted(stats.items())
+         if k.startswith(("serving", "executor"))}))
+    log("serving_* times ms: " + json.dumps(
+        {k: round(v, 3) for k, v in sorted(times.items())}))
+    log(f"kernel launches on the main path: {launches}")
+
+    # checks, each failing the phase
+    for (p, m), toks in zip(part_a + part_b, results):
+        if len(toks) != m or not ((toks >= 0) & (toks < cfg.vocab_size)).all():
+            raise AssertionError(f"a request of {m} new tokens returned "
+                                 f"{len(toks)} (or ids out of range)")
+    if eng.kv.table.in_use != 0:
+        raise AssertionError(f"{eng.kv.table.in_use} pages still in use")
+    if stats.get("executor_sync_count", 0) != len(reqs):
+        raise AssertionError(f"executor_sync_count "
+                             f"{stats.get('executor_sync_count')} != "
+                             f"{len(reqs)} retirements")
+    steps_d = stats["serving_decode_steps"]
+    chunks = stats.get("serving_prefill_chunks", 0)
+    single = stats["serving_prefill_count"] - sum(
+        len(p) > PREFILL_CHUNK for p in prompts)
+    want = {n: 0 for n in COUNTERS}
+    want.update(ragged_paged=LAYERS * (steps_d + chunks),
+                flash_fwd=LAYERS * single,
+                ffn_fwd=LAYERS * (single + chunks + steps_d))
+    log(f"decode steps {steps_d}, chunk steps {chunks}, single-shot "
+        f"prefills {single}: launches wanted {want}")
+    if launches != want:
+        raise AssertionError(f"launches {launches} != {want}")
+    worst, agree, total = 0.0, 0, 0
+    with torch.inference_mode():
+        for prompt, toks in zip(prompts, results):
+            logits = _teacher_forced(dec, prompt, toks)
+            if not bool(torch.isfinite(logits).all()):
+                raise AssertionError("non-finite teacher-forced logits")
+            idx = torch.from_numpy(toks.astype(np.int64)).cuda()
+            got = logits.gather(1, idx[:, None])[:, 0]
+            best = logits.max(dim=1)
+            worst = max(worst, float((best.values - got).max()))
+            agree += int((best.indices == idx).sum())
+            total += len(toks)
+    log(f"teacher forcing: worst logit deficit {worst:.4f} (limit "
+        f"{DECODE_LOGIT_TOL}), exact argmax agreement {agree}/{total} "
+        f"({100 * agree / total:.1f}%)")
+    if worst > DECODE_LOGIT_TOL:
+        raise AssertionError("a decoded token's logit is too far below the "
+                             "teacher-forced maximum")
+    summary = dict(step_ms=step_ms, host_step_ms=host_ms,
+                   tokens_per_s=SLOTS / (step_ms / 1e3),
+                   ragged_share=shares["ragged_paged"],
+                   ffn_share=shares["ffn_fwd"],
+                   profiled_idle=max(0.0, 1 - busy / wall_ms),
+                   ttft_p50_ms=ttft["p50_ms"], ttft_p99_ms=ttft["p99_ms"],
+                   part_b_s=wall_b, part_b_tokens=tokens_b,
+                   argmax_agreement=agree / total, worst_deficit=worst)
+    log("decode summary: " + json.dumps(summary))
+    return launches
+
+
+def _profile_steps(eng):
+    """PROFILED_STEPS more decode steps of part A under torch.profiler:
+    device busy ms, host wall ms, and the top kernels by device time."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(PROFILED_STEPS):
+            eng.step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    kernels = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                      for e in events
+                      if e.device_type == torch.autograd.DeviceType.CUDA
+                      and e.self_device_time_total > 0),
+                     key=lambda r: -r[1])
+    host = sorted(((e.key, e.self_cpu_time_total / 1e3, e.count)
+                   for e in events
+                   if e.device_type == torch.autograd.DeviceType.CPU),
+                  key=lambda r: -r[1])
+    log(f"  {sum(r[2] for r in kernels) / PROFILED_STEPS:.0f} kernels a "
+        f"step; host self time by op (profiler on), top 8:")
+    for key, ms, count in host[:8]:
+        log(f"    {ms:9.3f} ms x{count:<5d} {key[:80]}")
+    return sum(r[1] for r in kernels), wall_ms, kernels[:12]
+
+
 @phase("train")
 def train(kernel_ms):
     cfg = bert.BertConfig.base()
@@ -598,9 +1069,10 @@ def train(kernel_ms):
         raise AssertionError("a gradient holds a NaN or inf (moment m)")
     log(f"kernel launches on the main path: {launches}")
     for name, n in launches.items():
-        if n != LAYERS * (steps + 1):
+        want = LAYERS * (steps + 1) if name in TRAIN_KERNELS else 0
+        if n != want:
             raise AssertionError(f"{name}: {n} launches in {steps + 1} steps"
-                                 f" (want {LAYERS} per step)")
+                                 f" (want {want})")
     flops = bert.bert_step_flops(cfg, batch_size, SEQ, n_masked)
     mem = torch.cuda.max_memory_allocated()
     summary = dict(step_ms=step_ms, host_step_ms=host_ms,
@@ -615,7 +1087,8 @@ def train(kernel_ms):
         f"({flops / 1e12:.3f} TFLOP a step), warm-up step {warm_s:.2f} s, "
         f"max_memory_allocated {mem / 2 ** 30:.2f} GiB")
     total = 0.0
-    for name, ms in (kernel_ms or {}).items():
+    for name in TRAIN_KERNELS:
+        ms = (kernel_ms or {}).get(name, float("nan"))
         share = LAYERS * ms / step_ms
         total += share
         log(f"  {name}: {LAYERS} x {ms:.4f} ms = {100 * share:.1f}% of the "
@@ -689,19 +1162,25 @@ def main():
     rows = kernels()
     kernel_ms = {r["name"]: r["ms"] for r in rows or []}
     served = serve_slice(kernel_ms)
+    decoded = decode({r["name"]: r for r in rows or []})
     trained = train(kernel_ms)
     if trained is not None:
         profile(trained[1])
     reference_check()
-    if FAILURES or rows is None or served is None or trained is None:
+    if FAILURES or rows is None or served is None or decoded is None \
+            or trained is None:
         log(f"FAILED phases: {FAILURES}")
         sys.exit(1)
     for r in rows:
-        # this slice's main path is the train step; the serving path's
-        # counts stand beside it
-        r["launches"] = trained[0][r["name"]]
-        r["launches_by_path"] = {"serving": served[r["name"]],
-                                 "train": trained[0][r["name"]]}
+        # `launches` is the count on the path where the kernel runs: the
+        # decode path for ragged_paged, the train step for the others; the
+        # other paths' counts stand beside it
+        name = r["name"]
+        r["launches"] = decoded[name] if name not in TRAIN_KERNELS \
+            else trained[0][name]
+        r["launches_by_path"] = {"serving": served[name],
+                                 "decode": decoded[name],
+                                 "train": trained[0][name]}
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

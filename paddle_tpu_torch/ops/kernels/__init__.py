@@ -5,9 +5,10 @@ launch counter; the CUDA sources are under paddle_tpu_torch/csrc and are
 built on first use (build.py).
 """
 
-from .attention import FLASH_BWD_DKV, FLASH_BWD_DQ, FLASH_FWD
+from .attention import FLASH_BWD_DKV, FLASH_BWD_DQ, FLASH_FWD, RAGGED_PAGED
 from .ffn import FFN_BWD_DW, FFN_BWD_DX, FFN_FWD
 
 # every kernel's launch counter, by kernel name
 COUNTERS = {c.name: c for c in (FLASH_FWD, FLASH_BWD_DKV, FLASH_BWD_DQ,
-                                FFN_FWD, FFN_BWD_DW, FFN_BWD_DX)}
+                                FFN_FWD, FFN_BWD_DW, FFN_BWD_DX,
+                                RAGGED_PAGED)}

@@ -1,13 +1,16 @@
-"""Flash attention, forward and backward (counterpart of
-paddle_tpu/ops/pallas/attention.py).
+"""Flash attention, forward and backward, and ragged paged attention
+(counterpart of paddle_tpu/ops/pallas/attention.py).
 
 `flash_forward` is the wrapper of the hand-written CUDA kernel
-`csrc/flash_fwd.cu` (which replaces the Pallas `_flash_fwd_kernel`), and
+`csrc/flash_fwd.cu` (which replaces the Pallas `_flash_fwd_kernel`),
 `flash_backward` the wrapper of the two kernels of `csrc/flash_bwd.cu`
-(which replace `_flash_bwd_dkv_kernel` and `_flash_bwd_dq_kernel`): on a
+(which replace `_flash_bwd_dkv_kernel` and `_flash_bwd_dq_kernel`), and
+`ragged_paged_forward` (behind `paged_attention`) the wrapper of
+`csrc/ragged_paged.cu` (which replaces `_ragged_paged_kernel`): on a
 CUDA tensor each launches its kernels or raises; on a CPU tensor it runs
 the plain PyTorch version (`flash_forward_reference`,
-`flash_backward_reference`), which computes the same function.
+`flash_backward_reference`, `ragged_paged_reference`), which computes
+the same function.
 `FlashAttentionFunction` ties the two together for autograd (the
 `custom_vjp` of the JAX package), `flash_attention` is the shim around
 it, and `scaled_dot_product_attention` the dispatcher the nn layers call.
@@ -36,6 +39,7 @@ DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 FLASH_FWD = LaunchCounter("flash_fwd")
 FLASH_BWD_DKV = LaunchCounter("flash_bwd_dkv")
 FLASH_BWD_DQ = LaunchCounter("flash_bwd_dq")
+RAGGED_PAGED = LaunchCounter("ragged_paged")
 
 _M32 = 0xFFFFFFFF
 _KERNEL_HEAD_DIMS = (16, 32, 64, 128)
@@ -446,3 +450,161 @@ def dense_attention(q, k, v, mask=None, is_causal=False, scale=None):
         logits = torch.where(causal, logits, DEFAULT_MASK_VALUE)
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+# -- ragged paged attention (serving decode path) -------------------------------
+
+def ragged_paged_reference(page_rows, lengths, q, k_pages, v_pages, qpos,
+                           scale):
+    """Plain PyTorch version of the ragged paged-attention kernel.
+
+    page_rows (B, W) int; lengths (B,) int; q (B, T, H, D); k/v_pages
+    (P, S, H, D); qpos (B, T) int -> (B, T, H, D) in q's dtype.  Page i of
+    sequence b takes part only if i == 0 or i*S < lengths[b] (the
+    kernel's skip rule, which keeps page 0 so a length-0 lane yields the
+    uniform softmax over it); a key at kpos > qpos scores
+    DEFAULT_MASK_VALUE.  Scores and softmax in f32; p is cast to v's
+    dtype before the second product, as in the kernel."""
+    b, t, h, d = q.shape
+    s = k_pages.shape[1]
+    w = page_rows.shape[1]
+    rows = page_rows.long()
+    k = k_pages[rows].reshape(b, w * s, h, d)          # (B, W*S, H, D)
+    v = v_pages[rows].reshape(b, w * s, h, d)
+    kpos = torch.arange(w * s, device=q.device)
+    page = kpos // s
+    included = (page[None, :] == 0) | (page[None, :] * s
+                                       < lengths.long()[:, None])
+    causal = kpos[None, None, :] <= qpos.long()[:, :, None]  # (B, T, W*S)
+    sc = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    sc = torch.where(causal[:, None], sc, DEFAULT_MASK_VALUE)
+    sc = torch.where(included[:, None, None, :], sc, float("-inf"))
+    m = sc.amax(dim=-1, keepdim=True)
+    p = torch.exp(sc - m)
+    l = p.sum(dim=-1, keepdim=True)
+    acc = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float())
+    return (acc / l.permute(0, 2, 1, 3)).to(q.dtype)
+
+
+def dense_paged_attention(q, k_pages, v_pages, page_rows, lengths, qpos,
+                          scale):
+    """The oracle (counterpart of `_dense_paged_attention`): gather every
+    page of the row into a contiguous (B, W*S) view and take a dense
+    softmax with keys at kpos > qpos masked.  JAX routes this through
+    SDPA with a per-query bias, which the port's dispatcher refuses, so
+    the softmax is written out here (f32).  It agrees with the kernel on
+    every lane whose qpos < length; the port never calls it."""
+    b, t, h, d = q.shape
+    p_, s = k_pages.shape[0], k_pages.shape[1]
+    lmax = page_rows.shape[1] * s
+    pos = torch.arange(lmax, device=q.device)
+    gidx = page_rows.long()[:, pos // s] * s + pos % s      # (B, Lmax)
+    k = k_pages.reshape(p_ * s, h, d)[gidx]
+    v = v_pages.reshape(p_ * s, h, d)[gidx]
+    mask = pos[None, None, :] <= qpos.long()[:, :, None]    # (B, T, Lmax)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    logits = torch.where(mask[:, None], logits, DEFAULT_MASK_VALUE)
+    probs = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", probs,
+                        v.float()).to(q.dtype)
+
+
+def _ragged_lib():
+    lib = library("ragged_paged")
+    fn = lib.ragged_paged_bf16
+    if fn.argtypes is None:
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci,
+                       ci, ctypes.c_float, vp]
+        fn.restype = ci
+    return lib
+
+
+def _ragged_paged_cuda(page_rows, lengths, q, k_pages, v_pages, qpos,
+                       scale):
+    b, t, h, d = q.shape
+    p, s = k_pages.shape[0], k_pages.shape[1]
+    w = page_rows.shape[1]
+    if not (q.dtype == k_pages.dtype == v_pages.dtype == torch.bfloat16):
+        raise NotImplementedError(
+            f"ragged_paged kernel takes bf16 q/k/v, got {q.dtype}/"
+            f"{k_pages.dtype}/{v_pages.dtype}")
+    if d not in _KERNEL_HEAD_DIMS:
+        raise NotImplementedError(
+            f"ragged_paged kernel takes head_dim in {_KERNEL_HEAD_DIMS}, "
+            f"got {d}")
+    if s % 8:
+        raise NotImplementedError(
+            f"ragged_paged kernel takes a page_size that is a multiple of "
+            f"8, got {s}")
+    if (k_pages.shape != (p, s, h, d) or v_pages.shape != k_pages.shape
+            or page_rows.shape != (b, w) or lengths.shape != (b,)
+            or qpos.shape != (b, t)):
+        raise ValueError(
+            f"paged attention shapes do not match: q {tuple(q.shape)}, "
+            f"pools {tuple(k_pages.shape)}/{tuple(v_pages.shape)}, "
+            f"page_rows {tuple(page_rows.shape)}, lengths "
+            f"{tuple(lengths.shape)}, qpos {tuple(qpos.shape)}")
+    if t < 1 or w < 1 or h > 65535 or b > 65535:
+        raise ValueError(f"ragged_paged kernel needs T >= 1, W >= 1 and "
+                         f"H, B <= 65535 (got T={t}, W={w}, H={h}, B={b})")
+    # the kernel reads q, the pools and the int operands densely; a
+    # layer's plane kc[li] of a contiguous multi-layer pool is contiguous
+    q = q.contiguous()
+    k_pages, v_pages = k_pages.contiguous(), v_pages.contiguous()
+    if q.data_ptr() % 16 or k_pages.data_ptr() % 16 \
+            or v_pages.data_ptr() % 16:
+        raise ValueError("ragged_paged kernel needs 16-byte aligned q and "
+                         "pools")
+    rows, lens, qp = (x.to(torch.int32).contiguous()
+                      for x in (page_rows, lengths, qpos))
+    out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
+    lib = _ragged_lib()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = lib.ragged_paged_bf16(
+        rows.data_ptr(), lens.data_ptr(), q.data_ptr(), k_pages.data_ptr(),
+        v_pages.data_ptr(), qp.data_ptr(), out.data_ptr(), b, t, h, d, p, s,
+        w, float(scale), stream)
+    check(lib, err, "ragged_paged")
+    RAGGED_PAGED.add()
+    return out
+
+
+def ragged_paged_forward(page_rows, lengths, q, k_pages, v_pages, qpos,
+                         scale):
+    """The ragged kernel's function: the CUDA kernel for CUDA tensors, the
+    plain version for CPU tensors (and nothing else for either)."""
+    if q.is_cuda:
+        return _ragged_paged_cuda(page_rows, lengths, q, k_pages, v_pages,
+                                  qpos, scale)
+    return ragged_paged_reference(page_rows, lengths, q, k_pages, v_pages,
+                                  qpos, scale)
+
+
+def paged_attention(q, k_pages, v_pages, page_rows, lengths, scale=None,
+                    q_positions=None):
+    """Attention over PAGED keys/values (serving decode path).
+
+    q: (B, T, H, D), the T newest query positions per sequence (decode:
+    T == 1; chunked prefill: T == chunk bucket); k_pages/v_pages:
+    (P, S, H, D) page pools (serving/kv_cache.py); page_rows: (B,
+    max_pages) int page ids per sequence (unused entries -> scratch page
+    0); lengths: (B,) int, the valid key count per sequence.
+
+    Masking: query j of sequence b attends keys at positions <=
+    q_positions[b, j].  The default q_positions places the T queries at
+    the newest T positions (lengths - T .. lengths - 1); chunked prefill
+    passes its chunk's absolute positions.  Query lanes whose position is
+    >= lengths (chunk padding) produce finite but unspecified output;
+    callers slice them away.
+
+    Dispatch: `csrc/ragged_paged.cu` for CUDA tensors, which reads
+    `page_rows` inside the kernel (no (B, W*S) gather is ever built); its
+    plain version for CPU tensors."""
+    t, d = q.shape[1], q.shape[3]
+    scale = scale if scale is not None else 1.0 / (d ** 0.5)
+    if q_positions is None:
+        q_positions = lengths.long()[:, None] - t \
+            + torch.arange(t, device=q.device)[None, :]
+    return ragged_paged_forward(page_rows, lengths, q, k_pages, v_pages,
+                                q_positions, float(scale))

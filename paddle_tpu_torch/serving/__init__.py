@@ -11,6 +11,12 @@ Pipeline: submit() -> DynamicBatcher (coalesce by signature, bounded
 queue, EngineOverloaded at the bound) -> dispatch loop (warm buckets
 only; new buckets park with the off-path warm-up thread) -> completer
 (the ONE device->host boundary, after the batch's CUDA event).
+
+Token generation over paged KV state:
+
+    eng = serving.AutoregressiveEngine(model=serving.LayeredDecoder(
+        embed, [(qkv, merge), ...], unembed), num_heads=12, head_dim=64)
+    tokens = eng.generate(prompt, max_new_tokens=32)   # numpy int32
 """
 
 from .admission import (AdmissionController, EngineClosed,
@@ -18,17 +24,23 @@ from .admission import (AdmissionController, EngineClosed,
 from .batcher import DynamicBatcher, Request, Response
 from .bucketing import (BucketedRunner, bucket_for, bucket_ladder,
                         input_signature, pad_batch)
-from .engine import Engine, EngineConfig
+from .engine import (AutoregressiveEngine, Engine, EngineConfig,
+                     LayeredDecoder)
+from .kv_cache import PagedKVCache, PageTable
 from .metrics import latency_stats, mean_occupancy, reset_latency
 
 __all__ = [
     "AdmissionController",
+    "AutoregressiveEngine",
     "BucketedRunner",
     "DynamicBatcher",
     "Engine",
     "EngineClosed",
     "EngineConfig",
     "EngineOverloaded",
+    "LayeredDecoder",
+    "PageTable",
+    "PagedKVCache",
     "Request",
     "RequestCancelled",
     "Response",

@@ -19,19 +19,37 @@ Int stats (profiler.get_int_stats):
 | serving_trace_count           | bucket warm-ups (first run of a shape)  |
 | serving_pad_rows_total        | padding rows added by bucketing         |
 
+AutoregressiveEngine adds:
+
+| stat                          | meaning                                 |
+|-------------------------------|-----------------------------------------|
+| serving_decode_steps          | decode steps run                        |
+| serving_prefill_count         | prompts whose prefill finished          |
+| serving_prefill_chunks        | chunk steps of chunked prefills         |
+| serving_kv_pages_in_use       | gauge: KV pages handed out              |
+| serving_kv_pages_capacity     | gauge: KV pages in the pool             |
+| serving_kv_bytes              | gauge: device bytes of handed-out pages |
+| serving_kv_pages_extended     | pages added by lazy growth              |
+| serving_kv_backpressure_total | extends refused for want of pages       |
+| serving_kv_paused_total       | slots paused under pool pressure        |
+| serving_kv_preempt_total      | slots preempted by the all-paused escape|
+
 Time stats (profiler.get_time_stats, milliseconds):
 
 | timer                | meaning                                        |
 |----------------------|------------------------------------------------|
 | serving_queue_ms     | summed request wait, submit -> dispatch        |
-| serving_dispatch_ms  | host time to enqueue a batch on the device     |
-| serving_compile_ms   | off-path bucket warm-ups (request parked)      |
+| serving_dispatch_ms  | host time to enqueue a batch (or a prefill,    |
+|                      | chunk or decode step) on the device            |
+| serving_compile_ms   | off-path bucket warm-ups (request parked); the |
+|                      | first call of each decode-engine entry         |
 | serving_response_ms  | device wait + device->host copy at the         |
 |                      | response boundary                              |
 
 Latency percentiles are host-side only: a bounded reservoir per metric
-name (`serving_request_ms`, submit -> response), drained by
-`latency_stats()`.
+name (`serving_request_ms`, submit -> response; `serving_ttft_ms`, submit
+-> first token; `serving_prefill_chunk_ms`, host time of one prefill or
+chunk step), drained by `latency_stats()`.
 """
 
 from __future__ import annotations

@@ -1,9 +1,13 @@
 """The port's CUDA kernels on the card, against their plain PyTorch
 versions on the same inputs: every compiled instantiation (head dims,
 model widths, activations) forward and backward, dropout, causal offsets,
-ragged and strided inputs, the shapes and types the wrappers refuse, tiny
-BERT served on the card, and tiny BERT's train step on the card.  These need an NVIDIA GPU with nvcc; the `cuda` fixture skips
-them, with a reason, where there is none.  Run them on the card with
+ragged and strided inputs, the ragged paged-attention kernel at the
+decode path's shapes (length-0 lanes, exact page multiples, chunk
+positions, every head dim and several page sizes), the shapes and types
+the wrappers refuse, tiny BERT served on the card, decoded on the card
+through AutoregressiveEngine, and its train step on the card.  These
+need an NVIDIA GPU with nvcc; the `cuda` fixture skips them, with a
+reason, where there is none.  Run them on the card with
 
     python -m pytest --noconftest -q -p no:cacheprovider tests/test_torch_cuda.py
 
@@ -190,9 +194,15 @@ def test_each_launch_is_counted_once(cuda):
     F.ffn_forward(x, _bf16(cuda, 128, 256), _bf16(cuda, 256),
                   _bf16(cuda, 256, 128), _bf16(cuda, 128))
     A.flash_forward_reference(q, q, q)
+    pages = _bf16(cuda, 3, 16, 2, 64)
+    rows = torch.tensor([[1, 2]], dtype=torch.int32, device="cuda")
+    lens = torch.tensor([20], dtype=torch.int32, device="cuda")
+    A.paged_attention(q[:, :1], pages, pages, rows, lens)
+    A.ragged_paged_reference(rows, lens, q[:, :1], pages, pages,
+                             lens[:, None] - 1, 0.125)
     assert {n: c.value for n, c in COUNTERS.items()} == {
         "flash_fwd": 2, "flash_bwd_dkv": 0, "flash_bwd_dq": 0,
-        "ffn_fwd": 1, "ffn_bwd_dw": 0, "ffn_bwd_dx": 0}
+        "ffn_fwd": 1, "ffn_bwd_dw": 0, "ffn_bwd_dx": 0, "ragged_paged": 1}
 
 
 # -- backward kernels -----------------------------------------------------------
@@ -273,7 +283,7 @@ def test_autograd_launches_each_backward_kernel_once(cuda):
     assert all(t.grad is not None and torch.isfinite(t.grad.float()).all()
                for t in (q, k, v, x, *ws))
     assert {n: c.value for n, c in COUNTERS.items()} == {
-        n: 1 for n in COUNTERS}
+        n: int(n != "ragged_paged") for n in COUNTERS}
 
 
 def test_dropout_draws_on_the_card_from_a_host_generator(cuda):
@@ -356,7 +366,8 @@ def test_tiny_bert_train_steps_on_the_card(cuda):
         losses.append(float(loss))
     assert all(np.isfinite(losses)) and losses[-1] < losses[0]
     assert {n: c.value for n, c in COUNTERS.items()} == {
-        n: 3 * cfg.num_hidden_layers for n in COUNTERS}
+        n: 0 if n == "ragged_paged" else 3 * cfg.num_hidden_layers
+        for n in COUNTERS}
     assert all(torch.isfinite(m).all() for m in state["m"].values())
 
 
@@ -378,3 +389,134 @@ def test_tiny_bert_train_step_on_the_card_matches_the_cpu(cuda):
     assert abs(runs["cuda"][0] - runs["cpu"][0]) < 0.05
     for k, p in runs["cpu"][1].items():
         assert float((runs["cuda"][1][k].cpu() - p).abs().max()) <= 2.01e-3
+
+
+# -- ragged paged attention -------------------------------------------------------
+
+def _paged(g, lengths, t, h=2, d=64, s=16, w=None, qpos0=None):
+    """(rows, lengths, q, k pool, v pool, qpos) on the card, from the
+    builder chip_smoke's ragged row uses, with one (P, S, H, D) pool and
+    rows just wide enough unless `w` is given."""
+    from chip_smoke import _paged_inputs
+
+    w = w or max(2, max(-(-n // s) for n in lengths))
+    c = _paged_inputs(g, lengths, t, qpos0=qpos0, h=h, d=d, s=s, w=w,
+                      layers=None)
+    return tuple(c[k] for k in ("rows", "lens", "q", "kc", "vc", "qpos"))
+
+
+def _ragged_check(args, scale=0.125):
+    out = A.ragged_paged_forward(*args, scale)
+    ref = A.ragged_paged_reference(*args, scale)
+    assert torch.isfinite(out.float()).all()
+    _close(out, ref, BF16)
+    return out
+
+
+def test_ragged_paged_at_the_decode_step_shape(cuda):
+    """B=16, T=1, 12 heads of 64, pages of 16, rows of 32: ragged lengths
+    over 1-511 with a length-0 lane and an exact page multiple."""
+    lengths = [0, 256] + torch.randint(1, 512, (14,), generator=cuda).tolist()
+    _ragged_check(_paged(cuda, lengths, 1, h=12, w=32))
+
+
+def test_ragged_paged_at_the_chunk_step_shape(cuda):
+    """B=1, T=256, explicit positions 256..511 over length 512."""
+    _ragged_check(_paged(cuda, [512], 256, h=12, w=32, qpos0=256))
+
+
+def test_ragged_paged_length_zero_lanes_are_uniform_over_page_zero(cuda):
+    rows, lens, q, kp, vp, qpos = _paged(cuda, [0, 0, 5], 1)
+    out = _ragged_check((rows, lens, q, kp, vp, qpos))
+    want = vp[0].float().mean(0)  # page 0, every key weighted alike
+    torch.testing.assert_close(out[0, 0].float(), want, **BF16)
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("s", [8, 16, 24, 64])
+def test_ragged_paged_matches_plain(cuda, d, s):
+    """Every compiled head dim, page sizes that do and do not divide the
+    32-key block, T from 1 to past one 16-row tile, padded chunk lanes
+    (qpos >= length) included."""
+    for lengths, t, qpos0 in (([3, 70, 0, 33], 1, None),
+                              ([41, 9], 5, None), ([30], 17, 20),
+                              ([130], 33, 100)):
+        _ragged_check(_paged(cuda, lengths, t, d=d, s=s, qpos0=qpos0),
+                      scale=d ** -0.5)
+
+
+def test_ragged_paged_reads_a_layer_plane_of_a_layered_pool(cuda):
+    rows, lens, q, kp, vp, qpos = _paged(cuda, [37, 12], 1)
+    kl, vl = torch.stack([kp.flip(0), kp]), torch.stack([vp.flip(0), vp])
+    out = A.ragged_paged_forward(rows, lens, q, kl[1], vl[1], qpos, 0.125)
+    torch.testing.assert_close(
+        out, A.ragged_paged_forward(rows, lens, q, kp, vp, qpos, 0.125),
+        atol=0, rtol=0)
+
+
+def test_ragged_paged_refuses_what_it_cannot_compute(cuda):
+    rows, lens, q, kp, vp, qpos = _paged(cuda, [5], 1)
+    with pytest.raises(NotImplementedError, match="bf16"):
+        A.ragged_paged_forward(rows, lens, q.float(), kp.float(),
+                               vp.float(), qpos, 0.125)
+    q48 = _bf16(cuda, 1, 1, 2, 48)
+    p48 = _bf16(cuda, kp.shape[0], 16, 2, 48)
+    with pytest.raises(NotImplementedError, match="head_dim"):
+        A.ragged_paged_forward(rows, lens, q48, p48, p48, qpos, 0.125)
+    p12 = _bf16(cuda, 3, 12, 2, 64)
+    with pytest.raises(NotImplementedError, match="page_size"):
+        A.ragged_paged_forward(rows, lens, q, p12, p12, qpos, 0.125)
+
+
+def test_tiny_bert_decodes_on_the_card(cuda):
+    """TINY BERT (bf16) as a causal decoder through AutoregressiveEngine on
+    the card: single-shot and chunked prompts, exact token counts, every
+    page freed, one host sync per request, exact launch counts, and each
+    token's logit within 0.125 of the largest logit of a dense causal
+    forward of its prefix."""
+    from chip_smoke import bert_decoder  # the adapter chip_smoke runs
+
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.serving import AutoregressiveEngine
+
+    cfg = bert.BertConfig.tiny(**TINY)
+    dec = bert_decoder(bert.BertForPretraining(cfg, dtype=torch.bfloat16,
+                                               seed=3).eval())
+    eng = AutoregressiveEngine(model=dec, num_heads=4, head_dim=32,
+                               num_pages=64, page_size=16, max_slots=4,
+                               max_pages_per_seq=8, prompt_buckets=(16, 32),
+                               prefill_chunk=32, dtype=torch.bfloat16)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (7, 30, 75, 20)]
+    profiler.stat_reset()
+    for c in COUNTERS.values():
+        c.reset()
+    reqs = [eng.submit(p, max_new_tokens=12) for p in prompts]
+    eng.run_until_idle()
+    launches = {n: c.value for n, c in COUNTERS.items()}
+    stats = profiler.get_int_stats()
+    steps, chunks = stats["serving_decode_steps"], \
+        stats["serving_prefill_chunks"]
+    layers = cfg.num_hidden_layers
+    assert chunks == 3  # the 75-token prompt: 32 + 32 + 11
+    assert launches == {n: 0 for n in COUNTERS} | dict(
+        ragged_paged=layers * (steps + chunks), flash_fwd=layers * 3,
+        ffn_fwd=layers * (3 + chunks + steps))
+    assert stats["executor_sync_count"] == len(reqs)
+    assert eng.kv.table.in_use == 0
+    with torch.inference_mode():
+        for p, r in zip(prompts, reqs):
+            toks = r.result(0)
+            assert len(toks) == 12
+            seq = np.concatenate([p, toks[:-1]])
+            pos = torch.arange(len(seq), dtype=torch.int32,
+                               device="cuda")[None]
+            x = dec.embed(torch.from_numpy(seq).cuda()[None], pos)
+            for qkv, merge in dec.layers:
+                q, k, v = qkv(x, pos)
+                x = merge(x, A.dense_attention(q, k, v, is_causal=True))
+            logits = dec.unembed(x)[0, len(p) - 1:].float()
+            got = logits.gather(
+                1, torch.from_numpy(toks.astype(np.int64)).cuda()[:, None])
+            assert float((logits.max(1).values - got[:, 0]).max()) <= 0.125

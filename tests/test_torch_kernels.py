@@ -213,10 +213,14 @@ def test_cpu_tensors_take_the_plain_version_without_launching():
     x, w1, b1, w2, b2 = (_t(a).requires_grad_()
                          for a in _ffn_inputs(14, t=16, h=16, f=32))
     TF.fused_ffn(x, w1, b1, w2, b2).sum().backward()
+    pages = _t(np.random.RandomState(15).randn(4, 8, 2, 16).astype("f4"))
+    TA.paged_attention(q[:, :1].detach(), pages, pages,
+                       torch.tensor([[1, 2]], dtype=torch.int32),
+                       torch.tensor([12], dtype=torch.int32))
     assert all(t.grad is not None for t in (q, k, v, x, w1, b1, w2, b2))
     assert {n: c.value for n, c in COUNTERS.items()} == {
         "flash_fwd": 0, "flash_bwd_dkv": 0, "flash_bwd_dq": 0,
-        "ffn_fwd": 0, "ffn_bwd_dw": 0, "ffn_bwd_dx": 0}
+        "ffn_fwd": 0, "ffn_bwd_dw": 0, "ffn_bwd_dx": 0, "ragged_paged": 0}
 
 
 def test_build_without_nvcc_raises(tmp_path, monkeypatch):
@@ -238,7 +242,7 @@ class _NoCudaPath(type(build.CSRC)):
 
 def test_kernel_sources_are_present():
     assert {p.stem for p in build.CSRC.glob("*.cu")} == {
-        "flash_fwd", "flash_bwd", "ffn_fwd", "ffn_bwd"}
+        "flash_fwd", "flash_bwd", "ffn_fwd", "ffn_bwd", "ragged_paged"}
 
 
 def test_launch_counter_loses_no_update_across_threads():
