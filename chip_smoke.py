@@ -14,12 +14,19 @@ Phases, in order (any failure exits non-zero and prints no result):
               plain version on the card at the paths' shapes (stated
               tolerances), timed beside its plain version, a PyTorch
               library call computing the same function, and its bound
-  4. slice    BertModel(BertConfig.base()) in bf16 with seeded weights,
+  4. probe    the layout probe (paddle_tpu_torch.tools.kernel4d_probe) at
+              its defaults, B=8, S=512, H=12, D=64: the three layout kernels
+              (4d, fold3d, merged) checked against its reference and timed
+              in CUDA-graph chains beside flash_fwd and SDPA; exact launch
+              counts; then each of the three vs its plain version at
+              (8,512,12,64), (2,200,12,64) and (4,512,6,128), 4d and fold3d
+              bit for bit alike, and each timed alone at the tool's shape
+  5. slice    BertModel(BertConfig.base()) in bf16 with seeded weights,
               served through serving.Engine(max_batch_size=32) to
               requests of 1-16 rows at S=512 from several client threads;
               every response finite and equal to a direct forward of the
               same rows; each forward kernel launched 12 times per call
-  5. decode   BertForPretraining(BertConfig.base()) in bf16 with seeded
+  6. decode   BertForPretraining(BertConfig.base()) in bf16 with seeded
               weights as a causal LayeredDecoder (bert_decoder below)
               through serving.AutoregressiveEngine: 16 slots, 513 pages
               of 16 tokens, prompt buckets 64/128/256, chunk 256.  Part A:
@@ -33,16 +40,16 @@ Phases, in order (any failure exits non-zero and prints no result):
               of a dense causal forward of its prefix (teacher forcing),
               every page freed, one device->host sync per retirement, and
               exact launch counts of every kernel
-  6. train    build_pretrain_step on BertForPretraining(BertConfig.base())
+  7. train    build_pretrain_step on BertForPretraining(BertConfig.base())
               (fp32 masters, bf16 forward, dropout 0.1, AdamW lr 1e-4) at
               B=32, S=512, 76 masked positions: 1 warm-up and 5 timed
               steps on one batch; finite falling loss, finite moments (no
               NaN gradient), each of the six training kernels launched 12
               times a step; step ms, tokens/s, MFU, kernel shares, peak
               memory
-  7. profile  one more train step under torch.profiler: device time by
+  8. profile  one more train step under torch.profiler: device time by
               kernel and the device's idle share
-  8. check    the same model at base width, 2 layers, on the card (bf16)
+  9. check    the same model at base width, 2 layers, on the card (bf16)
               against the plain path on the CPU (f32)
 
 The last two lines of stdout are a {"kernels": [...]} summary and the
@@ -69,10 +76,12 @@ from paddle_tpu_torch.nn.layer.transformer import _dense_ffn_block
 from paddle_tpu_torch.ops.kernels import COUNTERS, build
 from paddle_tpu_torch.ops.kernels import attention as A
 from paddle_tpu_torch.ops.kernels import ffn as F
+from paddle_tpu_torch.ops.kernels import probe as P
 from paddle_tpu_torch.serving import (AutoregressiveEngine, Engine,
                                       EngineConfig, LayeredDecoder,
                                       latency_stats, mean_occupancy,
                                       reset_latency)
+from paddle_tpu_torch.tools import kernel4d_probe as K4
 
 # published H100 SXM peaks (dense): bf16 tensor cores, HBM3
 PEAK_BF16_FLOPS = 989e12
@@ -118,6 +127,7 @@ TRAIN_LR = 1e-4
 FORWARD_KERNELS = ("flash_fwd", "ffn_fwd")
 TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq", "ffn_fwd",
                  "ffn_bwd_dw", "ffn_bwd_dx")
+PROBE_KERNELS = ("probe_4d", "probe_fold3d", "probe_merged")
 # the decode configuration: pages, slots, buckets (the pool is 12 x 513
 # x 16 x 768 x 2 B x 2, about 303 MB)
 PAGE_SIZE, NUM_PAGES, SLOTS, ROW_PAGES = 16, 513, 16, 32
@@ -164,21 +174,16 @@ def time_cycle(fn, args, rounds=4, graph=True):
     """ms of one fn(a) call, cycling through `args` in turn: the 12
     layers' weights or KV pools, whose working set is past the 50 MB L2
     as in a decode step, where each layer finds its own operands cold.
-    With `graph`, one cycle is captured in a CUDA graph and replayed, so
-    the time is the device's alone: at the decode shapes a kernel is
-    shorter than the host's dispatch of its Python wrapper, and timing
-    the eager loop would time the host."""
-    for a in args:
-        fn(a)
-    torch.cuda.synchronize()
+    With `graph`, one cycle is captured in a CUDA graph and replayed
+    (the least of `rounds` replays, `K4.graphs_ms`), so the time is the
+    device's alone: at the decode shapes a kernel is shorter than the
+    host's dispatch of its Python wrapper, and timing the eager loop
+    would time the host."""
     run = lambda: [fn(a) for a in args]
     if graph:
-        g = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(g, capture_error_mode="relaxed"):
-            run()
-        run = g.replay
-        run()
-        torch.cuda.synchronize()
+        return K4.graphs_ms({0: run}, len(args), replays=rounds)[0]
+    run()
+    torch.cuda.synchronize()
     e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     e0.record()
     for _ in range(rounds):
@@ -541,15 +546,18 @@ def _flash_backward_rows(g):
         q, k, v, bias, seed, out, lse, gr, False, 0, scale, 0.1), iters=2,
         warmup=1)
     # the library yardstick: SDPA's backward with a bool key mask (no
-    # dropout), as (forward + backward) - forward
+    # dropout), as (forward + backward) - forward, both by CUDA graph
+    # replay: an eager loop would time the host's dispatch, which varies
+    # between calls
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
                   for x in (q, k, v))
     gt = gr.transpose(1, 2)
     keep = (bias == 0)[:, None, None, :]
-    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+    sdpa = lambda _: torch.nn.functional.scaled_dot_product_attention(
         qt, kt, vt, attn_mask=keep)
-    fwd_ms = time_ms(sdpa)
-    both_ms = time_ms(lambda: torch.autograd.grad(sdpa(), (qt, kt, vt), gt))
+    fwd_ms = time_cycle(sdpa, range(2))
+    both_ms = time_cycle(
+        lambda _: torch.autograd.grad(sdpa(_), (qt, kt, vt), gt), range(2))
     library_ms = both_ms - fwd_ms
     b, s = q.shape[0], q.shape[1]
     qkv_bytes = b * s * h * d * 2
@@ -608,12 +616,14 @@ def _ffn_backward_rows(g):
     plain_ms = time_ms(lambda: F.ffn_backward_reference(
         x, w1, b1, w2, b2, seed, gr, "gelu", 0.1), iters=2, warmup=1)
     # the library yardstick: the cuBLAS addmm -> gelu -> addmm arm's
-    # backward (no dropout), as (forward + backward) - forward
+    # backward (no dropout), as (forward + backward) - forward, both by
+    # CUDA graph replay
     leaves = [a.detach().requires_grad_() for a in (x, w1, b1, w2, b2)]
-    arm = lambda: torch.addmm(leaves[4], torch.nn.functional.gelu(
+    arm = lambda _: torch.addmm(leaves[4], torch.nn.functional.gelu(
         torch.addmm(leaves[2], leaves[0], leaves[1])), leaves[3])
-    fwd_ms = time_ms(arm)
-    both_ms = time_ms(lambda: torch.autograd.grad(arm(), leaves, gr))
+    fwd_ms = time_cycle(arm, range(2))
+    both_ms = time_cycle(
+        lambda _: torch.autograd.grad(arm(_), leaves, gr), range(2))
     library_ms = both_ms - fwd_ms
     t = x.shape[0]
     product = 2 * t * hid * ff
@@ -639,6 +649,104 @@ def _ffn_backward_rows(g):
                   f"gelu, dropout 0.1", flops=flops, bytes=nbytes,
             tolerance=f"GRAD_FRAC {GRAD_FRAC}"))
     return rows
+
+
+@phase("probe")
+def probe():
+    """The layout probe's main path, then each probe kernel against its
+    plain version and timed alone; returns (rows, launches)."""
+    for c in COUNTERS.values():
+        c.reset()
+    # -- the main path: counters at 0 before, read right after --------------
+    result = K4.run()
+    launches = {n: c.value for n, c in COUNTERS.items()}
+    # ------------------------------------------------------------------------
+    log("kernel4d_probe (python -m paddle_tpu_torch.tools.kernel4d_probe):")
+    log(json.dumps(result))
+    if not result["ok"]:
+        raise AssertionError(f"the probe failed: builds {result['builds']}, "
+                             f"max_err {result['max_err']}")
+    want = {n: 0 for n in COUNTERS}
+    want.update({n: 1 + 2 * K4.UNROLL for n in PROBE_KERNELS},
+                flash_fwd=2 * K4.UNROLL)
+    log(f"kernel launches on the main path: {launches}")
+    if launches != want:
+        raise AssertionError(f"launches {launches} != {want}")
+
+    g = torch.Generator().manual_seed(1)
+    worst = {n: 0.0 for n in PROBE_KERNELS}
+    for b, s, h, d in [(8, SEQ, 12, 64), (2, 200, 12, 64), (4, SEQ, 6, 128)]:
+        q, k, v = (_rand(g, b, s, h, d) for _ in range(3))
+        q3, k3, v3 = (x.view(b, s, h * d) for x in (q, k, v))
+        qm, km, vm = (P.merge_heads(x) for x in (q, k, v))
+        got = {"probe_4d": P.probe_4d(q, k, v),
+               "probe_fold3d": P.probe_fold3d(q3, k3, v3, h),
+               "probe_merged": P.probe_merged(qm, km, vm)}
+        torch.cuda.synchronize()
+        want_o = {"probe_4d": P.probe_4d_reference(q, k, v),
+                  "probe_fold3d": P.probe_fold3d_reference(q3, k3, v3, h),
+                  "probe_merged": P.probe_merged_reference(qm, km, vm)}
+        checks = {n: close(got[n], want_o[n], **BF16_TOL) for n in got}
+        same = torch.equal(got["probe_4d"], got["probe_fold3d"].view(
+            b, s, h, d))
+        for n, (_, err) in checks.items():
+            worst[n] = max(worst[n], err)
+        log(f"probe B={b} S={s} H={h} D={d}: "
+            + " ".join(f"{n} err {c[1]:.3g}" for n, c in checks.items())
+            + f"; 4d and fold3d bit for bit alike: {same}")
+        if not (all(c[0] for c in checks.values()) and same):
+            raise AssertionError(f"a probe kernel disagrees at B={b} S={s} "
+                                 f"H={h} D={d}")
+
+    # each kernel alone at the tool's shape, cycling 4 input sets (100 MB,
+    # past the 50 MB L2), by CUDA graph replay in turns with SDPA on the
+    # same operands
+    b, s, h, d = 8, SEQ, 12, 64
+    sets = [tuple(_rand(g, b, s, h, d, scale=0.3) for _ in range(3))
+            for _ in range(4)]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    to3 = lambda a: tuple(x.view(b, s, h * d) for x in a)
+    merged = [tuple(P.merge_heads(x) for x in a) for a in sets]
+    cycle = lambda fn, args: lambda: [fn(a) for a in args]
+    graphs = {
+        "probe_4d": cycle(lambda a: P.probe_4d(*a), sets),
+        "probe_fold3d": cycle(lambda a: P.probe_fold3d(*a, h),
+                              [to3(a) for a in sets]),
+        "probe_merged": cycle(lambda a: P.probe_merged(*a), merged),
+        "sdpa": cycle(lambda a: sdpa(*(x.transpose(1, 2) for x in a)),
+                      sets),
+        # (B*H, 1, S, D): SDPA's fused kernels take 4-D operands only
+        "sdpa_merged": cycle(lambda a: sdpa(*(x[:, None] for x in a)),
+                             merged)}
+    ms = K4.graphs_ms(graphs, len(sets))
+    plain = {"probe_4d": lambda: P.probe_4d_reference(*sets[0]),
+             "probe_fold3d": lambda: P.probe_fold3d_reference(
+                 *to3(sets[0]), h),
+             "probe_merged": lambda: P.probe_merged_reference(*merged[0])}
+    flops = 4 * b * h * s * s * d
+    nbytes = 4 * b * s * h * d * 2
+    bound_ms, bound_by = bound(flops, nbytes)
+    rows = []
+    for name, line, arm, shape in (
+            ("probe_4d", "29", "4d", f"q/k/v ({b},{s},{h},{d}) bf16"),
+            ("probe_fold3d", "78", "fold3d", f"q/k/v ({b},{s},{h * d}) bf16"),
+            ("probe_merged", "140", "merged",
+             f"q/k/v ({b * h},{s},{d}) bf16")):
+        rows.append(dict(
+            name=name, route="cuda", source="paddle_tpu_torch/csrc/probe4d.cu",
+            replaces=f"tools/kernel4d_probe.py:{line}",
+            max_abs_err=worst[name], ms=ms[name],
+            plain_ms=time_ms(plain[name], iters=3, warmup=1),
+            bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=ms["sdpa_merged" if arm == "merged" else "sdpa"],
+            chain_ms=result[K4.ARM_CHAINS[arm]],
+            shape=shape, flops=flops, bytes=nbytes, tolerance=BF16_TOL))
+    for r in rows:
+        log(f"{r['name']}: {r['ms']:.4f} ms alone, {r['chain_ms']:.4f} ms a "
+            f"call in the tool's chain (plain {r['plain_ms']:.4f}, SDPA "
+            f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} "
+            f"{r['bound_by']}) at {r['shape']}")
+    return rows, launches
 
 
 def _request_batches(cfg, n, seed):
@@ -1160,6 +1268,7 @@ def main():
         sys.exit(1)
     build_kernels()
     rows = kernels()
+    probed = probe()
     kernel_ms = {r["name"]: r["ms"] for r in rows or []}
     served = serve_slice(kernel_ms)
     decoded = decode({r["name"]: r for r in rows or []})
@@ -1167,20 +1276,22 @@ def main():
     if trained is not None:
         profile(trained[1])
     reference_check()
-    if FAILURES or rows is None or served is None or decoded is None \
-            or trained is None:
+    if FAILURES or None in (rows, probed, served, decoded, trained):
         log(f"FAILED phases: {FAILURES}")
         sys.exit(1)
+    rows += probed[0]
+    paths = {"serving": served, "decode": decoded, "train": trained[0],
+             "probe": probed[1]}
     for r in rows:
         # `launches` is the count on the path where the kernel runs: the
-        # decode path for ragged_paged, the train step for the others; the
-        # other paths' counts stand beside it
+        # probe for its three kernels, the decode path for ragged_paged,
+        # the train step for the others; the other paths' counts stand
+        # beside it
         name = r["name"]
-        r["launches"] = decoded[name] if name not in TRAIN_KERNELS \
-            else trained[0][name]
-        r["launches_by_path"] = {"serving": served[name],
-                                 "decode": decoded[name],
-                                 "train": trained[0][name]}
+        path = "probe" if name in PROBE_KERNELS else \
+            "train" if name in TRAIN_KERNELS else "decode"
+        r["launches"] = paths[path][name]
+        r["launches_by_path"] = {p: n[name] for p, n in paths.items()}
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

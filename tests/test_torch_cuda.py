@@ -5,7 +5,8 @@ ragged and strided inputs, the ragged paged-attention kernel at the
 decode path's shapes (length-0 lanes, exact page multiples, chunk
 positions, every head dim and several page sizes), the shapes and types
 the wrappers refuse, tiny BERT served on the card, decoded on the card
-through AutoregressiveEngine, and its train step on the card.  These
+through AutoregressiveEngine, its train step on the card, and the three
+layout-probe kernels (4d, fold3d, merged) at the probe tool's shape.  These
 need an NVIDIA GPU with nvcc; the `cuda` fixture skips them, with a
 reason, where there is none.  Run them on the card with
 
@@ -25,6 +26,7 @@ from paddle_tpu_torch.nn import functional as Fn
 from paddle_tpu_torch.ops.kernels import COUNTERS
 from paddle_tpu_torch.ops.kernels import attention as A
 from paddle_tpu_torch.ops.kernels import ffn as F
+from paddle_tpu_torch.ops.kernels import probe as P
 from paddle_tpu_torch.serving import Engine, EngineConfig
 
 # bf16 outputs: kernel and plain version round the same f32 math to bf16
@@ -42,6 +44,9 @@ GRAD_FRAC = 2 ** -6
 GRAD_FLOOR = 2 ** -16
 # f32 log-sum-exp: summation order only
 LSE = dict(atol=1e-4, rtol=1e-5)
+# the kernels a train step launches, once per layer each
+TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq", "ffn_fwd",
+                 "ffn_bwd_dw", "ffn_bwd_dx")
 
 
 @pytest.fixture
@@ -202,7 +207,8 @@ def test_each_launch_is_counted_once(cuda):
                              lens[:, None] - 1, 0.125)
     assert {n: c.value for n, c in COUNTERS.items()} == {
         "flash_fwd": 2, "flash_bwd_dkv": 0, "flash_bwd_dq": 0,
-        "ffn_fwd": 1, "ffn_bwd_dw": 0, "ffn_bwd_dx": 0, "ragged_paged": 1}
+        "ffn_fwd": 1, "ffn_bwd_dw": 0, "ffn_bwd_dx": 0, "ragged_paged": 1,
+        "probe_4d": 0, "probe_fold3d": 0, "probe_merged": 0}
 
 
 # -- backward kernels -----------------------------------------------------------
@@ -283,7 +289,7 @@ def test_autograd_launches_each_backward_kernel_once(cuda):
     assert all(t.grad is not None and torch.isfinite(t.grad.float()).all()
                for t in (q, k, v, x, *ws))
     assert {n: c.value for n, c in COUNTERS.items()} == {
-        n: int(n != "ragged_paged") for n in COUNTERS}
+        n: int(n in TRAIN_KERNELS) for n in COUNTERS}
 
 
 def test_dropout_draws_on_the_card_from_a_host_generator(cuda):
@@ -366,7 +372,7 @@ def test_tiny_bert_train_steps_on_the_card(cuda):
         losses.append(float(loss))
     assert all(np.isfinite(losses)) and losses[-1] < losses[0]
     assert {n: c.value for n, c in COUNTERS.items()} == {
-        n: 0 if n == "ragged_paged" else 3 * cfg.num_hidden_layers
+        n: 3 * cfg.num_hidden_layers if n in TRAIN_KERNELS else 0
         for n in COUNTERS}
     assert all(torch.isfinite(m).all() for m in state["m"].values())
 
@@ -520,3 +526,94 @@ def test_tiny_bert_decodes_on_the_card(cuda):
             got = logits.gather(
                 1, torch.from_numpy(toks.astype(np.int64)).cuda()[:, None])
             assert float((logits.max(1).values - got[:, 0]).max()) <= 0.125
+
+
+# -- the layout-probe kernels ------------------------------------------------------
+
+def _probe_all(q, k, v):
+    """(kernel, plain) outputs of the three probe kernels on q/k/v
+    (B, S, H, D), the fold3d and merged ones as (B, S, H, D)."""
+    b, s, h, d = q.shape
+    to3 = lambda x: x.reshape(b, s, h * d)
+    m = P.merge_heads
+    un = lambda x: P.unmerge_heads(x, h)
+    return {
+        "4d": (P.probe_4d(q, k, v), P.probe_4d_reference(q, k, v)),
+        "fold3d": (P.probe_fold3d(to3(q), to3(k), to3(v), h).view(q.shape),
+                   P.probe_fold3d_reference(to3(q), to3(k), to3(v),
+                                            h).view(q.shape)),
+        "merged": (un(P.probe_merged(m(q), m(k), m(v))),
+                   un(P.probe_merged_reference(m(q), m(k), m(v))))}
+
+
+@pytest.mark.parametrize("shape", [(8, 512, 12, 64), (2, 200, 12, 64),
+                                   (2, 130, 3, 128), (3, 1, 2, 64),
+                                   (2, 768, 2, 16), (1, 96, 4, 32)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_probe_kernels_match_plain(cuda, shape):
+    """The tool's shape, ragged S (200, 130, 96), D=128, S=1, the
+    longest S the kernels take, and every head dim.  Unit-scale inputs,
+    so the softmax is far from uniform and a wrong scale shows."""
+    q, k, v = (_bf16(cuda, *shape) for _ in range(3))
+    outs = _probe_all(q, k, v)
+    for got, want in outs.values():
+        assert torch.isfinite(got.float()).all()
+        _close(got, want, BF16)
+    assert torch.equal(outs["4d"][0], outs["fold3d"][0])
+
+
+def test_probe_4d_reads_a_packed_projection_in_place(cuda):
+    """q/k/v as views of one packed (B, S, 3, H, D) projection."""
+    qkv = _bf16(cuda, 2, 200, 3, 4, 64)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    assert not q.is_contiguous()
+    _close(P.probe_4d(q, k, v), P.probe_4d_reference(q, k, v), BF16)
+    torch.testing.assert_close(
+        P.probe_4d(q, k, v),
+        P.probe_4d(q.contiguous(), k.contiguous(), v.contiguous()),
+        atol=0, rtol=0)
+
+
+def test_probe_kernels_refuse_what_they_cannot_compute(cuda):
+    q = _bf16(cuda, 1, P.MAX_SEQ + 1, 2, 64)
+    with pytest.raises(NotImplementedError, match="S <="):
+        P.probe_4d(q, q, q)
+    with pytest.raises(NotImplementedError, match="S <="):
+        P.probe_merged(*(P.merge_heads(q),) * 3)
+    h = torch.randn(1, 16, 2, 64, device="cuda", dtype=torch.float16)
+    with pytest.raises(NotImplementedError, match="bf16"):
+        P.probe_4d(h, h, h)
+    with pytest.raises(NotImplementedError, match="bf16"):
+        P.probe_fold3d(*(h.view(1, 16, 128),) * 3, 2)
+    with pytest.raises(NotImplementedError, match="bf16"):
+        P.probe_merged(*(P.merge_heads(h),) * 3)
+    q48 = _bf16(cuda, 1, 16, 2, 48)
+    with pytest.raises(NotImplementedError, match="head_dim"):
+        P.probe_4d(q48, q48, q48)
+    q = _bf16(cuda, 1, 16, 2, 64)
+    odd = _bf16(cuda, 1, 16, 2, 68)[..., :64]  # rows 136 bytes apart
+    with pytest.raises(ValueError, match="in place"):
+        P.probe_4d(odd, q, q)
+
+
+def test_probe_launches_are_counted_once(cuda):
+    for c in COUNTERS.values():
+        c.reset()
+    q = _bf16(cuda, 1, 64, 2, 64)
+    _probe_all(q, q, q)
+    assert {n: c.value for n, c in COUNTERS.items()} == {
+        n: int(n.startswith("probe_")) for n in COUNTERS}
+
+
+def test_probe_tool_on_the_card(cuda):
+    """The tool at a small shape: every arm builds and agrees, and the
+    five chains are timed."""
+    from paddle_tpu_torch.tools import kernel4d_probe as K4
+
+    out = K4.run(2, 128, 2, 64)
+    assert out["mode"] == "gpu" and out["ok"] is True, out
+    assert out["builds"] == {"4d": True, "fold3d": True, "merged": True}
+    for key in ("per_call_ms_4d", "per_call_ms_fold3d",
+                "per_call_ms_merged_incl_transpose", "per_call_ms_flash_fwd",
+                "per_call_ms_sdpa", "per_call_ms_merge_copies"):
+        assert out[key] > 0

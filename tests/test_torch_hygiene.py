@@ -53,6 +53,7 @@ def test_no_jax_or_reference_import(path):
 def test_the_walk_sees_the_whole_package():
     names = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
     assert {"ops/kernels/attention.py", "ops/kernels/ffn.py",
+            "ops/kernels/probe.py", "tools/kernel4d_probe.py",
             "serving/engine.py", "serving/kv_cache.py", "models/bert.py",
             "convert.py", "jit.py"} <= names
 
@@ -71,7 +72,7 @@ def test_importing_the_port_loads_no_jax():
             "import paddle_tpu_torch, paddle_tpu_torch.serving, "
             "paddle_tpu_torch.models.bert, paddle_tpu_torch.convert, "
             "paddle_tpu_torch.nn, paddle_tpu_torch.obs, "
-            "paddle_tpu_torch.jit\n"
+            "paddle_tpu_torch.jit, paddle_tpu_torch.tools.kernel4d_probe\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu'))\n"
             "print(bad)\n")

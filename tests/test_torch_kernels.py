@@ -220,7 +220,8 @@ def test_cpu_tensors_take_the_plain_version_without_launching():
     assert all(t.grad is not None for t in (q, k, v, x, w1, b1, w2, b2))
     assert {n: c.value for n, c in COUNTERS.items()} == {
         "flash_fwd": 0, "flash_bwd_dkv": 0, "flash_bwd_dq": 0,
-        "ffn_fwd": 0, "ffn_bwd_dw": 0, "ffn_bwd_dx": 0, "ragged_paged": 0}
+        "ffn_fwd": 0, "ffn_bwd_dw": 0, "ffn_bwd_dx": 0, "ragged_paged": 0,
+        "probe_4d": 0, "probe_fold3d": 0, "probe_merged": 0}
 
 
 def test_build_without_nvcc_raises(tmp_path, monkeypatch):
@@ -242,7 +243,8 @@ class _NoCudaPath(type(build.CSRC)):
 
 def test_kernel_sources_are_present():
     assert {p.stem for p in build.CSRC.glob("*.cu")} == {
-        "flash_fwd", "flash_bwd", "ffn_fwd", "ffn_bwd", "ragged_paged"}
+        "flash_fwd", "flash_bwd", "ffn_fwd", "ffn_bwd", "ragged_paged",
+        "probe4d"}
 
 
 def test_launch_counter_loses_no_update_across_threads():
