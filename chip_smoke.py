@@ -13,7 +13,13 @@ Phases, in order (any failure exits non-zero and prints no result):
               forward, dW and dx backward; ragged paged attention) vs its
               plain version on the card at the paths' shapes (stated
               tolerances), timed beside its plain version, a PyTorch
-              library call computing the same function, and its bound
+              library call computing the same function, and its bound;
+              the FFN forward also over T = 16 (12 layers' weights
+              cycling cold), 64, 256, 512, 4096 and 16384 tokens, each
+              point checked, run twice for the same bits and graph-timed
+              in turns with the cuBLAS arm, beside its bound and plan; the
+              dW and dx rows each beside the arm's calls that compute
+              their own outputs
   4. probe    the layout probe (paddle_tpu_torch.tools.kernel4d_probe) at
               its defaults, B=8, S=512, H=12, D=64: the three layout kernels
               (4d, fold3d, merged) checked against its reference and timed
@@ -132,6 +138,8 @@ PROBE_KERNELS = ("probe_4d", "probe_fold3d", "probe_merged")
 # x 16 x 768 x 2 B x 2, about 303 MB)
 PAGE_SIZE, NUM_PAGES, SLOTS, ROW_PAGES = 16, 513, 16, 32
 PROMPT_BUCKETS, PREFILL_CHUNK = (64, 128, 256), 256
+# token counts of the ffn_fwd sweep beside the decode step's 16
+FWD_SWEEP = (64, 256, 512, 4096, 32 * SEQ)
 TIMED_STEPS, PROFILED_STEPS = 32, 8
 FAILURES = []
 
@@ -348,6 +356,7 @@ def kernels():
         flops=flops, bytes=nbytes, tolerance=BF16_TOL))
     rows[-1].update(_ffn_decode_shape(g, hid, ff))
     del x, w1, b1, w2, b2, out, ref
+    rows[-1]["sweep"] = _ffn_fwd_sweep(g, hid, ff, rows[-1])
     torch.cuda.empty_cache()
     rows.append(_ragged_row(g))
     torch.cuda.empty_cache()
@@ -385,6 +394,54 @@ def _ffn_decode_shape(g, hid, ff):
         f"{bound_by}; err {err:.3g}")
     return dict(decode_t16_ms=ms, decode_t16_library_ms=lib_ms,
                 decode_t16_bound_ms=bound_ms)
+
+
+def _ffn_fwd_sweep(g, hid, ff, row):
+    """ffn_fwd against the cuBLAS addmm -> gelu -> addmm arm over token
+    counts: each point checked against the plain version, run twice for
+    the same bits (the fixed-order split reduce), and graph-timed in turns
+    with the arm, beside its bound and the kernel's plan (token tile,
+    d_ff splits, column groups).  T=16 is the decode shape above, with 12
+    layers' weights cycling cold."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    w1, b1 = _rand(g, hid, ff, scale=0.03), _rand(g, ff, scale=0.1)
+    w2, b2 = _rand(g, ff, hid, scale=0.03), _rand(g, hid, scale=0.1)
+    points = [dict(t=SLOTS, ms=row["decode_t16_ms"],
+                   library_ms=row["decode_t16_library_ms"],
+                   bound_ms=row["decode_t16_bound_ms"], bound_by="bytes",
+                   weights_cold=True)]
+    for t in FWD_SWEEP:
+        x = _rand(g, t, hid)
+        out = F.ffn_forward(x, w1, b1, w2, b2, "gelu", 0.1, 5)
+        again = F.ffn_forward(x, w1, b1, w2, b2, "gelu", 0.1, 5)
+        ok, err = close(out, F.ffn_forward_reference(
+            x, w1, b1, w2, b2, "gelu", 0.1, 5), **BF16_TOL)
+        if not ok or not torch.equal(out, again):
+            raise AssertionError(f"ffn_fwd at T={t}: err {err}, same bits "
+                                 f"in two runs: {torch.equal(out, again)}")
+        calls = 8 if t <= 4096 else 2
+        times = K4.graphs_ms({
+            "kernel": lambda: [F.ffn_forward(x, w1, b1, w2, b2)
+                               for _ in range(calls)],
+            "arm": lambda: [torch.addmm(b2, torch.nn.functional.gelu(
+                torch.addmm(b1, x, w1)), w2) for _ in range(calls)]}, calls)
+        bound_ms, bound_by = bound(
+            4 * t * hid * ff, (2 * t * hid + 2 * hid * ff + ff + hid) * 2)
+        points.append(dict(t=t, ms=times["kernel"], library_ms=times["arm"],
+                           bound_ms=bound_ms, bound_by=bound_by,
+                           max_abs_err=err, weights_cold=False))
+        del x, out, again
+    for pt in points:
+        block_t, n_split = F._fwd_plan(pt["t"], hid, ff, sms)
+        pt["plan"] = dict(block_t=block_t, n_split=n_split,
+                          col_groups=F._fwd_groups(hid))
+        pt["ctas"] = (-(-pt["t"] // block_t) * n_split
+                      * pt["plan"]["col_groups"])
+        log(f"ffn_fwd sweep T={pt['t']}: {pt['ms']:.4f} ms, cuBLAS arm "
+            f"{pt['library_ms']:.4f} ms, bound {pt['bound_ms']:.4f} "
+            f"({pt['bound_by']}); plan {pt['plan']}, {pt['ctas']} CTAs"
+            + (" (weights cycling cold)" if pt["weights_cold"] else ""))
+    return points
 
 
 def _paged_inputs(g, lengths, t, qpos0=None, h=12, d=64, s=PAGE_SIZE,
@@ -615,16 +672,31 @@ def _ffn_backward_rows(g):
     dw_ms, dx_ms = time_ms(launch_dw), time_ms(launch_dx)
     plain_ms = time_ms(lambda: F.ffn_backward_reference(
         x, w1, b1, w2, b2, seed, gr, "gelu", 0.1), iters=2, warmup=1)
-    # the library yardstick: the cuBLAS addmm -> gelu -> addmm arm's
-    # backward (no dropout), as (forward + backward) - forward, both by
-    # CUDA graph replay
+    # the library yardsticks: the cuBLAS addmm -> gelu -> addmm arm's
+    # backward (no dropout).  Whole: (forward + backward) - forward, both
+    # by CUDA graph replay.  Each kernel's own: the arm's calls that
+    # compute that kernel's outputs (dW: pre, h, dh, dpre, dW1, dW2, db1;
+    # dx: pre, dh, dpre, dx), graph-timed in turns
     leaves = [a.detach().requires_grad_() for a in (x, w1, b1, w2, b2)]
     arm = lambda _: torch.addmm(leaves[4], torch.nn.functional.gelu(
         torch.addmm(leaves[2], leaves[0], leaves[1])), leaves[3])
     fwd_ms = time_cycle(arm, range(2))
     both_ms = time_cycle(
         lambda _: torch.autograd.grad(arm(_), leaves, gr), range(2))
-    library_ms = both_ms - fwd_ms
+    whole_ms = both_ms - fwd_ms
+    gelu_bw = torch.ops.aten.gelu_backward
+
+    def dw_arm():
+        pre = torch.addmm(b1, x, w1)
+        h = torch.nn.functional.gelu(pre)
+        dpre = gelu_bw(gr @ w2.t(), pre)
+        return x.t() @ dpre, h.t() @ gr, dpre.sum(0)
+
+    def dx_arm():
+        pre = torch.addmm(b1, x, w1)
+        return gelu_bw(gr @ w2.t(), pre) @ w1.t()
+
+    own_ms = K4.graphs_ms({"ffn_bwd_dw": dw_arm, "ffn_bwd_dx": dx_arm}, 1)
     t = x.shape[0]
     product = 2 * t * hid * ff
     act_bytes = t * hid * 2          # x, g or dx
@@ -643,8 +715,9 @@ def _ffn_backward_rows(g):
             name=name, route="cuda", source="paddle_tpu_torch/csrc/ffn_bwd.cu",
             replaces=f"paddle_tpu/ops/pallas/ffn.py:{line}",
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-            bound_by=bound_by, library_ms=library_ms,
-            plain_and_library_cover="dx, dW1, db1, dW2 and db2 together",
+            bound_by=bound_by, library_ms=own_ms[name],
+            library_whole_backward_ms=whole_ms,
+            plain_covers="dx, dW1, db1, dW2 and db2 together",
             shape=f"x/g ({t},{hid}) W1 ({hid},{ff}) W2 ({ff},{hid}) bf16, "
                   f"gelu, dropout 0.1", flops=flops, bytes=nbytes,
             tolerance=f"GRAD_FRAC {GRAD_FRAC}"))

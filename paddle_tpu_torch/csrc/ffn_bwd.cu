@@ -31,52 +31,70 @@
 // and dropout are applied to dh in registers, and only bf16 dpre goes
 // through shared memory.
 //
-// dW design (the hard part): the TPU held (H, 512) and (512, H) f32
-// accumulators in VMEM (3 MB at H=768) over a sequential token axis.  On
-// Hopper one CTA owning a 64-wide d_ff slice would need 2 x 768 x 64 x 4 =
-// 393 KB, and 3072 / 64 = 48 CTAs would not fill 132 SMs.  Here a CTA owns a
-// 16-wide d_ff slice and one of a few token splits: its dW1 (H, 16) and dW2
-// (16, H) slices sit in the registers of its 8 warps (12 fragments a warp
-// at H=768, 96 registers a thread) while it walks its split's 32-token
-// tiles.  Per tile the two (32, 16) recompute products (pre, dh) are
-// split over the 8 warps along H, summed through shared memory, and turned
-// into bf16 h and dpre tiles; then every warp adds its H/8 columns of both
-// weight gradients.  Each split writes f32 partials to a workspace and a
-// second small kernel sums the splits in a fixed order and casts to bf16:
-// no float atomics, so the result does not depend on scheduling.  At
-// BERT-base shapes: 192 slices x 2 splits = 384 CTAs, and a 38 MB f32
-// workspace written and read once.  The W1/W2 slices and the x/g tiles
-// take ~173 KB of shared memory at H=768: one CTA an SM.
+// dW design: the TPU held (H, 512) and (512, H) f32 accumulators in VMEM
+// (3 MB at H=768) over a sequential token axis.  Here a CTA owns a 16-wide
+// d_ff slice and one of a few token splits, and its dW1 (H, 16) and dW2
+// (16, H) slices stay in registers while it walks its split's 32-token
+// tiles: wgmma m64n16k16 tiles with M over H, 2 x H/64 of them, half in
+// each of two consumer warpgroups (96 registers a thread at H=768).  The
+// 384 threads get 168 registers each at launch, and ptxas kept the
+// consumers within that (setmaxnreg did not move it), which is what holds
+// the slice at 16 columns.  A producer thread loads the W1 slice (H x 16,
+// 32-byte swizzle, MN-major) and the W2 slice (16 x H, 128-byte swizzle,
+// K-major) once, then x and g tiles by TMA into a ring: a tile is two
+// stages of H/128 boxes, each box the tile's 32 x rows over its 32 g rows
+// (rows past T arrive as zeros).  Per tile:
+//   - recompute: consumer 0 multiplies the 64-row [x; g] boxes by the W1
+//     slice (rows 0-31 are pre), consumer 1 by the W2 slice^T (rows 32-63
+//     are dh): M=64 wgmma on 32 tokens, so half of each product is thrown
+//     away, the price of a ring that fits beside the slices;
+//   - the valid rows go to shared memory in f32; all 256 consumer threads
+//     add b1, apply act, act' and dropout, sum db1 in registers and write
+//     bf16 h and dpre as 32 x 16 tiles (32-byte swizzle, MN-major);
+//   - each consumer adds x^T dpre and g^T h over its half of H: A is the
+//     same x or g rows read M-major (transposed) from the box, B the tile.
+// Each split writes f32 partials to a workspace and a second small kernel
+// sums the splits in a fixed order and casts to bf16: no float atomics,
+// so the result does not depend on scheduling.  At BERT-base shapes: 192
+// slices x 2 splits = 384 CTAs (three nearly full waves), a 38 MB f32
+// workspace, and 207 KB of shared memory (slices 48 KB, three 48 KB
+// stages).  L2 traffic: every CTA reads its split's x and g, 192 x 50 MB
+// = 9.7 GB a call; a throwaway variant in which a cluster of four slices
+// shared each tile by TMA multicast cut that fourfold and ran slower on
+// the card (the four CTAs wait on each other's stages), so the tiles are
+// read per CTA.
 //
 // Bound on the H100: at BERT-base shapes (T = 16384, H = 768, F = 3072) the
 // dW pass does 4 and the dx pass 3 products of 2*T*H*F flops (309 and
 // 232 GFLOP) against ~60 MB of operands: compute-bound, 0.313 and 0.234 ms
-// at the bf16 tensor-core peak.  These simple kernels run WMMA (not wgmma),
-// do not overlap loads with math, and the dx pass recomputes both
-// products per tile; they are far from that bound.  Making them fast is
-// later work.
+// at the bf16 tensor-core peak.  The dW kernel's steps run one after
+// another within a tile (recompute, exchange, element math, products) and
+// the n16 products read two operand bytes from shared memory for every
+// 16 multiply-adds; the dx kernel still runs WMMA without overlapping
+// loads.  Both are far from the bound.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <mma.h>
 #include <stdint.h>
 
+#include "ffn_common.cuh"
+#include "hopper.cuh"
+
 using namespace nvcuda;
+using namespace ffn;
 typedef __nv_bfloat16 bf16;
 
 namespace {
 
 constexpr int BT = 32;   // token rows per tile (both kernels)
 constexpr int BF = 64;   // dx kernel: d_ff columns per step
-constexpr int BFW = 16;  // dW kernel: d_ff columns per CTA
+constexpr int BFW = 16;  // dW kernel: d_ff columns per CTA (384 threads)
 constexpr int WARPS = 8;
 constexpr int THREADS = WARPS * 32;
 
-enum { ACT_GELU = 0, ACT_GELU_TANH = 1, ACT_RELU = 2 };
-
 typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> Acc;
 typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> ARow;
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> ACol;
 typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> BRow;
 typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> BCol;
 
@@ -86,57 +104,6 @@ __host__ __device__ constexpr size_t align128(size_t x) {
 
 __host__ __device__ constexpr size_t cmax(size_t a, size_t b) {
   return a > b ? a : b;
-}
-
-// paddle_tpu/ops/pallas/ffn.py::_ffn_keep, bit for bit
-__device__ __forceinline__ uint32_t keep_hash(uint32_t seed, uint32_t r,
-                                              uint32_t c) {
-  uint32_t x = (r * 0x9E3779B1u) ^ (c * 0x85EBCA77u);
-  x ^= seed * 0x165667B1u;
-  x ^= x >> 16;
-  x *= 0x7FEB352Du;
-  x ^= x >> 15;
-  x *= 0x846CA68Bu;
-  x ^= x >> 16;
-  return x;
-}
-
-// paddle_tpu/ops/pallas/ffn.py::_erf (Abramowitz-Stegun 7.1.26)
-__device__ __forceinline__ float as_erf(float x) {
-  const float a1 = 0.254829592f, a2 = -0.284496736f, a3 = 1.421413741f;
-  const float a4 = -1.453152027f, a5 = 1.061405429f, p = 0.3275911f;
-  const float s = (float)((x > 0.f) - (x < 0.f));
-  const float ax = fabsf(x);
-  const float t = 1.0f / (1.0f + p * ax);
-  const float poly = t * (a1 + t * (a2 + t * (a3 + t * (a4 + t * a5))));
-  return s * (1.0f - poly * expf(-ax * ax));
-}
-
-template <int ACT>
-__device__ __forceinline__ float act(float h) {
-  if (ACT == ACT_GELU) return h * 0.5f * (1.0f + as_erf(h * 0.7071067811865476f));
-  if (ACT == ACT_GELU_TANH) {
-    const float c = 0.7978845608028654f;  // sqrt(2/pi)
-    return h * (0.5f * (1.0f + tanhf(c * (h + 0.044715f * (h * h * h)))));
-  }
-  return fmaxf(h, 0.f);
-}
-
-// paddle_tpu/ops/pallas/ffn.py::_act_grad
-template <int ACT>
-__device__ __forceinline__ float act_grad(float h) {
-  if (ACT == ACT_GELU) {
-    const float cdf = 0.5f * (1.0f + as_erf(h * 0.7071067811865476f));
-    const float pdf = 0.3989422804014327f * expf(-0.5f * h * h);
-    return cdf + h * pdf;
-  }
-  if (ACT == ACT_GELU_TANH) {
-    const float c = 0.7978845608028654f;
-    const float t = tanhf(c * (h + 0.044715f * (h * h * h)));
-    return 0.5f * (1.0f + t) +
-           0.5f * h * (1.0f - t * t) * c * (1.0f + 3.0f * 0.044715f * h * h);
-  }
-  return h > 0.f ? 1.f : 0.f;
 }
 
 // BT rows of a (T, H) bf16 matrix into shared memory (row stride ld);
@@ -304,164 +271,245 @@ ffn_bwd_dx_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
 
 // ---- dW ----------------------------------------------------------------------
 
+// A CTA owns the 16 d_ff columns [f0, f0 + 16) and one token split.
+// Shared memory: the W1 slice (H x 16, 32-byte-swizzled MN-major: the B
+// operand of pre), the W2 slice (16 x H, 128-byte-swizzled K-major: the B
+// operand of dh), a ring of token-tile stages, the pre/dh exchange and the
+// bf16 h and dpre tiles.  A 32-token tile is two stages; a stage holds
+// CH = H/128 boxes of 64 H-columns, each box 64 rows of 128 bytes: the
+// tile's 32 x rows, then its 32 g rows.
 template <int H>
-struct DwLayout {
-  static constexpr int LDX = H + 8;     // bf16 x and g tiles
-  static constexpr int LDW1 = BFW + 8;  // bf16 W1 slice (H rows)
-  static constexpr int LDW2 = H + 8;    // bf16 W2 slice (BFW rows)
-  static constexpr int LDT = BFW + 8;   // bf16 h and dpre tiles (BT rows)
-  static constexpr size_t X = 0;
-  static constexpr size_t G = align128(X + (size_t)BT * LDX * 2);
-  static constexpr size_t W1 = align128(G + (size_t)BT * LDX * 2);
-  static constexpr size_t W2 = align128(W1 + (size_t)H * LDW1 * 2);
-  static constexpr size_t PART = align128(W2 + (size_t)BFW * LDW2 * 2);
-  static constexpr size_t HT = align128(PART + (size_t)WARPS * 256 * 4);
-  static constexpr size_t DPT = align128(HT + (size_t)BT * LDT * 2);
-  static constexpr size_t DB1 = align128(DPT + (size_t)BT * LDT * 2);
-  static constexpr size_t BYTES = align128(DB1 + (size_t)THREADS * 4);
+struct DwPlan {
+  static constexpr int NBOX = H / 64;       // 64-column boxes of a tile
+  static constexpr int CH = NBOX / 2;       // boxes a stage holds
+  static constexpr int BOX = 64 * 128;      // 32 x rows + 32 g rows
+  static constexpr int STAGE = CH * BOX;
+  static constexpr int W1_BOX = H < 256 ? H : 256;  // TMA rows of the W1 slice
+  static constexpr int W_BYTES = H * BFW * 2;       // each slice
+  static constexpr int MISC = 2 * 32 * BFW * 4      // pre / dh exchange
+                              + 4 * 32 * BFW * 2    // h, dpre, double buffered
+                              + 256 * 4 + 1024;     // db1 reduce, barriers
+  static constexpr int NST_FIT =
+      (232448 - 1024 - 2 * W_BYTES - MISC) / STAGE;
+  static constexpr int NST = NST_FIT > 4 ? 4 : NST_FIT;
+  static constexpr int MT = NBOX / 2;       // 64-row M tiles of dW a consumer owns
+  static constexpr size_t W1 = 0;
+  static constexpr size_t W2 = W1 + W_BYTES;
+  static constexpr size_t RING = W2 + W_BYTES;
+  static constexpr size_t XP = RING + (size_t)NST * STAGE;  // f32 pre rows
+  static constexpr size_t XD = XP + 32 * BFW * 4;           // f32 dh rows
+  static constexpr size_t TH = XD + 32 * BFW * 4;           // bf16 h [2]
+  static constexpr size_t TD = TH + 2 * 32 * BFW * 2;       // bf16 dpre [2]
+  static constexpr size_t RED = TD + 2 * 32 * BFW * 2;      // db1 partials
+  static constexpr size_t BAR = RED + 256 * 4;
+  static constexpr size_t BYTES = BAR + (2 * NST + 1) * 8 + 1024;
+  static_assert(NST >= 2, "the ring holds a whole tile");
+  static_assert(BYTES <= 232448, "shared memory");
 };
 
-// grid (F / BFW, n_split); split s sums token tiles
+// element (t, n) of a 32 x 16 bf16 tile in the 32-byte-swizzled MN-major
+// layout that the dW products read as their B operand
+__device__ __forceinline__ int sw32(int t, int n) {
+  return t * 32 + (((n >> 3) ^ ((t >> 2) & 1)) << 4) + (n & 7) * 2;
+}
+
+// grid (F / 16, n_split); split s sums token tiles
 // [s * tiles_per_split, (s + 1) * tiles_per_split) into its own workspace
 // row ws[s] = [dW1 (H, F) | dW2 (F, H) | db1 (F)] in f32
 template <int H, int ACT>
-__global__ void __launch_bounds__(THREADS, 1)
-ffn_bwd_dw_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
-                  const bf16* __restrict__ w1, const bf16* __restrict__ b1,
-                  const bf16* __restrict__ w2, float* __restrict__ ws, int T,
+__global__ void __launch_bounds__(384, 1)
+ffn_bwd_dw_kernel(const __grid_constant__ CUtensorMap tm_x,
+                  const __grid_constant__ CUtensorMap tm_g,
+                  const __grid_constant__ CUtensorMap tm_w1,
+                  const __grid_constant__ CUtensorMap tm_w2,
+                  const bf16* __restrict__ b1, float* __restrict__ ws, int T,
                   int F, int tiles_per_split, uint32_t drop_thresh,
                   float inv_keep, uint32_t seed) {
-  using LT = DwLayout<H>;
-  constexpr int NJ = H / 128;  // 16-wide fragments per warp, each of dW1/dW2
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sX = reinterpret_cast<bf16*>(smem + LT::X);
-  bf16* sG = reinterpret_cast<bf16*>(smem + LT::G);
-  bf16* sW1 = reinterpret_cast<bf16*>(smem + LT::W1);
-  bf16* sW2 = reinterpret_cast<bf16*>(smem + LT::W2);
-  float* sPart = reinterpret_cast<float*>(smem + LT::PART);
-  bf16* sHT = reinterpret_cast<bf16*>(smem + LT::HT);
-  bf16* sDPT = reinterpret_cast<bf16*>(smem + LT::DPT);
-  float* sDB1 = reinterpret_cast<float*>(smem + LT::DB1);
+  using P = DwPlan<H>;
+  using namespace hopper;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* ring = smem + P::RING;
+  float* sP = reinterpret_cast<float*>(smem + P::XP);
+  float* sD = reinterpret_cast<float*>(smem + P::XD);
+  float* sRed = reinterpret_cast<float*>(smem + P::RED);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + P::BAR);
+  uint64_t* empty = full + P::NST;
+  uint64_t* wbar = empty + P::NST;
 
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
   const int f0 = blockIdx.x * BFW;
   const int split = blockIdx.y;
-  const int t_begin = split * tiles_per_split * BT;
-  const int t_end = min(T, t_begin + tiles_per_split * BT);
-  // recompute job of this warp: pre (kind 0) or dh (kind 1), row tile prt,
-  // half khalf of the contraction over H
-  const int kind = warp / 4, prt = (warp / 2) % 2, khalf = warp % 2;
-  const int hc0 = warp * (H / 8);  // this warp's H columns of dW1^T / dW2
+  const int n_tiles = (T + BT - 1) / BT;
+  const int i_begin = split * tiles_per_split;
+  const int i_end = min(n_tiles, i_begin + tiles_per_split);
 
-  for (int i = tid; i < H * (BFW / 8); i += THREADS) {
-    const int r = i / (BFW / 8), c = i % (BFW / 8);
-    *reinterpret_cast<uint4*>(sW1 + r * LT::LDW1 + c * 8) =
-        *reinterpret_cast<const uint4*>(w1 + (long long)r * F + f0 + c * 8);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < P::NST; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 8);  // each consumer warp
+    }
+    mbar_init(wbar, 1);
+    fence_barrier_init();
   }
-  for (int i = tid; i < BFW * (H / 8); i += THREADS) {
-    const int r = i / (H / 8), c = i % (H / 8);
-    *reinterpret_cast<uint4*>(sW2 + r * LT::LDW2 + c * 8) =
-        *reinterpret_cast<const uint4*>(w2 + (long long)(f0 + r) * H + c * 8);
-  }
+  __syncthreads();
 
-  Acc acc_w1[NJ], acc_w2[NJ];
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) {
-    wmma::fill_fragment(acc_w1[j], 0.f);
-    wmma::fill_fragment(acc_w2[j], 0.f);
-  }
-  float db1_acc = 0.f;  // column tid % 16 of the rows this thread visits
-
-  for (int t0 = t_begin; t0 < t_end; t0 += BT) {
-    __syncthreads();  // the previous tile is done with sX/sG/sHT/sDPT
-    load_rows<H>(sX, LT::LDX, x, t0, T);
-    load_rows<H>(sG, LT::LDX, g, t0, T);
-    __syncthreads();
-
-    // pre = x @ W1[:, slice] or dh = g @ W2[slice, :]^T: half of one
-    // 16x16 fragment per warp
-    {
-      Acc part;
-      wmma::fill_fragment(part, 0.f);
-      const bf16* a = (kind == 0 ? sX : sG) + prt * 16 * LT::LDX;
-      for (int kk = khalf * (H / 32); kk < (khalf + 1) * (H / 32); ++kk) {
-        ARow fa;
-        wmma::load_matrix_sync(fa, a + kk * 16, LT::LDX);
-        if (kind == 0) {
-          BRow fb;
-          wmma::load_matrix_sync(fb, sW1 + kk * 16 * LT::LDW1, LT::LDW1);
-          wmma::mma_sync(part, fa, fb, part);
-        } else {
-          BCol fb;
-          wmma::load_matrix_sync(fb, sW2 + kk * 16, LT::LDW2);
-          wmma::mma_sync(part, fa, fb, part);
+  const int wg = warpgroup_index();
+  if (wg == 0) {
+    // ---- producer: the two weight slices once, then x/g tiles ------------
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(wbar, 2 * P::W_BYTES);
+      for (int r = 0; r < H; r += P::W1_BOX)
+        tma_load_2d(smem + P::W1 + r * 32, &tm_w1, wbar, f0, r);
+      for (int b = 0; b < P::NBOX; ++b)
+        tma_load_2d(smem + P::W2 + b * BFW * 128, &tm_w2, wbar, b * 64, f0);
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int i = i_begin; i < i_end; ++i) {
+        for (int half = 0; half < 2; ++half) {
+          mbar_wait(&empty[stage], phase ^ 1);
+          mbar_expect_tx(&full[stage], P::STAGE);
+          unsigned char* st = ring + stage * P::STAGE;
+          for (int b = 0; b < P::CH; ++b) {
+            const int col = (half * P::CH + b) * 64;
+            tma_load_2d(st + b * P::BOX, &tm_x, &full[stage], col, i * BT);
+            tma_load_2d(st + b * P::BOX + 32 * 128, &tm_g, &full[stage], col,
+                        i * BT);
+          }
+          if (++stage == P::NST) { stage = 0; phase ^= 1; }
         }
       }
-      wmma::store_matrix_sync(sPart + warp * 256, part, 16,
-                              wmma::mem_row_major);
     }
-    __syncthreads();
-
-    // bias, activation, dropout, act': the (BT, BFW) h and dpre tiles
-    for (int e = tid; e < BT * BFW; e += THREADS) {
-      const int r = e / BFW, c = e % BFW;
-      const int o = (r / 16) * 2 * 256 + (r % 16) * 16 + c;
-      const float pv = sPart[o] + sPart[o + 256] +
-                       __bfloat162float(b1[f0 + c]);
-      float d = sPart[4 * 256 + o] + sPart[5 * 256 + o];
-      float hv = act<ACT>(pv);
-      if (drop_thresh != 0u) {
-        const bool keep = keep_hash(seed, (uint32_t)(t0 + r),
-                                    (uint32_t)(f0 + c)) >= drop_thresh;
-        hv = keep ? hv * inv_keep : 0.f;
-        d = keep ? d * inv_keep : 0.f;
+  } else {
+    // ---- consumers ----------------------------------------------------------
+    const int c = wg - 1;
+    const int tc = threadIdx.x - 128;   // 0..255 over both consumers
+    const int tw = tc % 128;
+    const int r0 = (tw / 32) * 16 + (tw % 32) / 4;  // accumulator rows r0, r0 + 8
+    const int cq = (tw % 4) * 2;
+    // acc[m][0]: dW1[64 (c*MT + m) + row, f0 + col]; acc[m][1]: dW2[f0 + col,
+    // 64 (c*MT + m) + row]
+    float acc[P::MT][2][8];
+    float db1_acc = 0.f;  // column tc % 16 of the tokens this thread visits
+    mbar_wait(wbar, 0);
+    const uint64_t dW1 = desc(smem + P::W1, 16, 256, SW32);
+    const uint64_t dW2 = desc(smem + P::W2, 16, 1024, SW128);
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int i = i_begin; i < i_end; ++i) {
+      // the tile's two stages
+      const int s0 = stage;
+      const uint32_t p0 = phase;
+      if (++stage == P::NST) { stage = 0; phase ^= 1; }
+      const int s1 = stage;
+      const uint32_t p1 = phase;
+      if (++stage == P::NST) { stage = 0; phase ^= 1; }
+      mbar_wait(&full[s0], p0);
+      mbar_wait(&full[s1], p1);
+      // recompute: rows 0-31 of [x; g] @ W1 slice are pre (consumer 0),
+      // rows 32-63 of [x; g] @ W2 slice^T are dh (consumer 1)
+      float rc[8];
+      wgmma_fence();
+#pragma unroll 4
+      for (int k = 0; k < H; k += 16) {
+        const int b = k / 64;
+        const unsigned char* box = ring + (b < P::CH ? s0 : s1) * P::STAGE +
+                                   (b % P::CH) * P::BOX + (k % 64) * 2;
+        const uint64_t da = desc(box, 16, 1024, SW128);
+        if (c == 0)
+          wgmma_n16<0, 1>(rc, da, dW1 + ((k * 32) >> 4), k > 0);
+        else
+          wgmma_n16<0, 0>(rc, da, dW2 + ((b * BFW * 128 + (k % 64) * 2) >> 4),
+                          k > 0);
       }
-      const float dpre = d * act_grad<ACT>(pv);
-      db1_acc += dpre;  // rows past T have g = 0, so dpre = 0
-      sHT[r * LT::LDT + c] = __float2bfloat16(hv);
-      sDPT[r * LT::LDT + c] = __float2bfloat16(dpre);
-    }
-    __syncthreads();
-
-    // dW2[slice, warp's H] += h^T g;  dW1[warp's H, slice] += x^T dpre
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs<8>(rc);
+      // the valid rows to the exchange: consumer 0 rows 0-31, 1 rows 32-63
+      if ((tw / 32) / 2 == c) {
+        float* dst = c == 0 ? sP : sD;
 #pragma unroll
-    for (int kk = 0; kk < BT / 16; ++kk) {
-      ACol fh;
-      BRow fdp;
-      wmma::load_matrix_sync(fh, sHT + kk * 16 * LT::LDT, LT::LDT);
-      wmma::load_matrix_sync(fdp, sDPT + kk * 16 * LT::LDT, LT::LDT);
+        for (int e = 0; e < 8; ++e) {
+          const int row = r0 + ((e / 2) % 2) * 8 - 32 * c;
+          dst[row * BFW + (e / 4) * 8 + cq + (e % 2)] = rc[e];
+        }
+      }
+      named_barrier(1, 256);
+      // bias, activation, dropout, act': bf16 h and dpre, two elements a thread
+      unsigned char* th = smem + P::TH + (i & 1) * 32 * BFW * 2;
+      unsigned char* td = smem + P::TD + (i & 1) * 32 * BFW * 2;
+      const int n = tc % BFW;
+      const float bias = __bfloat162float(b1[f0 + n]);
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int hc = hc0 + j * 16;
-        BRow fg;
-        wmma::load_matrix_sync(fg, sG + kk * 16 * LT::LDX + hc, LT::LDX);
-        wmma::mma_sync(acc_w2[j], fh, fg, acc_w2[j]);
-        ACol fx;
-        wmma::load_matrix_sync(fx, sX + kk * 16 * LT::LDX + hc, LT::LDX);
-        wmma::mma_sync(acc_w1[j], fx, fdp, acc_w1[j]);
+      for (int e = 0; e < 2; ++e) {
+        const int t = tc / BFW + 16 * e;
+        const float pv = sP[t * BFW + n] + bias;
+        float d = sD[t * BFW + n];
+        float hv = act<ACT>(pv);
+        if (drop_thresh != 0u) {
+          const bool keep = keep_hash(seed, (uint32_t)(i * BT + t),
+                                      (uint32_t)(f0 + n)) >= drop_thresh;
+          hv = keep ? hv * inv_keep : 0.f;
+          d = keep ? d * inv_keep : 0.f;
+        }
+        const float dpre = d * act_grad<ACT>(pv);
+        db1_acc += dpre;  // rows past T have x = g = 0, so dpre = 0
+        *reinterpret_cast<bf16*>(th + sw32(t, n)) = __float2bfloat16(hv);
+        *reinterpret_cast<bf16*>(td + sw32(t, n)) = __float2bfloat16(dpre);
+      }
+      fence_proxy_async();
+      named_barrier(1, 256);
+      // dW1[h, f] += x^T dpre and dW2[f, h]^T += g^T h over this consumer's
+      // MT boxes of H; A = the x or g rows of the box read M-major
+      const uint64_t dH = desc(th, 16, 256, SW32);
+      const uint64_t dDP = desc(td, 16, 256, SW32);
+      wgmma_fence();
+#pragma unroll
+      for (int m = 0; m < P::MT; ++m) {
+        const int b = c * P::MT + m;
+        const unsigned char* box =
+            ring + (b < P::CH ? s0 : s1) * P::STAGE + (b % P::CH) * P::BOX;
+#pragma unroll
+        for (int kk = 0; kk < BT / 16; ++kk) {
+          const int sc = i > i_begin || kk > 0;
+          wgmma_n16<1, 1>(acc[m][0], desc(box + kk * 2048, 16, 1024, SW128),
+                          dDP + ((kk * 512) >> 4), sc);
+          wgmma_n16<1, 1>(acc[m][1],
+                          desc(box + 32 * 128 + kk * 2048, 16, 1024, SW128),
+                          dH + ((kk * 512) >> 4), sc);
+        }
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      __syncwarp();
+      if (tw % 32 == 0) {
+        mbar_arrive(&empty[s0]);
+        mbar_arrive(&empty[s1]);
       }
     }
-  }
-
-  // this split's f32 partials, straight from the fragments
-  const long long HF = (long long)H * F;
-  float* wd1 = ws + (long long)split * (2 * HF + F);
-  float* wd2 = wd1 + HF;
 #pragma unroll
-  for (int j = 0; j < NJ; ++j) {
-    const int hc = hc0 + j * 16;
-    wmma::store_matrix_sync(wd1 + (long long)hc * F + f0, acc_w1[j], F,
-                            wmma::mem_row_major);
-    wmma::store_matrix_sync(wd2 + (long long)f0 * H + hc, acc_w2[j], H,
-                            wmma::mem_row_major);
-  }
-  sDB1[tid] = db1_acc;
-  __syncthreads();
-  if (tid < BFW) {
-    float s = 0.f;
-    for (int i = tid; i < THREADS; i += BFW) s += sDB1[i];
-    wd1[2 * HF + f0 + tid] = s;
+    for (int m = 0; m < P::MT; ++m) fence_regs<8>(acc[m][0]), fence_regs<8>(acc[m][1]);
+    // this split's f32 partials, straight from the accumulators
+    const long long HF = (long long)H * F;
+    float* wd1 = ws + (long long)split * (2 * HF + F);
+    float* wd2 = wd1 + HF;
+#pragma unroll
+    for (int m = 0; m < P::MT; ++m) {
+      const int hb = 64 * (c * P::MT + m);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int h = hb + r0 + ((e / 2) % 2) * 8;
+        const int f = f0 + (e / 4) * 8 + cq + (e % 2);
+        wd1[(long long)h * F + f] = acc[m][0][e];
+        wd2[(long long)f * H + h] = acc[m][1][e];
+      }
+    }
+    sRed[tc] = db1_acc;
+    named_barrier(1, 256);
+    if (tc < BFW) {
+      float s = 0.f;
+      for (int j = tc; j < 256; j += BFW) s += sRed[j];
+      wd1[2 * HF + f0 + tc] = s;
+    }
   }
 }
 
@@ -511,23 +559,35 @@ cudaError_t launch_dx(const Args& a, bf16* dx) {
 template <int H, int ACT>
 cudaError_t launch_dw(const Args& a, bf16* dw1, bf16* db1, bf16* dw2,
                       float* ws, int n_split) {
-  const size_t bytes = DwLayout<H>::BYTES;
-  cudaError_t err = cudaFuncSetAttribute(
-      ffn_bwd_dw_kernel<H, ACT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
-  if (err != cudaSuccess) return err;
+  using P = DwPlan<H>;
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(
+        ffn_bwd_dw_kernel<H, ACT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)P::BYTES);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  CUtensorMap mx, mg, m1, m2;
+  if (!hopper::map_2d(&mx, a.x, a.T, H, H, BT, 64, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !hopper::map_2d(&mg, a.g, a.T, H, H, BT, 64, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !hopper::map_2d(&m1, a.w1, H, a.F, a.F, P::W1_BOX, BFW,
+                      CU_TENSOR_MAP_SWIZZLE_32B) ||
+      !hopper::map_2d(&m2, a.w2, a.F, H, H, BFW, 64, CU_TENSOR_MAP_SWIZZLE_128B))
+    return cudaErrorInvalidValue;
   const int n_tiles = (a.T + BT - 1) / BT;
   const int per_split = (n_tiles + n_split - 1) / n_split;
-  dim3 grid(a.F / BFW, n_split);
-  ffn_bwd_dw_kernel<H, ACT><<<grid, THREADS, bytes, a.stream>>>(
-      a.x, a.g, a.w1, a.b1, a.w2, ws, a.T, a.F, per_split, a.drop_thresh,
+  const int splits = (n_tiles + per_split - 1) / per_split;  // none empty
+  dim3 grid(a.F / BFW, splits);
+  ffn_bwd_dw_kernel<H, ACT><<<grid, 384, P::BYTES, a.stream>>>(
+      mx, mg, m1, m2, a.b1, ws, a.T, a.F, per_split, a.drop_thresh,
       a.inv_keep, a.seed);
-  err = cudaGetLastError();
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const long long HF = (long long)H * a.F;
   const long long n = 2 * HF + a.F;
   const int blocks = (int)((n + 255) / 256 < 4096 ? (n + 255) / 256 : 4096);
-  ffn_dw_reduce_kernel<<<blocks, 256, 0, a.stream>>>(ws, n_split, HF, a.F,
+  ffn_dw_reduce_kernel<<<blocks, 256, 0, a.stream>>>(ws, splits, HF, a.F,
                                                      dw1, dw2, db1);
   return cudaGetLastError();
 }
@@ -593,6 +653,7 @@ int ffn_bwd_dw_bf16(const void* x, const void* g, const void* w1,
                     void* dw2, void* ws, int T, int H, int F, int act_id,
                     int n_split, unsigned int drop_thresh, float inv_keep,
                     unsigned int seed, void* stream) {
+  if (T < 1 || n_split < 1) return (int)cudaErrorInvalidValue;
   const Args a = make_args(x, g, w1, b1, w2, T, F, drop_thresh, inv_keep,
                            seed, stream);
   return (int)dispatch(H, act_id, true, a, nullptr, static_cast<bf16*>(dw1),

@@ -10,255 +10,380 @@
 //   out = bf16(acc + b2)
 //
 // x (T, H), W1 (H, F), b1 (F), W2 (F, H), b2 (H), out (T, H), all bf16 and
-// contiguous.  The (T, F) hidden activation never reaches device memory.
+// contiguous; H in {128, 256, 512, 768, 1024}, F a multiple of 64, any
+// T >= 1.  The (T, F) hidden activation never reaches device memory.
 //
-// Design: one CTA of 8 warps per 32-token tile, looping over 64-wide d_ff
-// tiles.  The hard part is the f32 output accumulator: the TPU keeps a
-// (512, 768) f32 block in VMEM (1.5 MB); an SM has 227 KB of shared memory.
-// Here the accumulator is spread over the registers of the CTA's 8 warps:
-// a 32-token tile is 32 x 768 f32 = 96 KB, i.e. each warp holds 32 x 96 as
-// 2 x 6 WMMA fragments (96 registers a thread).  That fixes the small token
-// tile (64 tokens would need ~190 accumulator registers a thread) and
-// avoids splitting H across CTAs, which would recompute x @ W1 once per
-// H slice.  Shared memory holds the x tile (loaded once), one weight slab
-// (W1[:, f-tile], then W2[f-tile, :] in the same buffer), and the hidden
-// tile in f32 and bf16: ~170 KB at H=768, one CTA per SM.
+// Bound on the H100: 4*T*H*F flops against (2*T*H + 2*H*F + F + H)*2
+// bytes.  At BERT-base widths (H=768, F=3072) that is 0.156 ms of tensor
+// cores at T=16384 (1500 flop/byte: compute-bound) and 2.8 us of HBM at
+// T=16 (the 9.4 MB of weights: byte-bound).
 //
-// Bound on the H100: at BERT-base shapes (H=768, F=3072, T=B*512) the work
-// is 4*T*H*F flops against (2*T*H + 2*H*F)*2 bytes: ~1500 flop/byte at
-// T=16384, far above the bf16 ridge (~295) — compute-bound.  This simple
-// kernel re-reads both weight matrices from L2 once per token tile, runs
-// WMMA (not wgmma) and does not overlap loads with math; it is far from the
-// tensor-core roof.  Making it fast is later work.
+// Design: grid (token tiles of 64, d_ff splits, output-column groups).
+// CTA (i, j, g) owns tokens [64i, 64i+64), a contiguous range of 128-wide
+// d_ff steps (the last one 64 wide when F/64 is odd: TMA zero-fills the
+// columns past F) and NCOL output columns: 384 at H=768, 256 at H=512 and
+// 1024, all of H at 128 and 256.  Each column group recomputes its pre
+// tiles, so H=768 does 1.5x the products of one group.  The reason is
+// the register file: ptxas (CUDA 12.8) allocated the consumer path within
+// the 168 registers a thread that 384 threads get at launch, setmaxnreg or
+// not, and a 64 x 768 f32 accumulator over two warpgroups (192 a thread)
+// spilled 2-3 KB and serialized the wgmma.  Three warpgroups:
+//   - a producer (one thread) loads the x tile once by TMA (64 x H, kept
+//     for the whole range) and streams W1 and W2 slabs through a ring of
+//     NST stages of 32 x NCOL bf16 (24 KB at H=768, four stages), each
+//     announced on an mbarrier: per step, W1 stages of KS1 rows x 128
+//     columns (two 64-column atoms, MN-major, 128-byte swizzle), then W2
+//     stages of 32 rows x NCOL columns.
+//   - two consumers.  Consumer c computes pre for the step's columns
+//     [64c, 64c + 64) (wgmma m64n64k16: A = the x tile, K-major; B = its
+//     W1 atom), adds b1, applies the activation and dropout in registers
+//     and writes bf16 h into a 64 x 128 tile in shared memory (K-major,
+//     128-byte swizzle, double buffered); after a named barrier, each adds
+//     h @ W2[step, its NCOL/2 columns] into its f32 accumulator (wgmma
+//     m64nNk16, N = NCOL/2 <= 192: 96 registers).  Each stage's products
+//     are one wgmma group; the consumer releases the previous stage once
+//     all but the newest group are done, so the tensor pipe only drains
+//     before h is formed.  Accumulators start at scale-d 0 (a register
+//     written by any other instruction serializes wgmma), and the role
+//     branch uses a warp-uniform warpgroup index (otherwise ptxas
+//     serializes wgmma on a "divergent path").
+// Shared memory at H=768: x 96 KB + 4 stages of 24 KB + h 2 x 16 KB =
+// 225 KB.  One split: the CTA adds b2 and writes bf16 out.  More splits
+// (few tokens): each CTA writes an f32 partial (T, H) to a workspace and
+// ffn_fwd_reduce_kernel sums the splits in split order, adds b2 and
+// casts: no float atomics, so the bits do not depend on scheduling.  The
+// plan (ops/kernels/ffn.py::_fwd_plan) fills about one wave: T=16 takes
+// 24 splits x 2 groups = 48 CTAs, T=512 8 x 8 x 2 = 128, T=16384 one
+// split (512 CTAs).
+// L2 traffic: a CTA streams the whole W1 and its W2 columns once: 288 KB
+// a step at H=768, 3.5 GB a call at T=16384.  Neither the loads nor L2
+// set the pace on the card: in a throwaway variant with 64-wide steps,
+// taking out every TMA load barely changed the time, and taking out the
+// products removed less than half of it; the rest is the per-step chain
+// of waits, the h epilogue and the barrier, which the tensor pipe sits
+// out (PERF.md, section 6).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <mma.h>
 #include <stdint.h>
 
-using namespace nvcuda;
+#include "ffn_common.cuh"
+#include "hopper.cuh"
+
 typedef __nv_bfloat16 bf16;
+using namespace hopper;
+using namespace ffn;
 
 namespace {
 
-constexpr int BT = 32;  // token rows per CTA
-constexpr int BF = 64;  // d_ff columns per inner step
-constexpr int WARPS = 8;
-constexpr int THREADS = WARPS * 32;
+constexpr int BT = 64;          // token rows per CTA
+constexpr int BF = 128;         // d_ff columns per step (the last may be 64)
+constexpr int CONSUMERS = 256;  // two consumer warpgroups
+constexpr int THREADS = 128 + CONSUMERS;
+constexpr int SMEM_MAX = 232448;
 
-enum { ACT_GELU = 0, ACT_GELU_TANH = 1, ACT_RELU = 2 };
-
-__host__ __device__ constexpr size_t align128(size_t x) {
-  return (x + 127) / 128 * 128;
-}
-
-__host__ __device__ constexpr size_t cmax(size_t a, size_t b) {
-  return a > b ? a : b;
+// output columns a CTA owns: the largest multiple of 128 dividing H that
+// is at most 384, so that a consumer's accumulator (64 x NCOL/2 f32) takes
+// at most 96 registers a thread
+__host__ __device__ constexpr int ncol_of(int h) {
+  return h % 384 == 0 ? 384 : h % 256 == 0 ? 256 : 128;
 }
 
 template <int H>
-struct Layout {
-  static constexpr int LDX = H + 8;    // bf16 x tile
-  static constexpr int LDW1 = BF + 8;  // bf16 W1 slab (H rows)
-  static constexpr int LDW2 = H + 8;   // bf16 W2 slab (BF rows)
-  static constexpr int LDHF = BF + 4;  // f32 pre-activation tile
-  static constexpr int LDHB = BF + 8;  // bf16 hidden tile
-  static constexpr int LDOUT = H + 4;  // f32 output staging (in the slab)
+struct Plan {
+  static constexpr int NCOL = ncol_of(H);            // output columns a CTA owns
+  static constexpr int NGROUP = H / NCOL;            // column groups in the grid
+  static constexpr int WN = NCOL / 2;                // columns a consumer owns
+  static constexpr int KS2 = 32;                     // W2 rows a stage holds
+  static constexpr int NK2 = BF / KS2;               // W2 stages a step
+  static constexpr int STAGE = KS2 * NCOL * 2;       // bytes of a ring stage
+  static constexpr int KS1 = STAGE / (BF * 2);       // W1 rows a stage holds
+  static constexpr int NK1 = H / KS1;                // W1 stages a step
+  static constexpr int X_BYTES = BT * H * 2;
+  static constexpr int H_BYTES = BT * BF * 2;
+  static constexpr int NST_FIT =
+      (SMEM_MAX - 1024 - X_BYTES - 2 * H_BYTES - 1024) / STAGE;
+  static constexpr int NST = NST_FIT > 6 ? 6 : NST_FIT;
   static constexpr size_t X = 0;
-  static constexpr size_t SLAB = align128(X + (size_t)BT * LDX * 2);
-  static constexpr size_t SLAB_BYTES =
-      cmax(cmax((size_t)H * LDW1 * 2, (size_t)BF * LDW2 * 2),
-           (size_t)BT * LDOUT * 4);
-  static constexpr size_t HF = align128(SLAB + SLAB_BYTES);
-  static constexpr size_t HB = align128(HF + (size_t)BT * LDHF * 4);
-  static constexpr size_t BYTES = align128(HB + (size_t)BT * LDHB * 2);
+  static constexpr size_t RING = X_BYTES;
+  static constexpr size_t HB = RING + (size_t)NST * STAGE;
+  static constexpr size_t BAR = HB + 2 * H_BYTES;
+  static constexpr size_t BYTES = BAR + (2 * NST + 1) * 8 + 1024;  // + alignment
+  static_assert(H % KS1 == 0 && KS1 % 16 == 0 && KS1 <= 256, "W1 stages");
+  static_assert(NST >= 2, "the ring needs two stages");
+  static_assert(BYTES <= SMEM_MAX, "shared memory");
 };
 
-// paddle_tpu/ops/pallas/ffn.py::_ffn_keep, bit for bit
-__device__ __forceinline__ uint32_t keep_hash(uint32_t seed, uint32_t r,
-                                              uint32_t c) {
-  uint32_t x = (r * 0x9E3779B1u) ^ (c * 0x85EBCA77u);
-  x ^= seed * 0x165667B1u;
-  x ^= x >> 16;
-  x *= 0x7FEB352Du;
-  x ^= x >> 15;
-  x *= 0x846CA68Bu;
-  x ^= x >> 16;
-  return x;
-}
-
-// paddle_tpu/ops/pallas/ffn.py::_erf (Abramowitz-Stegun 7.1.26)
-__device__ __forceinline__ float as_erf(float x) {
-  const float a1 = 0.254829592f, a2 = -0.284496736f, a3 = 1.421413741f;
-  const float a4 = -1.453152027f, a5 = 1.061405429f, p = 0.3275911f;
-  const float s = (float)((x > 0.f) - (x < 0.f));
-  const float ax = fabsf(x);
-  const float t = 1.0f / (1.0f + p * ax);
-  const float poly = t * (a1 + t * (a2 + t * (a3 + t * (a4 + t * a5))));
-  return s * (1.0f - poly * expf(-ax * ax));
-}
-
-template <int ACT>
-__device__ __forceinline__ float act(float h) {
-  if (ACT == ACT_GELU) return h * 0.5f * (1.0f + as_erf(h * 0.7071067811865476f));
-  if (ACT == ACT_GELU_TANH) {
-    const float c = 0.7978845608028654f;  // sqrt(2/pi)
-    return h * (0.5f * (1.0f + tanhf(c * (h + 0.044715f * (h * h * h)))));
-  }
-  return fmaxf(h, 0.f);
+template <int N>
+__device__ __forceinline__ void mma_h_w2(float* d, uint64_t da, uint64_t db,
+                                         int scale_d) {
+  if constexpr (N == 64) wgmma_n64<0, 1>(d, da, db, scale_d);
+  else if constexpr (N == 128) wgmma_n128<0, 1>(d, da, db, scale_d);
+  else wgmma_n192<0, 1>(d, da, db, scale_d);
 }
 
 template <int H, int ACT>
 __global__ void __launch_bounds__(THREADS, 1)
-ffn_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
-               const bf16* __restrict__ b1, const bf16* __restrict__ w2,
-               const bf16* __restrict__ b2, bf16* __restrict__ out, int T,
-               int F, uint32_t drop_thresh, float keep_prob, uint32_t seed) {
-  using LT = Layout<H>;
-  constexpr int NF = H / 128;  // 16-wide output fragments per warp
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sX = reinterpret_cast<bf16*>(smem + LT::X);
-  bf16* slab = reinterpret_cast<bf16*>(smem + LT::SLAB);
-  float* sHF = reinterpret_cast<float*>(smem + LT::HF);
-  bf16* sHB = reinterpret_cast<bf16*>(smem + LT::HB);
+ffn_fwd_kernel(const __grid_constant__ CUtensorMap tm_x,
+               const __grid_constant__ CUtensorMap tm_w1,
+               const __grid_constant__ CUtensorMap tm_w2,
+               const bf16* __restrict__ b1, const bf16* __restrict__ b2,
+               bf16* __restrict__ out, float* __restrict__ ws, int T, int F,
+               int steps_per_split, uint32_t drop_thresh, float keep_prob,
+               uint32_t seed) {
+  using P = Plan<H>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* ring = smem + P::RING;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + P::BAR);
+  uint64_t* empty = full + P::NST;
+  uint64_t* xbar = empty + P::NST;
 
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
   const int t0 = blockIdx.x * BT;
-  const int rt = warp / 4, ct = warp % 4;  // phase-1 fragment of this warp
-  const int col0 = warp * (H / 8);         // phase-2 output columns
+  const int split = blockIdx.y;
+  const int col0 = blockIdx.z * P::NCOL;
+  const int s_begin = split * steps_per_split;
+  const int s_end = min((F + BF - 1) / BF, s_begin + steps_per_split);
 
-  constexpr int XCH = H / 8;
-  for (int i = tid; i < BT * XCH; i += THREADS) {
-    const int r = i / XCH, c = i % XCH;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (t0 + r < T)
-      val = *reinterpret_cast<const uint4*>(x + (long long)(t0 + r) * H + c * 8);
-    *reinterpret_cast<uint4*>(sX + r * LT::LDX + c * 8) = val;
-  }
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][NF];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < NF; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  for (int f0 = 0; f0 < F; f0 += BF) {
-    __syncthreads();  // the previous step is done with the slab and sHB
-    constexpr int W1CH = BF / 8;
-    for (int i = tid; i < H * W1CH; i += THREADS) {
-      const int r = i / W1CH, c = i % W1CH;
-      *reinterpret_cast<uint4*>(slab + r * LT::LDW1 + c * 8) =
-          *reinterpret_cast<const uint4*>(w1 + (long long)r * F + f0 + c * 8);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < P::NST; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], CONSUMERS);
     }
-    __syncthreads();
-
-    // phase 1: pre = x @ W1[:, f0:f0+BF], one 16x16 fragment per warp
-    {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> pre;
-      wmma::fill_fragment(pre, 0.f);
-#pragma unroll 4
-      for (int kk = 0; kk < H / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-        wmma::load_matrix_sync(fa, sX + rt * 16 * LT::LDX + kk * 16, LT::LDX);
-        wmma::load_matrix_sync(fb, slab + kk * 16 * LT::LDW1 + ct * 16,
-                               LT::LDW1);
-        wmma::mma_sync(pre, fa, fb, pre);
-      }
-      wmma::store_matrix_sync(sHF + rt * 16 * LT::LDHF + ct * 16, pre,
-                              LT::LDHF, wmma::mem_row_major);
-    }
-    __syncthreads();  // sHF complete; every warp is done reading W1
-
-    // bias + activation + dropout, cast to bf16
-    for (int i = tid; i < BT * BF; i += THREADS) {
-      const int r = i / BF, c = i % BF;
-      float hv = act<ACT>(sHF[r * LT::LDHF + c] + __bfloat162float(b1[f0 + c]));
-      if (drop_thresh != 0u) {
-        const bool keep = keep_hash(seed, (uint32_t)(t0 + r),
-                                    (uint32_t)(f0 + c)) >= drop_thresh;
-        hv = keep ? hv / keep_prob : 0.f;
-      }
-      sHB[r * LT::LDHB + c] = __float2bfloat16(hv);
-    }
-    constexpr int W2CH = H / 8;
-    for (int i = tid; i < BF * W2CH; i += THREADS) {
-      const int r = i / W2CH, c = i % W2CH;
-      *reinterpret_cast<uint4*>(slab + r * LT::LDW2 + c * 8) =
-          *reinterpret_cast<const uint4*>(w2 + (long long)(f0 + r) * H + c * 8);
-    }
-    __syncthreads();
-
-    // phase 2: acc[:, warp's columns] += h @ W2[f0:f0+BF, columns]
-#pragma unroll
-    for (int kk = 0; kk < BF / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa0, fa1;
-      wmma::load_matrix_sync(fa0, sHB + kk * 16, LT::LDHB);
-      wmma::load_matrix_sync(fa1, sHB + 16 * LT::LDHB + kk * 16, LT::LDHB);
-#pragma unroll
-      for (int j = 0; j < NF; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-        wmma::load_matrix_sync(fb, slab + kk * 16 * LT::LDW2 + col0 + j * 16,
-                               LT::LDW2);
-        wmma::mma_sync(acc[0][j], fa0, fb, acc[0][j]);
-        wmma::mma_sync(acc[1][j], fa1, fb, acc[1][j]);
-      }
-    }
-  }
-  __syncthreads();  // every warp is done with the slab: reuse it as f32
-
-  float* sOut = reinterpret_cast<float*>(smem + LT::SLAB);
-#pragma unroll
-  for (int j = 0; j < NF; ++j) {
-    wmma::store_matrix_sync(sOut + col0 + j * 16, acc[0][j], LT::LDOUT,
-                            wmma::mem_row_major);
-    wmma::store_matrix_sync(sOut + 16 * LT::LDOUT + col0 + j * 16, acc[1][j],
-                            LT::LDOUT, wmma::mem_row_major);
+    mbar_init(xbar, 1);
+    fence_barrier_init();
   }
   __syncthreads();
-  for (int i = tid; i < BT * H; i += THREADS) {
-    const int r = i / H, c = i % H;
-    if (t0 + r < T)
-      out[(long long)(t0 + r) * H + c] =
-          __float2bfloat16(sOut[r * LT::LDOUT + c] + __bfloat162float(b2[c]));
+
+  const int wg = warpgroup_index();
+  if (wg == 0) {
+    // ---- producer ----------------------------------------------------------
+    if (threadIdx.x == 0) {
+      tma_prefetch_map(&tm_x);
+      tma_prefetch_map(&tm_w1);
+      tma_prefetch_map(&tm_w2);
+      mbar_expect_tx(xbar, P::X_BYTES);
+      for (int b = 0; b < H / 64; ++b)
+        tma_load_2d(smem + P::X + b * BT * 128, &tm_x, xbar, b * 64, t0);
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int s = s_begin; s < s_end; ++s) {
+        const int f0 = s * BF;
+        for (int k1 = 0; k1 < P::NK1; ++k1) {
+          mbar_wait(&empty[stage], phase ^ 1);
+          mbar_expect_tx(&full[stage], P::STAGE);
+          unsigned char* st = ring + stage * P::STAGE;
+          for (int half = 0; half < 2; ++half)
+            tma_load_2d(st + half * P::KS1 * 128, &tm_w1, &full[stage],
+                        f0 + half * 64, k1 * P::KS1);
+          if (++stage == P::NST) { stage = 0; phase ^= 1; }
+        }
+        for (int k2 = 0; k2 < P::NK2; ++k2) {
+          mbar_wait(&empty[stage], phase ^ 1);
+          mbar_expect_tx(&full[stage], P::STAGE);
+          unsigned char* st = ring + stage * P::STAGE;
+          for (int a = 0; a < P::NCOL / 64; ++a)
+            tma_load_2d(st + a * P::KS2 * 128, &tm_w2, &full[stage],
+                        col0 + a * 64, f0 + k2 * P::KS2);
+          if (++stage == P::NST) { stage = 0; phase ^= 1; }
+        }
+      }
+    }
+  } else {
+    // ---- consumers ---------------------------------------------------------
+    const int c = wg - 1;
+    const int tw = threadIdx.x - 128 * wg;
+    const int r0 = (tw / 32) * 16 + (tw % 32) / 4;  // rows r0 and r0 + 8
+    const int cq = (tw % 4) * 2;  // column of the thread in each 8-column group
+    // accumulators start from the first wgmma of their chain (scale-d 0):
+    // a register written by any other instruction would serialize wgmma
+    float acc[P::WN / 2];
+    mbar_wait(xbar, 0);
+    const uint64_t dx0 = desc(smem + P::X, 16, 1024, SW128);
+    int stage = 0, pending = -1;
+    uint32_t phase = 0;
+    // Each stage's products are one wgmma group.  After committing it, the
+    // consumer waits for all but that group and releases the stage the
+    // previous group read, so the tensor cores never drain between stages
+    // (only before h is formed).
+    for (int s = s_begin; s < s_end; ++s) {
+      const int f0 = s * BF;
+      // pre[:, 64c : 64c + 64] = x @ W1[:, f0 + 64c : +64]
+      float pre[32];
+      for (int k1 = 0; k1 < P::NK1; ++k1) {
+        mbar_wait(&full[stage], phase);
+        const uint64_t dw = desc(ring + stage * P::STAGE + c * P::KS1 * 128,
+                                 P::KS1 * 128, 1024, SW128);
+        wgmma_fence();
+#pragma unroll 4
+        for (int kk = 0; kk < P::KS1 / 16; ++kk) {
+          const int k = k1 * P::KS1 + kk * 16;
+          wgmma_n64<0, 1>(pre, dx0 + (((k / 64) * BT * 128 + (k % 64) * 2) >> 4),
+                          dw + ((kk * 2048) >> 4), k > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<1>();
+        if (pending >= 0) mbar_arrive(&empty[pending]);
+        pending = stage;
+        if (++stage == P::NST) { stage = 0; phase ^= 1; }
+      }
+      wgmma_wait<0>();
+      fence_regs<32>(pre);
+      mbar_arrive(&empty[pending]);
+      pending = -1;
+      // bias, activation, dropout; bf16 h into the swizzled 64 x 128 tile
+      unsigned char* hb = smem + P::HB + (s & 1) * P::H_BYTES;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const int row = r0 + hr * 8;
+          const int hc = c * 64 + j * 8 + cq;  // column in the h tile
+          float v[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            // columns past F (a last step of 64) read zero weights
+            const int f = f0 + hc + e;
+            const float bias = f < F ? __bfloat162float(b1[f]) : 0.f;
+            float hv = act<ACT>(pre[j * 4 + hr * 2 + e] + bias);
+            if (drop_thresh != 0u) {
+              const bool keep = keep_hash(seed, (uint32_t)(t0 + row),
+                                          (uint32_t)f) >= drop_thresh;
+              hv = keep ? hv / keep_prob : 0.f;
+            }
+            v[e] = hv;
+          }
+          *reinterpret_cast<__nv_bfloat162*>(
+              hb + c * BT * 128 + row * 128 + (((j ^ (row % 8)) * 16) + cq * 2)) =
+              __floats2bfloat162_rn(v[0], v[1]);
+        }
+      }
+      fence_proxy_async();
+      named_barrier(1, CONSUMERS);
+      // acc += h @ W2[f0 : f0 + 128, this consumer's columns]; the last
+      // group stays in flight into the next step's first pre group
+      const uint64_t dh = desc(hb, 16, 1024, SW128);
+      for (int k2 = 0; k2 < P::NK2; ++k2) {
+        mbar_wait(&full[stage], phase);
+        const uint64_t dw = desc(ring + stage * P::STAGE +
+                                     c * (P::WN / 64) * P::KS2 * 128,
+                                 P::KS2 * 128, 1024, SW128);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < P::KS2 / 16; ++kk) {
+          const int kh = k2 * P::KS2 + kk * 16;  // K in the h tile
+          mma_h_w2<P::WN>(acc, dh + (((kh / 64) * BT * 128 + (kh % 64) * 2) >> 4),
+                          dw + ((kk * 16 * 128) >> 4),
+                          s > s_begin || k2 > 0 || kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<1>();
+        if (pending >= 0) mbar_arrive(&empty[pending]);
+        pending = stage;
+        if (++stage == P::NST) { stage = 0; phase ^= 1; }
+      }
+    }
+    wgmma_wait<0>();
+    fence_regs<P::WN / 2>(acc);
+    // epilogue: element i of the accumulator sits at row r0 (+8 for i%4 >= 2),
+    // column (i/4)*8 + cq + i%2 of this consumer's columns
+    const bool direct = gridDim.y == 1;
+#pragma unroll
+    for (int i = 0; i < P::WN / 2; i += 2) {
+      const int t = t0 + r0 + ((i / 2) % 2) * 8;
+      const int col = col0 + c * P::WN + (i / 4) * 8 + cq;
+      if (t < T) {
+        if (direct) {
+          *reinterpret_cast<__nv_bfloat162*>(out + (size_t)t * H + col) =
+              __floats2bfloat162_rn(acc[i] + __bfloat162float(b2[col]),
+                                    acc[i + 1] + __bfloat162float(b2[col + 1]));
+        } else {
+          *reinterpret_cast<float2*>(ws + ((size_t)split * T + t) * H + col) =
+              make_float2(acc[i], acc[i + 1]);
+        }
+      }
+    }
+  }
+}
+
+// out = bf16(sum over splits, in split order, + b2)
+__global__ void ffn_fwd_reduce_kernel(const float* __restrict__ ws,
+                                      int n_split, long long n, int H,
+                                      const bf16* __restrict__ b2,
+                                      bf16* __restrict__ out) {
+  for (long long i = 4 * (blockIdx.x * (long long)blockDim.x + threadIdx.x);
+       i < n; i += 4 * (long long)gridDim.x * blockDim.x) {
+    float4 s = *reinterpret_cast<const float4*>(ws + i);
+    for (int sp = 1; sp < n_split; ++sp) {
+      const float4 v = *reinterpret_cast<const float4*>(ws + sp * n + i);
+      s.x += v.x;
+      s.y += v.y;
+      s.z += v.z;
+      s.w += v.w;
+    }
+    const int col = (int)(i % H);
+    __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(out + i);
+    o[0] = __floats2bfloat162_rn(s.x + __bfloat162float(b2[col]),
+                                 s.y + __bfloat162float(b2[col + 1]));
+    o[1] = __floats2bfloat162_rn(s.z + __bfloat162float(b2[col + 2]),
+                                 s.w + __bfloat162float(b2[col + 3]));
   }
 }
 
 template <int H, int ACT>
 cudaError_t launch(const void* x, const void* w1, const void* b1,
-                   const void* w2, const void* b2, void* out, int T, int F,
-                   uint32_t drop_thresh, float keep_prob, uint32_t seed,
-                   cudaStream_t stream) {
-  const size_t bytes = Layout<H>::BYTES;
-  cudaError_t err = cudaFuncSetAttribute(
-      ffn_fwd_kernel<H, ACT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
-  if (err != cudaSuccess) return err;
-  dim3 grid((T + BT - 1) / BT);
-  ffn_fwd_kernel<H, ACT><<<grid, THREADS, bytes, stream>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w1),
-      static_cast<const bf16*>(b1), static_cast<const bf16*>(w2),
-      static_cast<const bf16*>(b2), static_cast<bf16*>(out), T, F,
+                   const void* w2, const void* b2, void* out, void* ws, int T,
+                   int F, int n_split, uint32_t drop_thresh, float keep_prob,
+                   uint32_t seed, cudaStream_t stream) {
+  using P = Plan<H>;
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(
+        ffn_fwd_kernel<H, ACT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)P::BYTES);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  CUtensorMap mx, m1, m2;
+  if (!map_2d(&mx, x, T, H, H, BT, 64, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !map_2d(&m1, w1, H, F, F, P::KS1, 64, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !map_2d(&m2, w2, F, H, H, P::KS2, 64, CU_TENSOR_MAP_SWIZZLE_128B))
+    return cudaErrorInvalidValue;
+  const int n_steps = (F + BF - 1) / BF;
+  const int per = (n_steps + n_split - 1) / n_split;
+  const int splits = (n_steps + per - 1) / per;  // none of them empty
+  dim3 grid((T + BT - 1) / BT, splits, P::NGROUP);
+  ffn_fwd_kernel<H, ACT><<<grid, THREADS, P::BYTES, stream>>>(
+      mx, m1, m2, static_cast<const bf16*>(b1), static_cast<const bf16*>(b2),
+      static_cast<bf16*>(out), static_cast<float*>(ws), T, F, per,
       drop_thresh, keep_prob, seed);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  const long long n = (long long)T * H;
+  const long long blocks = (n / 4 + 255) / 256;
+  ffn_fwd_reduce_kernel<<<(int)(blocks < 2048 ? blocks : 2048), 256, 0,
+                          stream>>>(static_cast<const float*>(ws), splits, n,
+                                    H, static_cast<const bf16*>(b2),
+                                    static_cast<bf16*>(out));
   return cudaGetLastError();
 }
 
 template <int H>
 cudaError_t launch_act(int act_id, const void* x, const void* w1,
                        const void* b1, const void* w2, const void* b2,
-                       void* out, int T, int F, uint32_t drop_thresh,
-                       float keep_prob, uint32_t seed, cudaStream_t s) {
+                       void* out, void* ws, int T, int F, int n_split,
+                       uint32_t drop_thresh, float keep_prob, uint32_t seed,
+                       cudaStream_t s) {
   switch (act_id) {
     case ACT_GELU:
-      return launch<H, ACT_GELU>(x, w1, b1, w2, b2, out, T, F, drop_thresh,
-                                 keep_prob, seed, s);
+      return launch<H, ACT_GELU>(x, w1, b1, w2, b2, out, ws, T, F, n_split,
+                                 drop_thresh, keep_prob, seed, s);
     case ACT_GELU_TANH:
-      return launch<H, ACT_GELU_TANH>(x, w1, b1, w2, b2, out, T, F,
-                                      drop_thresh, keep_prob, seed, s);
+      return launch<H, ACT_GELU_TANH>(x, w1, b1, w2, b2, out, ws, T, F,
+                                      n_split, drop_thresh, keep_prob, seed, s);
     case ACT_RELU:
-      return launch<H, ACT_RELU>(x, w1, b1, w2, b2, out, T, F, drop_thresh,
-                                 keep_prob, seed, s);
+      return launch<H, ACT_RELU>(x, w1, b1, w2, b2, out, ws, T, F, n_split,
+                                 drop_thresh, keep_prob, seed, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -272,28 +397,33 @@ const char* error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// act_id: 0 gelu (A-S erf), 1 gelu_tanh, 2 relu
+// act_id: 0 gelu (A-S erf), 1 gelu_tanh, 2 relu.  ws: n_split x T x H f32
+// scratch, unused when n_split is 1.  One launch, or two with the reduce
+// over splits.
 int ffn_fwd_bf16(const void* x, const void* w1, const void* b1,
-                 const void* w2, const void* b2, void* out, int T, int H,
-                 int F, int act_id, unsigned int drop_thresh,
-                 float keep_prob, unsigned int seed, void* stream) {
+                 const void* w2, const void* b2, void* out, void* ws, int T,
+                 int H, int F, int act_id, int n_split,
+                 unsigned int drop_thresh, float keep_prob, unsigned int seed,
+                 void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (T < 1 || F < 64 || F % 64 != 0 || n_split < 1)
+    return (int)cudaErrorInvalidValue;
   switch (H) {
     case 128:
-      return launch_act<128>(act_id, x, w1, b1, w2, b2, out, T, F,
-                             drop_thresh, keep_prob, seed, s);
+      return launch_act<128>(act_id, x, w1, b1, w2, b2, out, ws, T, F,
+                             n_split, drop_thresh, keep_prob, seed, s);
     case 256:
-      return launch_act<256>(act_id, x, w1, b1, w2, b2, out, T, F,
-                             drop_thresh, keep_prob, seed, s);
+      return launch_act<256>(act_id, x, w1, b1, w2, b2, out, ws, T, F,
+                             n_split, drop_thresh, keep_prob, seed, s);
     case 512:
-      return launch_act<512>(act_id, x, w1, b1, w2, b2, out, T, F,
-                             drop_thresh, keep_prob, seed, s);
+      return launch_act<512>(act_id, x, w1, b1, w2, b2, out, ws, T, F,
+                             n_split, drop_thresh, keep_prob, seed, s);
     case 768:
-      return launch_act<768>(act_id, x, w1, b1, w2, b2, out, T, F,
-                             drop_thresh, keep_prob, seed, s);
+      return launch_act<768>(act_id, x, w1, b1, w2, b2, out, ws, T, F,
+                             n_split, drop_thresh, keep_prob, seed, s);
     case 1024:
-      return launch_act<1024>(act_id, x, w1, b1, w2, b2, out, T, F,
-                              drop_thresh, keep_prob, seed, s);
+      return launch_act<1024>(act_id, x, w1, b1, w2, b2, out, ws, T, F,
+                              n_split, drop_thresh, keep_prob, seed, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -6,7 +6,8 @@ library under `paddle_tpu_torch/_build/` (listed in .gitignore), then
 loaded with ctypes.  Pointers and the CUDA stream cross as `c_void_p`;
 every C entry returns `cudaGetLastError()` after its launch and the
 wrapper raises on anything but 0.  Library names carry a hash of the
-source, so an edited kernel is never served from a stale build.
+source and of the csrc headers it includes (`#include "x.cuh"`), so an
+edited kernel or header is never served from a stale build.
 
 All sources build in parallel (one nvcc each, started together) under
 one lock: the serving engine's threads can race to the first launch.
@@ -19,6 +20,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -73,9 +75,25 @@ def _nvcc() -> str:
                        "toolkit")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def _sources(src: Path) -> list:
+    """src and every csrc header it includes, directly or through another
+    header, in the order first met."""
+    seen, todo = [], [src]
+    while todo:
+        path = todo.pop(0)
+        if path in seen or not path.exists():
+            continue
+        seen.append(path)
+        todo += [CSRC / m.decode() for m in _INCLUDE.findall(path.read_bytes())]
+    return seen
+
+
 def _target(src: Path) -> Path:
-    digest = hashlib.sha1(src.read_bytes()
-                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    text = b"".join(p.read_bytes() for p in _sources(src))
+    digest = hashlib.sha1(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{src.stem}_{digest}.so"
 
 

@@ -13,12 +13,16 @@ which computes the same function.  `FusedFFNFunction` ties the two
 together for autograd.  The (tokens, d_ff) hidden activation never
 reaches device memory: the backward recomputes it per tile from x.
 Dropout uses `_ffn_keep`, the TPU kernel's stateless hash of (seed,
-token, d_ff column), bit for bit.
+token, d_ff column), bit for bit.  `_fwd_plan` and `_dw_plan` are plain
+functions of the shapes and the card's SM count: how the forward and dW
+kernels cut their work into CTAs, and how many f32 workspace splits they
+sum in a fixed order.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -35,7 +39,10 @@ _KERNEL_HIDDEN = (128, 256, 512, 768, 1024)
 # which leaves no room at d_model 1024
 _KERNEL_HIDDEN_BWD = (128, 256, 512, 768)
 _BLOCK_F = 64  # the kernels' d_ff step
+_FWD_BLOCK_T, _FWD_BLOCK_F = 64, 128  # the forward kernel's tile and step
+_FWD_WS_CAP = 32 << 20  # bytes of f32 partials the forward's splits may take
 _DW_BLOCK_T, _DW_BLOCK_F = 32, 16  # the dW kernel's token tile and slice
+_DW_WS_CAP = 64 << 20  # bytes of f32 partials the dW kernel's splits may take
 
 
 def _erf(x: torch.Tensor) -> torch.Tensor:
@@ -111,10 +118,51 @@ def _lib():
     fn = lib.ffn_fwd_bf16
     if fn.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci,
-                       ctypes.c_uint, ctypes.c_float, ctypes.c_uint, vp]
+        fn.argtypes = [vp] * 7 + [ci] * 5 + [
+            ctypes.c_uint, ctypes.c_float, ctypes.c_uint, vp]
         fn.restype = ci
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _split_ranges(n: int, n_split: int):
+    """The units [begin, end) of each split, as the kernels cut n units
+    (128-column d_ff steps for the forward, 32-token tiles for dW):
+    ceil(n / n_split) a split, the last one shorter."""
+    per = max(1, -(-n // n_split))
+    return [(b, min(n, b + per)) for b in range(0, n, per)]
+
+
+def _fwd_groups(h: int) -> int:
+    """Output-column groups of the forward kernel's grid: a CTA owns the
+    largest multiple of 128 columns that divides h and is at most 384
+    (csrc/ffn_fwd.cu::ncol_of), so its accumulator fits the registers."""
+    return h // (384 if h % 384 == 0 else 256 if h % 256 == 0 else 128)
+
+
+def _fwd_plan(t: int, h: int, f: int, sms: int):
+    """(block_t, n_split) of the forward kernel.  Its grid is (token tiles
+    of block_t, d_ff splits, output-column groups: `_fwd_groups(h)`).
+    The d_ff splits, in steps of 128 columns (the last step of an odd
+    number of 64-column units is 64 wide), bring the grid as close to one
+    wave of `sms` CTAs as d_ff allows, with the f32 partials of the splits
+    (n_split x t x h x 4 bytes) under _FWD_WS_CAP; one split at large t.
+    No split is empty."""
+    n_steps = -(-f // _FWD_BLOCK_F)
+    ctas = max(1, -(-t // _FWD_BLOCK_T)) * _fwd_groups(h)
+    n_split = max(1, min(n_steps, sms // ctas,
+                         _FWD_WS_CAP // (max(1, t) * h * 4)))
+    return _FWD_BLOCK_T, len(_split_ranges(n_steps, n_split))
+
+
+def _aligned(a: torch.Tensor) -> torch.Tensor:
+    """a, contiguous and 16-byte aligned, as the kernels' TMA loads need."""
+    a = a.contiguous()
+    return a if a.data_ptr() % 16 == 0 else a.clone()
 
 
 def _ffn_forward_cuda(x, w1, b1, w2, b2, activation, dropout_p, seed):
@@ -127,22 +175,26 @@ def _ffn_forward_cuda(x, w1, b1, w2, b2, activation, dropout_p, seed):
             + "/".join(str(a.dtype) for a in ts))
     if activation not in _ACT_IDS:
         raise NotImplementedError(activation)
-    if h not in _KERNEL_HIDDEN or f % _BLOCK_F:
+    if h not in _KERNEL_HIDDEN or f % _BLOCK_F or f == 0:
         raise NotImplementedError(
             f"ffn_fwd kernel takes d_model in {_KERNEL_HIDDEN} and d_ff a "
             f"multiple of {_BLOCK_F}, got {h} and {f}")
     if (w1.shape != (h, f) or b1.shape != (f,) or w2.shape != (f, h)
             or b2.shape != (h,)):
         raise ValueError("ffn weight shapes do not match x")
-    x, w1, b1, w2, b2 = (a.contiguous() for a in ts)
-    out = torch.empty_like(x)
+    out = torch.empty((t, h), dtype=x.dtype, device=x.device)
+    x, w1, b1, w2, b2 = (_aligned(a) for a in ts)
+    _, n_split = _fwd_plan(t, h, f, _sm_count(x.device.index or 0))
+    ws = (torch.empty((n_split, t, h), dtype=torch.float32, device=x.device)
+          if n_split > 1 else None)
     thresh = _threshold(dropout_p) if dropout_p > 0.0 else 0
     lib = _lib()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.ffn_fwd_bf16(
         x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-        b2.data_ptr(), out.data_ptr(), t, h, f, _ACT_IDS[activation],
-        thresh, float(1.0 - dropout_p), int(seed) & _M32, stream)
+        b2.data_ptr(), out.data_ptr(), None if ws is None else ws.data_ptr(),
+        t, h, f, _ACT_IDS[activation], n_split, thresh,
+        float(1.0 - dropout_p), int(seed) & _M32, stream)
     check(lib, err, "ffn_fwd")
     FFN_FWD.add()
     return out
@@ -198,13 +250,22 @@ def _bwd_lib():
     return lib
 
 
-def _dw_splits(t: int, f: int, device) -> int:
-    """Token splits of the dW kernel: enough CTAs for two per SM, each
-    split summing its own f32 partials (reduced in a fixed order)."""
+def _dw_plan(t: int, h: int, f: int, sms: int):
+    """(block_t, block_f, n_split) of the dW kernel: one CTA per (block_f
+    d_ff columns, token split), each split summing its own f32 partials
+    (reduced in a fixed order).  The number of splits puts the largest
+    share of the CTAs in whole waves of `sms` (fewest splits among
+    equals), at most 8, with the workspace (n_split x (2hf + f) x 4 bytes)
+    under _DW_WS_CAP.  No split is empty."""
     n_f = f // _DW_BLOCK_F
     n_t = -(-t // _DW_BLOCK_T)
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(n_t, -(-2 * sms // n_f)))
+    cap = max(1, _DW_WS_CAP // ((2 * h * f + f) * 4))
+    best, best_eff = 1, 0.0
+    for s in range(1, min(n_t, cap, 8) + 1):
+        eff = n_f * s / (-(-(n_f * s) // sms) * sms)
+        if eff > best_eff + 1e-9:
+            best, best_eff = s, eff
+    return _DW_BLOCK_T, _DW_BLOCK_F, max(1, len(_split_ranges(n_t, best)))
 
 
 def _ffn_bwd_launchers(x, w1, b1, w2, b2, seed, g, activation, dropout_p):
@@ -229,8 +290,8 @@ def _ffn_bwd_launchers(x, w1, b1, w2, b2, seed, g, activation, dropout_p):
     if (w1.shape != (h, f) or b1.shape != (f,) or w2.shape != (f, h)
             or b2.shape != (h,) or g.shape != x.shape):
         raise ValueError("ffn backward operand shapes do not match x")
-    x, w1, b1, w2, g = (a.contiguous() for a in (x, w1, b1, w2, g))
-    n_split = _dw_splits(t, f, x.device)
+    x, w1, b1, w2, g = (_aligned(a) for a in (x, w1, b1, w2, g))
+    _, _, n_split = _dw_plan(t, h, f, _sm_count(x.device.index or 0))
     dx = torch.empty_like(x)
     dw1, db1, dw2 = (torch.empty_like(a) for a in (w1, b1, w2))
     ws = torch.empty((n_split, 2 * h * f + f), dtype=torch.float32,

@@ -1,7 +1,9 @@
 """The port's CUDA kernels on the card, against their plain PyTorch
 versions on the same inputs: every compiled instantiation (head dims,
 model widths, activations) forward and backward, dropout, causal offsets,
-ragged and strided inputs, the ragged paged-attention kernel at the
+ragged and strided inputs, the FFN kernels' plans (token tiles around
+their edges, d_ff splits, column groups, a d_ff that is not a whole
+number of steps) and the same bits in two runs, the ragged paged-attention kernel at the
 decode path's shapes (length-0 lanes, exact page multiples, chunk
 positions, every head dim and several page sizes), the shapes and types
 the wrappers refuse, tiny BERT served on the card, decoded on the card
@@ -211,6 +213,50 @@ def test_each_launch_is_counted_once(cuda):
         "probe_4d": 0, "probe_fold3d": 0, "probe_merged": 0}
 
 
+@pytest.mark.parametrize("t", [1, 16, 17, 63, 64, 65, 512, 1000, 4097])
+@pytest.mark.parametrize("h", [128, 256, 512, 768, 1024])
+def test_ffn_fwd_tiles_splits_and_ragged_d_ff(cuda, t, h):
+    """Token counts around the 64-token tile, d_ff one step, one and a
+    half 128-wide steps, and 4H; every plan (one split, many splits,
+    column groups) against the plain version, dropout off and on."""
+    x = _bf16(cuda, t, h)
+    for f in (64, 192, 4 * h):
+        w1, b1 = _bf16(cuda, h, f, scale=h ** -0.5), _bf16(cuda, f, scale=0.1)
+        w2, b2 = _bf16(cuda, f, h, scale=f ** -0.5), _bf16(cuda, h, scale=0.1)
+        for p in (0.0, 0.1):
+            out = F.ffn_forward(x, w1, b1, w2, b2, "gelu", p, 11)
+            ref = F.ffn_forward_reference(x, w1, b1, w2, b2, "gelu", p, 11)
+            _close(out, ref, BF16)
+
+
+@pytest.mark.parametrize("t", [16, 512, 16384])
+def test_ffn_fwd_gives_the_same_bits_twice(cuda, t):
+    """The splits' partials are summed in a fixed order: no atomics."""
+    h, f = 768, 3072
+    x = _bf16(cuda, t, h)
+    ws = (_bf16(cuda, h, f, scale=0.03), _bf16(cuda, f, scale=0.1),
+          _bf16(cuda, f, h, scale=0.03), _bf16(cuda, h, scale=0.1))
+    a = F.ffn_forward(x, *ws, "gelu", 0.1, 3)
+    b = F.ffn_forward(x, *ws, "gelu", 0.1, 3)
+    assert torch.equal(a, b)
+
+
+def test_one_launch_is_counted_per_ffn_call(cuda):
+    """A split forward and the dW pass launch two kernels each (the
+    kernel and its reduce); each wrapper call counts one."""
+    for c in COUNTERS.values():
+        c.reset()
+    h, f = 768, 3072
+    x, g = _bf16(cuda, 16, h), _bf16(cuda, 16, h)
+    ws = (_bf16(cuda, h, f, scale=0.03), _bf16(cuda, f, scale=0.1),
+          _bf16(cuda, f, h, scale=0.03), _bf16(cuda, h, scale=0.1))
+    assert F._fwd_plan(16, h, f, 132)[1] > 1
+    F.ffn_forward(x, *ws)
+    F.ffn_backward(x, *ws, 0, g)
+    assert {n: c.value for n, c in COUNTERS.items()} == {
+        n: int(n in ("ffn_fwd", "ffn_bwd_dw", "ffn_bwd_dx")) for n in COUNTERS}
+
+
 # -- backward kernels -----------------------------------------------------------
 
 @pytest.mark.parametrize("d", [16, 32, 64, 128])
@@ -256,6 +302,35 @@ def test_ffn_backward_matches_plain(cuda, h, act):
         for gt, w in zip(got, want):
             assert gt.dtype == w.dtype == torch.bfloat16
             _close_grad(gt, w)
+
+
+@pytest.mark.parametrize("t", [1, 31, 100, 1000, 16384])
+@pytest.mark.parametrize("h", [128, 256, 512, 768])
+def test_ffn_bwd_dw_tiles_and_splits(cuda, t, h):
+    """The dW kernel (and dx beside it) at token counts around the
+    32-token tile and across token splits, d_ff of one, three and 4H/16
+    slices, dropout off and on."""
+    x, g = _bf16(cuda, t, h), _bf16(cuda, t, h)
+    for f in (64, 192, 4 * h):
+        w1, b1 = _bf16(cuda, h, f, scale=h ** -0.5), _bf16(cuda, f, scale=0.1)
+        w2, b2 = _bf16(cuda, f, h, scale=f ** -0.5), _bf16(cuda, h, scale=0.1)
+        for p in (0.0, 0.1):
+            got = F.ffn_backward(x, w1, b1, w2, b2, 5, g, "gelu", p)
+            want = F.ffn_backward_reference(x, w1, b1, w2, b2, 5, g, "gelu",
+                                            p)
+            for gt, w in zip(got, want):
+                _close_grad(gt, w)
+
+
+@pytest.mark.parametrize("t", [1000, 16384])
+def test_ffn_bwd_dw_gives_the_same_bits_twice(cuda, t):
+    h, f = 768, 3072
+    x, g = _bf16(cuda, t, h), _bf16(cuda, t, h)
+    ws = (_bf16(cuda, h, f, scale=0.03), _bf16(cuda, f, scale=0.1),
+          _bf16(cuda, f, h, scale=0.03), _bf16(cuda, h, scale=0.1))
+    a = F.ffn_backward(x, *ws, 2, g, "gelu", 0.1)
+    b = F.ffn_backward(x, *ws, 2, g, "gelu", 0.1)
+    assert all(torch.equal(u, v) for u, v in zip(a[1:4], b[1:4]))
 
 
 def test_backward_refuses_what_it_cannot_compute(cuda):
