@@ -1,35 +1,50 @@
 // Fused transformer FFN backward for Hopper (sm_90a): bf16 in, f32
 // accumulate.
 //
-// Replaces paddle_tpu/ops/pallas/ffn.py::_bwd_dw_kernel and ::_bwd_dx_kernel
-// (launched by _ffn_backward).  Both recompute the hidden tile from x instead
-// of reading it back (it was never stored):
+// Replaces paddle_tpu/ops/pallas/ffn.py::_bwd_dw_kernel (:192) and
+// ::_bwd_dx_kernel (:231), launched by _ffn_backward (pl.pallas_call at
+// :272 and :306).  Both passes need the same element math, the TPU kernels
+// recomputing the hidden tile from x instead of reading it back:
 //
 //   pre  = x @ W1[:, f] + b1                         (f32)
 //   h    = keep(seed, t, f) ? act(pre) / (1 - p) : 0  (_ffn_keep hash)
 //   dh   = keep ? (g @ W2[f, :]^T) / (1 - p) : 0
 //   dpre = dh * act'(pre)
-//   dW kernel:  dW2[f, :] += bf16(h)^T g,  dW1[:, f] += x^T bf16(dpre),
-//               db1[f] += sum_t dpre
-//   dx kernel:  dx += bf16(dpre) @ W1[:, f]^T
+//   dW pass:  dW2[f, :] += bf16(h)^T g,  dW1[:, f] += x^T bf16(dpre),
+//             db1[f] += sum_t dpre
+//   dx pass:  dx += bf16(dpre) @ W1[:, f]^T
 //
 // x, g (T, H), W1 (H, F), b1 (F), W2 (F, H), all bf16 and contiguous;
 // dx (T, H), dW1 (H, F), db1 (F), dW2 (F, H) come out in bf16, the
 // weights' dtype, as in JAX.  db2 = sum g is a torch reduction in the
 // wrapper, as in JAX.
 //
-// dx design: the forward kernel's shape.  One 8-warp CTA per 32-token tile
-// loops over 64-wide d_ff tiles; the (32, H) f32 accumulator is spread over
-// the warps' registers (2 x H/128 WMMA fragments a warp).  Per tile the
-// W2 slab comes in first (dh), then the W1 slab into the same buffer (pre,
-// then the dx product).  Shared memory holds the x and g tiles side by
-// side (2 x 49 KB at H=768) plus one slab (110 KB), which is why the
-// backward stops at H=768.  pre and dh of one 16x16 fragment are owned by
-// the same warp, and accumulator fragments of one type share one element
-// order; a fragment loaded once from a table of element indices gives each
-// thread the (row, column) of its elements, so bias, activation gradient
-// and dropout are applied to dh in registers, and only bf16 dpre goes
-// through shared memory.
+// dx design: dpre is written once, then a plain GEMM.  Two launches:
+//   1. ffn_bwd_dpre_kernel, one CTA per (128 d_ff columns, 128 tokens):
+//      a producer warp streams 64-deep K slices of x, g (128 x 64 each,
+//      K-major), W1 (64 x 128, MN-major, two 64-column atoms) and W2
+//      (128 x 64, K-major) through a three-stage TMA ring (64 KB a stage);
+//      two consumer warpgroups of 64 tokens each hold pre and dh as
+//      wgmma m64n128k16 accumulators (128 f32 registers a thread), then
+//      add b1, apply act', the dropout hash and scale, and store bf16 dpre
+//      (T, F) to a workspace.
+//   2. ffn_bwd_dx_kernel, one CTA per (128 d_model columns, 128 tokens):
+//      dx = dpre @ W1^T, the W1 rows read K-major as they lie, K = F in
+//      64-deep slices through a three-stage TMA ring (32 KB a stage),
+//      wgmma m64n128k16 per consumer warpgroup, 99 KB of shared memory
+//      and launch bounds for two CTAs an SM.
+// In both grids the column tile varies fastest, so the CTAs in flight
+// share a few token tiles and all the weights in L2 (with the token tile
+// fastest, each wave read the whole 50 MB of x and g, or of dpre, from
+// HBM again).  Three products and no recompute, against the five a
+// column-grouped fused kernel would need at 168 registers a thread (its
+// 64 x 768 f32 dx accumulator does not fit two warpgroups' registers,
+// PERF.md section 6).
+// The workspace costs 2 T F bytes written and read once (100.7 MB at
+// T = 16384, F = 3072: ~0.06 ms of HBM); d_model is only a K or N extent,
+// so any multiple of 128 up to 1024 runs.  Each consumer commits a stage's
+// products as one wgmma group and releases the previous stage once all but
+// that group are done, so the tensor pipe does not drain between stages.
 //
 // dW design: the TPU held (H, 512) and (512, H) f32 accumulators in VMEM
 // (3 MB at H=768) over a sequential token axis.  Here a CTA owns a 16-wide
@@ -66,206 +81,235 @@
 //
 // Bound on the H100: at BERT-base shapes (T = 16384, H = 768, F = 3072) the
 // dW pass does 4 and the dx pass 3 products of 2*T*H*F flops (309 and
-// 232 GFLOP) against ~60 MB of operands: compute-bound, 0.313 and 0.234 ms
-// at the bf16 tensor-core peak.  The dW kernel's steps run one after
-// another within a tile (recompute, exchange, element math, products) and
-// the n16 products read two operand bytes from shared memory for every
-// 16 multiply-adds; the dx kernel still runs WMMA without overlapping
-// loads.  Both are far from the bound.
+// 232 GFLOP) against ~60 MB of operands (dx: ~260 MB with its workspace):
+// compute-bound, 0.313 and 0.234 ms at the bf16 tensor-core peak.  The dW
+// kernel's steps run one after another within a tile (recompute,
+// exchange, element math, products) and the n16 products read two operand
+// bytes from shared memory for every 16 multiply-adds.  The dpre kernel's
+// epilogue (act' and the hash on 128 x 128 elements) does not overlap its
+// own main loop (one CTA an SM); the next CTA's loads do.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include "ffn_common.cuh"
 #include "hopper.cuh"
 
-using namespace nvcuda;
 using namespace ffn;
+using namespace hopper;
 typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int BT = 32;   // token rows per tile (both kernels)
-constexpr int BF = 64;   // dx kernel: d_ff columns per step
+constexpr int BT = 32;   // dW kernel: token rows per tile
 constexpr int BFW = 16;  // dW kernel: d_ff columns per CTA (384 threads)
-constexpr int WARPS = 8;
-constexpr int THREADS = WARPS * 32;
 
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> Acc;
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> ARow;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> BRow;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> BCol;
+// ---- dx: dpre, then dx = dpre @ W1^T ------------------------------------------
 
-__host__ __device__ constexpr size_t align128(size_t x) {
-  return (x + 127) / 128 * 128;
-}
+constexpr int GM = 128;             // token rows a CTA owns (two warpgroups)
+constexpr int GN = 128;             // output columns a CTA owns
+constexpr int KS = 64;              // K slice a stage holds
+constexpr int TILE = GM * KS * 2;   // bytes of a 128 x 64 bf16 box (16 KB)
+constexpr int GTHREADS = 256 + 32;  // two consumer warpgroups + a producer warp
+constexpr int DP_NST = 3;           // dpre ring: x, g, W1, W2 slices (64 KB)
+constexpr int DX_NST = 3;           // dx ring: dpre, W1 slices (32 KB)
 
-__host__ __device__ constexpr size_t cmax(size_t a, size_t b) {
-  return a > b ? a : b;
-}
-
-// BT rows of a (T, H) bf16 matrix into shared memory (row stride ld);
-// rows past T are zero
-template <int H>
-__device__ __forceinline__ void load_rows(bf16* dst, int ld, const bf16* src,
-                                          int t0, int T) {
-  constexpr int CH = H / 8;
-  for (int i = threadIdx.x; i < BT * CH; i += THREADS) {
-    const int r = i / CH, c = i % CH;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (t0 + r < T)
-      val = *reinterpret_cast<const uint4*>(src + (long long)(t0 + r) * H + c * 8);
-    *reinterpret_cast<uint4*>(dst + r * ld + c * 8) = val;
-  }
-}
-
-// ---- dx ----------------------------------------------------------------------
-
-template <int H>
-struct DxLayout {
-  static constexpr int LDX = H + 8;    // bf16 x and g tiles
-  static constexpr int LDW1 = BF + 8;  // bf16 W1 slab (H rows)
-  static constexpr int LDW2 = H + 8;   // bf16 W2 slab (BF rows)
-  static constexpr int LDDP = BF + 8;  // bf16 dpre tile
-  static constexpr int LDOUT = H + 4;  // f32 output staging (in the slab)
-  static constexpr size_t X = 0;
-  static constexpr size_t G = align128(X + (size_t)BT * LDX * 2);
-  static constexpr size_t SLAB = align128(G + (size_t)BT * LDX * 2);
-  static constexpr size_t SLAB_BYTES =
-      cmax(cmax((size_t)H * LDW1 * 2, (size_t)BF * LDW2 * 2),
-           (size_t)BT * LDOUT * 4);
-  static constexpr size_t DP = align128(SLAB + SLAB_BYTES);
-  static constexpr size_t POS = align128(DP + (size_t)BT * LDDP * 2);
-  static constexpr size_t BYTES = align128(POS + 256 * 4);
+template <int NST, int STAGE>
+struct Ring {
+  static constexpr size_t BAR = (size_t)NST * STAGE;
+  static constexpr size_t BYTES = BAR + 2 * NST * 8 + 1024;  // + alignment
+  static_assert(BYTES <= 232448, "shared memory");
 };
+using DpRing = Ring<DP_NST, 4 * TILE>;
+using DxRing = Ring<DX_NST, 2 * TILE>;
 
-template <int H, int ACT>
-__global__ void __launch_bounds__(THREADS, 1)
-ffn_bwd_dx_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
-                  const bf16* __restrict__ w1, const bf16* __restrict__ b1,
-                  const bf16* __restrict__ w2, bf16* __restrict__ dx, int T,
-                  int F, uint32_t drop_thresh, float inv_keep, uint32_t seed) {
-  using LT = DxLayout<H>;
-  constexpr int NF = H / 128;  // 16-wide output fragments per warp
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sX = reinterpret_cast<bf16*>(smem + LT::X);
-  bf16* sG = reinterpret_cast<bf16*>(smem + LT::G);
-  bf16* slab = reinterpret_cast<bf16*>(smem + LT::SLAB);
-  bf16* sDP = reinterpret_cast<bf16*>(smem + LT::DP);
-  float* sPos = reinterpret_cast<float*>(smem + LT::POS);
+// dpre (T, F) bf16 for the tile (128 tokens from t0, 128 d_ff columns
+// from f0): pre = x W1[:, f] and dh = g W2[f, :]^T over K = H, then the
+// element math.  Stage layout: x (128 x 64, K-major), g (same), W1
+// (64 x 128 as two 64-column MN-major atoms), W2 (128 x 64, K-major), all
+// 128-byte swizzled.
+template <int ACT>
+__global__ void __launch_bounds__(GTHREADS, 1)
+ffn_bwd_dpre_kernel(const __grid_constant__ CUtensorMap tm_x,
+                    const __grid_constant__ CUtensorMap tm_g,
+                    const __grid_constant__ CUtensorMap tm_w1,
+                    const __grid_constant__ CUtensorMap tm_w2,
+                    const bf16* __restrict__ b1, bf16* __restrict__ dpre,
+                    int T, int H, int F, uint32_t drop_thresh,
+                    float inv_keep, uint32_t seed) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + DpRing::BAR);
+  uint64_t* empty = full + DP_NST;
+  const int f0 = blockIdx.x * GN, t0 = blockIdx.y * GM;
+  const int nk = H / KS;
 
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int t0 = blockIdx.x * BT;
-  const int rt = warp / 4, ct = warp % 4;  // the (pre, dh) fragment
-  const int col0 = warp * (H / 8);         // this warp's dx columns
-
-  load_rows<H>(sX, LT::LDX, x, t0, T);
-  load_rows<H>(sG, LT::LDX, g, t0, T);
-  for (int i = tid; i < 256; i += THREADS) sPos[i] = (float)i;
-  __syncthreads();
-  // element i of any Acc fragment sits at row pos.x[i] / 16, column % 16
-  Acc pos;
-  wmma::load_matrix_sync(pos, sPos, 16, wmma::mem_row_major);
-
-  Acc acc[2][NF];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < NF; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  for (int f0 = 0; f0 < F; f0 += BF) {
-    __syncthreads();  // the previous step is done with the slab and sDP
-    constexpr int W2CH = H / 8;
-    for (int i = tid; i < BF * W2CH; i += THREADS) {
-      const int r = i / W2CH, c = i % W2CH;
-      *reinterpret_cast<uint4*>(slab + r * LT::LDW2 + c * 8) =
-          *reinterpret_cast<const uint4*>(w2 + (long long)(f0 + r) * H + c * 8);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < DP_NST; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 8);  // each consumer warp
     }
-    __syncthreads();
-
-    // dh = g @ W2[f-tile, :]^T, one 16x16 fragment per warp
-    Acc dh;
-    wmma::fill_fragment(dh, 0.f);
-#pragma unroll 4
-    for (int kk = 0; kk < H / 16; ++kk) {
-      ARow fa;
-      BCol fb;
-      wmma::load_matrix_sync(fa, sG + rt * 16 * LT::LDX + kk * 16, LT::LDX);
-      wmma::load_matrix_sync(fb, slab + ct * 16 * LT::LDW2 + kk * 16, LT::LDW2);
-      wmma::mma_sync(dh, fa, fb, dh);
-    }
-    __syncthreads();  // every warp is done reading W2
-
-    constexpr int W1CH = BF / 8;
-    for (int i = tid; i < H * W1CH; i += THREADS) {
-      const int r = i / W1CH, c = i % W1CH;
-      *reinterpret_cast<uint4*>(slab + r * LT::LDW1 + c * 8) =
-          *reinterpret_cast<const uint4*>(w1 + (long long)r * F + f0 + c * 8);
-    }
-    __syncthreads();
-
-    // pre = x @ W1[:, f-tile], the same fragment as dh
-    Acc pre;
-    wmma::fill_fragment(pre, 0.f);
-#pragma unroll 4
-    for (int kk = 0; kk < H / 16; ++kk) {
-      ARow fa;
-      BRow fb;
-      wmma::load_matrix_sync(fa, sX + rt * 16 * LT::LDX + kk * 16, LT::LDX);
-      wmma::load_matrix_sync(fb, slab + kk * 16 * LT::LDW1 + ct * 16, LT::LDW1);
-      wmma::mma_sync(pre, fa, fb, pre);
-    }
-
-    // dpre = drop'(dh) * act'(pre + b1), in registers, to bf16 sDP
-#pragma unroll
-    for (int i = 0; i < pre.num_elements; ++i) {
-      const int e = (int)pos.x[i];
-      const int r = rt * 16 + e / 16, c = ct * 16 + e % 16;
-      const float pv = pre.x[i] + __bfloat162float(b1[f0 + c]);
-      float d = dh.x[i];
-      if (drop_thresh != 0u) {
-        const bool keep = keep_hash(seed, (uint32_t)(t0 + r),
-                                    (uint32_t)(f0 + c)) >= drop_thresh;
-        d = keep ? d * inv_keep : 0.f;
-      }
-      sDP[r * LT::LDDP + c] = __float2bfloat16(d * act_grad<ACT>(pv));
-    }
-    __syncthreads();
-
-    // acc[:, warp's columns] += dpre @ W1[warp's columns, f-tile]^T
-#pragma unroll
-    for (int kk = 0; kk < BF / 16; ++kk) {
-      ARow fa0, fa1;
-      wmma::load_matrix_sync(fa0, sDP + kk * 16, LT::LDDP);
-      wmma::load_matrix_sync(fa1, sDP + 16 * LT::LDDP + kk * 16, LT::LDDP);
-#pragma unroll
-      for (int j = 0; j < NF; ++j) {
-        BCol fb;
-        wmma::load_matrix_sync(fb, slab + (col0 + j * 16) * LT::LDW1 + kk * 16,
-                               LT::LDW1);
-        wmma::mma_sync(acc[0][j], fa0, fb, acc[0][j]);
-        wmma::mma_sync(acc[1][j], fa1, fb, acc[1][j]);
-      }
-    }
-  }
-  __syncthreads();  // every warp is done with the slab: reuse it as f32
-
-  float* sOut = reinterpret_cast<float*>(smem + LT::SLAB);
-#pragma unroll
-  for (int j = 0; j < NF; ++j) {
-    wmma::store_matrix_sync(sOut + col0 + j * 16, acc[0][j], LT::LDOUT,
-                            wmma::mem_row_major);
-    wmma::store_matrix_sync(sOut + 16 * LT::LDOUT + col0 + j * 16, acc[1][j],
-                            LT::LDOUT, wmma::mem_row_major);
+    fence_barrier_init();
   }
   __syncthreads();
-  for (int i = tid; i < BT * H; i += THREADS) {
-    const int r = i / H, c = i % H;
-    if (t0 + r < T)
-      dx[(long long)(t0 + r) * H + c] = __float2bfloat16(sOut[r * LT::LDOUT + c]);
+
+  const int wg = warpgroup_index();
+  if (wg == 2) {
+    // ---- producer ------------------------------------------------------------
+    if (threadIdx.x == 256) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int k = 0; k < nk; ++k) {
+        mbar_wait(&empty[stage], phase ^ 1);
+        mbar_expect_tx(&full[stage], 4 * TILE);
+        unsigned char* st = smem + stage * 4 * TILE;
+        tma_load_2d(st, &tm_x, &full[stage], k * KS, t0);
+        tma_load_2d(st + TILE, &tm_g, &full[stage], k * KS, t0);
+        tma_load_2d(st + 2 * TILE, &tm_w1, &full[stage], f0, k * KS);
+        tma_load_2d(st + 2 * TILE + TILE / 2, &tm_w1, &full[stage], f0 + 64,
+                    k * KS);
+        tma_load_2d(st + 3 * TILE, &tm_w2, &full[stage], k * KS, f0);
+        if (++stage == DP_NST) { stage = 0; phase ^= 1; }
+      }
+    }
+  } else {
+    // ---- consumers: tokens [t0 + 64c, t0 + 64c + 64) -------------------------
+    const int c = wg;
+    const int tw = threadIdx.x - 128 * c;
+    const int r0 = (tw / 32) * 16 + (tw % 32) / 4;  // rows r0 and r0 + 8
+    const int cq = (tw % 4) * 2;
+    float pre[64], dh[64];
+    int stage = 0, pending = -1;
+    uint32_t phase = 0;
+    for (int k = 0; k < nk; ++k) {
+      mbar_wait(&full[stage], phase);
+      unsigned char* st = smem + stage * 4 * TILE;
+      const uint64_t dx_ = desc(st + c * 64 * 128, 16, 1024, SW128);
+      const uint64_t dg = desc(st + TILE + c * 64 * 128, 16, 1024, SW128);
+      const uint64_t dw1 = desc(st + 2 * TILE, TILE / 2, 1024, SW128);
+      const uint64_t dw2 = desc(st + 3 * TILE, 16, 1024, SW128);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < KS / 16; ++kk) {
+        const int sc = k > 0 || kk > 0;
+        wgmma_n128<0, 1>(pre, dx_ + ((kk * 32) >> 4), dw1 + ((kk * 2048) >> 4),
+                         sc);
+        wgmma_n128<0, 0>(dh, dg + ((kk * 32) >> 4), dw2 + ((kk * 32) >> 4), sc);
+      }
+      wgmma_commit();
+      wgmma_wait<1>();
+      if (pending >= 0 && tw % 32 == 0) mbar_arrive(&empty[pending]);
+      pending = stage;
+      if (++stage == DP_NST) { stage = 0; phase ^= 1; }
+    }
+    wgmma_wait<0>();
+    fence_regs<64>(pre);
+    fence_regs<64>(dh);
+    if (tw % 32 == 0) mbar_arrive(&empty[pending]);
+    // element i sits at row r0 (+8 for i % 4 >= 2), column (i/4)*8 + cq +
+    // i%2; the math runs unguarded (a column past F reads a zero bias) so
+    // that the compiler can interleave the elements, and only the stores
+    // are guarded
+#pragma unroll
+    for (int i = 0; i < 64; i += 2) {
+      const int t = t0 + 64 * c + r0 + ((i / 2) % 2) * 8;
+      const int f = f0 + (i / 4) * 8 + cq;
+      const float2 bias =
+          f < F ? __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(b1 + f))
+                : make_float2(0.f, 0.f);
+      float v[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float pv = pre[i + e] + (e ? bias.y : bias.x);
+        float d = dh[i + e];
+        if (drop_thresh != 0u) {
+          const bool keep =
+              keep_hash(seed, (uint32_t)t, (uint32_t)(f + e)) >= drop_thresh;
+          d = keep ? d * inv_keep : 0.f;
+        }
+        v[e] = d * act_grad<ACT>(pv);
+      }
+      if (t < T && f < F)
+        *reinterpret_cast<__nv_bfloat162*>(dpre + (size_t)t * F + f) =
+            __floats2bfloat162_rn(v[0], v[1]);
+    }
+  }
+}
+
+// dx (T, H) = dpre (T, F) @ W1^T for the tile (128 tokens from t0, 128
+// d_model columns from n0).  Stage layout: dpre (128 x 64, K-major), W1
+// rows n0.. (128 x 64, K-major: the B operand as W1 lies), 128-byte
+// swizzled.
+__global__ void __launch_bounds__(GTHREADS, 2)
+ffn_bwd_dx_kernel(const __grid_constant__ CUtensorMap tm_dp,
+                  const __grid_constant__ CUtensorMap tm_w1,
+                  bf16* __restrict__ dx, int T, int H, int F) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + DxRing::BAR);
+  uint64_t* empty = full + DX_NST;
+  const int n0 = blockIdx.x * GN, t0 = blockIdx.y * GM;
+  const int nk = F / KS;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < DX_NST; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 8);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = warpgroup_index();
+  if (wg == 2) {
+    if (threadIdx.x == 256) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int k = 0; k < nk; ++k) {
+        mbar_wait(&empty[stage], phase ^ 1);
+        mbar_expect_tx(&full[stage], 2 * TILE);
+        unsigned char* st = smem + stage * 2 * TILE;
+        tma_load_2d(st, &tm_dp, &full[stage], k * KS, t0);
+        tma_load_2d(st + TILE, &tm_w1, &full[stage], k * KS, n0);
+        if (++stage == DX_NST) { stage = 0; phase ^= 1; }
+      }
+    }
+  } else {
+    const int c = wg;
+    const int tw = threadIdx.x - 128 * c;
+    const int r0 = (tw / 32) * 16 + (tw % 32) / 4;
+    const int cq = (tw % 4) * 2;
+    float acc[64];
+    int stage = 0, pending = -1;
+    uint32_t phase = 0;
+    for (int k = 0; k < nk; ++k) {
+      mbar_wait(&full[stage], phase);
+      unsigned char* st = smem + stage * 2 * TILE;
+      const uint64_t da = desc(st + c * 64 * 128, 16, 1024, SW128);
+      const uint64_t db = desc(st + TILE, 16, 1024, SW128);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < KS / 16; ++kk)
+        wgmma_n128<0, 0>(acc, da + ((kk * 32) >> 4), db + ((kk * 32) >> 4),
+                         k > 0 || kk > 0);
+      wgmma_commit();
+      wgmma_wait<1>();
+      if (pending >= 0 && tw % 32 == 0) mbar_arrive(&empty[pending]);
+      pending = stage;
+      if (++stage == DX_NST) { stage = 0; phase ^= 1; }
+    }
+    wgmma_wait<0>();
+    fence_regs<64>(acc);
+    if (tw % 32 == 0) mbar_arrive(&empty[pending]);
+#pragma unroll
+    for (int i = 0; i < 64; i += 2) {
+      const int t = t0 + 64 * c + r0 + ((i / 2) % 2) * 8;
+      const int n = n0 + (i / 4) * 8 + cq;
+      if (t < T)
+        *reinterpret_cast<__nv_bfloat162*>(dx + (size_t)t * H + n) =
+            __floats2bfloat162_rn(acc[i], acc[i + 1]);
+    }
   }
 }
 
@@ -543,16 +587,38 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <int H, int ACT>
-cudaError_t launch_dx(const Args& a, bf16* dx) {
-  const size_t bytes = DxLayout<H>::BYTES;
-  cudaError_t err = cudaFuncSetAttribute(
-      ffn_bwd_dx_kernel<H, ACT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
-  if (err != cudaSuccess) return err;
-  ffn_bwd_dx_kernel<H, ACT><<<(a.T + BT - 1) / BT, THREADS, bytes, a.stream>>>(
-      a.x, a.g, a.w1, a.b1, a.w2, dx, a.T, a.F, a.drop_thresh, a.inv_keep,
+template <int ACT>
+cudaError_t launch_dx(const Args& a, int H, bf16* dx, bf16* dpre) {
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(
+        ffn_bwd_dpre_kernel<ACT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)DpRing::BYTES);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(ffn_bwd_dx_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)DxRing::BYTES);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  const CUtensorMapSwizzle sw = CU_TENSOR_MAP_SWIZZLE_128B;
+  CUtensorMap mx, mg, m1, m2, mdp, m1x;
+  if (!map_2d(&mx, a.x, a.T, H, H, GM, KS, sw) ||
+      !map_2d(&mg, a.g, a.T, H, H, GM, KS, sw) ||
+      !map_2d(&m1, a.w1, H, a.F, a.F, KS, 64, sw) ||
+      !map_2d(&m2, a.w2, a.F, H, H, GN, KS, sw) ||
+      !map_2d(&mdp, dpre, a.T, a.F, a.F, GM, KS, sw) ||
+      !map_2d(&m1x, a.w1, H, a.F, a.F, GN, KS, sw))
+    return cudaErrorInvalidValue;
+  const int mt = (a.T + GM - 1) / GM;
+  ffn_bwd_dpre_kernel<ACT><<<dim3((a.F + GN - 1) / GN, mt), GTHREADS,
+                             DpRing::BYTES, a.stream>>>(
+      mx, mg, m1, m2, a.b1, dpre, a.T, H, a.F, a.drop_thresh, a.inv_keep,
       a.seed);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  ffn_bwd_dx_kernel<<<dim3(H / GN, mt), GTHREADS, DxRing::BYTES, a.stream>>>(
+      mdp, m1x, dx, a.T, H, a.F);
   return cudaGetLastError();
 }
 
@@ -592,39 +658,18 @@ cudaError_t launch_dw(const Args& a, bf16* dw1, bf16* db1, bf16* dw2,
   return cudaGetLastError();
 }
 
-template <int H, int ACT>
-cudaError_t dispatch_pass(bool dw, const Args& a, bf16* dx, bf16* dw1,
-                          bf16* db1, bf16* dw2, float* ws, int n_split) {
-  return dw ? launch_dw<H, ACT>(a, dw1, db1, dw2, ws, n_split)
-            : launch_dx<H, ACT>(a, dx);
-}
-
 template <int H>
-cudaError_t dispatch_act(int act_id, bool dw, const Args& a, bf16* dx,
-                         bf16* dw1, bf16* db1, bf16* dw2, float* ws,
-                         int n_split) {
+cudaError_t dispatch_dw(int act_id, const Args& a, bf16* dw1, bf16* db1,
+                        bf16* dw2, float* ws, int n_split) {
   switch (act_id) {
     case ACT_GELU:
-      return dispatch_pass<H, ACT_GELU>(dw, a, dx, dw1, db1, dw2, ws, n_split);
+      return launch_dw<H, ACT_GELU>(a, dw1, db1, dw2, ws, n_split);
     case ACT_GELU_TANH:
-      return dispatch_pass<H, ACT_GELU_TANH>(dw, a, dx, dw1, db1, dw2, ws,
-                                             n_split);
+      return launch_dw<H, ACT_GELU_TANH>(a, dw1, db1, dw2, ws, n_split);
     case ACT_RELU:
-      return dispatch_pass<H, ACT_RELU>(dw, a, dx, dw1, db1, dw2, ws, n_split);
+      return launch_dw<H, ACT_RELU>(a, dw1, db1, dw2, ws, n_split);
     default:
       return cudaErrorInvalidValue;
-  }
-}
-
-cudaError_t dispatch(int H, int act_id, bool dw, const Args& a, bf16* dx,
-                     bf16* dw1, bf16* db1, bf16* dw2, float* ws,
-                     int n_split) {
-  switch (H) {
-    case 128: return dispatch_act<128>(act_id, dw, a, dx, dw1, db1, dw2, ws, n_split);
-    case 256: return dispatch_act<256>(act_id, dw, a, dx, dw1, db1, dw2, ws, n_split);
-    case 512: return dispatch_act<512>(act_id, dw, a, dx, dw1, db1, dw2, ws, n_split);
-    case 768: return dispatch_act<768>(act_id, dw, a, dx, dw1, db1, dw2, ws, n_split);
-    default: return cudaErrorInvalidValue;
   }
 }
 
@@ -656,19 +701,38 @@ int ffn_bwd_dw_bf16(const void* x, const void* g, const void* w1,
   if (T < 1 || n_split < 1) return (int)cudaErrorInvalidValue;
   const Args a = make_args(x, g, w1, b1, w2, T, F, drop_thresh, inv_keep,
                            seed, stream);
-  return (int)dispatch(H, act_id, true, a, nullptr, static_cast<bf16*>(dw1),
-                       static_cast<bf16*>(db1), static_cast<bf16*>(dw2),
-                       static_cast<float*>(ws), n_split);
+  bf16 *d1 = static_cast<bf16*>(dw1), *d2 = static_cast<bf16*>(dw2);
+  bf16* db = static_cast<bf16*>(db1);
+  float* w = static_cast<float*>(ws);
+  switch (H) {
+    case 128: return (int)dispatch_dw<128>(act_id, a, d1, db, d2, w, n_split);
+    case 256: return (int)dispatch_dw<256>(act_id, a, d1, db, d2, w, n_split);
+    case 512: return (int)dispatch_dw<512>(act_id, a, d1, db, d2, w, n_split);
+    case 768: return (int)dispatch_dw<768>(act_id, a, d1, db, d2, w, n_split);
+    case 1024: return (int)dispatch_dw<1024>(act_id, a, d1, db, d2, w, n_split);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
+// dpre: T x F bf16 scratch.  Two launches: dpre, then dx = dpre @ W1^T.
+// H a multiple of 128 up to 1024, F a multiple of 64.
 int ffn_bwd_dx_bf16(const void* x, const void* g, const void* w1,
-                    const void* b1, const void* w2, void* dx, int T, int H,
-                    int F, int act_id, unsigned int drop_thresh,
-                    float inv_keep, unsigned int seed, void* stream) {
+                    const void* b1, const void* w2, void* dx, void* dpre,
+                    int T, int H, int F, int act_id,
+                    unsigned int drop_thresh, float inv_keep,
+                    unsigned int seed, void* stream) {
+  if (T < 1 || H < GN || H > 1024 || H % GN != 0 || F < KS || F % KS != 0)
+    return (int)cudaErrorInvalidValue;
   const Args a = make_args(x, g, w1, b1, w2, T, F, drop_thresh, inv_keep,
                            seed, stream);
-  return (int)dispatch(H, act_id, false, a, static_cast<bf16*>(dx), nullptr,
-                       nullptr, nullptr, nullptr, 0);
+  bf16* o = static_cast<bf16*>(dx);
+  bf16* dp = static_cast<bf16*>(dpre);
+  switch (act_id) {
+    case ACT_GELU: return (int)launch_dx<ACT_GELU>(a, H, o, dp);
+    case ACT_GELU_TANH: return (int)launch_dx<ACT_GELU_TANH>(a, H, o, dp);
+    case ACT_RELU: return (int)launch_dx<ACT_RELU>(a, H, o, dp);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

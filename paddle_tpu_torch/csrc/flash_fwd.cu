@@ -1,8 +1,9 @@
 // Flash-attention forward for Hopper (sm_90a): bf16 in, f32 accumulate.
 //
-// Replaces paddle_tpu/ops/pallas/attention.py::_flash_fwd_kernel (launched
-// by _flash_forward) together with the transpose-and-pad shim of
-// flash_attention.  It computes the same function:
+// Replaces paddle_tpu/ops/pallas/attention.py::_flash_fwd_kernel (:120,
+// launched by _flash_forward, pl.pallas_call at :221) together with the
+// transpose-and-pad shim of flash_attention.  It computes the same
+// function:
 //
 //   s   = (q k^T) * scale + kbias[b, k]          (f32)
 //   s   = DEFAULT_MASK_VALUE where causal and q + causal_offset < k
@@ -12,63 +13,110 @@
 //   o   = acc / l (bf16),  lse = m + log(l) (f32)
 //
 // Layout: q (B, Sq, H, D), k/v (B, Sk, H, D) read in place by strides (the
-// last dim contiguous), o (B, Sq, H, D) contiguous, lse (B, H, Sq).  The
-// ragged Sq/Sk edges are masked here, so nothing is padded or transposed
-// around the call.  Keys past Sk are left out of the softmax entirely.
+// last dim contiguous, the others multiples of 8 elements), o (B, Sq, H,
+// D) contiguous, lse (B, H, Sq).  The ragged Sq/Sk edges are masked here,
+// so nothing is padded or transposed around the call.  Keys past Sk are
+// left out of the softmax entirely.  D in {16, 32, 64, 128}.
 //
-// Design: one CTA of 4 warps per (batch*head, 64-query tile); the loop over
-// 64-key tiles inside the CTA takes the place of the TPU's sequential `ik`
-// grid axis.  Each warp owns 16 query rows.  Q, K, V, the f32 scores, the
-// bf16 probabilities and the f32 accumulator live in shared memory (about
-// 71 KB at D=64, so three CTAs fit on an SM); m and l are per-row values in
-// shared memory.  Both products run on the tensor cores through WMMA
-// (bf16 x bf16 -> f32, 16x16x16 fragments).  The accumulator is kept in
-// shared memory, not in fragments, because the per-row rescale by alpha
-// needs to know which element is which row.
+// Design: one CTA per (batch*head, 64 or 128 queries), chosen by
+// ops/kernels/attention.py::_flash_plan so that few queries still fill
+// the card.  A CTA is NC = 1 or 2 warpgroups of 64 query rows each, and
+// nothing else:
+//   - K and V tiles of 64 keys come into a ring of NST stages by TMA over
+//     4-D tensor maps (D, H, S, B) whose strides are the tensors' own
+//     (rows past the sequence arrive as zeros), with the tile's 64 key
+//     biases by a 2-D map over the (B, Sk) f32 bias; a stage's mbarrier
+//     completes when the bytes have landed.  Keys past Sk score -inf on
+//     the last tile, so they drop out of the softmax.  Thread 0 loads Q and the
+//     first NST tiles; after that the last warp to finish with a stage
+//     (a counter in shared memory) refills it.  There is no producer
+//     warp: the registers a launch gives a thread are counted over the
+//     block's threads rounded up to whole warpgroups, so a producer warp
+//     would cost the consumers a third of theirs.  Two CTAs then share
+//     an SM at D <= 64 without dropout (128 registers a thread).
+//   - a consumer computes S = Q K^T with wgmma m64n64k16, both operands
+//     in shared memory (K-major, the swizzle the head dim allows: 32, 64
+//     or 128 bytes), and keeps S in its registers: a thread holds 2 rows
+//     x 16 columns.  The softmax runs there: scale and key bias in one
+//     FMA, the causal mask only on tiles that cross the diagonal, the row
+//     max over the four threads of a row by two quad shuffles, p by ex2
+//     of (s - m) * log2(e), a per-thread partial of l (summed over the
+//     quad once, at the end), the dropout hash per element from the
+//     coordinates the layout gives.  The S accumulator's layout is the
+//     register A-fragment layout of wgmma, so P becomes bf16 in place and
+//     O += P V runs as wgmma m64nDk16 with A from registers and V as an
+//     MN-major B from shared memory.  O stays in registers (D/2 a
+//     thread); the per-row rescale by alpha is a register multiply.
+//   - the epilogue divides by l, stages the bf16 O rows in the
+//     warpgroup's own Q rows (no longer read) and stores them as 16-byte
+//     rows, and writes lse = m + log(l) per row.
+// The consumers run unsynchronised on the same K/V stages, so one's
+// softmax overlaps another's wgmma.  Each consumer also overlaps its own:
+// it issues the next tile's S before this tile's O += P V and runs the
+// next softmax while that product is on the tensor pipe, with the bf16
+// P of two tiles in turns in registers.
 //
-// Bound on the H100: at BERT-base shapes (S=512, D=64) the work is about
-// 4*S*S*D flops per head against 4*S*D*2 bytes of q/k/v/o, i.e. ~256
-// flop/byte, just under the card's ~295 bf16 ridge: it is memory-bound at
-// the roofline, though this simple kernel (no cp.async/TMA pipelining, no
-// wgmma) is far from either roof.  Making it fast is later work.
+// Bound on the H100: at BERT-base (B=32, S=512, 12 heads of 64) the work
+// is 4 B H S^2 D = 25.8 GFLOP against ~50 MB of q/k/v/o: 0.026 ms of
+// tensor cores and 0.015 ms of HBM.  In practice the limit is the
+// element work on the 100.7 M scores a call: one ex2 each on the SFU
+// (16 a clock an SM: ~0.026 ms) and some ten FP32 instructions each, and
+// with dropout the ~15 integer instructions of the hash.  The design
+// keeps all of it in registers (no score, probability or accumulator
+// round trip through shared memory), reduces rows by quad shuffles,
+// defers the l reduction to the end, masks causally only on the diagonal
+// tiles, and lets the two warpgroups (and co-resident CTAs) overlap
+// element work with the tensor pipe.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <mma.h>
 #include <stdint.h>
+#include <string.h>
 
-using namespace nvcuda;
+#include "hopper.cuh"
+
 typedef __nv_bfloat16 bf16;
+using namespace hopper;
 
 namespace {
 
-constexpr int BQ = 64;  // query rows per CTA, 16 per warp
-constexpr int BK = 64;  // keys per inner step
-constexpr int WARPS = 4;
-constexpr int THREADS = WARPS * 32;
+constexpr int BM = 64;   // query rows a consumer warpgroup owns
+constexpr int BK = 64;   // keys per tile
+constexpr int NST = 3;   // ring stages
+constexpr int MAX_NC = 2;  // consumer warpgroups a CTA holds at most
 constexpr float MASK_VALUE = -0.7f * 3.4028234663852886e38f;
+constexpr float LOG2E = 1.4426950408889634f;
 
-__host__ __device__ constexpr size_t align128(size_t x) {
-  return (x + 127) / 128 * 128;
+// CTAs an SM holds: two (128 registers a thread) where the softmax state
+// fits, at D <= 64 without dropout; else one
+template <int D, bool DROP>
+__host__ __device__ constexpr int min_ctas() {
+  return D <= 64 && !DROP ? 2 : 1;
 }
 
 template <int D>
-struct Layout {
-  static constexpr int LDH = D + 8;   // bf16 q/k/v tile row stride
-  static constexpr int LDS = BK + 4;  // f32 score row stride
-  static constexpr int LDP = BK + 8;  // bf16 probability row stride
-  static constexpr int LDO = D + 4;   // f32 accumulator row stride
+struct Tile {
+  static constexpr int ATOM = D < 64 ? D : 64;  // elements a swizzled row holds
+  static constexpr int NATOM = D / ATOM;        // 1, or 2 at D=128
+  static constexpr int ROWB = ATOM * 2;         // bytes of a swizzled row
+  static constexpr int GROUP = 8 * ROWB;        // 8-row group (SBO)
+  static constexpr uint32_t LAYOUT = D == 16 ? SW32 : D == 32 ? SW64 : SW128;
+  static constexpr int QA = MAX_NC * BM * ROWB;  // bytes of a Q atom
+  static constexpr int KV = BK * D * 2;          // bytes of a K or V tile
   static constexpr size_t Q = 0;
-  static constexpr size_t K = align128(Q + BQ * LDH * 2);
-  static constexpr size_t V = align128(K + BK * LDH * 2);
-  static constexpr size_t S = align128(V + BK * LDH * 2);
-  static constexpr size_t P = align128(S + BQ * LDS * 4);
-  static constexpr size_t O = align128(P + BQ * LDP * 2);
-  static constexpr size_t BIAS = align128(O + BQ * LDO * 4);
-  static constexpr size_t M = align128(BIAS + BK * 4);
-  static constexpr size_t L = align128(M + BQ * 4);
-  static constexpr size_t BYTES = align128(L + BQ * 4);
+  static constexpr size_t K = Q + (size_t)NATOM * QA;
+  static constexpr size_t V = K + (size_t)NST * KV;
+  static constexpr size_t BIAS = V + (size_t)NST * KV;
+  static constexpr size_t BAR = BIAS + (size_t)NST * BK * 4;
+  static constexpr size_t BYTES = BAR + (NST + 1) * 8 + NST * 4 + 1024;  // + alignment
+  static_assert(KV % 1024 == 0 && QA % 1024 == 0, "swizzle alignment");
 };
+
+template <int D>
+CUtensorMapSwizzle tma_swizzle() {
+  return D == 16 ? CU_TENSOR_MAP_SWIZZLE_32B
+       : D == 32 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B;
+}
 
 // paddle_tpu/ops/pallas/attention.py::_keep_mask3, bit for bit
 __device__ __forceinline__ uint32_t keep_hash(uint32_t seed, uint32_t bh,
@@ -84,199 +132,364 @@ __device__ __forceinline__ uint32_t keep_hash(uint32_t seed, uint32_t bh,
   return x;
 }
 
-__device__ __forceinline__ float warp_max(float v) {
-  for (int off = 16; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
 }
 
-// rows x D tile of a (B, S, H, D)-strided tensor into shared memory,
-// 16 bytes per thread per step; rows past `limit` are zero
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
 template <int D>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
-                                          long long row_stride, int row0,
-                                          int rows, int limit) {
-  constexpr int CH = D / 8;
-  for (int i = threadIdx.x; i < rows * CH; i += THREADS) {
-    const int r = i / CH, c = i % CH;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < limit)
-      val = *reinterpret_cast<const uint4*>(
-          src + (long long)(row0 + r) * row_stride + c * 8);
-    *reinterpret_cast<uint4*>(dst + r * Layout<D>::LDH + c * 8) = val;
+__device__ __forceinline__ void mma_pv(float* o, const uint32_t* a,
+                                       uint64_t db, int scale_d) {
+  if constexpr (D == 16) wgmma_rs_n16<1>(o, a, db, scale_d);
+  else if constexpr (D == 32) wgmma_rs_n32<1>(o, a, db, scale_d);
+  else if constexpr (D == 64) wgmma_rs_n64<1>(o, a, db, scale_d);
+  else wgmma_rs_n128<1>(o, a, db, scale_d);
+}
+
+// O += P V over one key tile: P as BK/16 register A fragments, the V tile
+// (sv) MN-major; `accumulate` 0 starts O
+template <int D>
+__device__ __forceinline__ void mma_pv_tile(float* o, uint32_t (*pa)[4],
+                                            const unsigned char* sv,
+                                            bool accumulate) {
+  using T = Tile<D>;
+  const uint64_t dv = desc(sv, BK * T::ROWB, T::GROUP, T::LAYOUT);
+#pragma unroll
+  for (int j = 0; j < BK / 16; ++j)
+    mma_pv<D>(o, pa[j], dv + ((j * 16 * T::ROWB) >> 4), accumulate || j > 0);
+}
+
+// S (64 x BK) = the warpgroup's Q rows (sq) times a K tile (sk)^T
+template <int D>
+__device__ __forceinline__ void mma_qk(float* s, const unsigned char* sq,
+                                       const unsigned char* sk) {
+  using T = Tile<D>;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int atom = kk * 16 / T::ATOM, in_row = (kk * 16 % T::ATOM) * 2;
+    wgmma_n64<0, 0>(s, desc(sq + atom * T::QA + in_row, 16, T::GROUP, T::LAYOUT),
+                    desc(sk + atom * BK * T::ROWB + in_row, 16, T::GROUP,
+                         T::LAYOUT),
+                    kk > 0);
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, const float* __restrict__ kbias,
-                 bf16* __restrict__ o, float* __restrict__ lse, int H,
-                 int Sq, int Sk, long long q_sb, long long q_ss,
-                 long long q_sh, long long k_sb, long long k_ss,
-                 long long k_sh, long long v_sb, long long v_ss,
-                 long long v_sh, int causal, int causal_offset, float scale,
-                 uint32_t drop_thresh, float keep_prob, uint32_t seed) {
-  using LT = Layout<D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem + LT::Q);
-  bf16* sK = reinterpret_cast<bf16*>(smem + LT::K);
-  bf16* sV = reinterpret_cast<bf16*>(smem + LT::V);
-  float* sS = reinterpret_cast<float*>(smem + LT::S);
-  bf16* sP = reinterpret_cast<bf16*>(smem + LT::P);
-  float* sO = reinterpret_cast<float*>(smem + LT::O);
-  float* sBias = reinterpret_cast<float*>(smem + LT::BIAS);
-  float* sM = reinterpret_cast<float*>(smem + LT::M);
-  float* sL = reinterpret_cast<float*>(smem + LT::L);
+// The online softmax of one thread's two rows (row0 and row1 = row0 + 8)
+// over key tiles: running max m, partial sum l (over this thread's
+// columns only; the quad's four partials are summed at the end).
+struct Softmax {
+  int row0, row1, cq, Sk, causal, causal_offset, first_row;
+  float scale;
+  uint32_t drop_thresh;
+  float inv_keep;
+  uint32_t seed, bh;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
 
+  // scores of the tile at key k0 (s: the S accumulator, sb: its key
+  // biases, or null) to bf16 probabilities pa (the A fragments of
+  // O += P V), with dropout; returns the factors (row0, row1) that
+  // rescale O
+  template <bool DROP>
+  __device__ __forceinline__ float2 tile(float* s, const float* sb, int k0,
+                                         uint32_t (*pa)[4]) {
+    const bool diag = causal && k0 + BK - 1 > first_row + causal_offset;
+    const bool edge = k0 + BK > Sk;  // the tile holds keys past Sk
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * j + cq + e;
+        const float bv = sb != nullptr ? sb[col] : 0.f;
+        float v0 = fmaf(s[4 * j + e], scale, bv);
+        float v1 = fmaf(s[4 * j + 2 + e], scale, bv);
+        if (diag && k0 + col < Sk) {
+          if (row0 + causal_offset < k0 + col) v0 = MASK_VALUE;
+          if (row1 + causal_offset < k0 + col) v1 = MASK_VALUE;
+        }
+        if (edge && k0 + col >= Sk) v0 = v1 = -INFINITY;  // left out
+        s[4 * j + e] = v0;
+        s[4 * j + 2 + e] = v1;
+        mx0 = fmaxf(mx0, v0);
+        mx1 = fmaxf(mx1, v1);
+      }
+    }
+    // the tile has a key < Sk, so the new max is finite
+    const float mn0 = fmaxf(m0, quad_max(mx0));
+    const float mn1 = fmaxf(m1, quad_max(mx1));
+    const float2 alpha = make_float2(ex2((m0 - mn0) * LOG2E),
+                                     ex2((m1 - mn1) * LOG2E));
+    m0 = mn0;
+    m1 = mn1;
+    float ls0 = 0.f, ls1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float p0 = ex2((s[4 * j + e] - mn0) * LOG2E);
+        float p1 = ex2((s[4 * j + 2 + e] - mn1) * LOG2E);
+        ls0 += p0;
+        ls1 += p1;
+        if constexpr (DROP) {
+          const uint32_t kc = (uint32_t)(k0 + 8 * j + cq + e);
+          p0 = keep_hash(seed, bh, (uint32_t)row0, kc) >= drop_thresh
+                   ? p0 * inv_keep : 0.f;
+          p1 = keep_hash(seed, bh, (uint32_t)row1, kc) >= drop_thresh
+                   ? p1 * inv_keep : 0.f;
+        }
+        s[4 * j + e] = p0;
+        s[4 * j + 2 + e] = p1;
+      }
+    }
+    l0 = l0 * alpha.x + ls0;
+    l1 = l1 * alpha.y + ls1;
+#pragma unroll
+    for (int j = 0; j < BK / 16; ++j) acc_to_a(pa[j], s, j);
+    return alpha;
+  }
+};
+
+// byte offset of element (row, col) of a 64 x D bf16 tile kept in the
+// atoms of a warpgroup's Q rows, with 16-byte chunks of a row permuted by
+// the row (the epilogue's staging layout)
+template <int D>
+__device__ __forceinline__ int stage_off(int row, int col) {
+  using T = Tile<D>;
+  constexpr int CH = T::ROWB / 16;
+  return (col / T::ATOM) * T::QA + row * T::ROWB +
+         ((((col % T::ATOM) / 8) ^ (row % CH)) * 16) + (col % 8) * 2;
+}
+
+template <int D, bool DROP>
+__global__ void __launch_bounds__(MAX_NC * 128, min_ctas<D, DROP>())
+flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
+                 const __grid_constant__ CUtensorMap tm_k,
+                 const __grid_constant__ CUtensorMap tm_v,
+                 const __grid_constant__ CUtensorMap tm_bias, int has_bias,
+                 bf16* __restrict__ o, float* __restrict__ lse, int H, int Sq,
+                 int Sk, int causal, int causal_offset, float scale,
+                 uint32_t drop_thresh, float keep_prob, uint32_t seed) {
+  using T = Tile<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  float* sbias = reinterpret_cast<float*>(smem + T::BIAS);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + T::BAR);
+  uint64_t* qbar = full + NST;
+  int* released = reinterpret_cast<int*>(qbar + 1);  // warps done, by stage
+
+  const int nc = blockDim.x / 128;  // consumer warpgroups
   const int bh = blockIdx.y;
   const int b = bh / H, h = bh % H;
-  const int q0 = blockIdx.x * BQ;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int row_w = warp * 16;  // this warp's first row in the tile
+  const int q0 = blockIdx.x * nc * BM;
+  int n_kt = (Sk + BK - 1) / BK;
+  // every row of the CTA keeps key 0 (q0 + offset >= 0), so key tiles
+  // wholly above the diagonal add exp(MASK - m) == 0 and are skipped
+  if (causal && q0 + causal_offset >= 0)
+    n_kt = min(n_kt, (q0 + nc * BM - 1 + causal_offset) / BK + 1);
 
-  load_tile<D>(sQ, q + b * q_sb + h * q_sh, q_ss, q0, BQ, Sq);
-  for (int i = threadIdx.x; i < BQ * LT::LDO; i += THREADS) sO[i] = 0.f;
-  for (int i = threadIdx.x; i < BQ; i += THREADS) {
-    sM[i] = -INFINITY;
-    sL[i] = 0.f;
+  // K, V and the key biases of tile kt into stage st, announced on full[st]
+  auto fill = [&](int st, int kt) {
+    mbar_expect_tx(&full[st], 2 * T::KV + (has_bias ? BK * 4 : 0));
+    for (int a = 0; a < T::NATOM; ++a) {
+      tma_load_4d(smem + T::K + st * T::KV + a * BK * T::ROWB, &tm_k, &full[st],
+                  a * T::ATOM, h, kt * BK, b);
+      tma_load_4d(smem + T::V + st * T::KV + a * BK * T::ROWB, &tm_v, &full[st],
+                  a * T::ATOM, h, kt * BK, b);
+    }
+    if (has_bias) tma_load_2d(sbias + st * BK, &tm_bias, &full[st], kt * BK, b);
+  };
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < NST; ++i) {
+      mbar_init(&full[i], 1);
+      released[i] = 0;
+    }
+    mbar_init(qbar, 1);
+    fence_barrier_init();
+    mbar_expect_tx(qbar, nc * BM * D * 2);
+    for (int a = 0; a < T::NATOM; ++a)
+      tma_load_4d(smem + T::Q + a * T::QA, &tm_q, qbar, a * T::ATOM, h, q0, b);
+    for (int i = 0; i < NST && i < n_kt; ++i) fill(i, i);
+  }
+  __syncthreads();
+
+  // Per key tile t the consumer issues S(t+1) = Q K(t+1)^T, then
+  // O += P(t) V(t), and runs the softmax of tile t+1 while O += P(t) V(t)
+  // is still on the tensor pipe; O is rescaled once that product is done.
+  const int c = warpgroup_index();
+  const int tw = threadIdx.x - 128 * c;
+  const int lane = tw % 32;
+  const int r0 = (tw / 32) * 16 + lane / 4;  // rows r0 and r0 + 8 of 64
+  const int cq = (lane % 4) * 2;             // column in each 8-column group
+  const int row0 = q0 + c * BM + r0;         // absolute query rows
+  unsigned char* sq = smem + T::Q + c * BM * T::ROWB;
+  Softmax sm{row0, row0 + 8, cq, Sk, causal, causal_offset, q0 + c * BM,
+             scale, drop_thresh, 1.f / keep_prob, seed, (uint32_t)bh};
+
+  float oacc[D / 2];  // O: rows r0, r0 + 8 as an f32 accumulator
+  float s[BK / 2];    // S of one key tile, then its probabilities
+  // bf16 P of two tiles, in turns: one is read by O += P V while the
+  // softmax writes the other (a copy between them would make ptxas
+  // serialize the wgmma that reads it)
+  uint32_t pa[BK / 16][4], pb[BK / 16][4];
+  mbar_wait(qbar, 0);
+  mbar_wait(&full[0], 0);
+  wgmma_fence();
+  mma_qk<D>(s, sq, smem + T::K);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs<BK / 2>(s);
+  const float* sb = has_bias ? sbias : nullptr;
+  sm.tile<DROP>(s, sb, 0, pa);
+  int stage = 0, kt = 0;
+  uint32_t phase = 0;
+  // the stage of tile kt is done: the last warp to say so refills it with
+  // tile kt + NST (no producer warp: its registers would count against
+  // every thread's at launch)
+  auto release = [&]() {
+    __syncwarp();
+    if (lane == 0) {
+      __threadfence_block();
+      if (atomicAdd(&released[stage], 1) == nc * 4 - 1) {
+        __threadfence_block();
+        released[stage] = 0;
+        if (kt + NST < n_kt) fill(stage, kt + NST);
+      }
+    }
+  };
+  // tile kt's O += P V (P in cur) beside tile kt+1's S and softmax
+  // (into nxt)
+  auto step = [&](uint32_t (*cur)[4], uint32_t (*nxt)[4]) {
+    const int ns = stage + 1 == NST ? 0 : stage + 1;
+    const uint32_t nphase = stage + 1 == NST ? phase ^ 1 : phase;
+    mbar_wait(&full[ns], nphase);
+    wgmma_fence();
+    mma_qk<D>(s, sq, smem + T::K + ns * T::KV);
+    wgmma_commit();
+    mma_pv_tile<D>(oacc, cur, smem + T::V + stage * T::KV, kt > 0);
+    wgmma_commit();
+    wgmma_wait<1>();  // S of the next tile; O += P V may still run
+    fence_regs<BK / 2>(s);
+    const float2 alpha =
+        sm.tile<DROP>(s, sb != nullptr ? sb + ns * BK : nullptr, (kt + 1) * BK, nxt);
+    wgmma_wait<0>();
+    fence_regs<D / 2>(oacc);
+    release();
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) oacc[i] *= (i / 2) % 2 ? alpha.y : alpha.x;
+    stage = ns;
+    phase = nphase;
+    ++kt;
+  };
+  // the last tile's O += P V alone
+  auto last = [&](uint32_t (*cur)[4]) {
+    wgmma_fence();
+    mma_pv_tile<D>(oacc, cur, smem + T::V + stage * T::KV, kt > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs<D / 2>(oacc);
+  };
+  for (;;) {
+    if (kt + 1 == n_kt) { last(pa); break; }
+    step(pa, pb);
+    if (kt + 1 == n_kt) { last(pb); break; }
+    step(pb, pa);
   }
 
-  for (int k0 = 0; k0 < Sk; k0 += BK) {
-    // every row of this q tile keeps key 0 (q0 + offset >= 0), so tiles
-    // wholly above the causal diagonal contribute exp(MASK - m) == 0
-    if (causal && q0 + causal_offset >= 0 &&
-        k0 > q0 + BQ - 1 + causal_offset)
-      break;
-    __syncthreads();  // the previous step is done with sK/sV/sBias
-    load_tile<D>(sK, k + b * k_sb + h * k_sh, k_ss, k0, BK, Sk);
-    load_tile<D>(sV, v + b * v_sb + h * v_sh, v_ss, k0, BK, Sk);
-    for (int i = threadIdx.x; i < BK; i += THREADS)
-      sBias[i] = (kbias != nullptr && k0 + i < Sk)
-                     ? kbias[(long long)b * Sk + k0 + i] : 0.f;
-    __syncthreads();
-
-    // S = Q K^T for this warp's 16 rows
+  // epilogue: o = O / l through the warpgroup's Q rows, lse = m + log l
+  const int row1 = row0 + 8;
+  const float l0 = quad_sum(sm.l0), l1 = quad_sum(sm.l1);
+  const float il0 = 1.f / l0, il1 = 1.f / l1;
 #pragma unroll
-    for (int nt = 0; nt < BK / 16; ++nt) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-        wmma::load_matrix_sync(fa, sQ + row_w * LT::LDH + kk * 16, LT::LDH);
-        wmma::load_matrix_sync(fb, sK + nt * 16 * LT::LDH + kk * 16, LT::LDH);
-        wmma::mma_sync(acc, fa, fb, acc);
-      }
-      wmma::store_matrix_sync(sS + row_w * LT::LDS + nt * 16, acc, LT::LDS,
-                              wmma::mem_row_major);
-    }
-    __syncwarp();
-
-    // online softmax update, one row at a time across the warp's lanes
-    for (int rr = 0; rr < 16; ++rr) {
-      const int r = row_w + rr;
-      const int qrow = q0 + r;
-      float sv[BK / 32];
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < BK / 32; ++j) {
-        const int c = lane + 32 * j;
-        const int kc = k0 + c;
-        float s = -INFINITY;
-        if (kc < Sk) {
-          s = sS[r * LT::LDS + c] * scale + sBias[c];
-          if (causal && qrow + causal_offset < kc) s = MASK_VALUE;
-          mx = fmaxf(mx, s);
-        }
-        sv[j] = s;
-      }
-      mx = warp_max(mx);
-      const float m_prev = sM[r];
-      const float m_new = fmaxf(m_prev, mx);
-      float psum = 0.f;
-#pragma unroll
-      for (int j = 0; j < BK / 32; ++j) {
-        const int c = lane + 32 * j;
-        const int kc = k0 + c;
-        float p = kc < Sk ? expf(sv[j] - m_new) : 0.f;
-        psum += p;
-        if (drop_thresh != 0u) {
-          const bool keep = keep_hash(seed, (uint32_t)bh, (uint32_t)qrow,
-                                      (uint32_t)kc) >= drop_thresh;
-          p = keep ? p / keep_prob : 0.f;
-        }
-        sP[r * LT::LDP + c] = __float2bfloat16(p);
-      }
-      psum = warp_sum(psum);
-      const float alpha = expf(m_prev - m_new);
-      for (int c = lane; c < D; c += 32) sO[r * LT::LDO + c] *= alpha;
-      __syncwarp();
-      if (lane == 0) {
-        sM[r] = m_new;
-        sL[r] = alpha * sL[r] + psum;
-      }
-    }
-    __syncwarp();
-
-    // O += P V for this warp's 16 rows
-#pragma unroll
-    for (int nt = 0; nt < D / 16; ++nt) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::load_matrix_sync(acc, sO + row_w * LT::LDO + nt * 16, LT::LDO,
-                             wmma::mem_row_major);
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-        wmma::load_matrix_sync(fa, sP + row_w * LT::LDP + kk * 16, LT::LDP);
-        wmma::load_matrix_sync(fb, sV + kk * 16 * LT::LDH + nt * 16, LT::LDH);
-        wmma::mma_sync(acc, fa, fb, acc);
-      }
-      wmma::store_matrix_sync(sO + row_w * LT::LDO + nt * 16, acc, LT::LDO,
-                              wmma::mem_row_major);
-    }
+  for (int j = 0; j < D / 8; ++j) {
+    const int col = 8 * j + cq;
+    *reinterpret_cast<__nv_bfloat162*>(sq + stage_off<D>(r0, col)) =
+        __floats2bfloat162_rn(oacc[4 * j] * il0, oacc[4 * j + 1] * il0);
+    *reinterpret_cast<__nv_bfloat162*>(sq + stage_off<D>(r0 + 8, col)) =
+        __floats2bfloat162_rn(oacc[4 * j + 2] * il1, oacc[4 * j + 3] * il1);
   }
-  __syncwarp();
-
-  // o = acc / l, lse = m + log(l), for this warp's valid rows
-  for (int rr = 0; rr < 16; ++rr) {
-    const int r = row_w + rr;
-    const int qrow = q0 + r;
-    if (qrow >= Sq) break;
-    const float l = sL[r];
-    bf16* orow = o + (((long long)b * Sq + qrow) * H + h) * D;
-    for (int c = lane; c < D; c += 32)
-      orow[c] = __float2bfloat16(sO[r * LT::LDO + c] / l);
-    if (lane == 0) lse[(long long)bh * Sq + qrow] = sM[r] + logf(l);
+  if (lane % 4 == 0) {
+    if (row0 < Sq) lse[(long long)bh * Sq + row0] = sm.m0 + logf(l0);
+    if (row1 < Sq) lse[(long long)bh * Sq + row1] = sm.m1 + logf(l1);
+  }
+  named_barrier(1 + c, 128);
+  constexpr int CH = D / 8;  // 16-byte chunks of an O row
+  for (int i = tw; i < BM * CH; i += 128) {
+    const int r = i / CH, ch = i % CH;
+    const int qrow = q0 + c * BM + r;
+    if (qrow < Sq)
+      *reinterpret_cast<uint4*>(o + (((long long)b * Sq + qrow) * H + h) * D +
+                                ch * 8) =
+          *reinterpret_cast<const uint4*>(sq + stage_off<D>(r, ch * 8));
   }
 }
 
-template <int D>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const float* kbias, void* o, float* lse, int B, int H,
-                   int Sq, int Sk, const long long* st, int causal,
-                   int causal_offset, float scale, uint32_t drop_thresh,
-                   float keep_prob, uint32_t seed, cudaStream_t stream) {
-  const size_t bytes = Layout<D>::BYTES;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
-  if (err != cudaSuccess) return err;
-  dim3 grid((Sq + BQ - 1) / BQ, B * H);
-  flash_fwd_kernel<D><<<grid, THREADS, bytes, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), kbias, static_cast<bf16*>(o), lse, H, Sq,
-      Sk, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
-      causal, causal_offset, scale, drop_thresh, keep_prob, seed);
+template <int D, bool DROP>
+cudaError_t launch(const CUtensorMap* maps, int has_bias, void* o, float* lse,
+                   int B, int H, int Sq, int Sk, int nc, int causal,
+                   int causal_offset,
+                   float scale, uint32_t drop_thresh, float keep_prob,
+                   uint32_t seed, cudaStream_t stream) {
+  const size_t bytes = Tile<D>::BYTES;
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_fwd_kernel<D, DROP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)bytes);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  dim3 grid((Sq + nc * BM - 1) / (nc * BM), B * H);
+  flash_fwd_kernel<D, DROP><<<grid, nc * 128, bytes, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], has_bias, static_cast<bf16*>(o), lse,
+      H, Sq, Sk, causal, causal_offset, scale, drop_thresh, keep_prob, seed);
   return cudaGetLastError();
+}
+
+// kbias: (B, Sk) f32 with row stride bias_ld (a multiple of 4), or null
+template <int D>
+cudaError_t run(const void* q, const void* k, const void* v, const float* kbias,
+                int bias_ld, void* o, float* lse, int B, int H, int Sq, int Sk,
+                const long long* st, int block_q, int causal,
+                int causal_offset, float scale, uint32_t drop_thresh,
+                float keep_prob, uint32_t seed, cudaStream_t stream) {
+  using T = Tile<D>;
+  const int nc = block_q / BM;
+  if (nc < 1 || nc > MAX_NC || nc * BM != block_q) return cudaErrorInvalidValue;
+  CUtensorMap maps[4];
+  const uint64_t dq[4] = {(uint64_t)D, (uint64_t)H, (uint64_t)Sq, (uint64_t)B};
+  const uint64_t dk[4] = {(uint64_t)D, (uint64_t)H, (uint64_t)Sk, (uint64_t)B};
+  const uint64_t sq[3] = {(uint64_t)st[2], (uint64_t)st[1], (uint64_t)st[0]};
+  const uint64_t sk[3] = {(uint64_t)st[5], (uint64_t)st[4], (uint64_t)st[3]};
+  const uint64_t sv[3] = {(uint64_t)st[8], (uint64_t)st[7], (uint64_t)st[6]};
+  const uint32_t bq[4] = {(uint32_t)T::ATOM, 1, (uint32_t)block_q, 1};
+  const uint32_t bk[4] = {(uint32_t)T::ATOM, 1, (uint32_t)BK, 1};
+  memset(&maps[3], 0, sizeof(CUtensorMap));  // unread without a bias
+  if (!map_4d(&maps[0], q, dq, sq, bq, tma_swizzle<D>()) ||
+      !map_4d(&maps[1], k, dk, sk, bk, tma_swizzle<D>()) ||
+      !map_4d(&maps[2], v, dk, sv, bk, tma_swizzle<D>()) ||
+      (kbias != nullptr &&
+       !map_2d(&maps[3], kbias, B, Sk, bias_ld, 1, BK, CU_TENSOR_MAP_SWIZZLE_NONE,
+               CU_TENSOR_MAP_DATA_TYPE_FLOAT32)))
+    return cudaErrorInvalidValue;
+  const int has_bias = kbias != nullptr;
+  return drop_thresh != 0u
+             ? launch<D, true>(maps, has_bias, o, lse, B, H, Sq, Sk, nc, causal,
+                               causal_offset, scale, drop_thresh, keep_prob,
+                               seed, stream)
+             : launch<D, false>(maps, has_bias, o, lse, B, H, Sq, Sk, nc,
+                                causal, causal_offset, scale, drop_thresh,
+                                keep_prob, seed, stream);
 }
 
 }  // namespace
@@ -287,30 +500,38 @@ const char* error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// strides (in elements): q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh
+// strides (in elements): q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss,
+// v_sh; kbias: null or (B, Sk) f32, 16-byte aligned, with row stride
+// bias_ld a multiple of 4; block_q: 64 or 128 queries a CTA (the plan's
+// choice)
 int flash_fwd_bf16(const void* q, const void* k, const void* v,
-                   const void* kbias, void* o, void* lse, int B, int H,
+                   const void* kbias, int bias_ld, void* o, void* lse, int B,
+                   int H,
                    int Sq, int Sk, int D, const long long* strides,
-                   int causal, int causal_offset, float scale,
+                   int block_q, int causal, int causal_offset, float scale,
                    unsigned int drop_thresh, float keep_prob,
                    unsigned int seed, void* stream) {
   const float* kb = static_cast<const float*>(kbias);
   float* ls = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (Sq < 1 || Sk < 1) return (int)cudaErrorInvalidValue;
   switch (D) {
     case 16:
-      return launch<16>(q, k, v, kb, o, ls, B, H, Sq, Sk, strides, causal,
-                        causal_offset, scale, drop_thresh, keep_prob, seed, s);
+      return run<16>(q, k, v, kb, bias_ld, o, ls, B, H, Sq, Sk, strides,
+                     block_q, causal, causal_offset, scale, drop_thresh, keep_prob,
+                     seed, s);
     case 32:
-      return launch<32>(q, k, v, kb, o, ls, B, H, Sq, Sk, strides, causal,
-                        causal_offset, scale, drop_thresh, keep_prob, seed, s);
+      return run<32>(q, k, v, kb, bias_ld, o, ls, B, H, Sq, Sk, strides,
+                     block_q, causal, causal_offset, scale, drop_thresh, keep_prob,
+                     seed, s);
     case 64:
-      return launch<64>(q, k, v, kb, o, ls, B, H, Sq, Sk, strides, causal,
-                        causal_offset, scale, drop_thresh, keep_prob, seed, s);
+      return run<64>(q, k, v, kb, bias_ld, o, ls, B, H, Sq, Sk, strides,
+                     block_q, causal, causal_offset, scale, drop_thresh, keep_prob,
+                     seed, s);
     case 128:
-      return launch<128>(q, k, v, kb, o, ls, B, H, Sq, Sk, strides, causal,
-                         causal_offset, scale, drop_thresh, keep_prob, seed,
-                         s);
+      return run<128>(q, k, v, kb, bias_ld, o, ls, B, H, Sq, Sk, strides,
+                      block_q, causal, causal_offset, scale, drop_thresh, keep_prob,
+                      seed, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -13,7 +13,10 @@ the plain PyTorch version (`flash_forward_reference`,
 the same function.
 `FlashAttentionFunction` ties the two together for autograd (the
 `custom_vjp` of the JAX package), `flash_attention` is the shim around
-it, and `scaled_dot_product_attention` the dispatcher the nn layers call.
+it, and `scaled_dot_product_attention` the dispatcher the nn layers call:
+it sends a mask that varies per query or per head to `dense_attention`,
+plain torch ops on either device, as the JAX package sends it to
+`_xla_attention` outside its Pallas kernel.
 
 Layout contract (paddle 2.x MultiHeadAttention): q/k/v are
 (batch, seq, num_heads, head_dim).  The kernel reads that layout in place
@@ -32,7 +35,7 @@ from typing import Optional
 
 import torch
 
-from .build import LaunchCounter, check, library
+from .build import LaunchCounter, check, library, sm_count as _sm_count
 
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 
@@ -136,8 +139,8 @@ def _lib():
     fn = lib.flash_fwd_bf16
     if fn.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci,
-                       ctypes.POINTER(ctypes.c_longlong), ci, ci,
+        fn.argtypes = [vp, vp, vp, vp, ci, vp, vp, ci, ci, ci, ci, ci,
+                       ctypes.POINTER(ctypes.c_longlong), ci, ci, ci,
                        ctypes.c_float, ctypes.c_uint, ctypes.c_float,
                        ctypes.c_uint, vp]
         fn.restype = ci
@@ -145,12 +148,58 @@ def _lib():
 
 
 def _kernel_ready(t: torch.Tensor) -> torch.Tensor:
-    """The kernel reads rows of 16 bytes: last dim contiguous, other
+    """The kernels read rows of 16 bytes: last dim contiguous, other
     strides multiples of 8 elements, base 16-byte aligned."""
     if (t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:-1])
             or t.data_ptr() % 16):
         t = t.contiguous()
     return t
+
+
+def _tma_ready(t: torch.Tensor) -> torch.Tensor:
+    """`_kernel_ready`, and (B, S, H, D) strides that nest (each at least
+    the extent below it), as the forward kernel's 4-D tensor maps take
+    them; another layout is copied to a contiguous one."""
+    t = _kernel_ready(t)
+    _, s, h, d = t.shape
+    sb, ss, sh, _ = t.stride()
+    if not (sh >= d and ss >= sh * h and sb >= ss * s):
+        t = t.contiguous()
+    return t
+
+
+_FLASH_BLOCK_M, _FLASH_BLOCK_K = 64, 64  # a warpgroup's queries; a key tile
+
+
+def _flash_plan(b: int, h: int, sq: int, sk: int, d: int, sms: int):
+    """(block_q, block_k, ctas) of the flash forward kernel: a CTA holds
+    one or two warpgroups of 64 queries each (block_q 64 or 128) that
+    share each K/V tile of block_k keys; its grid is (query tiles,
+    batch*head).  128 is taken unless it leaves the card with less than
+    one wave of `sms` CTAs (the decode prefills: one sequence of 64-256
+    queries), where 64 doubles the CTAs.  `sk` and `d` do not change the
+    plan."""
+    del sk, d
+    bh = b * h
+    big = -(-sq // (2 * _FLASH_BLOCK_M)) * bh
+    block_q = 2 * _FLASH_BLOCK_M if big >= sms else _FLASH_BLOCK_M
+    return block_q, _FLASH_BLOCK_K, -(-sq // block_q) * bh
+
+
+def _bias_for_tma(key_bias, b: int, sk: int):
+    """(bias, row stride) as the forward kernel's TMA reads the key biases:
+    the f32 (B, Sk) bias itself when its rows are 16-byte aligned, else a
+    copy whose rows are padded to a multiple of 4 (the pad is never read
+    as a key: the kernel leaves keys past Sk out); (None, 0) without one."""
+    if key_bias is None:
+        return None, 0
+    kb = key_bias.to(torch.float32).contiguous()
+    if kb.shape != (b, sk):
+        raise ValueError(f"key_bias must be (B, Sk)=({b}, {sk}), got "
+                         f"{tuple(kb.shape)}")
+    if sk % 4 or kb.data_ptr() % 16:
+        kb = torch.nn.functional.pad(kb, (0, -sk % 4))
+    return kb, kb.shape[1]
 
 
 def _flash_forward_cuda(q, k, v, key_bias, seed, causal, causal_offset,
@@ -167,27 +216,24 @@ def _flash_forward_cuda(q, k, v, key_bias, seed, causal, causal_offset,
     if k.shape != (b, sk, h, d) or v.shape != k.shape:
         raise ValueError(f"q {tuple(q.shape)} / k {tuple(k.shape)} / "
                          f"v {tuple(v.shape)} do not match")
-    if sk < 1 or b * h > 65535:
-        raise ValueError(f"flash_fwd kernel needs Sk >= 1 and B*H <= 65535 "
-                         f"(got Sk={sk}, B*H={b * h})")
-    q, k, v = _kernel_ready(q), _kernel_ready(k), _kernel_ready(v)
-    if key_bias is not None:
-        key_bias = key_bias.to(torch.float32).contiguous()
-        if key_bias.shape != (b, sk):
-            raise ValueError(f"key_bias must be (B, Sk)=({b}, {sk}), got "
-                             f"{tuple(key_bias.shape)}")
+    if sq < 1 or sk < 1 or b * h > 65535:
+        raise ValueError(f"flash_fwd kernel needs Sq, Sk >= 1 and B*H <= "
+                         f"65535 (got Sq={sq}, Sk={sk}, B*H={b * h})")
+    q, k, v = _tma_ready(q), _tma_ready(k), _tma_ready(v)
+    kb, bias_ld = _bias_for_tma(key_bias, b, sk)
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     strides = (ctypes.c_longlong * 9)(
         q.stride(0), q.stride(1), q.stride(2), k.stride(0), k.stride(1),
         k.stride(2), v.stride(0), v.stride(1), v.stride(2))
+    block_q, _, _ = _flash_plan(b, h, sq, sk, d,
+                                _sm_count(q.device.index or 0))
     thresh = _threshold(dropout_p) if dropout_p > 0.0 else 0
     lib = _lib()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.flash_fwd_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        None if key_bias is None else key_bias.data_ptr(),
-        out.data_ptr(), lse.data_ptr(), b, h, sq, sk, d, strides,
+        None if kb is None else kb.data_ptr(), bias_ld, out.data_ptr(), lse.data_ptr(), b, h, sq, sk, d, strides, block_q,
         int(bool(causal)), int(causal_offset), float(scale), thresh,
         float(1.0 - dropout_p), int(seed) & _M32, stream)
     check(lib, err, "flash_fwd")
@@ -418,25 +464,34 @@ def _mask_as_key_bias(mask, batch, sk) -> Optional[torch.Tensor]:
 def scaled_dot_product_attention(q, k, v, mask=None, is_causal=False,
                                  scale=None, dropout_p=0.0,
                                  dropout_seed=None):
-    """Dispatcher: the flash kernels for CUDA tensors, their plain
-    versions for CPU tensors.  Key-padding masks (any form constant over query and
-    head dims, bool or additive) run in the kernel as a key bias; a mask
-    that varies per query or per head raises NotImplementedError.
-    q/k/v: (batch, seq, heads, head_dim)."""
+    """Dispatcher, as paddle_tpu's (attention.py:1152-1161): a key-padding
+    mask (any form constant over query and head dims, bool or additive)
+    or no mask runs in the flash kernels as a key bias (their plain
+    versions for CPU tensors); any other mask (per query, per head, or a
+    full (B, H, Sq, Sk) one) goes to `dense_attention`, the counterpart
+    of `_xla_attention`, on either device, as the reference computes such
+    masks outside its Pallas kernel.  q/k/v: (batch, seq, heads,
+    head_dim)."""
     key_bias = _mask_as_key_bias(mask, q.shape[0], k.shape[1])
     if mask is not None and key_bias is None:
-        raise NotImplementedError(
-            f"attention mask of shape {tuple(mask.shape)} varies per query "
-            "or per head; the flash kernel takes key-padding masks only")
+        return dense_attention(q, k, v, mask=mask, is_causal=is_causal,
+                               scale=scale, dropout_p=dropout_p,
+                               dropout_seed=dropout_seed)
     return flash_attention(q, k, v, key_bias=key_bias, is_causal=is_causal,
                            scale=scale, dropout_p=dropout_p,
                            dropout_seed=dropout_seed)
 
 
-def dense_attention(q, k, v, mask=None, is_causal=False, scale=None):
-    """(B, S, H, D) attention materializing the full score matrix
-    (counterpart of `_xla_attention`, without dropout).  A test oracle;
-    the port never calls it."""
+def dense_attention(q, k, v, mask=None, is_causal=False, scale=None,
+                    dropout_p=0.0, dropout_seed=None):
+    """(B, S, H, D) attention materializing the full score matrix with
+    plain torch ops (counterpart of `_xla_attention`), differentiable
+    through autograd.  The dispatcher sends it the masks the flash kernel
+    cannot express; the tests also use it as the oracle.  Scores and
+    softmax in f32, probabilities cast to v's dtype, then dropout: a keep
+    mask drawn from a `torch.Generator` seeded with `dropout_seed` (0 when
+    None; JAX draws from its PRNG key, so the two keep other bits), kept
+    probabilities scaled by 1 / (1 - p)."""
     d = q.shape[-1]
     scale = scale if scale is not None else 1.0 / (d ** 0.5)
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
@@ -449,6 +504,13 @@ def dense_attention(q, k, v, mask=None, is_causal=False, scale=None):
                             device=q.device).tril(sk - sq)
         logits = torch.where(causal, logits, DEFAULT_MASK_VALUE)
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    if dropout_p > 0.0:
+        gen = torch.Generator(device=q.device)
+        gen.manual_seed(0 if dropout_seed is None else int(dropout_seed))
+        keep = torch.rand(probs.shape, generator=gen,
+                          device=q.device) >= dropout_p
+        probs = torch.where(keep, probs / (1.0 - dropout_p),
+                            torch.zeros_like(probs))
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
@@ -491,8 +553,8 @@ def dense_paged_attention(q, k_pages, v_pages, page_rows, lengths, qpos,
     """The oracle (counterpart of `_dense_paged_attention`): gather every
     page of the row into a contiguous (B, W*S) view and take a dense
     softmax with keys at kpos > qpos masked.  JAX routes this through
-    SDPA with a per-query bias, which the port's dispatcher refuses, so
-    the softmax is written out here (f32).  It agrees with the kernel on
+    SDPA with a per-query bias; here the softmax is written out in f32,
+    so the oracle keeps f32 probabilities.  It agrees with the kernel on
     every lane whose qpos < length; the port never calls it."""
     b, t, h, d = q.shape
     p_, s = k_pages.shape[0], k_pages.shape[1]

@@ -18,6 +18,7 @@ a machine without nvcc.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import re
@@ -149,6 +150,15 @@ def library(stem: str) -> ctypes.CDLL:
                 _build_locked()
             _LIBS[stem] = ctypes.CDLL(str(_target(src)))
         return _LIBS[stem]
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device `index` (the kernels'
+    launch plans size their grids by it)."""
+    import torch
+
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

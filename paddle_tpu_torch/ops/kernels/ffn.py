@@ -11,23 +11,24 @@ each launches its kernels or raises; on a CPU tensor it runs the plain
 PyTorch version (`ffn_forward_reference`, `ffn_backward_reference`),
 which computes the same function.  `FusedFFNFunction` ties the two
 together for autograd.  The (tokens, d_ff) hidden activation never
-reaches device memory: the backward recomputes it per tile from x.
+reaches device memory: the backward recomputes it from x (the dx pass
+writes its gradient dpre once, then multiplies it by W1^T).
 Dropout uses `_ffn_keep`, the TPU kernel's stateless hash of (seed,
-token, d_ff column), bit for bit.  `_fwd_plan` and `_dw_plan` are plain
-functions of the shapes and the card's SM count: how the forward and dW
-kernels cut their work into CTAs, and how many f32 workspace splits they
-sum in a fixed order.
+token, d_ff column), bit for bit.  `_fwd_plan`, `_dw_plan` and `_dx_plan`
+are plain functions of the shapes (and the card's SM count): how the
+forward, dW and dx kernels cut their work into CTAs, how many f32
+workspace splits the first two sum in a fixed order, and the bf16 dpre
+workspace that the dx pass writes once and reads back.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
 from .attention import _M32, _finalize, _mul32, _threshold
-from .build import LaunchCounter, check, library
+from .build import LaunchCounter, check, library, sm_count as _sm_count
 
 FFN_FWD = LaunchCounter("ffn_fwd")
 FFN_BWD_DW = LaunchCounter("ffn_bwd_dw")
@@ -35,14 +36,12 @@ FFN_BWD_DX = LaunchCounter("ffn_bwd_dx")
 
 _ACT_IDS = {"gelu": 0, "gelu_tanh": 1, "relu": 2}
 _KERNEL_HIDDEN = (128, 256, 512, 768, 1024)
-# the backward kernels hold x and g tiles side by side in shared memory,
-# which leaves no room at d_model 1024
-_KERNEL_HIDDEN_BWD = (128, 256, 512, 768)
 _BLOCK_F = 64  # the kernels' d_ff step
 _FWD_BLOCK_T, _FWD_BLOCK_F = 64, 128  # the forward kernel's tile and step
 _FWD_WS_CAP = 32 << 20  # bytes of f32 partials the forward's splits may take
 _DW_BLOCK_T, _DW_BLOCK_F = 32, 16  # the dW kernel's token tile and slice
 _DW_WS_CAP = 64 << 20  # bytes of f32 partials the dW kernel's splits may take
+_DX_BLOCK_T, _DX_BLOCK_F, _DX_BLOCK_N = 128, 128, 128  # the dx kernels' tiles
 
 
 def _erf(x: torch.Tensor) -> torch.Tensor:
@@ -122,11 +121,6 @@ def _lib():
             ctypes.c_uint, ctypes.c_float, ctypes.c_uint, vp]
         fn.restype = ci
     return lib
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _split_ranges(n: int, n_split: int):
@@ -245,7 +239,7 @@ def _bwd_lib():
         lib.ffn_bwd_dw_bf16.argtypes = [vp] * 9 + [ci] * 5 + tail
         lib.ffn_bwd_dw_bf16.restype = ci
     if lib.ffn_bwd_dx_bf16.argtypes is None:
-        lib.ffn_bwd_dx_bf16.argtypes = [vp] * 6 + [ci] * 4 + tail
+        lib.ffn_bwd_dx_bf16.argtypes = [vp] * 7 + [ci] * 4 + tail
         lib.ffn_bwd_dx_bf16.restype = ci
     return lib
 
@@ -268,11 +262,24 @@ def _dw_plan(t: int, h: int, f: int, sms: int):
     return _DW_BLOCK_T, _DW_BLOCK_F, max(1, len(_split_ranges(n_t, best)))
 
 
+def _dx_plan(t: int, h: int, f: int):
+    """The dx pass's two launches: the dpre kernel's grid (d_ff tiles of
+    128, the last one 64 columns wide when f is an odd number of 64-column
+    units; token tiles of 128), the dx kernel's grid (d_model tiles of
+    128; token tiles of 128), the column tile varying fastest in both,
+    and the bf16 dpre workspace, t x f x 2 bytes, that the first writes
+    and the second reads."""
+    mt = -(-t // _DX_BLOCK_T)
+    return dict(block_t=_DX_BLOCK_T, block_f=_DX_BLOCK_F,
+                block_n=_DX_BLOCK_N, dpre_grid=(-(-f // _DX_BLOCK_F), mt),
+                dx_grid=(h // _DX_BLOCK_N, mt), workspace_bytes=t * f * 2)
+
+
 def _ffn_bwd_launchers(x, w1, b1, w2, b2, seed, g, activation, dropout_p):
     """Check the operands and allocate the outputs; return
     ((dx, dw1, db1, dw2, db2), launch_dw, launch_dx), each launcher
-    running its kernel once (the dW launcher: the dW pass and its reduce
-    over token splits).  db2 = sum g is a torch reduction, outside the
+    running its kernels once (the dW launcher: the dW pass and its reduce
+    over token splits; the dx launcher: dpre into a workspace, then dx).  db2 = sum g is a torch reduction, outside the
     kernels as in JAX (:325)."""
     t, h = x.shape
     f = w1.shape[1]
@@ -283,10 +290,10 @@ def _ffn_bwd_launchers(x, w1, b1, w2, b2, seed, g, activation, dropout_p):
             + "/".join(str(a.dtype) for a in ts))
     if activation not in _ACT_IDS:
         raise NotImplementedError(activation)
-    if h not in _KERNEL_HIDDEN_BWD or f % _BLOCK_F:
+    if h not in _KERNEL_HIDDEN or f % _BLOCK_F or f == 0:
         raise NotImplementedError(
-            f"ffn_bwd kernels take d_model in {_KERNEL_HIDDEN_BWD} and d_ff "
-            f"a multiple of {_BLOCK_F}, got {h} and {f}")
+            f"ffn_bwd kernels take d_model in {_KERNEL_HIDDEN} and d_ff a "
+            f"multiple of {_BLOCK_F}, got {h} and {f}")
     if (w1.shape != (h, f) or b1.shape != (f,) or w2.shape != (f, h)
             or b2.shape != (h,) or g.shape != x.shape):
         raise ValueError("ffn backward operand shapes do not match x")
@@ -298,8 +305,10 @@ def _ffn_bwd_launchers(x, w1, b1, w2, b2, seed, g, activation, dropout_p):
                      device=x.device)
     db2 = g.float().sum(0).to(b2.dtype)
     thresh = _threshold(dropout_p) if dropout_p > 0.0 else 0
-    rng = (thresh, float(1.0 / (1.0 - dropout_p)), int(seed) & _M32,
-           torch.cuda.current_stream(x.device).cuda_stream)
+    rng = (thresh, float(1.0 / (1.0 - dropout_p)), int(seed) & _M32)
+    # the stream is read at each launch, so a launcher runs on the stream
+    # current when it is called (a CUDA graph's capture stream included)
+    stream = lambda: torch.cuda.current_stream(x.device).cuda_stream
     ins = (x.data_ptr(), g.data_ptr(), w1.data_ptr(), b1.data_ptr(),
            w2.data_ptr())
     lib = _bwd_lib()
@@ -308,14 +317,19 @@ def _ffn_bwd_launchers(x, w1, b1, w2, b2, seed, g, activation, dropout_p):
     def launch_dw():
         err = lib.ffn_bwd_dw_bf16(*ins, dw1.data_ptr(), db1.data_ptr(),
                                   dw2.data_ptr(), ws.data_ptr(), t, h, f,
-                                  _ACT_IDS[activation], n_split, *rng)
+                                  _ACT_IDS[activation], n_split, *rng,
+                                  stream())
         check(lib, err, "ffn_bwd_dw")
         FFN_BWD_DW.add()
         return keep
 
+    dpre_elems = _dx_plan(t, h, f)["workspace_bytes"] // x.element_size()
+
     def launch_dx():
-        err = lib.ffn_bwd_dx_bf16(*ins, dx.data_ptr(), t, h, f,
-                                  _ACT_IDS[activation], *rng)
+        # the dpre workspace lives for this call only
+        dpre = torch.empty(dpre_elems, dtype=x.dtype, device=x.device)
+        err = lib.ffn_bwd_dx_bf16(*ins, dx.data_ptr(), dpre.data_ptr(), t, h,
+                                  f, _ACT_IDS[activation], *rng, stream())
         check(lib, err, "ffn_bwd_dx")
         FFN_BWD_DX.add()
         return keep

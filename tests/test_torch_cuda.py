@@ -79,6 +79,44 @@ def _close_grad(got, want):
     assert err <= GRAD_FRAC / 2 * float(want.abs().mean()) + GRAD_FLOOR, err
 
 
+def _close_grad_relu(got, want, slack):
+    """_close_grad's rule after `slack` (_relu_slack) is taken off each
+    element's error."""
+    got, want = got.float(), want.float()
+    over = ((got - want).abs() - slack).clamp(min=0.0)
+    bound = GRAD_FRAC * float(want.abs().max()) + GRAD_FRAC * want.abs() \
+        + GRAD_FLOOR
+    assert torch.isfinite(got).all() and bool((over <= bound).all()), \
+        float((over - bound).max())
+    assert float(over.mean()) <= GRAD_FRAC / 2 * float(want.abs().mean()) \
+        + GRAD_FLOOR
+
+
+# |pre| under which relu's step may fall on either side (_relu_slack)
+RELU_KINK = 1e-4
+
+
+def _relu_slack(x, w1, b1, w2, g, seed, p):
+    """What relu's step may move the FFN gradients by.  relu' jumps at
+    pre = 0, and the kernels and the plain version sum pre's products in
+    other f32 orders (about 1e-6 apart), so an element with |pre| under
+    RELU_KINK may take the other side in one of them (on the card: one
+    such element at 16,384 tokens moved its token's dx row; one at 100
+    tokens x 4096 columns a dW1 column): dpre there is 0 or the dropped,
+    scaled dh.  Bounds: dx by amb @ |W1|^T, dW1 by |x|^T @ amb, db1 by
+    amb's column sums, amb = |dh| on those elements (h = relu(pre) is
+    continuous, so dW2 and db2 do not move)."""
+    t, f = x.shape[0], w1.shape[1]
+    pre = x.float() @ w1.float() + b1.float()
+    dh = g.float() @ w2.float().t()
+    if p > 0.0:
+        keep = F._ffn_keep(seed, 0, 0, t, f, p, device=x.device)
+        dh = torch.where(keep, dh / (1.0 - p), torch.zeros_like(dh))
+    amb = torch.where(pre.abs() < RELU_KINK, dh.abs(), torch.zeros_like(dh))
+    return dict(dx=amb @ w1.float().abs().t(),
+                dw1=x.float().abs().t() @ amb, db1=amb.sum(0))
+
+
 def _bias(g, b, sk):
     lens = torch.randint(max(1, sk // 2), sk + 1, (b,), generator=g)
     return torch.where(torch.arange(sk)[None, :] < lens[:, None], 0.0,
@@ -153,11 +191,51 @@ def test_flash_refuses_what_it_cannot_compute(cuda):
     q = _bf16(cuda, 1, 16, 2, 48)
     with pytest.raises(NotImplementedError, match="head_dim"):
         A.flash_forward(q, q, q)
-    q = _bf16(cuda, 1, 16, 2, 64)
-    with pytest.raises(NotImplementedError):
-        A.scaled_dot_product_attention(
-            q, q, q, mask=torch.ones(1, 1, 16, 16, dtype=torch.bool,
-                                     device="cuda").tril())
+
+
+def test_dense_mask_on_the_card_runs_dense_attention(cuda):
+    """A mask that varies per query or per head goes to dense_attention on
+    the card too, as paddle_tpu sends it to _xla_attention; the flash
+    kernel is not launched for it, and is for a key-padding mask."""
+    for c in COUNTERS.values():
+        c.reset()
+    q, k, v = (_bf16(cuda, 2, 40, 3, 64) for _ in range(3))
+    causal = torch.ones(1, 1, 40, 40, dtype=torch.bool, device="cuda").tril()
+    head = torch.rand(1, 3, 1, 40, generator=cuda).cuda() > 0.3
+    for mask in (causal, head, torch.where(causal, 0.0, -1e30)):
+        got = A.scaled_dot_product_attention(q, k, v, mask=mask)
+        assert torch.equal(got, A.dense_attention(q, k, v, mask=mask))
+    assert COUNTERS["flash_fwd"].value == 0
+    pad = _bias(cuda, 2, 40)[:, None, None, :]
+    A.scaled_dot_product_attention(q, k, v, mask=pad)
+    assert COUNTERS["flash_fwd"].value == 1
+
+
+@pytest.mark.parametrize("b,h,s,causal", [
+    (1, 12, 64, True), (1, 12, 128, True), (1, 12, 200, True),
+    (1, 12, 256, True), (12, 12, 130, False), (12, 12, 130, True),
+    (1, 1, 1, False), (2, 66, 193, False), (24, 12, 300, True),
+    (32, 12, 512, False)])
+def test_flash_under_every_plan(cuda, b, h, s, causal):
+    """The decode prefills (one sequence, 64-query CTAs), query tiles
+    whose second warpgroup lies wholly past Sq, one query, and BERT-base
+    (128-query CTAs); dropout on, where the kernel rebuilds its bits."""
+    q, k, v = (_bf16(cuda, b, s, h, 64) for _ in range(3))
+    bias = _bias(cuda, b, s)
+    for p in (0.0, 0.1):
+        out, lse = A.flash_forward(q, k, v, bias, 21, causal, None, None, p)
+        ref, ref_lse = A.flash_forward_reference(q, k, v, bias, 21, causal,
+                                                 None, None, p)
+        _close(out, ref, BF16)
+        _close(lse, ref_lse, LSE)
+
+
+def test_flash_gives_the_same_bits_twice(cuda):
+    q, k, v = (_bf16(cuda, 8, 512, 12, 64) for _ in range(3))
+    bias = _bias(cuda, 8, 512)
+    a = A.flash_forward(q, k, v, bias, 3, False, None, None, 0.1)
+    b = A.flash_forward(q, k, v, bias, 3, False, None, None, 0.1)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
 
 
 # -- fused FFN forward -----------------------------------------------------------
@@ -289,8 +367,10 @@ def test_flash_backward_ragged_and_strided(cuda, sq, sk):
             _close_grad(gt, w)
 
 
-@pytest.mark.parametrize("h", [128, 256, 512, 768])
-@pytest.mark.parametrize("act", ["gelu", "gelu_tanh", "relu"])
+@pytest.mark.parametrize("act,h", [
+    (act, h) for h in (128, 256, 512, 768) for act in (
+        "gelu", "gelu_tanh", "relu")] + [("gelu", 1024),
+                                         ("gelu_tanh", 1024)])
 def test_ffn_backward_matches_plain(cuda, h, act):
     t, f = 100, 4 * h
     x, g = _bf16(cuda, t, h), _bf16(cuda, t, h)
@@ -304,8 +384,22 @@ def test_ffn_backward_matches_plain(cuda, h, act):
             _close_grad(gt, w)
 
 
+def test_ffn_backward_relu_at_d_model_1024(cuda):
+    """relu at d_model 1024, every gradient under _relu_slack."""
+    h, t, f = 1024, 100, 4096
+    x, g = _bf16(cuda, t, h), _bf16(cuda, t, h)
+    w1, b1 = _bf16(cuda, h, f, scale=h ** -0.5), _bf16(cuda, f, scale=0.1)
+    w2, b2 = _bf16(cuda, f, h, scale=f ** -0.5), _bf16(cuda, h, scale=0.1)
+    for p in (0.0, 0.1):
+        got = F.ffn_backward(x, w1, b1, w2, b2, 7, g, "relu", p)
+        want = F.ffn_backward_reference(x, w1, b1, w2, b2, 7, g, "relu", p)
+        slack = _relu_slack(x, w1, b1, w2, g, 7, p)
+        for name, gt, w in zip(("dx", "dw1", "db1", "dw2", "db2"), got, want):
+            _close_grad_relu(gt, w, slack.get(name, 0.0))
+
+
 @pytest.mark.parametrize("t", [1, 31, 100, 1000, 16384])
-@pytest.mark.parametrize("h", [128, 256, 512, 768])
+@pytest.mark.parametrize("h", [128, 256, 512, 768, 1024])
 def test_ffn_bwd_dw_tiles_and_splits(cuda, t, h):
     """The dW kernel (and dx beside it) at token counts around the
     32-token tile and across token splits, d_ff of one, three and 4H/16
@@ -333,16 +427,54 @@ def test_ffn_bwd_dw_gives_the_same_bits_twice(cuda, t):
     assert all(torch.equal(u, v) for u, v in zip(a[1:4], b[1:4]))
 
 
+@pytest.mark.parametrize("t", [1000, 16384])
+def test_ffn_bwd_dx_gives_the_same_bits_twice(cuda, t):
+    """dpre is written once and read back by a GEMM with a fixed K order:
+    no atomics, so dx does not depend on scheduling."""
+    h, f = 768, 3072
+    x, g = _bf16(cuda, t, h), _bf16(cuda, t, h)
+    ws = (_bf16(cuda, h, f, scale=0.03), _bf16(cuda, f, scale=0.1),
+          _bf16(cuda, f, h, scale=0.03), _bf16(cuda, h, scale=0.1))
+    a = F.ffn_backward(x, *ws, 2, g, "gelu", 0.1)
+    b = F.ffn_backward(x, *ws, 2, g, "gelu", 0.1)
+    assert torch.equal(a[0], b[0])
+
+
+@pytest.mark.parametrize("t", [1, 31, 100, 1000, 16384])
+@pytest.mark.parametrize("h", [128, 256, 512, 768, 1024])
+def test_ffn_bwd_dx_every_activation(cuda, t, h):
+    """dx at token counts around the 128-token tile, every d_model the
+    dx pass takes, every activation (relu under _relu_slack), dropout off
+    and on, a d_ff of one and a half 128-column tiles beside 4H."""
+    x, g = _bf16(cuda, t, h), _bf16(cuda, t, h)
+    for f in (192, 4 * h):
+        w1, b1 = _bf16(cuda, h, f, scale=h ** -0.5), _bf16(cuda, f, scale=0.1)
+        w2, b2 = _bf16(cuda, f, h, scale=f ** -0.5), _bf16(cuda, h, scale=0.1)
+        for act in ("gelu", "gelu_tanh", "relu"):
+            for p in (0.0, 0.1):
+                grads, _, launch_dx = F._ffn_bwd_launchers(
+                    x, w1, b1, w2, b2, 9, g, act, p)
+                launch_dx()
+                want = F.ffn_backward_reference(x, w1, b1, w2, b2, 9, g, act,
+                                                p)[0]
+                if act == "relu":
+                    _close_grad_relu(grads[0], want, _relu_slack(
+                        x, w1, b1, w2, g, 9, p)["dx"])
+                else:
+                    _close_grad(grads[0], want)
+
+
 def test_backward_refuses_what_it_cannot_compute(cuda):
     q = torch.randn(1, 16, 2, 64, device="cuda")
     out, lse = torch.zeros_like(q), torch.zeros(1, 2, 16, device="cuda")
     with pytest.raises(NotImplementedError, match="bf16"):
         A.flash_backward(q, q, q, None, 0, out, lse, q)
-    x = _bf16(cuda, 8, 1024)
-    w1, w2 = _bf16(cuda, 1024, 2048), _bf16(cuda, 2048, 1024)
-    b1, b2 = _bf16(cuda, 2048), _bf16(cuda, 1024)
+    x = _bf16(cuda, 8, 96)
+    w1, w2 = _bf16(cuda, 96, 192), _bf16(cuda, 192, 96)
+    b1, b2 = _bf16(cuda, 192), _bf16(cuda, 96)
     with pytest.raises(NotImplementedError, match="d_model"):
         F.ffn_backward(x, w1, b1, w2, b2, 0, x)
+    x = _bf16(cuda, 8, 1024)
     with pytest.raises(NotImplementedError, match="bf16"):
         F.ffn_backward(x.float()[:, :128], w1.float()[:128, :256],
                        b1.float()[:256], w2.float()[:256, :128],

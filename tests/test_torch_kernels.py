@@ -147,10 +147,120 @@ def test_mask_forms_reduce_to_one_key_bias():
 
 
 def test_per_query_mask_raises():
+    """Named for what it once held: the dispatcher used to raise on a
+    per-query mask.  Like paddle_tpu's, it now computes one outside the
+    kernel (`dense_attention`, the counterpart of `_xla_attention`)."""
     q, k, v = _qkv(8, 1, 16, 16, 2, 16)
-    mask = torch.ones((1, 1, 16, 16), dtype=torch.bool).tril()
-    with pytest.raises(NotImplementedError):
-        TA.scaled_dot_product_attention(_t(q), _t(k), _t(v), mask=mask)
+    mask = np.tril(np.ones((1, 1, 16, 16), bool))
+    want = np.asarray(JA.scaled_dot_product_attention(q, k, v, mask=mask))
+    got = TA.scaled_dot_product_attention(_t(q), _t(k), _t(v), mask=_t(mask))
+    np.testing.assert_allclose(got.numpy(), want, atol=FLASH_ATOL, rtol=0)
+
+
+def _dense_mask(form, b, h, sq, sk):
+    """A mask the flash kernel cannot express: per query (causal over
+    (1, 1, Sq, Sk)), per head ((1, H, 1, Sk)) or full ((B, H, Sq, Sk)),
+    as bool or as an additive f32 bias (0 / DEFAULT_MASK_VALUE, or, for
+    the full float form, any real bias)."""
+    rng = np.random.default_rng(13)
+    shape, dtype = form.split("-")
+    if shape == "query":
+        keep = np.tril(np.ones((1, 1, sq, sk), bool), sk - sq)
+    elif shape == "head":
+        keep = rng.random((1, h, 1, sk)) > 0.4
+        keep[..., 0] = True
+    else:
+        keep = rng.random((b, h, sq, sk)) > 0.3
+        keep[..., 0] = True
+        if dtype == "float":
+            return (rng.standard_normal((b, h, sq, sk)) * 2).astype(
+                np.float32)
+    if dtype == "bool":
+        return keep
+    return np.where(keep, 0.0, TA.DEFAULT_MASK_VALUE).astype(np.float32)
+
+
+DENSE_FORMS = ["query-bool", "query-float", "head-bool", "head-float",
+               "full-bool", "full-float"]
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("form", DENSE_FORMS)
+def test_dense_mask_matches_jax_dispatcher(form, causal):
+    """Masks that vary per query or per head: the forward against
+    paddle_tpu's dispatcher (which sends them to `_xla_attention`), at
+    dropout 0, with and without is_causal on top."""
+    b, sq, sk, h, d = 2, 24, 40, 3, 16
+    q, k, v = _qkv(14, b, sq, sk, h, d)
+    mask = _dense_mask(form, b, h, sq, sk)
+    want = np.asarray(JA.scaled_dot_product_attention(q, k, v, mask=mask,
+                                                      is_causal=causal))
+    got = TA.scaled_dot_product_attention(_t(q), _t(k), _t(v),
+                                          mask=_t(mask), is_causal=causal)
+    np.testing.assert_allclose(got.numpy(), want, atol=FLASH_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("form", ["query-bool", "head-float", "full-float",
+                                  "full-bool"])
+def test_dense_mask_gradients_match_jax(form):
+    """d/dq, d/dk, d/dv of <out, g> through autograd against jax.grad of
+    `_xla_attention` with the same mask."""
+    import jax
+
+    b, sq, sk, h, d = 2, 20, 20, 2, 16
+    q, k, v = _qkv(15, b, sq, sk, h, d)
+    ct = _rand(np.random.default_rng(16), b, sq, h, d)
+    mask = _dense_mask(form, b, h, sq, sk)
+    want = jax.grad(lambda a, b_, c: jnp.sum(
+        JA._xla_attention(a, b_, c, mask=mask) * ct), argnums=(0, 1, 2))(
+        q, k, v)
+    leaves = [_t(a).requires_grad_() for a in (q, k, v)]
+    out = TA.scaled_dot_product_attention(*leaves, mask=_t(mask))
+    got = torch.autograd.grad((out * _t(ct)).sum(), leaves)
+    for gt, w in zip(got, want):
+        np.testing.assert_allclose(gt.numpy(), np.asarray(w), atol=1e-4,
+                                   rtol=1e-4)
+
+
+def test_dense_mask_dropout_scales_what_it_keeps():
+    """At p > 0 the dense path keeps about 1 - p of the probabilities,
+    zeroes the rest and scales the kept ones by 1 / (1 - p); the same
+    seed draws the same bits, another seed others.  v holds one-hot key
+    columns, so the output is the dropped probability matrix itself."""
+    b, s, h, p = 2, 32, 2, 0.25
+    rng = np.random.default_rng(17)
+    q, k = _rand(rng, b, s, h, s), _rand(rng, b, s, h, s)
+    v = np.broadcast_to(np.eye(s, dtype=np.float32)[None, :, None, :],
+                        (b, s, h, s)).copy()
+    mask = _t(_dense_mask("head-bool", b, h, s, s))
+    run = lambda pp, seed: TA.scaled_dot_product_attention(
+        _t(q), _t(k), _t(v), mask=mask, dropout_p=pp,
+        dropout_seed=seed).numpy()
+    probs, dropped = run(0.0, None), run(p, 5)
+    kept = dropped != 0
+    np.testing.assert_allclose(dropped[kept], probs[kept] / (1 - p),
+                               rtol=1e-6)
+    assert abs(kept[probs != 0].mean() - (1 - p)) < 0.03
+    np.testing.assert_array_equal(run(p, 5), dropped)
+    assert not np.array_equal(run(p, 6) != 0, kept)
+
+
+def test_key_padding_masks_still_reach_flash_attention(monkeypatch):
+    """A key-padding mask (or none) runs through `flash_attention`; only
+    the masks it cannot express reach `dense_attention`."""
+    calls = []
+    for name in ("flash_attention", "dense_attention"):
+        real = getattr(TA, name)
+        monkeypatch.setattr(TA, name, lambda *a, _r=real, _n=name, **kw: (
+            calls.append(_n), _r(*a, **kw))[1])
+    q, k, v = map(_t, _qkv(18, 2, 16, 16, 2, 16))
+    pad = torch.arange(16)[None, :] < torch.tensor([[12], [16]])
+    for m in (None, pad, pad[:, None, :], pad[:, None, None, :]):
+        TA.scaled_dot_product_attention(q, k, v, mask=m)
+    assert calls == ["flash_attention"] * 4
+    TA.scaled_dot_product_attention(q, k, v, mask=torch.ones(
+        1, 1, 16, 16, dtype=torch.bool).tril())
+    assert calls[-1] == "dense_attention"
 
 
 def test_fully_masked_row_is_uniform_not_nan():
