@@ -16,7 +16,9 @@ Phases, in order (any failure exits non-zero and prints no result):
               library call computing the same function, and its bound;
               the flash forward also at B*H edges of its plan (each case
               run twice for the same bits) and graph-timed in turns with
-              SDPA, at BERT-base and at the decode prefills; the FFN
+              SDPA, at BERT-base and at the decode prefills; the flash
+              backward's two kernels graph-timed in turns with SDPA's
+              backward, at dropout 0.1 (the path) and 0; the FFN
               forward also over T = 16 (12 layers' weights cycling cold),
               64, 256, 512, 4096 and 16384 tokens, each point checked,
               run twice for the same bits and graph-timed in turns with
@@ -672,8 +674,9 @@ def _ragged_row(g):
 
 def _flash_backward_rows(g):
     """The dkv and dq kernels against their plain version (which computes
-    dq, dk and dv together), then timed at the path's shape: B=32, S=512,
-    12 heads of 64, key padding, attention dropout 0.1."""
+    dq, dk and dv together), then graph-timed in turns with SDPA's
+    backward at the path's shape: B=32, S=512, 12 heads of 64, key
+    padding, attention dropout 0.1 (and 0, as SDPA's backward runs)."""
     h, d, seed = 12, 64, 4321
     worst = {"dkv": 0.0, "dq": 0.0}
     for b, s, causal, p in [(8, SEQ, False, 0.1), (2, SEQ, True, 0.1),
@@ -700,36 +703,46 @@ def _flash_backward_rows(g):
             raise AssertionError(f"flash_bwd disagrees with its plain "
                                  f"version at B={b} S={s}")
         del dq, dk, dv, rq, rk, rv
-    # timing at the last case's shape (B=32, S=512, p=0.1)
+    # timing at the last case's shape (B=32, S=512): each kernel graph-
+    # timed in turns with SDPA's backward, at the path's dropout 0.1 and
+    # at dropout 0 (SDPA's backward has no dropout).  The yardstick, with a
+    # bool key mask, is (forward + backward) - forward, both captured too:
+    # an eager loop would time the host's dispatch
     scale = d ** -0.5
-    _, launch_dkv, launch_dq = A._flash_bwd_launchers(
-        q, k, v, bias, seed, out, lse, gr, False, 0, scale, 0.1)
-    dkv_ms, dq_ms = time_ms(launch_dkv), time_ms(launch_dq)
-    plain_ms = time_ms(lambda: A.flash_backward_reference(
-        q, k, v, bias, seed, out, lse, gr, False, 0, scale, 0.1), iters=2,
-        warmup=1)
-    # the library yardstick: SDPA's backward with a bool key mask (no
-    # dropout), as (forward + backward) - forward, both by CUDA graph
-    # replay: an eager loop would time the host's dispatch, which varies
-    # between calls
+    arms = {}
+    for p in (0.1, 0.0):
+        _, launch_dkv, launch_dq = A._flash_bwd_launchers(
+            q, k, v, bias, seed, out, lse, gr, False, 0, scale, p)
+        arms[f"dkv p={p}"] = launch_dkv
+        arms[f"dq p={p}"] = launch_dq
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
                   for x in (q, k, v))
     gt = gr.transpose(1, 2)
     keep = (bias == 0)[:, None, None, :]
-    sdpa = lambda _: torch.nn.functional.scaled_dot_product_attention(
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
         qt, kt, vt, attn_mask=keep)
-    fwd_ms = time_cycle(sdpa, range(2))
-    both_ms = time_cycle(
-        lambda _: torch.autograd.grad(sdpa(_), (qt, kt, vt), gt), range(2))
-    library_ms = both_ms - fwd_ms
+    arms["sdpa forward"] = sdpa
+    arms["sdpa forward+backward"] = lambda: torch.autograd.grad(
+        sdpa(), (qt, kt, vt), gt)
+    times = K4.graphs_ms({key: (lambda fn=fn: [fn() for _ in range(2)])
+                          for key, fn in arms.items()}, 2)
+    library_ms = times["sdpa forward+backward"] - times["sdpa forward"]
+    log("flash_bwd graph-timed, ms a call: "
+        + ", ".join(f"{key} {ms:.4f}" for key, ms in times.items())
+        + f"; SDPA backward {library_ms:.4f}")
+    plain_ms = time_ms(lambda: A.flash_backward_reference(
+        q, k, v, bias, seed, out, lse, gr, False, 0, scale, 0.1), iters=2,
+        warmup=1)
     b, s = q.shape[0], q.shape[1]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     qkv_bytes = b * s * h * d * 2
     rows_bytes = 2 * b * h * s * 4 + b * s * 4  # lse, delta; key bias
     product = 2 * b * h * s * s * d
     rows = []
-    for name, ms, n_products, n_out, err, line in (
-            ("flash_bwd_dkv", dkv_ms, 4, 2, worst["dkv"], "263"),
-            ("flash_bwd_dq", dq_ms, 3, 1, worst["dq"], "331")):
+    for name, arm, n_products, n_out, err, line in (
+            ("flash_bwd_dkv", "dkv", 4, 2, worst["dkv"], "263"),
+            ("flash_bwd_dq", "dq", 3, 1, worst["dq"], "331")):
+        ms = times[f"{arm} p=0.1"]
         flops = n_products * product
         nbytes = (4 + n_out) * qkv_bytes + rows_bytes
         bound_ms, bound_by = bound(flops, nbytes)
@@ -737,9 +750,12 @@ def _flash_backward_rows(g):
             name=name, route="cuda",
             source="paddle_tpu_torch/csrc/flash_bwd.cu",
             replaces=f"paddle_tpu/ops/pallas/attention.py:{line}",
-            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-            bound_by=bound_by, library_ms=library_ms,
-            plain_and_library_cover="dq, dk and dv together",
+            max_abs_err=err, ms=ms, ms_dropout0=times[f"{arm} p=0.0"],
+            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=library_ms,
+            plain_and_library_cover="dq, dk and dv together; the library "
+                                    "call at dropout 0",
+            plan=A._flash_bwd_plan(b, h, s, s, d, sms),
             shape=f"q/k/v/g ({b},{s},{h},{d}) bf16, key-padding bias, "
                   f"dropout 0.1", flops=flops, bytes=nbytes,
             tolerance=f"GRAD_FRAC {GRAD_FRAC}"))

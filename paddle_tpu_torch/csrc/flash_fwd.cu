@@ -68,74 +68,19 @@
 // tiles, and lets the two warpgroups (and co-resident CTAs) overlap
 // element work with the tensor pipe.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
 #include <string.h>
 
-#include "hopper.cuh"
+#include "flash_common.cuh"
 
-typedef __nv_bfloat16 bf16;
-using namespace hopper;
+using namespace flash;
 
 namespace {
-
-constexpr int BM = 64;   // query rows a consumer warpgroup owns
-constexpr int BK = 64;   // keys per tile
-constexpr int NST = 3;   // ring stages
-constexpr int MAX_NC = 2;  // consumer warpgroups a CTA holds at most
-constexpr float MASK_VALUE = -0.7f * 3.4028234663852886e38f;
-constexpr float LOG2E = 1.4426950408889634f;
 
 // CTAs an SM holds: two (128 registers a thread) where the softmax state
 // fits, at D <= 64 without dropout; else one
 template <int D, bool DROP>
 __host__ __device__ constexpr int min_ctas() {
   return D <= 64 && !DROP ? 2 : 1;
-}
-
-template <int D>
-struct Tile {
-  static constexpr int ATOM = D < 64 ? D : 64;  // elements a swizzled row holds
-  static constexpr int NATOM = D / ATOM;        // 1, or 2 at D=128
-  static constexpr int ROWB = ATOM * 2;         // bytes of a swizzled row
-  static constexpr int GROUP = 8 * ROWB;        // 8-row group (SBO)
-  static constexpr uint32_t LAYOUT = D == 16 ? SW32 : D == 32 ? SW64 : SW128;
-  static constexpr int QA = MAX_NC * BM * ROWB;  // bytes of a Q atom
-  static constexpr int KV = BK * D * 2;          // bytes of a K or V tile
-  static constexpr size_t Q = 0;
-  static constexpr size_t K = Q + (size_t)NATOM * QA;
-  static constexpr size_t V = K + (size_t)NST * KV;
-  static constexpr size_t BIAS = V + (size_t)NST * KV;
-  static constexpr size_t BAR = BIAS + (size_t)NST * BK * 4;
-  static constexpr size_t BYTES = BAR + (NST + 1) * 8 + NST * 4 + 1024;  // + alignment
-  static_assert(KV % 1024 == 0 && QA % 1024 == 0, "swizzle alignment");
-};
-
-template <int D>
-CUtensorMapSwizzle tma_swizzle() {
-  return D == 16 ? CU_TENSOR_MAP_SWIZZLE_32B
-       : D == 32 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B;
-}
-
-// paddle_tpu/ops/pallas/attention.py::_keep_mask3, bit for bit
-__device__ __forceinline__ uint32_t keep_hash(uint32_t seed, uint32_t bh,
-                                              uint32_t r, uint32_t c) {
-  uint32_t x = (r * 0x9E3779B1u) ^ (c * 0x85EBCA77u);
-  x ^= (bh + 1u) * 0x27D4EB2Fu;
-  x ^= seed * 0x165667B1u;
-  x ^= x >> 16;
-  x *= 0x7FEB352Du;
-  x ^= x >> 15;
-  x *= 0x846CA68Bu;
-  x ^= x >> 16;
-  return x;
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
 }
 
 __device__ __forceinline__ float quad_max(float v) {
@@ -148,42 +93,17 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
+// shared memory: the CTA's Q rows, then the K, V and key-bias stages
 template <int D>
-__device__ __forceinline__ void mma_pv(float* o, const uint32_t* a,
-                                       uint64_t db, int scale_d) {
-  if constexpr (D == 16) wgmma_rs_n16<1>(o, a, db, scale_d);
-  else if constexpr (D == 32) wgmma_rs_n32<1>(o, a, db, scale_d);
-  else if constexpr (D == 64) wgmma_rs_n64<1>(o, a, db, scale_d);
-  else wgmma_rs_n128<1>(o, a, db, scale_d);
-}
-
-// O += P V over one key tile: P as BK/16 register A fragments, the V tile
-// (sv) MN-major; `accumulate` 0 starts O
-template <int D>
-__device__ __forceinline__ void mma_pv_tile(float* o, uint32_t (*pa)[4],
-                                            const unsigned char* sv,
-                                            bool accumulate) {
-  using T = Tile<D>;
-  const uint64_t dv = desc(sv, BK * T::ROWB, T::GROUP, T::LAYOUT);
-#pragma unroll
-  for (int j = 0; j < BK / 16; ++j)
-    mma_pv<D>(o, pa[j], dv + ((j * 16 * T::ROWB) >> 4), accumulate || j > 0);
-}
-
-// S (64 x BK) = the warpgroup's Q rows (sq) times a K tile (sk)^T
-template <int D>
-__device__ __forceinline__ void mma_qk(float* s, const unsigned char* sq,
-                                       const unsigned char* sk) {
-  using T = Tile<D>;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const int atom = kk * 16 / T::ATOM, in_row = (kk * 16 % T::ATOM) * 2;
-    wgmma_n64<0, 0>(s, desc(sq + atom * T::QA + in_row, 16, T::GROUP, T::LAYOUT),
-                    desc(sk + atom * BK * T::ROWB + in_row, 16, T::GROUP,
-                         T::LAYOUT),
-                    kk > 0);
-  }
-}
+struct Tile : Geom<D> {
+  using G = Geom<D>;
+  static constexpr size_t Q = 0;
+  static constexpr size_t K = Q + (size_t)G::NATOM * G::RES;
+  static constexpr size_t V = K + (size_t)NST * G::TILE;
+  static constexpr size_t BIAS = V + (size_t)NST * G::TILE;
+  static constexpr size_t BAR = BIAS + (size_t)NST * BK * 4;
+  static constexpr size_t BYTES = BAR + (NST + 1) * 8 + NST * 4 + 1024;  // + alignment
+};
 
 // The online softmax of one thread's two rows (row0 and row1 = row0 + 8)
 // over key tiles: running max m, partial sum l (over this thread's
@@ -260,17 +180,6 @@ struct Softmax {
   }
 };
 
-// byte offset of element (row, col) of a 64 x D bf16 tile kept in the
-// atoms of a warpgroup's Q rows, with 16-byte chunks of a row permuted by
-// the row (the epilogue's staging layout)
-template <int D>
-__device__ __forceinline__ int stage_off(int row, int col) {
-  using T = Tile<D>;
-  constexpr int CH = T::ROWB / 16;
-  return (col / T::ATOM) * T::QA + row * T::ROWB +
-         ((((col % T::ATOM) / 8) ^ (row % CH)) * 16) + (col % 8) * 2;
-}
-
 template <int D, bool DROP>
 __global__ void __launch_bounds__(MAX_NC * 128, min_ctas<D, DROP>())
 flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
@@ -300,12 +209,12 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
 
   // K, V and the key biases of tile kt into stage st, announced on full[st]
   auto fill = [&](int st, int kt) {
-    mbar_expect_tx(&full[st], 2 * T::KV + (has_bias ? BK * 4 : 0));
+    mbar_expect_tx(&full[st], 2 * T::TILE + (has_bias ? BK * 4 : 0));
     for (int a = 0; a < T::NATOM; ++a) {
-      tma_load_4d(smem + T::K + st * T::KV + a * BK * T::ROWB, &tm_k, &full[st],
-                  a * T::ATOM, h, kt * BK, b);
-      tma_load_4d(smem + T::V + st * T::KV + a * BK * T::ROWB, &tm_v, &full[st],
-                  a * T::ATOM, h, kt * BK, b);
+      tma_load_4d(smem + T::K + st * T::TILE + a * BK * T::ROWB, &tm_k,
+                  &full[st], a * T::ATOM, h, kt * BK, b);
+      tma_load_4d(smem + T::V + st * T::TILE + a * BK * T::ROWB, &tm_v,
+                  &full[st], a * T::ATOM, h, kt * BK, b);
     }
     if (has_bias) tma_load_2d(sbias + st * BK, &tm_bias, &full[st], kt * BK, b);
   };
@@ -318,7 +227,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
     fence_barrier_init();
     mbar_expect_tx(qbar, nc * BM * D * 2);
     for (int a = 0; a < T::NATOM; ++a)
-      tma_load_4d(smem + T::Q + a * T::QA, &tm_q, qbar, a * T::ATOM, h, q0, b);
+      tma_load_4d(smem + T::Q + a * T::RES, &tm_q, qbar, a * T::ATOM, h, q0, b);
     for (int i = 0; i < NST && i < n_kt; ++i) fill(i, i);
   }
   __syncthreads();
@@ -345,7 +254,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
   mbar_wait(qbar, 0);
   mbar_wait(&full[0], 0);
   wgmma_fence();
-  mma_qk<D>(s, sq, smem + T::K);
+  mma_rows_tile_t<D>(s, sq, smem + T::K);
   wgmma_commit();
   wgmma_wait<0>();
   fence_regs<BK / 2>(s);
@@ -353,20 +262,6 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
   sm.tile<DROP>(s, sb, 0, pa);
   int stage = 0, kt = 0;
   uint32_t phase = 0;
-  // the stage of tile kt is done: the last warp to say so refills it with
-  // tile kt + NST (no producer warp: its registers would count against
-  // every thread's at launch)
-  auto release = [&]() {
-    __syncwarp();
-    if (lane == 0) {
-      __threadfence_block();
-      if (atomicAdd(&released[stage], 1) == nc * 4 - 1) {
-        __threadfence_block();
-        released[stage] = 0;
-        if (kt + NST < n_kt) fill(stage, kt + NST);
-      }
-    }
-  };
   // tile kt's O += P V (P in cur) beside tile kt+1's S and softmax
   // (into nxt)
   auto step = [&](uint32_t (*cur)[4], uint32_t (*nxt)[4]) {
@@ -374,9 +269,9 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
     const uint32_t nphase = stage + 1 == NST ? phase ^ 1 : phase;
     mbar_wait(&full[ns], nphase);
     wgmma_fence();
-    mma_qk<D>(s, sq, smem + T::K + ns * T::KV);
+    mma_rows_tile_t<D>(s, sq, smem + T::K + ns * T::TILE);
     wgmma_commit();
-    mma_pv_tile<D>(oacc, cur, smem + T::V + stage * T::KV, kt > 0);
+    mma_regs_tile<D>(oacc, cur, smem + T::V + stage * T::TILE, kt > 0);
     wgmma_commit();
     wgmma_wait<1>();  // S of the next tile; O += P V may still run
     fence_regs<BK / 2>(s);
@@ -384,7 +279,11 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
         sm.tile<DROP>(s, sb != nullptr ? sb + ns * BK : nullptr, (kt + 1) * BK, nxt);
     wgmma_wait<0>();
     fence_regs<D / 2>(oacc);
-    release();
+    // the stage of tile kt is done: the last warp refills it with tile
+    // kt + NST
+    release_stage(&released[stage], nc * 4, lane, [&]() {
+      if (kt + NST < n_kt) fill(stage, kt + NST);
+    });
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) oacc[i] *= (i / 2) % 2 ? alpha.y : alpha.x;
     stage = ns;
@@ -394,7 +293,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
   // the last tile's O += P V alone
   auto last = [&](uint32_t (*cur)[4]) {
     wgmma_fence();
-    mma_pv_tile<D>(oacc, cur, smem + T::V + stage * T::KV, kt > 0);
+    mma_regs_tile<D>(oacc, cur, smem + T::V + stage * T::TILE, kt > 0);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs<D / 2>(oacc);
@@ -410,28 +309,13 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int row1 = row0 + 8;
   const float l0 = quad_sum(sm.l0), l1 = quad_sum(sm.l1);
   const float il0 = 1.f / l0, il1 = 1.f / l1;
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    const int col = 8 * j + cq;
-    *reinterpret_cast<__nv_bfloat162*>(sq + stage_off<D>(r0, col)) =
-        __floats2bfloat162_rn(oacc[4 * j] * il0, oacc[4 * j + 1] * il0);
-    *reinterpret_cast<__nv_bfloat162*>(sq + stage_off<D>(r0 + 8, col)) =
-        __floats2bfloat162_rn(oacc[4 * j + 2] * il1, oacc[4 * j + 3] * il1);
-  }
+  stage_acc<D>(sq, oacc, r0, cq, il0, il1);
   if (lane % 4 == 0) {
     if (row0 < Sq) lse[(long long)bh * Sq + row0] = sm.m0 + logf(l0);
     if (row1 < Sq) lse[(long long)bh * Sq + row1] = sm.m1 + logf(l1);
   }
   named_barrier(1 + c, 128);
-  constexpr int CH = D / 8;  // 16-byte chunks of an O row
-  for (int i = tw; i < BM * CH; i += 128) {
-    const int r = i / CH, ch = i % CH;
-    const int qrow = q0 + c * BM + r;
-    if (qrow < Sq)
-      *reinterpret_cast<uint4*>(o + (((long long)b * Sq + qrow) * H + h) * D +
-                                ch * 8) =
-          *reinterpret_cast<const uint4*>(sq + stage_off<D>(r, ch * 8));
-  }
+  store_rows<D>(sq, o, b, h, H, Sq, q0 + c * BM, tw);
 }
 
 template <int D, bool DROP>
@@ -463,21 +347,13 @@ cudaError_t run(const void* q, const void* k, const void* v, const float* kbias,
                 const long long* st, int block_q, int causal,
                 int causal_offset, float scale, uint32_t drop_thresh,
                 float keep_prob, uint32_t seed, cudaStream_t stream) {
-  using T = Tile<D>;
   const int nc = block_q / BM;
   if (nc < 1 || nc > MAX_NC || nc * BM != block_q) return cudaErrorInvalidValue;
   CUtensorMap maps[4];
-  const uint64_t dq[4] = {(uint64_t)D, (uint64_t)H, (uint64_t)Sq, (uint64_t)B};
-  const uint64_t dk[4] = {(uint64_t)D, (uint64_t)H, (uint64_t)Sk, (uint64_t)B};
-  const uint64_t sq[3] = {(uint64_t)st[2], (uint64_t)st[1], (uint64_t)st[0]};
-  const uint64_t sk[3] = {(uint64_t)st[5], (uint64_t)st[4], (uint64_t)st[3]};
-  const uint64_t sv[3] = {(uint64_t)st[8], (uint64_t)st[7], (uint64_t)st[6]};
-  const uint32_t bq[4] = {(uint32_t)T::ATOM, 1, (uint32_t)block_q, 1};
-  const uint32_t bk[4] = {(uint32_t)T::ATOM, 1, (uint32_t)BK, 1};
   memset(&maps[3], 0, sizeof(CUtensorMap));  // unread without a bias
-  if (!map_4d(&maps[0], q, dq, sq, bq, tma_swizzle<D>()) ||
-      !map_4d(&maps[1], k, dk, sk, bk, tma_swizzle<D>()) ||
-      !map_4d(&maps[2], v, dk, sv, bk, tma_swizzle<D>()) ||
+  if (!map_bshd<D>(&maps[0], q, B, Sq, H, st, block_q) ||
+      !map_bshd<D>(&maps[1], k, B, Sk, H, st + 3, BK) ||
+      !map_bshd<D>(&maps[2], v, B, Sk, H, st + 6, BK) ||
       (kbias != nullptr &&
        !map_2d(&maps[3], kbias, B, Sk, bias_ld, 1, BK, CU_TENSOR_MAP_SWIZZLE_NONE,
                CU_TENSOR_MAP_DATA_TYPE_FLOAT32)))

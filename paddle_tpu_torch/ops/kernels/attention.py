@@ -147,23 +147,15 @@ def _lib():
     return lib
 
 
-def _kernel_ready(t: torch.Tensor) -> torch.Tensor:
-    """The kernels read rows of 16 bytes: last dim contiguous, other
-    strides multiples of 8 elements, base 16-byte aligned."""
-    if (t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:-1])
-            or t.data_ptr() % 16):
-        t = t.contiguous()
-    return t
-
-
 def _tma_ready(t: torch.Tensor) -> torch.Tensor:
-    """`_kernel_ready`, and (B, S, H, D) strides that nest (each at least
-    the extent below it), as the forward kernel's 4-D tensor maps take
-    them; another layout is copied to a contiguous one."""
-    t = _kernel_ready(t)
+    """A (B, S, H, D) operand as the flash kernels' 4-D tensor maps take
+    it: last dim contiguous, the other strides multiples of 8 elements
+    that nest (each at least the extent below it), base 16-byte aligned;
+    another layout is copied to a contiguous one."""
     _, s, h, d = t.shape
-    sb, ss, sh, _ = t.stride()
-    if not (sh >= d and ss >= sh * h and sb >= ss * s):
+    sb, ss, sh, sd = t.stride()
+    if (sd != 1 or any(x % 8 for x in (sb, ss, sh)) or t.data_ptr() % 16
+            or not (sh >= d and ss >= sh * h and sb >= ss * s)):
         t = t.contiguous()
     return t
 
@@ -186,20 +178,26 @@ def _flash_plan(b: int, h: int, sq: int, sk: int, d: int, sms: int):
     return block_q, _FLASH_BLOCK_K, -(-sq // block_q) * bh
 
 
+def _f32_rows_for_tma(x: torch.Tensor):
+    """(rows, row stride) of a 2-D tensor as the kernels' 2-D f32 tensor
+    maps read it: the tensor itself when it is contiguous f32 with 16-byte
+    aligned rows, else a copy whose rows are padded to a multiple of 4
+    values (the pad is never read: a map's extent is the tensor's)."""
+    x = x.to(torch.float32).contiguous()
+    if x.shape[1] % 4 or x.data_ptr() % 16:
+        x = torch.nn.functional.pad(x, (0, -x.shape[1] % 4))
+    return x, x.shape[1]
+
+
 def _bias_for_tma(key_bias, b: int, sk: int):
-    """(bias, row stride) as the forward kernel's TMA reads the key biases:
-    the f32 (B, Sk) bias itself when its rows are 16-byte aligned, else a
-    copy whose rows are padded to a multiple of 4 (the pad is never read
-    as a key: the kernel leaves keys past Sk out); (None, 0) without one."""
+    """(bias, row stride) as the flash kernels' TMA reads the (B, Sk) key
+    biases (`_f32_rows_for_tma`); (None, 0) without one."""
     if key_bias is None:
         return None, 0
-    kb = key_bias.to(torch.float32).contiguous()
-    if kb.shape != (b, sk):
+    if key_bias.shape != (b, sk):
         raise ValueError(f"key_bias must be (B, Sk)=({b}, {sk}), got "
-                         f"{tuple(kb.shape)}")
-    if sk % 4 or kb.data_ptr() % 16:
-        kb = torch.nn.functional.pad(kb, (0, -sk % 4))
-    return kb, kb.shape[1]
+                         f"{tuple(key_bias.shape)}")
+    return _f32_rows_for_tma(key_bias)
 
 
 def _flash_forward_cuda(q, k, v, key_bias, seed, causal, causal_offset,
@@ -293,14 +291,43 @@ def flash_backward_reference(q, k, v, key_bias, seed, out, lse, g,
 
 # -- backward: the CUDA kernels' wrapper -----------------------------------------
 
+_NST = 3  # ring stages of csrc/flash_bwd.cu (flash_common.cuh's NST)
+
+
+def _flash_bwd_smem_bytes(d: int, dkv: bool) -> int:
+    """Dynamic shared memory of a backward CTA (csrc/flash_bwd.cu's DqSmem
+    and DkvSmem): two resident bf16 operands of 128 rows (Q and G, or K
+    and V), NST stages of two streamed (64, D) bf16 tiles and of one
+    (dq: key biases) or two (dkv: lse, delta) rows of 64 f32 values, the
+    mbarriers and the stage counts, and 1024 bytes to align the base."""
+    resident = 2 * 2 * _FLASH_BLOCK_M * d * 2
+    ring = _NST * (2 * _FLASH_BLOCK_K * d * 2
+                   + (2 if dkv else 1) * _FLASH_BLOCK_K * 4)
+    return resident + ring + (_NST + 1) * 8 + _NST * 4 + 1024
+
+
+def _flash_bwd_plan(b: int, h: int, sq: int, sk: int, d: int, sms: int):
+    """The two backward passes' launch plan: the dq pass takes the forward's
+    plan over the queries (the same CTAs, so it skips the key tiles the
+    forward skipped above the causal diagonal), the dkv pass the same rule
+    over the keys (64 or 128 keys a CTA); with the grids' CTA counts and
+    the shared-memory bytes each CTA asks for."""
+    dq_block, _, dq_ctas = _flash_plan(b, h, sq, sk, d, sms)
+    dkv_block, _, dkv_ctas = _flash_plan(b, h, sk, sq, d, sms)
+    return dict(dq_block=dq_block, dq_ctas=dq_ctas,
+                dq_smem=_flash_bwd_smem_bytes(d, False),
+                dkv_block=dkv_block, dkv_ctas=dkv_ctas,
+                dkv_smem=_flash_bwd_smem_bytes(d, True))
+
+
 def _bwd_lib():
     lib = library("flash_bwd")
     for fn in (lib.flash_bwd_dkv_bf16, lib.flash_bwd_dq_bf16):
         if fn.argtypes is None:
             vp, ci = ctypes.c_void_p, ctypes.c_int
             outs = [vp, vp] if fn is lib.flash_bwd_dkv_bf16 else [vp]
-            fn.argtypes = ([vp] * 7 + outs + [ci] * 5
-                           + [ctypes.POINTER(ctypes.c_longlong), ci, ci,
+            fn.argtypes = ([vp] * 5 + [ci, vp, vp, ci] + outs + [ci] * 5
+                           + [ctypes.POINTER(ctypes.c_longlong), ci, ci, ci,
                               ctypes.c_float, ctypes.c_uint, ctypes.c_float,
                               ctypes.c_uint, vp])
             fn.restype = ci
@@ -329,40 +356,41 @@ def _flash_bwd_launchers(q, k, v, key_bias, seed, out, lse, g, causal,
     if sk < 1 or b * h > 65535:
         raise ValueError(f"flash_bwd kernels need Sk >= 1 and B*H <= 65535 "
                          f"(got Sk={sk}, B*H={b * h})")
-    q, k, v, g = (_kernel_ready(t) for t in (q, k, v, g))
-    if key_bias is not None:
-        key_bias = key_bias.to(torch.float32).contiguous()
-        if key_bias.shape != (b, sk):
-            raise ValueError(f"key_bias must be (B, Sk)=({b}, {sk}), got "
-                             f"{tuple(key_bias.shape)}")
-    lse = lse.to(torch.float32).contiguous()
+    q, k, v, g = (_tma_ready(t) for t in (q, k, v, g))
+    kb, bias_ld = _bias_for_tma(key_bias, b, sk)
+    lse, rows_ld = _f32_rows_for_tma(lse.reshape(b * h, sq))
     # delta = rowsum(g * out), outside the kernels as in JAX (:395)
-    delta = (g.float() * out.float()).sum(-1).permute(0, 2, 1).contiguous()
+    delta, _ = _f32_rows_for_tma(
+        (g.float() * out.float()).sum(-1).permute(0, 2, 1).reshape(b * h, sq))
     dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     dk = torch.empty((b, sk, h, d), dtype=k.dtype, device=q.device)
     dv = torch.empty((b, sk, h, d), dtype=v.dtype, device=q.device)
     strides = (ctypes.c_longlong * 12)(
         *(st for t in (q, k, v, g) for st in t.stride()[:3]))
+    plan = _flash_bwd_plan(b, h, sq, sk, d, _sm_count(q.device.index or 0))
     thresh = _threshold(dropout_p) if dropout_p > 0.0 else 0
     lib = _bwd_lib()
-    stream = torch.cuda.current_stream(q.device).cuda_stream
     common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
-              None if key_bias is None else key_bias.data_ptr(),
-              lse.data_ptr(), delta.data_ptr())
-    tail = (b, h, sq, sk, d, strides, int(bool(causal)), int(causal_offset),
-            float(scale), thresh, float(1.0 / (1.0 - dropout_p)),
-            int(seed) & _M32, stream)
-    keep = (q, k, v, g, key_bias, lse, delta)  # alive while launchers are
+              None if kb is None else kb.data_ptr(), bias_ld,
+              lse.data_ptr(), delta.data_ptr(), rows_ld)
+    dims = (b, h, sq, sk, d, strides)
+    tail = (int(bool(causal)), int(causal_offset), float(scale), thresh,
+            float(1.0 / (1.0 - dropout_p)), int(seed) & _M32)
+    keep = (q, k, v, g, kb, lse, delta)  # alive while launchers are
+    # the stream current at each launch (a CUDA graph's capture stream)
+    stream = lambda: torch.cuda.current_stream(q.device).cuda_stream
 
     def launch_dkv():
-        err = lib.flash_bwd_dkv_bf16(*common, dk.data_ptr(), dv.data_ptr(),
-                                     *tail)
+        err = lib.flash_bwd_dkv_bf16(
+            *common, dk.data_ptr(), dv.data_ptr(), *dims, plan["dkv_block"],
+            *tail, stream())
         check(lib, err, "flash_bwd_dkv")
         FLASH_BWD_DKV.add()
         return keep
 
     def launch_dq():
-        err = lib.flash_bwd_dq_bf16(*common, dq.data_ptr(), *tail)
+        err = lib.flash_bwd_dq_bf16(
+            *common, dq.data_ptr(), *dims, plan["dq_block"], *tail, stream())
         check(lib, err, "flash_bwd_dq")
         FLASH_BWD_DQ.add()
         return keep

@@ -367,6 +367,69 @@ def test_flash_backward_ragged_and_strided(cuda, sq, sk):
             _close_grad(gt, w)
 
 
+@pytest.mark.parametrize("b,h,sq,sk,d,causal,offset,p", [
+    # B*H about the SM count: 128-query CTAs whose second warpgroup lies
+    # past Sq (11 x 12), 64-query CTAs (131 heads of one sequence), and
+    # 128-query CTAs again (133)
+    (11, 12, 130, 130, 64, False, None, 0.1),
+    (1, 131, 100, 100, 64, True, None, 0.1),
+    (1, 133, 100, 100, 64, False, None, 0.0),
+    # Sq and Sk not multiples of 64, both causal offsets' signs
+    (2, 3, 70, 200, 64, True, None, 0.1), (2, 3, 200, 70, 64, True, None, 0.1),
+    (2, 3, 190, 330, 32, False, None, 0.2),
+    # one key, one query
+    (2, 3, 64, 1, 64, False, None, 0.1), (2, 3, 1, 1, 16, True, None, 0.0),
+    (3, 2, 1, 77, 64, True, None, 0.1),
+    # D = 128 with a causal offset and dropout
+    (2, 3, 100, 230, 128, True, None, 0.1),
+    (2, 3, 230, 100, 128, True, None, 0.1),
+    # an explicit offset that leaves keys 64.. to no query (dK = dV = 0)
+    (2, 3, 64, 256, 64, True, 0, 0.1),
+    # a decode prefill's shape
+    (1, 12, 256, 256, 64, True, None, 0.1)])
+def test_flash_backward_under_every_plan(cuda, b, h, sq, sk, d, causal,
+                                         offset, p):
+    """Both backward kernels at the edges of their plans (CTAs of 64 or
+    128 rows, ragged tiles, causal tiles skipped or leading), with a
+    key-padding bias, against the plain version."""
+    q, g = _bf16(cuda, b, sq, h, d), _bf16(cuda, b, sq, h, d)
+    k, v = _bf16(cuda, b, sk, h, d), _bf16(cuda, b, sk, h, d)
+    bias = _bias(cuda, b, sk)
+    out, lse = A.flash_forward(q, k, v, bias, 17, causal, offset, None, p)
+    got = A.flash_backward(q, k, v, bias, 17, out, lse, g, causal, offset,
+                           None, p)
+    want = A.flash_backward_reference(q, k, v, bias, 17, out, lse, g,
+                                      causal, offset, None, p)
+    for gt, w in zip(got, want):
+        _close_grad(gt, w)
+
+
+def test_flash_backward_gives_the_same_bits_twice(cuda):
+    """No atomics and a fixed order of summation: dq, dk and dv are the
+    same bits in two runs, at BERT-base's attention with dropout."""
+    q, k, v, g = (_bf16(cuda, 8, 512, 12, 64) for _ in range(4))
+    bias = _bias(cuda, 8, 512)
+    out, lse = A.flash_forward(q, k, v, bias, 5, False, None, None, 0.1)
+    a = A.flash_backward(q, k, v, bias, 5, out, lse, g, False, None, None,
+                         0.1)
+    b = A.flash_backward(q, k, v, bias, 5, out, lse, g, False, None, None,
+                         0.1)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_flash_backward_shared_memory_is_the_plans(cuda):
+    """The plan's shared-memory bytes (checked against 227 KB on the CPU)
+    are what the kernels ask for."""
+    import ctypes
+
+    lib = A._bwd_lib()
+    fn = lib.flash_bwd_smem_bytes
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+    for d in (16, 32, 64, 128):
+        for dkv in (False, True):
+            assert fn(d, int(dkv)) == A._flash_bwd_smem_bytes(d, dkv)
+
+
 @pytest.mark.parametrize("act,h", [
     (act, h) for h in (128, 256, 512, 768) for act in (
         "gelu", "gelu_tanh", "relu")] + [("gelu", 1024),

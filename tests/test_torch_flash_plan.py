@@ -1,11 +1,14 @@
-"""The flash forward kernel's launch plan and operand preparation, on the
-CPU: how `_flash_plan` (paddle_tpu_torch/ops/kernels/attention.py) cuts
-the queries into CTAs of one or two 64-query warpgroups (every query
-covered once, ragged edges included, the card filled at the decode
-prefills), which (B, S, H, D) layouts its 4-D tensor maps read in place
-(`_tma_ready`), and the key biases it reads by TMA (`_bias_for_tma`);
-and how `_dx_plan` (ops/kernels/ffn.py) cuts the
-FFN dx pass into its dpre and dx grids and sizes the dpre workspace."""
+"""The flash kernels' launch plans and operand preparation, on the CPU:
+how `_flash_plan` (paddle_tpu_torch/ops/kernels/attention.py) cuts the
+queries into CTAs of one or two 64-query warpgroups (every query covered
+once, ragged edges included, the card filled at the decode prefills),
+how `_flash_bwd_plan` cuts the backward's dq pass over the queries and
+its dkv pass over the keys the same way and what shared memory their
+CTAs ask for, which (B, S, H, D) layouts the 4-D tensor maps read in
+place (`_tma_ready`: q/k/v/g), and the f32 rows they read by 2-D maps
+(`_bias_for_tma`, `_f32_rows_for_tma`: key biases, lse, delta); and how
+`_dx_plan` (ops/kernels/ffn.py) cuts the FFN dx pass into its dpre and
+dx grids and sizes the dpre workspace."""
 
 import pytest
 import torch
@@ -81,6 +84,77 @@ def test_bias_for_tma(sk):
     assert TA._bias_for_tma(None, 3, sk) == (None, 0)
     with pytest.raises(ValueError):
         TA._bias_for_tma(bias, 2, sk)
+
+
+@pytest.mark.parametrize("b,h,sq,sk", [
+    (32, 12, 512, 512), (8, 12, 512, 512), (2, 3, 70, 200), (2, 3, 200, 70),
+    (2, 3, 64, 1), (2, 3, 1, 1), (3, 2, 1, 77), (11, 12, 130, 130),
+    (1, 131, 100, 100), (1, 133, 100, 100), (1, 12, 256, 256),
+    (2, 66, 193, 4096)])
+def test_flash_bwd_plan_covers_every_query_and_key_once(b, h, sq, sk):
+    """The dq pass's CTAs tile the queries of each batch*head once, the
+    dkv pass's the keys, each in blocks of 64 or 128 rows (the last one
+    ragged); dq takes the forward's own plan, so the two see the same
+    causal tile skips."""
+    plan = TA._flash_bwd_plan(b, h, sq, sk, 64, SMS)
+    for rows, block, ctas in ((sq, plan["dq_block"], plan["dq_ctas"]),
+                              (sk, plan["dkv_block"], plan["dkv_ctas"])):
+        assert block in (64, 128)
+        tiles = [(i * block, min(rows, (i + 1) * block))
+                 for i in range(-(-rows // block))]
+        assert _covered_once(tiles, rows)
+        assert ctas == len(tiles) * b * h
+    assert (plan["dq_block"], plan["dq_ctas"]) == \
+        TA._flash_plan(b, h, sq, sk, 64, SMS)[::2]
+    # the card is short of CTAs only where 64-row CTAs cannot fill it
+    big = -(-sk // 128) * b * h
+    assert plan["dkv_block"] == (128 if big >= SMS else 64)
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_flash_bwd_shared_memory_fits_a_cta(d):
+    """Each pass's CTA fits the 227 KB an H100 block may use, at every
+    head dim; at D=64 (BERT-base) 83,756 bytes (dq) and 84,524 (dkv)."""
+    for dkv in (False, True):
+        assert TA._flash_bwd_smem_bytes(d, dkv) <= 232_448
+    assert TA._flash_bwd_smem_bytes(d, True) - \
+        TA._flash_bwd_smem_bytes(d, False) == 3 * 64 * 4
+    plan = TA._flash_bwd_plan(2, 12, 512, 512, d, SMS)
+    assert plan["dq_smem"] == TA._flash_bwd_smem_bytes(d, False)
+    assert plan["dkv_smem"] == TA._flash_bwd_smem_bytes(d, True)
+    if d == 64:
+        assert (plan["dq_smem"], plan["dkv_smem"]) == (83_756, 84_524)
+
+
+def test_tma_ready_reads_g_beside_q_in_place():
+    """q and the output gradient g as views of one packed (B, S, 2, H, D)
+    buffer are both read in place; g's own strides go to its map."""
+    qg = torch.zeros(2, 70, 2, 3, 64)
+    q, g = qg[:, :, 0], qg[:, :, 1]
+    for t in (q, g):
+        assert TA._tma_ready(t).data_ptr() == t.data_ptr()
+    # a D-strided view (every other element) is copied
+    wide = torch.zeros(2, 70, 3, 128)[..., ::2]
+    ready = TA._tma_ready(wide)
+    assert ready.is_contiguous() and torch.equal(ready, wide)
+
+
+@pytest.mark.parametrize("sq", [1, 3, 4, 64, 65, 200, 512])
+def test_f32_rows_for_tma(sq):
+    """lse and delta, (B*H, Sq) f32 rows: read in place when the rows are
+    16-byte aligned (Sq a multiple of 4), else from a copy padded to a
+    multiple of 4 columns whose first Sq hold the values."""
+    lse = torch.randn(2, 3, sq)
+    rows, ld = TA._f32_rows_for_tma(lse.reshape(6, sq))
+    assert ld % 4 == 0 and rows.shape == (6, ld) and ld - sq < 4
+    assert rows.dtype == torch.float32
+    assert torch.equal(rows[:, :sq], lse.reshape(6, sq))
+    assert (rows.data_ptr() == lse.data_ptr()) == (sq % 4 == 0)
+    # another dtype or a strided view is made contiguous f32 first
+    half, _ = TA._f32_rows_for_tma(lse.reshape(6, sq).half())
+    assert half.dtype == torch.float32
+    cols, cld = TA._f32_rows_for_tma(torch.randn(sq, 6).t())
+    assert cols.is_contiguous() and cld % 4 == 0
 
 
 @pytest.mark.parametrize("h", [128, 256, 512, 768, 1024])
