@@ -26,7 +26,11 @@ Phases, in order (any failure exits non-zero and prints no result):
               rows each beside the arm's calls that compute their own
               outputs, dx graph-timed in turns with its arm and swept
               over d_model 128-1024, T = 1-16384, every activation, with
-              and without dropout
+              and without dropout; the ragged kernel at a decode step
+              (split path) and a 256-token chunk (tiled path), every
+              lane held against the plain version twice (the same bits),
+              graph-timed in turns with index_select + SDPA, its plan and
+              bound logged
   4. probe    the layout probe (paddle_tpu_torch.tools.kernel4d_probe) at
               its defaults, B=8, S=512, H=12, D=64: the three layout kernels
               (4d, fold3d, merged) checked against its reference and timed
@@ -299,7 +303,8 @@ def _ptxas_entries(text):
             for name in ("flash_fwd_kernel", "ffn_bwd_dpre_kernel",
                          "ffn_bwd_dx_kernel", "ffn_bwd_dw_kernel",
                          "ffn_fwd_kernel", "flash_bwd_dkv_kernel",
-                         "flash_bwd_dq_kernel", "ragged_paged_kernel",
+                         "flash_bwd_dq_kernel", "ragged_split_kernel",
+                         "ragged_merge_kernel", "ragged_tiled_kernel",
                          "probe_4d_kernel", "probe_fold3d_kernel",
                          "probe_merged_kernel", "reduce_kernel"):
                 if name in fn:
@@ -594,32 +599,34 @@ def _paged_inputs(g, lengths, t, qpos0=None, h=12, d=64, s=PAGE_SIZE,
 
 def _ragged_case(c, name):
     """Check the kernel against its plain version on every lane (layers
-    0 and 11), then time kernel, plain version and the library yardstick
-    (index_select of the pages, then SDPA with a bool mask), each cycling
-    through the 12 layers' pools."""
+    0 and 11; the same bits twice), then time kernel and the library
+    yardstick (index_select of the pages, then SDPA with a bool mask),
+    each cycling through the 12 layers' pools, graph-timed in turns; the
+    plain version eager."""
     rows, lens, q, kc, vc, qpos = (c[k] for k in ("rows", "lens", "q", "kc",
                                                    "vc", "qpos"))
     b, t, h, d = q.shape
     s = kc.shape[2]
     scale = d ** -0.5
+    plan = A._ragged_plan(b, t, h, d, s, rows.shape[1],
+                          torch.cuda.get_device_properties(0)
+                          .multi_processor_count)
     worst = 0.0
     for li in (0, LAYERS - 1):
         out = A.ragged_paged_forward(rows, lens, q, kc[li], vc[li], qpos,
                                      scale)
+        again = A.ragged_paged_forward(rows, lens, q, kc[li], vc[li], qpos,
+                                       scale)
         torch.cuda.synchronize()
         ref = A.ragged_paged_reference(rows, lens, q, kc[li], vc[li], qpos,
                                        scale)
         ok, err = close(out, ref, **BF16_TOL)
         worst = max(worst, err)
-        if not ok:
+        if not ok or not torch.equal(out, again):
             raise AssertionError(f"ragged_paged disagrees with its plain "
-                                 f"version at {name} (layer {li}, err {err})")
+                                 f"version at {name} (layer {li}, err {err}, "
+                                 f"same bits twice {torch.equal(out, again)})")
     layers = range(LAYERS)
-    ms = time_cycle(lambda li: A.ragged_paged_forward(
-        rows, lens, q, kc[li], vc[li], qpos, scale), layers)
-    plain_ms = time_cycle(lambda li: A.ragged_paged_reference(
-        rows, lens, q, kc[li], vc[li], qpos, scale), layers, rounds=1,
-        graph=False)
     pos = torch.arange(ROW_PAGES * s, device="cuda")
     flat = (rows.long()[:, pos // s] * s + pos % s).reshape(-1)
     keep = (pos[None, None, :] <= qpos.long()[:, :, None])[:, None]
@@ -631,25 +638,39 @@ def _ragged_case(c, name):
         return torch.nn.functional.scaled_dot_product_attention(
             qt, k, v, attn_mask=keep, scale=scale)
 
-    library_ms = time_cycle(library, layers)
+    times = K4.graphs_ms({
+        "kernel": lambda: [A.ragged_paged_forward(
+            rows, lens, q, kc[li], vc[li], qpos, scale) for li in layers],
+        "library": lambda: [library(li) for li in layers]},
+        LAYERS, replays=8)
+    ms, library_ms = times["kernel"], times["library"]
+    plain_ms = time_cycle(lambda li: A.ragged_paged_reference(
+        rows, lens, q, kc[li], vc[li], qpos, scale), layers, rounds=1,
+        graph=False)
     flops = c["flops"]
     nbytes = (c["kv_rows"] * h * d * 2 + 2 * b * t * h * d * 2
               + rows.numel() * 4 + b * 4 + b * t * 4)
     bound_ms, bound_by = bound(flops, nbytes)
-    log(f"ragged_paged {name}: err {worst:.3g} ok; {ms:.4f} ms (plain "
-        f"{plain_ms:.4f}, library {library_ms:.4f}, bound {bound_ms:.4f} "
-        f"{bound_by}), {c['kv_rows']} K and V rows needed")
+    brief = {k: plan[k] for k in ("path", "pages_per_split", "splits",
+                                  "head_groups", "heads_per_group", "grid",
+                                  "ctas", "smem", "workspace")}
+    log(f"ragged_paged {name}: err {worst:.3g} ok, same bits twice; "
+        f"{ms:.4f} ms (library {library_ms:.4f} in the same turns, plain "
+        f"{plain_ms:.4f}, bound {bound_ms:.4f} {bound_by}), "
+        f"{c['kv_rows']} K and V rows needed; plan {brief}")
     return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                 bound_ms=bound_ms, bound_by=bound_by, err=worst, flops=flops,
-                bytes=nbytes)
+                bytes=nbytes, plan=brief)
 
 
 def _ragged_row(g):
-    """The ragged paged-attention kernel at the decode path's two shapes:
-    (a) a decode step, B=16, T=1, ragged lengths over 1-511 with one
-    length-0 lane and one exact page multiple; (b) a chunk step, B=1,
-    T=256, query positions 256..511 over length 512.  12 heads of 64,
-    pages of 16, rows of 32 pages."""
+    """The ragged paged-attention kernel at the decode path's two shapes,
+    one for each of its paths: (a) a decode step (the split path), B=16,
+    T=1, ragged lengths over 1-511 with one length-0 lane and one exact
+    page multiple; (b) a chunk step (the tiled path), B=1, T=256, query
+    positions 256..511 over length 512.  12 heads of 64, pages of 16,
+    rows of 32 pages.  `workspace_bytes`: the split path's f32 partials
+    at (a), allocated at each call."""
     lengths = [0, 256] + sorted(
         torch.randint(1, 512, (SLOTS - 2,), generator=g).tolist())
     a = _ragged_case(_paged_inputs(g, lengths, 1), "(a) decode B=16 T=1")
@@ -669,7 +690,8 @@ def _ragged_row(g):
         chunk_shape="(b) q (1,256,12,64), qpos 256..511, length 512",
         chunk_ms=bc["ms"], chunk_plain_ms=bc["plain_ms"],
         chunk_library_ms=bc["library_ms"], chunk_bound_ms=bc["bound_ms"],
-        chunk_bound_by=bc["bound_by"], tolerance=BF16_TOL)
+        chunk_bound_by=bc["bound_by"], plan=a["plan"], chunk_plan=bc["plan"],
+        workspace_bytes=4 * a["plan"]["workspace"], tolerance=BF16_TOL)
 
 
 def _flash_backward_rows(g):

@@ -69,6 +69,17 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
+// the max and the sum over the four threads of a row of an accumulator
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
 // S (64 x BK, f32) = the warpgroup's 64 resident rows (rows: atoms RES
 // apart) times a streamed tile (tile: atoms BK rows apart)^T, both
 // K-major: Q K^T and G V^T in the forward and the dq pass, K Q^T and

@@ -83,16 +83,6 @@ __host__ __device__ constexpr int min_ctas() {
   return D <= 64 && !DROP ? 2 : 1;
 }
 
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
 // shared memory: the CTA's Q rows, then the K, V and key-bias stages
 template <int D>
 struct Tile : Geom<D> {

@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the hand-written kernels:
-// mbarriers, TMA tile loads (2-D and 4-D maps), wgmma with both operands
-// in shared memory or with A in registers, and the host-side tensor-map
-// encoders.
+// mbarriers, TMA tile loads (2-D and 4-D maps) and 1-D bulk copies,
+// wgmma with both operands in shared memory or with A in registers, and
+// the host-side tensor-map encoders.
 //
 // The tensor-map encoder (cuTensorMapEncodeTiled) lives in libcuda; it is
 // taken through cudaGetDriverEntryPoint so that the libraries need not
@@ -124,6 +124,18 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       "bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1),
       "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// `bytes` contiguous bytes from global src to shared dst, no tensor map
+// (both 16-byte aligned, bytes a multiple of 16); completes on `bar` as
+// tma_load_2d does
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 

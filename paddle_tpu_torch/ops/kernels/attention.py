@@ -599,13 +599,129 @@ def dense_paged_attention(q, k_pages, v_pages, page_rows, lengths, qpos,
                         v.float()).to(q.dtype)
 
 
+_SMEM_LIMIT = 232_448       # shared-memory bytes an H100 block may use
+_RAGGED_SPLIT_ROWS = 4      # query rows up to which the split path runs
+_RAGGED_MAX_HEADS = 16      # heads (one warp each) of a split-path CTA
+_RAGGED_MIN_RUN = 4         # row pages a split-path CTA takes at least
+_RAGGED_SPLIT_STAGES = 2    # the split path's ring
+_RAGGED_TILE = 64           # queries and keys of a tiled-path tile
+_RAGGED_TILED_STAGES = 4    # the tiled path's ring: two a warpgroup
+
+
+def _ragged_split_keys(s: int) -> int:
+    """Keys a split-path stage holds (a compile-time count of the kernel):
+    16 where the page size is a multiple of 16 (a page of 16 is one
+    stage), else 8."""
+    return 16 if s % 16 == 0 else 8
+
+
+def _ragged_split_smem(d: int, hg: int, ks: int, pps: int) -> int:
+    """Dynamic shared memory of a split-path CTA (csrc/ragged_paged.cu):
+    two stages of K and V rows (ks keys of hg heads), their mbarriers and
+    the run's page ids."""
+    return _RAGGED_SPLIT_STAGES * (2 * ks * hg * d * 2 + 8) + 4 * pps
+
+
+def _ragged_tiled_smem(d: int, w: int) -> int:
+    """Dynamic shared memory of a tiled-path CTA (csrc/ragged_paged.cu's
+    tiled::Tile): Q in flash_common.cuh's resident atoms (128 rows a
+    64-column atom, 64 used), four stages of a 64-key K and V tile, the
+    barriers, stage counts and the eight warps' qpos bounds, W page ids
+    and 8 past them, and 1024 bytes to align the base."""
+    natom, rowb = (2, 128) if d == 128 else (1, 2 * d)
+    q = natom * 2 * _RAGGED_TILE * rowb
+    ns = _RAGGED_TILED_STAGES
+    ring = ns * 2 * _RAGGED_TILE * d * 2
+    return q + ring + (ns + 1) * 8 + ns * 4 + 16 * 4 + (w + 8) * 4 + 1024
+
+
+def _ragged_plan(b: int, t: int, h: int, d: int, s: int, w: int, sms: int):
+    """The ragged kernel's launch plan, from shapes and the SM count alone
+    (never `lengths` or `qpos`, which live on the card: reading them
+    would cost a host sync every decode step).
+
+    - "tiled" for more than _RAGGED_SPLIT_ROWS query rows when the page
+      size divides 64 (a key tile is whole pages) and the row's page ids
+      fit shared memory: one CTA per (64 queries, head, sequence), two
+      warpgroups taking alternate 64-key tiles, wgmma.
+    - "split" otherwise (the decode step, T = 1; other page sizes): one
+      CTA per (run of `pages_per_split` row pages, query row, head group,
+      sequence), `splits` runs cover the row.  Runs are four pages unless
+      the row is longer than four pages per SM; they depend on W and the
+      SM count only.  Heads go in groups of at most 16 (a warp each),
+      fewer when two stages of a group's K and V would not fit.  With
+      more than one run, the CTAs' (m, l, acc) go to an f32 workspace of
+      `workspace` values that the merge kernel reads."""
+    if (t > _RAGGED_SPLIT_ROWS and _RAGGED_TILE % s == 0
+            and _ragged_tiled_smem(d, w) <= _SMEM_LIMIT):
+        grid = (-(-t // _RAGGED_TILE), h, b)
+        plan = dict(path="tiled", pages_per_split=w, splits=1,
+                    keys_per_stage=_RAGGED_TILE, head_groups=h,
+                    heads_per_group=1, threads=256,
+                    smem=_ragged_tiled_smem(d, w), workspace=0)
+    else:
+        pps = max(_RAGGED_MIN_RUN, -(-w // sms))
+        splits = -(-w // pps)
+        ks = _ragged_split_keys(s)
+        groups = -(-h // _RAGGED_MAX_HEADS)
+        while _ragged_split_smem(d, -(-h // groups), ks, pps) > _SMEM_LIMIT \
+                and groups < h:
+            groups += 1
+        hg = -(-h // groups)
+        groups = -(-h // hg)
+        grid = (splits * t, groups, b)
+        plan = dict(path="split", pages_per_split=pps,
+                    splits=splits, keys_per_stage=ks, head_groups=groups,
+                    heads_per_group=hg, threads=32 * hg,
+                    smem=_ragged_split_smem(d, hg, ks, pps),
+                    workspace=b * splits * t * h * (d + 2) if splits > 1
+                    else 0)
+    plan.update(grid=grid, ctas=grid[0] * grid[1] * grid[2])
+    return plan
+
+
+def ragged_paged_split_reference(page_rows, lengths, q, k_pages, v_pages,
+                                 qpos, scale, pages_per_split):
+    """Plain emulation of the kernel's split path (the main path never
+    calls it): each run of `pages_per_split` consecutive included pages of
+    a lane gives its own (m, l, acc) in f32, p cast to v's dtype against
+    the run's own max; the runs are merged in order, o = sum_r
+    exp(m_r - M) acc_r / sum_r exp(m_r - M) l_r.  The same function as
+    `ragged_paged_reference`, in another summation order."""
+    b, t, h, d = q.shape
+    s = k_pages.shape[1]
+    w = page_rows.shape[1]
+    out = torch.empty((b, t, h, d), dtype=torch.float32, device=q.device)
+    for bi in range(b):
+        ln = int(lengths[bi])
+        n_pages = max(1, min(-(-ln // s) if ln > 0 else 1, w))
+        parts = []
+        for p0 in range(0, n_pages, pages_per_split):
+            pages = page_rows[bi, p0:min(p0 + pages_per_split, n_pages)].long()
+            k = k_pages[pages].reshape(-1, h, d)
+            v = v_pages[pages].reshape(-1, h, d)
+            kpos = p0 * s + torch.arange(k.shape[0], device=q.device)
+            sc = torch.einsum("qhd,khd->hqk", q[bi].float(), k.float()) * scale
+            causal = kpos[None, :] <= qpos[bi].long()[:, None]  # (T, keys)
+            sc = torch.where(causal[None], sc, DEFAULT_MASK_VALUE)
+            m = sc.amax(dim=-1, keepdim=True)                   # (H, T, 1)
+            p = torch.exp(sc - m)
+            acc = torch.einsum("hqk,khd->qhd", p.to(v.dtype).float(),
+                               v.float())
+            parts.append((m[..., 0].T, p.sum(-1).T, acc))     # (T, H) ...
+        mx = torch.stack([m for m, _, _ in parts]).amax(0)
+        lsum = sum(torch.exp(m - mx) * l for m, l, _ in parts)
+        acc = sum(torch.exp(m - mx)[..., None] * a for m, _, a in parts)
+        out[bi] = acc / lsum[..., None]
+    return out.to(q.dtype)
+
+
 def _ragged_lib():
     lib = library("ragged_paged")
     fn = lib.ragged_paged_bf16
     if fn.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci,
-                       ci, ctypes.c_float, vp]
+        fn.argtypes = [vp] * 8 + [ci] * 7 + [ctypes.c_float] + [ci] * 5 + [vp]
         fn.restype = ci
     return lib
 
@@ -635,10 +751,13 @@ def _ragged_paged_cuda(page_rows, lengths, q, k_pages, v_pages, qpos,
             f"pools {tuple(k_pages.shape)}/{tuple(v_pages.shape)}, "
             f"page_rows {tuple(page_rows.shape)}, lengths "
             f"{tuple(lengths.shape)}, qpos {tuple(qpos.shape)}")
-    if t < 1 or w < 1 or h > 65535 or b > 65535:
-        raise ValueError(f"ragged_paged kernel needs T >= 1, W >= 1 and "
-                         f"H, B <= 65535 (got T={t}, W={w}, H={h}, B={b})")
-    # the kernel reads q, the pools and the int operands densely; a
+    plan = _ragged_plan(b, t, h, d, s, w, _sm_count(q.device.index or 0))
+    gx, gy, gz = plan["grid"]
+    if t < 1 or w < 1 or gy > 65535 or gz > 65535 or gx >= 2 ** 31 \
+            or plan["smem"] > _SMEM_LIMIT:
+        raise ValueError(f"ragged_paged kernel cannot take T={t}, W={w}, "
+                         f"H={h}, B={b}: plan {plan}")
+    # the kernels read q, the pools and the int operands densely; a
     # layer's plane kc[li] of a contiguous multi-layer pool is contiguous
     q = q.contiguous()
     k_pages, v_pages = k_pages.contiguous(), v_pages.contiguous()
@@ -649,12 +768,17 @@ def _ragged_paged_cuda(page_rows, lengths, q, k_pages, v_pages, qpos,
     rows, lens, qp = (x.to(torch.int32).contiguous()
                       for x in (page_rows, lengths, qpos))
     out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
+    ws = torch.empty(plan["workspace"], dtype=torch.float32,
+                     device=q.device) if plan["workspace"] else None
     lib = _ragged_lib()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.ragged_paged_bf16(
         rows.data_ptr(), lens.data_ptr(), q.data_ptr(), k_pages.data_ptr(),
-        v_pages.data_ptr(), qp.data_ptr(), out.data_ptr(), b, t, h, d, p, s,
-        w, float(scale), stream)
+        v_pages.data_ptr(), qp.data_ptr(), out.data_ptr(),
+        None if ws is None else ws.data_ptr(), b, t, h, d, p, s, w,
+        float(scale), int(plan["path"] == "tiled"), plan["pages_per_split"],
+        plan["splits"], plan["heads_per_group"], plan["keys_per_stage"],
+        stream)
     check(lib, err, "ragged_paged")
     RAGGED_PAGED.add()
     return out
@@ -688,9 +812,10 @@ def paged_attention(q, k_pages, v_pages, page_rows, lengths, scale=None,
     >= lengths (chunk padding) produce finite but unspecified output;
     callers slice them away.
 
-    Dispatch: `csrc/ragged_paged.cu` for CUDA tensors, which reads
-    `page_rows` inside the kernel (no (B, W*S) gather is ever built); its
-    plain version for CPU tensors."""
+    Dispatch: `csrc/ragged_paged.cu` for CUDA tensors (its split path at
+    decode steps, its tiled path at chunks, as `_ragged_plan` chooses by
+    shape), which reads `page_rows` inside the kernel (no (B, W*S) gather
+    is ever built); its plain version for CPU tensors."""
     t, d = q.shape[1], q.shape[3]
     scale = scale if scale is not None else 1.0 / (d ** 0.5)
     if q_positions is None:

@@ -5,7 +5,10 @@ ragged and strided inputs, the FFN kernels' plans (token tiles around
 their edges, d_ff splits, column groups, a d_ff that is not a whole
 number of steps) and the same bits in two runs, the ragged paged-attention kernel at the
 decode path's shapes (length-0 lanes, exact page multiples, chunk
-positions, every head dim and several page sizes), the shapes and types
+positions, every head dim and several page sizes; its split path at the
+edges of its runs of pages, with head groups and a refilled ring; its
+tiled path at T = 64-256 over every page size that divides 64; the same
+bits in two runs; the grid of its plan, read from the profiler), the shapes and types
 the wrappers refuse, tiny BERT served on the card, decoded on the card
 through AutoregressiveEngine, its train step on the card, and the three
 layout-probe kernels (4d, fold3d, merged) at the probe tool's shape.  These
@@ -742,6 +745,98 @@ def test_ragged_paged_refuses_what_it_cannot_compute(cuda):
     p12 = _bf16(cuda, 3, 12, 2, 64)
     with pytest.raises(NotImplementedError, match="page_size"):
         A.ragged_paged_forward(rows, lens, q, p12, p12, qpos, 0.125)
+
+
+def _ragged_plan_of(args):
+    rows, _, q, kp = args[:4]
+    b, t, h, d = q.shape
+    return A._ragged_plan(b, t, h, d, kp.shape[1], rows.shape[1],
+                          torch.cuda.get_device_properties(0)
+                          .multi_processor_count)
+
+
+def _ragged_twice(args, scale=0.125):
+    """The kernel against its plain version, and the same bits again."""
+    out = _ragged_check(args, scale)
+    torch.testing.assert_close(A.ragged_paged_forward(*args, scale), out,
+                               atol=0, rtol=0)
+    return out
+
+
+def test_ragged_paged_split_boundaries_at_the_decode_step_shape(cuda):
+    """(a)'s shape (B=16, T=1, 12 heads of 64, pages of 16, rows of 32)
+    with lengths on both sides of the split path's run edges (four
+    pages, 64 keys, a run): lanes whose pages fit the first run, lanes
+    one key into the next run, full rows."""
+    lengths = [0, 1, 63, 64, 65, 127, 128, 129, 192, 255, 256, 257, 448,
+               449, 511, 512]
+    args = _paged(cuda, lengths, 1, h=12, w=32)
+    plan = _ragged_plan_of(args)
+    assert (plan["path"], plan["pages_per_split"], plan["splits"]) == \
+        ("split", 4, 8)
+    _ragged_twice(args)
+
+
+@pytest.mark.parametrize("h,d,s,lengths,w", [
+    (16, 128, 16, [40, 300, 0], 32),   # head groups: 2 of 8
+    (12, 128, 64, [200, 64, 65], 8),   # 4 stages a page: the ring refills
+    (2, 64, 8, [2400, 1000, 7], 300),  # runs of 4 pages: the ring refills
+])
+def test_ragged_paged_split_path_groups_stages_and_long_rows(
+        cuda, h, d, s, lengths, w):
+    args = _paged(cuda, lengths, 1, h=h, d=d, s=s, w=w)
+    plan = _ragged_plan_of(args)
+    assert plan["path"] == "split"
+    assert plan["head_groups"] * plan["heads_per_group"] >= h
+    _ragged_twice(args, scale=d ** -0.5)
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("s", [8, 16, 32, 64])
+def test_ragged_paged_tiled_path(cuda, d, s):
+    """The tiled path at T = 64, 65, 128, B = 2: default positions (the
+    newest T of each lane) and chunk positions with padded lanes (qpos
+    past a lane's length)."""
+    for t in (64, 65, 128):
+        for lengths, qpos0 in (([t + 40, t + 3], None), ([230, 150], 100)):
+            args = _paged(cuda, lengths, t, d=d, s=s, qpos0=qpos0)
+            assert _ragged_plan_of(args)["path"] == "tiled"
+            _ragged_twice(args, scale=d ** -0.5)
+
+
+def test_ragged_paged_chunk_with_a_ragged_last_page(cuda):
+    """T=256 over a length of 500 (31 pages and a quarter), at the decode
+    path's width, default positions 244..499 and chunk positions."""
+    _ragged_twice(_paged(cuda, [500], 256, h=12, w=32))
+    _ragged_twice(_paged(cuda, [500, 300], 256, h=12, w=32, qpos0=244))
+
+
+def test_ragged_paged_launches_the_plans_grid(cuda, tmp_path):
+    """The kernel the profiler sees runs the plan's grid and block: the
+    split path at a decode step (and its merge kernel), the tiled path
+    at a chunk."""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
+    for lengths, t in (([5, 300, 77], 1), ([500], 256)):
+        args = _paged(cuda, lengths, t, h=12, w=32)
+        plan = _ragged_plan_of(args)
+        A.ragged_paged_forward(*args, 0.125)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            A.ragged_paged_forward(*args, 0.125)
+            torch.cuda.synchronize()
+        trace = tmp_path / f"t{t}.json"
+        prof.export_chrome_trace(str(trace))
+        kernels = [e for e in json.loads(trace.read_text())["traceEvents"]
+                   if e.get("cat") == "kernel" and "ragged" in e["name"]]
+        main = [e for e in kernels
+                if f"ragged_{plan['path']}_kernel" in e["name"]]
+        assert len(main) == 1
+        assert tuple(main[0]["args"]["grid"]) == plan["grid"]
+        assert main[0]["args"]["block"][0] == plan["threads"]
+        assert len(kernels) == 1 + (plan["splits"] > 1)
 
 
 def test_tiny_bert_decodes_on_the_card(cuda):
