@@ -1,13 +1,13 @@
-// The three layout-probe kernels for Hopper (sm_90a): bf16 in, f32 math.
+// The layout-probe kernel for Hopper (sm_90a): bf16 in, f32 math.
 //
-// Replace the three Pallas kernels of tools/kernel4d_probe.py, which price
+// Replaces the three Pallas kernels of tools/kernel4d_probe.py, which price
 // the layout question behind the flash kernels (read the projection output
 // in place, or pay the merge transposes to (B*H, S, D) on every call):
 //
-//   probe_4d_kernel      <- build        (:29)   q/k/v/o (B, S, H, D)
-//   probe_fold3d_kernel  <- build_fold3d (:78)   q/k/v/o (B, S, H*D), head h
-//                                                at lanes h*D .. h*D + D - 1
-//   probe_merged_kernel  <- main's kernel3 (:226) q/k/v/o (B*H, S, D)
+//   probe_4d_bf16      <- build        (:29)   q/k/v/o (B, S, H, D)
+//   probe_fold3d_bf16  <- build_fold3d (:78)   q/k/v/o (B, S, H*D), head h
+//                                              at lanes h*D .. h*D + D - 1
+//   probe_merged_bf16  <- main's kernel3 (:226) q/k/v/o (B*H, S, D)
 //
 // Each computes, per (batch, head), one-shot softmax attention with no
 // mask, exactly as kernel4d_probe.py:43-56 does:
@@ -17,326 +17,345 @@
 //   P = bf16(p / l)                normalised BEFORE the cast
 //   o = bf16(P v)                  f32 accumulation, one cast
 //
-// The three kernels share one device body (attend<D>) and differ only in
-// how they find a head's rows: by the (B, S, H, D) strides, at a lane
-// offset of h*D in (B, S, H*D) rows, or as the plane b*H + h of the merged
-// tensor.  On the same bytes, 4d and fold3d therefore give the same bits.
+// One kernel body (probe_kernel<D>) serves the three layouts; they differ
+// only in the tensor maps the host encodes over the operands' own strides
+// (nothing is copied or transposed): 4d as (D, H, S, B), fold3d as the
+// same bytes seen as (B, S, H, D), merged as (D, 1, S, B*H).  On the same
+// values the three therefore give the same bits, and so does a second
+// launch: no atomics touch a value (the only atomic is the shared-memory
+// count of warps done with a ring stage, which orders refills).
 //
-// Design: one CTA of 4 warps per (batch*head, 64-query tile); each warp
-// owns 16 query rows.  The whole 64 x S f32 score block lives in dynamic
-// shared memory (as the TPU kernel holds the whole (S, D) K/V block in
-// VMEM), so S is limited: 64 x (S + 4) x 4 bytes plus the Q and K/V tiles
-// must fit the 227 KB a block may use, which holds up to S = 768 at every
-// head dim (the wrapper raises above it).  Keys are staged in 64-row
-// tiles; both products run on the tensor cores through WMMA (bf16 x bf16
-// -> f32, 16x16x16).  The softmax takes one row at a time across a warp's
-// lanes (a lane holds at most 24 scores in registers) and writes bf16 P
-// back over the first half of the same row's f32 storage.  The P V
-// accumulator stays in fragments, because P is already normalised and no
-// row is rescaled.  Ragged S is masked here: key rows past S are zero and
-// left out of the softmax, query rows past S are not written.
+// Design: one CTA per (batch*head, 64 or 128 queries), chosen by
+// ops/kernels/probe.py::_probe_plan; a CTA is one or two warpgroups of 64
+// query rows, and nothing else (no producer warp).  Q stays resident; K
+// and V tiles of 64 keys stream through a ring of PST stages by TMA
+// (rows past S arrive as zeros), each stage's mbarrier completing when
+// its bytes have landed, and the last warp done with a stage refills it.
+// P must be normalised before its cast, so the whole row's m and l are
+// needed before any of P exists: two passes over the keys.
+//   - Pass 1 streams K alone.  S = Q K^T by wgmma m64n64k16 (both
+//     operands K-major in shared memory) into registers; the next tile's
+//     S is issued before this tile's row statistics run, into a second
+//     accumulator.  A thread keeps, for its two rows, the running max m
+//     (in log2 units) and a rescaled partial sum l, as flash_fwd does.
+//   - Pass 2 streams K and V (K's second read comes from L2: K and V of
+//     all heads at the tool's shape are 12.6 MB against 50 MB).  S again;
+//     then P = bf16(ex2(s * scale * log2(e) - (m + log2 l))), one FMA and
+//     one ex2 a score, in the accumulator's registers, which are the
+//     register A fragments of O += P V (wgmma m64nDk16, V an MN-major B
+//     from shared memory).  As in flash_fwd, the next tile's S is issued
+//     with this tile's P V, and its P is formed while P V runs.
+//   - Keys past S score -inf in both passes and drop out; query rows
+//     past S are computed on zero rows and not written.  The epilogue
+//     stages bf16 O in the warpgroup's own Q rows and stores 16-byte
+//     rows into the contiguous output of each layout.
 //
 // Bound on the H100: at the tool's shape (8, 512, 12, 64) each call reads
 // q/k/v and writes o once, 25.2 MB (7.5 us at 3.35 TB/s), against 6.4
-// GFLOP (6.5 us at 989 TFLOP/s): bytes, just.  This simple kernel (no
-// cp.async/TMA pipelining, no wgmma, one CTA an SM at S = 512 because the
-// score block takes 129 KB) is far from either roof; making it fast is
-// later work.
+// GFLOP of the function (6.5 us at 989 TFLOP/s): bytes, just.  The design
+// does 9.7 GFLOP (pass 2 forms S again) and two ex2 a score (50 M on the
+// SFU, ~14 us at 16 a clock an SM), so the element work and the second
+// product, not the bytes, set its pace.  It keeps all of it in registers
+// (no score block in shared memory, rows reduced by quad shuffles) and
+// lets the two warpgroups of a CTA, and the two CTAs an SM holds at
+// D <= 64, overlap it with the tensor pipe.  On the card (PERF.md) a
+// variant without pass 1's ex2 was barely faster: each warpgroup's chain
+// of dependent steps (wait, product, statistics), more than the SFU,
+// sets the pace.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <mma.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
-using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
+using namespace flash;
 
 namespace {
 
-constexpr int BQ = 64;  // query rows per CTA, 16 per warp
-constexpr int BK = 64;  // keys per staged K/V tile
-constexpr int WARPS = 4;
-constexpr int THREADS = WARPS * 32;
-constexpr int MAX_S = 768;
-constexpr int MAX_PER_LANE = MAX_S / 32;  // scores of one row per lane
+constexpr int PST = 4;  // ring stages (each a K and a V tile)
 
-__host__ __device__ constexpr size_t align128(size_t x) {
-  return (x + 127) / 128 * 128;
+// CTAs an SM holds: two (128 registers a thread) at D <= 64; else one
+template <int D>
+__host__ __device__ constexpr int min_ctas() {
+  return D <= 64 ? 2 : 1;
 }
 
+// shared memory: the CTA's Q rows, then the K and V stages.  BYTES is
+// what ops/kernels/probe.py::_probe_smem computes (1280 D + 1080).
 template <int D>
-struct Smem {
-  static constexpr int LDH = D + 8;  // bf16 row stride of the Q, K/V tiles
-  // f32 row stride of the score block; it also holds the output rows in
-  // the epilogue, so it is at least D wide
-  __host__ __device__ static int lds(int s_pad) {
-    return (s_pad > D ? s_pad : D) + 4;
+struct Tile : Geom<D> {
+  using G = Geom<D>;
+  static constexpr size_t Q = 0;
+  static constexpr size_t K = Q + (size_t)G::NATOM * G::RES;
+  static constexpr size_t V = K + (size_t)PST * G::TILE;
+  static constexpr size_t BAR = V + (size_t)PST * G::TILE;
+  static constexpr size_t BYTES = BAR + (PST + 1) * 8 + PST * 4 + 1024;  // + alignment
+};
+
+// keys past S in the tile at k0 score -inf (their p is then 0)
+__device__ __forceinline__ void mask_keys(float* s, int k0, int cq, int S) {
+  if (k0 + BK <= S) return;
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      if (k0 + 8 * j + cq + e >= S) s[4 * j + e] = s[4 * j + 2 + e] = -INFINITY;
+    }
   }
-  __host__ __device__ static size_t q_off(int s_pad) {
-    return align128((size_t)BQ * lds(s_pad) * 4);
-  }
-  __host__ __device__ static size_t kv_off(int s_pad) {
-    return q_off(s_pad) + align128((size_t)BQ * LDH * 2);
-  }
-  __host__ __device__ static size_t bytes(int s_pad) {
-    return kv_off(s_pad) + align128((size_t)BK * LDH * 2);
+}
+
+// Pass 1's statistics of one thread's two rows (r0 and r0 + 8): the
+// running max m of s * sl2 (log2 units) and the partial sum l of
+// ex2(s * sl2 - m) over this thread's columns (the quad's four partials
+// are summed once, after the last tile).
+struct RowStats {
+  float sl2;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+
+  __device__ __forceinline__ void tile(float* s, int k0, int cq, int S) {
+    mask_keys(s, k0, cq, S);
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+      mx0 = fmaxf(mx0, fmaxf(s[4 * j], s[4 * j + 1]));
+      mx1 = fmaxf(mx1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+    }
+    // the tile holds key k0 < S, so the new max is finite (sl2 > 0)
+    const float mn0 = fmaxf(m0, quad_max(mx0) * sl2);
+    const float mn1 = fmaxf(m1, quad_max(mx1) * sl2);
+    float ls0 = 0.f, ls1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        ls0 += ex2(fmaf(s[4 * j + e], sl2, -mn0));
+        ls1 += ex2(fmaf(s[4 * j + 2 + e], sl2, -mn1));
+      }
+    }
+    l0 = l0 * ex2(m0 - mn0) + ls0;
+    l1 = l1 * ex2(m1 - mn1) + ls1;
+    m0 = mn0;
+    m1 = mn1;
   }
 };
 
-__device__ __forceinline__ float warp_max(float v) {
-  for (int off = 16; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-// rows x D tile of rows `row_stride` elements apart into shared memory,
-// 16 bytes per thread per step; rows at or past `limit` are zero
-template <int D>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
-                                          long long row_stride, int row0,
-                                          int rows, int limit) {
-  constexpr int CH = D / 8;
-  for (int i = threadIdx.x; i < rows * CH; i += THREADS) {
-    const int r = i / CH, c = i % CH;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < limit)
-      val = *reinterpret_cast<const uint4*>(
-          src + (long long)(row0 + r) * row_stride + c * 8);
-    *reinterpret_cast<uint4*>(dst + r * Smem<D>::LDH + c * 8) = val;
-  }
-}
-
-// One (batch, head) of one-shot attention for the 64 queries from q0 on.
-// q/k/v/o point at the head's row 0; consecutive rows are *_ss apart.
-template <int D>
-__device__ __forceinline__ void attend(const bf16* __restrict__ q,
-                                       long long q_ss,
-                                       const bf16* __restrict__ k,
-                                       long long k_ss,
-                                       const bf16* __restrict__ v,
-                                       long long v_ss, bf16* __restrict__ o,
-                                       long long o_ss, int S, float scale) {
-  using SM = Smem<D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int s_pad = (S + BK - 1) / BK * BK;
-  const int lds = SM::lds(s_pad);
-  const int ldp = 2 * lds;  // the same rows read as bf16
-  float* sS = reinterpret_cast<float*>(smem);
-  bf16* sP = reinterpret_cast<bf16*>(smem);
-  bf16* sQ = reinterpret_cast<bf16*>(smem + SM::q_off(s_pad));
-  bf16* sKV = reinterpret_cast<bf16*>(smem + SM::kv_off(s_pad));
-
-  const int q0 = blockIdx.x * BQ;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int row_w = warp * 16;  // this warp's first row in the tile
-
-  load_tile<D>(sQ, q, q_ss, q0, BQ, S);
-
-  // scores = Q K^T, one 64-key tile at a time
-  for (int k0 = 0; k0 < s_pad; k0 += BK) {
-    __syncthreads();  // Q is loaded; the previous tile is consumed
-    load_tile<D>(sKV, k, k_ss, k0, BK, S);
-    __syncthreads();
+// Pass 2: the tile's scores s to P = bf16(ex2(s * sl2 - c)), c = m +
+// log2(l) of the row, as the A fragments pa of O += P V
+__device__ __forceinline__ void probs(float* s, int k0, int cq, int S,
+                                      float sl2, float c0, float c1,
+                                      uint32_t (*pa)[4]) {
+  mask_keys(s, k0, cq, S);
 #pragma unroll
-    for (int nt = 0; nt < BK / 16; ++nt) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.f);
+  for (int j = 0; j < BK / 8; ++j) {
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-        wmma::load_matrix_sync(fa, sQ + row_w * SM::LDH + kk * 16, SM::LDH);
-        wmma::load_matrix_sync(fb, sKV + nt * 16 * SM::LDH + kk * 16,
-                               SM::LDH);
-        wmma::mma_sync(acc, fa, fb, acc);
-      }
-      wmma::store_matrix_sync(sS + row_w * lds + k0 + nt * 16, acc, lds,
-                              wmma::mem_row_major);
+    for (int e = 0; e < 2; ++e) {
+      s[4 * j + e] = ex2(fmaf(s[4 * j + e], sl2, -c0));
+      s[4 * j + 2 + e] = ex2(fmaf(s[4 * j + 2 + e], sl2, -c1));
     }
   }
-  __syncwarp();
-
-  // softmax of this warp's rows; P = bf16(p / l) over the row's own bytes
-  const int per_lane = s_pad / 32;
-  for (int rr = 0; rr < 16; ++rr) {
-    const int r = row_w + rr;
-    float sv[MAX_PER_LANE];
-    float mx = -INFINITY;
 #pragma unroll
-    for (int j = 0; j < MAX_PER_LANE; ++j) {
-      if (j < per_lane) {
-        const int c = lane + 32 * j;
-        const float s = c < S ? sS[r * lds + c] * scale : -INFINITY;
-        sv[j] = s;
-        mx = fmaxf(mx, s);
-      }
-    }
-    mx = warp_max(mx);
-    float l = 0.f;
-#pragma unroll
-    for (int j = 0; j < MAX_PER_LANE; ++j) {
-      if (j < per_lane) {
-        const int c = lane + 32 * j;
-        const float p = c < S ? expf(sv[j] - mx) : 0.f;
-        sv[j] = p;
-        l += p;
-      }
-    }
-    l = warp_sum(l);
-    __syncwarp();  // every lane has read row r before it is overwritten
-#pragma unroll
-    for (int j = 0; j < MAX_PER_LANE; ++j) {
-      if (j < per_lane)
-        sP[r * ldp + lane + 32 * j] = __float2bfloat16(sv[j] / l);
-    }
-  }
-  __syncwarp();
-
-  // O = P V, V staged in 64-key tiles, the accumulator in fragments
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[D / 16];
-#pragma unroll
-  for (int nt = 0; nt < D / 16; ++nt) wmma::fill_fragment(acc[nt], 0.f);
-  for (int k0 = 0; k0 < s_pad; k0 += BK) {
-    __syncthreads();  // every warp is done with the previous tile
-    load_tile<D>(sKV, v, v_ss, k0, BK, S);
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-      wmma::load_matrix_sync(fa, sP + row_w * ldp + k0 + kk * 16, ldp);
-#pragma unroll
-      for (int nt = 0; nt < D / 16; ++nt) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-        wmma::load_matrix_sync(fb, sKV + kk * 16 * SM::LDH + nt * 16,
-                               SM::LDH);
-        wmma::mma_sync(acc[nt], fa, fb, acc[nt]);
-      }
-    }
-  }
-
-  // epilogue: fragments into this warp's own score rows (only it reads
-  // them), then one bf16 cast per element on the way out
-  __syncwarp();
-#pragma unroll
-  for (int nt = 0; nt < D / 16; ++nt)
-    wmma::store_matrix_sync(sS + row_w * lds + nt * 16, acc[nt], lds,
-                            wmma::mem_row_major);
-  __syncwarp();
-  for (int rr = 0; rr < 16; ++rr) {
-    const int r = row_w + rr;
-    const int qrow = q0 + r;
-    if (qrow >= S) break;
-    bf16* orow = o + (long long)qrow * o_ss;
-    for (int c = lane; c < D; c += 32)
-      orow[c] = __float2bfloat16(sS[r * lds + c]);
-  }
+  for (int j = 0; j < BK / 16; ++j) acc_to_a(pa[j], s, j);
 }
 
-// q/k/v (B, S, H, D) by strides (last dim contiguous); o (B, S, H, D)
-// contiguous.  blockIdx.y = b*H + h.
+// q/k/v by their tensor maps (D, H, S, B); o a contiguous (B, S, H, D)
+// bf16 output.  blockIdx.y = b*H + h.
 template <int D>
-__global__ void __launch_bounds__(THREADS)
-probe_4d_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                const bf16* __restrict__ v, bf16* __restrict__ o, int H,
-                int S, long long q_sb, long long q_ss, long long q_sh,
-                long long k_sb, long long k_ss, long long k_sh,
-                long long v_sb, long long v_ss, long long v_sh,
-                float scale) {
-  const int b = blockIdx.y / H, h = blockIdx.y % H;
-  attend<D>(q + b * q_sb + h * q_sh, q_ss, k + b * k_sb + h * k_sh, k_ss,
-            v + b * v_sb + h * v_sh, v_ss,
-            o + ((long long)b * S * H + h) * D, (long long)H * D, S, scale);
+__global__ void __launch_bounds__(MAX_NC * 128, min_ctas<D>())
+probe_kernel(const __grid_constant__ CUtensorMap tm_q,
+             const __grid_constant__ CUtensorMap tm_k,
+             const __grid_constant__ CUtensorMap tm_v, bf16* __restrict__ o,
+             int H, int S, float scale) {
+  using T = Tile<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + T::BAR);
+  uint64_t* qbar = full + PST;
+  int* released = reinterpret_cast<int*>(qbar + 1);  // warps done, by stage
+
+  const int nc = blockDim.x / 128;  // warpgroups
+  const int bh = blockIdx.y;
+  const int b = bh / H, h = bh % H;
+  const int q0 = blockIdx.x * nc * BM;
+  const int n_kt = (S + BK - 1) / BK;
+  const int n_ld = 2 * n_kt;  // loads: pass 1's K tiles, then pass 2's K and V
+
+  // load i into stage st, announced on full[st]
+  auto fill = [&](int st, int i) {
+    const bool kv = i >= n_kt;
+    const int kt = kv ? i - n_kt : i;
+    mbar_expect_tx(&full[st], (kv ? 2 : 1) * T::TILE);
+    for (int a = 0; a < T::NATOM; ++a) {
+      tma_load_4d(smem + T::K + st * T::TILE + a * BK * T::ROWB, &tm_k,
+                  &full[st], a * T::ATOM, h, kt * BK, b);
+      if (kv)
+        tma_load_4d(smem + T::V + st * T::TILE + a * BK * T::ROWB, &tm_v,
+                    &full[st], a * T::ATOM, h, kt * BK, b);
+    }
+  };
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < PST; ++i) {
+      mbar_init(&full[i], 1);
+      released[i] = 0;
+    }
+    mbar_init(qbar, 1);
+    fence_barrier_init();
+    mbar_expect_tx(qbar, nc * BM * D * 2);
+    for (int a = 0; a < T::NATOM; ++a)
+      tma_load_4d(smem + T::Q + a * T::RES, &tm_q, qbar, a * T::ATOM, h, q0, b);
+    for (int i = 0; i < PST && i < n_ld; ++i) fill(i, i);
+  }
+  __syncthreads();
+
+  const int c = warpgroup_index();
+  const int tw = threadIdx.x - 128 * c;
+  const int lane = tw % 32;
+  const int r0 = (tw / 32) * 16 + lane / 4;  // rows r0 and r0 + 8 of 64
+  const int cq = (lane % 4) * 2;             // column in each 8-column group
+  unsigned char* sq = smem + T::Q + c * BM * T::ROWB;
+  const float sl2 = scale * LOG2E;
+
+  // the ring: the load being read is in `stage`, of parity `phase`; the
+  // last warp done with it refills the stage with load ld + PST
+  int stage = 0, ld = 0;
+  uint32_t phase = 0;
+  auto consumed = [&]() {
+    release_stage(&released[stage], nc * 4, lane, [&]() {
+      if (ld + PST < n_ld) fill(stage, ld + PST);
+    });
+    ++ld;
+    if (++stage == PST) {
+      stage = 0;
+      phase ^= 1;
+    }
+  };
+
+  // ---- pass 1: m and l over K tiles ------------------------------------------
+  RowStats rs{sl2};
+  float s[BK / 2], s2[BK / 2];  // S of two tiles, in turns
+  mbar_wait(qbar, 0);
+  mbar_wait(&full[0], 0);
+  wgmma_fence();
+  mma_rows_tile_t<D>(s, sq, smem + T::K);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs<BK / 2>(s);
+  int kt = 0;
+  // tile kt's statistics (S in cur) beside tile kt+1's S (into nxt)
+  auto step1 = [&](float* cur, float* nxt) {
+    const int ns = stage + 1 == PST ? 0 : stage + 1;
+    mbar_wait(&full[ns], stage + 1 == PST ? phase ^ 1 : phase);
+    wgmma_fence();
+    mma_rows_tile_t<D>(nxt, sq, smem + T::K + ns * T::TILE);
+    wgmma_commit();
+    consumed();  // tile kt's K was read by its finished S
+    rs.tile(cur, kt * BK, cq, S);
+    wgmma_wait<0>();
+    fence_regs<BK / 2>(nxt);
+    ++kt;
+  };
+  auto last1 = [&](float* cur) {
+    consumed();
+    rs.tile(cur, kt * BK, cq, S);
+  };
+  for (;;) {
+    if (kt + 1 == n_kt) { last1(s); break; }
+    step1(s, s2);
+    if (kt + 1 == n_kt) { last1(s2); break; }
+    step1(s2, s);
+  }
+  const float c0 = rs.m0 + log2f(quad_sum(rs.l0));
+  const float c1 = rs.m1 + log2f(quad_sum(rs.l1));
+
+  // ---- pass 2: O = P V over K and V tiles --------------------------------------
+  float oacc[D / 2];  // O: rows r0, r0 + 8 as an f32 accumulator
+  // bf16 P of two tiles, in turns: one is read by O += P V while the
+  // other is formed (a copy between them would make ptxas serialize the
+  // wgmma that reads it)
+  uint32_t pa[BK / 16][4], pb[BK / 16][4];
+  mbar_wait(&full[stage], phase);
+  wgmma_fence();
+  mma_rows_tile_t<D>(s, sq, smem + T::K + stage * T::TILE);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs<BK / 2>(s);
+  probs(s, 0, cq, S, sl2, c0, c1, pa);
+  kt = 0;
+  // tile kt's O += P V (P in cur) beside tile kt+1's S and P (into nxt)
+  auto step2 = [&](uint32_t (*cur)[4], uint32_t (*nxt)[4]) {
+    const int ns = stage + 1 == PST ? 0 : stage + 1;
+    mbar_wait(&full[ns], stage + 1 == PST ? phase ^ 1 : phase);
+    wgmma_fence();
+    mma_rows_tile_t<D>(s, sq, smem + T::K + ns * T::TILE);
+    wgmma_commit();
+    mma_regs_tile<D>(oacc, cur, smem + T::V + stage * T::TILE, kt > 0);
+    wgmma_commit();
+    wgmma_wait<1>();  // S of the next tile; O += P V may still run
+    fence_regs<BK / 2>(s);
+    probs(s, (kt + 1) * BK, cq, S, sl2, c0, c1, nxt);
+    wgmma_wait<0>();
+    fence_regs<D / 2>(oacc);
+    consumed();
+    ++kt;
+  };
+  // the last tile's O += P V alone
+  auto last2 = [&](uint32_t (*cur)[4]) {
+    wgmma_fence();
+    mma_regs_tile<D>(oacc, cur, smem + T::V + stage * T::TILE, kt > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs<D / 2>(oacc);
+  };
+  for (;;) {
+    if (kt + 1 == n_kt) { last2(pa); break; }
+    step2(pa, pb);
+    if (kt + 1 == n_kt) { last2(pb); break; }
+    step2(pb, pa);
+  }
+
+  // epilogue: bf16 O through the warpgroup's Q rows, 16-byte row stores
+  stage_acc<D>(sq, oacc, r0, cq, 1.f, 1.f);
+  named_barrier(1 + c, 128);
+  store_rows<D>(sq, o, b, h, H, S, q0 + c * BM, tw);
 }
 
-// q/k/v (B, S, H*D) with rows *_ss apart, head h at lane offset h*D; o
-// (B, S, H*D) contiguous.  blockIdx.y = b*H + h.
+// st: 9 element strides (batch, seq, head) of q, k and v in turn, each
+// tensor read as (B, S, H, D); o contiguous (B, S, H, D); block_q and
+// smem_bytes: the plan's
 template <int D>
-__global__ void __launch_bounds__(THREADS)
-probe_fold3d_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, bf16* __restrict__ o, int H,
-                    int S, long long q_sb, long long q_ss, long long k_sb,
-                    long long k_ss, long long v_sb, long long v_ss,
-                    float scale) {
-  const int b = blockIdx.y / H, h = blockIdx.y % H;
-  const long long lane0 = (long long)h * D;
-  attend<D>(q + b * q_sb + lane0, q_ss, k + b * k_sb + lane0, k_ss,
-            v + b * v_sb + lane0, v_ss,
-            o + (long long)b * S * H * D + lane0, (long long)H * D, S,
-            scale);
-}
-
-// q/k/v (B*H, S, D) with rows *_ss apart; o (B*H, S, D) contiguous.
-// blockIdx.y = b*H + h, the plane.
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-probe_merged_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, bf16* __restrict__ o, int S,
-                    long long q_sp, long long q_ss, long long k_sp,
-                    long long k_ss, long long v_sp, long long v_ss,
-                    float scale) {
-  const long long bh = blockIdx.y;
-  attend<D>(q + bh * q_sp, q_ss, k + bh * k_sp, k_ss, v + bh * v_sp, v_ss,
-            o + bh * S * D, (long long)D, S, scale);
-}
-
-enum Layout { L4D, FOLD3D, MERGED };
-
-template <Layout L, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int S, int H, const long long* st, float scale,
-                   cudaStream_t stream) {
-  const int s_pad = (S + BK - 1) / BK * BK;
-  const size_t bytes = Smem<D>::bytes(s_pad);
-  const bf16* qb = static_cast<const bf16*>(q);
-  const bf16* kb = static_cast<const bf16*>(k);
-  const bf16* vb = static_cast<const bf16*>(v);
-  bf16* ob = static_cast<bf16*>(o);
-  const dim3 grid((S + BQ - 1) / BQ, B * H);
-  cudaError_t err;
-  if constexpr (L == L4D) {
-    err = cudaFuncSetAttribute(probe_4d_kernel<D>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)bytes);
+cudaError_t run(const void* q, const void* k, const void* v, void* o, int B,
+                int S, int H, const long long* st, int block_q,
+                long long smem_bytes, float scale, cudaStream_t stream) {
+  const size_t bytes = Tile<D>::BYTES;
+  const int nc = block_q / BM;
+  if (nc < 1 || nc > MAX_NC || nc * BM != block_q ||
+      smem_bytes != (long long)bytes)
+    return cudaErrorInvalidValue;
+  CUtensorMap maps[3];
+  if (!map_bshd<D>(&maps[0], q, B, S, H, st, block_q) ||
+      !map_bshd<D>(&maps[1], k, B, S, H, st + 3, BK) ||
+      !map_bshd<D>(&maps[2], v, B, S, H, st + 6, BK))
+    return cudaErrorInvalidValue;
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(
+        probe_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)bytes);
     if (err != cudaSuccess) return err;
-    probe_4d_kernel<D><<<grid, THREADS, bytes, stream>>>(
-        qb, kb, vb, ob, H, S, st[0], st[1], st[2], st[3], st[4], st[5],
-        st[6], st[7], st[8], scale);
-  } else if constexpr (L == FOLD3D) {
-    err = cudaFuncSetAttribute(probe_fold3d_kernel<D>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)bytes);
-    if (err != cudaSuccess) return err;
-    probe_fold3d_kernel<D><<<grid, THREADS, bytes, stream>>>(
-        qb, kb, vb, ob, H, S, st[0], st[1], st[2], st[3], st[4], st[5],
-        scale);
-  } else {
-    err = cudaFuncSetAttribute(probe_merged_kernel<D>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)bytes);
-    if (err != cudaSuccess) return err;
-    probe_merged_kernel<D><<<grid, THREADS, bytes, stream>>>(
-        qb, kb, vb, ob, S, st[0], st[1], st[2], st[3], st[4], st[5], scale);
+    configured = true;
   }
+  const dim3 grid((S + block_q - 1) / block_q, B * H);
+  probe_kernel<D><<<grid, nc * 128, bytes, stream>>>(
+      maps[0], maps[1], maps[2], static_cast<bf16*>(o), H, S, scale);
   return cudaGetLastError();
 }
 
-template <Layout L>
 int dispatch(const void* q, const void* k, const void* v, void* o, int B,
-             int S, int H, int D, const long long* st, float scale,
-             void* stream) {
-  if (S < 1 || S > MAX_S) return (int)cudaErrorInvalidValue;
+             int S, int H, int D, const long long* st, int block_q,
+             long long smem_bytes, float scale, void* stream) {
+  if (S < 1 || B < 1 || H < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 16: return launch<L, 16>(q, k, v, o, B, S, H, st, scale, s);
-    case 32: return launch<L, 32>(q, k, v, o, B, S, H, st, scale, s);
-    case 64: return launch<L, 64>(q, k, v, o, B, S, H, st, scale, s);
-    case 128: return launch<L, 128>(q, k, v, o, B, S, H, st, scale, s);
+    case 16: return run<16>(q, k, v, o, B, S, H, st, block_q, smem_bytes, scale, s);
+    case 32: return run<32>(q, k, v, o, B, S, H, st, block_q, smem_bytes, scale, s);
+    case 64: return run<64>(q, k, v, o, B, S, H, st, block_q, smem_bytes, scale, s);
+    case 128: return run<128>(q, k, v, o, B, S, H, st, block_q, smem_bytes, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -349,27 +368,39 @@ const char* error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// strides (elements): q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh
+// (B, S, H, D) by strides; strides (elements): q_sb, q_ss, q_sh, k_sb,
+// k_ss, k_sh, v_sb, v_ss, v_sh
 int probe_4d_bf16(const void* q, const void* k, const void* v, void* o,
                   int B, int S, int H, int D, const long long* strides,
-                  float scale, void* stream) {
-  return dispatch<L4D>(q, k, v, o, B, S, H, D, strides, scale, stream);
+                  int block_q, long long smem_bytes, float scale,
+                  void* stream) {
+  return dispatch(q, k, v, o, B, S, H, D, strides, block_q, smem_bytes, scale,
+                  stream);
 }
 
-// strides (elements): q_sb, q_ss, k_sb, k_ss, v_sb, v_ss
+// (B, S, H*D) read as (B, S, H, D) with heads D apart; strides
+// (elements): q_sb, q_ss, k_sb, k_ss, v_sb, v_ss
 int probe_fold3d_bf16(const void* q, const void* k, const void* v, void* o,
                       int B, int S, int H, int D, const long long* strides,
-                      float scale, void* stream) {
-  return dispatch<FOLD3D>(q, k, v, o, B, S, H, D, strides, scale, stream);
+                      int block_q, long long smem_bytes, float scale,
+                      void* stream) {
+  const long long st[9] = {strides[0], strides[1], D, strides[2], strides[3],
+                           D, strides[4], strides[5], D};
+  return dispatch(q, k, v, o, B, S, H, D, st, block_q, smem_bytes, scale,
+                  stream);
 }
 
-// (B*H, S, D) planes; strides (elements): q_sp, q_ss, k_sp, k_ss, v_sp,
-// v_ss
+// (B*H, S, D) planes read as (B*H, S, 1, D) (the one head's stride is the
+// row's); strides (elements): q_sp, q_ss, k_sp, k_ss, v_sp, v_ss
 int probe_merged_bf16(const void* q, const void* k, const void* v, void* o,
                       int planes, int S, int D, const long long* strides,
-                      float scale, void* stream) {
-  return dispatch<MERGED>(q, k, v, o, planes, S, 1, D, strides, scale,
-                          stream);
+                      int block_q, long long smem_bytes, float scale,
+                      void* stream) {
+  const long long st[9] = {strides[0], strides[1], strides[1],
+                           strides[2], strides[3], strides[3],
+                           strides[4], strides[5], strides[5]};
+  return dispatch(q, k, v, o, planes, S, 1, D, st, block_q, smem_bytes, scale,
+                  stream);
 }
 
 }  // extern "C"

@@ -11,12 +11,13 @@ with no mask (kernel4d_probe.py:43-56):
 - `probe_merged(q, k, v)` on pre-merged (B*H, S, D); replaces `main`'s
   `kernel3`.
 
-On a CUDA tensor each launches its kernel or raises; on a CPU tensor it
+On a CUDA tensor each launches the kernel or raises; on a CPU tensor it
 runs its plain PyTorch version (`probe_*_reference`), which computes the
 same function.  Unlike `flash_forward`, the probe normalises before the
 bf16 cast: P = bf16(exp(s - m) / l), then O = bf16(P V).  The wrappers
 copy and transpose nothing: reading each layout as it lies is what the
-probe measures.
+probe measures.  The three share one kernel body; each wrapper hands it
+its operands' strides, and `_probe_plan` sizes the launch.
 """
 
 from __future__ import annotations
@@ -25,15 +26,17 @@ import ctypes
 
 import torch
 
-from .build import LaunchCounter, check, library
+from .build import LaunchCounter, check, library, sm_count as _sm_count
 
 PROBE_4D = LaunchCounter("probe_4d")
 PROBE_FOLD3D = LaunchCounter("probe_fold3d")
 PROBE_MERGED = LaunchCounter("probe_merged")
 
-# the kernel holds the whole 64 x S f32 score block in shared memory
-MAX_SEQ = 768
 _HEAD_DIMS = (16, 32, 64, 128)
+_BLOCK_M = 64  # query rows of a warpgroup; keys of a streamed tile
+_STAGES = 4    # the kernel's ring of K and V tiles (PST in probe4d.cu)
+# an H100 SM's shared memory, and what the card keeps of it for each CTA
+_SMEM_PER_SM, _SMEM_PER_CTA = 233472, 1024
 
 
 # -- plain PyTorch versions -----------------------------------------------------
@@ -78,20 +81,49 @@ def probe_fold3d_reference(q, k, v, num_heads):
     return probe_4d_reference(split(q), split(k), split(v)).reshape(b, s, hd)
 
 
+# -- the launch plan --------------------------------------------------------------
+
+def _probe_smem(d: int) -> int:
+    """Dynamic shared memory of a CTA at head dim d (`Tile<D>::BYTES` in
+    probe4d.cu): 128 resident Q rows (256 d bytes), _STAGES stages of a
+    64-key K tile and a V tile (256 d bytes in all), their mbarriers and
+    release counts, and 1024 bytes to align the swizzled tiles."""
+    return 256 * d + _STAGES * 256 * d + (_STAGES + 1) * 8 + _STAGES * 4 \
+        + 1024
+
+
+def _probe_plan(b: int, h: int, s: int, d: int, sms: int):
+    """(block_q, grid, smem bytes) of the probe kernel: a CTA holds one
+    or two warpgroups of 64 queries each (block_q 64 or 128) that share
+    each K/V tile; its grid is (query tiles, batch*head), and it reads
+    the keys twice (statistics, then P V), whatever S is.  128 is taken
+    unless S fits one warpgroup, or 128-query CTAs leave the card with
+    less than one wave of `sms` CTAs while the 64-query CTAs fit one wave
+    of what an SM holds, where 64 spreads the same rows over twice the
+    CTAs.  An SM holds as many CTAs as its shared memory allows, at most
+    4 (the kernel's registers); at head dim 128 that is one, so there 64
+    would not spread the work but run it one warpgroup an SM."""
+    bh = b * h
+    smem = _probe_smem(d)
+    per_sm = min(4, _SMEM_PER_SM // (smem + _SMEM_PER_CTA))
+    few = -(-s // (2 * _BLOCK_M)) * bh < sms
+    fits = -(-s // _BLOCK_M) * bh <= sms * per_sm
+    block_q = _BLOCK_M if s <= _BLOCK_M or (few and fits) else 2 * _BLOCK_M
+    return block_q, (-(-s // block_q), bh), smem
+
+
 # -- the CUDA kernels' wrappers -------------------------------------------------
 
 def _lib():
     lib = library("probe4d")
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    strides = ctypes.POINTER(ctypes.c_longlong)
-    for fn in (lib.probe_4d_bf16, lib.probe_fold3d_bf16):
+    tail = [ctypes.POINTER(ctypes.c_longlong), ci, ctypes.c_longlong,
+            ctypes.c_float, vp]
+    for fn, dims in ((lib.probe_4d_bf16, 4), (lib.probe_fold3d_bf16, 4),
+                     (lib.probe_merged_bf16, 3)):
         if fn.argtypes is None:
-            fn.argtypes = [vp] * 4 + [ci] * 4 + [strides, ctypes.c_float, vp]
+            fn.argtypes = [vp] * 4 + [ci] * dims + tail
             fn.restype = ci
-    fn = lib.probe_merged_bf16
-    if fn.argtypes is None:
-        fn.argtypes = [vp] * 4 + [ci] * 3 + [strides, ctypes.c_float, vp]
-        fn.restype = ci
     return lib
 
 
@@ -103,10 +135,8 @@ def _check(name, q, k, v, s, d, heads):
     if d not in _HEAD_DIMS:
         raise NotImplementedError(
             f"{name} kernel takes head_dim in {_HEAD_DIMS}, got {d}")
-    if not 1 <= s <= MAX_SEQ:
-        raise NotImplementedError(
-            f"{name} kernel takes 1 <= S <= {MAX_SEQ} (the whole score row "
-            f"block sits in shared memory), got S={s}")
+    if s < 1:
+        raise ValueError(f"{name} kernel needs S >= 1, got S={s}")
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q {tuple(q.shape)} / k {tuple(k.shape)} / "
                          f"v {tuple(v.shape)} do not match")
@@ -123,13 +153,14 @@ def _check(name, q, k, v, s, d, heads):
                 "multiples of 8 and a 16-byte aligned base")
 
 
-def _launch(name, counter, fn, q, k, v, out, dims, strides, d):
+def _launch(name, counter, fn, q, k, v, out, dims, strides, b, h, s, d):
+    block_q, _, smem = _probe_plan(b, h, s, d, _sm_count(q.device.index or 0))
     lib = _lib()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = getattr(lib, fn)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *dims,
-        (ctypes.c_longlong * len(strides))(*strides), float(1.0 / d ** 0.5),
-        stream)
+        (ctypes.c_longlong * len(strides))(*strides), block_q, smem,
+        float(1.0 / d ** 0.5), stream)
     check(lib, err, name)
     counter.add()
     return out
@@ -141,7 +172,7 @@ def _probe_4d_cuda(q, k, v):
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     strides = [st for t in (q, k, v) for st in t.stride()[:3]]
     return _launch("probe_4d", PROBE_4D, "probe_4d_bf16", q, k, v, out,
-                   (b, s, h, d), strides, d)
+                   (b, s, h, d), strides, b, h, s, d)
 
 
 def _probe_fold3d_cuda(q, k, v, num_heads):
@@ -154,7 +185,7 @@ def _probe_fold3d_cuda(q, k, v, num_heads):
     out = torch.empty((b, s, hd), dtype=q.dtype, device=q.device)
     strides = [st for t in (q, k, v) for st in t.stride()[:2]]
     return _launch("probe_fold3d", PROBE_FOLD3D, "probe_fold3d_bf16", q, k,
-                   v, out, (b, s, num_heads, d), strides, d)
+                   v, out, (b, s, num_heads, d), strides, b, num_heads, s, d)
 
 
 def _probe_merged_cuda(q, k, v):
@@ -163,7 +194,7 @@ def _probe_merged_cuda(q, k, v):
     out = torch.empty((bh, s, d), dtype=q.dtype, device=q.device)
     strides = [st for t in (q, k, v) for st in t.stride()[:2]]
     return _launch("probe_merged", PROBE_MERGED, "probe_merged_bf16", q, k,
-                   v, out, (bh, s, d), strides, d)
+                   v, out, (bh, s, d), strides, bh, 1, s, d)
 
 
 def probe_4d(q, k, v):
