@@ -2,7 +2,8 @@
 kernels, hold each against its plain PyTorch version at BERT-base shapes,
 serve BERT-base through serving.Engine, decode with BERT-base as a causal
 decoder through serving.AutoregressiveEngine, take BERT-base pretraining
-steps, and check what comes out.
+steps on both arms of the fused FFN, train ResNet-50, and check what
+comes out.
 
     python3 chip_smoke.py
 
@@ -30,7 +31,10 @@ Phases, in order (any failure exits non-zero and prints no result):
               (split path) and a 256-token chunk (tiled path), every
               lane held against the plain version twice (the same bits),
               graph-timed in turns with index_select + SDPA, its plan and
-              bound logged
+              bound logged; the element pass of the FFN's library arm
+              (ffn_act_fwd, ffn_act_bwd) at bf16 and f32, its vector and
+              per-value paths, the dropout mask bit for bit, timed at
+              T=16384, F=3072 beside its bound
   4. probe    the layout probe (paddle_tpu_torch.tools.kernel4d_probe) at
               its defaults, B=8, S=512, H=12, D=64: the three layout kernels
               (4d, fold3d, merged) checked against its reference and timed
@@ -59,7 +63,9 @@ Phases, in order (any failure exits non-zero and prints no result):
               of a dense causal forward of its prefix (teacher forcing),
               every page freed, one device->host sync per retirement, and
               exact launch counts of every kernel
-  7. train    build_pretrain_step on BertForPretraining(BertConfig.base())
+  7. train    (the FFN's kernel arm, enable_fused_ffn(), pinned in
+              main() for phases 3-9 and 12)
+              build_pretrain_step on BertForPretraining(BertConfig.base())
               (fp32 masters, bf16 forward, dropout 0.1, AdamW lr 1e-4) at
               B=32, S=512, 76 masked positions: 1 warm-up and 5 timed
               steps on one batch; finite falling loss, finite moments (no
@@ -68,8 +74,23 @@ Phases, in order (any failure exits non-zero and prints no result):
               memory
   8. profile  one more train step under torch.profiler: device time by
               kernel and the device's idle share
-  9. check    the same model at base width, 2 layers, on the card (bf16)
+  9. ffn_arms the train phase's steps on the FFN's default library arm
+              (cuBLAS products around ffn_act_fwd / ffn_act_bwd): 0 FFN
+              kernel launches, 12 a step of each element pass and flash
+              kernel, the dispatch counters; one step profiled; the
+              serving forward of 32 x 512 under both arms in turns
+ 10. coverage BertConfig.tiny() in f32 on the card (dense attention, the
+              library arm in f32) against the CPU
+ 11. check    the same model at base width, 2 layers, on the card (bf16)
               against the plain path on the CPU (f32)
+ 12. resnet   ResNet-50 train steps at bench_resnet50's configuration
+              (B=128, 224^2, bf16 over fp32 masters, momentum SGD lr 0.1):
+              1 warm-up and RESNET_STEPS timed steps, finite falling
+              losses, finite velocities and moved running statistics, no
+              hand-written kernel launched; step ms, images/s, MFU, peak
+              memory, one step profiled; then resnet18 in f32 on the card
+              against the CPU (and the same step with TF32 on, read only,
+              to show what the tolerance would let through)
 
 The last two lines of stdout are a {"kernels": [...]} summary and the
 {"ok": true, "device": {...}} result.  Needs CUDA; imports nothing of JAX
@@ -101,6 +122,8 @@ from paddle_tpu_torch.serving import (AutoregressiveEngine, Engine,
                                       latency_stats, mean_occupancy,
                                       reset_latency)
 from paddle_tpu_torch.tools import kernel4d_probe as K4
+from paddle_tpu_torch.vision import models as VM
+from paddle_tpu_torch.vision import train as VT
 
 # published H100 SXM peaks (dense): bf16 tensor cores, HBM3
 PEAK_BF16_FLOPS = 989e12
@@ -149,6 +172,42 @@ FORWARD_KERNELS = ("flash_fwd", "ffn_fwd")
 TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq", "ffn_fwd",
                  "ffn_bwd_dw", "ffn_bwd_dx")
 PROBE_KERNELS = ("probe_4d", "probe_fold3d", "probe_merged")
+# the FFN's library arm: the element pass around its cuBLAS products
+ACT_KERNELS = ("ffn_act_fwd", "ffn_act_bwd")
+LIBRARY_TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq",
+                         *ACT_KERNELS)
+# the element pass against its plain version: both round an f32 value
+# once to the operand's type (one unit in its last place), but act' takes
+# the hardware's fast exp and reciprocal in the kernel (csrc/ffn_common.cuh),
+# a few f32 units off the accurate form, which |pre| up to 8 and |dh| up
+# to 4 scale to an absolute 1e-5 (measured on the card: 3.1e-6 at
+# gelu_tanh), visible wherever dpre is small
+ACT_TOL = {torch.bfloat16: dict(atol=1e-5, rtol=2 ** -7),
+           torch.float32: dict(atol=1e-5, rtol=1e-5)}
+# the tiny f32 BERT forward on the card against the CPU (TF32 off): f32
+# summation order through 2 layers
+COVERAGE_TOL = dict(atol=1e-4, rtol=1e-4)
+# ResNet: bench_resnet50's chip configuration
+# 50 timed steps: at lr 0.1 the loss of the one batch falls for two
+# steps, then rises and swings until about step 25 before it falls
+# steadily; where it swings depends on the algorithms cuDNN's search
+# picked in this process, so the falling-loss check is read at step 51,
+# past the swings (paddle_tpu's step rises too after its first fall, at
+# a reduced size: tests/test_torch_resnet.py::
+# test_bench_lr_loss_falls_then_rises)
+RESNET_BATCH, RESNET_HW, RESNET_CLASSES, RESNET_STEPS = 128, 224, 1000, 50
+RESNET_LR, RESNET_MOMENTUM = 0.1, 0.9
+# resnet18 f32 on the card against the CPU: logits, loss and running
+# statistics within RESNET_TOL (cuDNN sums the convolutions in other
+# orders than the CPU: 1.0e-5 in the logits and 1.8e-6 in the running
+# statistics on the H100, where the same step with TF32 on reads 7.0e-3
+# and 8.2e-4, which do not pass); gradients by their relative L2 error,
+# within
+# RESNET_KINK: a ReLU input within f32 rounding of 0 takes the other
+# side on one device and moves a whole term of a gradient sum
+# (tests/test_torch_resnet.py measured up to 0.87 % on the CPU alone)
+RESNET_TOL = dict(atol=1e-4, rtol=1e-4)
+RESNET_KINK = 2e-2
 # the decode configuration: pages, slots, buckets (the pool is 12 x 513
 # x 16 x 768 x 2 B x 2, about 303 MB)
 PAGE_SIZE, NUM_PAGES, SLOTS, ROW_PAGES = 16, 513, 16, 32
@@ -174,7 +233,11 @@ def phase(name):
                 return out
             except Exception:  # noqa: BLE001 - reported, then exit 1
                 FAILURES.append(name)
-                log(f"-- {name} FAILED\n{traceback.format_exc()}")
+                report = f"-- {name} FAILED\n{traceback.format_exc()}"
+                log(report)
+                # stderr too, where a caller that keeps only the end of
+                # stderr still reads why the run failed
+                print(report, file=sys.stderr, flush=True)
                 return None
         return run
     return wrap
@@ -266,15 +329,20 @@ def bound(flops, nbytes):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-@phase("card")
-def card():
-    if not torch.cuda.is_available():
-        raise RuntimeError("CUDA is not available")
+def card_line():
+    """The card's name and power limit, as nvidia-smi gives them."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=30)
-    log(smi.stdout.strip().splitlines()[0])
+    return smi.stdout.strip().splitlines()[0]
+
+
+@phase("card")
+def card():
+    if not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available")
+    log(card_line())
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} "
         f"count {torch.cuda.device_count()}")
@@ -452,9 +520,13 @@ def kernels():
     torch.cuda.empty_cache()
     rows += _ffn_backward_rows(g)
     torch.cuda.empty_cache()
+    rows += _ffn_act_rows(g)
+    torch.cuda.empty_cache()
     for r in rows:
+        lib = "none" if r["library_ms"] is None else \
+            f"{r['library_ms']:.4f}"
         log(f"{r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, "
-            f"library {r['library_ms']:.4f}, bound {r['bound_ms']:.4f} "
+            f"library {lib}, bound {r['bound_ms']:.4f} "
             f"{r['bound_by']}) at {r['shape']}")
     return rows
 
@@ -967,6 +1039,105 @@ def _ffn_bwd_dx_sweep(g):
     return seen
 
 
+def _ffn_act_case(g, t, f, act, p, dtype):
+    """The element pass forward and backward at one shape against their
+    plain versions: values within ACT_TOL, every value the hash drops
+    exactly 0 in h and dpre, the same bits on a second launch.  Returns
+    the two max abs errors."""
+    pre = (torch.randn(t, f, generator=g) * 2.0).to("cuda", dtype)
+    b1 = (torch.randn(f, generator=g) * 0.1).to("cuda", dtype)
+    dh = torch.randn(t, f, generator=g).to("cuda", dtype)
+    h = F.ffn_act_fwd(pre, b1, act, p, 99)
+    dpre, h2 = F.ffn_act_bwd(pre, b1, dh, act, p, 99)
+    again = F.ffn_act_fwd(pre, b1, act, p, 99)
+    torch.cuda.synchronize()
+    want_h = F.ffn_act_fwd_reference(pre, b1, act, p, 99)
+    want_dpre, _ = F.ffn_act_bwd_reference(pre, b1, dh, act, p, 99)
+    ok_h, err_h = close(h, want_h, **ACT_TOL[dtype])
+    ok_d, err_d = close(dpre, want_dpre, **ACT_TOL[dtype])
+    mask_ok = True
+    if p > 0.0:
+        drop = ~F._ffn_keep(99, 0, 0, t, f, p, device=pre.device)
+        mask_ok = not bool(h[drop].any()) and not bool(dpre[drop].any())
+    same = torch.equal(h, again) and torch.equal(h, h2)
+    ok = ok_h and ok_d and mask_ok and same
+    log(f"ffn_act T={t} F={f} {act} p={p} {str(dtype)[6:]}: h err "
+        f"{err_h:.3g}, dpre err {err_d:.3g}, dropped values 0 {mask_ok}, "
+        f"same bits (twice, and the backward's h) {same} "
+        f"{'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        raise AssertionError(f"ffn_act disagrees with its plain version at "
+                             f"T={t} F={f} {act} p={p} {dtype}")
+    return err_h, err_d
+
+
+def _ffn_act_rows(g):
+    """The element pass of the FFN's library arm (csrc/ffn_act.cu): each
+    kernel against its plain version (the vector path, and F not a whole
+    number of 16-byte vectors for the per-value path; every activation;
+    bf16 and f32), the dropout mask bit for bit (relu over positive
+    pre: h is non-zero exactly where `_ffn_keep` keeps), then graph-timed
+    at the train step's shape (T=16384, F=3072, gelu, dropout 0.1) beside
+    its bound (bytes over 3.35 TB/s) and the eager ATen bias + gelu (no
+    dropout: no single PyTorch call computes the function, so
+    library_ms is null)."""
+    worst = {"ffn_act_fwd": 0.0, "ffn_act_bwd": 0.0}
+    bf16 = torch.bfloat16
+    for t, f, act, p, dtype in [
+            (32 * SEQ, 3072, "gelu", 0.1, bf16),
+            (32 * SEQ, 3072, "gelu", 0.0, bf16),
+            (1000, 3072, "relu", 0.1, bf16),
+            (17, 3072, "gelu_tanh", 0.1, bf16),
+            (33, 100, "gelu", 0.1, bf16), (5, 36, "relu", 0.0, bf16),
+            (64, 128, "gelu", 0.1, torch.float32),
+            (37, 130, "gelu_tanh", 0.0, torch.float32)]:
+        err_h, err_d = _ffn_act_case(g, t, f, act, p, dtype)
+        if dtype == bf16:
+            worst["ffn_act_fwd"] = max(worst["ffn_act_fwd"], err_h)
+            worst["ffn_act_bwd"] = max(worst["ffn_act_bwd"], err_d)
+    # the mask bit for bit
+    t, f, p = 1000, 3072, 0.1
+    pre = torch.full((t, f), 3.0, dtype=bf16, device="cuda")
+    zero = torch.zeros(f, dtype=bf16, device="cuda")
+    keep = F._ffn_keep(77, 0, 0, t, f, p, device=pre.device)
+    h = F.ffn_act_fwd(pre, zero, "relu", p, 77)
+    dpre, _ = F.ffn_act_bwd(pre, zero, torch.ones_like(pre), "relu", p, 77)
+    if not (torch.equal(h != 0, keep) and torch.equal(dpre != 0, keep)):
+        raise AssertionError("ffn_act's dropout mask is not _ffn_keep's")
+    log(f"ffn_act mask: kept {float(keep.float().mean()):.4f} of {t}x{f}, "
+        f"bit for bit with _ffn_keep in both passes")
+    # timing at the train step's shape
+    t, f = 32 * SEQ, 3072
+    pre, dh = _rand(g, t, f, scale=2.0), _rand(g, t, f)
+    b1 = _rand(g, f, scale=0.1)
+    times = K4.graphs_ms({
+        "ffn_act_fwd": lambda: [F.ffn_act_fwd(pre, b1, "gelu", 0.1, 5)
+                                for _ in range(4)],
+        "ffn_act_bwd": lambda: [F.ffn_act_bwd(pre, b1, dh, "gelu", 0.1, 5)
+                                for _ in range(4)],
+        "aten_bias_gelu": lambda: [torch.nn.functional.gelu(pre + b1)
+                                   for _ in range(4)]}, 4)
+    plain = {
+        "ffn_act_fwd": time_ms(lambda: F.ffn_act_fwd_reference(
+            pre, b1, "gelu", 0.1, 5), iters=2, warmup=1),
+        "ffn_act_bwd": time_ms(lambda: F.ffn_act_bwd_reference(
+            pre, b1, dh, "gelu", 0.1, 5), iters=2, warmup=1)}
+    rows = []
+    for name, n_tf in (("ffn_act_fwd", 2), ("ffn_act_bwd", 4)):
+        nbytes = (n_tf * t * f + f) * 2
+        rows.append(dict(
+            name=name, route="cuda", source="paddle_tpu_torch/csrc/ffn_act.cu",
+            replaces="none: the fusion XLA makes of paddle_tpu/ops/pallas/"
+                     "ffn.py:506-516 (fused_ffn's non-kernel arm)",
+            max_abs_err=worst[name], ms=times[name], plain_ms=plain[name],
+            bound_ms=nbytes / PEAK_BYTES * 1e3, bound_by="bytes",
+            library_ms=None, aten_bias_gelu_ms=times["aten_bias_gelu"],
+            shape=f"pre{'/dh' if n_tf == 4 else ''} ({t},{f}) bf16, b1 "
+                  f"({f}), gelu, dropout 0.1",
+            bytes=nbytes, tolerance=ACT_TOL[bf16]))
+    return rows
+
+
 @phase("probe")
 def probe():
     """The layout probe's main path, then each probe kernel against its
@@ -1460,23 +1631,33 @@ def _profile_steps(eng):
     return sum(r[1] for r in kernels), wall_ms, kernels[:12]
 
 
-@phase("train")
-def train(kernel_ms):
+def _bert_train(steps=5):
+    """BertForPretraining(base) through build_pretrain_step at B=32,
+    S=512, 76 masked, dropout 0.1: 1 warm-up and `steps` steps timed by
+    CUDA events, with the launch and dispatch counters at 0 just before
+    (the main path) and read just after.  Raises unless the losses are
+    finite and fall and the Adam moments are finite.  Returns (summary,
+    launches, dispatch counts, (step, state, batch))."""
     cfg = bert.BertConfig.base()
-    batch_size, n_masked, steps = 32, 76, 5
+    batch_size, n_masked = 32, 76
     t0 = time.perf_counter()
     model = bert.BertForPretraining(cfg, seed=0)  # f32, train() mode
     step, state = bert.build_pretrain_step(model)  # bf16 over f32 masters
     fb = bert.fake_batch(cfg, batch_size, SEQ, num_masked=n_masked, seed=11)
     batch = {k: torch.from_numpy(v).cuda() for k, v in fb.items()}
+    arm = F._ffn_arm([torch.bfloat16] * 5, cfg.hidden_size,
+                     cfg.intermediate_size)
     log(f"BertForPretraining(base) + state built in "
         f"{time.perf_counter() - t0:.1f} s; dropout "
         f"{cfg.hidden_dropout_prob}/{cfg.attention_probs_dropout_prob}, "
-        f"B={batch_size} S={SEQ} masked={n_masked} lr={TRAIN_LR}")
+        f"B={batch_size} S={SEQ} masked={n_masked} lr={TRAIN_LR}; FFN arm "
+        f"{arm}")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for c in COUNTERS.values():
         c.reset()
+    for name in ("ffn_dispatch_kernel", "ffn_dispatch_library"):
+        profiler.stat_reset(name)
     # -- the main path: counters at 0 before, read right after --------------
     losses = []
     t0 = time.perf_counter()
@@ -1494,7 +1675,10 @@ def train(kernel_ms):
     torch.cuda.synchronize()
     host_ms = (time.perf_counter() - t0) * 1e3 / steps
     launches = {n: c.value for n, c in COUNTERS.items()}
+    stats = profiler.get_int_stats()
     # ------------------------------------------------------------------------
+    dispatch = {n: stats.get(f"ffn_dispatch_{n}", 0)
+                for n in ("kernel", "library")}
     step_ms = e0.elapsed_time(e1) / steps
     losses = [float(x) for x in losses]
     log(f"losses: {' '.join(f'{x:.4f}' for x in losses)}")
@@ -1502,12 +1686,8 @@ def train(kernel_ms):
         raise AssertionError("train losses are not finite and falling")
     if not all(bool(torch.isfinite(m).all()) for m in state["m"].values()):
         raise AssertionError("a gradient holds a NaN or inf (moment m)")
-    log(f"kernel launches on the main path: {launches}")
-    for name, n in launches.items():
-        want = LAYERS * (steps + 1) if name in TRAIN_KERNELS else 0
-        if n != want:
-            raise AssertionError(f"{name}: {n} launches in {steps + 1} steps"
-                                 f" (want {want})")
+    log(f"kernel launches on the main path: {launches}; FFN dispatch "
+        f"{dispatch}")
     flops = bert.bert_step_flops(cfg, batch_size, SEQ, n_masked)
     mem = torch.cuda.max_memory_allocated()
     summary = dict(step_ms=step_ms, host_step_ms=host_ms,
@@ -1521,24 +1701,44 @@ def train(kernel_ms):
         f"tokens/s, MFU {100 * summary['mfu']:.2f}% of 989 TFLOP/s "
         f"({flops / 1e12:.3f} TFLOP a step), warm-up step {warm_s:.2f} s, "
         f"max_memory_allocated {mem / 2 ** 30:.2f} GiB")
+    return summary, launches, dispatch, (step, state, batch)
+
+
+def _expect_launches(launches, per_step, kernels, what):
+    """Each of `kernels` launched per_step times, every other kernel 0."""
+    for name, n in launches.items():
+        want = per_step if name in kernels else 0
+        if n != want:
+            raise AssertionError(f"{name}: {n} launches in {what} (want "
+                                 f"{want})")
+
+
+@phase("train")
+def train(kernel_ms):
+    """The kernel arm (pinned by main): the six kernels, 12 a step."""
+    steps = 5
+    summary, launches, dispatch, run = _bert_train(steps)
+    _expect_launches(launches, LAYERS * (steps + 1), TRAIN_KERNELS,
+                     f"{steps + 1} steps")
+    if dispatch != {"kernel": LAYERS * (steps + 1), "library": 0}:
+        raise AssertionError(f"FFN dispatch {dispatch}")
     total = 0.0
     for name in TRAIN_KERNELS:
         ms = (kernel_ms or {}).get(name, float("nan"))
-        share = LAYERS * ms / step_ms
+        share = LAYERS * ms / summary["step_ms"]
         total += share
         log(f"  {name}: {LAYERS} x {ms:.4f} ms = {100 * share:.1f}% of the "
             f"step")
     log(f"  the six kernels: {100 * total:.1f}%; everything else "
         f"{100 * (1 - total):.1f}% by difference")
     log("train summary: " + json.dumps(summary))
-    return launches, (step, state, batch)
+    return launches, run, summary
 
 
-@phase("profile")
-def profile(run):
-    """One more train step under torch.profiler: device time by kernel
-    name, the device's busy and idle share of the step."""
-    step, state, batch = run
+def _profile(fn, top=25):
+    """fn() once under torch.profiler: device time by kernel name, the
+    device's busy and idle share of the host-clock interval.  Returns
+    (busy ms, wall ms, the top kernels)."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
@@ -1546,7 +1746,7 @@ def profile(run):
     with torch_profile(activities=[ProfilerActivity.CPU,
                                    ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        state, loss = step(state, batch, TRAIN_LR)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
@@ -1560,8 +1760,289 @@ def profile(run):
     log(f"profiled step: {wall_ms:.3f} ms host clock, device busy "
         f"{busy:.3f} ms in {len(kernels)} kernel names (idle "
         f"{100 * max(0.0, 1 - busy / wall_ms):.1f}%)")
-    for key, ms, count in kernels[:25]:
+    for key, ms, count in kernels[:top]:
         log(f"  {ms:9.3f} ms {100 * ms / busy:5.1f}% x{count:<4d} {key[:90]}")
+    return busy, wall_ms, kernels[:top]
+
+
+@phase("profile")
+def profile(run):
+    """One more train step under torch.profiler: device time by kernel
+    name, the device's busy and idle share of the step."""
+    step, state, batch = run
+    _profile(lambda: step(state, batch, TRAIN_LR))
+
+
+def _serving_forward_ms(model, batch):
+    with torch.inference_mode():
+        return time_ms(lambda: model(*batch[:2], attention_mask=batch[2]),
+                       iters=10, warmup=2)
+
+
+@phase("ffn_arms")
+def ffn_arms(kernel_train):
+    """The reference's default: fused_ffn on its library arm (cuBLAS
+    products around ffn_act_fwd / ffn_act_bwd).  The train step of the
+    train phase again: no FFN kernel, 12 launches a step of each element
+    pass and each flash kernel, and every FFN call counted as the library
+    arm.  Then the serving forward of 32 x 512 under each arm, timed in
+    turns, three times, and one library-arm step and forward profiled."""
+    steps = 5
+    F.disable_fused_ffn("the reference's default: the library arm")
+    try:
+        summary, launches, dispatch, run = _bert_train(steps)
+        _expect_launches(launches, LAYERS * (steps + 1),
+                         LIBRARY_TRAIN_KERNELS, f"{steps + 1} library-arm "
+                         f"steps")
+        if dispatch != {"kernel": 0, "library": LAYERS * (steps + 1)}:
+            raise AssertionError(f"FFN dispatch {dispatch}")
+        kern = kernel_train or {}
+        log(f"train step, library arm {summary['step_ms']:.3f} ms (MFU "
+            f"{100 * summary['mfu']:.2f}%, "
+            f"{summary['max_memory_allocated_bytes'] / 2 ** 30:.2f} GiB) "
+            f"against the kernel arm {kern.get('step_ms', float('nan')):.3f}"
+            f" ms (MFU {100 * kern.get('mfu', float('nan')):.2f}%, "
+            f"{kern.get('max_memory_allocated_bytes', 0) / 2 ** 30:.2f} GiB)"
+            f" on this card")
+        step, state, batch = run
+        busy, wall, top = _profile(lambda: step(state, batch, TRAIN_LR),
+                                   top=15)
+        summary.update(profiled_busy_ms=busy, profiled_wall_ms=wall)
+        del run, step, state, batch
+        torch.cuda.empty_cache()
+        cfg = bert.BertConfig.base()
+        model = bert.BertModel(cfg, dtype=torch.bfloat16, seed=0).eval()
+        fb = bert.fake_batch(cfg, 32, SEQ, seed=5)
+        batch = [torch.from_numpy(fb[k]).cuda()
+                 for k in ("input_ids", "token_type_ids")]
+        batch.append((torch.from_numpy(fb["attention_mask"]).cuda() != 0)
+                     [:, None, None, :])
+        serve = {"library": [], "kernel": []}
+        for arm in ("library", "kernel") * 3:
+            if arm == "kernel":
+                F.enable_fused_ffn()
+            else:
+                F.disable_fused_ffn("the reference's default")
+            serve[arm].append(_serving_forward_ms(model, batch))
+        log(f"serving forward B=32 S={SEQ} in turns (library, kernel) x 3: "
+            f"{serve}")
+        serve = {k: min(v) for k, v in serve.items()}
+        log(f"serving forward B=32 S={SEQ}: library arm "
+            f"{serve['library']:.3f} ms, kernel arm {serve['kernel']:.3f} ms"
+            f" (the least of three each)")
+        F.disable_fused_ffn("the reference's default")
+        with torch.inference_mode():
+            _profile(lambda: model(*batch[:2], attention_mask=batch[2]),
+                     top=8)
+        summary["serving_forward_ms"] = serve
+        summary["card"] = card_line()
+        log("ffn_arms summary: " + json.dumps(summary))
+        return launches
+    finally:
+        F.enable_fused_ffn()
+
+
+@phase("coverage")
+def coverage():
+    """BertConfig.tiny() in f32 on the card: neither kernel family takes
+    it (f32; d_model 64), so attention goes to dense_attention and the FFN
+    to its library arm, whose element pass runs in f32.  Held against the
+    same forward on the CPU within COVERAGE_TOL."""
+    cfg = bert.BertConfig.tiny()
+    gpu = bert.BertModel(cfg, seed=1).eval()
+    cpu = bert.BertModel(cfg, device="cpu", seed=1).eval()
+    fb = bert.fake_batch(cfg, 2, 64, seed=3)
+    am = (torch.from_numpy(fb["attention_mask"]) != 0)[:, None, None, :]
+    args = [torch.from_numpy(fb["input_ids"]),
+            torch.from_numpy(fb["token_type_ids"]), am]
+    for c in COUNTERS.values():
+        c.reset()
+    for name in ("ffn_dispatch_kernel", "ffn_dispatch_library",
+                 "attention_dispatch_dense"):
+        profiler.stat_reset(name)
+    with torch.inference_mode():
+        g_enc, g_pooled = gpu(args[0].cuda(), args[1].cuda(),
+                              attention_mask=args[2].cuda())
+        torch.cuda.synchronize()
+        launches = {n: c.value for n, c in COUNTERS.items()}
+        stats = profiler.get_int_stats()
+        c_enc, c_pooled = cpu(*args[:2], attention_mask=args[2])
+    layers = cfg.num_hidden_layers
+    _expect_launches(launches, layers, ("ffn_act_fwd",), "one forward")
+    want = {"ffn_dispatch_library": layers, "attention_dispatch_dense":
+            layers}
+    got = {k: stats.get(k, 0) for k in want}
+    if got != want or stats.get("ffn_dispatch_kernel", 0):
+        raise AssertionError(f"dispatch counts {stats}, want {want}")
+    for name, g, c in (("encoded", g_enc, c_enc),
+                       ("pooled", g_pooled, c_pooled)):
+        ok, err = close(g.cpu(), c, **COVERAGE_TOL)
+        log(f"tiny BERT f32 {name}: card vs CPU max abs {err:.3g} "
+            f"{'ok' if ok else 'MISMATCH'}")
+        if not ok or g.dtype != torch.float32:
+            raise AssertionError(f"{name} disagrees with the CPU")
+    log(f"tiny BERT f32 on the card: launches {launches}, dispatch {got}")
+
+
+def _resnet18_step(dev, x, y):
+    """resnet18(num_classes=10) from seed 2, one f32 train forward and
+    backward on `dev`: logits, loss, gradients and running statistics,
+    on the CPU."""
+    model = VM.resnet18(num_classes=10, device=dev, seed=2).train()
+    xd = x.to(dev)
+    if dev == "cuda":
+        xd = xd.contiguous(memory_format=torch.channels_last)
+    logits = model(xd)
+    loss = -torch.log_softmax(logits, -1).gather(
+        1, y.to(dev)[:, None]).mean()
+    named = dict(model.named_parameters())
+    grads = torch.autograd.grad(loss, list(named.values()))
+    return dict(logits=logits.detach().cpu(), loss=loss.detach().cpu(),
+                grads={k: g.cpu() for k, g in zip(named, grads)},
+                stats={k: b.cpu() for k, b in model.named_buffers()})
+
+
+def _resnet_check():
+    """resnet18(num_classes=10), B=4, 3 x 64 x 64, f32 (TF32 off), one
+    train forward and backward on the card against the same on the CPU:
+    logits, loss and running statistics within RESNET_TOL, every gradient
+    within RESNET_KINK in relative L2.  The same step with TF32 on is
+    read against the CPU too, and only logged: what a TF32 leak would
+    read."""
+    rng = np.random.RandomState(1)
+    x = torch.from_numpy(rng.randn(4, 3, 64, 64).astype("float32"))
+    y = torch.from_numpy(rng.randint(0, 10, 4).astype("int64"))
+    gpu, cpu = _resnet18_step("cuda", x, y), _resnet18_step("cpu", x, y)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        tf32 = _resnet18_step("cuda", x, y)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    tf32_err = dict(
+        logits=float((tf32["logits"] - cpu["logits"]).abs().max()),
+        stats=max(float((tf32["stats"][k] - b).abs().max())
+                  for k, b in cpu["stats"].items()))
+    worst = {}
+    for name in ("logits", "loss"):
+        ok, worst[name] = close(gpu[name], cpu[name], **RESNET_TOL)
+        if not ok:
+            raise AssertionError(f"resnet18 {name}: card vs CPU "
+                                 f"{worst[name]}")
+    for k, b in cpu["stats"].items():
+        ok, err = close(gpu["stats"][k], b, **RESNET_TOL)
+        worst["stats"] = max(worst.get("stats", 0.0), err)
+        if not ok:
+            raise AssertionError(f"resnet18 running stat {k}: {err}")
+    for k, g in cpu["grads"].items():
+        rel = float((gpu["grads"][k] - g).norm() / g.norm())
+        worst["grads_rel_l2"] = max(worst.get("grads_rel_l2", 0.0), rel)
+        if not (rel <= RESNET_KINK and torch.isfinite(gpu["grads"][k]).all()):
+            raise AssertionError(f"resnet18 gradient {k}: relative L2 {rel}")
+    log(f"resnet18 f32 train step, card vs CPU: max abs logits "
+        f"{worst['logits']:.3g}, loss {worst['loss']:.3g}, running stats "
+        f"{worst['stats']:.3g} (limit {RESNET_TOL}); gradients' worst "
+        f"relative L2 {worst['grads_rel_l2']:.3g} (limit {RESNET_KINK}); "
+        f"with TF32 on (read only): max abs logits {tf32_err['logits']:.3g}, "
+        f"running stats {tf32_err['stats']:.3g}")
+    worst["tf32_read_only"] = tf32_err
+    return worst
+
+
+@phase("resnet")
+def resnet():
+    """ResNet-50 training at bench_resnet50's chip configuration: B=128,
+    3 x 224 x 224, 1000 classes, one batch from RandomState(0) for every
+    step, bf16 activations over fp32 masters, lr 0.1, momentum 0.9, BN in
+    train mode, channels_last on the card (cuDNN picks its algorithms:
+    cudnn.benchmark).  1 warm-up step, RESNET_STEPS steps timed by CUDA
+    events, one more under the profiler; then resnet18's f32 card-vs-CPU
+    check."""
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.benchmark = True
+    t0 = time.perf_counter()
+    model = VM.resnet50(num_classes=RESNET_CLASSES)
+    step, state = VT.build_train_step(model, lr=RESNET_LR,
+                                      momentum=RESNET_MOMENTUM, bf16=True)
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.randn(RESNET_BATCH, 3, RESNET_HW, RESNET_HW)
+                         .astype("float32")).cuda()
+    y = torch.from_numpy(rng.randint(0, RESNET_CLASSES, RESNET_BATCH)
+                         .astype("int64")).cuda()
+    buffers = [k for k, _ in model.named_buffers()]
+    stats0 = {k: state["params"][k].clone() for k in buffers}
+    log(f"resnet50: {sum(p.numel() for p in model.parameters()) / 1e6:.2f} M "
+        f"parameters, {len(buffers)} running statistics, built in "
+        f"{time.perf_counter() - t0:.1f} s; B={RESNET_BATCH} "
+        f"{RESNET_HW}x{RESNET_HW}, bf16 over fp32 masters, lr {RESNET_LR}, "
+        f"momentum {RESNET_MOMENTUM}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in COUNTERS.values():
+        c.reset()
+    # -- the main path: counters at 0 before, read right after --------------
+    losses = []
+    t0 = time.perf_counter()
+    state, loss = step(state, x, y)  # warm-up
+    losses.append(loss)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    mem = torch.cuda.max_memory_allocated()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0 = time.perf_counter()
+    e0.record()
+    for _ in range(RESNET_STEPS):
+        state, loss = step(state, x, y)
+        losses.append(loss)
+    e1.record()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / RESNET_STEPS
+    launches = {n: c.value for n, c in COUNTERS.items()}
+    # ------------------------------------------------------------------------
+    step_ms = e0.elapsed_time(e1) / RESNET_STEPS
+    losses = [float(v) for v in losses]
+    log(f"losses: {' '.join(f'{v:.4f}' for v in losses)}")
+    # the path is cuDNN and ATen: no hand-written kernel launches
+    _expect_launches(launches, 0, (), f"{RESNET_STEPS + 1} ResNet steps")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError("ResNet losses are not finite and falling")
+    if not all(bool(torch.isfinite(v).all()) for v in state["vel"].values()):
+        raise AssertionError("a ResNet velocity is not finite")
+    if not all(bool(torch.isfinite(state["params"][k]).all())
+               for k in buffers):
+        raise AssertionError("a running statistic is not finite")
+    moved = sum(not torch.equal(state["params"][k], stats0[k])
+                for k in buffers)
+    if moved != len(buffers):
+        raise AssertionError(f"only {moved} of {len(buffers)} running "
+                             f"statistics moved")
+    flops = 3 * VT.resnet50_fwd_flops(RESNET_BATCH, RESNET_HW,
+                                      RESNET_CLASSES)
+    summary = dict(step_ms=step_ms, host_step_ms=host_ms,
+                   images_per_s=RESNET_BATCH / (step_ms / 1e3),
+                   step_flops=flops,
+                   mfu=flops / (step_ms / 1e3) / PEAK_BF16_FLOPS,
+                   warmup_step_s=warm_s, max_memory_allocated_bytes=mem,
+                   losses=losses, cudnn_benchmark=True)
+    log(f"resnet50 train step B={RESNET_BATCH}: {step_ms:.3f} ms (CUDA "
+        f"events; host clock {host_ms:.3f} ms), "
+        f"{summary['images_per_s']:.1f} images/s, MFU "
+        f"{100 * summary['mfu']:.2f}% of 989 TFLOP/s ({flops / 1e12:.3f} "
+        f"TFLOP a step, 3 x resnet50_fwd_flops), warm-up step {warm_s:.2f} "
+        f"s, max_memory_allocated {mem / 2 ** 30:.2f} GiB")
+    busy, wall, top = _profile(lambda: step(state, x, y), top=12)
+    summary.update(profiled_busy_ms=busy, profiled_wall_ms=wall,
+                   profiled_idle=max(0.0, 1 - busy / wall),
+                   top_kernels=[dict(name=k[:90], ms=ms, count=n)
+                                for k, ms, n in top])
+    del model, step, state, x, y
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.benchmark = False
+    summary["resnet18_f32_check"] = _resnet_check()
+    summary["card"] = card_line()
+    log("resnet summary: " + json.dumps(summary))
+    return launches
 
 
 @phase("check")
@@ -1590,6 +2071,10 @@ def reference_check():
 def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # the kernel arm of fused_ffn, opt-in as in paddle_tpu, for every
+    # phase but ffn_arms (the default arm) and coverage (f32: neither
+    # kernel family takes it)
+    F.enable_fused_ffn()
     card()
     if FAILURES:
         sys.exit(1)
@@ -1602,20 +2087,28 @@ def main():
     trained = train(kernel_ms)
     if trained is not None:
         profile(trained[1])
+    library = ffn_arms(trained[2] if trained else None)
+    coverage()
     reference_check()
-    if FAILURES or None in (rows, probed, served, decoded, trained):
+    resnet_path = resnet()
+    if FAILURES or None in (rows, probed, served, decoded, trained, library,
+                            resnet_path):
         log(f"FAILED phases: {FAILURES}")
+        print(f"FAILED phases: {FAILURES}", file=sys.stderr, flush=True)
         sys.exit(1)
     rows += probed[0]
     paths = {"serving": served, "decode": decoded, "train": trained[0],
-             "probe": probed[1]}
+             "probe": probed[1], "library_train": library,
+             "resnet": resnet_path}
     for r in rows:
         # `launches` is the count on the path where the kernel runs: the
         # probe for its three kernels, the decode path for ragged_paged,
-        # the train step for the others; the other paths' counts stand
-        # beside it
+        # the default-arm train step for the FFN's element pass, the
+        # kernel-arm train step for the others; the other paths' counts
+        # stand beside it
         name = r["name"]
         path = "probe" if name in PROBE_KERNELS else \
+            "library_train" if name in ACT_KERNELS else \
             "train" if name in TRAIN_KERNELS else "decode"
         r["launches"] = paths[path][name]
         r["launches_by_path"] = {p: n[name] for p, n in paths.items()}

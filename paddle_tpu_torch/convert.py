@@ -2,8 +2,9 @@
 
 `load_jax_state(module, state)` takes the dict that
 `paddle_tpu.jit.functional_state(model)` yields, as numpy arrays (keys
-like `bert.encoder.layers.0.self_attn.q_proj.weight`), and fills the
-port's parameters in place, so both packages compute the same function.
+like `bert.encoder.layers.0.self_attn.q_proj.weight` or, for a buffer,
+`layer1.0.bn1._mean`), and fills the port's parameters and buffers in
+place, so both packages compute the same function.
 Both keep Paddle's (in, out) Linear layout, so names and shapes match one
 to one and nothing is transposed.  Tied parameters (BERT's MLM decoder
 weight is the word-embedding table) appear once in the JAX dict and once
@@ -22,6 +23,8 @@ from typing import Dict
 import numpy as np
 import torch
 from torch import nn
+
+from .jit import functional_state
 
 
 def _check(params: Dict[str, torch.Tensor], state: Dict[str, np.ndarray],
@@ -43,15 +46,15 @@ def _check(params: Dict[str, torch.Tensor], state: Dict[str, np.ndarray],
 
 def load_jax_state(module: nn.Module, state: Dict[str, np.ndarray],
                    strict: bool = True) -> nn.Module:
-    """Copy `state` into `module`'s parameters (cast to each parameter's
-    dtype and device).  Raises KeyError on missing or (with strict)
-    unexpected keys and ValueError on a shape mismatch; nothing is
-    written unless every check passes."""
-    params = dict(module.named_parameters())
-    _check(params, state, strict)
+    """Copy `state` into `module`'s parameters and buffers (BN's `_mean`
+    and `_variance`), each cast to its tensor's dtype and device.  Raises
+    KeyError on missing or (with strict) unexpected keys and ValueError
+    on a shape mismatch; nothing is written unless every check passes."""
+    tensors = functional_state(module)  # detached, sharing storage
+    _check(tensors, state, strict)
     with torch.no_grad():
-        for name, p in params.items():
-            p.copy_(torch.from_numpy(np.array(state[name])))
+        for name, t in tensors.items():
+            t.copy_(torch.from_numpy(np.array(state[name])))
     return module
 
 

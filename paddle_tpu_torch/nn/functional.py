@@ -1,11 +1,16 @@
-"""The functional surface BERT needs (counterpart of
-paddle_tpu/nn/functional/__init__.py).
+"""The functional surface BERT and the vision models need (counterpart
+of paddle_tpu/nn/functional/__init__.py).
 
 Plain tensor functions in PyTorch's idiom.  `linear` keeps Paddle's
-layout: weight is (in, out) and y = x @ W + b.  The two seams that reach
-hand-written kernels are `scaled_dot_product_attention` (flash forward
-and backward) and `fused_feedforward` (fused FFN forward and backward);
-both are differentiable.
+layout: weight is (in, out) and y = x @ W + b.  The convolution, pooling
+and batch-norm functions keep Paddle's forms (OIHW weights, NCHW or NHWC
+data, SAME/VALID/asymmetric padding) and the reference lowering's
+semantics (paddle_tpu/ops/nn_ops.py); they run on cuDNN and ATen, as
+the reference leaves them to XLA: it has no Pallas kernel there.  The
+two seams that reach hand-written kernels are
+`scaled_dot_product_attention` (flash forward and backward) and
+`fused_feedforward` (fused FFN forward and backward, or the library arm
+around the element-pass kernels); both are differentiable.
 
 Randomness (counterpart of `rng_key_scope`,
 paddle_tpu/fluid/dygraph/tracer.py:91).  Layers hold the host (CPU)
@@ -65,6 +70,10 @@ def gelu(x, approximate=False):
 
 def relu(x):
     return torch.relu(x)
+
+
+def relu6(x):
+    return torch.clamp(x, 0.0, 6.0)
 
 
 def tanh(x):
@@ -139,10 +148,176 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
 
 def fused_feedforward(x, w1, b1, w2, b2, activation="gelu",
                       act_dropout=0.0, training=True, generator=None):
-    """Fused transformer FFN: dropout(act(x@w1+b1), p) @ w2 + b2, with the
-    d_ff activation kept on chip by the kernels (forward and backward) on
-    CUDA tensors; differentiable in x and the four weights."""
+    """Fused transformer FFN: dropout(act(x@w1+b1), p) @ w2 + b2, through
+    `ops.kernels.ffn.fused_ffn` (the library arm by default, the kernels
+    once opted in); differentiable in x and the four weights."""
     p = act_dropout if training else 0.0
     seed = _kernel_seed(generator) if p > 0.0 else None
     return _ffn.fused_ffn(x, w1, b1, w2, b2, activation=activation,
                           dropout_p=p, dropout_seed=seed)
+
+
+# -- convolution and pooling --------------------------------------------------
+
+def _pair(v):
+    return tuple(v) if isinstance(v, (list, tuple)) else (v, v)
+
+
+def _same_pads(size, k, stride, dilation):
+    """XLA's SAME rule for one spatial dim: (low, high) pads whose total is
+    max((ceil(size / stride) - 1) * stride + (k - 1) * dilation + 1 - size,
+    0), the low side total // 2."""
+    total = max((-(-size // stride) - 1) * stride + (k - 1) * dilation + 1
+                - size, 0)
+    return total // 2, total - total // 2
+
+
+def _pads(padding, sizes, ksize, strides, dilations):
+    """((top, bottom), (left, right)) for Paddle's padding forms
+    (`_normalize_padding` + `_conv_paddings`): "SAME", "VALID", an int, a
+    pair, or a 4-list [top, bottom, left, right]."""
+    if isinstance(padding, str):
+        mode = padding.upper()
+        if mode == "VALID":
+            return (0, 0), (0, 0)
+        if mode == "SAME":
+            return tuple(_same_pads(n, k, s, d) for n, k, s, d in
+                         zip(sizes, ksize, strides, dilations))
+        raise ValueError(f"unknown padding {padding!r}")
+    p = [int(v) for v in _pair(padding)]
+    if len(p) == 2:
+        return (p[0], p[0]), (p[1], p[1])
+    if len(p) == 4:
+        return (p[0], p[1]), (p[2], p[3])
+    raise ValueError(f"padding must be an int, a pair or 4 values, got "
+                     f"{padding!r}")
+
+
+def _channels_first(x, data_format):
+    """x as NCHW (a permuted view of NHWC data) and the function that
+    brings a result back to data_format."""
+    if data_format == "NCHW":
+        return x, lambda y: y
+    if data_format == "NHWC":
+        return x.permute(0, 3, 1, 2), lambda y: y.permute(0, 2, 3, 1)
+    raise ValueError(f"data_format must be NCHW or NHWC, got "
+                     f"{data_format!r}")
+
+
+def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
+           data_format="NCHW"):
+    """2-D convolution (paddle_tpu's `conv2d`, lowered at nn_ops.py:77-103):
+    weight OIHW whatever the data format; stride, dilation, groups;
+    Paddle's padding forms (asymmetric and strided SAME padded explicitly,
+    then convolved with padding 0); the optional bias on the channel
+    axis."""
+    x, back = _channels_first(x, data_format)
+    stride, dilation = _pair(stride), _pair(dilation)
+    (t, b), (l, r) = _pads(padding, x.shape[2:], weight.shape[2:], stride,
+                           dilation)
+    if t != b or l != r:
+        x = torch.nn.functional.pad(x, (l, r, t, b))
+        t = l = 0
+    return back(torch.nn.functional.conv2d(x, weight, bias, stride, (t, l),
+                                           dilation, groups))
+
+
+def _pool_args(x, kernel_size, stride, padding, ceil_mode, data_format):
+    if ceil_mode:
+        # paddle_tpu's pool2d lowering never reads ceil_mode and floors
+        raise NotImplementedError("ceil_mode=True is not supported")
+    x, back = _channels_first(x, data_format)
+    k = _pair(kernel_size)
+    s = _pair(stride if stride is not None else kernel_size)
+    return x, back, k, s, _pads(padding, x.shape[2:], k, s, (1, 1))
+
+
+def max_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
+               return_mask=False, data_format="NCHW"):
+    """Max pooling (nn_ops.py:190-250): padding counts as -inf, so any
+    padding torch cannot take in the call (asymmetric, SAME, over half
+    the window) is added explicitly."""
+    if return_mask:
+        raise NotImplementedError("return_mask=True is not supported")
+    x, back, k, s, ((t, b), (l, r)) = _pool_args(
+        x, kernel_size, stride, padding, ceil_mode, data_format)
+    if t != b or l != r or 2 * t > k[0] or 2 * l > k[1]:
+        x = torch.nn.functional.pad(x, (l, r, t, b), value=float("-inf"))
+        t = l = 0
+    return back(torch.nn.functional.max_pool2d(x, k, s, (t, l)))
+
+
+def avg_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
+               exclusive=True, divisor_override=None, data_format="NCHW"):
+    """Average pooling (nn_ops.py:190-250): `exclusive` divides each
+    window's sum by the count of its real elements, else by kh * kw."""
+    if divisor_override is not None:
+        raise NotImplementedError("divisor_override is not supported")
+    x, back, k, s, ((t, b), (l, r)) = _pool_args(
+        x, kernel_size, stride, padding, ceil_mode, data_format)
+    if t == b and l == r and 2 * t <= k[0] and 2 * l <= k[1]:
+        return back(torch.nn.functional.avg_pool2d(
+            x, k, s, (t, l), count_include_pad=not exclusive))
+    pad = (l, r, t, b)
+    out = torch.nn.functional.avg_pool2d(
+        torch.nn.functional.pad(x, pad), k, s)
+    if exclusive:
+        ones = torch.ones((1, 1) + x.shape[2:], dtype=x.dtype,
+                          device=x.device)
+        out = out / torch.nn.functional.avg_pool2d(
+            torch.nn.functional.pad(ones, pad), k, s)
+    return back(out)
+
+
+def adaptive_avg_pool2d(x, output_size, data_format="NCHW"):
+    """Adaptive average pooling over windows [floor(i S / out),
+    ceil((i + 1) S / out)) (nn_ops.py:174-187), torch's rule too."""
+    x, back = _channels_first(x, data_format)
+    return back(torch.nn.functional.adaptive_avg_pool2d(x, output_size))
+
+
+def adaptive_max_pool2d(x, output_size, return_mask=False):
+    """Adaptive max pooling (NCHW) over the windows of
+    `adaptive_avg_pool2d`."""
+    if return_mask:
+        raise NotImplementedError("return_mask=True is not supported")
+    return torch.nn.functional.adaptive_max_pool2d(x, output_size)
+
+
+# -- normalization ------------------------------------------------------------
+
+def batch_norm(x, running_mean, running_var, weight, bias, training=False,
+               momentum=0.9, epsilon=1e-5, data_format="NCHW",
+               use_global_stats=None):
+    """Batch norm with paddle_tpu's semantics (nn_ops.py:253-300), which
+    are not torch's.  In training (unless `use_global_stats`) x is
+    normalised by its batch statistics and the running buffers are
+    updated IN PLACE as running * momentum + batch * (1 - momentum), with
+    the BIASED batch variance, in the buffers' dtype; otherwise by the
+    running statistics, which stay as they are.  The channel axis is 1
+    for data formats that begin "NC" and the last one otherwise."""
+    c_axis = 1 if data_format.startswith("NC") or data_format == \
+        "AnyLayout" else x.ndim - 1
+    shape = [1] * x.ndim
+    shape[c_axis] = x.shape[c_axis]
+    if training and not use_global_stats:
+        xc = x if c_axis == 1 else x.movedim(c_axis, 1)
+        # ATen's batch norm hands back the batch mean and 1/sqrt(var + eps)
+        # it normalised with (f32), so the statistics are read once
+        y, mean, invstd = torch.ops.aten.native_batch_norm(
+            xc, weight, bias, None, None, True, 0.0, epsilon)
+        with torch.no_grad():
+            inv = invstd.to(torch.promote_types(invstd.dtype,
+                                                running_var.dtype))
+            var = inv.pow(-2) - epsilon  # the biased batch variance
+            for buf, stat in ((running_mean, mean), (running_var, var)):
+                buf.copy_(buf * momentum + stat.to(buf.dtype) * (1 - momentum))
+        return y if c_axis == 1 else y.movedim(1, c_axis)
+    scale = torch.rsqrt(running_var.float() + epsilon)
+    if weight is not None:
+        scale = scale * weight.float()
+    shift = -running_mean.float() * scale
+    if bias is not None:
+        shift = shift + bias.float()
+    return torch.addcmul(shift.to(x.dtype).view(shape), x,
+                         scale.to(x.dtype).view(shape))

@@ -1,4 +1,4 @@
-"""Parameter initializers BERT uses (counterpart of
+"""Parameter initializers BERT and the vision models use (counterpart of
 paddle_tpu/fluid/initializer.py).  Each draws from the torch.Generator it
 is given, in float32 on the CPU, so a seed gives the same weights on
 every device."""
@@ -58,3 +58,30 @@ class Xavier(Initializer):
         limit = math.sqrt(6.0 / (fan_in + fan_out))
         t = torch.empty(tuple(shape), dtype=torch.float32)
         return t.uniform_(-limit, limit, generator=generator)
+
+
+def _fan_in(shape) -> int:
+    """paddle_tpu's `_fan_in_out` fan-in: shape[0] of a (in, out) weight,
+    in_c x receptive field of an (out_c, in_c, kh, kw) kernel."""
+    if len(shape) == 0:
+        return 1
+    if len(shape) <= 2:
+        return shape[0]
+    return shape[1] * math.prod(shape[2:])
+
+
+class MSRA(Initializer):
+    """Kaiming (MSRAInitializer, paddle_tpu/fluid/initializer.py:167):
+    uniform in +-sqrt(6 / fan_in), or normal with std sqrt(2 / fan_in);
+    `fan_in` defaults to the shape's."""
+
+    def __init__(self, uniform: bool = True, fan_in: Optional[int] = None):
+        self.uniform, self.fan_in = uniform, fan_in
+
+    def __call__(self, shape, generator=None):
+        fan_in = self.fan_in if self.fan_in is not None else _fan_in(shape)
+        t = torch.empty(tuple(shape), dtype=torch.float32)
+        if self.uniform:
+            limit = math.sqrt(6.0 / fan_in)
+            return t.uniform_(-limit, limit, generator=generator)
+        return t.normal_(0.0, math.sqrt(2.0 / fan_in), generator=generator)

@@ -1,7 +1,12 @@
 """Layers of the port (counterpart of paddle_tpu/nn/layer)."""
 
-from .activation import GELU, ReLU, Tanh  # noqa: F401
-from .common import Dropout, Embedding, Linear  # noqa: F401
-from .norm import LayerNorm  # noqa: F401
+from torch.nn import Sequential  # noqa: F401  children named "0", "1", ...
+
+from .activation import GELU, ReLU, ReLU6, Tanh  # noqa: F401
+from .common import Dropout, Embedding, Flatten, Linear  # noqa: F401
+from .conv import Conv2D  # noqa: F401
+from .norm import BatchNorm, BatchNorm1D, BatchNorm2D, LayerNorm  # noqa: F401
+from .pooling import (AdaptiveAvgPool2D, AdaptiveMaxPool2D,  # noqa: F401
+                      AvgPool2D, MaxPool2D)
 from .transformer import (MultiHeadAttention,  # noqa: F401
                           TransformerEncoder, TransformerEncoderLayer)

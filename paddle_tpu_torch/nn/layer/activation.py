@@ -12,6 +12,11 @@ class ReLU(nn.Module):
         return F.relu(x)
 
 
+class ReLU6(nn.Module):
+    def forward(self, x):
+        return F.relu6(x)
+
+
 class GELU(nn.Module):
     def __init__(self, approximate: bool = False):
         super().__init__()

@@ -24,3 +24,47 @@ class LayerNorm(nn.Module):
 
     def extra_repr(self):
         return f"normalized_shape={self.normalized_shape}"
+
+
+class BatchNorm(nn.Module):
+    """Batch norm with paddle_tpu's parameters and buffers: `weight` (ones)
+    and `bias` (zeros), and the float32 running statistics `_mean`
+    (zeros) and `_variance` (ones), the reference's names, so state keys
+    such as `layer1.0.bn1._mean` line up.  Training updates them in place
+    with paddle_tpu's momentum rule (see `functional.batch_norm`)."""
+
+    def __init__(self, num_features, momentum=0.9, epsilon=1e-5,
+                 weight_attr=None, bias_attr=None, data_format="NCHW",
+                 use_global_stats=None):
+        super().__init__()
+        if weight_attr not in (None, False) or bias_attr not in (None,
+                                                                  False):
+            raise NotImplementedError("only None or False param attrs")
+        self._num_features = num_features
+        self._momentum, self._epsilon = momentum, epsilon
+        self._data_format = data_format
+        self._use_global_stats = use_global_stats
+        self.weight = None if weight_attr is False else nn.Parameter(
+            torch.ones(num_features))
+        self.bias = None if bias_attr is False else nn.Parameter(
+            torch.zeros(num_features))
+        self.register_buffer("_mean", torch.zeros(num_features))
+        self.register_buffer("_variance", torch.ones(num_features))
+
+    def forward(self, x):
+        return F.batch_norm(x, self._mean, self._variance, self.weight,
+                            self.bias, training=self.training,
+                            momentum=self._momentum, epsilon=self._epsilon,
+                            data_format=self._data_format,
+                            use_global_stats=self._use_global_stats)
+
+    def extra_repr(self):
+        return f"num_features={self._num_features}"
+
+
+class BatchNorm1D(BatchNorm):
+    pass
+
+
+class BatchNorm2D(BatchNorm):
+    pass

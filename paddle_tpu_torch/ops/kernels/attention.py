@@ -35,6 +35,7 @@ from typing import Optional
 
 import torch
 
+from ... import profiler
 from .build import LaunchCounter, check, library, sm_count as _sm_count
 
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
@@ -489,6 +490,16 @@ def _mask_as_key_bias(mask, batch, sk) -> Optional[torch.Tensor]:
     return torch.broadcast_to(m.to(torch.float32), (batch, sk))
 
 
+def _flash_takes(dtypes, head_dim: int) -> bool:
+    """Whether the flash kernels take q/k/v of these dtypes and head_dim:
+    bf16 and a head_dim in _KERNEL_HEAD_DIMS (the port's form of
+    paddle_tpu's `_flash_ok`, attention.py:828-841).  The reference's
+    Sq, Sk >= 128 condition is left out: it is a TPU speed heuristic, not
+    a limit of what the kernels compute."""
+    return (all(d == torch.bfloat16 for d in dtypes)
+            and head_dim in _KERNEL_HEAD_DIMS)
+
+
 def scaled_dot_product_attention(q, k, v, mask=None, is_causal=False,
                                  scale=None, dropout_p=0.0,
                                  dropout_seed=None):
@@ -496,12 +507,17 @@ def scaled_dot_product_attention(q, k, v, mask=None, is_causal=False,
     mask (any form constant over query and head dims, bool or additive)
     or no mask runs in the flash kernels as a key bias (their plain
     versions for CPU tensors); any other mask (per query, per head, or a
-    full (B, H, Sq, Sk) one) goes to `dense_attention`, the counterpart
-    of `_xla_attention`, on either device, as the reference computes such
-    masks outside its Pallas kernel.  q/k/v: (batch, seq, heads,
-    head_dim)."""
+    full (B, H, Sq, Sk) one), and a CUDA call the kernels do not take
+    (`_flash_takes`: not bf16, or another head_dim), go to
+    `dense_attention`, the counterpart of `_xla_attention`, as the
+    reference computes them outside its Pallas kernel.  Each call sent
+    there is counted as `attention_dispatch_dense`.  q/k/v: (batch, seq,
+    heads, head_dim)."""
     key_bias = _mask_as_key_bias(mask, q.shape[0], k.shape[1])
-    if mask is not None and key_bias is None:
+    if (mask is not None and key_bias is None) or (
+            q.is_cuda and not _flash_takes((q.dtype, k.dtype, v.dtype),
+                                           q.shape[-1])):
+        profiler.stat_add("attention_dispatch_dense")
         return dense_attention(q, k, v, mask=mask, is_causal=is_causal,
                                scale=scale, dropout_p=dropout_p,
                                dropout_seed=dropout_seed)

@@ -19,20 +19,40 @@ are plain functions of the shapes (and the card's SM count): how the
 forward, dW and dx kernels cut their work into CTAs, how many f32
 workspace splits the first two sum in a fixed order, and the bf16 dpre
 workspace that the dx pass writes once and reads back.
+
+`fused_ffn` dispatches as paddle_tpu's does (ffn.py:372-516): the
+kernels are opt-in.  By default it runs the library arm,
+`FFNLibraryFunction` (two cuBLAS products around `ffn_act_fwd`, the
+element pass of `csrc/ffn_act.cu`, and the products of the gradient
+around `ffn_act_bwd`), as the reference runs XLA dots by default.
+`enable_fused_ffn()` or `PADDLE_TPU_FUSED_FFN=1` (read at import, the
+reference's variable) opens the kernel arm for the shapes and dtypes the
+kernels take (`_ffn_arm`).  On CPU tensors each arm runs its plain
+version.
 """
 
 from __future__ import annotations
 
 import ctypes
+import os
 
 import torch
 
+from ... import profiler
 from .attention import _M32, _finalize, _mul32, _threshold
 from .build import LaunchCounter, check, library, sm_count as _sm_count
 
 FFN_FWD = LaunchCounter("ffn_fwd")
 FFN_BWD_DW = LaunchCounter("ffn_bwd_dw")
 FFN_BWD_DX = LaunchCounter("ffn_bwd_dx")
+FFN_ACT_FWD = LaunchCounter("ffn_act_fwd")
+FFN_ACT_BWD = LaunchCounter("ffn_act_bwd")
+
+# None: the kernel arm is open; else why it is closed (paddle_tpu's
+# `_FFN_DISABLED`, with its default and its variable)
+_FFN_DISABLED = (
+    None if os.environ.get("PADDLE_TPU_FUSED_FFN") == "1"
+    else "opt-in (paddle_tpu's default: the library arm)")
 
 _ACT_IDS = {"gelu": 0, "gelu_tanh": 1, "relu": 2}
 _KERNEL_HIDDEN = (128, 256, 512, 768, 1024)
@@ -205,7 +225,7 @@ def ffn_forward(x, w1, b1, w2, b2, activation="gelu", dropout_p=0.0,
                                  float(dropout_p), seed)
 
 
-# -- backward -------------------------------------------------------------------
+# -- backward -----------------------------------------------------------------
 
 def ffn_backward_reference(x, w1, b1, w2, b2, seed, g, activation="gelu",
                            dropout_p=0.0):
@@ -376,13 +396,187 @@ class FusedFFNFunction(torch.autograd.Function):
         return (*grads, None, None, None)
 
 
+# -- the library arm: cuBLAS products around one element pass -----------------
+
+def ffn_act_fwd_reference(pre, b1, activation="gelu", dropout_p=0.0,
+                          seed=0):
+    """Plain PyTorch version of `ffn_act_fwd`: h = drop(act(pre + b1)) in
+    f32, rounded once to pre's dtype; drop keeps a value where
+    `_ffn_keep(seed, 0, 0, T, F, p)` holds and divides it by 1 - p."""
+    a = _act(pre.float() + b1.float(), activation)
+    if dropout_p > 0.0:
+        keep = _ffn_keep(seed, 0, 0, pre.shape[0], pre.shape[1], dropout_p,
+                         device=pre.device)
+        a = torch.where(keep, a / (1.0 - dropout_p), torch.zeros_like(a))
+    return a.to(pre.dtype)
+
+
+def ffn_act_bwd_reference(pre, b1, dh, activation="gelu", dropout_p=0.0,
+                          seed=0):
+    """Plain PyTorch version of `ffn_act_bwd`: (dpre, h) with dpre =
+    drop(dh) * act'(pre + b1) in f32 and h as `ffn_act_fwd_reference`
+    gives it, each rounded once to pre's dtype."""
+    x = pre.float() + b1.float()
+    a, d = _act(x, activation), dh.float()
+    if dropout_p > 0.0:
+        keep = _ffn_keep(seed, 0, 0, pre.shape[0], pre.shape[1], dropout_p,
+                         device=pre.device)
+        a = torch.where(keep, a / (1.0 - dropout_p), torch.zeros_like(a))
+        d = torch.where(keep, d / (1.0 - dropout_p), torch.zeros_like(d))
+    return (d * _act_grad(x, activation)).to(pre.dtype), a.to(pre.dtype)
+
+
+# the element pass's dtype ids (csrc/ffn_act.cu)
+_ACT_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
+
+
+def _act_lib():
+    lib = library("ffn_act")
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    tail = [ci, ci, ci, ctypes.c_uint, ctypes.c_float, ctypes.c_uint, vp]
+    if lib.ffn_act_fwd.argtypes is None:
+        lib.ffn_act_fwd.argtypes = [ci] + [vp] * 3 + [ctypes.c_longlong] + tail
+        lib.ffn_act_fwd.restype = ci
+    if lib.ffn_act_bwd.argtypes is None:
+        lib.ffn_act_bwd.argtypes = [ci] + [vp] * 5 + [ctypes.c_longlong] + tail
+        lib.ffn_act_bwd.restype = ci
+    return lib
+
+
+def _act_operands(pre, b1, others, activation):
+    """Check the element pass's operands; (pre, b1, *others) contiguous."""
+    ts = (pre, b1, *others)
+    if pre.dtype not in _ACT_DTYPES or any(a.dtype != pre.dtype for a in ts):
+        raise NotImplementedError(
+            "ffn_act kernels take bf16 or f32 operands of one dtype, "
+            "got " + "/".join(str(a.dtype) for a in ts))
+    if activation not in _ACT_IDS:
+        raise NotImplementedError(activation)
+    if pre.ndim != 2 or b1.shape != (pre.shape[1],) or any(
+            a.shape != pre.shape for a in others):
+        raise ValueError("ffn_act operand shapes do not match pre (T, F)")
+    return tuple(a.contiguous() for a in ts)
+
+
+def _act_rng(dropout_p, seed):
+    drop = dropout_p > 0.0
+    return (int(drop), _threshold(dropout_p) if drop else 0,
+            float(1.0 - dropout_p), int(seed) & _M32)
+
+
+def ffn_act_fwd(pre, b1, activation="gelu", dropout_p=0.0, seed=0):
+    """h = drop(act(pre + b1)), (T, F): the kernel `ffn_act_fwd`
+    (csrc/ffn_act.cu) for CUDA tensors, the plain version for CPU
+    tensors (and nothing else for either)."""
+    if not pre.is_cuda:
+        return ffn_act_fwd_reference(pre, b1, activation, float(dropout_p),
+                                     seed)
+    pre, b1 = _act_operands(pre, b1, (), activation)
+    h = torch.empty_like(pre)
+    lib = _act_lib()
+    err = lib.ffn_act_fwd(
+        _ACT_DTYPES[pre.dtype], pre.data_ptr(), b1.data_ptr(), h.data_ptr(),
+        *pre.shape, _ACT_IDS[activation], *_act_rng(float(dropout_p), seed),
+        torch.cuda.current_stream(pre.device).cuda_stream)
+    check(lib, err, "ffn_act_fwd")
+    FFN_ACT_FWD.add()
+    return h
+
+
+def ffn_act_bwd(pre, b1, dh, activation="gelu", dropout_p=0.0, seed=0):
+    """(dpre, h): dpre = drop(dh) * act'(pre + b1) and the forward's h,
+    recomputed in the same pass: the kernel `ffn_act_bwd` for CUDA
+    tensors, the plain version for CPU tensors (and nothing else for
+    either)."""
+    if not pre.is_cuda:
+        return ffn_act_bwd_reference(pre, b1, dh, activation,
+                                     float(dropout_p), seed)
+    pre, b1, dh = _act_operands(pre, b1, (dh,), activation)
+    dpre, h = torch.empty_like(pre), torch.empty_like(pre)
+    lib = _act_lib()
+    err = lib.ffn_act_bwd(
+        _ACT_DTYPES[pre.dtype], pre.data_ptr(), b1.data_ptr(), dh.data_ptr(),
+        dpre.data_ptr(), h.data_ptr(), *pre.shape, _ACT_IDS[activation],
+        *_act_rng(float(dropout_p), seed),
+        torch.cuda.current_stream(pre.device).cuda_stream)
+    check(lib, err, "ffn_act_bwd")
+    FFN_ACT_BWD.add()
+    return dpre, h
+
+
+class FFNLibraryFunction(torch.autograd.Function):
+    """The library arm of `fused_ffn`, the counterpart of paddle_tpu's
+    non-kernel arm (ffn.py:506-516): pre = x @ W1 (cuBLAS, f32
+    accumulation, rounded to x's dtype), h = `ffn_act_fwd`(pre, b1), out
+    = h @ W2 + b2.  It saves pre, not h: the backward's `ffn_act_bwd`
+    recomputes h in the pass that forms dpre, for dW2 = h^T g; dW1 = x^T
+    dpre, dx = dpre W1^T, db1 and db2 are the column sums of dpre and g
+    in f32."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2, activation, dropout_p, seed):
+        pre = torch.matmul(x, w1)
+        h = ffn_act_fwd(pre, b1, activation, dropout_p, seed)
+        ctx.save_for_backward(x, w1, b1, w2, pre)
+        ctx.args = (activation, dropout_p, seed, b2.dtype)
+        return torch.addmm(b2, h, w2)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w1, b1, w2, pre = ctx.saved_tensors
+        activation, dropout_p, seed, b2_dtype = ctx.args
+        dpre, h = ffn_act_bwd(pre, b1, torch.matmul(g, w2.t()), activation,
+                              dropout_p, seed)
+        return (torch.matmul(dpre, w1.t()), torch.matmul(x.t(), dpre),
+                dpre.sum(0, dtype=torch.float32).to(b1.dtype),
+                torch.matmul(h.t(), g),
+                g.sum(0, dtype=torch.float32).to(b2_dtype), None, None, None)
+
+
+# -- the dispatch -------------------------------------------------------------
+
+def disable_fused_ffn(reason):
+    """Close the kernel arm: `fused_ffn` runs the library arm."""
+    global _FFN_DISABLED
+    _FFN_DISABLED = reason
+
+
+def enable_fused_ffn():
+    """Open the kernel arm for the shapes and dtypes the kernels take."""
+    global _FFN_DISABLED
+    _FFN_DISABLED = None
+
+
+def _ffn_arm(dtypes, h: int, f: int) -> str:
+    """"kernel" or "library": the arm `fused_ffn` takes, from the switch,
+    the operands' dtypes and the widths alone, before anything launches.
+    The kernel arm needs the switch open, bf16 x and weights, d_model in
+    the kernels' set and d_ff a whole number of their 64-column steps
+    (the port's form of the reference's H % 128 == 0, ffn.py:477)."""
+    if (_FFN_DISABLED is None
+            and all(d == torch.bfloat16 for d in dtypes)
+            and h in _KERNEL_HIDDEN and f > 0 and f % _BLOCK_F == 0):
+        return "kernel"
+    return "library"
+
+
 def fused_ffn(x, w1, b1, w2, b2, activation="gelu", dropout_p=0.0,
               dropout_seed=None):
     """dropout(act(x @ w1 + b1), p) @ w2 + b2 over any leading dims,
     differentiable in x and the four weights.  x: (..., H); w1 (H, F);
-    w2 (F, H).  Returns (..., H)."""
+    w2 (F, H).  Returns (..., H).
+
+    The arm comes from `_ffn_arm`: `FusedFFNFunction` (the kernels) or
+    `FFNLibraryFunction`; never chosen after a failure, so a kernel that
+    fails to build or launch raises.  Each call is counted as
+    `ffn_dispatch_kernel` or `ffn_dispatch_library` (the reference's
+    `ffn_dispatch_xla`)."""
     lead = x.shape[:-1]
     seed = 0 if dropout_seed is None else int(dropout_seed)
-    out = FusedFFNFunction.apply(x.reshape(-1, x.shape[-1]), w1, b1, w2, b2,
-                                 activation, float(dropout_p), seed)
+    arm = _ffn_arm((x.dtype, w1.dtype, b1.dtype, w2.dtype, b2.dtype),
+                   x.shape[-1], w1.shape[1])
+    profiler.stat_add(f"ffn_dispatch_{arm}")
+    fn = FusedFFNFunction if arm == "kernel" else FFNLibraryFunction
+    out = fn.apply(x.reshape(-1, x.shape[-1]), w1, b1, w2, b2, activation,
+                   float(dropout_p), seed)
     return out.reshape(*lead, x.shape[-1])

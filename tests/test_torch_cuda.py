@@ -56,11 +56,15 @@ TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq", "ffn_fwd",
 
 
 @pytest.fixture
-def cuda():
+def cuda(monkeypatch):
+    """Skips without a GPU.  Pins fused_ffn to its kernel arm (opt-in, as
+    in paddle_tpu), so the model paths here go on launching the FFN
+    kernels; the library arm's tests close it themselves."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (the kernels have no CPU mode)")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    monkeypatch.setattr(F, "_FFN_DISABLED", None)
     return torch.Generator().manual_seed(0)
 
 
@@ -289,10 +293,16 @@ def test_each_launch_is_counted_once(cuda):
     A.paged_attention(q[:, :1], pages, pages, rows, lens)
     A.ragged_paged_reference(rows, lens, q[:, :1], pages, pages,
                              lens[:, None] - 1, 0.125)
+    pre, b1 = _bf16(cuda, 8, 256), _bf16(cuda, 256)
+    F.ffn_act_fwd(pre, b1)
+    F.ffn_act_bwd(pre, b1, pre)
+    F.ffn_act_bwd(pre, b1, pre)
+    F.ffn_act_fwd_reference(pre, b1)
     assert {n: c.value for n, c in COUNTERS.items()} == {
         "flash_fwd": 2, "flash_bwd_dkv": 0, "flash_bwd_dq": 0,
         "ffn_fwd": 1, "ffn_bwd_dw": 0, "ffn_bwd_dx": 0, "ragged_paged": 1,
-        "probe_4d": 0, "probe_fold3d": 0, "probe_merged": 0}
+        "probe_4d": 0, "probe_fold3d": 0, "probe_merged": 0,
+        "ffn_act_fwd": 1, "ffn_act_bwd": 2}
 
 
 @pytest.mark.parametrize("t", [1, 16, 17, 63, 64, 65, 512, 1000, 4097])
@@ -993,3 +1003,144 @@ def test_probe_tool_on_the_card(cuda):
                 "per_call_ms_merged_incl_transpose", "per_call_ms_flash_fwd",
                 "per_call_ms_sdpa", "per_call_ms_merge_copies"):
         assert out[key] > 0
+
+
+# -- the FFN's library arm: the element pass (csrc/ffn_act.cu) -------------------
+
+# the element pass against its plain version: one unit in the last place
+# of the operand type, and an absolute 1e-5: act' takes the fast exp and
+# reciprocal (csrc/ffn_common.cuh), a few f32 units off the accurate form,
+# which |pre| up to 8 and |dh| up to 4 scale (3.1e-6 measured at
+# gelu_tanh)
+ACT_TOL = {torch.bfloat16: dict(atol=1e-5, rtol=2 ** -7),
+           torch.float32: dict(atol=1e-5, rtol=1e-5)}
+
+
+@pytest.mark.parametrize("t,f,act,p,dtype", [
+    (1, 3072, "gelu", 0.1, torch.bfloat16),
+    (17, 3072, "gelu_tanh", 0.1, torch.bfloat16),
+    (1000, 768, "relu", 0.1, torch.bfloat16),
+    (4096, 3072, "gelu", 0.0, torch.bfloat16),
+    (33, 100, "gelu", 0.1, torch.bfloat16),    # per-value path
+    (7, 36, "relu", 0.0, torch.bfloat16),
+    (64, 128, "gelu", 0.1, torch.float32),
+    (37, 130, "gelu_tanh", 0.1, torch.float32)])
+def test_ffn_act_matches_plain(cuda, t, f, act, p, dtype):
+    pre = (torch.randn(t, f, generator=cuda) * 2.0).to("cuda", dtype)
+    b1 = (torch.randn(f, generator=cuda) * 0.1).to("cuda", dtype)
+    dh = torch.randn(t, f, generator=cuda).to("cuda", dtype)
+    h = F.ffn_act_fwd(pre, b1, act, p, 31)
+    dpre, h2 = F.ffn_act_bwd(pre, b1, dh, act, p, 31)
+    _close(h, F.ffn_act_fwd_reference(pre, b1, act, p, 31), ACT_TOL[dtype])
+    _close(dpre, F.ffn_act_bwd_reference(pre, b1, dh, act, p, 31)[0],
+           ACT_TOL[dtype])
+    assert torch.equal(h, h2) and torch.equal(h, F.ffn_act_fwd(
+        pre, b1, act, p, 31))
+    if p > 0.0:
+        drop = ~F._ffn_keep(31, 0, 0, t, f, p, device=pre.device)
+        assert not h[drop].any() and not dpre[drop].any()
+
+
+@pytest.mark.parametrize("seed", [0, 12345, 2 ** 31 - 1])
+def test_ffn_act_mask_is_ffn_keep_bit_for_bit(cuda, seed):
+    t, f, p = 300, 3072, 0.1
+    pre = torch.full((t, f), 3.0, dtype=torch.bfloat16, device="cuda")
+    zero = torch.zeros(f, dtype=torch.bfloat16, device="cuda")
+    keep = F._ffn_keep(seed, 0, 0, t, f, p, device=pre.device)
+    assert torch.equal(F.ffn_act_fwd(pre, zero, "relu", p, seed) != 0, keep)
+    dpre, _ = F.ffn_act_bwd(pre, zero, torch.ones_like(pre), "relu", p, seed)
+    assert torch.equal(dpre != 0, keep)
+
+
+def test_ffn_act_refuses_what_it_cannot_compute(cuda):
+    pre = _bf16(cuda, 4, 64)
+    with pytest.raises(NotImplementedError, match="one dtype"):
+        F.ffn_act_fwd(pre, pre[0].float())
+    with pytest.raises(NotImplementedError, match="bf16 or f32"):
+        F.ffn_act_fwd(pre.half(), pre[0].half())
+    with pytest.raises(NotImplementedError):
+        F.ffn_act_fwd(pre, pre[0], "swish")
+    with pytest.raises(ValueError):
+        F.ffn_act_bwd(pre, pre[0], pre[:2])
+
+
+def test_library_arm_launches_the_element_pass(cuda, monkeypatch):
+    """The default arm on the card: no FFN kernel, one launch of each
+    element pass, and the same function as the kernels' plain version."""
+    monkeypatch.setattr(F, "_FFN_DISABLED", "the reference's default")
+    for c in COUNTERS.values():
+        c.reset()
+    x = _bf16(cuda, 2, 40, 768).requires_grad_()
+    ws = [_bf16(cuda, 768, 3072, scale=0.03), _bf16(cuda, 3072, scale=0.1),
+          _bf16(cuda, 3072, 768, scale=0.03), _bf16(cuda, 768, scale=0.1)]
+    for w in ws:
+        w.requires_grad_()
+    out = F.fused_ffn(x, *ws, dropout_p=0.1, dropout_seed=4)
+    g = _bf16(cuda, 2, 40, 768)
+    grads = torch.autograd.grad(out, [x, *ws], g)
+    assert {n: c.value for n, c in COUNTERS.items()} == {
+        n: int(n in ("ffn_act_fwd", "ffn_act_bwd")) for n in COUNTERS}
+    xt = x.detach().reshape(80, 768)
+    _close(out.reshape(80, 768), F.ffn_forward_reference(
+        xt, *ws, "gelu", 0.1, 4), BF16)
+    want = F.ffn_backward_reference(xt, *ws, 4, g.reshape(80, 768), "gelu",
+                                    0.1)
+    _close_grad(grads[0].reshape(80, 768), want[0])
+    for got, w in zip(grads[1:], want[1:]):
+        _close_grad(got, w)
+
+
+def test_f32_and_odd_widths_take_the_dense_and_library_arms(cuda):
+    """What the kernels do not take (f32, d_model 64, head_dim 48) runs on
+    the card through dense_attention and the FFN's library arm, as the
+    reference sends it to XLA."""
+    from paddle_tpu_torch import profiler
+
+    for c in COUNTERS.values():
+        c.reset()
+    profiler.stat_reset("attention_dispatch_dense")
+    q = torch.randn(2, 32, 2, 48, generator=cuda).cuda()
+    out = A.scaled_dot_product_attention(q, q, q)
+    ref = A.dense_attention(q.cpu(), q.cpu(), q.cpu())
+    torch.testing.assert_close(out.cpu(), ref, atol=1e-5, rtol=1e-5)
+    assert profiler.get_int_stats()["attention_dispatch_dense"] == 1
+    assert all(c.value == 0 for c in COUNTERS.values())
+    cfg = bert.BertConfig.tiny()
+    gpu = bert.BertModel(cfg, seed=1).eval()
+    cpu = bert.BertModel(cfg, device="cpu", seed=1).eval()
+    fb = bert.fake_batch(cfg, 2, 64, seed=3)
+    ids, tt = (torch.from_numpy(fb[k]) for k in ("input_ids",
+                                                 "token_type_ids"))
+    am = (torch.from_numpy(fb["attention_mask"]) != 0)[:, None, None, :]
+    with torch.inference_mode():
+        g_enc, _ = gpu(ids.cuda(), tt.cuda(), attention_mask=am.cuda())
+        c_enc, _ = cpu(ids, tt, attention_mask=am)
+    torch.testing.assert_close(g_enc.cpu(), c_enc, atol=1e-4, rtol=1e-4)
+    assert COUNTERS["ffn_act_fwd"].value == cfg.num_hidden_layers
+
+
+def test_resnet18_train_step_on_the_card_matches_the_cpu(cuda):
+    """One f32 step of vision.train.build_train_step on the card (cuDNN,
+    channels_last) against the CPU: the loss and running statistics
+    within 1e-4 (cuDNN's other summation orders; with TF32 on, the H100
+    reads 8.2e-4 in the running statistics of this model), parameters
+    within 1e-3 after the step at lr 0.01 (a ReLU flip moves a gradient
+    term, lr times that a parameter)."""
+    from paddle_tpu_torch.vision import models as VM
+    from paddle_tpu_torch.vision import train as VT
+
+    rng = np.random.RandomState(1)
+    x = rng.randn(4, 3, 64, 64).astype("float32")
+    y = rng.randint(0, 10, 4)
+    runs = []
+    for dev in ("cuda", "cpu"):
+        model = VM.resnet18(num_classes=10, device=dev, seed=2)
+        step, state = VT.build_train_step(model, lr=0.01, bf16=False)
+        state, loss = step(state, x, y)
+        runs.append((float(loss), {k: v.cpu()
+                                   for k, v in state["params"].items()}))
+    assert abs(runs[0][0] - runs[1][0]) <= 1e-4 * abs(runs[1][0])
+    for k, v in runs[1][1].items():
+        tol = 1e-4 if k.endswith(("._mean", "._variance")) else 1e-3
+        torch.testing.assert_close(runs[0][1][k], v, atol=tol, rtol=tol,
+                                   msg=k)

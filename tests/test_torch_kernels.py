@@ -285,14 +285,15 @@ def _ffn_inputs(seed, t=128, h=128, f=256):
 @pytest.mark.parametrize("activation,p", [
     ("gelu", 0.0), ("gelu_tanh", 0.0), ("relu", 0.0), ("gelu", 0.1)])
 def test_ffn_reference_matches_pallas_interpret(activation, p):
+    """The kernel arm, `FusedFFNFunction` (on CPU tensors the kernels'
+    plain versions), against the Pallas kernel in interpret mode."""
     x, w1, b1, w2, b2 = _ffn_inputs(11)
     seed = 31337
     want = np.asarray(JF.fused_ffn(
         x, w1, b1, w2, b2, activation=activation, dropout_p=p,
         dropout_seed=jnp.array([seed], jnp.int32), interpret=True))
-    got = TF.fused_ffn(*map(_t, (x, w1, b1, w2, b2)),
-                       activation=activation, dropout_p=p,
-                       dropout_seed=seed)
+    got = TF.FusedFFNFunction.apply(*map(_t, (x, w1, b1, w2, b2)),
+                                    activation, p, seed)
     np.testing.assert_allclose(got.numpy(), want, atol=FFN_ATOL, rtol=0)
 
 
@@ -322,7 +323,10 @@ def test_cpu_tensors_take_the_plain_version_without_launching():
     TA.flash_attention(q, k, v).sum().backward()
     x, w1, b1, w2, b2 = (_t(a).requires_grad_()
                          for a in _ffn_inputs(14, t=16, h=16, f=32))
-    TF.fused_ffn(x, w1, b1, w2, b2).sum().backward()
+    TF.FusedFFNFunction.apply(x, w1, b1, w2, b2, "gelu", 0.1, 3).sum() \
+        .backward()
+    TF.FFNLibraryFunction.apply(x, w1, b1, w2, b2, "gelu", 0.1, 3).sum() \
+        .backward()
     pages = _t(np.random.RandomState(15).randn(4, 8, 2, 16).astype("f4"))
     TA.paged_attention(q[:, :1].detach(), pages, pages,
                        torch.tensor([[1, 2]], dtype=torch.int32),
@@ -331,7 +335,8 @@ def test_cpu_tensors_take_the_plain_version_without_launching():
     assert {n: c.value for n, c in COUNTERS.items()} == {
         "flash_fwd": 0, "flash_bwd_dkv": 0, "flash_bwd_dq": 0,
         "ffn_fwd": 0, "ffn_bwd_dw": 0, "ffn_bwd_dx": 0, "ragged_paged": 0,
-        "probe_4d": 0, "probe_fold3d": 0, "probe_merged": 0}
+        "probe_4d": 0, "probe_fold3d": 0, "probe_merged": 0,
+        "ffn_act_fwd": 0, "ffn_act_bwd": 0}
 
 
 def test_build_without_nvcc_raises(tmp_path, monkeypatch):
@@ -354,7 +359,7 @@ class _NoCudaPath(type(build.CSRC)):
 def test_kernel_sources_are_present():
     assert {p.stem for p in build.CSRC.glob("*.cu")} == {
         "flash_fwd", "flash_bwd", "ffn_fwd", "ffn_bwd", "ragged_paged",
-        "probe4d"}
+        "probe4d", "ffn_act"}
 
 
 def test_launch_counter_loses_no_update_across_threads():
@@ -473,17 +478,16 @@ def test_flash_function_backward_matches_autograd(causal, p):
 @pytest.mark.parametrize("activation,p", [("gelu", 0.0), ("relu", 0.1),
                                           ("gelu_tanh", 0.1)])
 def test_ffn_function_backward_matches_autograd(activation, p):
+    """`FusedFFNFunction`'s backward (the kernels' plain versions on CPU
+    tensors) against autograd of the plain forward."""
     ts = [_t(a).requires_grad_() for a in _ffn_inputs(44, t=2 * 24, h=32,
                                                       f=64)]
-    x3 = ts[0].view(2, 24, 32)
-    g = _t(_rand(np.random.default_rng(45), 2, 24, 32))
-    out = TF.fused_ffn(x3, *ts[1:], activation=activation, dropout_p=p,
-                       dropout_seed=5)
+    g = _t(_rand(np.random.default_rng(45), 48, 32))
+    out = TF.FusedFFNFunction.apply(*ts, activation, p, 5)
     got = torch.autograd.grad(out, ts, g)
     ref = TF.ffn_forward_reference(ts[0], *ts[1:], activation, p, 5)
-    want = torch.autograd.grad(ref, ts, g.view(48, 32))
-    np.testing.assert_array_equal(out.detach().numpy().reshape(48, 32),
-                                  ref.detach().numpy())
+    want = torch.autograd.grad(ref, ts, g)
+    np.testing.assert_array_equal(out.detach().numpy(), ref.detach().numpy())
     for gt, w in zip(got, want):
         np.testing.assert_allclose(gt.numpy(), w.numpy(), atol=GRAD_ATOL,
                                    rtol=0)
