@@ -2,8 +2,9 @@
 kernels, hold each against its plain PyTorch version at BERT-base shapes,
 serve BERT-base through serving.Engine, decode with BERT-base as a causal
 decoder through serving.AutoregressiveEngine, take BERT-base pretraining
-steps on both arms of the fused FFN, train ResNet-50, and check what
-comes out.
+steps on both arms of the fused FFN, train ResNet-50 eagerly and as a
+Fluid static-graph program through fluid.Executor, and check what comes
+out.
 
     python3 chip_smoke.py
 
@@ -34,7 +35,10 @@ Phases, in order (any failure exits non-zero and prints no result):
               bound logged; the element pass of the FFN's library arm
               (ffn_act_fwd, ffn_act_bwd) at bf16 and f32, its vector and
               per-value paths, the dropout mask bit for bit, timed at
-              T=16384, F=3072 beside its bound
+              T=16384, F=3072 beside its bound; paged_attention in f32
+              at head_dim 80 (inputs the ragged kernel does not take):
+              the dense arm, each call counted as
+              serving_ragged_fallback_total, no ragged launch
   4. probe    the layout probe (paddle_tpu_torch.tools.kernel4d_probe) at
               its defaults, B=8, S=512, H=12, D=64: the three layout kernels
               (4d, fold3d, merged) checked against its reference and timed
@@ -61,8 +65,9 @@ Phases, in order (any failure exits non-zero and prints no result):
               decodes, run until idle.  Checks: exact token counts, each
               token's logit within DECODE_LOGIT_TOL of the largest logit
               of a dense causal forward of its prefix (teacher forcing),
-              every page freed, one device->host sync per retirement, and
-              exact launch counts of every kernel
+              every page freed, one device->host sync per retirement,
+              exact launch counts of every kernel, and 0 calls sent to
+              the dense paged arm
   7. train    (the FFN's kernel arm, enable_fused_ffn(), pinned in
               main() for phases 3-9 and 12)
               build_pretrain_step on BertForPretraining(BertConfig.base())
@@ -91,6 +96,20 @@ Phases, in order (any failure exits non-zero and prints no result):
               memory, one step profiled; then resnet18 in f32 on the card
               against the CPU (and the same step with TF32 on, read only,
               to show what the tolerance would let through)
+ 13. fluid    the Fluid static graph: BASELINE.json configs[1]'s program
+              (models/resnet.build_train_program at its defaults:
+              ResNet-50, 1000 classes, B=128, 224^2, f32 as declared,
+              Momentum lr 0.1 + L2Decay 1e-4) built with the port's
+              fluid, its startup program run on the card, then through
+              fluid.Executor(): 1 warm-up and FLUID_TIMED steps timed by
+              CUDA events with return_numpy=False under
+              set_sync_debug_mode("error"), more to step FLUID_STEPS + 1;
+              finite losses falling by then (the whole curve printed),
+              finite velocities, moved running statistics, exact op and
+              run counts, 0 syncs, no hand-written kernel launched; step
+              ms, images/s, MFU, host dispatch an op, peak memory, one
+              step profiled; then static resnet18 on the card against
+              the CPU Executor, and MNIST (configs[0], Adam)
 
 The last two lines of stdout are a {"kernels": [...]} summary and the
 {"ok": true, "device": {...}} result.  Needs CUDA; imports nothing of JAX
@@ -208,6 +227,26 @@ RESNET_LR, RESNET_MOMENTUM = 0.1, 0.9
 # (tests/test_torch_resnet.py measured up to 0.87 % on the CPU alone)
 RESNET_TOL = dict(atol=1e-4, rtol=1e-4)
 RESNET_KINK = 2e-2
+# the static graph (phase 13): BASELINE.json configs[1] at its defaults,
+# models/resnet.build_train_program(depth=50, class_num=1000, 224^2,
+# batch 128): f32 as declared (TF32 off), Momentum lr 0.1, momentum 0.9,
+# L2Decay 1e-4.  20 steps timed; the falling-loss check is read at step
+# 51, past the swings of a one-batch curve at lr 0.1 (the resnet phase)
+FLUID_BATCH, FLUID_HW, FLUID_CLASSES = 128, 224, 1000
+FLUID_TIMED, FLUID_STEPS = 20, 50
+# float32 rates of one H100 SXM outside the tensor cores (the f32 program
+# with TF32 off runs there)
+PEAK_F32_FLOPS = 67e12
+# resnet18 (width 8, B=8, 32 x 32) through the port's Executor on the
+# card against its CPU Executor, each step from the CPU's state: the
+# loss within FLUID_LOSS_RTOL (a forward of the same state in two
+# summation orders), every float state var (parameters, velocities, BN
+# running statistics) within RESNET_KINK in relative L2, elements under
+# 1e-6 counted as 1e-6 (a ReLU kink flip moves a whole gradient term; a
+# bias in front of a batch norm has an exact gradient of 0)
+FLUID_LOSS_RTOL = 1e-4
+# MNIST (configs[0], Adam lr 1e-3) on one batch of 64
+MNIST_BATCH, MNIST_STEPS = 64, 8
 # the decode configuration: pages, slots, buckets (the pool is 12 x 513
 # x 16 x 768 x 2 B x 2, about 303 MB)
 PAGE_SIZE, NUM_PAGES, SLOTS, ROW_PAGES = 16, 513, 16, 32
@@ -736,6 +775,48 @@ def _ragged_case(c, name):
                 bytes=nbytes, plan=brief)
 
 
+def _paged_dense_arm(g, calls=3):
+    """paged_attention on inputs the ragged kernel does not take (f32,
+    head_dim 80, pages of 16): every call goes to the dense arm
+    (`dense_paged_attention`, then `dense_attention`), is counted once as
+    serving_ragged_fallback_total, launches no ragged kernel, and agrees
+    with the kernel's plain version on the lanes inside their sequence
+    (f32 against f32: summation order only)."""
+    lengths = [0, 17, 100, 255]
+    c = _paged_inputs(g, lengths, 1, h=4, d=80, layers=None)
+    q, kp, vp = (c[k].float() for k in ("q", "kc", "vc"))
+    before = profiler.get_int_stats()
+    ragged0 = COUNTERS["ragged_paged"].value
+    outs = [A.paged_attention(q, kp, vp, c["rows"], c["lens"])
+            for _ in range(calls)]
+    torch.cuda.synchronize()
+    after = profiler.get_int_stats()
+    fell = after.get("serving_ragged_fallback_total", 0) \
+        - before.get("serving_ragged_fallback_total", 0)
+    dense = after.get("attention_dispatch_dense", 0) \
+        - before.get("attention_dispatch_dense", 0)
+    if fell != calls or dense != calls \
+            or COUNTERS["ragged_paged"].value != ragged0:
+        raise AssertionError(f"dense paged arm: {fell} fallbacks and "
+                             f"{dense} dense attentions counted in {calls} "
+                             f"calls, ragged launches "
+                             f"{COUNTERS['ragged_paged'].value - ragged0}")
+    qpos = c["lens"].long()[:, None] - 1
+    ref = A.ragged_paged_reference(c["rows"], c["lens"], q, kp, vp, qpos,
+                                   80 ** -0.5)
+    valid = c["lens"] > 0
+    ok, err = close(outs[0][valid], ref[valid], atol=1e-5, rtol=1e-5)
+    if not ok or not all(torch.equal(o, outs[0]) for o in outs):
+        raise AssertionError(f"dense paged arm disagrees with the plain "
+                             f"version: {err}")
+    log(f"paged_attention f32 D=80 (not the ragged kernel's): {calls} calls"
+        f", {fell} counted fallbacks, {dense} dense attentions, 0 ragged "
+        f"launches; err {err:.3g} against the plain version")
+    return dict(calls=calls, fallbacks=fell, max_abs_err=err,
+                shape="q (4,1,4,80) f32, pages (P,16,4,80), lengths "
+                      f"{lengths}")
+
+
 def _ragged_row(g):
     """The ragged paged-attention kernel at the decode path's two shapes,
     one for each of its paths: (a) a decode step (the split path), B=16,
@@ -764,7 +845,8 @@ def _ragged_row(g):
         chunk_ms=bc["ms"], chunk_plain_ms=bc["plain_ms"],
         chunk_library_ms=bc["library_ms"], chunk_bound_ms=bc["bound_ms"],
         chunk_bound_by=bc["bound_by"], plan=a["plan"], chunk_plan=bc["plan"],
-        workspace_bytes=4 * a["plan"]["workspace"], tolerance=BF16_TOL)
+        workspace_bytes=4 * a["plan"]["workspace"], tolerance=BF16_TOL,
+        dense_arm=_paged_dense_arm(g))
 
 
 def _flash_backward_rows(g):
@@ -1570,6 +1652,9 @@ def decode(kernel_rows):
         f"prefills {single}: launches wanted {want}")
     if launches != want:
         raise AssertionError(f"launches {launches} != {want}")
+    if stats.get("serving_ragged_fallback_total", 0):
+        raise AssertionError("the decode path sent paged attention to the "
+                             "dense arm")
     worst, agree, total = 0.0, 0, 0
     with torch.inference_mode():
         for prompt, toks in zip(prompts, results):
@@ -2045,6 +2130,261 @@ def resnet():
     return launches
 
 
+def _fluid_state_errors(card_scope, cpu_scope):
+    """Relative L2 error of every float var of the card's scope against
+    the CPU's, an all-noise var counted as 1e-6 an element."""
+    out = {}
+    for n in cpu_scope.local_var_names():
+        want = cpu_scope.get(n).double()
+        if not want.is_floating_point():
+            continue
+        got = card_scope.get(n).double().cpu()
+        floor = 1e-6 * max(want.numel(), 1) ** 0.5
+        out[n] = float((got - want).norm()) / max(float(want.norm()), floor)
+    return out
+
+
+def _fluid_cpu_check(fluid, R):
+    """resnet18 (width 8, B=8, 32 x 32, the default Momentum + L2Decay)
+    on the card's Executor against the CPU's, from the same startup
+    values, 3 steps, each from the CPU's state: the loss within
+    FLUID_LOSS_RTOL, every float state var within RESNET_KINK."""
+    from paddle_tpu_torch.convert import load_jax_scope
+    from paddle_tpu_torch.fluid import unique_name
+
+    with unique_name.guard():
+        main, startup, _, fetches = R.build_train_program(
+            depth=18, class_num=10, image_shape=(3, 32, 32), batch_size=8,
+            width=8)
+    rng = np.random.RandomState(0)
+    feed = {"image": rng.rand(8, 3, 32, 32).astype("float32"),
+            "label": rng.randint(0, 10, (8, 1)).astype("int64")}
+    gpu, cpu = fluid.Executor(), fluid.Executor(fluid.CPUPlace())
+    gs, cs = fluid.Scope(), fluid.Scope()
+    gpu.run(startup, scope=gs)
+    cpu.run(startup, scope=cs)
+    load_jax_scope(cs, {n: gs.get(n).cpu().numpy()
+                        for n in gs.local_var_names()})
+    worst_loss, worst_state, losses = 0.0, {}, []
+    for i in range(3):
+        load_jax_scope(gs, {n: cs.get(n).numpy()
+                            for n in cs.local_var_names()})
+        g_loss, g_acc = gpu.run(main, feed=feed, fetch_list=fetches,
+                                scope=gs)
+        c_loss, c_acc = cpu.run(main, feed=feed, fetch_list=fetches,
+                                scope=cs)
+        rel = abs(float(g_loss) - float(c_loss)) / abs(float(c_loss))
+        worst_loss = max(worst_loss, rel)
+        losses.append((float(g_loss), float(c_loss)))
+        for n, e in _fluid_state_errors(gs, cs).items():
+            worst_state[n] = max(worst_state.get(n, 0.0), e)
+        if not rel <= FLUID_LOSS_RTOL or not np.isfinite(float(g_loss)):
+            raise AssertionError(f"resnet18 step {i}: card loss {g_loss} vs "
+                                 f"CPU {c_loss}")
+    name, err = max(worst_state.items(), key=lambda kv: kv[1])
+    if err > RESNET_KINK:
+        raise AssertionError(f"resnet18 static: {name} relative L2 {err}")
+    log(f"static resnet18 (width 8, B=8, f32): card vs CPU Executor over 3 "
+        f"steps from the same state: losses {losses}, worst loss error "
+        f"{worst_loss:.3g} (limit {FLUID_LOSS_RTOL}), worst state var "
+        f"{name} {err:.3g} (limit {RESNET_KINK}) of {len(worst_state)}")
+    # the Executor's own host time an op, where the device waits on the
+    # host: this small program's steps, fed from the card
+    dev_feed = {k: torch.from_numpy(v).cuda() for k, v in feed.items()}
+    n_ops = len(main.global_block().ops)
+
+    def step():
+        return gpu.run(main, feed=dev_feed, fetch_list=fetches, scope=gs,
+                       return_numpy=False)
+
+    step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        step()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / 10
+    log(f"static resnet18 step on the card, host-bound: {host_ms:.3f} ms "
+        f"for {n_ops} ops, {1e3 * host_ms / n_ops:.1f} us an op (host "
+        f"clock, 10 steps)")
+    return dict(worst_loss_rel=worst_loss, worst_state=name,
+                worst_state_rel_l2=err, losses=losses,
+                host_bound_step_ms=host_ms, ops_per_step=n_ops,
+                host_us_per_op=1e3 * host_ms / n_ops)
+
+
+def _fluid_mnist(fluid):
+    """BASELINE configs[0] (models/mnist.py, Adam lr 1e-3) on the card:
+    MNIST_STEPS steps on one batch, finite and falling."""
+    from paddle_tpu_torch.fluid import unique_name
+    from paddle_tpu_torch.models import mnist
+
+    with unique_name.guard():
+        main, startup, _, fetches = mnist.build_train_program()
+    rng = np.random.RandomState(0)
+    feed = {"img": torch.from_numpy(rng.rand(MNIST_BATCH, 1, 28, 28)
+                                    .astype("float32")).cuda(),
+            "label": torch.from_numpy(rng.randint(0, 10, (MNIST_BATCH, 1))
+                                      .astype("int64")).cuda()}
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(startup, scope=scope)
+    out = [exe.run(main, feed=feed, fetch_list=fetches, scope=scope,
+                   return_numpy=False)[0] for _ in range(MNIST_STEPS)]
+    losses = [float(v) for v in out]
+    log(f"static MNIST (Adam) B={MNIST_BATCH}: losses "
+        f"{' '.join(f'{v:.4f}' for v in losses)}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError("MNIST losses are not finite and falling")
+    return losses
+
+
+@phase("fluid")
+def fluid_resnet():
+    """The Fluid static graph: BASELINE configs[1]'s train program
+    (models/resnet.build_train_program at its defaults: ResNet-50, 1000
+    classes, 224^2, B=128, Momentum lr 0.1 + L2Decay 1e-4, f32) built
+    with the port's fluid, its startup run on the card, then 1 warm-up
+    and FLUID_TIMED steps timed by CUDA events under
+    set_sync_debug_mode("error") with return_numpy=False, and more steps
+    to step FLUID_STEPS + 1 where the falling loss is read; one step
+    profiled.  Then resnet18 on the card against the CPU Executor, and
+    MNIST with Adam."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid import unique_name
+    from paddle_tpu_torch.models import resnet as R
+
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.benchmark = True
+    t0 = time.perf_counter()
+    with unique_name.guard():
+        main, startup, feeds, fetches = R.build_train_program(
+            depth=50, class_num=FLUID_CLASSES,
+            image_shape=(3, FLUID_HW, FLUID_HW), batch_size=FLUID_BATCH)
+    block = main.global_block()
+    n_ops = len(block.ops)
+    params = [p for p in main.all_parameters() if p.trainable]
+    n_params = sum(int(np.prod(p.shape)) for p in params)
+    built_s = time.perf_counter() - t0
+    exe, scope = fluid.Executor(), fluid.Scope()
+    t0 = time.perf_counter()
+    exe.run(startup, scope=scope)
+    torch.cuda.synchronize()
+    startup_s = time.perf_counter() - t0
+    stats = [n for n in scope.local_var_names()
+             if n.endswith((".w_1", ".w_2")) and n.startswith("batch_norm")]
+    stats0 = {n: scope.get(n).clone() for n in stats}
+    rng = np.random.RandomState(0)
+    feed = {"image": torch.from_numpy(rng.randn(
+                FLUID_BATCH, 3, FLUID_HW, FLUID_HW).astype("float32")).cuda(),
+            "label": torch.from_numpy(rng.randint(
+                0, FLUID_CLASSES, (FLUID_BATCH, 1)).astype("int64")).cuda()}
+    log(f"static resnet50: {len(params)} parameters ({n_params / 1e6:.2f} "
+        f"M), {len(stats)} running statistics, {n_ops} ops a step "
+        f"(program built in {built_s:.1f} s, startup run on the card in "
+        f"{startup_s:.2f} s); B={FLUID_BATCH} {FLUID_HW}x{FLUID_HW} f32, "
+        f"Momentum lr 0.1 + L2Decay 1e-4")
+
+    def run():
+        return exe.run(main, feed=feed, fetch_list=fetches, scope=scope,
+                       return_numpy=False)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    profiler.stat_reset()
+    profiler.time_reset()
+    for c in COUNTERS.values():
+        c.reset()
+    # -- the main path: counters at 0 before, read right after --------------
+    out = []
+    t0 = time.perf_counter()
+    out.append(run())  # warm-up (cuDNN's algorithm search)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    dispatch0 = profiler.get_time_stats().get("dispatch_ms", 0.0)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        h0 = time.perf_counter()
+        e0.record()
+        for _ in range(FLUID_TIMED):
+            out.append(run())
+        e1.record()
+        host_s = time.perf_counter() - h0
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    timed_stats = profiler.get_int_stats()
+    dispatch_ms = profiler.get_time_stats()["dispatch_ms"] - dispatch0
+    for _ in range(FLUID_STEPS - FLUID_TIMED):
+        out.append(run())
+    torch.cuda.synchronize()
+    mem = torch.cuda.max_memory_allocated()
+    launches = {n: c.value for n, c in COUNTERS.items()}
+    stats_all = profiler.get_int_stats()
+    # ------------------------------------------------------------------------
+    step_ms = e0.elapsed_time(e1) / FLUID_TIMED
+    host_ms = host_s * 1e3 / FLUID_TIMED
+    losses = [float(o[0]) for o in out]
+    accs = [float(o[1]) for o in out]
+    log(f"losses: {' '.join(f'{v:.4f}' for v in losses)}")
+    _expect_launches(launches, 0, (), f"{len(out)} static ResNet steps")
+    if timed_stats.get("executor_sync_count", 0):
+        raise AssertionError(f"{timed_stats['executor_sync_count']} syncs "
+                             f"counted in the timed steps")
+    want_ops = n_ops * len(out)
+    if stats_all.get("executor_op_count") != want_ops \
+            or stats_all.get("executor_run_count") != len(out) \
+            or stats_all.get("executor_compile_count") != 1:
+        raise AssertionError(f"executor counters {stats_all} (want "
+                             f"{want_ops} ops in {len(out)} runs, 1 build)")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError("static ResNet losses are not finite and "
+                             "falling")
+    vel = [n for n in scope.local_var_names() if n.endswith("_velocity_0")]
+    if len(vel) != len(params) or not all(
+            bool(torch.isfinite(scope.get(n)).all()) for n in vel):
+        raise AssertionError("a velocity is missing or not finite")
+    moved = sum(not torch.equal(scope.get(n), stats0[n]) for n in stats)
+    if moved != len(stats) or not all(
+            bool(torch.isfinite(scope.get(n)).all()) for n in stats):
+        raise AssertionError(f"only {moved} of {len(stats)} running "
+                             f"statistics moved (or one is not finite)")
+    flops = 3 * VT.resnet50_fwd_flops(FLUID_BATCH, FLUID_HW, FLUID_CLASSES)
+    summary = dict(
+        step_ms=step_ms, host_step_ms=host_ms,
+        host_dispatch_ms_per_op=dispatch_ms / FLUID_TIMED / n_ops,
+        images_per_s=FLUID_BATCH / (step_ms / 1e3), step_flops=flops,
+        mfu_bf16_peak=flops / (step_ms / 1e3) / PEAK_BF16_FLOPS,
+        mfu_f32_peak=flops / (step_ms / 1e3) / PEAK_F32_FLOPS,
+        ops_per_step=n_ops, parameters=n_params, warmup_step_s=warm_s,
+        startup_s=startup_s, max_memory_allocated_bytes=mem,
+        losses=losses, accuracies=accs, syncs_in_timed_steps=0,
+        cudnn_benchmark=True)
+    log(f"static resnet50 train step B={FLUID_BATCH} f32: {step_ms:.3f} ms "
+        f"(CUDA events; host clock {host_ms:.3f} ms, dispatch "
+        f"{summary['host_dispatch_ms_per_op'] * 1e3:.1f} us an op over "
+        f"{n_ops} ops, waits on the device included), "
+        f"{summary['images_per_s']:.1f} images/s, MFU "
+        f"{100 * summary['mfu_bf16_peak']:.2f}% of 989 TFLOP/s "
+        f"({100 * summary['mfu_f32_peak']:.2f}% of the 67 TFLOP/s f32 "
+        f"peak; {flops / 1e12:.3f} TFLOP a step), warm-up step "
+        f"{warm_s:.2f} s, max_memory_allocated {mem / 2 ** 30:.2f} GiB; "
+        f"0 syncs in {FLUID_TIMED} steps (sync debug mode 'error')")
+    busy, wall, top = _profile(lambda: run()[0].torch(), top=12)
+    summary.update(profiled_busy_ms=busy, profiled_wall_ms=wall,
+                   profiled_idle=max(0.0, 1 - busy / wall),
+                   top_kernels=[dict(name=k[:90], ms=ms, count=n)
+                                for k, ms, n in top])
+    del out, feed, scope, exe
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.benchmark = False
+    summary["resnet18_card_vs_cpu"] = _fluid_cpu_check(fluid, R)
+    summary["mnist_losses"] = _fluid_mnist(fluid)
+    summary["card"] = card_line()
+    log("fluid summary: " + json.dumps(summary))
+    return launches
+
+
 @phase("check")
 def reference_check():
     cfg = bert.BertConfig.base(num_hidden_layers=2)
@@ -2091,15 +2431,16 @@ def main():
     coverage()
     reference_check()
     resnet_path = resnet()
+    fluid_path = fluid_resnet()
     if FAILURES or None in (rows, probed, served, decoded, trained, library,
-                            resnet_path):
+                            resnet_path, fluid_path):
         log(f"FAILED phases: {FAILURES}")
         print(f"FAILED phases: {FAILURES}", file=sys.stderr, flush=True)
         sys.exit(1)
     rows += probed[0]
     paths = {"serving": served, "decode": decoded, "train": trained[0],
              "probe": probed[1], "library_train": library,
-             "resnet": resnet_path}
+             "resnet": resnet_path, "fluid": fluid_path}
     for r in rows:
         # `launches` is the count on the path where the kernel runs: the
         # probe for its three kernels, the decode path for ragged_paged,

@@ -14,6 +14,11 @@ in `named_parameters()`; filling that one entry keeps the tie.
 {"params", "m", "v", "t"} of paddle_tpu's `build_pretrain_step`, as numpy,
 becomes the state of the port's `build_pretrain_step`, so a JAX run can
 continue in the port.
+
+`load_jax_scope(scope, arrays)` does the same for the static graph: the
+persistable values of a paddle_tpu `fluid.Scope` (numpy, by variable name)
+replace those of a port `fluid.Scope` that the port's own startup program
+has filled, so the same Program continues in the port's Executor.
 """
 
 from __future__ import annotations
@@ -80,3 +85,36 @@ def load_jax_train_state(module: nn.Module, jax_state) -> dict:
            for part in ("params", "m", "v")}
     out["t"] = int(np.asarray(jax_state["t"]))
     return out
+
+
+def load_jax_scope(scope, arrays: Dict[str, np.ndarray]):
+    """Replace the values of a port `fluid.Scope` by a paddle_tpu scope's
+    persistable values: `arrays` maps each variable name to its value as
+    numpy (`np.asarray(jax_scope.get(name))` for every name of the
+    reference's scope).  The port's scope must hold the same names, as its
+    own startup program leaves them.  Raises KeyError when a name is on
+    one side only and ValueError on a shape or dtype mismatch; nothing is
+    written unless every check passes.  Each value keeps the port tensor's
+    dtype and device.  Returns the scope."""
+    # the reference runs with 64-bit types off: a 64-bit var's value is
+    # its 32-bit twin there
+    from .ops.registry import canon_dtype
+    have = {n: scope.get(n) for n in scope.local_var_names()
+            if scope.get(n) is not None}
+    missing = sorted(set(have) - set(arrays))
+    unexpected = sorted(set(arrays) - set(have))
+    if missing or unexpected:
+        raise KeyError(f"scope names differ: missing from the arrays "
+                       f"{missing}, not in the port's scope {unexpected}")
+    for name, t in have.items():
+        a = np.asarray(arrays[name])
+        if tuple(a.shape) != tuple(t.shape):
+            raise ValueError(f"{name}: arrays hold shape {tuple(a.shape)}, "
+                             f"the port's scope {tuple(t.shape)}")
+        if canon_dtype(a.dtype) != canon_dtype(t.dtype):
+            raise ValueError(f"{name}: arrays hold {a.dtype}, the port's "
+                             f"scope {t.dtype}")
+    for name, t in have.items():
+        scope.set(name, torch.from_numpy(np.array(arrays[name])).to(
+            device=t.device, dtype=t.dtype))
+    return scope

@@ -286,6 +286,21 @@ def adaptive_max_pool2d(x, output_size, return_mask=False):
 
 # -- normalization ------------------------------------------------------------
 
+def batch_norm_train(x, weight, bias, epsilon=1e-5, c_axis=1):
+    """Train-mode batch norm over every axis but `c_axis`: (y, the batch
+    mean, the BIASED batch variance, 1/sqrt(var + eps)), differentiable in
+    x, weight and bias.  ATen's batch norm hands back the mean and the
+    inverse std it normalised with, so the statistics are read once; the
+    variance is recovered from the inverse std, in at least f32."""
+    xc = x if c_axis == 1 else x.movedim(c_axis, 1)
+    y, mean, invstd = torch.ops.aten.native_batch_norm(
+        xc, weight, bias, None, None, True, 0.0, epsilon)
+    with torch.no_grad():
+        inv = invstd.to(torch.promote_types(invstd.dtype, torch.float32))
+        var = inv.pow(-2) - epsilon
+    return (y if c_axis == 1 else y.movedim(1, c_axis)), mean, var, invstd
+
+
 def batch_norm(x, running_mean, running_var, weight, bias, training=False,
                momentum=0.9, epsilon=1e-5, data_format="NCHW",
                use_global_stats=None):
@@ -301,18 +316,11 @@ def batch_norm(x, running_mean, running_var, weight, bias, training=False,
     shape = [1] * x.ndim
     shape[c_axis] = x.shape[c_axis]
     if training and not use_global_stats:
-        xc = x if c_axis == 1 else x.movedim(c_axis, 1)
-        # ATen's batch norm hands back the batch mean and 1/sqrt(var + eps)
-        # it normalised with (f32), so the statistics are read once
-        y, mean, invstd = torch.ops.aten.native_batch_norm(
-            xc, weight, bias, None, None, True, 0.0, epsilon)
+        y, mean, var, _ = batch_norm_train(x, weight, bias, epsilon, c_axis)
         with torch.no_grad():
-            inv = invstd.to(torch.promote_types(invstd.dtype,
-                                                running_var.dtype))
-            var = inv.pow(-2) - epsilon  # the biased batch variance
             for buf, stat in ((running_mean, mean), (running_var, var)):
                 buf.copy_(buf * momentum + stat.to(buf.dtype) * (1 - momentum))
-        return y if c_axis == 1 else y.movedim(1, c_axis)
+        return y
     scale = torch.rsqrt(running_var.float() + epsilon)
     if weight is not None:
         scale = scale * weight.float()

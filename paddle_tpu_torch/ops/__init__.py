@@ -1,1 +1,4 @@
-"""Kernels of the port (ops/kernels) — counterparts of paddle_tpu/ops."""
+"""Ops of the port (counterpart of paddle_tpu/ops): the op rule registry
+(`registry.py`) and its rules (`math_ops`, `tensor_ops`, `nn_ops`,
+`random_ops`, `optimizer_ops`), which the Fluid Executor runs, and the
+hand-written kernels (`kernels/`)."""

@@ -594,12 +594,14 @@ def ragged_paged_reference(page_rows, lengths, q, k_pages, v_pages, qpos,
 
 def dense_paged_attention(q, k_pages, v_pages, page_rows, lengths, qpos,
                           scale):
-    """The oracle (counterpart of `_dense_paged_attention`): gather every
-    page of the row into a contiguous (B, W*S) view and take a dense
-    softmax with keys at kpos > qpos masked.  JAX routes this through
-    SDPA with a per-query bias; here the softmax is written out in f32,
-    so the oracle keeps f32 probabilities.  It agrees with the kernel on
-    every lane whose qpos < length; the port never calls it."""
+    """The dense arm of `paged_attention` (paddle_tpu's
+    `_dense_paged_attention`, attention.py:1037-1058): gather every page
+    of each row into a contiguous (B, W*S, H, D) view, and attend through
+    `scaled_dot_product_attention` with an additive bias that masks keys
+    at positions past each query's `qpos`.  That call takes the flash
+    kernels where they take the inputs (a decode step's bias is a key
+    bias), else `dense_attention`.  It agrees with the ragged kernel on
+    every lane whose qpos < length."""
     b, t, h, d = q.shape
     p_, s = k_pages.shape[0], k_pages.shape[1]
     lmax = page_rows.shape[1] * s
@@ -607,12 +609,10 @@ def dense_paged_attention(q, k_pages, v_pages, page_rows, lengths, qpos,
     gidx = page_rows.long()[:, pos // s] * s + pos % s      # (B, Lmax)
     k = k_pages.reshape(p_ * s, h, d)[gidx]
     v = v_pages.reshape(p_ * s, h, d)[gidx]
-    mask = pos[None, None, :] <= qpos.long()[:, :, None]    # (B, T, Lmax)
-    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
-    logits = torch.where(mask[:, None], logits, DEFAULT_MASK_VALUE)
-    probs = torch.softmax(logits, dim=-1)
-    return torch.einsum("bhqk,bkhd->bqhd", probs,
-                        v.float()).to(q.dtype)
+    bias = torch.where(pos[None, None, :] <= qpos.long()[:, :, None], 0.0,
+                       DEFAULT_MASK_VALUE).to(torch.float32)
+    return scaled_dot_product_attention(q, k, v, mask=bias[:, None, :, :],
+                                        scale=scale)
 
 
 _SMEM_LIMIT = 232_448       # shared-memory bytes an H100 block may use
@@ -742,6 +742,15 @@ def _ragged_lib():
     return lib
 
 
+def _ragged_takes(dtypes, head_dim: int, page_size: int) -> bool:
+    """Whether `csrc/ragged_paged.cu` takes q/k/v of these dtypes, this
+    head_dim and page size: bf16, a head_dim in _KERNEL_HEAD_DIMS, and
+    pages of a multiple of 8 rows (the rules `_ragged_paged_cuda` raises
+    on; the port's form of paddle_tpu's per-shape `_probe_ragged`)."""
+    return (all(dt == torch.bfloat16 for dt in dtypes)
+            and head_dim in _KERNEL_HEAD_DIMS and page_size % 8 == 0)
+
+
 def _ragged_paged_cuda(page_rows, lengths, q, k_pages, v_pages, qpos,
                        scale):
     b, t, h, d = q.shape
@@ -828,14 +837,24 @@ def paged_attention(q, k_pages, v_pages, page_rows, lengths, scale=None,
     >= lengths (chunk padding) produce finite but unspecified output;
     callers slice them away.
 
-    Dispatch: `csrc/ragged_paged.cu` for CUDA tensors (its split path at
-    decode steps, its tiled path at chunks, as `_ragged_plan` chooses by
-    shape), which reads `page_rows` inside the kernel (no (B, W*S) gather
-    is ever built); its plain version for CPU tensors."""
+    Dispatch, as the reference's (attention.py:1094-1106):
+    `csrc/ragged_paged.cu` for CUDA tensors it takes (`_ragged_takes`; its
+    split path at decode steps, its tiled path at chunks, as `_ragged_plan`
+    chooses by shape), which reads `page_rows` inside the kernel (no
+    (B, W*S) gather is ever built); CUDA tensors it does not take go to the
+    dense arm, `dense_paged_attention`, each call counted as
+    `serving_ragged_fallback_total`; CPU tensors take the kernel's plain
+    version."""
     t, d = q.shape[1], q.shape[3]
     scale = scale if scale is not None else 1.0 / (d ** 0.5)
     if q_positions is None:
         q_positions = lengths.long()[:, None] - t \
             + torch.arange(t, device=q.device)[None, :]
+    if q.is_cuda and not _ragged_takes((q.dtype, k_pages.dtype,
+                                        v_pages.dtype), d,
+                                       k_pages.shape[1]):
+        profiler.stat_add("serving_ragged_fallback_total")
+        return dense_paged_attention(q, k_pages, v_pages, page_rows,
+                                     lengths, q_positions, float(scale))
     return ragged_paged_forward(page_rows, lengths, q, k_pages, v_pages,
                                 q_positions, float(scale))

@@ -1,0 +1,375 @@
+"""Every op rule of the port against the reference's rule of the same op
+type, one op at a time on the CPU: the same numpy inputs go through
+`paddle_tpu.ops.registry`'s rule (its gradient by `jax.vjp` over that
+rule) and through a one-op block of the port's registry followed by the
+`<type>_grad` op that `append_backward` would emit (so the port's generic
+autograd gradient is what is tested), with the same cotangents.  Forward
+outputs and input gradients are compared in float32, and again in float64
+under `jax.enable_x64` for the rules that take it.
+
+Tolerances.  F32 (rtol 2e-5, atol 2e-6): one op in float32, whose only
+difference is summation order (convolution and matmul sums of at most a
+few hundred products, batch statistics over at most 128 values).  F64
+(rtol 1e-11, atol 1e-12): the same in float64.  The two random ops draw
+other bits than JAX's by design; they are held to their distribution
+instead: over 40000 draws the sample mean and standard deviation lie
+within 5 standard errors of the attrs' (a false alarm once in ~10^6).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from paddle_tpu.fluid import framework as JFW
+from paddle_tpu.ops import registry as JREG
+
+from paddle_tpu_torch.fluid import framework as TFW
+from paddle_tpu_torch.ops import registry as TREG
+
+F32 = dict(rtol=2e-5, atol=2e-6)
+F64 = dict(rtol=1e-11, atol=1e-12)
+
+
+def _rng(seed=0):
+    return np.random.RandomState(seed)
+
+
+def _f(*shape, seed=0, scale=1.0):
+    return (_rng(seed).randn(*shape) * scale).astype(np.float64)
+
+
+def _probs(n, c, seed=0):
+    z = _f(n, c, seed=seed)
+    e = np.exp(z - z.max(1, keepdims=True))
+    return e / e.sum(1, keepdims=True)
+
+
+def _ids(shape, high, seed=0):
+    return _rng(seed).randint(0, high, shape).astype(np.int64)
+
+
+# name -> (op type, {slot: [numpy]}, attrs, output slots that get
+# cotangents (empty: forward only))
+CASES = {
+    "conv2d_pad1": ("conv2d", {"Input": [_f(2, 3, 8, 8)],
+                               "Filter": [_f(4, 3, 3, 3, seed=1)]},
+                    {"strides": [1, 1], "paddings": [1, 1],
+                     "dilations": [1, 1], "groups": 1,
+                     "padding_algorithm": "EXPLICIT",
+                     "data_format": "NCHW"}, ["Output"]),
+    "conv2d_stride2_same": ("conv2d", {"Input": [_f(2, 3, 9, 9)],
+                                       "Filter": [_f(4, 3, 3, 3, seed=1)]},
+                            {"strides": [2, 2], "paddings": [0, 0],
+                             "dilations": [1, 1], "groups": 1,
+                             "padding_algorithm": "SAME",
+                             "data_format": "NCHW"}, ["Output"]),
+    "conv2d_asym_nhwc": ("conv2d", {"Input": [_f(2, 7, 7, 4)],
+                                    "Filter": [_f(6, 2, 3, 3, seed=1)]},
+                         {"strides": [2, 1], "paddings": [0, 1, 1, 0],
+                          "dilations": [1, 2], "groups": 2,
+                          "padding_algorithm": "EXPLICIT",
+                          "data_format": "NHWC"}, ["Output"]),
+    "pool2d_max": ("pool2d", {"X": [_f(2, 3, 9, 9)]},
+                   {"pooling_type": "max", "ksize": [3, 3],
+                    "strides": [2, 2], "paddings": [1, 1],
+                    "global_pooling": False, "adaptive": False,
+                    "ceil_mode": False, "exclusive": True,
+                    "padding_algorithm": "EXPLICIT",
+                    "data_format": "NCHW"}, ["Out"]),
+    "pool2d_avg_exclusive": ("pool2d", {"X": [_f(2, 3, 8, 8)]},
+                             {"pooling_type": "avg", "ksize": [3, 3],
+                              "strides": [2, 2], "paddings": [1, 1],
+                              "global_pooling": False, "adaptive": False,
+                              "ceil_mode": False, "exclusive": True,
+                              "padding_algorithm": "EXPLICIT",
+                              "data_format": "NCHW"}, ["Out"]),
+    "pool2d_avg_inclusive_asym": ("pool2d", {"X": [_f(2, 3, 8, 8)]},
+                                  {"pooling_type": "avg", "ksize": [2, 2],
+                                   "strides": [2, 2],
+                                   "paddings": [0, 1, 1, 0],
+                                   "global_pooling": False,
+                                   "adaptive": False, "ceil_mode": False,
+                                   "exclusive": False,
+                                   "padding_algorithm": "EXPLICIT",
+                                   "data_format": "NCHW"}, ["Out"]),
+    "pool2d_adaptive_1x1": ("pool2d", {"X": [_f(2, 3, 5, 5)]},
+                            {"pooling_type": "avg", "ksize": [1, 1],
+                             "strides": [1, 1], "paddings": [0, 0],
+                             "global_pooling": False, "adaptive": True,
+                             "ceil_mode": False, "exclusive": True,
+                             "padding_algorithm": "EXPLICIT",
+                             "data_format": "NCHW"}, ["Out"]),
+    "pool2d_adaptive_3x3_max": ("pool2d", {"X": [_f(2, 3, 8, 7)]},
+                                {"pooling_type": "max", "ksize": [3, 3],
+                                 "strides": [1, 1], "paddings": [0, 0],
+                                 "global_pooling": False, "adaptive": True,
+                                 "ceil_mode": False, "exclusive": True,
+                                 "padding_algorithm": "EXPLICIT",
+                                 "data_format": "NCHW"}, ["Out"]),
+    "pool2d_global_max": ("pool2d", {"X": [_f(2, 3, 4, 4)]},
+                          {"pooling_type": "max", "ksize": [2, 2],
+                           "strides": [1, 1], "paddings": [0, 0],
+                           "global_pooling": True, "adaptive": False,
+                           "ceil_mode": False, "exclusive": True,
+                           "padding_algorithm": "EXPLICIT",
+                           "data_format": "NCHW"}, ["Out"]),
+    "batch_norm_train": ("batch_norm", {
+        "X": [_f(4, 3, 4, 4) * 2 + 1], "Scale": [_f(3, seed=1)],
+        "Bias": [_f(3, seed=2)], "Mean": [_f(3, seed=3)],
+        "Variance": [np.abs(_f(3, seed=4)) + 0.5]},
+        {"momentum": 0.9, "epsilon": 1e-5, "is_test": False,
+         "data_layout": "NCHW", "use_global_stats": False}, ["Y"]),
+    "batch_norm_train_2d_nhwc": ("batch_norm", {
+        "X": [_f(8, 5)], "Scale": [_f(5, seed=1)], "Bias": [_f(5, seed=2)],
+        "Mean": [_f(5, seed=3)], "Variance": [np.abs(_f(5, seed=4)) + 0.5]},
+        {"momentum": 0.8, "epsilon": 1e-3, "is_test": False,
+         "data_layout": "NHWC", "use_global_stats": False}, ["Y"]),
+    "batch_norm_is_test": ("batch_norm", {
+        "X": [_f(2, 3, 4, 4)], "Scale": [_f(3, seed=1)],
+        "Bias": [_f(3, seed=2)], "Mean": [_f(3, seed=3)],
+        "Variance": [np.abs(_f(3, seed=4)) + 0.5]},
+        {"momentum": 0.9, "epsilon": 1e-5, "is_test": True,
+         "data_layout": "NCHW", "use_global_stats": False}, ["Y"]),
+    "relu": ("relu", {"X": [_f(3, 5)]}, {}, ["Out"]),
+    "tanh": ("tanh", {"X": [_f(3, 5)]}, {}, ["Out"]),
+    "sigmoid": ("sigmoid", {"X": [_f(3, 5)]}, {}, ["Out"]),
+    "square": ("square", {"X": [_f(3, 5)]}, {}, ["Out"]),
+    "elementwise_add": ("elementwise_add", {"X": [_f(2, 3, 5)],
+                                            "Y": [_f(5, seed=1)]},
+                        {"axis": -1}, ["Out"]),
+    "elementwise_add_axis1": ("elementwise_add", {"X": [_f(2, 3, 4, 4)],
+                                                  "Y": [_f(3, seed=1)]},
+                              {"axis": 1}, ["Out"]),
+    "elementwise_sub": ("elementwise_sub", {"X": [_f(4, 1)],
+                                            "Y": [_f(4, 1, seed=1)]},
+                        {"axis": -1}, ["Out"]),
+    "mul": ("mul", {"X": [_f(2, 3, 4)], "Y": [_f(12, 5, seed=1)]},
+            {"x_num_col_dims": 1, "y_num_col_dims": 1}, ["Out"]),
+    "mul_col2": ("mul", {"X": [_f(2, 3, 4)], "Y": [_f(4, 5, seed=1)]},
+                 {"x_num_col_dims": 2, "y_num_col_dims": 1}, ["Out"]),
+    "softmax": ("softmax", {"X": [_f(3, 6)]}, {"axis": -1}, ["Out"]),
+    "cross_entropy": ("cross_entropy", {
+        "X": [_probs(5, 6)],
+        "Label": [np.array([[1], [0], [-100], [5], [2]], np.int64)]},
+        {"soft_label": False, "ignore_index": -100}, ["Y"]),
+    "softmax_with_cross_entropy": ("softmax_with_cross_entropy", {
+        "Logits": [_f(5, 6)],
+        "Label": [np.array([[1], [0], [3], [5], [2]], np.int64)]},
+        {"soft_label": False, "ignore_index": -100, "axis": -1,
+         "numeric_stable_mode": True}, ["Loss", "Softmax"]),
+    "softmax_with_cross_entropy_soft": ("softmax_with_cross_entropy", {
+        "Logits": [_f(4, 6)], "Label": [_probs(4, 6, seed=1)]},
+        {"soft_label": True, "ignore_index": -100, "axis": -1,
+         "numeric_stable_mode": True}, ["Loss"]),
+    "mean": ("mean", {"X": [_f(3, 4)]}, {}, ["Out"]),
+    "reduce_mean_dim": ("reduce_mean", {"X": [_f(3, 4, 5)]},
+                        {"dim": [1], "keep_dim": False,
+                         "reduce_all": False}, ["Out"]),
+    "reduce_mean_all": ("reduce_mean", {"X": [_f(3, 4)]},
+                        {"dim": [0], "keep_dim": False,
+                         "reduce_all": True}, ["Out"]),
+    "top_k_v2_ties": ("top_k_v2", {"X": [np.array(
+        [[1., 3., 3., 0., 3., 2.], [5., 5., 1., 5., 0., 5.]])]},
+        {"k": 3, "axis": -1, "largest": True, "sorted": True}, ["Out"]),
+    "accuracy": ("accuracy", {
+        "Out": [_probs(5, 6)], "Indices": [_ids((5, 2), 6)],
+        "Label": [_ids((5, 1), 6, seed=1)]}, {}, []),
+    "lookup_table_v2": ("lookup_table_v2", {
+        "W": [_f(10, 4)], "Ids": [np.array([[1, 3], [3, 9], [0, 1]],
+                                           np.int64)]},
+        {"padding_idx": -1, "is_sparse": False}, ["Out"]),
+    "lookup_table_v2_padding": ("lookup_table_v2", {
+        "W": [_f(10, 4)], "Ids": [np.array([[1, 3], [3, 9], [0, 1]],
+                                           np.int64)]},
+        {"padding_idx": 3, "is_sparse": False}, ["Out"]),
+    "concat": ("concat", {"X": [_f(2, 3), _f(2, 1, seed=1),
+                                _f(2, 4, seed=2)]}, {"axis": 1}, ["Out"]),
+    "reshape2": ("reshape2", {"X": [_f(2, 3, 4)]}, {"shape": [0, -1]},
+                 ["Out"]),
+    "fill_constant": ("fill_constant", {}, {"shape": [2, 3],
+                                            "dtype": "float32",
+                                            "value": 1.5}, []),
+    "fill_constant_int64": ("fill_constant", {}, {"shape": [4],
+                                                  "dtype": "int64",
+                                                  "value": 7.0}, []),
+    "scale": ("scale", {"X": [_f(3, 4)]},
+              {"scale": 2.0, "bias": 0.5, "bias_after_scale": True},
+              ["Out"]),
+    "scale_bias_first": ("scale", {"X": [_f(3, 4)]},
+                         {"scale": -3.0, "bias": 0.25,
+                          "bias_after_scale": False}, ["Out"]),
+    "sum": ("sum", {"X": [_f(3, 4), _f(3, 4, seed=1), _f(3, 4, seed=2)]},
+            {}, ["Out"]),
+    "assign": ("assign", {"X": [_f(3, 4)]}, {}, ["Out"]),
+    "sgd": ("sgd", {"Param": [_f(4, 3)], "Grad": [_f(4, 3, seed=1)],
+                    "LearningRate": [np.array([0.1])]}, {}, []),
+    "momentum": ("momentum", {
+        "Param": [_f(4, 3)], "Grad": [_f(4, 3, seed=1)],
+        "Velocity": [_f(4, 3, seed=2)], "LearningRate": [np.array([0.1])]},
+        {"mu": 0.9, "use_nesterov": False}, []),
+    "momentum_l2_nesterov": ("momentum", {
+        "Param": [_f(4, 3)], "Grad": [_f(4, 3, seed=1)],
+        "Velocity": [_f(4, 3, seed=2)], "LearningRate": [np.array([0.1])]},
+        {"mu": 0.8, "use_nesterov": True,
+         "regularization_method": "l2_decay",
+         "regularization_coeff": 1e-2}, []),
+    "adam": ("adam", {
+        "Param": [_f(4, 3)], "Grad": [_f(4, 3, seed=1)],
+        "LearningRate": [np.array([0.01])],
+        "Moment1": [_f(4, 3, seed=2) * 0.1],
+        "Moment2": [np.abs(_f(4, 3, seed=3)) * 0.1],
+        "Beta1Pow": [np.array([0.9 ** 3])],
+        "Beta2Pow": [np.array([0.999 ** 3])]},
+        {"beta1": 0.9, "beta2": 0.999, "epsilon": 1e-8}, []),
+}
+
+# int64 feeds and int outputs are exact; these rules also take float64
+FLOAT64_OK = set(CASES) - {"fill_constant", "fill_constant_int64"}
+
+RANDOM = ("gaussian_random", "uniform_random")
+
+
+def _cast(arrs, dtype):
+    return [a.astype(dtype) if np.issubdtype(a.dtype, np.floating) else a
+            for a in arrs]
+
+
+def _names(slots):
+    return {slot: [f"{slot}_{i}" for i in range(n)]
+            for slot, n in slots.items()}
+
+
+def _reference(op_type, ins, attrs, ct_slots, cts):
+    """The reference rule's outputs and its jax.vjp input gradients."""
+    prog = JFW.Program()
+    op = JFW.Operator(prog.global_block(), 0, op_type,
+                      _names({s: len(v) for s, v in ins.items()}), {},
+                      dict(attrs))
+    fn = JREG._FORWARD[op_type]
+    ctx = JREG.LowerCtx(jax.random.PRNGKey(0))
+    jins = {s: [jnp.asarray(a) for a in v] for s, v in ins.items()}
+    outs = fn(ctx, op, jins)
+    paths = [(s, i) for s, v in jins.items() for i, a in enumerate(v)
+             if jnp.issubdtype(a.dtype, jnp.floating)]
+    grads = {}
+    if ct_slots and paths:
+        def f(dvals):
+            merged = {s: list(v) for s, v in jins.items()}
+            for (s, i), d in zip(paths, dvals):
+                merged[s][i] = d
+            o = fn(ctx, op, merged)
+            return [o[s][0] for s in ct_slots]
+
+        _, vjp = jax.vjp(f, [jins[s][i] for s, i in paths])
+        (dvals,) = vjp([jnp.asarray(c) for c in cts])
+        grads = {p: np.asarray(d) for p, d in zip(paths, dvals)}
+    return ({s: [np.asarray(a) for a in v] for s, v in outs.items()},
+            grads)
+
+
+def _port(op_type, ins, attrs, out_slots, ct_slots, cts):
+    """A one-op port block plus its `<type>_grad` op, run through
+    `registry.lower_block`; returns the outputs and input gradients."""
+    prog = TFW.Program()
+    blk = prog.global_block()
+    in_names = _names({s: len(v) for s, v in ins.items()})
+    out_names = {s: [f"out_{s}"] for s in out_slots}
+    blk.ops.append(TFW.Operator(blk, 0, op_type, in_names, out_names,
+                                dict(attrs)))
+    env = {n: torch.from_numpy(np.array(a))
+           for s, v in ins.items() for n, a in zip(in_names[s], v)}
+    grad_names = {}
+    if ct_slots:
+        g_ins = {**in_names, **out_names}
+        for s, c in zip(ct_slots, cts):
+            g_ins[f"{s}@GRAD"] = [f"ct_{s}"]
+            env[f"ct_{s}"] = torch.from_numpy(np.array(c))
+        grad_names = {f"{s}@GRAD": [f"{n}@GRAD" for n in names]
+                      for s, names in in_names.items()}
+        g_attrs = dict(attrs, fwd_op_id=0, fwd_op_type=op_type,
+                       fwd_input_slots=list(in_names),
+                       fwd_output_slots=list(out_names), op_role=1)
+        blk.ops.append(TFW.Operator(blk, 1, op_type + "_grad", g_ins,
+                                    grad_names, g_attrs))
+    TREG.lower_block(TREG.LowerCtx(0, device="cpu"), blk, env)
+    outs = {s: [env[n[0]].numpy()] for s, n in out_names.items()}
+    grads = {}
+    for s, names in in_names.items():
+        for i, n in enumerate(names):
+            if f"{n}@GRAD" in env:
+                grads[(s, i)] = env[f"{n}@GRAD"].numpy()
+    return outs, grads
+
+
+def _check(name, dtype):
+    op_type, ins, attrs, ct_slots = CASES[name]
+    ins = {s: _cast(v, dtype) for s, v in ins.items()}
+    tol = F64 if dtype == "float64" else F32
+    with jax.enable_x64(dtype == "float64"):
+        want, _ = _reference(op_type, ins, attrs, [], [])
+        rng = _rng(7)
+        cts = [np.asarray(rng.randn(*want[s][0].shape),
+                          dtype=want[s][0].dtype) for s in ct_slots]
+        want, want_grads = _reference(op_type, ins, attrs, ct_slots, cts)
+    got, got_grads = _port(op_type, ins, attrs, list(want), ct_slots, cts)
+    for slot, vals in want.items():
+        w, g = vals[0], got[slot][0]
+        assert g.shape == w.shape, (slot, g.shape, w.shape)
+        if np.issubdtype(w.dtype, np.floating):
+            assert g.dtype == w.dtype, (slot, g.dtype, w.dtype)
+            np.testing.assert_allclose(g, w, err_msg=slot, **tol)
+        else:  # the reference narrows int64 to int32 with x64 off
+            np.testing.assert_array_equal(g, w, err_msg=slot)
+    assert set(got_grads) == set(want_grads)
+    for path, w in want_grads.items():
+        np.testing.assert_allclose(got_grads[path], w, err_msg=str(path),
+                                   **tol)
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_rule_matches_the_reference_float32(name):
+    _check(name, "float32")
+
+
+@pytest.mark.parametrize("name", sorted(FLOAT64_OK))
+def test_rule_matches_the_reference_float64(name):
+    _check(name, "float64")
+
+
+@pytest.mark.parametrize("op_type,attrs,mean,std", [
+    ("gaussian_random", {"mean": 0.5, "std": 2.0}, 0.5, 2.0),
+    ("uniform_random", {"min": -1.0, "max": 3.0}, 1.0, 4.0 / 12 ** 0.5),
+])
+def test_random_rules_draw_their_distribution(op_type, attrs, mean, std):
+    n = 40000
+    attrs = dict(attrs, shape=[200, 200], dtype="float32", seed=0)
+    got, _ = _port(op_type, {}, attrs, ["Out"], [], [])
+    x = got["Out"][0].astype(np.float64)
+    assert x.shape == (200, 200) and got["Out"][0].dtype == np.float32
+    assert abs(x.mean() - mean) < 5 * std / n ** 0.5
+    assert abs(x.std() - std) < 5 * std / (2 * n) ** 0.5
+    if op_type == "uniform_random":
+        assert x.min() >= -1.0 and x.max() <= 3.0
+    again, _ = _port(op_type, {}, attrs, ["Out"], [], [])
+    np.testing.assert_array_equal(again["Out"][0], got["Out"][0])
+    other, _ = _port(op_type, {}, dict(attrs, seed=5), ["Out"], [], [])
+    assert not np.array_equal(other["Out"][0], got["Out"][0])
+
+
+def test_every_rule_is_covered():
+    """Each registered port rule has a case here, under its reference
+    op-type name."""
+    covered = {c[0] for c in CASES.values()} | set(RANDOM)
+    assert set(TREG.registered_ops()) == covered
+    assert covered <= set(JREG.registered_ops())
+
+
+def test_top_k_orders_ties_by_index():
+    """jax.lax.top_k's rule: equal values keep their index order."""
+    got, _ = _port("top_k_v2", {"X": [np.array([[2., 7., 7., 7., 1.]])]},
+                   {"k": 3, "axis": -1, "largest": True}, ["Out", "Indices"],
+                   [], [])
+    assert got["Indices"][0].tolist() == [[1, 2, 3]]

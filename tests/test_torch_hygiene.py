@@ -55,7 +55,10 @@ def test_the_walk_sees_the_whole_package():
     assert {"ops/kernels/attention.py", "ops/kernels/ffn.py",
             "ops/kernels/probe.py", "tools/kernel4d_probe.py",
             "serving/engine.py", "serving/kv_cache.py", "models/bert.py",
-            "convert.py", "jit.py"} <= names
+            "convert.py", "jit.py", "fluid/framework.py",
+            "fluid/executor.py", "fluid/backward.py", "fluid/optimizer.py",
+            "fluid/layers/nn.py", "ops/registry.py", "ops/nn_ops.py",
+            "models/resnet.py", "models/mnist.py"} <= names
 
 
 def _run(code_or_args, cwd, timeout=120):
@@ -72,7 +75,9 @@ def test_importing_the_port_loads_no_jax():
             "import paddle_tpu_torch, paddle_tpu_torch.serving, "
             "paddle_tpu_torch.models.bert, paddle_tpu_torch.convert, "
             "paddle_tpu_torch.nn, paddle_tpu_torch.obs, "
-            "paddle_tpu_torch.jit, paddle_tpu_torch.tools.kernel4d_probe\n"
+            "paddle_tpu_torch.jit, paddle_tpu_torch.tools.kernel4d_probe, "
+            "paddle_tpu_torch.fluid, paddle_tpu_torch.models.resnet, "
+            "paddle_tpu_torch.models.mnist, paddle_tpu_torch.ops.registry\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu'))\n"
             "print(bad)\n")

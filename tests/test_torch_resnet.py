@@ -32,6 +32,8 @@ f32 logits then move by 0.08 with the summation order (8e-5 at B=4,
 2e-5 at 64 x 64).
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -39,6 +41,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from paddle_tpu.fluid import initializer as _jax_init
 from paddle_tpu.jit import functional_call as j_call
 from paddle_tpu.jit import functional_state as j_state
 from paddle_tpu.vision import models as JM
@@ -69,10 +72,29 @@ def _batch(seed):
             rng.randint(0, 10, 2).astype(np.int64))
 
 
+@contextlib.contextmanager
+def _fresh_jax_stream():
+    """paddle_tpu draws a new layer's weights from one process-wide
+    stream (`fluid.initializer._eager_seed`: a base seed and a counter
+    that every parameter made so far has advanced).  Under `pytest -n
+    --dist loadfile` this file shares its process with other test files,
+    so the JAX models' weights, and with them how far a ReLU kink flip
+    moves an f32 gradient, would depend on what ran before.  Each model
+    here is drawn from a fresh process's stream, which is restored
+    afterwards."""
+    saved = list(_jax_init._eager_seed)
+    _jax_init._eager_seed[:] = [2023, 0]
+    try:
+        yield
+    finally:
+        _jax_init._eager_seed[:] = saved
+
+
 @pytest.fixture(scope="module", params=sorted(MODELS))
 def pair(request):
     """(name, JAX model, its state as numpy, a fresh-port factory)."""
-    jm = MODELS[request.param](JM)
+    with _fresh_jax_stream():
+        jm = MODELS[request.param](JM)
     state = {k: np.asarray(v) for k, v in j_state(jm).items()}
     # running statistics that are not the 0 / 1 defaults, so that
     # carrying them over is checked too
