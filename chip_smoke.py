@@ -3,8 +3,8 @@ kernels, hold each against its plain PyTorch version at BERT-base shapes,
 serve BERT-base through serving.Engine, decode with BERT-base as a causal
 decoder through serving.AutoregressiveEngine, take BERT-base pretraining
 steps on both arms of the fused FFN, train ResNet-50 eagerly and as a
-Fluid static-graph program through fluid.Executor, and check what comes
-out.
+Fluid static-graph program through fluid.Executor, train and decode the
+Transformer-base WMT model, and check what comes out.
 
     python3 chip_smoke.py
 
@@ -38,7 +38,14 @@ Phases, in order (any failure exits non-zero and prints no result):
               T=16384, F=3072 beside its bound; paged_attention in f32
               at head_dim 80 (inputs the ragged kernel does not take):
               the dense arm, each call counted as
-              serving_ragged_fallback_total, no ragged launch
+              serving_ragged_fallback_total, no ragged launch; then the
+              WMT shapes (_wmt_kernel_holds): flash_fwd, dkv and dq at
+              the cross-attention's (32, T=120 | S=128, 8, 64), with and
+              without a key-padding bias, dropout 0.1 and 0; flash_fwd
+              at the decode steps' Sq = 1 against 1, 7, 32 and 128 keys
+              (B*H = 256); the relu element pass at (3840, 2048) bit for
+              bit; each twice for the same bits, graph-timed beside SDPA
+              (its backward) or ATen's bias + relu and the bound
   4. probe    the layout probe (paddle_tpu_torch.tools.kernel4d_probe) at
               its defaults, B=8, S=512, H=12, D=64: the three layout kernels
               (4d, fold3d, merged) checked against its reference and timed
@@ -110,6 +117,36 @@ Phases, in order (any failure exits non-zero and prints no result):
               ms, images/s, MFU, host dispatch an op, peak memory, one
               step profiled; then static resnet18 on the card against
               the CPU Executor, and MNIST (configs[0], Adam)
+ 14. wmt      BASELINE.json configs[2]: WMTTransformer(TransformerConfig.
+              base()) (vocabularies of 30000, d_model 512, 8 heads of 64,
+              6 + 6 pre-norm layers, d_ff 2048, relu, dropout 0.1, label
+              smoothing 0.1; 90.2 M parameters) with seeded weights.
+              Training through build_train_step (bf16 over fp32 masters,
+              Adam b2 0.997 eps 1e-9, Noam warm-up WMT_WARMUP = 100) at B=32,
+              S=128, T=120 from fake_batch, on the FFN's default library
+              arm: 1 warm-up and WMT_TIMED steps timed by CUDA events
+              under set_sync_debug_mode("error"), exact launches a step
+              (flash_fwd, dkv, dq, ffn_act_fwd, ffn_act_bwd 12 each, FFN
+              kernels 0) and dispatches (6 dense: the decoder's causal
+              self-attention; 12 library FFN calls); steps to WMT_STEPS
+              = 20 with a finite loss that falls by then (the curve
+              alike to four decimals in three processes on the H100),
+              finite moments,
+              every tensor moved (the two position tables too) but the
+              k_proj biases (exact gradient 0); step ms, source and
+              target tokens/s, MFU, peak memory, one step profiled; one
+              step with enable_fused_ffn() (the six kernels 12 each).
+              Decoding in bf16 (eval): 8 sources of 128 tokens to 32
+              tokens, greedy, beam 4 and beam 1, timed under
+              set_sync_debug_mode("error"): 6 + 12 a step flash_fwd
+              launches each, 0 dense dispatches; greedy equals beam 1
+              token for token; beam 4's scores best first, and its best
+              >= beam 1's - 1e-5 wherever greedy's sequence is one of its
+              final beams (beam search is not monotone in the width:
+              elsewhere the difference is printed, not held); each
+              greedy token's logit within DECODE_LOGIT_TOL of
+              the largest of a full forward over its prefix (teacher
+              forcing); ms a step, tokens/s, one greedy decode profiled
 
 The last two lines of stdout are a {"kernels": [...]} summary and the
 {"ok": true, "device": {...}} result.  Needs CUDA; imports nothing of JAX
@@ -231,9 +268,12 @@ RESNET_KINK = 2e-2
 # models/resnet.build_train_program(depth=50, class_num=1000, 224^2,
 # batch 128): f32 as declared (TF32 off), Momentum lr 0.1, momentum 0.9,
 # L2Decay 1e-4.  20 steps timed; the falling-loss check is read at step
-# 51, past the swings of a one-batch curve at lr 0.1 (the resnet phase)
+# 31, past the swings of the one-batch curve at lr 0.1: from a first of
+# 7.70 the f32 curve peaks at step 8 (7.92-8.51 on the H100) and falls
+# to 2.61-3.25 at step 31 (two runs) and 2.59-3.45 at step 51 (four
+# earlier runs; PERF.md §6)
 FLUID_BATCH, FLUID_HW, FLUID_CLASSES = 128, 224, 1000
-FLUID_TIMED, FLUID_STEPS = 20, 50
+FLUID_TIMED, FLUID_STEPS = 20, 30
 # float32 rates of one H100 SXM outside the tensor cores (the f32 program
 # with TF32 off runs there)
 PEAK_F32_FLOPS = 67e12
@@ -254,6 +294,22 @@ PROMPT_BUCKETS, PREFILL_CHUNK = (64, 128, 256), 256
 # token counts of the ffn_fwd sweep beside the decode step's 16
 FWD_SWEEP = (64, 256, 512, 4096, 32 * SEQ)
 TIMED_STEPS, PROFILED_STEPS = 32, 8
+# the WMT Transformer (phase 14): BASELINE.json configs[2],
+# TransformerConfig.base() (vocabularies of 30000, d_model 512, 8 heads of
+# 64, 6 + 6 pre-norm layers, d_ff 2048, relu, dropout 0.1, label
+# smoothing 0.1) trained at B=32, S=128 source and T=120 target tokens
+# (about the 4096-token batch of Paddle's Transformer-base recipe; T != S,
+# so cross-attention runs Sq != Sk); 1 warm-up and WMT_TIMED steps timed,
+# the falling loss read at step WMT_STEPS.  The Noam warm-up is
+# WMT_WARMUP steps, so the rate climbs from 4.4e-6 to 8.8e-4 (Noam's
+# peak at the recipe's 4000 is 7.0e-4) and the fixed batch's loss falls
+# within the phase; at 4000 the first 20 steps' rates stay under 4.5e-6
+WMT_BATCH, WMT_SRC, WMT_TGT, WMT_HEADS, WMT_FF = 32, 128, 120, 8, 2048
+WMT_LAYERS = 6  # a stack: 12 flash forwards a step (6 self + 6 cross)
+WMT_TIMED, WMT_STEPS, WMT_WARMUP = 5, 20, 100
+# decoding: 8 sources of 128 tokens, 32 steps (paddle_tpu's default
+# max_len), greedy and beams of 4 (and 1, which must equal greedy)
+WMT_DECODE_BATCH, WMT_BEAM, WMT_MAX_LEN = 8, 4, 32
 FAILURES = []
 
 
@@ -560,6 +616,8 @@ def kernels():
     rows += _ffn_backward_rows(g)
     torch.cuda.empty_cache()
     rows += _ffn_act_rows(g)
+    torch.cuda.empty_cache()
+    _wmt_kernel_holds(g, {r["name"]: r for r in rows})
     torch.cuda.empty_cache()
     for r in rows:
         lib = "none" if r["library_ms"] is None else \
@@ -1218,6 +1276,181 @@ def _ffn_act_rows(g):
                   f"({f}), gelu, dropout 0.1",
             bytes=nbytes, tolerance=ACT_TOL[bf16]))
     return rows
+
+
+def _flash_case(g, b, sq, sk, masked, p, seed=13, backward=True):
+    """flash_fwd (and, with `backward`, dkv and dq) at one shape, no
+    causal mask, against the plain versions, each run twice for the same
+    bits.  Returns ((q, k, v, bias, out, lse, g), fwd err, dkv err, dq
+    err)."""
+    h, d = WMT_HEADS, 64
+    q, k, v = _rand(g, b, sq, h, d), _rand(g, b, sk, h, d), _rand(
+        g, b, sk, h, d)
+    gr = _rand(g, b, sq, h, d)
+    bias = _padding_bias(g, b, sk) if masked else None
+    out, lse = A.flash_forward(q, k, v, bias, seed, False, None, None, p)
+    again = A.flash_forward(q, k, v, bias, seed, False, None, None, p)
+    torch.cuda.synchronize()
+    ref, ref_lse = A.flash_forward_reference(q, k, v, bias, seed, False,
+                                             None, None, p)
+    ok_o, err = close(out, ref, **BF16_TOL)
+    ok_l, err_l = close(lse, ref_lse, **LSE_TOL)
+    same = torch.equal(out, again[0]) and torch.equal(lse, again[1])
+    errs = {"flash_fwd": err}
+    ok = ok_o and ok_l and same
+    if backward:
+        got = A.flash_backward(q, k, v, bias, seed, out, lse, gr, False,
+                               None, None, p)
+        got2 = A.flash_backward(q, k, v, bias, seed, out, lse, gr, False,
+                                None, None, p)
+        torch.cuda.synchronize()
+        want = A.flash_backward_reference(q, k, v, bias, seed, out, lse, gr,
+                                          False, None, None, p)
+        checks = [close_grad(a, w) for a, w in zip(got, want)]
+        same = same and all(torch.equal(a, c) for a, c in zip(got, got2))
+        ok = ok and same and all(c[0] for c in checks)
+        errs["flash_bwd_dq"] = checks[0][1]
+        errs["flash_bwd_dkv"] = max(checks[1][1], checks[2][1])
+    log(f"flash B={b} Sq={sq} Sk={sk} H={h} masked={masked} p={p}: "
+        + " ".join(f"{n} err {e:.3g}" for n, e in errs.items())
+        + f", LSE err {err_l:.3g}, same bits twice {same} "
+        + ("ok" if ok else "MISMATCH"))
+    if not ok:
+        raise AssertionError(f"flash kernels disagree with their plain "
+                             f"versions at B={b} Sq={sq} Sk={sk} "
+                             f"masked={masked} p={p}")
+    return (q, k, v, bias, out, lse, gr), errs
+
+
+def _wmt_kernel_holds(g, rows):
+    """The kernels at the WMT Transformer's shapes (phase 14), each
+    against its plain version and run twice for the same bits, then
+    graph-timed in turns with the PyTorch call beside its bound; the
+    results go into the rows' `wmt` entries and their max_abs_err.
+    - the train step's cross-attention, T=120 queries against S=128 keys
+      (Sq != Sk), B=32, 8 heads of 64, with and without a key-padding
+      bias, at dropout 0.1 (the step's) and 0: flash_fwd, dkv and dq;
+    - the decode steps: one query a row, B*W=32 rows (B*H = 256),
+      against t = 1, 7, 32 keys of the self-attention cache and the 128
+      of the cross-attention's: flash_fwd;
+    - the FFN's element pass at relu, T=3840 (32 x 120), F=2048, bf16,
+      dropout 0.1 and 0: bit for bit (relu has no approximation)."""
+    b, t_len, s_len, h, d = WMT_BATCH, WMT_TGT, WMT_SRC, WMT_HEADS, 64
+    worst = {}
+    for masked in (False, True):
+        for p in (0.1, 0.0):
+            (q, k, v, bias, out, lse, gr), errs = _flash_case(
+                g, b, t_len, s_len, masked, p)
+            for n, e in errs.items():
+                worst[n] = max(worst.get(n, 0.0), e)
+    # timing at the path's configuration: no mask (the step has none),
+    # the forward and both backward kernels at dropout 0.1 and 0, SDPA
+    # (no dropout) and its backward as (forward + backward) - forward
+    (q, k, v, _, out, lse, gr), _ = _flash_case(g, b, t_len, s_len, False,
+                                                0.1, backward=False)
+    scale = d ** -0.5
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    gt = gr.transpose(1, 2)
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt)
+    arms = {"flash_fwd p=0.1": lambda: A.flash_forward(
+                q, k, v, None, 13, False, None, None, 0.1),
+            "flash_fwd p=0.0": lambda: A.flash_forward(q, k, v),
+            "sdpa forward": sdpa,
+            "sdpa forward+backward": lambda: torch.autograd.grad(
+                sdpa(), (qt, kt, vt), gt)}
+    for p in (0.1, 0.0):
+        _, dkv, dq = A._flash_bwd_launchers(q, k, v, None, 13, out, lse,
+                                            gr, False, 0, scale, p)
+        arms[f"flash_bwd_dkv p={p}"], arms[f"flash_bwd_dq p={p}"] = dkv, dq
+    times = K4.graphs_ms({key: (lambda fn=fn: [fn() for _ in range(4)])
+                          for key, fn in arms.items()}, 4)
+    sdpa_bwd = times["sdpa forward+backward"] - times["sdpa forward"]
+    log("WMT cross-attention (32,120|128,8,64) graph-timed, ms a call: "
+        + ", ".join(f"{key} {ms:.4f}" for key, ms in times.items())
+        + f"; SDPA backward {sdpa_bwd:.4f}")
+    # bytes of one query-side tensor (q, g, out, dq), one key-side tensor
+    # (k, v, dk, dv), one f32 row vector (lse, delta)
+    qb, kb = b * t_len * h * d * 2, b * s_len * h * d * 2
+    rb = b * h * t_len * 4
+    product = 2 * b * h * t_len * s_len * d
+    shape = f"q/g ({b},{t_len},{h},{d}), k/v ({b},{s_len},{h},{d}) bf16"
+    for name, n_products, nbytes, lib in (
+            ("flash_fwd", 2, 2 * qb + 2 * kb + rb, times["sdpa forward"]),
+            ("flash_bwd_dkv", 4, 2 * qb + 4 * kb + 2 * rb, sdpa_bwd),
+            ("flash_bwd_dq", 3, 3 * qb + 2 * kb + 2 * rb, sdpa_bwd)):
+        bound_ms, bound_by = bound(n_products * product, nbytes)
+        rows[name]["wmt"] = dict(
+            shape=shape + ", dropout 0.1, no mask", ms=times[f"{name} p=0.1"],
+            ms_dropout0=times[f"{name} p=0.0"], library_ms=lib,
+            bound_ms=bound_ms, bound_by=bound_by, max_abs_err=worst[name])
+        rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"],
+                                        worst[name])
+        log(f"{name} at the WMT cross-attention: {times[f'{name} p=0.1']:.4f}"
+            f" ms (dropout 0: {times[f'{name} p=0.0']:.4f}), library "
+            f"{lib:.4f}, bound {bound_ms:.4f} {bound_by}")
+    del q, k, v, qt, kt, vt, gt, gr, out, lse
+    # the decode steps: Sq = 1
+    decode = []
+    for keys in (1, 7, 32, s_len):
+        (q, k, v, *_), errs = _flash_case(g, b, 1, keys, False, 0.0,
+                                          backward=False)
+        worst["flash_fwd"] = max(worst["flash_fwd"], errs["flash_fwd"])
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        times = K4.graphs_ms({
+            "kernel": lambda: [A.flash_forward(q, k, v) for _ in range(12)],
+            "sdpa": lambda: [torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt) for _ in range(12)]}, 12)
+        bound_ms, bound_by = bound(4 * b * h * keys * d,
+                                   (2 * b + 2 * b * keys) * h * d * 2
+                                   + b * h * 4)
+        decode.append(dict(keys=keys, ms=times["kernel"],
+                           library_ms=times["sdpa"], bound_ms=bound_ms,
+                           bound_by=bound_by, max_abs_err=errs["flash_fwd"]))
+        log(f"flash_fwd at a WMT decode step (32,1|{keys},8,64): "
+            f"{times['kernel']:.4f} ms, SDPA {times['sdpa']:.4f}, bound "
+            f"{bound_ms:.4f} {bound_by}")
+    rows["flash_fwd"]["wmt"]["decode"] = decode
+    rows["flash_fwd"]["max_abs_err"] = max(rows["flash_fwd"]["max_abs_err"],
+                                           worst["flash_fwd"])
+    # the element pass at relu, bit for bit
+    t, f = b * t_len, WMT_FF
+    for p in (0.1, 0.0):
+        pre, dh = _rand(g, t, f, scale=2.0), _rand(g, t, f)
+        b1 = _rand(g, f, scale=0.1)
+        h_out = F.ffn_act_fwd(pre, b1, "relu", p, 21)
+        dpre, h2 = F.ffn_act_bwd(pre, b1, dh, "relu", p, 21)
+        again = F.ffn_act_fwd(pre, b1, "relu", p, 21)
+        dpre2, _ = F.ffn_act_bwd(pre, b1, dh, "relu", p, 21)
+        torch.cuda.synchronize()
+        want_h = F.ffn_act_fwd_reference(pre, b1, "relu", p, 21)
+        want_d, _ = F.ffn_act_bwd_reference(pre, b1, dh, "relu", p, 21)
+        ok = (torch.equal(h_out, want_h) and torch.equal(h2, want_h)
+              and torch.equal(dpre, want_d) and torch.equal(again, h_out)
+              and torch.equal(dpre2, dpre))
+        log(f"ffn_act relu T={t} F={f} p={p}: h and dpre bit for bit with "
+            f"the plain versions, and twice: {'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            raise AssertionError(f"ffn_act relu is not bit for bit at T={t} "
+                                 f"F={f} p={p}")
+    times = K4.graphs_ms({
+        "ffn_act_fwd": lambda: [F.ffn_act_fwd(pre, b1, "relu", 0.1, 5)
+                                for _ in range(4)],
+        "ffn_act_bwd": lambda: [F.ffn_act_bwd(pre, b1, dh, "relu", 0.1, 5)
+                                for _ in range(4)],
+        "aten_bias_relu": lambda: [torch.relu(pre + b1) for _ in range(4)]},
+        4)
+    for name, n_tf in (("ffn_act_fwd", 2), ("ffn_act_bwd", 4)):
+        nbytes = (n_tf * t * f + f) * 2
+        rows[name]["wmt"] = dict(
+            shape=f"pre{'/dh' if n_tf == 4 else ''} ({t},{f}) bf16, relu, "
+                  f"dropout 0.1", ms=times[name], max_abs_err=0.0,
+            bound_ms=nbytes / PEAK_BYTES * 1e3, bound_by="bytes",
+            aten_bias_relu_ms=times["aten_bias_relu"], bit_for_bit=True)
+        log(f"{name} relu at the WMT FFN ({t},{f}): {times[name]:.4f} ms, "
+            f"bound {nbytes / PEAK_BYTES * 1e3:.4f} bytes; ATen bias + relu "
+            f"(no dropout) {times['aten_bias_relu']:.4f}")
 
 
 @phase("probe")
@@ -2385,6 +2618,287 @@ def fluid_resnet():
     return launches
 
 
+def wmt_step_flops(cfg, batch, src, tgt):
+    """Model FLOPs of one WMT train step, 3x the forward's matmul and
+    attention products: per source token and encoder layer the q/k/v/o
+    and FFN products and QK^T, PV over S keys; per target token and
+    decoder layer the self-attention's q/k/v/o, the cross-attention's q
+    and o, the FFN, and QK^T, PV over T and over S keys; per source token
+    and decoder layer the cross-attention's k and v of the memory; per
+    target token the output projection to the vocabulary."""
+    d, f, v = cfg.d_model, cfg.d_inner_hid, cfg.tgt_vocab_size
+    enc = cfg.num_encoder_layers * (2 * (4 * d * d + 2 * d * f)
+                                    + 4 * src * d)
+    dec = cfg.num_decoder_layers * (2 * (6 * d * d + 2 * d * f)
+                                    + 4 * (tgt + src) * d)
+    memory_kv = cfg.num_decoder_layers * 2 * 2 * d * d
+    fwd = batch * (src * (enc + memory_kv) + tgt * (dec + 2 * d * v))
+    return 3 * fwd
+
+
+def _wmt_train(W, cfg):
+    """Transformer-base through build_train_step (bf16 over fp32 masters,
+    dropout 0.1, Noam warm-up WMT_WARMUP) on the FFN's default arm: 1
+    warm-up and WMT_TIMED steps timed by CUDA events under
+    set_sync_debug_mode("error"), the counters at 0 just before and read
+    just after (the main path), more steps to WMT_STEPS, one profiled,
+    then one step with the kernel arm opened.  Returns (summary,
+    launches)."""
+    t0 = time.perf_counter()
+    model = W.WMTTransformer(cfg, seed=0)  # f32, train() mode
+    n_params = sum(p.numel() for p in model.parameters())
+    step, state = W.build_train_step(model, warmup_steps=WMT_WARMUP)
+    fb = W.fake_batch(cfg, WMT_BATCH, WMT_SRC, WMT_TGT, seed=13)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in fb.items()}
+    start = {k: v.clone() for k, v in state["params"].items()}
+    log(f"WMTTransformer(base): {n_params / 1e6:.2f} M parameters, "
+        f"{len(state['params'])} state tensors (the 2 position tables "
+        f"included), built in {time.perf_counter() - t0:.1f} s; B="
+        f"{WMT_BATCH} S={WMT_SRC} T={WMT_TGT}, dropout {cfg.dropout}, "
+        f"Noam warm-up {WMT_WARMUP}; FFN arm "
+        f"{F._ffn_arm([torch.bfloat16] * 5, cfg.d_model, cfg.d_inner_hid)}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in COUNTERS.values():
+        c.reset()
+    for name in ("ffn_dispatch_kernel", "ffn_dispatch_library",
+                 "attention_dispatch_dense"):
+        profiler.stat_reset(name)
+    # -- the main path: counters at 0 before, read right after --------------
+    losses = []
+    t0 = time.perf_counter()
+    state, loss = step(state, batch)  # warm-up
+    losses.append(loss)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        h0 = time.perf_counter()
+        e0.record()
+        for _ in range(WMT_TIMED):
+            state, loss = step(state, batch)
+            losses.append(loss)
+        e1.record()
+        host_ms = (time.perf_counter() - h0) * 1e3 / WMT_TIMED
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    launches = {n: c.value for n, c in COUNTERS.items()}
+    stats = profiler.get_int_stats()
+    mem = torch.cuda.max_memory_allocated()
+    # ------------------------------------------------------------------------
+    steps = WMT_TIMED + 1
+    step_ms = e0.elapsed_time(e1) / WMT_TIMED
+    _expect_launches(launches, 2 * WMT_LAYERS * steps, LIBRARY_TRAIN_KERNELS,
+                     f"{steps} WMT steps")
+    dispatch = {k: stats.get(k, 0) for k in (
+        "ffn_dispatch_kernel", "ffn_dispatch_library",
+        "attention_dispatch_dense")}
+    want = {"ffn_dispatch_kernel": 0,
+            "ffn_dispatch_library": 2 * WMT_LAYERS * steps,
+            "attention_dispatch_dense": WMT_LAYERS * steps}
+    log(f"kernel launches on the main path ({steps} steps): {launches}; "
+        f"dispatch {dispatch}")
+    if dispatch != want:
+        raise AssertionError(f"WMT dispatch {dispatch} (want {want})")
+    while len(losses) < WMT_STEPS:
+        state, loss = step(state, batch)
+        losses.append(loss)
+    losses = [float(x) for x in losses]
+    log(f"losses: {' '.join(f'{x:.4f}' for x in losses)}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"WMT losses are not finite and falling by "
+                             f"step {WMT_STEPS}")
+    if not all(bool(torch.isfinite(state[s][k]).all())
+               for s in ("m", "v") for k in state[s]):
+        raise AssertionError("a WMT gradient holds a NaN or inf (moments)")
+    # every tensor moves but the k_proj biases, whose exact gradient is 0
+    # (softmax ignores a score added to every key of a query)
+    still = [k for k, v in state["params"].items()
+             if torch.equal(v, start[k]) and not k.endswith("k_proj.bias")]
+    pe_moved = {k: float((state["params"][k] - start[k]).abs().max())
+                for k in ("src_pos.pe", "tgt_pos.pe")}
+    log(f"position tables moved by {pe_moved}; tensors that did not move: "
+        f"{still}")
+    if still or not all(m > 0 for m in pe_moved.values()):
+        raise AssertionError(f"parameters did not move: {still} {pe_moved}")
+    flops = wmt_step_flops(cfg, WMT_BATCH, WMT_SRC, WMT_TGT)
+    summary = dict(
+        step_ms=step_ms, host_step_ms=host_ms, warmup_step_s=warm_s,
+        src_tokens_per_s=WMT_BATCH * WMT_SRC / (step_ms / 1e3),
+        tgt_tokens_per_s=WMT_BATCH * WMT_TGT / (step_ms / 1e3),
+        step_flops=flops, mfu=flops / (step_ms / 1e3) / PEAK_BF16_FLOPS,
+        max_memory_allocated_bytes=mem, parameters=n_params, losses=losses,
+        position_tables_moved=pe_moved, syncs_in_timed_steps=0)
+    log(f"WMT train step B={WMT_BATCH} S={WMT_SRC} T={WMT_TGT}: "
+        f"{step_ms:.3f} ms (CUDA events; host clock {host_ms:.3f} ms), "
+        f"{summary['src_tokens_per_s']:.0f} source / "
+        f"{summary['tgt_tokens_per_s']:.0f} target tokens/s, MFU "
+        f"{100 * summary['mfu']:.2f}% of 989 TFLOP/s ({flops / 1e12:.4f} "
+        f"TFLOP a step), warm-up step {warm_s:.2f} s, max_memory_allocated "
+        f"{mem / 2 ** 30:.2f} GiB; 0 syncs in {WMT_TIMED} steps")
+    busy, wall, top = _profile(lambda: step(state, batch), top=15)
+    summary.update(profiled_busy_ms=busy, profiled_wall_ms=wall,
+                   profiled_idle=max(0.0, 1 - busy / wall),
+                   top_kernels=[dict(name=k[:90], ms=ms, count=n)
+                                for k, ms, n in top])
+    # one step on the FFN's kernel arm, opened as a user opts in
+    F.enable_fused_ffn()
+    for c in COUNTERS.values():
+        c.reset()
+    state, loss = step(state, batch)
+    torch.cuda.synchronize()
+    opted = {n: c.value for n, c in COUNTERS.items()}
+    _expect_launches(opted, 2 * WMT_LAYERS, TRAIN_KERNELS,
+                     "one WMT step on the kernel arm")
+    if not np.isfinite(float(loss)):
+        raise AssertionError("the kernel-arm WMT step's loss is not finite")
+    log(f"one step on the kernel arm: loss {float(loss):.4f}, launches "
+        f"{opted}")
+    summary["kernel_arm_launches"] = opted
+    return summary, launches
+
+
+def _wmt_decode(W, cfg):
+    """Transformer-base in bf16 (eval) decoding WMT_DECODE_BATCH sources
+    of WMT_SRC tokens for WMT_MAX_LEN steps: greedy, beams of WMT_BEAM
+    and of 1, in that order under set_sync_debug_mode("error"), the
+    counters at 0 just before and read just after each.  Returns
+    (summary, launches)."""
+    model = W.WMTTransformer(cfg, dtype=torch.bfloat16, seed=1).eval()
+    src = torch.from_numpy(W.fake_batch(cfg, WMT_DECODE_BATCH, WMT_SRC, 1,
+                                        seed=17)["src"]).cuda()
+    n = WMT_DECODE_BATCH * WMT_MAX_LEN
+    model.greedy_decode(src, 2)  # warm-up
+    model.beam_decode(src, WMT_BEAM, 2)
+    with torch.no_grad():
+        enc_ms = time_ms(lambda: model._encode(src), iters=5, warmup=1)
+    torch.cuda.synchronize()
+    for c in COUNTERS.values():
+        c.reset()
+    profiler.stat_reset("attention_dispatch_dense")
+    # -- the main path: counters at 0 before, read right after each ---------
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    counts = []
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ev[0].record()
+        greedy = model.greedy_decode(src, WMT_MAX_LEN)
+        ev[1].record()
+        counts.append({n_: c.value for n_, c in COUNTERS.items()})
+        seqs4, scores4 = model.beam_decode(src, WMT_BEAM, WMT_MAX_LEN)
+        ev[2].record()
+        counts.append({n_: c.value for n_, c in COUNTERS.items()})
+        seqs1, scores1 = model.beam_decode(src, 1, WMT_MAX_LEN)
+        ev[3].record()
+        counts.append({n_: c.value for n_, c in COUNTERS.items()})
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    dense = profiler.get_int_stats().get("attention_dispatch_dense", 0)
+    # ------------------------------------------------------------------------
+    launches = counts[-1]
+    per_call = {"flash_fwd": WMT_LAYERS + 2 * WMT_LAYERS * WMT_MAX_LEN,
+                "ffn_act_fwd": WMT_LAYERS + WMT_LAYERS * WMT_MAX_LEN}
+    for i, c in enumerate(counts):
+        got = {k: v for k, v in c.items() if v}
+        want = {k: (i + 1) * v for k, v in per_call.items()}
+        if got != want:
+            raise AssertionError(f"decode launches {got} after call {i + 1} "
+                                 f"(want {want}: 6 for the encoder, 12 "
+                                 f"flash_fwd and 6 ffn_act_fwd a step)")
+    if dense:
+        raise AssertionError(f"{dense} attention calls in the decode loops "
+                             f"went to the dense path")
+    ms = {"greedy": ev[0].elapsed_time(ev[1]),
+          f"beam{WMT_BEAM}": ev[1].elapsed_time(ev[2]),
+          "beam1": ev[2].elapsed_time(ev[3])}
+    if not torch.equal(greedy, seqs1[:, 0]):
+        raise AssertionError("greedy and beam 1 disagree")
+    s1, s4 = scores1[:, 0].float().cpu(), scores4.float().cpu()
+    if not (bool(torch.isfinite(s4).all())
+            and bool((s4[:, 1:] - s4[:, :-1] <= 1e-5).all())):
+        raise AssertionError(f"beam {WMT_BEAM} scores not finite and best "
+                             f"first: {s4.tolist()}")
+    if tuple(seqs4.shape) != (WMT_DECODE_BATCH, WMT_BEAM, WMT_MAX_LEN):
+        raise AssertionError(f"beam sequences of shape {tuple(seqs4.shape)}")
+    # beam search is not monotone in its width: a wider beam may drop the
+    # greedy path for prefixes that score better and end worse (on these
+    # random weights one source of 8 ends 0.18 below greedy on the H100,
+    # PERF.md §6).  Where greedy's sequence
+    # is still one of the final beams, beam W's best must be at least its
+    # score, which is greedy's: a row's arithmetic does not depend on the
+    # other rows of its batch
+    kept = (seqs4.cpu() == greedy.cpu()[:, None]).all(dim=-1).any(dim=-1)
+    gain = (s4[:, 0] - s1).tolist()
+    log(f"beam {WMT_BEAM} best - beam 1, by source: "
+        f"{' '.join(f'{x:+.4f}' for x in gain)}; greedy's sequence among "
+        f"the final beams of sources {kept.nonzero()[:, 0].tolist()}")
+    if not bool((s4[:, 0] >= s1 - 1e-5)[kept].all()):
+        raise AssertionError(f"beam {WMT_BEAM} scores below greedy's where "
+                             f"greedy's sequence is a final beam: {gain}")
+    # teacher forcing: a full forward over BOS + the greedy tokens before
+    # each position; the chosen token's logit within DECODE_LOGIT_TOL of
+    # the largest there
+    prefix = torch.cat([torch.full_like(greedy[:, :1], cfg.bos_id),
+                        greedy[:, :-1]], dim=1)
+    with torch.no_grad():
+        logits = model(src, prefix).float()
+    chosen = logits.gather(-1, greedy[..., None])[..., 0]
+    gap = float((logits.max(dim=-1).values - chosen).max())
+    agree = float((logits.argmax(dim=-1) == greedy).float().mean())
+    log(f"teacher forcing: largest logit - chosen logit at most {gap:.4f} "
+        f"(tolerance {DECODE_LOGIT_TOL}; |logits| up to "
+        f"{float(logits.abs().max()):.3f}), argmax agrees at "
+        f"{100 * agree:.1f}% of {n} positions")
+    if gap > DECODE_LOGIT_TOL:
+        raise AssertionError("greedy tokens fail the teacher-forced check")
+    summary = dict(encoder_ms=enc_ms, launches_per_call=per_call,
+                   teacher_forced_gap=gap, argmax_agreement=agree,
+                   best_scores={"beam1": s1.tolist(),
+                                f"beam{WMT_BEAM}": s4[:, 0].tolist()},
+                   greedy_among_final_beams=kept.tolist())
+    for key, total in ms.items():
+        summary[key] = dict(ms=total,
+                            step_ms=(total - enc_ms) / WMT_MAX_LEN,
+                            tokens_per_s=n / (total / 1e3))
+        log(f"{key} decode of {WMT_DECODE_BATCH} x {WMT_SRC} -> "
+            f"{WMT_MAX_LEN} tokens: {total:.2f} ms "
+            f"({summary[key]['step_ms']:.3f} ms a step after the "
+            f"encoder's {enc_ms:.2f} ms), "
+            f"{summary[key]['tokens_per_s']:.0f} tokens/s; 0 syncs")
+    busy, wall, _ = _profile(lambda: model.greedy_decode(src, WMT_MAX_LEN),
+                             top=8)
+    summary.update(greedy_profiled_busy_ms=busy,
+                   greedy_profiled_wall_ms=wall,
+                   greedy_profiled_idle=max(0.0, 1 - busy / wall))
+    return summary, launches
+
+
+@phase("wmt")
+def wmt():
+    """BASELINE.json configs[2], the Transformer-base WMT en-de model:
+    training on the FFN's default arm (and one step on its kernel arm),
+    then greedy and beam decoding.  Returns {"wmt_train": launches,
+    "wmt_decode": launches}."""
+    from paddle_tpu_torch.models import transformer_wmt as W
+
+    torch.cuda.empty_cache()
+    cfg = W.TransformerConfig.base()
+    F.disable_fused_ffn("the reference's default: the library arm")
+    try:
+        train, train_launches = _wmt_train(W, cfg)
+        F.disable_fused_ffn("the reference's default: the library arm")
+        torch.cuda.empty_cache()
+        decode, decode_launches = _wmt_decode(W, cfg)
+    finally:
+        F.enable_fused_ffn()
+    log("wmt summary: " + json.dumps(dict(train=train, decode=decode,
+                                          card=card_line())))
+    return {"wmt_train": train_launches, "wmt_decode": decode_launches}
+
+
 @phase("check")
 def reference_check():
     cfg = bert.BertConfig.base(num_hidden_layers=2)
@@ -2432,15 +2946,16 @@ def main():
     reference_check()
     resnet_path = resnet()
     fluid_path = fluid_resnet()
+    wmt_paths = wmt()
     if FAILURES or None in (rows, probed, served, decoded, trained, library,
-                            resnet_path, fluid_path):
+                            resnet_path, fluid_path, wmt_paths):
         log(f"FAILED phases: {FAILURES}")
         print(f"FAILED phases: {FAILURES}", file=sys.stderr, flush=True)
         sys.exit(1)
     rows += probed[0]
     paths = {"serving": served, "decode": decoded, "train": trained[0],
              "probe": probed[1], "library_train": library,
-             "resnet": resnet_path, "fluid": fluid_path}
+             "resnet": resnet_path, "fluid": fluid_path, **wmt_paths}
     for r in rows:
         # `launches` is the count on the path where the kernel runs: the
         # probe for its three kernels, the decode path for ragged_paged,

@@ -11,9 +11,9 @@ weight is the word-embedding table) appear once in the JAX dict and once
 in `named_parameters()`; filling that one entry keeps the tie.
 
 `load_jax_train_state(module, jax_state)` carries a train state over: the
-{"params", "m", "v", "t"} of paddle_tpu's `build_pretrain_step`, as numpy,
-becomes the state of the port's `build_pretrain_step`, so a JAX run can
-continue in the port.
+{"params", "m", "v", "t"} of paddle_tpu's `build_pretrain_step` (or of
+the WMT `build_train_step`), as numpy, becomes the state of the port's
+step, so a JAX run can continue in the port.
 
 `load_jax_scope(scope, arrays)` does the same for the static graph: the
 persistable values of a paddle_tpu `fluid.Scope` (numpy, by variable name)
@@ -65,14 +65,16 @@ def load_jax_state(module: nn.Module, state: Dict[str, np.ndarray],
 
 def load_jax_train_state(module: nn.Module, jax_state) -> dict:
     """The port's train state from paddle_tpu's: `jax_state` is the
-    {"params", "m", "v", "t"} of its `build_pretrain_step` (numpy
-    arrays).  Returns {"params", "m", "v": f32 tensors on the module's
-    device, by name; "t": host int}, the state the port's step_fn takes.
-    Each of params, m and v is checked against `module`'s parameters as
-    `load_jax_state` checks (all keys, no extra ones, shapes); nothing is
-    built unless every check passes.  The module's own weights are not
-    touched."""
-    params = dict(module.named_parameters())
+    {"params", "m", "v", "t"} of its `build_pretrain_step` or of the WMT
+    `build_train_step` (numpy arrays).  Returns {"params", "m", "v": f32
+    tensors on the module's device, by name; "t": host int}, the state the
+    port's step_fn takes.  The names are those of `functional_state`:
+    every parameter and buffer (the WMT step's state holds, and trains,
+    its two position tables `src_pos.pe` and `tgt_pos.pe`).  Each of
+    params, m and v is checked against them as `load_jax_state` checks
+    (all keys, no extra ones, shapes); nothing is built unless every
+    check passes.  The module's own weights are not touched."""
+    params = functional_state(module)
     missing = sorted({"params", "m", "v", "t"} - set(jax_state))
     if missing:
         raise KeyError(f"missing keys in train state: {missing}")

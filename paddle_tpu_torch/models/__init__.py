@@ -1,3 +1,3 @@
 """Models of the port (counterpart of paddle_tpu.models)."""
 
-from . import bert  # noqa: F401
+from . import bert, transformer_wmt  # noqa: F401

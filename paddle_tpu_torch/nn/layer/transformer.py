@@ -1,20 +1,26 @@
-"""Transformer encoder layers (counterpart of
-paddle_tpu/nn/layer/transformer.py).
+"""Transformer layers (counterpart of paddle_tpu/nn/layer/transformer.py):
+MultiHeadAttention with its incremental and static KV caches, the
+encoder and decoder layers (post-norm, Paddle's default and BERT's form,
+or pre-norm with `normalize_before`), their stacks and the
+encoder-decoder `Transformer`.
 
-The attention core routes through the flash-attention kernel
-(ops/kernels/attention.py) and the dense FFN through the fused FFN kernel
-(ops/kernels/ffn.py).  Layout is (batch, seq, d_model) throughout,
-(batch, seq, heads, head_dim) inside attention, as in Paddle's 2.x API.
-No KV cache in this slice: `cache` arguments belong to the decode path.
+The attention core routes through `F.scaled_dot_product_attention` (the
+flash kernels for masks constant over query and head dims, the dense
+path for the rest, as the reference dispatches) and the dense FFN
+through `F.fused_feedforward`.  Layout is (batch, seq, d_model)
+throughout, (batch, seq, heads, head_dim) inside attention, as in
+Paddle's 2.x API.
 """
 
 from __future__ import annotations
 
+import collections
 from typing import Optional
 
 import torch
 from torch import nn
 
+from ... import device as _device
 from .. import functional as F
 from ..initializer import Initializer
 from .activation import GELU, ReLU
@@ -23,6 +29,15 @@ from .norm import LayerNorm
 
 
 class MultiHeadAttention(nn.Module):
+    """Paddle's MultiHeadAttention.  `cache` in forward: a `Cache` (the
+    incremental self-attention cache: this call's k/v are appended to it
+    and the grown cache is returned beside the output) or a
+    `StaticCache` (cross-attention: the memory's projected k/v, used as
+    they are); `gen_cache` makes either."""
+
+    Cache = collections.namedtuple("Cache", ["k", "v"])
+    StaticCache = collections.namedtuple("StaticCache", ["k", "v"])
+
     def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0,
                  weight_init: Optional[Initializer] = None,
                  generator: Optional[torch.Generator] = None):
@@ -45,22 +60,46 @@ class MultiHeadAttention(nn.Module):
         return x.reshape(x.shape[0], x.shape[1], self.num_heads,
                          self.head_dim)
 
-    def forward(self, query, key=None, value=None, attn_mask=None):
+    def gen_cache(self, key, value=None, type=None):
+        """`StaticCache` of key's (and value's) projected k/v when `type`
+        is StaticCache; else an empty `Cache`, (B, 0, heads, head_dim) in
+        the weights' dtype, on key's device."""
+        if type is MultiHeadAttention.StaticCache:
+            k = self._split_heads(self.k_proj(key))
+            v = self._split_heads(self.v_proj(key if value is None
+                                              else value))
+            return self.StaticCache(k, v)
+        empty = torch.empty((key.shape[0], 0, self.num_heads, self.head_dim),
+                            dtype=self.k_proj.weight.dtype, device=key.device)
+        return self.Cache(empty, empty)
+
+    def forward(self, query, key=None, value=None, attn_mask=None,
+                cache=None):
         key = query if key is None else key
         value = key if value is None else value
         q = self._split_heads(self.q_proj(query))
-        k = self._split_heads(self.k_proj(key))
-        v = self._split_heads(self.v_proj(value))
+        if isinstance(cache, self.StaticCache):
+            k, v = cache.k, cache.v
+        else:
+            k = self._split_heads(self.k_proj(key))
+            v = self._split_heads(self.v_proj(value))
+            if isinstance(cache, self.Cache):
+                k = torch.cat([cache.k, k], dim=1)
+                v = torch.cat([cache.v, v], dim=1)
+                cache = self.Cache(k, v)
         out = F.scaled_dot_product_attention(
             q, k, v, attn_mask=attn_mask, dropout_p=self.dropout,
             training=self.training, generator=self.generator)
-        out = out.reshape(out.shape[0], out.shape[1], self.embed_dim)
-        return self.out_proj(out)
+        out = self.out_proj(out.reshape(out.shape[0], out.shape[1],
+                                        self.embed_dim))
+        if cache is not None and not isinstance(cache, self.StaticCache):
+            return out, cache
+        return out
 
 
 def _dense_ffn_block(layer, x):
-    """linear2(dropout(act(linear1(x)))) through F.fused_feedforward: one
-    launch of the fused FFN kernel on the card."""
+    """linear2(dropout(act(linear1(x)))) through F.fused_feedforward, for
+    encoder and decoder layers alike."""
     act = layer.activation
     act_name = "relu" if isinstance(act, ReLU) else (
         "gelu_tanh" if act.approximate else "gelu")
@@ -71,14 +110,23 @@ def _dense_ffn_block(layer, x):
         generator=layer.dropout.generator)
 
 
+def _sublayer(norm, normalize_before, x, fn):
+    """x + fn(norm(x)) pre-norm, norm(x + fn(x)) post-norm; fn returns
+    (output, extra) and `extra` is passed through."""
+    out, extra = fn(norm(x) if normalize_before else x)
+    out = x + out
+    return (out if normalize_before else norm(out)), extra
+
+
 class TransformerEncoderLayer(nn.Module):
-    """Post-norm encoder layer (Paddle's normalize_before=False, the form
-    BERT uses)."""
+    """Paddle's encoder layer: post-norm by default (BERT's form), pre-norm
+    with `normalize_before`."""
 
     def __init__(self, d_model: int, nhead: int, dim_feedforward: int,
                  dropout: float = 0.1, activation: str = "relu",
                  attn_dropout: Optional[float] = None,
                  act_dropout: Optional[float] = None,
+                 normalize_before: bool = False,
                  weight_init: Optional[Initializer] = None,
                  moe_experts: Optional[int] = None,
                  generator: Optional[torch.Generator] = None):
@@ -89,6 +137,7 @@ class TransformerEncoderLayer(nn.Module):
                 "ported yet")
         attn_dropout = dropout if attn_dropout is None else attn_dropout
         act_dropout = dropout if act_dropout is None else act_dropout
+        self.normalize_before = normalize_before
         self.self_attn = MultiHeadAttention(
             d_model, nhead, dropout=attn_dropout, weight_init=weight_init,
             generator=generator)
@@ -103,23 +152,189 @@ class TransformerEncoderLayer(nn.Module):
         self.dropout2 = Dropout(dropout, generator=generator)
         self.activation = GELU() if activation == "gelu" else ReLU()
 
-    def forward(self, src, src_mask=None):
-        src = self.norm1(src + self.dropout1(
-            self.self_attn(src, src, src, src_mask)))
-        return self.norm2(src + self.dropout2(_dense_ffn_block(self, src)))
+    def forward(self, src, src_mask=None, cache=None):
+        def attend(x):
+            if cache is None:
+                return self.dropout1(self.self_attn(x, x, x, src_mask)), None
+            out, new = self.self_attn(x, x, x, src_mask, cache)
+            return self.dropout1(out), new
+
+        src, cache = _sublayer(self.norm1, self.normalize_before, src,
+                               attend)
+        src, _ = _sublayer(
+            self.norm2, self.normalize_before, src,
+            lambda x: (self.dropout2(_dense_ffn_block(self, x)), None))
+        return src if cache is None else (src, cache)
+
+    def gen_cache(self, src):
+        return self.self_attn.gen_cache(src, type=MultiHeadAttention.Cache)
+
+
+class TransformerDecoderLayer(nn.Module):
+    """Paddle's decoder layer: self-attention, cross-attention over the
+    memory, FFN; post-norm by default, pre-norm with `normalize_before`.
+    `cache` is (incremental Cache, StaticCache), as `gen_cache` makes it."""
+
+    def __init__(self, d_model: int, nhead: int, dim_feedforward: int,
+                 dropout: float = 0.1, activation: str = "relu",
+                 attn_dropout: Optional[float] = None,
+                 act_dropout: Optional[float] = None,
+                 normalize_before: bool = False,
+                 weight_init: Optional[Initializer] = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        attn_dropout = dropout if attn_dropout is None else attn_dropout
+        act_dropout = dropout if act_dropout is None else act_dropout
+        self.normalize_before = normalize_before
+        kw = dict(dropout=attn_dropout, weight_init=weight_init,
+                  generator=generator)
+        self.self_attn = MultiHeadAttention(d_model, nhead, **kw)
+        self.cross_attn = MultiHeadAttention(d_model, nhead, **kw)
+        self.linear1 = Linear(d_model, dim_feedforward, weight_init,
+                              generator=generator)
+        self.dropout = Dropout(act_dropout, generator=generator)
+        self.linear2 = Linear(dim_feedforward, d_model, weight_init,
+                              generator=generator)
+        self.norm1 = LayerNorm(d_model)
+        self.norm2 = LayerNorm(d_model)
+        self.norm3 = LayerNorm(d_model)
+        self.dropout1 = Dropout(dropout, generator=generator)
+        self.dropout2 = Dropout(dropout, generator=generator)
+        self.dropout3 = Dropout(dropout, generator=generator)
+        self.activation = GELU() if activation == "gelu" else ReLU()
+
+    def forward(self, tgt, memory, tgt_mask=None, memory_mask=None,
+                cache=None):
+        def attend(x):
+            if cache is None:
+                return self.dropout1(self.self_attn(x, x, x, tgt_mask)), None
+            out, new = self.self_attn(x, x, x, tgt_mask, cache[0])
+            return self.dropout1(out), new
+
+        def cross(x):
+            out = self.cross_attn(x, memory, memory, memory_mask,
+                                  None if cache is None else cache[1])
+            return self.dropout2(out), None
+
+        tgt, incr = _sublayer(self.norm1, self.normalize_before, tgt, attend)
+        tgt, _ = _sublayer(self.norm2, self.normalize_before, tgt, cross)
+        tgt, _ = _sublayer(
+            self.norm3, self.normalize_before, tgt,
+            lambda x: (self.dropout3(_dense_ffn_block(self, x)), None))
+        return tgt if cache is None else (tgt, (incr, cache[1]))
+
+    def gen_cache(self, memory):
+        incr = self.self_attn.gen_cache(memory,
+                                        type=MultiHeadAttention.Cache)
+        static = self.cross_attn.gen_cache(
+            memory, memory, type=MultiHeadAttention.StaticCache)
+        return incr, static
 
 
 class TransformerEncoder(nn.Module):
     """`num_layers` encoder layers, each built by `layer_fn()` (a fresh,
     independently initialized layer per call, where Paddle clones one
-    layer's constructor config)."""
+    layer's constructor config), then `norm` if given."""
 
-    def __init__(self, layer_fn, num_layers: int):
+    def __init__(self, layer_fn, num_layers: int,
+                 norm: Optional[nn.Module] = None):
         super().__init__()
         self.layers = nn.ModuleList(layer_fn() for _ in range(num_layers))
         self.num_layers = num_layers
+        self.norm = norm
 
-    def forward(self, src, src_mask=None):
-        for layer in self.layers:
-            src = layer(src, src_mask)
-        return src
+    def forward(self, src, src_mask=None, cache=None):
+        new_caches = []
+        for i, layer in enumerate(self.layers):
+            if cache is None:
+                src = layer(src, src_mask)
+            else:
+                src, new = layer(src, src_mask, cache[i])
+                new_caches.append(new)
+        if self.norm is not None:
+            src = self.norm(src)
+        return src if cache is None else (src, new_caches)
+
+    def gen_cache(self, src):
+        return [layer.gen_cache(src) for layer in self.layers]
+
+
+class TransformerDecoder(nn.Module):
+    """`num_layers` decoder layers from `layer_fn()`, then `norm` if
+    given.  `cache` is one (Cache, StaticCache) pair a layer."""
+
+    def __init__(self, layer_fn, num_layers: int,
+                 norm: Optional[nn.Module] = None):
+        super().__init__()
+        self.layers = nn.ModuleList(layer_fn() for _ in range(num_layers))
+        self.num_layers = num_layers
+        self.norm = norm
+
+    def forward(self, tgt, memory, tgt_mask=None, memory_mask=None,
+                cache=None):
+        new_caches = []
+        for i, layer in enumerate(self.layers):
+            if cache is None:
+                tgt = layer(tgt, memory, tgt_mask, memory_mask)
+            else:
+                tgt, new = layer(tgt, memory, tgt_mask, memory_mask,
+                                 cache[i])
+                new_caches.append(new)
+        if self.norm is not None:
+            tgt = self.norm(tgt)
+        return tgt if cache is None else (tgt, new_caches)
+
+    def gen_cache(self, memory, do_zip=False):
+        """One (Cache, StaticCache) pair a layer; with `do_zip`, the pairs
+        transposed into (all Caches, all StaticCaches)."""
+        cache = [layer.gen_cache(memory) for layer in self.layers]
+        return list(zip(*cache)) if do_zip else cache
+
+
+class Transformer(nn.Module):
+    """Paddle's encoder-decoder Transformer; with `normalize_before`, each
+    stack ends in a LayerNorm of its own."""
+
+    def __init__(self, d_model: int = 512, nhead: int = 8,
+                 num_encoder_layers: int = 6, num_decoder_layers: int = 6,
+                 dim_feedforward: int = 2048, dropout: float = 0.1,
+                 activation: str = "relu",
+                 attn_dropout: Optional[float] = None,
+                 act_dropout: Optional[float] = None,
+                 normalize_before: bool = False,
+                 weight_init: Optional[Initializer] = None,
+                 custom_encoder: Optional[nn.Module] = None,
+                 custom_decoder: Optional[nn.Module] = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        kw = dict(dropout=dropout, activation=activation,
+                  attn_dropout=attn_dropout, act_dropout=act_dropout,
+                  normalize_before=normalize_before, weight_init=weight_init,
+                  generator=generator)
+
+        def norm():
+            return LayerNorm(d_model) if normalize_before else None
+
+        self.encoder = custom_encoder if custom_encoder is not None else \
+            TransformerEncoder(lambda: TransformerEncoderLayer(
+                d_model, nhead, dim_feedforward, **kw), num_encoder_layers,
+                norm())
+        self.decoder = custom_decoder if custom_decoder is not None else \
+            TransformerDecoder(lambda: TransformerDecoderLayer(
+                d_model, nhead, dim_feedforward, **kw), num_decoder_layers,
+                norm())
+        self.d_model = d_model
+        self.nhead = nhead
+
+    def forward(self, src, tgt, src_mask=None, tgt_mask=None,
+                memory_mask=None):
+        memory = self.encoder(src, src_mask)
+        return self.decoder(tgt, memory, tgt_mask, memory_mask)
+
+    @staticmethod
+    def generate_square_subsequent_mask(length: int, device=None):
+        """(length, length) float32 additive causal mask, 0 on and below
+        the diagonal and -inf above it, made on `device` (default: the
+        port's default device)."""
+        return torch.full((length, length), float("-inf"),
+                          device=_device.resolve(device)).triu(1)

@@ -398,6 +398,14 @@ class FusedFFNFunction(torch.autograd.Function):
 
 # -- the library arm: cuBLAS products around one element pass -----------------
 
+def _drop_kept(x, keep, dropout_p):
+    """x / (1 - p) where `keep`, else 0, an IEEE f32 division on either
+    device, as the element-pass kernel divides (CUDA's division by a
+    Python scalar multiplies by its reciprocal, one f32 unit off)."""
+    div = torch.full((), 1.0 - dropout_p, dtype=x.dtype, device=x.device)
+    return torch.where(keep, x / div, torch.zeros_like(x))
+
+
 def ffn_act_fwd_reference(pre, b1, activation="gelu", dropout_p=0.0,
                           seed=0):
     """Plain PyTorch version of `ffn_act_fwd`: h = drop(act(pre + b1)) in
@@ -407,7 +415,7 @@ def ffn_act_fwd_reference(pre, b1, activation="gelu", dropout_p=0.0,
     if dropout_p > 0.0:
         keep = _ffn_keep(seed, 0, 0, pre.shape[0], pre.shape[1], dropout_p,
                          device=pre.device)
-        a = torch.where(keep, a / (1.0 - dropout_p), torch.zeros_like(a))
+        a = _drop_kept(a, keep, dropout_p)
     return a.to(pre.dtype)
 
 
@@ -421,8 +429,7 @@ def ffn_act_bwd_reference(pre, b1, dh, activation="gelu", dropout_p=0.0,
     if dropout_p > 0.0:
         keep = _ffn_keep(seed, 0, 0, pre.shape[0], pre.shape[1], dropout_p,
                          device=pre.device)
-        a = torch.where(keep, a / (1.0 - dropout_p), torch.zeros_like(a))
-        d = torch.where(keep, d / (1.0 - dropout_p), torch.zeros_like(d))
+        a, d = _drop_kept(a, keep, dropout_p), _drop_kept(d, keep, dropout_p)
     return (d * _act_grad(x, activation)).to(pre.dtype), a.to(pre.dtype)
 
 

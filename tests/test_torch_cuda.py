@@ -1144,3 +1144,91 @@ def test_resnet18_train_step_on_the_card_matches_the_cpu(cuda):
         tol = 1e-4 if k.endswith(("._mean", "._variance")) else 1e-3
         torch.testing.assert_close(runs[0][1][k], v, atol=tol, rtol=tol,
                                    msg=k)
+
+
+# -- the WMT Transformer's shapes (models/transformer_wmt.py) -----------------
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("p", [0.0, 0.1])
+def test_flash_at_the_wmt_cross_attention_shape(cuda, masked, p):
+    """The WMT train step's cross-attention: T=120 queries against S=128
+    keys (Sq != Sk, neither a multiple of the 64-row tiles' 128), 8 heads
+    of 64, B=32; the forward and both backward kernels, with and without
+    a key-padding bias, at the step's dropout 0.1 and at 0."""
+    q, g = _bf16(cuda, 32, 120, 8, 64), _bf16(cuda, 32, 120, 8, 64)
+    k, v = _bf16(cuda, 32, 128, 8, 64), _bf16(cuda, 32, 128, 8, 64)
+    bias = _bias(cuda, 32, 128) if masked else None
+    out, lse = A.flash_forward(q, k, v, bias, 13, False, None, None, p)
+    ref, ref_lse = A.flash_forward_reference(q, k, v, bias, 13, False, None,
+                                             None, p)
+    _close(out, ref, BF16)
+    _close(lse, ref_lse, LSE)
+    got = A.flash_backward(q, k, v, bias, 13, out, lse, g, False, None, None,
+                           p)
+    want = A.flash_backward_reference(q, k, v, bias, 13, out, lse, g, False,
+                                      None, None, p)
+    for gt, w in zip(got, want):
+        _close_grad(gt, w)
+
+
+@pytest.mark.parametrize("t", [1, 7, 32, 128])
+def test_flash_at_the_wmt_decode_step_shape(cuda, t):
+    """A WMT decode step: one query a row (B*W = 32 rows of 8 heads, B*H =
+    256) against t keys of the growing self-attention cache, or the 128
+    of the memory's static cache; twice for the same bits."""
+    q = _bf16(cuda, 32, 1, 8, 64)
+    k, v = _bf16(cuda, 32, t, 8, 64), _bf16(cuda, 32, t, 8, 64)
+    out, lse = A.flash_forward(q, k, v)
+    again = A.flash_forward(q, k, v)
+    ref, ref_lse = A.flash_forward_reference(q, k, v)
+    _close(out, ref, BF16)
+    _close(lse, ref_lse, LSE)
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+
+
+@pytest.mark.parametrize("p", [0.0, 0.1])
+def test_ffn_act_relu_at_the_wmt_shape_bit_for_bit(cuda, p):
+    """The library arm's element pass at the WMT step's FFN: relu over
+    3840 tokens x d_ff 2048, bf16: relu has no approximation, so h and
+    dpre equal their plain versions bit for bit."""
+    pre, dh = _bf16(cuda, 3840, 2048, scale=2.0), _bf16(cuda, 3840, 2048)
+    b1 = _bf16(cuda, 2048, scale=0.1)
+    h = F.ffn_act_fwd(pre, b1, "relu", p, 21)
+    dpre, h2 = F.ffn_act_bwd(pre, b1, dh, "relu", p, 21)
+    assert torch.equal(h, F.ffn_act_fwd_reference(pre, b1, "relu", p, 21))
+    want_dpre, want_h = F.ffn_act_bwd_reference(pre, b1, dh, "relu", p, 21)
+    assert torch.equal(dpre, want_dpre) and torch.equal(h2, want_h)
+
+
+def test_tiny_wmt_trains_and_decodes_on_the_card(cuda):
+    """TransformerConfig.tiny() (head_dim 16, d_model 64: the FFN takes
+    its library arm) on the card: two bf16 train steps launch each flash
+    kernel once for each attention that takes it (2 encoder + 2 cross a
+    step), each element pass once a layer, and send the 2 decoder
+    self-attentions (causal mask) to the dense path; greedy equals beam 1
+    token for token, and every decode step launches flash_fwd 4 times."""
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.models import transformer_wmt as W
+
+    cfg = W.TransformerConfig.tiny()
+    model = W.WMTTransformer(cfg, seed=1)
+    step, state = W.build_train_step(model, warmup_steps=10)
+    batch = W.fake_batch(cfg, 4, 24, 20, seed=2)
+    for c in COUNTERS.values():
+        c.reset()
+    profiler.stat_reset("attention_dispatch_dense")
+    losses = [float(step(state, batch)[1]) for _ in range(2)]
+    launches = {n: c.value for n, c in COUNTERS.items() if c.value}
+    assert all(np.isfinite(losses))
+    assert launches == {n: 8 for n in ("flash_fwd", "flash_bwd_dkv",
+                                       "flash_bwd_dq", "ffn_act_fwd",
+                                       "ffn_act_bwd")}
+    assert profiler.get_int_stats()["attention_dispatch_dense"] == 4
+    model = W.WMTTransformer(cfg, dtype=torch.bfloat16, seed=1).eval()
+    src = torch.from_numpy(batch["src"]).cuda()
+    for c in COUNTERS.values():
+        c.reset()
+    greedy = model.greedy_decode(src, max_len=8)
+    assert COUNTERS["flash_fwd"].value == 2 + 4 * 8
+    seqs, _ = model.beam_decode(src, beam_size=1, max_len=8)
+    torch.testing.assert_close(seqs[:, 0], greedy, atol=0, rtol=0)

@@ -58,7 +58,9 @@ def test_the_walk_sees_the_whole_package():
             "convert.py", "jit.py", "fluid/framework.py",
             "fluid/executor.py", "fluid/backward.py", "fluid/optimizer.py",
             "fluid/layers/nn.py", "ops/registry.py", "ops/nn_ops.py",
-            "models/resnet.py", "models/mnist.py"} <= names
+            "models/resnet.py", "models/mnist.py",
+            "models/transformer_wmt.py", "ops/rnn_ops.py",
+            "nn/layer/transformer.py"} <= names
 
 
 def _run(code_or_args, cwd, timeout=120):
@@ -77,7 +79,9 @@ def test_importing_the_port_loads_no_jax():
             "paddle_tpu_torch.nn, paddle_tpu_torch.obs, "
             "paddle_tpu_torch.jit, paddle_tpu_torch.tools.kernel4d_probe, "
             "paddle_tpu_torch.fluid, paddle_tpu_torch.models.resnet, "
-            "paddle_tpu_torch.models.mnist, paddle_tpu_torch.ops.registry\n"
+            "paddle_tpu_torch.models.mnist, paddle_tpu_torch.ops.registry, "
+            "paddle_tpu_torch.models.transformer_wmt, "
+            "paddle_tpu_torch.ops.rnn_ops\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu'))\n"
             "print(bad)\n")
