@@ -5,20 +5,47 @@ The JAX package `paddle_tpu` stays beside this one as the reference each
 part of the port is held against (tests/test_torch_*.py).  This package
 imports torch and numpy only: never jax, never paddle_tpu.
 
-First slice: BERT-base served through `serving.Engine`, with the two
-Pallas kernels on that path (flash-attention forward, fused FFN
-forward) rewritten by hand in CUDA C++ under `csrc/`.
+Its front ends: BERT served through `serving.Engine` and decoded through
+`serving.AutoregressiveEngine` (the hand-written CUDA kernels under
+`csrc/`), the Fluid static graph (`fluid`: Program, Executor), and the
+2.x eager API below, whose Tensor is `torch.Tensor` and whose tape is
+torch autograd:
 
-    from paddle_tpu_torch import serving
-    from paddle_tpu_torch.models import bert
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.vision.models import LeNet
 
-    model = bert.BertModel(bert.BertConfig.base(), dtype=torch.bfloat16)
-    engine = serving.Engine(fn, serving.EngineConfig(max_batch_size=32))
+    model = paddle.Model(LeNet())
+    model.prepare(paddle.optimizer.Adam(learning_rate=1e-3,
+                                        parameters=model.parameters()),
+                  paddle.nn.CrossEntropyLoss(), paddle.metric.Accuracy())
+    model.fit(dataset, batch_size=64, epochs=1)
 
-Entry points run on `cuda` unless the caller passes `device="cpu"`; with
-no GPU and no device given they raise.
+Entry points run on `cuda` unless the caller passes `device="cpu"` (or
+calls `set_device("cpu")`); with no GPU and no device given they raise.
 """
 
-from .device import get_device, set_device  # noqa: F401
+import torch
 
-__all__ = ["get_device", "set_device"]
+from .device import get_device, set_device  # noqa: F401
+from . import amp, fluid, hapi, io, metric, nn, optimizer, tensor  # noqa
+from . import vision  # noqa: F401
+from .fluid.dygraph import (disable_dygraph, enable_dygraph, grad,  # noqa
+                            no_grad, to_variable)
+from .fluid.framework import in_dygraph_mode  # noqa: F401
+from .fluid.param_attr import ParamAttr  # noqa: F401
+from .framework_io import load, save  # noqa: F401
+from .hapi import Model, summary  # noqa: F401
+from .nn import Layer  # noqa: F401
+from .tensor import (arange, eye, full, full_like, linspace,  # noqa: F401
+                     normal, ones, ones_like, rand, randint, randn,
+                     randperm, seed, to_tensor, uniform, zeros, zeros_like)
+
+Tensor = torch.Tensor
+
+
+def enable_static():
+    disable_dygraph()
+
+
+def disable_static(place=None):
+    enable_dygraph(place)

@@ -80,7 +80,7 @@ def load_jax_train_state(module: nn.Module, jax_state) -> dict:
         raise KeyError(f"missing keys in train state: {missing}")
     for part in ("params", "m", "v"):
         _check(params, jax_state[part], True, f"train state[{part!r}]")
-    device = next(module.parameters()).device
+    device = next(iter(module.parameters())).device
     out = {part: {name: torch.tensor(np.asarray(jax_state[part][name]),
                                      dtype=torch.float32, device=device)
                   for name in params}

@@ -46,6 +46,10 @@ def get_device() -> torch.device:
 
 
 def resolve(device: Optional[DeviceLike] = None) -> torch.device:
-    """The device an entry point runs on: the caller's, else the
-    default (cuda)."""
-    return get_device() if device is None else _checked(device)
+    """The device an entry point runs on: the caller's (a fluid Place
+    too), else the default (cuda)."""
+    if device is None:
+        return get_device()
+    if callable(getattr(device, "device", None)):
+        device = device.device()
+    return _checked(device)

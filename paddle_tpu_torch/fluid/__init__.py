@@ -32,5 +32,6 @@ from . import initializer, regularizer
 from .param_attr import ParamAttr, WeightNormParamAttr
 from . import layers
 from . import optimizer
+from . import dygraph
 from .layers.tensor import data
 

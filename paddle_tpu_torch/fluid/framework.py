@@ -551,10 +551,13 @@ def program_guard(main_program: Program, startup_program: Optional[Program] = No
             switch_startup_program(old_startup)
 
 
+_DYGRAPH = [False]  # switched by fluid.dygraph.guard / enable_dygraph
+
+
 def in_dygraph_mode() -> bool:
-    """The port has the static graph only (the eager tape is not
-    ported): always False."""
-    return False
+    """True inside `fluid.dygraph.guard()` (or after `enable_dygraph`):
+    the eager mode, whose tape is torch autograd."""
+    return _DYGRAPH[0]
 
 
 # op_role constants: tag forward (0) / backward (1) / optimize (2) ops for

@@ -1,11 +1,14 @@
-"""paddle_tpu_torch.nn — the nn surface BERT, the WMT Transformer and the
-vision models need (counterpart of paddle_tpu.nn), as torch.nn.Modules."""
+"""paddle_tpu_torch.nn — the nn surface of the port (counterpart of
+paddle_tpu.nn): `Layer` and its layers, losses and functional ops."""
 
 from . import functional, initializer  # noqa: F401
 from .layer import (GELU, AdaptiveAvgPool2D,  # noqa: F401
                     AdaptiveMaxPool2D, AvgPool2D, BatchNorm, BatchNorm1D,
-                    BatchNorm2D, Conv2D, Dropout, Embedding, Flatten,
-                    LayerNorm, Linear, MaxPool2D, MultiHeadAttention, ReLU,
-                    ReLU6, Sequential, Tanh, Transformer,
+                    BatchNorm2D, BCELoss, BCEWithLogitsLoss, Conv2D,
+                    CrossEntropyLoss, Dropout, Embedding, Flatten,
+                    KLDivLoss, L1Loss, Layer, LayerNorm, Linear,
+                    MarginRankingLoss, MaxPool2D, MSELoss,
+                    MultiHeadAttention, NLLLoss, Parameter, ReLU, ReLU6,
+                    Sequential, SmoothL1Loss, Tanh, Transformer,
                     TransformerDecoder, TransformerDecoderLayer,
                     TransformerEncoder, TransformerEncoderLayer)

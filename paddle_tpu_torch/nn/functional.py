@@ -31,18 +31,27 @@ from typing import Optional
 
 import torch
 
+from ..amp import cast_inputs as _amp
+from ..fluid import core
 from ..ops.kernels import attention as _attn
 from ..ops.kernels import ffn as _ffn
 
 
 def linear(x, weight, bias=None):
-    """y = x @ weight + bias with weight (in_features, out_features)."""
+    """y = x @ weight + bias with weight (in_features, out_features); under
+    `amp.auto_cast` the product and the bias add are the reference's two
+    ops (matmul_v2, elementwise_add), cast by its lists."""
+    x, weight = _amp("matmul_v2", x, weight)
     out = torch.matmul(x, weight)
-    return out + bias if bias is not None else out
+    if bias is None:
+        return out
+    out, bias = _amp("elementwise_add", out, bias)
+    return out + bias
 
 
 def embedding(x, weight):
     """Rows of `weight` at the ids `x`."""
+    (weight,) = _amp("lookup_table_v2", weight)
     return torch.nn.functional.embedding(x, weight)
 
 
@@ -69,15 +78,30 @@ def gelu(x, approximate=False):
 
 
 def relu(x):
+    (x,) = _amp("relu", x)
     return torch.relu(x)
 
 
 def relu6(x):
+    (x,) = _amp("relu6", x)
     return torch.clamp(x, 0.0, 6.0)
 
 
 def tanh(x):
+    (x,) = _amp("tanh", x)
     return torch.tanh(x)
+
+
+def softmax(x, axis=-1, dtype=None):
+    (x,) = _amp("softmax", x)
+    out = torch.softmax(x, axis)
+    return out if dtype is None else out.to(core.torch_dtype(dtype))
+
+
+def log_softmax(x, axis=-1, dtype=None):
+    (x,) = _amp("log_softmax", x)
+    out = torch.log_softmax(x, axis)
+    return out if dtype is None else out.to(core.torch_dtype(dtype))
 
 
 _RNG = threading.local()
@@ -218,14 +242,22 @@ def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
     if t != b or l != r:
         x = torch.nn.functional.pad(x, (l, r, t, b))
         t = l = 0
-    return back(torch.nn.functional.conv2d(x, weight, bias, stride, (t, l),
-                                           dilation, groups))
+    cx, cw = _amp("conv2d", x, weight)
+    if bias is None or (cx is x and cw is weight):
+        return back(torch.nn.functional.conv2d(cx, cw, bias, stride, (t, l),
+                                               dilation, groups))
+    # cast: the bias add is a plain add outside the op lists, as in the
+    # reference, so a bf16 convolution's output meets an f32 bias (f32)
+    out = torch.nn.functional.conv2d(cx, cw, None, stride, (t, l), dilation,
+                                     groups)
+    return back(out + bias.view(1, -1, 1, 1))
 
 
 def _pool_args(x, kernel_size, stride, padding, ceil_mode, data_format):
     if ceil_mode:
         # paddle_tpu's pool2d lowering never reads ceil_mode and floors
         raise NotImplementedError("ceil_mode=True is not supported")
+    (x,) = _amp("pool2d", x)
     x, back = _channels_first(x, data_format)
     k = _pair(kernel_size)
     s = _pair(stride if stride is not None else kernel_size)
@@ -272,6 +304,7 @@ def avg_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
 def adaptive_avg_pool2d(x, output_size, data_format="NCHW"):
     """Adaptive average pooling over windows [floor(i S / out),
     ceil((i + 1) S / out)) (nn_ops.py:174-187), torch's rule too."""
+    (x,) = _amp("pool2d", x)
     x, back = _channels_first(x, data_format)
     return back(torch.nn.functional.adaptive_avg_pool2d(x, output_size))
 
@@ -311,6 +344,10 @@ def batch_norm(x, running_mean, running_var, weight, bias, training=False,
     the BIASED batch variance, in the buffers' dtype; otherwise by the
     running statistics, which stay as they are.  The channel axis is 1
     for data formats that begin "NC" and the last one otherwise."""
+    if weight is not None and x.dtype != weight.dtype:
+        # the reference's promotion: a bf16 input (an O1 convolution's)
+        # normalised with f32 parameters gives f32
+        x = x.to(torch.promote_types(x.dtype, weight.dtype))
     c_axis = 1 if data_format.startswith("NC") or data_format == \
         "AnyLayout" else x.ndim - 1
     shape = [1] * x.ndim
@@ -329,3 +366,151 @@ def batch_norm(x, running_mean, running_var, weight, bias, training=False,
         shift = shift + bias.float()
     return torch.addcmul(shift.to(x.dtype).view(shape), x,
                          scale.to(x.dtype).view(shape))
+
+
+# -- losses (nn/functional/__init__.py:402-566, the ops of nn_ops.py) ---------
+
+def _reduce_loss(loss, reduction):
+    if reduction == "mean":
+        return loss.mean()
+    if reduction == "sum":
+        return loss.sum()
+    return loss
+
+
+def softmax_with_cross_entropy(logits, label, soft_label=False, axis=-1,
+                               ignore_index=-100, return_softmax=False,
+                               numeric_stable_mode=True):
+    """-log softmax(logits) at the hard label along `axis` (a label dim
+    of 1 there is squeezed first; 0 at ignore_index), or -sum(label *
+    log softmax) with soft labels; the loss keeps the class axis as 1.
+    Takes the (N, 1) int64 labels Paddle passes."""
+    (logits,) = _amp("softmax_with_cross_entropy", logits)
+    logp = torch.log_softmax(logits, dim=axis)
+    if soft_label:
+        loss = -torch.sum(label * logp, dim=axis, keepdim=True)
+    else:
+        ax = axis if axis >= 0 else axis + logits.ndim
+        lab = label
+        if lab.ndim == logits.ndim and lab.shape[ax] == 1:
+            lab = lab.squeeze(ax)
+        ignored = (lab == ignore_index).unsqueeze(ax)
+        safe = torch.where(lab == ignore_index, torch.zeros_like(lab), lab)
+        picked = torch.gather(logp, ax, safe.unsqueeze(ax).long())
+        loss = torch.where(ignored, torch.zeros_like(picked), -picked)
+    if return_softmax:
+        return loss, torch.exp(logp)
+    return loss
+
+
+def _cross_entropy2(x, label, soft_label, ignore_index):
+    """The cross_entropy2 op: x holds probabilities; -log(p + 1e-12) at
+    the label, 0 at ignore_index."""
+    eps = 1e-12
+    if soft_label:
+        return -torch.sum(label * torch.log(x + eps), dim=-1, keepdim=True)
+    lab = label[..., 0] if label.ndim == x.ndim and label.shape[-1] == 1 \
+        else label
+    safe = torch.where(lab == ignore_index, torch.zeros_like(lab), lab)
+    picked = torch.gather(x, -1, safe[..., None].long())
+    return torch.where((lab == ignore_index)[..., None],
+                       torch.zeros_like(picked), -torch.log(picked + eps))
+
+
+def _apply_class_weight(loss, label, weight, ignore_index, reduction):
+    """Hard-label weighting: w_i = weight[y_i] * (y_i != ignore_index);
+    'mean' is the weighted mean sum(w_i l_i) / sum(w_i)."""
+    lab = (label.squeeze(-1) if label.ndim == loss.ndim
+           and label.shape[-1] == 1 else label).long()
+    keep = lab != ignore_index
+    lw = (weight[lab.clamp(0, weight.shape[0] - 1)] if weight is not None
+          else torch.ones(lab.shape, dtype=loss.dtype, device=loss.device))
+    lw = torch.where(keep, lw, torch.zeros_like(lw))
+    wl = loss * (lw.unsqueeze(-1) if loss.ndim > lw.ndim else lw)
+    if reduction == "mean":
+        return wl.sum() / torch.clamp(lw.sum(), min=1e-12)
+    if reduction == "sum":
+        return wl.sum()
+    return wl
+
+
+def cross_entropy(input, label, weight=None, ignore_index=-100,
+                  reduction="mean", soft_label=False, axis=-1,
+                  use_softmax=True):
+    """Paddle's cross_entropy: hard labels of shape (N,) or (N, 1), class
+    `weight` and `ignore_index` ('mean' divides by the summed weights),
+    or soft labels; `use_softmax=False` takes probabilities."""
+    if use_softmax:
+        loss = softmax_with_cross_entropy(input, label, soft_label, axis,
+                                          ignore_index)
+    else:
+        loss = _cross_entropy2(input, label, soft_label, ignore_index)
+    if soft_label or axis not in (-1, input.ndim - 1):
+        if weight is not None:
+            raise NotImplementedError(
+                "cross_entropy: `weight` needs hard labels and axis=-1")
+        return _reduce_loss(loss, reduction)
+    return _apply_class_weight(loss, label, weight, ignore_index, reduction)
+
+
+def mse_loss(input, label, reduction="mean"):
+    diff = input - label
+    return _reduce_loss(diff * diff, reduction)
+
+
+def l1_loss(input, label, reduction="mean"):
+    return _reduce_loss(torch.abs(input - label), reduction)
+
+
+def nll_loss(input, label, weight=None, ignore_index=-100,
+             reduction="mean"):
+    """-w[y_i] logp[i, y_i] over (N, C) log-probabilities, ignored
+    targets 0, 'mean' over the applied weights."""
+    safe = label.long().clamp(0, input.shape[1] - 1)
+    loss = -torch.gather(input, 1, safe[..., None]).squeeze(1)
+    return _apply_class_weight(loss, label, weight, ignore_index, reduction)
+
+
+def binary_cross_entropy(input, label, weight=None, reduction="mean"):
+    eps = 1e-12
+    loss = -(label * torch.log(input + eps)
+             + (1 - label) * torch.log(1 - input + eps))
+    if weight is not None:
+        loss = loss * weight
+    return _reduce_loss(loss, reduction)
+
+
+def binary_cross_entropy_with_logits(logit, label, weight=None,
+                                     reduction="mean", pos_weight=None):
+    """max(x, 0) - x y + log1p(exp(-|x|)), 0 where the label is -100 (the
+    op's ignore_index), times (y (pos_weight - 1) + 1) and `weight`."""
+    loss = (torch.clamp(logit, min=0) - logit * label
+            + torch.log1p(torch.exp(-torch.abs(logit))))
+    loss = torch.where(label == -100, torch.zeros_like(loss), loss)
+    if pos_weight is not None:
+        loss = loss * (label * (pos_weight - 1) + 1)
+    if weight is not None:
+        loss = loss * weight
+    return _reduce_loss(loss, reduction)
+
+
+def kl_div(input, label, reduction="mean"):
+    """target (log target - input) where target > 0, else 0; 'batchmean'
+    sums and divides by the batch."""
+    loss = torch.where(label > 0, label * (torch.log(label) - input),
+                       torch.zeros_like(label))
+    if reduction == "batchmean":
+        n = loss.shape[0] if loss.ndim > 0 else 1
+        return loss.sum() * (1.0 / n)
+    return _reduce_loss(loss, reduction)
+
+
+def smooth_l1_loss(input, label, reduction="mean", delta=1.0):
+    d = torch.abs(input - label)
+    loss = torch.where(d < delta, 0.5 * d * d / delta, d - 0.5 * delta)
+    return _reduce_loss(loss, reduction)
+
+
+def margin_ranking_loss(input, other, label, margin=0.0, reduction="mean"):
+    loss = torch.clamp(-label * (input - other) + margin, min=0.0)
+    return _reduce_loss(loss, reduction)

@@ -2,23 +2,22 @@
 
 from __future__ import annotations
 
-from torch import nn
-
 from .. import functional as F
+from .layers import Layer
 
 
-class ReLU(nn.Module):
+class ReLU(Layer):
     def forward(self, x):
         return F.relu(x)
 
 
-class ReLU6(nn.Module):
+class ReLU6(Layer):
     def forward(self, x):
         return F.relu6(x)
 
 
-class GELU(nn.Module):
-    def __init__(self, approximate: bool = False):
+class GELU(Layer):
+    def __init__(self, approximate: bool = False, name=None):
         super().__init__()
         self.approximate = approximate
 
@@ -26,6 +25,7 @@ class GELU(nn.Module):
         return F.gelu(x, self.approximate)
 
 
-class Tanh(nn.Module):
+class Tanh(Layer):
     def forward(self, x):
         return F.tanh(x)
+

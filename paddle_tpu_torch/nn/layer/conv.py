@@ -6,17 +6,17 @@ import math
 from typing import Optional
 
 import torch
-from torch import nn
 
 from .. import functional as F
-from ..initializer import MSRA, Constant
+from ..initializer import MSRA
+from .layers import Layer
 
 
 def _ntuple(v, n):
     return list(v) if isinstance(v, (list, tuple)) else [v] * n
 
 
-class Conv2D(nn.Module):
+class Conv2D(Layer):
     """2-D convolution with paddle_tpu's parameters: `weight` [out_channels,
     in_channels / groups, kh, kw], MSRA-uniform with that fan-in, and a
     zero-initialised `bias` [out_channels] unless `bias_attr` is False.
@@ -24,7 +24,7 @@ class Conv2D(nn.Module):
 
     def __init__(self, in_channels, out_channels, kernel_size, stride=1,
                  padding=0, dilation=1, groups=1, padding_mode="zeros",
-                 weight_attr=None, bias_attr=None, data_format="NCHW",
+                 weight_attr=None, bias_attr=None, data_format="NCHW", *,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         if in_channels % groups:
@@ -32,8 +32,6 @@ class Conv2D(nn.Module):
                              f"of groups {groups}")
         if padding_mode != "zeros":
             raise NotImplementedError(f"padding_mode {padding_mode!r}")
-        if weight_attr is not None:
-            raise NotImplementedError("weight_attr is not supported")
         self._in_channels, self._out_channels = in_channels, out_channels
         self._kernel_size = _ntuple(kernel_size, 2)
         self._stride = _ntuple(stride, 2)
@@ -43,9 +41,11 @@ class Conv2D(nn.Module):
         self._data_format = data_format
         shape = [out_channels, in_channels // groups] + self._kernel_size
         fan_in = (in_channels // groups) * math.prod(self._kernel_size)
-        self.weight = nn.Parameter(MSRA(fan_in=fan_in)(shape, generator))
-        self.bias = None if bias_attr is False else nn.Parameter(
-            Constant(0.0)((out_channels,)))
+        self.weight = self.create_parameter(
+            shape, weight_attr, default_initializer=MSRA(fan_in=fan_in),
+            generator=generator)
+        self.bias = self.create_parameter(
+            [out_channels], bias_attr, is_bias=True, generator=generator)
 
     def forward(self, x):
         return F.conv2d(x, self.weight, self.bias, self._stride,

@@ -3,20 +3,25 @@
 from __future__ import annotations
 
 import torch
-from torch import nn
 
 from .. import functional as F
+from ..initializer import Constant
+from .layers import Layer
 
 
-class LayerNorm(nn.Module):
-    def __init__(self, normalized_shape, epsilon: float = 1e-5):
+class LayerNorm(Layer):
+    def __init__(self, normalized_shape, epsilon: float = 1e-5,
+                 weight_attr=None, bias_attr=None, name=None):
         super().__init__()
         if isinstance(normalized_shape, int):
             normalized_shape = [normalized_shape]
         self.normalized_shape = list(normalized_shape)
         self.epsilon = epsilon
-        self.weight = nn.Parameter(torch.ones(self.normalized_shape))
-        self.bias = nn.Parameter(torch.zeros(self.normalized_shape))
+        self.weight = self.create_parameter(
+            self.normalized_shape, weight_attr,
+            default_initializer=Constant(1.0))
+        self.bias = self.create_parameter(self.normalized_shape, bias_attr,
+                                          is_bias=True)
 
     def forward(self, x):
         return F.layer_norm(x, self.normalized_shape, self.weight,
@@ -26,7 +31,7 @@ class LayerNorm(nn.Module):
         return f"normalized_shape={self.normalized_shape}"
 
 
-class BatchNorm(nn.Module):
+class BatchNorm(Layer):
     """Batch norm with paddle_tpu's parameters and buffers: `weight` (ones)
     and `bias` (zeros), and the float32 running statistics `_mean`
     (zeros) and `_variance` (ones), the reference's names, so state keys
@@ -35,19 +40,16 @@ class BatchNorm(nn.Module):
 
     def __init__(self, num_features, momentum=0.9, epsilon=1e-5,
                  weight_attr=None, bias_attr=None, data_format="NCHW",
-                 use_global_stats=None):
+                 use_global_stats=None, name=None):
         super().__init__()
-        if weight_attr not in (None, False) or bias_attr not in (None,
-                                                                  False):
-            raise NotImplementedError("only None or False param attrs")
         self._num_features = num_features
         self._momentum, self._epsilon = momentum, epsilon
         self._data_format = data_format
         self._use_global_stats = use_global_stats
-        self.weight = None if weight_attr is False else nn.Parameter(
-            torch.ones(num_features))
-        self.bias = None if bias_attr is False else nn.Parameter(
-            torch.zeros(num_features))
+        self.weight = self.create_parameter(
+            [num_features], weight_attr, default_initializer=Constant(1.0))
+        self.bias = self.create_parameter([num_features], bias_attr,
+                                          is_bias=True)
         self.register_buffer("_mean", torch.zeros(num_features))
         self.register_buffer("_variance", torch.ones(num_features))
 

@@ -2,14 +2,14 @@
 
 from __future__ import annotations
 
-from torch import nn
-
 from .. import functional as F
+from .layers import Layer
 
 
-class MaxPool2D(nn.Module):
+class MaxPool2D(Layer):
     def __init__(self, kernel_size, stride=None, padding=0,
-                 return_mask=False, ceil_mode=False, data_format="NCHW"):
+                 return_mask=False, ceil_mode=False, data_format="NCHW",
+                 name=None):
         super().__init__()
         self.ksize, self.stride, self.padding = kernel_size, stride, padding
         self.return_mask, self.ceil_mode = return_mask, ceil_mode
@@ -21,9 +21,10 @@ class MaxPool2D(nn.Module):
                             self.data_format)
 
 
-class AvgPool2D(nn.Module):
+class AvgPool2D(Layer):
     def __init__(self, kernel_size, stride=None, padding=0, ceil_mode=False,
-                 exclusive=True, divisor_override=None, data_format="NCHW"):
+                 exclusive=True, divisor_override=None, data_format="NCHW",
+                 name=None):
         super().__init__()
         self.ksize, self.stride, self.padding = kernel_size, stride, padding
         self.ceil_mode, self.exclusive = ceil_mode, exclusive
@@ -36,8 +37,8 @@ class AvgPool2D(nn.Module):
                             self.divisor_override, self.data_format)
 
 
-class AdaptiveAvgPool2D(nn.Module):
-    def __init__(self, output_size, data_format="NCHW"):
+class AdaptiveAvgPool2D(Layer):
+    def __init__(self, output_size, data_format="NCHW", name=None):
         super().__init__()
         self.output_size, self.data_format = output_size, data_format
 
@@ -45,8 +46,8 @@ class AdaptiveAvgPool2D(nn.Module):
         return F.adaptive_avg_pool2d(x, self.output_size, self.data_format)
 
 
-class AdaptiveMaxPool2D(nn.Module):
-    def __init__(self, output_size, return_mask=False):
+class AdaptiveMaxPool2D(Layer):
+    def __init__(self, output_size, return_mask=False, name=None):
         super().__init__()
         self.output_size, self.return_mask = output_size, return_mask
 

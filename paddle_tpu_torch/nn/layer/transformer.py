@@ -25,10 +25,11 @@ from .. import functional as F
 from ..initializer import Initializer
 from .activation import GELU, ReLU
 from .common import Dropout, Linear
+from .layers import Layer
 from .norm import LayerNorm
 
 
-class MultiHeadAttention(nn.Module):
+class MultiHeadAttention(Layer):
     """Paddle's MultiHeadAttention.  `cache` in forward: a `Cache` (the
     incremental self-attention cache: this call's k/v are appended to it
     and the grown cache is returned beside the output) or a
@@ -118,7 +119,7 @@ def _sublayer(norm, normalize_before, x, fn):
     return (out if normalize_before else norm(out)), extra
 
 
-class TransformerEncoderLayer(nn.Module):
+class TransformerEncoderLayer(Layer):
     """Paddle's encoder layer: post-norm by default (BERT's form), pre-norm
     with `normalize_before`."""
 
@@ -170,7 +171,7 @@ class TransformerEncoderLayer(nn.Module):
         return self.self_attn.gen_cache(src, type=MultiHeadAttention.Cache)
 
 
-class TransformerDecoderLayer(nn.Module):
+class TransformerDecoderLayer(Layer):
     """Paddle's decoder layer: self-attention, cross-attention over the
     memory, FFN; post-norm by default, pre-norm with `normalize_before`.
     `cache` is (incremental Cache, StaticCache), as `gen_cache` makes it."""
@@ -231,7 +232,7 @@ class TransformerDecoderLayer(nn.Module):
         return incr, static
 
 
-class TransformerEncoder(nn.Module):
+class TransformerEncoder(Layer):
     """`num_layers` encoder layers, each built by `layer_fn()` (a fresh,
     independently initialized layer per call, where Paddle clones one
     layer's constructor config), then `norm` if given."""
@@ -259,7 +260,7 @@ class TransformerEncoder(nn.Module):
         return [layer.gen_cache(src) for layer in self.layers]
 
 
-class TransformerDecoder(nn.Module):
+class TransformerDecoder(Layer):
     """`num_layers` decoder layers from `layer_fn()`, then `norm` if
     given.  `cache` is one (Cache, StaticCache) pair a layer."""
 
@@ -291,7 +292,7 @@ class TransformerDecoder(nn.Module):
         return list(zip(*cache)) if do_zip else cache
 
 
-class Transformer(nn.Module):
+class Transformer(Layer):
     """Paddle's encoder-decoder Transformer; with `normalize_before`, each
     stack ends in a LayerNorm of its own."""
 

@@ -3,9 +3,12 @@ paddle_tpu/vision/models.py:20-136).
 
 The structure and the attribute names are the reference's (`conv1`,
 `bn1`, `layer1` ... `layer4`, `downsample`, `fc`; Paddle's (in, out)
-`Linear`), so `jit.functional_state` keys such as
-`layer1.0.downsample.1._mean` line up and `convert.load_jax_state` carries
-a JAX model's weights and running statistics over.
+`Linear`), so `jit.functional_state` and `state_dict` keys such as
+`layer1.0.downsample.1._mean` line up and `convert.load_jax_state` (or
+`set_state_dict`) carries a JAX model's weights and running statistics
+over.  Every module is an `nn.Layer` built in the reference's order, so
+under the same `unique_name` counters its parameters get the
+reference's names (`conv2d_0.w_0`, ...).
 
 Weights are made on the CPU in float32 from a torch.Generator seeded with
 `seed`, then moved to `device` (default cuda; raises without CUDA unless
@@ -22,8 +25,8 @@ import torch
 from torch import nn
 
 from .. import device as _device
-from ..nn import (AdaptiveAvgPool2D, BatchNorm2D, Conv2D, Flatten, Linear,
-                  MaxPool2D, ReLU, Sequential)
+from ..nn import (AdaptiveAvgPool2D, BatchNorm2D, Conv2D, Flatten, Layer,
+                  Linear, MaxPool2D, ReLU, Sequential)
 
 __all__ = ["LeNet", "BasicBlock", "BottleneckBlock", "ResNet", "resnet18",
            "resnet34", "resnet50", "resnet101", "resnet152"]
@@ -37,7 +40,7 @@ def _place(module: nn.Module, device, dtype) -> nn.Module:
     return module
 
 
-class LeNet(nn.Module):
+class LeNet(Layer):
     def __init__(self, num_classes=10, device=None,
                  dtype: Optional[torch.dtype] = None, seed: int = 0):
         super().__init__()
@@ -58,7 +61,7 @@ class LeNet(nn.Module):
         return self.fc(self.flatten(self.features(x)))
 
 
-class BasicBlock(nn.Module):
+class BasicBlock(Layer):
     expansion = 1
 
     def __init__(self, inplanes, planes, stride=1, downsample=None,
@@ -80,7 +83,7 @@ class BasicBlock(nn.Module):
         return self.relu(out + identity)
 
 
-class BottleneckBlock(nn.Module):
+class BottleneckBlock(Layer):
     expansion = 4
 
     def __init__(self, inplanes, planes, stride=1, downsample=None,
@@ -106,7 +109,7 @@ class BottleneckBlock(nn.Module):
         return self.relu(out + identity)
 
 
-class ResNet(nn.Module):
+class ResNet(Layer):
     def __init__(self, block, depth_cfg, num_classes=1000, in_ch=3,
                  device=None, dtype: Optional[torch.dtype] = None,
                  seed: int = 0):

@@ -46,7 +46,7 @@ def build_train_step(model: nn.Module, lr=0.1, momentum=0.9, bf16=True,
     `state` IN PLACE and returns it with the loss, a 0-d tensor on the
     device: nothing reads a device value back to the host.  On the card,
     images and 4-D masters are channels_last."""
-    dev = (next(model.parameters()).device if device is None
+    dev = (next(iter(model.parameters())).device if device is None
            else _device.resolve(device))
     buffers = {name for name, _ in model.named_buffers()}
     params = {k: _on_card(v.to(dev, torch.float32, copy=True))

@@ -27,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+from paddle_tpu_torch import io as TIO
 from paddle_tpu_torch.models import bert
 from paddle_tpu_torch.nn import functional as Fn
 from paddle_tpu_torch.ops.kernels import COUNTERS
@@ -1232,3 +1233,193 @@ def test_tiny_wmt_trains_and_decodes_on_the_card(cuda):
     assert COUNTERS["flash_fwd"].value == 2 + 4 * 8
     seqs, _ = model.beam_decode(src, beam_size=1, max_len=8)
     torch.testing.assert_close(seqs[:, 0], greedy, atol=0, rtol=0)
+
+
+# -- the 2.x front end on the card --------------------------------------------
+
+class _Digits(TIO.Dataset):
+    """n 1 x 28 x 28 float32 images and (1,) int64 labels from a seed."""
+
+    def __init__(self, n=16, seed=0):
+        rng = np.random.RandomState(seed)
+        self.x = rng.rand(n, 1, 28, 28).astype(np.float32)
+        self.y = rng.randint(0, 10, (n, 1)).astype(np.int64)
+
+    def __len__(self):
+        return len(self.x)
+
+    def __getitem__(self, i):
+        return self.x[i], self.y[i]
+
+
+def test_hapi_fit_on_the_card_matches_the_cpu(cuda):
+    """LeNet through Model.fit (static-mode adapter, f32, Momentum with L2
+    and a global-norm clip) on the card and on the CPU: the same losses
+    and parameters within f32's summation order (TF32 off)."""
+    import paddle_tpu_torch as T
+    from paddle_tpu_torch.vision import models as VM
+
+    out = {}
+    for dev in ("cuda", "cpu"):
+        net = VM.LeNet(device=dev)
+        model = T.Model(net)
+        model.prepare(T.optimizer.Momentum(
+            0.01, parameters=net.parameters(), weight_decay=1e-4,
+            grad_clip=T.optimizer.ClipGradByGlobalNorm(1.0)),
+            T.nn.CrossEntropyLoss(), T.metric.Accuracy(topk=(1, 3)))
+        hist = model.fit(_Digits(), batch_size=8, epochs=2, shuffle=False,
+                         verbose=0)
+        out[dev] = (hist, {k: v.detach().cpu() for k, v in
+                           net.state_dict().items()})
+    for (a, b) in zip(out["cuda"][0], out["cpu"][0]):
+        assert a["acc_top1"] == b["acc_top1"]
+        np.testing.assert_allclose(a["loss"], b["loss"], rtol=1e-5)
+    for k, v in out["cpu"][1].items():
+        torch.testing.assert_close(out["cuda"][1][k], v, atol=1e-5,
+                                   rtol=1e-4)
+
+
+@pytest.mark.parametrize("adapter", ["static", "dygraph"])
+def test_hapi_resnet18_o1_steps_match_a_plain_bf16_step(cuda, adapter):
+    """resnet18 at O1 through two Model.train_batch calls on the card
+    against the plain O1 step written out (tests/torch_plain_steps.py)
+    from the same weights and batches of 4 x 3 x 64 x 64, with cuDNN's
+    deterministic algorithms: each parameter's and running statistic's
+    change within 1e-5 in relative L2, the losses within 1e-6 relative
+    (the CPU test's limits).  Measured on the H100: 0 and equal, both
+    adapters; controls that leave the gradients scaled or batch norm's
+    parameters out of the update read >= 1.0 on the CPU."""
+    from torch_plain_steps import resnet18_o1_steps
+
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        _, _, losses, want_losses, errs = resnet18_o1_steps(
+            adapter, "cuda", (3, 64, 64))
+    finally:
+        torch.backends.cudnn.deterministic = det
+    print(f"{adapter}: losses {losses} plain {want_losses}; worst change "
+          f"{max(errs.values()):.3g} at {max(errs, key=errs.get)}")
+    np.testing.assert_allclose(losses, want_losses, rtol=1e-6)
+    bad = {k: e for k, e in errs.items() if e > 1e-5}
+    assert not bad, bad
+
+
+def test_hapi_static_adapter_skips_a_non_finite_step(cuda):
+    """amp O1 on the card: a batch with an inf image gives non-finite
+    gradients, so the parameters and the optimizer state stay as they
+    were (decided on the device) and the step is still counted."""
+    import paddle_tpu_torch as T
+    from paddle_tpu_torch.vision import models as VM
+
+    net = VM.LeNet()
+    model = T.Model(net)
+    model.prepare(T.optimizer.Momentum(0.1, parameters=net.parameters()),
+                  T.nn.CrossEntropyLoss(), amp_configs="O1")
+    d = _Digits(8)
+    model.train_batch([d.x], [d.y])
+    before = {k: v.clone() for k, v in net.state_dict().items()
+              if "_mean" not in k and "_variance" not in k}
+    vel = {k: v.clone() for k, v in model._optimizer.state_dict().items()
+           if isinstance(v, torch.Tensor)}
+    x = d.x.copy()
+    x[0, 0, 0, 0] = np.inf
+    model.train_batch([x], [d.y])
+    for k, v in before.items():
+        assert torch.equal(net.state_dict()[k], v), k
+    after = model._optimizer.state_dict()
+    assert all(torch.equal(after[k], v) for k, v in vel.items())
+    assert after["global_step"] == 2
+
+
+def _own_collate(batch):
+    return TIO.default_collate_fn(batch)
+
+
+@pytest.mark.parametrize("workers,ring", [(0, False), (2, False),
+                                          (3, True)])
+def test_dataloader_buffer_reader_on_the_card(cuda, workers, ring):
+    """Batches reach the card in the sampler's order with their values,
+    through the side stream (from the pinned ring with the default
+    collate, through the workers' queues with another), across two
+    epochs."""
+    d = _Digits(37)
+    loader = TIO.DataLoader(d, batch_size=4, shuffle=True, drop_last=False,
+                            num_workers=workers,
+                            collate_fn=None if ring else _own_collate)
+    for epoch in range(2):
+        np.random.seed(epoch)
+        order = np.random.permutation(37)
+        np.random.seed(epoch)
+        got = list(loader)
+        assert len(got) == 10
+        for i, (x, y) in enumerate(got):
+            idx = order[4 * i: 4 * i + 4]
+            assert x.is_cuda and y.is_cuda
+            torch.testing.assert_close(x.cpu(), torch.from_numpy(d.x[idx]),
+                                       atol=0, rtol=0)
+            torch.testing.assert_close(y.cpu(), torch.from_numpy(d.y[idx]),
+                                       atol=0, rtol=0)
+
+
+def test_dataloader_left_early_on_the_card(cuda):
+    """An epoch left early with the buffer reader and the pinned ring, by
+    a break and by an iterator kept open, then two whole epochs: each
+    gives the sampler's batches bit for bit."""
+    d = _Digits(37)
+    loader = TIO.DataLoader(d, batch_size=4, shuffle=True, num_workers=3)
+
+    def epoch(seed):
+        np.random.seed(seed)
+        order = np.random.permutation(37)
+        np.random.seed(seed)
+        got = [(x.cpu(), y.cpu()) for x, y in loader]
+        assert len(got) == 10
+        for i, (x, y) in enumerate(got):
+            idx = order[4 * i: 4 * i + 4]
+            assert torch.equal(x, torch.from_numpy(d.x[idx]))
+            assert torch.equal(y, torch.from_numpy(d.y[idx]))
+
+    for j, _ in enumerate(loader):
+        if j == 1:
+            break
+    epoch(0)
+    held = iter(loader)
+    next(held)
+    epoch(1)
+    epoch(2)
+    held.close()
+    epoch(3)
+
+
+def test_accuracy_and_optimizers_on_the_card(cuda):
+    """Accuracy on card tensors equals the CPU's; three Adam, Momentum
+    and Lamb steps on the card match the CPU within f32."""
+    import paddle_tpu_torch as T
+
+    rng = np.random.RandomState(0)
+    pred = rng.randn(64, 10).astype(np.float32)
+    label = rng.randint(0, 10, (64, 1)).astype(np.int64)
+    a, b = T.metric.Accuracy(topk=(1, 5)), T.metric.Accuracy(topk=(1, 5))
+    a.update(a.compute(torch.from_numpy(pred).cuda(),
+                       torch.from_numpy(label).cuda()))
+    b.update(b.compute(torch.from_numpy(pred), torch.from_numpy(label)))
+    assert a.accumulate() == b.accumulate()
+    for make in (lambda ps: T.optimizer.Adam(1e-2, parameters=ps),
+                 lambda ps: T.optimizer.Momentum(0.1, parameters=ps,
+                                                 weight_decay=1e-3),
+                 lambda ps: T.optimizer.Lamb(1e-2, parameters=ps)):
+        res = {}
+        for dev in ("cuda", "cpu"):
+            params = [T.nn.Parameter(torch.from_numpy(
+                np.random.RandomState(i).randn(5, 3).astype(np.float32)
+            ).to(dev), name=f"p{i}") for i in range(3)]
+            opt = make(params)
+            for step in range(3):
+                for i, p in enumerate(params):
+                    p.grad = torch.from_numpy(np.random.RandomState(
+                        10 * step + i).randn(5, 3).astype(np.float32)).to(dev)
+                opt.step()
+            res[dev] = [p.detach().cpu() for p in params]
+        for g, c in zip(res["cuda"], res["cpu"]):
+            torch.testing.assert_close(g, c, atol=1e-6, rtol=1e-5)

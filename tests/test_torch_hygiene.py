@@ -60,7 +60,12 @@ def test_the_walk_sees_the_whole_package():
             "fluid/layers/nn.py", "ops/registry.py", "ops/nn_ops.py",
             "models/resnet.py", "models/mnist.py",
             "models/transformer_wmt.py", "ops/rnn_ops.py",
-            "nn/layer/transformer.py"} <= names
+            "nn/layer/transformer.py", "nn/layer/layers.py",
+            "nn/layer/loss.py", "optimizer/__init__.py",
+            "optimizer/lr.py", "io/__init__.py", "metric/__init__.py",
+            "amp/__init__.py", "hapi/model.py", "hapi/callbacks.py",
+            "tensor/__init__.py", "fluid/dygraph/__init__.py",
+            "framework_io.py"} <= names
 
 
 def _run(code_or_args, cwd, timeout=120):
@@ -81,7 +86,12 @@ def test_importing_the_port_loads_no_jax():
             "paddle_tpu_torch.fluid, paddle_tpu_torch.models.resnet, "
             "paddle_tpu_torch.models.mnist, paddle_tpu_torch.ops.registry, "
             "paddle_tpu_torch.models.transformer_wmt, "
-            "paddle_tpu_torch.ops.rnn_ops\n"
+            "paddle_tpu_torch.ops.rnn_ops, paddle_tpu_torch.optimizer, "
+            "paddle_tpu_torch.optimizer.lr, paddle_tpu_torch.io, "
+            "paddle_tpu_torch.metric, paddle_tpu_torch.amp, "
+            "paddle_tpu_torch.hapi, paddle_tpu_torch.hapi.callbacks, "
+            "paddle_tpu_torch.tensor, paddle_tpu_torch.fluid.dygraph, "
+            "paddle_tpu_torch.framework_io, paddle_tpu_torch.nn.layer.loss\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu'))\n"
             "print(bad)\n")
