@@ -172,6 +172,22 @@ Phases, in order (any failure exits non-zero and prints no result):
               LeNet on the card through the port's names; the first
               dygraph step's loss and gradients against the CPU
               (LENET_TOL); every loss finite
+ 17. seq2seq  Paddle 2.x's seq2seq with attention for IWSLT'15 en-vi
+              (tests/torch_seq2seq_program.py at IWSLT15: PaddleNLP's
+              seq2seq_attn defaults; uniform +-0.1 weights from a seed),
+              the 2.x API over the port: S2S_STEPS Model.fit steps on one
+              staged synthetic batch (B=128, T=50, f32) through the
+              static-mode adapter, Adam 1e-3 with the global-norm clip
+              5.0; the loss falls (S2S_FALL), no hand-written kernel
+              launched; ms a step (CUDA events, host clock beside),
+              tokens/s, peak memory, syncs a step by line, one step
+              profiled.  The encoder's cuDNN LSTM against its plain
+              loop, forward and gradients (S2S_LSTM_TOL, S2S_LSTM_GRAD).
+              Decoding the 128 sources with BeamSearchDecoder(10) and
+              dynamic_decode (up to S2S_MAX_LEN steps): beam 1 equals a
+              greedy loop over the same cell; each beam of 10, followed
+              back through its parents, scores what teacher forcing
+              scores (S2S_SCORE_TOL); ms a step, tokens/s, syncs a step
 
 The last two lines of stdout are a {"kernels": [...]} summary and the
 {"ok": true, "device": {...}} result.  Needs CUDA; imports nothing of JAX
@@ -370,6 +386,25 @@ HAPI_RELOAD_RTOL = 1e-5
 # the quickstart's LeNet (phase 16): the first step's loss and gradients
 # on the card against the CPU, f32 with TF32 off
 LENET_TOL = dict(atol=1e-5, rtol=1e-4)
+# Paddle 2.x's seq2seq with attention (phase 17) at IWSLT'15 en-vi's
+# sizes (tests/torch_seq2seq_program.IWSLT15: vocabularies of 17191 and
+# 7709, 512 wide, 2 LSTM layers, B=128, T=50, f32): S2S_STEPS Model.fit
+# steps on one staged batch, the loss read at the last against the first
+# (S2S_FALL: it must have fallen by 1 % at least)
+S2S_STEPS, S2S_FALL = 30, 0.99
+# the encoder's cuDNN LSTM against its plain loop (f32, TF32 off, 2
+# layers of 50 steps): y, h and c within S2S_LSTM_TOL (two summation
+# orders of 512- and 1024-term products, through 50 steps of a
+# contracting recurrence), each gradient within S2S_LSTM_GRAD of its
+# tensor's largest element
+S2S_LSTM_TOL = dict(atol=1e-4, rtol=1e-3)
+S2S_LSTM_GRAD = 1e-3
+# decoding: the batch's 128 sources at beam 10 for up to 50 steps; each
+# beam's score against a teacher-forced pass of its tokens (the same f32
+# sums of clamped log-probabilities, up to 50 terms of about -9, whose
+# rows lie elsewhere in the products)
+S2S_BEAM, S2S_MAX_LEN = 10, 50
+S2S_SCORE_TOL = dict(atol=1e-3, rtol=1e-4)
 MEASURED = {}  # numbers one phase hands a later one
 FAILURES = []
 
@@ -3057,12 +3092,17 @@ class _StepClock(hcb.Callback):
             self._catch.__exit__(None, None, None)
 
     def sync_sites(self):
-        sites = {}
-        for w in self.syncs or []:
-            if "synchroniz" in str(w.message):
-                key = f"{Path(w.filename).name}:{w.lineno}"
-                sites[key] = sites.get(key, 0) + 1
-        return sites
+        return _sync_sites(self.syncs or [])
+
+
+def _sync_sites(caught):
+    """{file:line: count} of the host syncs among caught warnings."""
+    sites = {}
+    for w in caught:
+        if "synchroniz" in str(w.message):
+            key = f"{Path(w.filename).name}:{w.lineno}"
+            sites[key] = sites.get(key, 0) + 1
+    return sites
 
 
 def _hapi_stages(model, x, y, steps=8):
@@ -3468,6 +3508,211 @@ def dygraph_quickstart():
     return launches
 
 
+def _s2s_program():
+    """tests/torch_seq2seq_program.py, the JAX-free program the parity
+    tests hold against paddle_tpu."""
+    tests = str(Path(__file__).resolve().parent / "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import torch_seq2seq_program as S
+    return S
+
+
+class _SyncCount:
+    """Host syncs inside the block, by line (set_sync_debug_mode("warn"))."""
+
+    def __enter__(self):
+        self._catch = warnings.catch_warnings(record=True)
+        self.caught = self._catch.__enter__()
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def __exit__(self, *exc):
+        torch.cuda.set_sync_debug_mode(0)
+        self._catch.__exit__(*exc)
+
+    def sites(self):
+        return _sync_sites(self.caught)
+
+
+def _s2s_lstm_hold(lstm, x):
+    """The encoder's LSTM (cuDNN) against its plain per-step loop on the
+    same input, in train mode under one rng_scope seed (the same dropout
+    masks between the layers): y, h, c, and the gradients of the input
+    and every weight for the same cotangents; each path's ms (forward and
+    backward, CUDA events, after one warm-up)."""
+    g = torch.Generator(device=x.device).manual_seed(5)
+    leaf = x.detach().requires_grad_()
+    params = list(lstm.parameters())
+    runs, ms = {}, {}
+    for name, fn in (("cudnn", lstm.forward), ("loop", lstm.plain_forward)):
+        def run():
+            with pF.rng_scope(11):
+                outs = fn(leaf)
+            cts = [torch.randn(o.shape, generator=g.manual_seed(5 + i),
+                               device=x.device) for i, o in enumerate(outs)]
+            return outs, torch.autograd.grad(outs, [leaf] + params, cts)
+        run()
+        torch.cuda.synchronize()
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        runs[name] = run()
+        e1.record()
+        torch.cuda.synchronize()
+        ms[name] = e0.elapsed_time(e1)
+    worst = {}
+    for k, (a, b) in enumerate(zip(runs["cudnn"][0], runs["loop"][0])):
+        ok, err = close(a, b, **S2S_LSTM_TOL)
+        worst["yhc"[k]] = err
+        if not ok:
+            raise AssertionError(f"cuDNN LSTM output {'yhc'[k]}: max abs "
+                                 f"error {err}")
+    names = ["x"] + [n for n, _ in lstm.named_parameters()]
+    for n, a, b in zip(names, runs["cudnn"][1], runs["loop"][1]):
+        err = float((a - b).abs().max())
+        worst[f"d{n}"] = err
+        if err > S2S_LSTM_GRAD * float(b.abs().max()) + 1e-6:
+            raise AssertionError(f"cuDNN LSTM gradient {n}: max abs error "
+                                 f"{err} (largest {float(b.abs().max())})")
+    log(f"cuDNN LSTM vs plain loop at {tuple(x.shape)}: max abs errors "
+        f"{worst}; fwd+bwd ms: cuDNN {ms['cudnn']:.3f}, loop "
+        f"{ms['loop']:.3f}")
+    return dict(max_abs_err=worst, ms=ms)
+
+
+def _s2s_decode(S, net, src, sl):
+    """The beam-10 decode timed (CUDA events, host clock, syncs by line),
+    then its two holds: beam 1 against the greedy loop, and each beam's
+    score against teacher forcing.  Returns (summary, launches)."""
+    S.beam_search(paddle, net, src, sl, S2S_BEAM, 2)  # warm-up
+    torch.cuda.synchronize()
+    for c in COUNTERS.values():
+        c.reset()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    # -- the main path: counters at 0 before, read right after ----------------
+    with _SyncCount() as syncs:
+        t0 = time.perf_counter()
+        e0.record()
+        out = S.beam_search(paddle, net, src, sl, S2S_BEAM, S2S_MAX_LEN)
+        e1.record()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+    launches = {n: c.value for n, c in COUNTERS.items()}
+    # ---------------------------------------------------------------------------
+    _expect_launches(launches, 0, (), "the seq2seq beam decode")
+    ids, parents, scores = (S.host(out[k]) for k in
+                            ("predicted_ids", "parent_ids", "scores"))
+    steps = ids.shape[1]
+    b = ids.shape[0]
+    if ids.shape != (b, steps, S2S_BEAM) or not np.isfinite(scores).all():
+        raise AssertionError(f"beam output {ids.shape}, finite scores "
+                             f"{np.isfinite(scores).all()}")
+    dec_ms = e0.elapsed_time(e1)
+    sites = syncs.sites()
+    summary = dict(steps=steps, decode_ms=dec_ms, host_ms=host_ms,
+                   ms_a_step=dec_ms / steps,
+                   beam_tokens_per_s=b * S2S_BEAM * steps / (dec_ms / 1e3),
+                   source_tokens_per_s=b * steps / (dec_ms / 1e3),
+                   syncs_per_step=sum(sites.values()) / steps,
+                   sync_sites=sites)
+    log(f"beam {S2S_BEAM} decode of {b} sources: {steps} steps in "
+        f"{dec_ms:.1f} ms (CUDA events; host clock {host_ms:.1f} ms), "
+        f"{dec_ms / steps:.3f} ms a step, {summary['beam_tokens_per_s']:.0f} "
+        f"beam tokens/s, syncs a step {summary['syncs_per_step']:.2f} at "
+        f"{sites}")
+    greedy = S.greedy(paddle, net, src, sl, S2S_MAX_LEN)
+    one = S.host(S.beam_search(paddle, net, src, sl, 1,
+                               S2S_MAX_LEN)["predicted_ids"])[:, :, 0]
+    if not np.array_equal(one, greedy):
+        raise AssertionError(f"beam 1 differs from greedy at "
+                             f"{int((one != greedy).sum())} tokens")
+    seqs = S.backtrack(ids, parents)
+    forced = S.sequence_scores(paddle, net, src, sl, seqs)
+    last = torch.from_numpy(scores[:, -1, :])
+    ok, err = close(torch.from_numpy(forced), last, **S2S_SCORE_TOL)
+    if not ok:
+        raise AssertionError(f"teacher-forced scores off by {err}")
+    summary.update(greedy_equals_beam1=True, teacher_forced_max_abs_err=err,
+                   finished_beams=int((seqs == S.EOS).any(-1).sum()),
+                   best_scores=[float(v) for v in scores[:4, -1, 0]])
+    log(f"beam 1 = greedy over {greedy.shape} tokens; teacher-forced "
+        f"scores of the {seqs.shape[0] * seqs.shape[1]} beams within "
+        f"{err:.3g} (limit {S2S_SCORE_TOL})")
+    return summary, launches
+
+
+@phase("seq2seq")
+def seq2seq():
+    """Paddle 2.x's seq2seq with attention at IWSLT'15's sizes through
+    the port's 2.x API: Model.fit on one staged batch, the encoder's
+    cuDNN LSTM against its loop, then beam and greedy decoding.
+    Returns {"seq2seq_train": launches, "seq2seq_decode": launches}."""
+    S = _s2s_program()
+    cfg = S.IWSLT15
+    torch.cuda.empty_cache()
+    torch.manual_seed(0)
+    t0 = time.perf_counter()
+    with unique_name.guard():
+        net = S.build(paddle, cfg, seed=0).to("cuda")
+    batch = tuple(torch.from_numpy(a).cuda() for a in S.batch(cfg, seed=0))
+    n_params = sum(p.numel() for p in net.parameters())
+    log(f"seq2seq: {n_params / 1e6:.2f} M parameters, built in "
+        f"{time.perf_counter() - t0:.1f} s; batch B={cfg['batch']}, "
+        f"T={cfg['steps']}, target tokens unmasked "
+        f"{int(batch[3].sum())}")
+    model = S.prepare(paddle, net, cfg)
+    clock = _StepClock().watch(model)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in COUNTERS.values():
+        c.reset()
+    # -- the main path: counters at 0 before, read right after ----------------
+    model.fit([batch] * S2S_STEPS, epochs=1, verbose=0, callbacks=[clock])
+    torch.cuda.synchronize()
+    launches = {n: c.value for n, c in COUNTERS.items()}
+    # ---------------------------------------------------------------------------
+    mem = torch.cuda.max_memory_allocated()
+    _expect_launches(launches, 0, (), f"{S2S_STEPS} seq2seq Model.fit steps")
+    losses = clock.losses
+    if len(losses) != S2S_STEPS or not np.isfinite(losses).all() \
+            or not losses[-1] < S2S_FALL * losses[0]:
+        raise AssertionError(f"seq2seq losses {losses}")
+    timed = S2S_STEPS - 1
+    step_ms = clock.events[0].elapsed_time(clock.events[-1]) / timed
+    host_ms = (clock.host[-1] - clock.host[0]) * 1e3 / timed
+    sites = clock.sync_sites()
+    tokens = 2 * cfg["batch"] * cfg["steps"]  # source and target
+    ins, labs = list(batch[:-1]), [batch[-1]]
+    busy, wall, top = _profile(lambda: model.train_batch(ins, labs), top=8)
+    summary = dict(
+        steps=S2S_STEPS, step_ms=step_ms, host_step_ms=host_ms,
+        tokens_per_s=tokens / (step_ms / 1e3),
+        max_memory_allocated_bytes=mem, losses=losses,
+        syncs_per_step=sum(sites.values()) / timed, sync_sites=sites,
+        profiled_busy_ms=busy, profiled_wall_ms=wall,
+        profiled_idle=max(0.0, 1 - busy / wall),
+        top_kernels=[dict(name=k[:90], ms=ms, count=n) for k, ms, n in top])
+    log(f"losses: {' '.join(f'{v:.3f}' for v in losses)}")
+    log(f"seq2seq Model.fit B={cfg['batch']} T={cfg['steps']} f32: "
+        f"{step_ms:.3f} ms a step over steps 2-{S2S_STEPS} (CUDA events; "
+        f"host clock {host_ms:.3f} ms), {summary['tokens_per_s']:.0f} "
+        f"source+target tokens/s, max_memory_allocated "
+        f"{mem / 2 ** 30:.2f} GiB, host syncs a step "
+        f"{summary['syncs_per_step']:.2f} at {sites}")
+    net.train()
+    with torch.no_grad():
+        emb = net.encoder.embedder(batch[0])
+    summary["lstm_hold"] = _s2s_lstm_hold(net.encoder.lstm, emb)
+    del model, clock
+    torch.cuda.empty_cache()
+    decode, decode_launches = _s2s_decode(S, net, batch[0], batch[1])
+    summary["decode"] = decode
+    summary["card"] = card_line()
+    log("seq2seq summary: " + json.dumps(summary))
+    return {"seq2seq_train": launches, "seq2seq_decode": decode_launches}
+
+
 def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3495,9 +3740,10 @@ def main():
     wmt_paths = wmt()
     hapi_path = hapi()
     dygraph_path = dygraph_quickstart()
+    s2s_paths = seq2seq()
     if FAILURES or None in (rows, probed, served, decoded, trained, library,
                             resnet_path, fluid_path, wmt_paths, hapi_path,
-                            dygraph_path):
+                            dygraph_path, s2s_paths):
         log(f"FAILED phases: {FAILURES}")
         print(f"FAILED phases: {FAILURES}", file=sys.stderr, flush=True)
         sys.exit(1)
@@ -3505,7 +3751,7 @@ def main():
     paths = {"serving": served, "decode": decoded, "train": trained[0],
              "probe": probed[1], "library_train": library,
              "resnet": resnet_path, "fluid": fluid_path, **wmt_paths,
-             "hapi": hapi_path, "dygraph": dygraph_path}
+             "hapi": hapi_path, "dygraph": dygraph_path, **s2s_paths}
     for r in rows:
         # `launches` is the count on the path where the kernel runs: the
         # probe for its three kernels, the decode path for ragged_paged,

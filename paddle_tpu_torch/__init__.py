@@ -36,9 +36,36 @@ from .fluid.param_attr import ParamAttr  # noqa: F401
 from .framework_io import load, save  # noqa: F401
 from .hapi import Model, summary  # noqa: F401
 from .nn import Layer  # noqa: F401
-from .tensor import (arange, eye, full, full_like, linspace,  # noqa: F401
-                     normal, ones, ones_like, rand, randint, randn,
-                     randperm, seed, to_tensor, uniform, zeros, zeros_like)
+from .tensor import (to_tensor, zeros, ones, full, zeros_like,  # noqa
+                     ones_like, full_like, arange, linspace, eye, rand,
+                     randn, randint, randperm, uniform, normal, bernoulli,
+                     multinomial, seed, concat, stack, split, squeeze,
+                     unsqueeze, reshape, transpose, flatten, cast, matmul,
+                     bmm, dot, mv, t, kron, addmm, tril, triu, diag,
+                     meshgrid, where, nonzero, unique, flip, roll, tile,
+                     expand, expand_as, broadcast_to, gather, gather_nd,
+                     scatter, scatter_nd_add, index_select, index_sample,
+                     masked_select, argmax, argmin, argsort, sort, topk,
+                     add, subtract, multiply, divide, pow, clip, scale,
+                     isnan, isinf, isfinite, norm, dist, equal, not_equal,
+                     greater_than, greater_equal, less_than, less_equal,
+                     logical_and, logical_or, logical_not, logical_xor,
+                     equal_all, allclose, cumsum, cumprod, assign, clone,
+                     numel, std, var, median, logsumexp, sum, mean, prod,
+                     exp, log, sqrt, rsqrt, abs, ceil, floor, round, sin,
+                     cos, tan, tanh, reciprocal, square, sign, erf,
+                     maximum, minimum, max, min)
+# the 2.x top-level tail (reference python/paddle/__init__.py)
+from .tensor import (acos, asin, atan, cosh, sinh, log1p, log2,  # noqa
+                     log10, mod, remainder, floor_divide, floor_mod, trace,
+                     cross, cholesky, histogram, increment, is_empty,
+                     empty, empty_like, chunk, stanh, shard_index, unstack,
+                     strided_slice, add_n, addcmul, broadcast_shape, einsum,
+                     has_inf, has_nan, inverse, is_tensor, mm, multiplex,
+                     rank, scatter_nd, tensordot, unbind, set_default_dtype,
+                     get_default_dtype, set_printoptions,
+                     get_tensor_from_selected_rows, shape, all, any, slice,
+                     expm1, mode)
 
 Tensor = torch.Tensor
 

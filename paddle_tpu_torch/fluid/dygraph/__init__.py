@@ -81,3 +81,15 @@ def grad(outputs, inputs, grad_outputs=None, retain_graph=None,
                            "outputs; set allow_unused=True to return None "
                            "for it")
     return list(res)
+
+
+# the 2.x classes the reference also gives under fluid.dygraph, resolved
+# on first use (nn imports fluid, so an import here would cycle)
+_NN_ALIASES = {"GRUCell": "GRUCell", "LSTMCell": "LSTMCell"}
+
+
+def __getattr__(name):
+    if name in _NN_ALIASES:
+        from ... import nn
+        return getattr(nn, _NN_ALIASES[name])
+    raise AttributeError(name)

@@ -6,3 +6,18 @@ from .tensor import *  # noqa: F401,F403
 from .nn import *  # noqa: F401,F403
 from .loss import *  # noqa: F401,F403
 from . import tensor, nn, loss  # noqa: F401
+
+# the 2.x recurrent and decode classes the reference also gives under
+# fluid.layers, resolved on first use (nn imports fluid, so an import
+# here would cycle)
+_NN_ALIASES = {"BeamSearchDecoder": "BeamSearchDecoder",
+               "Decoder": "Decoder", "GRUCell": "GRUCell",
+               "LSTMCell": "LSTMCell", "RNNCell": "RNNCellBase",
+               "dynamic_decode": "dynamic_decode"}
+
+
+def __getattr__(name):
+    if name in _NN_ALIASES:
+        from ... import nn
+        return getattr(nn, _NN_ALIASES[name])
+    raise AttributeError(name)

@@ -1,5 +1,6 @@
 """paddle_tpu_torch.nn — the nn surface of the port (counterpart of
-paddle_tpu.nn): `Layer` and its layers, losses and functional ops."""
+paddle_tpu.nn): `Layer` and its layers, the recurrent layers, losses,
+functional ops and the decode API."""
 
 from . import functional, initializer  # noqa: F401
 from .layer import (GELU, AdaptiveAvgPool2D,  # noqa: F401
@@ -12,3 +13,6 @@ from .layer import (GELU, AdaptiveAvgPool2D,  # noqa: F401
                     Sequential, SmoothL1Loss, Tanh, Transformer,
                     TransformerDecoder, TransformerDecoderLayer,
                     TransformerEncoder, TransformerEncoderLayer)
+from .layer import (GRU, LSTM, RNN, BiRNN, GRUCell, LSTMCell,  # noqa: F401
+                    RNNCellBase, SimpleRNN, SimpleRNNCell)
+from .decode import BeamSearchDecoder, Decoder, dynamic_decode  # noqa

@@ -370,6 +370,15 @@ def batch_norm(x, running_mean, running_var, weight, bias, training=False,
 
 # -- losses (nn/functional/__init__.py:402-566, the ops of nn_ops.py) ---------
 
+def sequence_mask(lengths, maxlen=None, dtype="int64", name=None):
+    """(B,) lengths -> (B, maxlen) mask in `dtype`: 1 where the position
+    is below the row's length.  Without `maxlen`, the lengths' largest,
+    read to the host (one sync), as the reference reads it."""
+    m = int(lengths.max()) if maxlen is None else int(maxlen)
+    pos = torch.arange(m, device=lengths.device)
+    return (pos[None, :] < lengths[:, None]).to(core.torch_dtype(dtype))
+
+
 def _reduce_loss(loss, reduction):
     if reduction == "mean":
         return loss.mean()

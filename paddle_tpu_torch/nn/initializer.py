@@ -25,6 +25,17 @@ class Constant(Initializer):
         return torch.full(tuple(shape), self.value, dtype=torch.float32)
 
 
+class Uniform(Initializer):
+    """Uniform on [low, high)."""
+
+    def __init__(self, low: float = -1.0, high: float = 1.0, seed: int = 0):
+        self.low, self.high = float(low), float(high)
+
+    def __call__(self, shape, generator=None):
+        t = torch.empty(tuple(shape), dtype=torch.float32)
+        return t.uniform_(self.low, self.high, generator=generator)
+
+
 class Normal(Initializer):
     def __init__(self, mean: float = 0.0, std: float = 1.0):
         self.mean, self.std = float(mean), float(std)

@@ -9,6 +9,8 @@ from .loss import (BCELoss, BCEWithLogitsLoss, CrossEntropyLoss,  # noqa
                    KLDivLoss, L1Loss, MarginRankingLoss, MSELoss, NLLLoss,
                    SmoothL1Loss)
 from .norm import BatchNorm, BatchNorm1D, BatchNorm2D, LayerNorm  # noqa: F401
+from .rnn import (GRU, LSTM, RNN, BiRNN, GRUCell, LSTMCell,  # noqa: F401
+                  RNNCellBase, SimpleRNN, SimpleRNNCell)
 from .pooling import (AdaptiveAvgPool2D, AdaptiveMaxPool2D,  # noqa: F401
                       AvgPool2D, MaxPool2D)
 from .transformer import (MultiHeadAttention, Transformer,  # noqa: F401

@@ -1423,3 +1423,111 @@ def test_accuracy_and_optimizers_on_the_card(cuda):
             res[dev] = [p.detach().cpu() for p in params]
         for g, c in zip(res["cuda"], res["cpu"]):
             torch.testing.assert_close(g, c, atol=1e-6, rtol=1e-5)
+
+
+# -- recurrent layers and the seq2seq program (no hand-written kernel) ----
+
+@pytest.mark.parametrize("mode", ["LSTM", "GRU", "SimpleRNN"])
+@pytest.mark.parametrize("direction", ["forward", "bidirect"])
+def test_cudnn_recurrence_matches_the_plain_loop(cuda, mode, direction):
+    """The fused recurrence (cuDNN on the card, TF32 off) against the
+    reference's per-step loop, forward and gradients, 2 layers of 20
+    steps with dropout between them under one scope seed: f32 sums in
+    two orders, within 1e-4 + 1e-3 relative (outputs) and 1e-3 of each
+    gradient's largest element."""
+    from paddle_tpu_torch import nn
+
+    layer = getattr(nn, mode)(48, 64, num_layers=2, direction=direction,
+                              dropout=0.2, generator=cuda).to("cuda")
+    x = torch.randn(8, 20, 48, generator=cuda).to("cuda")
+    runs = []
+    for fn in (layer.forward, layer.plain_forward):
+        leaf = x.clone().requires_grad_()
+        with Fn.rng_scope(3):
+            outs = fn(leaf)
+        g = torch.Generator().manual_seed(1)
+        cts = [torch.randn(o.shape, generator=g).to("cuda") for o in outs]
+        grads = torch.autograd.grad(outs, [leaf] + list(layer.parameters()),
+                                    cts)
+        runs.append((outs, grads))
+    for a, b in zip(runs[0][0], runs[1][0]):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-3)
+    for a, b in zip(runs[0][1], runs[1][1]):
+        assert float((a - b).abs().max()) <= \
+            1e-3 * float(b.abs().max()) + 1e-6
+
+
+def test_recurrent_layers_run_on_the_card_without_a_host_read(cuda):
+    """Without lengths, neither the fused layers nor the cells read
+    anything back to the host."""
+    from paddle_tpu_torch import nn
+
+    lstm = nn.LSTM(16, 32, num_layers=2).to("cuda")
+    cell = nn.RNN(nn.GRUCell(16, 32)).to("cuda")
+    x = torch.randn(4, 10, 16, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        y, (h, c) = lstm(x)
+        y2, h2 = cell(x)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert y.is_cuda and y.shape == (4, 10, 32) and h2.shape == (4, 32)
+
+
+def test_tiny_seq2seq_trains_and_decodes_on_the_card(cuda):
+    """The seq2seq program at the parity tests' size on the card: the
+    loss and gradients of one batch against the CPU (f32, TF32 off), a
+    Model.fit whose loss falls, beam 1 equal to greedy and the beams'
+    scores against teacher forcing."""
+    import sys
+    from pathlib import Path
+
+    import paddle_tpu_torch as paddle
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import torch_seq2seq_program as S
+
+    cfg = dict(S.TINY, hidden=32, steps=9, max_out_len=9)
+    data = S.batch(cfg)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        paddle.set_device(dev)
+        net = S.build(paddle, cfg).to(dev)
+        src, sl, trg, tl, lab = (torch.from_numpy(a).to(dev) for a in data)
+        logits, mask = net(src, sl, trg, tl)
+        loss = S.classes(paddle)["CrossEntropyCriterion"]()(logits, mask,
+                                                            lab)
+        loss.backward()
+        out[dev] = (float(loss), {n: p.grad.cpu() for n, p in
+                                  net.named_parameters()})
+    try:
+        assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-4 * abs(
+            out["cpu"][0])
+        for n, g in out["cpu"][1].items():
+            torch.testing.assert_close(out["cuda"][1][n], g, atol=1e-5,
+                                       rtol=1e-3, msg=n)
+        net = S.build(paddle, cfg).to("cuda")
+        model = S.prepare(paddle, net, cfg)
+        batch = [tuple(torch.from_numpy(a).cuda() for a in data)] * 8
+        losses = []
+
+        class Rec(paddle.hapi.callbacks.Callback):
+            def on_train_batch_end(self, step, logs=None):
+                losses.append(logs["loss"])
+
+        model.fit(batch, epochs=1, verbose=0, callbacks=[Rec()])
+        assert len(losses) == 8 and losses[-1] < losses[0]
+        src, sl = (torch.from_numpy(a).cuda() for a in data[:2])
+        greedy = S.greedy(paddle, net, src, sl, cfg["max_out_len"])
+        one = S.beam_search(paddle, net, src, sl, 1, cfg["max_out_len"])
+        assert np.array_equal(S.host(one["predicted_ids"])[:, :, 0], greedy)
+        beams = S.beam_search(paddle, net, src, sl, 3, cfg["max_out_len"])
+        ids, par, sc = (S.host(beams[k]) for k in
+                        ("predicted_ids", "parent_ids", "scores"))
+        forced = S.sequence_scores(paddle, net, src, sl,
+                                   S.backtrack(ids, par))
+        np.testing.assert_allclose(forced, sc[:, -1, :], rtol=1e-4,
+                                   atol=1e-4)
+    finally:
+        paddle.device._CURRENT[0] = None

@@ -226,8 +226,263 @@ CASES = {
         {"beta1": 0.9, "beta2": 0.999, "epsilon": 1e-8}, []),
 }
 
+
+def _pos(*shape, seed=0):
+    return np.abs(_f(*shape, seed=seed)) + 0.5
+
+
+def _spd(n, seed=0):
+    a = _f(n, n, seed=seed)
+    return a @ a.T + n * np.eye(n)
+
+
+def _special(*shape, seed=0):
+    x = _f(*shape, seed=seed)
+    x.flat[1], x.flat[3], x.flat[4] = np.inf, -np.inf, np.nan
+    return x
+
+
+_NEG_INTS = np.array([-7, 7, -7, 7, 5, -5, 0, -1], np.int64)
+_NEG_DIVS = np.array([3, -3, -3, 3, -2, 2, 4, 3], np.int64)
+_TIES = np.array([[1., 3., 3., 0., 3., 2.], [5., 5., 1., 5., 0., 5.]])
+_BOOLS = np.array([[True, False, True], [True, True, True]])
+
+
+def _unary_case(op, x):
+    return (op, {"X": [x]}, {}, ["Out"])
+
+
+def _binary_case(op, x, y, axis=-1, grads=True):
+    return (op, {"X": [x], "Y": [y]}, {"axis": axis},
+            ["Out"] if grads else [])
+
+
+def _reduce_case(op, x, dim, keep=False, all_=False, grads=True):
+    return (op, {"X": [x]}, {"dim": dim, "keep_dim": keep,
+                             "reduce_all": all_}, ["Out"] if grads else [])
+
+
+# the rules the 2.x tensor API reaches (math_ops.py and tensor_ops.py)
+CASES.update({
+    # -- elementwise binary: numpy broadcasting and Paddle's axis ------------
+    "elementwise_mul": _binary_case("elementwise_mul", _f(2, 3, 4),
+                                    _f(3, 1, seed=1), axis=1),
+    "elementwise_div": _binary_case("elementwise_div", _f(2, 3),
+                                    _pos(2, 3, seed=1)),
+    "elementwise_min": _binary_case("elementwise_min", _f(2, 3, 4),
+                                    _f(4, seed=1)),
+    "elementwise_max": _binary_case("elementwise_max", _f(2, 3, 4),
+                                    _f(3, 4, seed=1)),
+    "elementwise_pow": _binary_case("elementwise_pow", _pos(3, 4),
+                                    _f(3, 4, seed=1)),
+    "elementwise_mod": _binary_case("elementwise_mod", _f(3, 4) * 5,
+                                    _pos(3, 4, seed=1)),
+    "elementwise_mod_negative_ints": _binary_case(
+        "elementwise_mod", _NEG_INTS, _NEG_DIVS, grads=False),
+    "elementwise_floordiv_negative_ints": _binary_case(
+        "elementwise_floordiv", _NEG_INTS, _NEG_DIVS, grads=False),
+    "elementwise_floordiv": _binary_case("elementwise_floordiv",
+                                         _f(3, 4) * 5, _pos(3, 4, seed=1),
+                                         grads=False),
+    # -- products --------------------------------------------------------------
+    "matmul_v2_batched": ("matmul_v2", {"X": [_f(2, 3, 4)],
+                                        "Y": [_f(4, 5, seed=1)]},
+                          {"trans_x": False, "trans_y": False}, ["Out"]),
+    "matmul_v2_trans_y": ("matmul_v2", {"X": [_f(2, 1, 4)],
+                                        "Y": [_f(2, 6, 4, seed=1)]},
+                          {"trans_x": False, "trans_y": True}, ["Out"]),
+    "matmul_v2_trans_x_vector": ("matmul_v2", {"X": [_f(4, 3)],
+                                               "Y": [_f(4, seed=1)]},
+                                 {"trans_x": True, "trans_y": False},
+                                 ["Out"]),
+    "bmm": ("bmm", {"X": [_f(2, 3, 4)], "Y": [_f(2, 4, 5, seed=1)]}, {},
+            ["Out"]),
+    "dot": ("dot", {"X": [_f(3, 4)], "Y": [_f(3, 4, seed=1)]}, {}, ["Out"]),
+    "mv": ("mv", {"X": [_f(3, 4)], "Vec": [_f(4, seed=1)]}, {}, ["Out"]),
+    "addmm": ("addmm", {"Input": [_f(3, 5)], "X": [_f(3, 4, seed=1)],
+                        "Y": [_f(4, 5, seed=2)]},
+              {"Alpha": 0.5, "Beta": -2.0}, ["Out"]),
+    "kron": ("kron", {"X": [_f(2, 3)], "Y": [_f(3, 2, seed=1)]}, {},
+             ["Out"]),
+    "trace_offset": ("trace", {"Input": [_f(3, 4, 2)]},
+                     {"offset": 1, "axis1": 0, "axis2": 1}, ["Out"]),
+    # -- reductions ------------------------------------------------------------
+    "reduce_sum": _reduce_case("reduce_sum", _f(2, 3, 4), [0, -1], True),
+    "reduce_sum_all": _reduce_case("reduce_sum", _f(2, 3), [], all_=True),
+    "reduce_max": _reduce_case("reduce_max", _f(2, 3, 4), [1]),
+    "reduce_min_all": _reduce_case("reduce_min", _f(3, 4), [], True, True),
+    "reduce_prod": _reduce_case("reduce_prod", _f(2, 3, 4), [0, 2]),
+    "reduce_any": _reduce_case("reduce_any", _BOOLS, [1], grads=False),
+    "reduce_all": _reduce_case("reduce_all", _BOOLS, [0, 1], True,
+                               grads=False),
+    "logsumexp": ("logsumexp", {"X": [_f(2, 3, 4)]},
+                  {"axis": [1, 2], "keepdim": True, "reduce_all": False},
+                  ["Out"]),
+    "logsumexp_all": ("logsumexp", {"X": [_f(3, 4)]},
+                      {"axis": [], "keepdim": False, "reduce_all": True},
+                      ["Out"]),
+    "frobenius_norm": ("frobenius_norm", {"X": [_f(2, 3, 4)]},
+                       {"dim": [-2, -1], "keep_dim": False,
+                        "reduce_all": False}, ["Out"]),
+    "frobenius_norm_every_axis": ("frobenius_norm", {"X": [_f(3, 4)]},
+                                  {"dim": [0, 1], "keep_dim": True,
+                                   "reduce_all": True}, ["Out"]),
+    # -- unary -------------------------------------------------------------------
+    **{op: _unary_case(op, _f(3, 4)) for op in (
+        "exp", "expm1", "abs", "ceil", "floor", "round", "sin", "cos",
+        "tan", "atan", "sinh", "cosh", "sign", "erf")},
+    **{op: _unary_case(op, _pos(3, 4)) for op in (
+        "log", "log2", "log10", "log1p", "sqrt", "rsqrt", "reciprocal")},
+    **{op: _unary_case(op, np.tanh(_f(3, 4))) for op in ("asin", "acos")},
+    "logical_not": ("logical_not", {"X": [_BOOLS]}, {}, []),
+    **{op: ("isfinite_v2" if op == "isfinite" else op + "_v2",
+            {"X": [_special(3, 4)]}, {}, [])
+       for op in ("isfinite", "isinf", "isnan")},
+    "pow": ("pow", {"X": [_pos(3, 4)]}, {"factor": 2.5}, ["Out"]),
+    "stanh": ("stanh", {"X": [_f(3, 4)]}, {"scale_a": 0.5, "scale_b": 2.0},
+              ["Out"]),
+    "clip": ("clip", {"X": [_f(3, 4)]}, {"min": -0.5, "max": 0.7}, ["Out"]),
+    "cast_float16": ("cast", {"X": [_f(3, 4)]}, {"out_dtype": "float16"},
+                     ["Out"]),
+    "cast_int32": ("cast", {"X": [_f(3, 4) * 4]}, {"out_dtype": "int32"},
+                   []),
+    "cumsum": ("cumsum", {"X": [_f(3, 4)]}, {"axis": 1}, ["Out"]),
+    "cumsum_flatten_exclusive_reverse": (
+        "cumsum", {"X": [_f(3, 4)]},
+        {"axis": -1, "flatten": True, "exclusive": True, "reverse": True},
+        ["Out"]),
+    "cumprod": ("cumprod", {"X": [_f(3, 4)]}, {"dim": 0}, ["Out"]),
+    "cholesky": ("cholesky", {"X": [_spd(4)]}, {"upper": False}, ["Out"]),
+    "cholesky_upper": ("cholesky", {"X": [_spd(3, seed=1)]},
+                       {"upper": True}, ["Out"]),
+    "histogram_data_range": ("histogram", {"X": [_f(4, 5)]},
+                             {"bins": 6, "min": 0, "max": 0}, []),
+    "histogram_fixed_range": ("histogram", {"X": [_f(4, 5)]},
+                              {"bins": 4, "min": -1, "max": 1}, []),
+    # -- creation ------------------------------------------------------------------
+    "fill_any_like": ("fill_any_like", {"X": [_f(2, 3)]},
+                      {"value": 2.5, "dtype": None}, []),
+    "fill_any_like_int": ("fill_any_like", {"X": [_f(2, 3)]},
+                          {"value": 3.0, "dtype": "int64"}, []),
+    "eye": ("eye", {}, {"num_rows": 3, "num_columns": 4,
+                        "dtype": "float32"}, []),
+    "range_attrs": ("range", {}, {"start": 1, "end": 11, "step": 3,
+                                  "dtype": "int64"}, []),
+    "range_inputs": ("range", {"Start": [np.array(0.5)],
+                               "End": [np.array(3.0)],
+                               "Step": [np.array(0.75)]},
+                     {"dtype": "float32"}, []),
+    "linspace": ("linspace", {}, {"start": -1.0, "stop": 2.0, "num": 7,
+                                  "dtype": "float32"}, []),
+    "increment": ("increment", {"X": [_f(1)]}, {"step": 2.0}, ["Out"]),
+    # -- manipulation ----------------------------------------------------------------
+    "transpose2": ("transpose2", {"X": [_f(2, 3, 4)]}, {"axis": [1, 2, 0]},
+                   ["Out"]),
+    "squeeze2_axes": ("squeeze2", {"X": [_f(2, 1, 3, 1)]},
+                      {"axes": [1, -1]}, ["Out"]),
+    "squeeze2_all": ("squeeze2", {"X": [_f(1, 3, 1)]}, {"axes": []},
+                     ["Out"]),
+    "unsqueeze2": ("unsqueeze2", {"X": [_f(2, 3)]}, {"axes": [0, -1]},
+                   ["Out"]),
+    "flatten_contiguous_range": ("flatten_contiguous_range",
+                                 {"X": [_f(2, 3, 4, 5)]},
+                                 {"start_axis": 1, "stop_axis": 2},
+                                 ["Out"]),
+    "stack": ("stack", {"X": [_f(2, 3), _f(2, 3, seed=1),
+                              _f(2, 3, seed=2)]}, {"axis": 1}, ["Y"]),
+    "unstack": ("unstack", {"X": [_f(3, 2, 4)]}, {"axis": 1, "num": 2},
+                ["Y"]),
+    "unbind": ("unbind", {"X": [_f(3, 2, 4)]}, {"axis": -1}, ["Out"]),
+    "split_sections": ("split", {"X": [_f(6, 3)]},
+                       {"axis": 0, "sections": [2, -1, 1]}, ["Out"]),
+    "split_num": ("split", {"X": [_f(2, 6)]}, {"axis": 1, "num": 3},
+                  ["Out"]),
+    "slice": ("slice", {"Input": [_f(4, 3, 5)]},
+              {"axes": [0, 2], "starts": [-3, 1], "ends": [100, -1]},
+              ["Out"]),
+    "slice_decrease": ("slice", {"Input": [_f(4, 3)]},
+                       {"axes": [0], "starts": [2], "ends": [3],
+                        "decrease_axis": [0]}, ["Out"]),
+    "strided_slice": ("strided_slice", {"Input": [_f(6, 5)]},
+                      {"axes": [0, 1], "starts": [1, 4], "ends": [6, 0],
+                       "strides": [2, -1]}, ["Out"]),
+    "expand_v2": ("expand_v2", {"X": [_f(3, 1)]}, {"shape": [2, -1, 4]},
+                  ["Out"]),
+    "expand_as_v2": ("expand_as_v2", {"X": [_f(1, 4)]},
+                     {"target_shape": [3, 4]}, ["Out"]),
+    "tile": ("tile", {"X": [_f(2, 3)]}, {"repeat_times": [2, 1, 3]},
+             ["Out"]),
+    "flip": ("flip", {"X": [_f(2, 3, 4)]}, {"axis": [0, -1]}, ["Out"]),
+    "roll_axes": ("roll", {"X": [_f(3, 4)]},
+                  {"shifts": [1, -2], "axis": [0, 1]}, ["Out"]),
+    "roll_flat": ("roll", {"X": [_f(3, 4)]}, {"shifts": [5], "axis": []},
+                  ["Out"]),
+    "tril": ("tril_triu", {"X": [_f(4, 5)]}, {"diagonal": -1,
+                                              "lower": True}, ["Out"]),
+    "triu": ("tril_triu", {"X": [_f(2, 4, 5)]}, {"diagonal": 1,
+                                                 "lower": False}, ["Out"]),
+    "diag_v2_vector": ("diag_v2", {"X": [_f(3)]},
+                       {"offset": 1, "padding_value": 0.5}, ["Out"]),
+    "diag_v2_matrix": ("diag_v2", {"X": [_f(4, 5)]}, {"offset": -1},
+                       ["Out"]),
+    "meshgrid": ("meshgrid", {"X": [_f(3), _f(4, seed=1)]}, {}, ["Out"]),
+    "gather": ("gather", {"X": [_f(5, 3)], "Index": [np.array(
+        [4, 0, 2, 0], np.int64)]}, {"axis": 0}, ["Out"]),
+    "gather_column_index_axis1": ("gather", {"X": [_f(2, 5, 3)],
+                                             "Index": [np.array(
+                                                 [[3], [1]], np.int64)]},
+                                  {"axis": 1}, ["Out"]),
+    "gather_nd": ("gather_nd", {"X": [_f(3, 4, 5)], "Index": [np.array(
+        [[2, 1], [0, 3], [2, 1]], np.int64)]}, {}, ["Out"]),
+    "index_select": ("index_select", {"X": [_f(3, 5)], "Index": [np.array(
+        [4, 1, 1], np.int64)]}, {"dim": 1}, ["Out"]),
+    "index_sample": ("index_sample", {"X": [_f(3, 5)], "Index": [np.array(
+        [[4, 0], [1, 1], [2, 3]], np.int64)]}, {}, ["Out"]),
+    "scatter_overwrite": ("scatter", {"X": [_f(5, 3)], "Ids": [np.array(
+        [3, 0], np.int64)], "Updates": [_f(2, 3, seed=1)]},
+        {"overwrite": True}, ["Out"]),
+    "scatter_add_repeated_ids": ("scatter", {"X": [_f(5, 3)],
+                                             "Ids": [np.array(
+                                                 [[3], [0], [3]], np.int64)],
+                                             "Updates": [_f(3, 3, seed=1)]},
+                                 {"overwrite": False}, ["Out"]),
+    "scatter_nd_add": ("scatter_nd_add", {"X": [_f(3, 4)], "Index": [
+        np.array([[1, 2], [0, 0], [1, 2]], np.int64)],
+        "Updates": [_f(3, seed=1)]}, {}, ["Out"]),
+    "where": ("where", {"Condition": [_f(3, 4) > 0], "X": [_f(3, 4)],
+                        "Y": [_f(3, 4, seed=1)]}, {}, ["Out"]),
+    "multiplex": ("multiplex", {"X": [_f(4, 3), _f(4, 3, seed=1),
+                                      _f(4, 3, seed=2)],
+                                "Ids": [np.array([[2], [0], [1], [2]],
+                                                 np.int64)]}, {}, ["Out"]),
+    # -- search --------------------------------------------------------------------
+    "arg_max_keepdims_ties": ("arg_max", {"X": [_TIES]},
+                              {"axis": 1, "keepdims": True,
+                               "flatten": False, "dtype": "int64"}, []),
+    "arg_max_flatten_int32": ("arg_max", {"X": [_f(3, 4)]},
+                              {"axis": -1, "keepdims": False,
+                               "flatten": True, "dtype": "int32"}, []),
+    "arg_min_ties": ("arg_min", {"X": [-_TIES]},
+                     {"axis": 1, "keepdims": False, "flatten": False}, []),
+    "arg_min_flatten_vector": ("arg_min", {"X": [_f(6)]},
+                               {"axis": -1, "flatten": True}, []),
+    "argsort_ties": ("argsort", {"X": [_TIES]},
+                     {"axis": -1, "descending": False}, ["Out"]),
+    "argsort_ties_descending_axis0": ("argsort", {"X": [_TIES.T.copy()]},
+                                      {"axis": 0, "descending": True},
+                                      ["Out"]),
+    "unique": ("unique", {"X": [np.array([[3, 1, 3], [2, 1, 3]],
+                                         np.int64)]}, {"axis": []}, []),
+    "unique_float_vector_axis": ("unique", {"X": [np.array(
+        [0.5, -1.0, 0.5, 2.0])]}, {"axis": [0]}, []),
+})
+
 # int64 feeds and int outputs are exact; these rules also take float64
-FLOAT64_OK = set(CASES) - {"fill_constant", "fill_constant_int64"}
+# (linspace makes float32 whatever the feeds: under x64 the reference
+# computes its steps in float32 and lands within a float32 unit of the
+# exact values the port gives)
+FLOAT64_OK = set(CASES) - {"fill_constant", "fill_constant_int64",
+                           "linspace"}
 
 RANDOM = ("gaussian_random", "uniform_random")
 
@@ -373,3 +628,85 @@ def test_top_k_orders_ties_by_index():
                    {"k": 3, "axis": -1, "largest": True}, ["Out", "Indices"],
                    [], [])
     assert got["Indices"][0].tolist() == [[1, 2, 3]]
+
+
+def _both_rules(op_type, ins, attrs, outputs):
+    """Every output of the reference's rule and of the port's, with the
+    output slots `outputs` declared (some rules compute a slot only
+    when the op declares it).  Float inputs go in as float32."""
+    ins = {s: _cast(v, "float32") for s, v in ins.items()}
+    out_names = {s: [f"{s}_0"] for s in outputs}
+    jop = JFW.Operator(JFW.Program().global_block(), 0, op_type,
+                       _names({s: len(v) for s, v in ins.items()}),
+                       out_names, dict(attrs))
+    want = JREG._FORWARD[op_type](JREG.LowerCtx(jax.random.PRNGKey(0)), jop,
+                                  {s: [jnp.asarray(a) for a in v]
+                                   for s, v in ins.items()})
+    top = TFW.Operator(TFW.Program().global_block(), 0, op_type,
+                       _names({s: len(v) for s, v in ins.items()}),
+                       out_names, dict(attrs))
+    got = TREG.forward_rule(op_type)(
+        TREG.LowerCtx(0, device="cpu"), top,
+        {s: [torch.from_numpy(np.array(a)) for a in v]
+         for s, v in ins.items()})
+    return want, got
+
+
+@pytest.mark.parametrize("name,slot", [
+    ("split_sections", "Out"), ("split_num", "Out"), ("unstack", "Y"),
+    ("unbind", "Out"), ("meshgrid", "Out")])
+def test_multi_output_rules_give_every_output(name, slot):
+    """The harness above compares each slot's first tensor; these rules
+    give several: every one matches (values are moved, not computed)."""
+    op_type, ins, attrs, _ = CASES[name]
+    want, got = _both_rules(op_type, ins, attrs, [slot])
+    assert len(got[slot]) == len(want[slot]) > 1
+    for w, g in zip(want[slot], got[slot]):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("x", [
+    np.array([[3, 1, 3], [2, 1, 3]], np.int64),
+    np.array([0.5, -1.0, 0.5, 2.0, 2.0, 2.0])])
+def test_unique_rule_index_and_counts(x):
+    """With Index and Counts declared, the static-shape unique gives the
+    inverse map and the counts (0 for the padding) as the reference's
+    jnp.unique(size=) does, in the `dtype` attr."""
+    want, got = _both_rules("unique", {"X": [x]},
+                            {"axis": [], "dtype": "int32"},
+                            ["Out", "Index", "Counts"])
+    for slot in ("Out", "Index", "Counts"):
+        np.testing.assert_array_equal(got[slot][0].numpy(),
+                                      np.asarray(want[slot][0]),
+                                      err_msg=slot)
+    assert got["Counts"][0].dtype == torch.int32
+
+
+@pytest.mark.parametrize("op_type,ins,attrs,ignored", [
+    ("frobenius_norm", {"X": [_f(3, 4)]},
+     {"dim": [], "keep_dim": False, "reduce_all": True}, "reduce_all"),
+    ("arg_min", {"X": [_f(3, 4)]}, {"axis": -1, "flatten": True},
+     "flatten"),
+    ("unique", {"X": [np.array([[3, 1], [3, 2]], np.int64)]},
+     {"axis": [0]}, "axis"),
+])
+def test_rules_raise_where_the_reference_ignores_an_attr(op_type, ins,
+                                                         attrs, ignored):
+    """Where the reference's rule ignores an attr that would change the
+    answer, the port's rule raises.  The reference's answer there is
+    pinned: the ignored attr made no difference to it."""
+    with pytest.raises(NotImplementedError, match=ignored):
+        _both_rules(op_type, ins, attrs, ["Out"])
+    without = dict(attrs)
+    without[ignored] = {"reduce_all": False, "flatten": False,
+                        "axis": []}[ignored]
+    out = {}
+    for a in (attrs, without):
+        op = JFW.Operator(JFW.Program().global_block(), 0, op_type,
+                          _names({s: len(v) for s, v in ins.items()}), {},
+                          dict(a))
+        out[id(a)] = np.asarray(JREG._FORWARD[op_type](
+            JREG.LowerCtx(jax.random.PRNGKey(0)), op,
+            {s: [jnp.asarray(v) for v in vs]
+             for s, vs in ins.items()})["Out"][0])
+    np.testing.assert_array_equal(out[id(attrs)], out[id(without)])

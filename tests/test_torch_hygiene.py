@@ -20,8 +20,12 @@ SMOKE = ROOT / "chip_smoke.py"
 FORBIDDEN = ("jax", "jaxlib", "paddle_tpu")
 
 
+# JAX-free helpers of the tests that chip_smoke.py imports too
+PROGRAMS = [ROOT / "tests" / "torch_seq2seq_program.py"]
+
+
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [SMOKE]
+    return sorted(PORT.rglob("*.py")) + [SMOKE] + PROGRAMS
 
 
 def _forbidden(module: str) -> bool:
@@ -65,7 +69,8 @@ def test_the_walk_sees_the_whole_package():
             "optimizer/lr.py", "io/__init__.py", "metric/__init__.py",
             "amp/__init__.py", "hapi/model.py", "hapi/callbacks.py",
             "tensor/__init__.py", "fluid/dygraph/__init__.py",
-            "framework_io.py"} <= names
+            "framework_io.py", "nn/layer/rnn.py", "nn/decode.py",
+            "ops/math_ops.py", "ops/tensor_ops.py"} <= names
 
 
 def _run(code_or_args, cwd, timeout=120):
@@ -91,7 +96,10 @@ def test_importing_the_port_loads_no_jax():
             "paddle_tpu_torch.metric, paddle_tpu_torch.amp, "
             "paddle_tpu_torch.hapi, paddle_tpu_torch.hapi.callbacks, "
             "paddle_tpu_torch.tensor, paddle_tpu_torch.fluid.dygraph, "
-            "paddle_tpu_torch.framework_io, paddle_tpu_torch.nn.layer.loss\n"
+            "paddle_tpu_torch.framework_io, paddle_tpu_torch.nn.layer.loss, "
+            "paddle_tpu_torch.nn.layer.rnn, paddle_tpu_torch.nn.decode\n"
+            "sys.path.insert(0, 'tests')\n"
+            "import torch_seq2seq_program\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu'))\n"
             "print(bad)\n")
