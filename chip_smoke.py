@@ -5,7 +5,9 @@ decoder through serving.AutoregressiveEngine, take BERT-base pretraining
 steps on both arms of the fused FFN, train ResNet-50 eagerly, as a
 Fluid static-graph program through fluid.Executor and through the 2.x
 front end's hapi.Model.fit, train and decode the Transformer-base WMT
-model, run the quickstart's 2.x modes, and check what comes out.
+model, run the quickstart's 2.x modes, train and decode Paddle 2.x's
+seq2seq with attention and the book's semantic-role-labelling program
+(a Fluid program through fluid.Executor), and check what comes out.
 
     python3 chip_smoke.py
 
@@ -188,6 +190,21 @@ Phases, in order (any failure exits non-zero and prints no result):
               greedy loop over the same cell; each beam of 10, followed
               back through its parents, scores what teacher forcing
               scores (S2S_SCORE_TOL); ms a step, tokens/s, syncs a step
+ 18. srl      the book's semantic-role-labelling program
+              (tests/torch_srl_program.py at BOOK: db_lstm of depth 8,
+              512 wide, CoNLL-05's vocabularies; random weights from the
+              startup program, a synthetic batch B=10, T=64) through
+              fluid.Executor: SRL_STEPS SGD steps over exponential_decay,
+              the loss falls, no hand-written kernel launched, every
+              lstm op on the loop arm; ms a step (CUDA events, host clock
+              beside), live tokens/s, the idle share of a profiled step,
+              syncs a step by line, ops a step and host us an op, peak
+              memory, the crf_decoding ms.  The same program at depth 2
+              and 32 wide, and the book's word2vec, recommender and
+              sentiment programs (tests/torch_book_programs.py), on the
+              card against the CPU Executor from the same state
+              (SRL_LOSS_RTOL, SRL_STATE_TOL, the decoded paths equal);
+              the lstm rule's cuDNN arm against its loop (SRL_ARM_TOL)
 
 The last two lines of stdout are a {"kernels": [...]} summary and the
 {"ok": true, "device": {...}} result.  Needs CUDA; imports nothing of JAX
@@ -405,6 +422,26 @@ S2S_LSTM_GRAD = 1e-3
 # rows lie elsewhere in the products)
 S2S_BEAM, S2S_MAX_LEN = 10, 50
 S2S_SCORE_TOL = dict(atol=1e-3, rtol=1e-4)
+# the book's semantic-role-labelling program (phase 18,
+# tests/torch_srl_program.BOOK: db_lstm of depth 8, 512 wide, CoNLL-05's
+# 44068 / 3162 / 106 vocabularies, B=10, T=64, f32) through
+# fluid.Executor: SRL_STEPS SGD steps on one staged batch, the loss read
+# at the last against the first (it must fall); then crf_decoding
+SRL_STEPS = 30
+# the card's Executor against the CPU's from the same state, each step
+# from the CPU's (as _fluid_cpu_check): db_lstm at depth 2 and 32 wide
+# for 3 steps, and the three other book programs at their test sizes
+# for BOOK_STEPS, each step's loss within SRL_LOSS_RTOL (float32 with
+# TF32 off: two summation orders), every float state var within
+# SRL_STATE_TOL in relative L2, the decoded paths equal on the live
+# positions
+SRL_LOSS_RTOL, SRL_STATE_TOL, BOOK_STEPS = 1e-4, 1e-4, 5
+# the lstm rule's fused arm (one torch.lstm, cuDNN) against its loop at
+# the book SRL test's default activations, (B, T, 4H) = (10, 64, 512):
+# Hidden and Cell within SRL_ARM_TOL (64 steps of a contracting
+# recurrence, two orders of 128-term products), each gradient within
+# S2S_LSTM_GRAD of its tensor's largest element
+SRL_ARM_TOL = dict(atol=1e-4, rtol=1e-3)
 MEASURED = {}  # numbers one phase hands a later one
 FAILURES = []
 
@@ -3713,6 +3750,256 @@ def seq2seq():
     return {"seq2seq_train": launches, "seq2seq_decode": decode_launches}
 
 
+def _book_modules():
+    """tests/torch_srl_program.py and tests/torch_book_programs.py, the
+    JAX-free programs the parity tests hold against paddle_tpu."""
+    tests = str(Path(__file__).resolve().parent / "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import torch_book_programs as B
+    import torch_srl_program as S
+    return S, B
+
+
+def _card_vs_cpu(fluid, main, startup, feed, fetches, steps, what,
+                 decode=None):
+    """The card's Executor against the CPU's on one program, from the
+    same startup values, `steps` steps each from the CPU's state: the
+    loss (fetches[0]) within SRL_LOSS_RTOL, every float state var within
+    SRL_STATE_TOL; with `decode` (an inference program and its fetch),
+    the paths equal where `feed["length"]` says the rows live."""
+    from paddle_tpu_torch.convert import load_jax_scope
+
+    gpu, cpu = fluid.Executor(), fluid.Executor(fluid.CPUPlace())
+    gs, cs = fluid.Scope(), fluid.Scope()
+    gpu.run(startup, scope=gs)
+    cpu.run(startup, scope=cs)
+    load_jax_scope(cs, {n: gs.get(n).cpu().numpy()
+                        for n in gs.local_var_names()})
+    losses, worst_state = [], {}
+    for i in range(steps):
+        load_jax_scope(gs, {n: cs.get(n).numpy()
+                            for n in cs.local_var_names()})
+        g = float(gpu.run(main, feed=feed, fetch_list=fetches[:1],
+                          scope=gs)[0])
+        c = float(cpu.run(main, feed=feed, fetch_list=fetches[:1],
+                          scope=cs)[0])
+        losses.append((g, c))
+        if not (np.isfinite(g) and abs(g - c) <= SRL_LOSS_RTOL * abs(c)):
+            raise AssertionError(f"{what} step {i}: card loss {g} vs CPU {c}")
+        for n, e in _fluid_state_errors(gs, cs).items():
+            worst_state[n] = max(worst_state.get(n, 0.0), e)
+    name, err = max(worst_state.items(), key=lambda kv: kv[1])
+    if err > SRL_STATE_TOL:
+        raise AssertionError(f"{what}: {name} relative L2 {err}")
+    out = dict(losses=losses, worst_state=name, worst_state_rel_l2=err)
+    if decode is not None:
+        prog, var = decode
+        load_jax_scope(gs, {n: cs.get(n).numpy()
+                            for n in cs.local_var_names()})
+        g = gpu.run(prog, feed=feed, fetch_list=[var], scope=gs)[0]
+        c = cpu.run(prog, feed=feed, fetch_list=[var], scope=cs)[0]
+        live = np.arange(g.shape[1])[None, :] < feed["length"][:, None]
+        if not np.array_equal(g[live], c[live]) or (g[~live] != 0).any():
+            raise AssertionError(f"{what}: decoded paths differ at "
+                                 f"{int((g != c)[live].sum())} positions")
+        out["decoded_positions_equal"] = int(live.sum())
+    log(f"{what} card vs CPU Executor, {steps} steps from the same state: "
+        f"losses {[(round(a, 6), round(b, 6)) for a, b in losses]}, worst "
+        f"state var {name} {err:.3g} (limits {SRL_LOSS_RTOL}, "
+        f"{SRL_STATE_TOL})" + (f", decoded paths equal on "
+                               f"{out['decoded_positions_equal']} live "
+                               f"positions" if decode else ""))
+    return out
+
+
+def _srl_arm_hold():
+    """The lstm rule's two arms on the card at the book SRL test's
+    default activations: one torch.lstm (cuDNN) against the loop, y and
+    the cell, and the gradients of the input, the weight and the bias
+    for the same cotangents; each arm's ms forward and backward (CUDA
+    events, after a warm-up)."""
+    from paddle_tpu_torch.ops import registry as R
+    from paddle_tpu_torch.ops import rnn_ops
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn(10, 64, 512, generator=g, device="cuda")
+    w = torch.randn(128, 512, generator=g, device="cuda") * 0.1
+    b = torch.randn(1, 512, generator=g, device="cuda") * 0.1
+    cts = [torch.randn(10, 64, 128, generator=g, device="cuda")
+           for _ in range(2)]
+    op = type("Op", (), {"attr": lambda self, k, d=None: d})()
+    runs, ms = {}, {}
+    for arm in ("cudnn", "loop"):
+        rnn_ops.LSTM_CUDNN[0] = arm == "cudnn"
+        try:
+            def run():
+                leaves = [t.detach().requires_grad_() for t in (x, w, b)]
+                with torch.enable_grad():
+                    out = rnn_ops._lstm(R.LowerCtx(device="cuda"), op, {
+                        "Input": [leaves[0]], "Weight": [leaves[1]],
+                        "Bias": [leaves[2]]})
+                    outs = [out["Hidden"][0], out["Cell"][0]]
+                    grads = torch.autograd.grad(outs, leaves, cts)
+                return [t.detach() for t in outs + list(grads)]
+            before = dict(rnn_ops.LSTM_ARMS)
+            run()
+            if rnn_ops.LSTM_ARMS[arm] != before[arm] + 1:
+                raise AssertionError(f"the lstm rule took no {arm} arm")
+            torch.cuda.synchronize()
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            e0.record()
+            runs[arm] = run()
+            e1.record()
+            torch.cuda.synchronize()
+            ms[arm] = e0.elapsed_time(e1)
+        finally:
+            rnn_ops.LSTM_CUDNN[0] = True
+    worst = {}
+    for k, name in enumerate(("hidden", "cell", "dx", "dw", "db")):
+        a, ref = runs["cudnn"][k], runs["loop"][k]
+        if k < 2:
+            ok, err = close(a, ref, **SRL_ARM_TOL)
+        else:
+            err = float((a - ref).abs().max())
+            ok = err <= S2S_LSTM_GRAD * float(ref.abs().max()) + 1e-6
+        worst[name] = err
+        if not ok:
+            raise AssertionError(f"lstm arms differ in {name}: {err}")
+    log(f"lstm rule arms at (10, 64, 512), default activations: max abs "
+        f"errors {worst}; fwd+bwd ms: cuDNN {ms['cudnn']:.3f}, loop "
+        f"{ms['loop']:.3f}")
+    return dict(max_abs_err=worst, ms=ms)
+
+
+@phase("srl")
+def srl():
+    """The book's semantic-role-labelling program (db_lstm: depth 8, 512
+    wide, CoNLL-05's vocabularies) through fluid.Executor on the card:
+    the startup program, SRL_STEPS SGD steps on one staged batch (steps
+    2 on timed by CUDA events, with the host clock and the host syncs by
+    line), one profiled step, then crf_decoding.  Then the small program
+    and the three other book programs against the CPU Executor, and the
+    lstm rule's two arms.  Returns the launches of the main path."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.ops import rnn_ops
+
+    S, B = _book_modules()
+    cfg = S.BOOK
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with unique_name.guard():
+        main, startup, f = S.build(fluid, cfg)
+    infer = main.clone(for_test=True)
+    n_ops = len(main.global_block().ops)
+    params = [p for p in main.all_parameters() if p.trainable]
+    n_params = sum(int(np.prod(p.shape)) for p in params)
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(startup, scope=scope)
+    host_feed = S.batch(cfg, seed=0)
+    feed = {k: torch.from_numpy(v).cuda() for k, v in host_feed.items()}
+    live = S.live_tokens(host_feed)
+    log(f"srl: {n_params / 1e6:.2f} M trainable parameters, {n_ops} ops a "
+        f"step, built and initialised in {time.perf_counter() - t0:.1f} s; "
+        f"B={cfg['batch']}, T={cfg['t']}, {live} live tokens")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in COUNTERS.values():
+        c.reset()
+    arms0 = dict(rnn_ops.LSTM_ARMS)
+    events = [torch.cuda.Event(enable_timing=True)
+              for _ in range(SRL_STEPS)]
+    host, fetched = [], []
+    # -- the main path: counters at 0 before, read right after ----------------
+    with _SyncCount() as syncs:
+        for i in range(SRL_STEPS):
+            if i == 1:
+                syncs.caught.clear()
+            fetched.append(exe.run(main, feed=feed, fetch_list=[
+                f["loss"], f["lr"]], scope=scope, return_numpy=False))
+            events[i].record()
+            host.append(time.perf_counter())
+        torch.cuda.synchronize()
+    launches = {n: c.value for n, c in COUNTERS.items()}
+    # ---------------------------------------------------------------------------
+    arms = {k: rnn_ops.LSTM_ARMS[k] - arms0[k] for k in arms0}
+    mem = torch.cuda.max_memory_allocated()
+    _expect_launches(launches, 0, (), f"{SRL_STEPS} srl steps")
+    if arms != {"loop": cfg["depth"] * SRL_STEPS, "cudnn": 0}:
+        raise AssertionError(f"lstm arms taken {arms}")
+    losses = [float(o[0]) for o in fetched]
+    lrs = [float(o[1]) for o in fetched]
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0] \
+            or lrs != [float(np.float32(cfg["lr"]))] * SRL_STEPS:
+        raise AssertionError(f"srl losses {losses}, learning rates {lrs}")
+    timed = SRL_STEPS - 1
+    step_ms = events[0].elapsed_time(events[-1]) / timed
+    host_ms = (host[-1] - host[0]) * 1e3 / timed
+    sites = syncs.sites()
+    busy, wall, top = _profile(lambda: exe.run(
+        main, feed=feed, fetch_list=[f["loss"]], scope=scope,
+        return_numpy=False), top=8)
+    # decoding: a warm-up, then one timed
+    exe.run(infer, feed=feed, fetch_list=[f["decode"]], scope=scope,
+            return_numpy=False)
+    torch.cuda.synchronize()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    path = exe.run(infer, feed=feed, fetch_list=[f["decode"]], scope=scope,
+                   return_numpy=False)[0]
+    e1.record()
+    torch.cuda.synchronize()
+    decode_ms = e0.elapsed_time(e1)
+    path = path.numpy()
+    live_mask = np.arange(cfg["t"])[None, :] < host_feed["length"][:, None]
+    if path.shape != (cfg["batch"], cfg["t"]) or (path[~live_mask] != 0).any() \
+            or path.min() < 0 or path.max() >= cfg["label_dict"]:
+        raise AssertionError(f"crf_decoding path {path.shape}, range "
+                             f"[{path.min()}, {path.max()}]")
+    acc = float((path == host_feed["target"])[live_mask].mean())
+    summary = dict(
+        steps=SRL_STEPS, step_ms=step_ms, host_step_ms=host_ms,
+        live_tokens_per_s=live / (step_ms / 1e3),
+        profiled_busy_ms=busy, profiled_wall_ms=wall,
+        profiled_idle=max(0.0, 1 - busy / wall),
+        syncs_per_step=sum(sites.values()) / timed, sync_sites=sites,
+        ops_per_step=n_ops, host_us_per_op=1e3 * host_ms / n_ops,
+        max_memory_allocated_bytes=mem, lstm_arm="loop",
+        lstm_arms=arms, loss_first=losses[0], loss_last=losses[-1],
+        losses=losses, decode_ms=decode_ms, decode_accuracy=acc,
+        top_kernels=[dict(name=k[:90], ms=ms, count=n) for k, ms, n in top])
+    log(f"losses: {' '.join(f'{v:.3f}' for v in losses)}")
+    log(f"srl db_lstm B={cfg['batch']} T={cfg['t']} f32 through "
+        f"fluid.Executor: {step_ms:.3f} ms a step over steps 2-{SRL_STEPS} "
+        f"(CUDA events; host clock {host_ms:.3f} ms), "
+        f"{summary['live_tokens_per_s']:.0f} live tokens/s, idle "
+        f"{100 * summary['profiled_idle']:.1f}% of a profiled step, host "
+        f"syncs a step {summary['syncs_per_step']:.2f} at {sites}, "
+        f"{n_ops} ops a step at {summary['host_us_per_op']:.1f} host us an "
+        f"op, max_memory_allocated {mem / 2 ** 20:.1f} MiB, lstm arm "
+        f"{arms}, loss {losses[0]:.3f} at step 1 and {losses[-1]:.3f} at "
+        f"step {SRL_STEPS}; crf_decoding {decode_ms:.3f} ms (CUDA events), "
+        f"{100 * acc:.1f}% of the live labels")
+    del exe, scope
+    torch.cuda.empty_cache()
+    small = S.SMALL
+    with unique_name.guard():
+        sm, ss, sf = S.build(fluid, small)
+    summary["small"] = _card_vs_cpu(
+        fluid, sm, ss, S.batch(small, seed=0), [sf["loss"]], 3,
+        "db_lstm depth 2, 32 wide",
+        decode=(sm.clone(for_test=True), sf["decode"]))
+    summary["book"] = {}
+    for name in ("word2vec_ngram", "recommender_towers", "sentiment_conv"):
+        bm, bs, bf = B.build(fluid, name)
+        summary["book"][name] = _card_vs_cpu(fluid, bm, bs, B.feeds(name),
+                                             bf, BOOK_STEPS, f"book {name}")
+    summary["lstm_arms_hold"] = _srl_arm_hold()
+    summary["card"] = card_line()
+    log("srl summary: " + json.dumps(summary))
+    return {"srl": launches}
+
+
 def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3741,9 +4028,10 @@ def main():
     hapi_path = hapi()
     dygraph_path = dygraph_quickstart()
     s2s_paths = seq2seq()
+    srl_paths = srl()
     if FAILURES or None in (rows, probed, served, decoded, trained, library,
                             resnet_path, fluid_path, wmt_paths, hapi_path,
-                            dygraph_path, s2s_paths):
+                            dygraph_path, s2s_paths, srl_paths):
         log(f"FAILED phases: {FAILURES}")
         print(f"FAILED phases: {FAILURES}", file=sys.stderr, flush=True)
         sys.exit(1)
@@ -3751,7 +4039,8 @@ def main():
     paths = {"serving": served, "decode": decoded, "train": trained[0],
              "probe": probed[1], "library_train": library,
              "resnet": resnet_path, "fluid": fluid_path, **wmt_paths,
-             "hapi": hapi_path, "dygraph": dygraph_path, **s2s_paths}
+             "hapi": hapi_path, "dygraph": dygraph_path, **s2s_paths,
+             **srl_paths}
     for r in rows:
         # `launches` is the count on the path where the kernel runs: the
         # probe for its three kernels, the decode path for ragged_paged,

@@ -29,6 +29,7 @@ import torch
 from .device import get_device, set_device  # noqa: F401
 from . import amp, fluid, hapi, io, metric, nn, optimizer, tensor  # noqa
 from . import vision  # noqa: F401
+from . import static  # noqa: F401
 from .fluid.dygraph import (disable_dygraph, enable_dygraph, grad,  # noqa
                             no_grad, to_variable)
 from .fluid.framework import in_dygraph_mode  # noqa: F401
@@ -66,6 +67,22 @@ from .tensor import (acos, asin, atan, cosh, sinh, log1p, log2,  # noqa
                      get_default_dtype, set_printoptions,
                      get_tensor_from_selected_rows, shape, all, any, slice,
                      expm1, mode)
+
+# the static-graph names of the top level (reference
+# python/paddle/__init__.py): `shape` stays the 2.x tensor function
+from .fluid import (CPUPlace, CUDAPinnedPlace, CUDAPlace, TPUPlace,  # noqa
+                    Executor, Program, Variable, append_backward,
+                    cpu_places, cuda_places, default_main_program,
+                    default_startup_program, global_scope, program_guard,
+                    scope_guard)
+from .fluid.layers import (create_global_var, create_parameter,  # noqa
+                           elementwise_add, elementwise_sub,
+                           elementwise_mul, elementwise_div,
+                           elementwise_floordiv, elementwise_mod,
+                           elementwise_pow, fill_constant, reduce_max,
+                           reduce_mean, reduce_min, reduce_prod,
+                           reduce_sum)
+from .fluid.layers.tensor import data  # noqa: F401
 
 Tensor = torch.Tensor
 

@@ -24,7 +24,7 @@ from . import core, unique_name
 from .core import CPUPlace, CUDAPinnedPlace, CUDAPlace, TPUPlace
 from .framework import (Program, Variable, Parameter, OpRole,
                         default_main_program, default_startup_program,
-                        program_guard, in_dygraph_mode)
+                        program_guard, in_dygraph_mode, name_scope)
 from .executor import (Executor, LazyFetch, Scope, global_scope,
                        scope_guard)
 from .backward import append_backward, gradients
@@ -35,3 +35,16 @@ from . import optimizer
 from . import dygraph
 from .layers.tensor import data
 
+
+
+def cpu_places(device_count=1):
+    return [CPUPlace() for _ in range(device_count)]
+
+
+def cuda_places(device_ids=None):
+    """A CUDAPlace for each id given, else for each visible card."""
+    import torch
+
+    ids = device_ids if device_ids is not None \
+        else range(torch.cuda.device_count())
+    return [CUDAPlace(i) for i in ids]

@@ -1,11 +1,19 @@
 """fluid.layers: the op-emitting layer library (counterpart of
-paddle_tpu/fluid/layers/, the functions the ported programs call)."""
+paddle_tpu/fluid/layers/): tensor, nn, loss, rnn, the learning-rate
+schedules, the sequence layers and compat's legacy-name tail, star-
+imported in the reference's order (compat last)."""
 
 from . import math_op_patch  # noqa: F401 - installs Variable operator sugar
 from .tensor import *  # noqa: F401,F403
 from .nn import *  # noqa: F401,F403
 from .loss import *  # noqa: F401,F403
-from . import tensor, nn, loss  # noqa: F401
+from .rnn import *  # noqa: F401,F403
+from .learning_rate_scheduler import *  # noqa: F401,F403
+from .sequence_lod import *  # noqa: F401,F403
+from . import (tensor, nn, loss, rnn, learning_rate_scheduler,  # noqa: F401
+               sequence_lod)
+from .compat import *  # noqa: F401,F403 - the legacy-name tail
+from . import compat as _compat  # noqa: F401
 
 # the 2.x recurrent and decode classes the reference also gives under
 # fluid.layers, resolved on first use (nn imports fluid, so an import

@@ -1,0 +1,349 @@
+"""fluid.layers' legacy-name tail (counterpart of
+paddle_tpu/fluid/layers/compat.py), as far as the port has the rules:
+
+  * one-op static wrappers through `_static_op` (cos_sim, gather_tree,
+    multiplex, unbind, stanh, mish, size, unique, ...) and a few
+    compositions (sum, scatter_nd, brelu, soft_relu, has_inf, has_nan,
+    dice_loss, sampled_softmax_with_cross_entropy);
+  * (`dynamic_decode` and the cell and decoder classes resolve from the
+    port's 2.x API through fluid.layers' module `__getattr__`);
+  * the reference's `_na` table: names it does not carry raise
+    NotImplementedError with the reason and the alternative, worded as
+    the reference words them.  `lstm`, `lstm_unit`, `gru_unit`,
+    `dynamic_gru` and `dynamic_lstmp` are among them, so
+    `fluid.layers.dynamic_gru` raises in both packages (star-imported
+    after `rnn`, this module's guard wins), while
+    `fluid.layers.rnn.dynamic_gru` computes.
+
+The reference's other wrappers wait for their rules (ROADMAP queue 1
+items 6, 8 and 12).
+"""
+
+from __future__ import annotations
+
+from ..layer_helper import LayerHelper
+
+__all__ = []  # populated below
+
+
+def _static_op(name, slots, out_slot="Out", dtype_from=0,
+               out_dtype=None, n_outs=1, extra_out_slots=(),
+               attr_names=(), extra_out_dtypes=()):
+    """One-op static wrapper: positional tensor args -> slots, then
+    positional ATTR args -> attr_names in order (the reference's
+    positional signatures), keyword args -> attrs.  Excess positionals
+    raise instead of being silently dropped."""
+
+    def fn(*args, **kwargs):
+        kwargs.pop("name", None)
+        if len(args) > len(slots) + len(attr_names):
+            raise TypeError(
+                f"{name}() takes at most {len(slots)} tensor args + "
+                f"attrs {list(attr_names)} positionally; pass other "
+                "attributes as keywords (op attr names)")
+        for aname, aval in zip(attr_names, args[len(slots):]):
+            kwargs.setdefault(aname, aval)
+        args = args[:len(slots)]
+        helper = LayerHelper(name)
+        ins = {}
+        for slot, a in zip(slots, args):
+            if a is None:
+                continue
+            ins[slot] = list(a) if isinstance(a, (list, tuple)) else [a]
+        dt = out_dtype(kwargs) if callable(out_dtype) else out_dtype
+        if dt is None:
+            ref = args[dtype_from]
+            ref = ref[0] if isinstance(ref, (list, tuple)) else ref
+            dt = getattr(ref, "dtype", "float32")
+        outs = {out_slot: [helper.create_variable_for_type_inference(dt)]}
+        for i, s in enumerate(extra_out_slots):
+            ed = (extra_out_dtypes[i] if i < len(extra_out_dtypes)
+                  and extra_out_dtypes[i] else dt)
+            outs[s] = [helper.create_variable_for_type_inference(ed)]
+        helper.append_op(name, inputs=ins, outputs=outs, attrs=kwargs,
+                         infer_shape=False)
+        ordered = [outs[out_slot][0]] + [outs[s][0]
+                                         for s in extra_out_slots]
+        return ordered[0] if len(ordered) == 1 else tuple(ordered)
+
+    fn.__name__ = name
+    __all__.append(name)
+    return fn
+
+
+# -- one-op static wrappers -------------------------------------------------
+
+cos_sim = _static_op("cos_sim", ["X", "Y"])
+multiplex = _static_op("multiplex", ["X", "Ids"])
+unbind = _static_op("unbind", ["X"], attr_names=("axis",))
+gather_tree = _static_op("gather_tree", ["Ids", "Parents"])
+gaussian_random = _static_op(
+    "gaussian_random", [],
+    out_dtype=lambda kw: kw.get("dtype", "float32"),
+    attr_names=("shape", "mean", "std", "seed", "dtype"))
+uniform_random = _static_op(
+    "uniform_random", [],
+    out_dtype=lambda kw: kw.get("dtype", "float32"),
+    attr_names=("shape", "dtype", "min", "max", "seed"))
+unique = _static_op("unique", ["X"], extra_out_slots=("Index",),
+                    extra_out_dtypes=("int32",))
+
+
+def unique_with_counts(x, dtype="int32", name=None):
+    """Paddle's layers/nn.py unique_with_counts: the unique rule gives
+    the counts when the op declares its Counts slot."""
+    helper = LayerHelper("unique")
+    out = helper.create_variable_for_type_inference(x.dtype)
+    idx = helper.create_variable_for_type_inference(dtype)
+    cnt = helper.create_variable_for_type_inference(dtype)
+    helper.append_op("unique", inputs={"X": [x]},
+                     outputs={"Out": [out], "Index": [idx],
+                              "Counts": [cnt]},
+                     attrs={"dtype": dtype, "return_counts": True},
+                     infer_shape=False)
+    return out, idx, cnt
+
+
+__all__.append("unique_with_counts")
+
+
+def sum(x, name=None):  # noqa: A001 - reference API shadows builtin
+    """The n-ary sum of a list of tensors (tensor.sums)."""
+    from .tensor import sums
+
+    return sums(x if isinstance(x, (list, tuple)) else [x])
+
+
+__all__.append("sum")
+
+stanh = _static_op("stanh", ["X"],
+                   attr_names=("scale_a", "scale_b"))
+
+mish = _static_op("mish", ["X"], attr_names=("threshold",))
+size = _static_op("size", ["Input"], out_dtype="int64")
+
+
+def scatter_nd(index, updates, shape, name=None):
+    """Paddle's layers/nn.py scatter_nd: scatter-add into zeros of
+    `shape` (over the scatter_nd_add rule)."""
+    from .tensor import fill_constant
+
+    base = fill_constant(list(shape), updates.dtype, 0.0)
+    return _scatter_nd_add_op(base, index, updates)
+
+
+_scatter_nd_add_op = _static_op("scatter_nd_add",
+                                ["X", "Index", "Updates"])
+__all__.remove("scatter_nd_add")
+__all__.append("scatter_nd")
+
+
+def brelu(x, t_min=0.0, t_max=24.0, name=None):
+    """clip(x, t_min, t_max)."""
+    from .nn import clip as _clip
+
+    return _clip(x, t_min, t_max)
+
+
+__all__.append("brelu")
+
+
+def soft_relu(x, threshold=40.0, name=None):
+    """ln(1 + exp(clip(x, -t, t))), over the clip, exp and log
+    layers."""
+    from .nn import clip as _clip, exp as _exp, log as _log
+
+    one = 1.0
+    return _log(_exp(_clip(x, -threshold, threshold)) + one)
+
+
+__all__.append("soft_relu")
+
+
+def _any_of(op_name):
+    elem = _static_op(op_name, ["X"], out_dtype="bool")
+    __all__.remove(op_name)
+    reduce_any = _static_op("reduce_any", ["X"], out_dtype="bool")
+    __all__.remove("reduce_any")
+
+    def fn(x, name=None):
+        return reduce_any(elem(x), reduce_all=True)
+
+    return fn
+
+
+has_inf = _any_of("isinf_v2")
+has_inf.__name__ = "has_inf"
+has_nan = _any_of("isnan_v2")
+has_nan.__name__ = "has_nan"
+__all__ += ["has_inf", "has_nan"]
+
+
+# -- composition wrappers (match the documented formulas) --------------------
+
+def dice_loss(input, label, epsilon=1e-5):
+    """The per-sample dice loss (reduced over every non-batch dim), then
+    the mean over the batch."""
+    from .nn import reduce_mean, reduce_sum
+    from .tensor import one_hot
+
+    from ... import fluid
+
+    L = fluid.layers
+
+    nclass = int(input.shape[-1])
+    lab = one_hot(L.reshape(label, [-1]), nclass)
+    lab = L.reshape(lab, [int(s) if s > 0 else -1
+                          for s in input.shape[:-1]] + [nclass])
+    red = list(range(1, len(input.shape)))
+    inter = reduce_sum(input * lab, dim=red)
+    union = reduce_sum(input, dim=red) + reduce_sum(lab, dim=red)
+    return reduce_mean(1 - (2 * inter + epsilon) / (union + epsilon))
+
+
+__all__.append("dice_loss")
+
+
+def sampled_softmax_with_cross_entropy(logits, label, num_samples,
+                                       **kwargs):
+    """Full softmax cross entropy, as the reference computes it (no
+    sampling: the same quantity in expectation, exact here)."""
+    from .loss import softmax_with_cross_entropy
+
+    return softmax_with_cross_entropy(logits, label)
+
+
+__all__.append("sampled_softmax_with_cross_entropy")
+
+
+# -- loud guards for what is not carried ---------------------------------------
+
+def _na(name, why, alternative):
+    def fn(*a, **k):
+        raise NotImplementedError(
+            f"fluid.layers.{name} is not carried by this build: "
+            f"{why}. Use instead: {alternative}")
+
+    fn.__name__ = name
+    globals()[name] = fn
+    __all__.append(name)
+
+
+for _name, _why, _alt in [
+    ("py_reader", "the C++ double-buffered reader is replaced by the "
+     "DataLoader over the native GIL-free queue",
+     "paddle.io.DataLoader / fluid.io.DataLoader.from_generator"),
+    ("create_py_reader_by_data", "same as py_reader",
+     "fluid.io.DataLoader.from_generator"),
+    ("double_buffer", "XLA pipelining + the native queue own buffering",
+     "paddle.io.DataLoader"),
+    ("read_file", "file ops belong to the host input pipeline",
+     "paddle.io datasets / python IO in the reader"),
+    ("load", "per-op C++ LoadOp is replaced by program-level io",
+     "fluid.io.load / paddle.load"),
+    ("DynamicRNN", "the LoD-stepped RNN graph builder is replaced by "
+     "dense recurrence", "paddle.nn.RNN / fluid.layers.rnn cells with "
+     "while_loop"),
+    ("StaticRNN", "same as DynamicRNN", "paddle.nn.RNN or lax.scan via "
+     "jit.to_static"),
+    ("IfElse", "block-based branching is replaced by functional cond",
+     "fluid.layers.cond"),
+    ("Switch", "block-based switching is replaced by case/switch_case",
+     "fluid.layers.case / fluid.layers.switch_case"),
+    ("BasicDecoder", "the helper-driven decode stack is replaced by "
+     "the dense decode API", "paddle.nn.BeamSearchDecoder + "
+     "dynamic_decode"),
+    ("DecodeHelper", "same as BasicDecoder", "paddle.nn.dynamic_decode"),
+    ("TrainingHelper", "same as BasicDecoder", "teacher-forced loops "
+     "over cells (paddle.nn.RNN)"),
+    ("GreedyEmbeddingHelper", "same as BasicDecoder",
+     "BeamSearchDecoder with beam_size=1"),
+    ("SampleEmbeddingHelper", "same as BasicDecoder",
+     "sampling loops over cells"),
+    ("autodoc", "documentation codegen decorator, not a layer", "n/a"),
+    ("templatedoc", "documentation codegen decorator, not a layer",
+     "n/a"),
+    ("generate_layer_fn", "pybind op-wrapper codegen; lowerings are "
+     "explicit here", "the explicit layer functions"),
+    ("generate_activation_fn", "same as generate_layer_fn",
+     "the explicit activation functions"),
+    ("inplace_abn", "in-place activated batch norm is a CUDA memory "
+     "optimization; XLA fuses BN+act without aliasing",
+     "fluid.layers.batch_norm(act=...)"),
+    ("similarity_focus", "data-dependent output patterns defeat XLA "
+     "static shapes", "masking built from paddle.topk indices"),
+    ("roi_perspective_transform", "rotated-ROI warping needs "
+     "data-dependent gathers kept out of the static op set",
+     "grid_sampler with precomputed grids"),
+    ("deformable_roi_pooling", "superseded by deformable_conv + "
+     "roi_align", "deformable_conv / roi_align"),
+    ("hash", "xxhash sparse-id hashing belongs to the PS "
+     "sparse-embedding path", "dense embedding lookups"),
+    ("filter_by_instag", "instance-tag filtering is part of the PS "
+     "pipeline", "boolean masking with masked_select"),
+    ("merge_selected_rows", "SelectedRows never materializes here",
+     "dense tensors"),
+    ("reorder_lod_tensor_by_rank", "LoD metadata is replaced by dense "
+     "padding + lengths", "gather over a rank index"),
+    ("lod_append", "LoD metadata is replaced by dense padding + "
+     "lengths", "sequence_pad / explicit lengths"),
+    ("dynamic_lstmp", "LoD-ragged projection LSTM",
+     "paddle.nn.LSTM + a Linear projection"),
+    ("get_tensor_from_selected_rows", "SelectedRows never "
+     "materializes here", "the dense tensor directly"),
+    ("center_loss", "the static variant needs persistable center "
+     "state wiring; the dygraph path is implemented",
+     "paddle.nn.functional.center_loss (dygraph)"),
+    ("npair_loss", "implemented in the 2.0 namespace",
+     "paddle.nn.functional.npair_loss (dygraph)"),
+    ("fsp_matrix", "implemented in the 2.0 namespace",
+     "paddle.nn.functional.fsp_matrix (dygraph)"),
+    ("image_resize_short", "implemented in the 2.0 namespace",
+     "paddle.nn.functional.image_resize_short (dygraph)"),
+    ("adaptive_pool3d", "implemented in the 2.0 namespace",
+     "paddle.nn.functional.adaptive_avg_pool3d / adaptive_max_pool3d"),
+    ("Assert", "host-side assertion op; the executor checks feeds and "
+     "FLAGS_check_nan_inf scans outputs",
+     "fluid.layers.Print + host checks"),
+    ("autoincreased_step_counter", "global step state lives in the "
+     "optimizer state", "optimizer LR schedulers / state['t']"),
+    ("density_prior_box", "implemented in the 2.0 namespace",
+     "paddle.nn.functional.density_prior_box (dygraph)"),
+    ("collect_fpn_proposals", "implemented in the 2.0 namespace",
+     "paddle.nn.functional.collect_fpn_proposals (dygraph)"),
+    ("distribute_fpn_proposals", "implemented in the 2.0 namespace",
+     "paddle.nn.functional.distribute_fpn_proposals (dygraph)"),
+    ("generate_mask_labels", "implemented in the 2.0 namespace",
+     "paddle.nn.functional.generate_mask_labels (dygraph)"),
+    ("generate_proposal_labels", "implemented in the 2.0 namespace",
+     "paddle.nn.functional.generate_proposal_labels (dygraph)"),
+    ("generate_proposals", "implemented in the 2.0 namespace",
+     "paddle.nn.functional.generate_proposals (dygraph)"),
+    ("retinanet_target_assign", "implemented in the 2.0 namespace",
+     "paddle.nn.functional.retinanet_target_assign (dygraph)"),
+    ("rpn_target_assign", "implemented in the 2.0 namespace",
+     "paddle.nn.functional.rpn_target_assign (dygraph)"),
+    ("ssd_loss", "the SSD training loss composes target_assign + "
+     "box_coder + softmax/smooth-l1, all available",
+     "explicit composition (see reference detection.py ssd_loss)"),
+    ("locality_aware_nms", "implemented as an op lowering",
+     "the locality_aware_nms op via nn.functional / OpTest path"),
+    ("matrix_nms", "implemented as an op lowering",
+     "the matrix_nms op via the detection module"),
+    ("lstm", "the fused multi-layer LSTM wrapper is dygraph-first "
+     "here", "paddle.nn.functional.lstm / paddle.nn.LSTM"),
+    ("lstm_unit", "implemented in the 2.0 namespace",
+     "paddle.nn.functional.lstm_unit (dygraph)"),
+    ("gru_unit", "implemented in the 2.0 namespace",
+     "paddle.nn.functional.gru_unit (dygraph)"),
+    ("dynamic_gru", "already available", "fluid.layers.rnn dynamic_gru"),
+    ("tensor_array_to_tensor", "implemented in the 2.0 namespace",
+     "paddle.nn.functional.tensor_array_to_tensor (dygraph)"),
+    ("rank", "implemented in the 2.0 namespace", "paddle.rank"),
+    ("chunk_eval", "the CoNLL chunking F1 metric is a host-side "
+     "evaluation, not a device op",
+     "compute chunk metrics on fetched numpy outputs (or "
+     "paddle.metric)"),
+]:
+    if _name not in __all__:
+        _na(_name, _why, _alt)

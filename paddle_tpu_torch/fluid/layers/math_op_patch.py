@@ -1,7 +1,10 @@
 """Operator sugar on Variable (counterpart of
-paddle_tpu/fluid/layers/math_op_patch.py), for the ops the port has
-rules for: + and - emit elementwise_add / elementwise_sub; a scalar
-operand of +, -, * or / becomes one scale op; unary minus is scale -1."""
+paddle_tpu/fluid/layers/math_op_patch.py): + - * / ** % // @ emit the
+elementwise ops (@ matmul_v2); a scalar operand of +, -, * or / becomes
+one scale op, of the others a fill_constant; the comparisons emit
+equal, not_equal, less_than, ... (bool, stop_gradient), and a Variable
+hashes by identity.  As in the reference there is no __rpow__: `2 **
+var` raises TypeError."""
 
 from __future__ import annotations
 
@@ -31,13 +34,33 @@ def _binary(op_type, reverse=False):
                 return _scalar_op(self, other, 0.0)
             if op_type == "elementwise_div" and not reverse:
                 return _scalar_op(self, 1.0 / other, 0.0)
-        if op_type not in ("elementwise_add", "elementwise_sub"):
-            return NotImplemented
+            # fall through: build a constant var
+            from .tensor import fill_constant
+
+            other = fill_constant(self.shape if self.shape else [1],
+                                  self.dtype, other)
         x, y = (other, self) if reverse else (self, other)
         helper = LayerHelper(op_type)
         out = helper.create_variable_for_type_inference(dtype=x.dtype)
         helper.append_op(op_type, inputs={"X": [x], "Y": [y]},
                          outputs={"Out": [out]}, attrs={"axis": -1})
+        return out
+
+    return impl
+
+
+def _compare(op_type):
+    def impl(self, other):
+        if isinstance(other, (int, float)):
+            from .tensor import fill_constant
+
+            other = fill_constant(self.shape if self.shape else [1],
+                                  self.dtype, other)
+        helper = LayerHelper(op_type)
+        out = helper.create_variable_for_type_inference(dtype="bool")
+        out.stop_gradient = True
+        helper.append_op(op_type, inputs={"X": [self], "Y": [other]},
+                         outputs={"Out": [out]})
         return out
 
     return impl
@@ -55,7 +78,19 @@ def monkey_patch_variable():
     Variable.__mul__ = _binary("elementwise_mul")
     Variable.__rmul__ = _binary("elementwise_mul", reverse=True)
     Variable.__truediv__ = _binary("elementwise_div")
+    Variable.__rtruediv__ = _binary("elementwise_div", reverse=True)
+    Variable.__pow__ = _binary("elementwise_pow")
+    Variable.__mod__ = _binary("elementwise_mod")
+    Variable.__floordiv__ = _binary("elementwise_floordiv")
+    Variable.__matmul__ = _binary("matmul_v2")
     Variable.__neg__ = _neg
+    Variable.__eq__ = _compare("equal")
+    Variable.__ne__ = _compare("not_equal")
+    Variable.__lt__ = _compare("less_than")
+    Variable.__le__ = _compare("less_equal")
+    Variable.__gt__ = _compare("greater_than")
+    Variable.__ge__ = _compare("greater_equal")
+    Variable.__hash__ = lambda self: id(self)
 
 
 monkey_patch_variable()

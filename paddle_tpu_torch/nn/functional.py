@@ -1,7 +1,9 @@
 """The functional surface BERT and the vision models need (counterpart
 of paddle_tpu/nn/functional/__init__.py).
 
-Plain tensor functions in PyTorch's idiom.  `linear` keeps Paddle's
+Plain tensor functions in PyTorch's idiom; `gelu`, `mse_loss` and the
+binary and KL losses run the registry's rule of the reference's op type
+(`_op`), as the tensor API does.  `linear` keeps Paddle's
 layout: weight is (in, out) and y = x @ W + b.  The convolution, pooling
 and batch-norm functions keep Paddle's forms (OIHW weights, NCHW or NHWC
 data, SAME/VALID/asymmetric padding) and the reference lowering's
@@ -71,10 +73,17 @@ def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5):
     return y
 
 
+def _op(op_type, ins, attrs=None, slot="Out"):
+    """One registered op rule run eagerly (`tensor._run`, which casts the
+    inputs by the op's type under `amp.auto_cast`), as the reference's
+    functionals run theirs through `trace_op`."""
+    from ..tensor import _run
+    return _run(op_type, ins, attrs, (slot,))[slot][0]
+
+
 def gelu(x, approximate=False):
     """Exact-erf gelu (jax.nn.gelu(approximate=False)), or the tanh form."""
-    return torch.nn.functional.gelu(
-        x, approximate="tanh" if approximate else "none")
+    return _op("gelu", {"X": x}, {"approximate": approximate})
 
 
 def relu(x):
@@ -138,7 +147,10 @@ def dropout(x, p=0.5, training=True, generator=None):
     """upscale_in_train dropout: the identity in eval or at p == 0.  The
     mask is drawn on x's device: from `generator` when it lives there
     (None: torch's default generator of that device), else from a device
-    generator seeded by a host draw."""
+    generator seeded by a host draw.  Under `amp.auto_cast` x is cast as
+    the dropout op's inputs are, in eval too (the reference's op runs
+    there as well)."""
+    (x,) = _amp("dropout", x)
     if not training or p == 0.0:
         return x
     gen = _host_generator(generator)
@@ -314,6 +326,7 @@ def adaptive_max_pool2d(x, output_size, return_mask=False):
     `adaptive_avg_pool2d`."""
     if return_mask:
         raise NotImplementedError("return_mask=True is not supported")
+    (x,) = _amp("pool2d", x)
     return torch.nn.functional.adaptive_max_pool2d(x, output_size)
 
 
@@ -463,8 +476,11 @@ def cross_entropy(input, label, weight=None, ignore_index=-100,
 
 
 def mse_loss(input, label, reduction="mean"):
-    diff = input - label
-    return _reduce_loss(diff * diff, reduction)
+    """The reference's ops: elementwise_sub, elementwise_mul, then the
+    reduction."""
+    diff = _op("elementwise_sub", {"X": input, "Y": label})
+    return _reduce_loss(_op("elementwise_mul", {"X": diff, "Y": diff}),
+                        reduction)
 
 
 def l1_loss(input, label, reduction="mean"):
@@ -481,33 +497,34 @@ def nll_loss(input, label, weight=None, ignore_index=-100,
 
 
 def binary_cross_entropy(input, label, weight=None, reduction="mean"):
-    eps = 1e-12
-    loss = -(label * torch.log(input + eps)
-             + (1 - label) * torch.log(1 - input + eps))
+    """The bce_loss op, then elementwise_mul by `weight`."""
+    loss = _op("bce_loss", {"X": input, "Label": label})
     if weight is not None:
-        loss = loss * weight
+        loss = _op("elementwise_mul", {"X": loss, "Y": weight})
     return _reduce_loss(loss, reduction)
 
 
 def binary_cross_entropy_with_logits(logit, label, weight=None,
                                      reduction="mean", pos_weight=None):
-    """max(x, 0) - x y + log1p(exp(-|x|)), 0 where the label is -100 (the
-    op's ignore_index), times (y (pos_weight - 1) + 1) and `weight`."""
-    loss = (torch.clamp(logit, min=0) - logit * label
-            + torch.log1p(torch.exp(-torch.abs(logit))))
-    loss = torch.where(label == -100, torch.zeros_like(loss), loss)
+    """The sigmoid_cross_entropy_with_logits op (0 where the label is
+    -100), times (y (pos_weight - 1) + 1), then elementwise_mul by
+    `weight`.  The pos_weight term is no op of the reference: amp leaves
+    it and its label uncast, as there."""
+    loss = _op("sigmoid_cross_entropy_with_logits",
+               {"X": logit, "Label": label})
     if pos_weight is not None:
         loss = loss * (label * (pos_weight - 1) + 1)
     if weight is not None:
-        loss = loss * weight
+        loss = _op("elementwise_mul", {"X": loss, "Y": weight})
     return _reduce_loss(loss, reduction)
 
 
 def kl_div(input, label, reduction="mean"):
-    """target (log target - input) where target > 0, else 0; 'batchmean'
-    sums and divides by the batch."""
-    loss = torch.where(label > 0, label * (torch.log(label) - input),
-                       torch.zeros_like(label))
+    """The kldiv_loss op unreduced (target (log target - input) where
+    target > 0, else 0), then `reduction`; 'batchmean' sums and divides
+    by the batch."""
+    loss = _op("kldiv_loss", {"X": input, "Target": label},
+               {"reduction": "none"}, slot="Loss")
     if reduction == "batchmean":
         n = loss.shape[0] if loss.ndim > 0 else 1
         return loss.sum() * (1.0 / n)

@@ -4,7 +4,10 @@ axis broadcast, scale, sum, mean, the products (mul, matmul_v2, bmm,
 dot, mv, addmm), the reductions, logsumexp, frobenius_norm, the unary
 ops of the 2.x tensor API, pow, stanh, clip, cast, cumsum, cumprod,
 kron, trace, logical_not, the isfinite/isinf/isnan tests, cholesky,
-histogram, relu, sigmoid and softmax.
+histogram, relu, sigmoid and softmax; then the rest of the reference
+module: the comparisons and the logical ops, maximum / minimum, matmul
+(v1), isfinite (v1), log_softmax, squared_l2_norm, p_norm,
+clip_by_norm, dist, cross, and the activations.
 
 Integer results keep Paddle's int64 where the reference, which runs
 with 64-bit types off, gives int32; the values are the same."""
@@ -60,9 +63,12 @@ def _scale(ctx, op, ins):
     waits for the collective ops)."""
     x = first(ins, "X")
     scale = first(ins, "ScaleTensor", op.attr("scale", 1.0))
+    bias = op.attr("bias", 0.0)
     if isinstance(scale, torch.Tensor):
         scale = scale.to(x.dtype)
-    bias = op.attr("bias", 0.0)
+    elif not x.is_floating_point():
+        # integers stay integers: the reference casts both to x's dtype
+        scale, bias = int(scale), int(bias)
     if op.attr("bias_after_scale", True):
         return {"Out": [x * scale + bias]}
     return {"Out": [(x + bias) * scale]}
@@ -217,6 +223,22 @@ def _softmax(ctx, op, ins):
     return {"Out": [torch.softmax(first(ins, "X"), dim=op.attr("axis", -1))]}
 
 
+@register_op("matmul")
+def _matmul(ctx, op, ins):
+    """The v1 product (math_ops.py:100-111): `transpose_X` / `transpose_Y`
+    on operands of more than one axis, then `alpha` when it is not 1."""
+    x, y = first(ins, "X"), first(ins, "Y")
+    if op.attr("transpose_X", False) and x.ndim > 1:
+        x = x.transpose(-1, -2)
+    if op.attr("transpose_Y", False) and y.ndim > 1:
+        y = y.transpose(-1, -2)
+    out = torch.matmul(x, y)
+    alpha = op.attr("alpha", 1.0)
+    if alpha != 1.0:
+        out = out * alpha
+    return {"Out": [out]}
+
+
 @register_op("matmul_v2")
 def _matmul_v2(ctx, op, ins):
     """math_ops.py:100-107: bf16 operands accumulate in f32 and round
@@ -357,3 +379,184 @@ def _histogram(ctx, op, ins):
     counts.index_add_(0, torch.where(inside, idx, bins),
                       torch.ones_like(idx))
     return {"Out": [counts[:bins]]}
+
+
+# -- comparisons, logical ops, maximum / minimum (math_ops.py:428-449) ---------
+
+def _compare(fn):
+    """x against y aligned by Paddle's `axis` broadcast."""
+    def lower(ctx, op, ins):
+        x, y = first(ins, "X"), first(ins, "Y")
+        return {"Out": [fn(x, _bcast_y(x, y, op.attr("axis", -1)))]}
+
+    return lower
+
+
+for _name, _fn in [
+        ("equal", torch.eq), ("not_equal", torch.ne),
+        ("less_than", torch.lt), ("less_equal", torch.le),
+        ("greater_than", torch.gt), ("greater_equal", torch.ge),
+        ("logical_and", torch.logical_and),
+        ("logical_or", torch.logical_or),
+        ("logical_xor", torch.logical_xor),
+        ("maximum", torch.maximum), ("minimum", torch.minimum)]:
+    register_op(_name)(_compare(_fn))
+
+
+@register_op("isfinite")
+def _isfinite(ctx, op, ins):
+    """The v1 test (math_ops.py:470-475): one bool, True when X holds an
+    inf or a nan anywhere, as the reference computes it."""
+    return {"Out": [torch.logical_not(torch.all(torch.isfinite(
+        first(ins, "X"))))]}
+
+
+# -- norms ------------------------------------------------------------------------
+
+@register_op("squared_l2_norm")
+def _squared_l2_norm(ctx, op, ins):
+    return {"Out": [torch.sum(torch.square(first(ins, "X")))]}
+
+
+@register_op("p_norm")
+def _p_norm(ctx, op, ins):
+    """The vector p-norm along `axis` (math_ops.py:210-217)."""
+    x = first(ins, "X")
+    out = torch.linalg.vector_norm(x, ord=op.attr("porder", 2.0),
+                                   dim=op.attr("axis", -1),
+                                   keepdim=op.attr("keepdim", False))
+    return {"Out": [out.to(x.dtype)]}
+
+
+@register_op("clip_by_norm")
+def _clip_by_norm(ctx, op, ins):
+    """x * max_norm / |x|_2 where the norm passes max_norm (math_ops.py:
+    367-373)."""
+    x = first(ins, "X")
+    max_norm = op.attr("max_norm", 1.0)
+    norm = torch.sqrt(torch.sum(torch.square(x)))
+    scale = torch.where(norm > max_norm,
+                        max_norm / torch.clamp(norm, min=1e-12),
+                        torch.ones_like(norm))
+    return {"Out": [x * scale.to(x.dtype)]}
+
+
+@register_op("dist")
+def _dist(ctx, op, ins):
+    """The p-norm of the flattened x - y (math_ops.py:478-484)."""
+    x, y = first(ins, "X"), first(ins, "Y")
+    return {"Out": [torch.linalg.vector_norm((x - y).reshape(-1),
+                                             ord=op.attr("p", 2.0))]}
+
+
+@register_op("cross")
+def _cross(ctx, op, ins):
+    """The cross product along `dim`; without one, along the first axis
+    of size 3 (math_ops.py:487-498)."""
+    x, y = first(ins, "X"), first(ins, "Y")
+    dim = op.attr("dim", None)
+    if dim is None:
+        dim = next((i for i, s in enumerate(x.shape) if s == 3), None)
+        if dim is None:
+            raise ValueError(f"cross: no dimension of size 3 in shape "
+                             f"{tuple(x.shape)}; pass dim explicitly")
+    return {"Out": [torch.linalg.cross(x, y, dim=int(dim))]}
+
+
+@register_op("log_softmax")
+def _log_softmax(ctx, op, ins):
+    return {"Out": [torch.log_softmax(first(ins, "X"),
+                                      dim=op.attr("axis", -1))]}
+
+
+# -- activations (math_ops.py:237-341) ----------------------------------------------
+
+def _softplus0(x):
+    """jax.nn.softplus: log(1 + e^x) as logaddexp(x, 0), with no
+    threshold."""
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+for _name, _fn in [
+        ("logsigmoid", torch.nn.functional.logsigmoid),
+        ("tanh_shrink", lambda x: x - torch.tanh(x)),
+        ("asinh", torch.asinh), ("acosh", torch.acosh),
+        ("atanh", torch.atanh),
+        ("softsign", lambda x: x / (1 + torch.abs(x))),
+        ("silu", lambda x: x * torch.sigmoid(x)),
+        ("mish", lambda x: x * torch.tanh(_softplus0(x)))]:
+    register_op(_name)(_unary(_fn))
+
+
+@register_op("gelu")
+def _gelu(ctx, op, ins):
+    return {"Out": [torch.nn.functional.gelu(
+        first(ins, "X"),
+        approximate="tanh" if op.attr("approximate", False) else "none")]}
+
+
+@register_op("leaky_relu")
+def _leaky_relu(ctx, op, ins):
+    x = first(ins, "X")
+    return {"Out": [torch.where(x >= 0, x, x * op.attr("alpha", 0.02))]}
+
+
+@register_op("relu6")
+def _relu6(ctx, op, ins):
+    return {"Out": [torch.clamp(first(ins, "X"), 0.0,
+                                op.attr("threshold", 6.0))]}
+
+
+@register_op("elu")
+def _elu(ctx, op, ins):
+    """x where x > 0, else alpha (e^x - 1) (jax.nn.elu)."""
+    x = first(ins, "X")
+    neg = torch.where(x > 0, torch.zeros_like(x), x)
+    return {"Out": [torch.where(x > 0, x, op.attr("alpha", 1.0)
+                                * torch.expm1(neg))]}
+
+
+@register_op("softplus")
+def _softplus(ctx, op, ins):
+    """x where beta x passes `threshold`, else log(1 + e^(beta x)) /
+    beta."""
+    x = first(ins, "X")
+    beta = op.attr("beta", 1.0)
+    return {"Out": [torch.where(x * beta > op.attr("threshold", 20.0), x,
+                                _softplus0(x * beta) / beta)]}
+
+
+@register_op("swish")
+def _swish(ctx, op, ins):
+    x = first(ins, "X")
+    return {"Out": [x * torch.sigmoid(op.attr("beta", 1.0) * x)]}
+
+
+@register_op("hard_sigmoid")
+def _hard_sigmoid(ctx, op, ins):
+    x = first(ins, "X")
+    return {"Out": [torch.clamp(op.attr("slope", 0.2) * x
+                                + op.attr("offset", 0.5), 0.0, 1.0)]}
+
+
+@register_op("hard_swish")
+def _hard_swish(ctx, op, ins):
+    x = first(ins, "X")
+    return {"Out": [x * torch.clamp(x + op.attr("offset", 3.0), 0.0,
+                                    op.attr("threshold", 6.0))
+                    / op.attr("scale", 6.0)]}
+
+
+@register_op("hard_shrink")
+def _hard_shrink(ctx, op, ins):
+    x = first(ins, "X")
+    return {"Out": [torch.where(torch.abs(x) > op.attr("threshold", 0.5), x,
+                                torch.zeros_like(x))]}
+
+
+@register_op("softshrink")
+def _softshrink(ctx, op, ins):
+    x = first(ins, "X")
+    lam = op.attr("lambda", 0.5)
+    return {"Out": [torch.where(x > lam, x - lam, torch.where(
+        x < -lam, x + lam, torch.zeros_like(x)))]}

@@ -1,6 +1,8 @@
 """Neural-network rules (counterpart of paddle_tpu/ops/nn_ops.py): conv2d,
 pool2d, batch_norm, lookup_table_v2, softmax_with_cross_entropy,
-cross_entropy and accuracy.
+cross_entropy and accuracy; the losses of fluid.layers.loss
+(sigmoid_cross_entropy_with_logits, bce_loss, huber_loss,
+smooth_l1_loss, kldiv_loss) and cos_sim.
 
 The convolution, pooling and batch-norm rules run the port's
 `nn.functional` (cuDNN and ATen on the card), which keeps the reference
@@ -192,3 +194,85 @@ def _accuracy(ctx, op, ins):
                        device=indices.device)
     acc = num_correct.to(torch.float32) / total.to(torch.float32)
     return {"Accuracy": [acc], "Correct": [num_correct], "Total": [total]}
+
+
+# -- the losses of fluid.layers.loss (nn_ops.py:476-537) ------------------------
+
+@register_op("sigmoid_cross_entropy_with_logits")
+def _sce_logits(ctx, op, ins):
+    """max(x, 0) - x y + log(1 + e^-|x|), 0 where the label is
+    `ignore_index`; with `normalize`, over the count of the others."""
+    x, label = first(ins, "X"), first(ins, "Label")
+    loss = (torch.clamp(x, min=0) - x * label
+            + torch.log1p(torch.exp(-torch.abs(x))))
+    mask = label == op.attr("ignore_index", -100)
+    loss = torch.where(mask, torch.zeros_like(loss), loss)
+    if op.attr("normalize", False):
+        kept = torch.sum(1.0 - mask.to(x.dtype))
+        loss = loss / torch.clamp(kept, min=1.0)
+    return {"Out": [loss]}
+
+
+@register_op("bce_loss")
+def _bce_loss(ctx, op, ins):
+    x, label = first(ins, "X"), first(ins, "Label")
+    eps = 1e-12
+    return {"Out": [-(label * torch.log(x + eps)
+                      + (1 - label) * torch.log(1 - x + eps))]}
+
+
+@register_op("huber_loss")
+def _huber_loss(ctx, op, ins):
+    """0.5 r^2 where |r| <= delta, else delta (|r| - delta / 2), r = y -
+    x; Residual is r."""
+    x, y = first(ins, "X"), first(ins, "Y")
+    delta = op.attr("delta", 1.0)
+    r = y - x
+    ar = torch.abs(r)
+    return {"Out": [torch.where(ar <= delta, 0.5 * torch.square(r),
+                                delta * (ar - 0.5 * delta))],
+            "Residual": [r]}
+
+
+@register_op("smooth_l1_loss")
+def _smooth_l1(ctx, op, ins):
+    """Per row, the sum of 0.5 sigma^2 d^2 where |d| < 1 / sigma^2, else
+    |d| - 0.5 / sigma^2 (d = x - y), as (N, 1); Diff is d."""
+    x, y = first(ins, "X"), first(ins, "Y")
+    s2 = op.attr("sigma", 1.0) ** 2
+    diff = x - y
+    ad = torch.abs(diff)
+    elem = torch.where(ad < 1.0 / s2, 0.5 * s2 * torch.square(diff),
+                       ad - 0.5 / s2)
+    return {"Out": [torch.sum(elem.reshape(x.shape[0], -1), dim=1,
+                              keepdim=True)],
+            "Diff": [diff]}
+
+
+@register_op("kldiv_loss")
+def _kldiv(ctx, op, ins):
+    """target (log target - x) where target > 0, else 0; reduced by
+    `reduction` (mean, sum, batchmean over the first dim, or none)."""
+    x, target = first(ins, "X"), first(ins, "Target")
+    loss = torch.where(target > 0, target * (torch.log(target) - x),
+                       torch.zeros_like(target))
+    red = op.attr("reduction", "mean")
+    if red == "mean":
+        loss = torch.mean(loss)
+    elif red == "sum":
+        loss = torch.sum(loss)
+    elif red == "batchmean":
+        loss = torch.sum(loss) / x.shape[0]
+    return {"Loss": [loss]}
+
+
+@register_op("cos_sim")
+def _cos_sim(ctx, op, ins):
+    """The cosine of each row of X with Y's row (or Y's one row), (N, 1),
+    with the rows' norms (nn_ops.py:1009-1023)."""
+    x, y = first(ins, "X"), first(ins, "Y")
+    xf, yf = x.reshape(x.shape[0], -1), y.reshape(y.shape[0], -1)
+    xn = torch.sqrt(torch.sum(xf * xf, dim=1, keepdim=True))
+    yn = torch.sqrt(torch.sum(yf * yf, dim=1, keepdim=True))
+    prod = torch.sum(xf * yf, dim=1, keepdim=True)
+    return {"Out": [prod / (xn * yn)], "XNorm": [xn], "YNorm": [yn]}

@@ -48,7 +48,7 @@ def _load_rules() -> None:
         return
     _RULES_LOADED[0] = True
     from . import (math_ops, nn_ops, optimizer_ops,  # noqa: F401
-                   random_ops, tensor_ops)
+                   random_ops, rnn_ops, sequence_ops, tensor_ops)
 
 
 def register_op(op_type: str):

@@ -5,7 +5,12 @@ flatten_contiguous_range, concat, stack, unstack, unbind, split, slice,
 strided_slice, expand_v2, expand_as_v2, tile, flip, roll, tril_triu,
 diag_v2, meshgrid, gather, gather_nd, index_select, index_sample,
 scatter, scatter_nd_add, where, multiplex, arg_max, arg_min, argsort,
-top_k_v2 and unique.
+top_k_v2 and unique; then the rest of the reference module: the v1
+shape ops (reshape, transpose, squeeze, unsqueeze, flatten, flatten2,
+expand, top_k), broadcast_to, reverse, pad, pad2d, pad3d, one_hot,
+one_hot_v2, masked_fill, masked_select, assign_value, shape, size,
+fill_constant_batch_size_like, fill_zeros_like, inverse, shuffle_batch
+and segment_pool.
 
 Ties keep the reference's order: `jnp.argsort` and `lax.top_k` are
 stable (equal values in index order), and so are the sorts here.
@@ -13,6 +18,7 @@ Integer outputs are int64 where the reference's come back int32."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .registry import first, register_op, tdt, xshape
@@ -59,6 +65,7 @@ def _concat(ctx, op, ins):
     return {"Out": [torch.cat(xs, dim=int(axis))]}
 
 
+@register_op("top_k")
 @register_op("top_k_v2")
 def _top_k(ctx, op, ins):
     """The k largest (or smallest) along `axis`, ties in index order, as
@@ -143,10 +150,12 @@ def _linspace(ctx, op, ins):
 @register_op("increment")
 def _increment(ctx, op, ins):
     x = first(ins, "X")
-    step = torch.as_tensor(op.attr("step", 1.0), device=x.device)
-    return {"Out": [x + step.to(x.dtype)]}
+    step = op.attr("step", 1.0)
+    # a Python number: a device tensor made from it would be a host copy
+    return {"Out": [x + (step if x.is_floating_point() else int(step))]}
 
 
+@register_op("transpose")
 @register_op("transpose2")
 def _transpose2(ctx, op, ins):
     x = first(ins, "X")
@@ -154,6 +163,7 @@ def _transpose2(ctx, op, ins):
     return _with_xshape(op, x, x.permute(*[int(p) for p in perm]))
 
 
+@register_op("squeeze")
 @register_op("squeeze2")
 def _squeeze2(ctx, op, ins):
     """The given axes that have size 1 (every size-1 axis when none are
@@ -168,6 +178,7 @@ def _squeeze2(ctx, op, ins):
     return _with_xshape(op, x, out)
 
 
+@register_op("unsqueeze")
 @register_op("unsqueeze2")
 def _unsqueeze2(ctx, op, ins):
     """New size-1 axes at the given positions of the output."""
@@ -488,4 +499,232 @@ def _unique(ctx, op, ins):
         outs["Index"] = [inv.reshape(-1).to(dt)]
     if want_counts:
         outs["Counts"] = [torch.cat([counts, counts.new_zeros(pad)]).to(dt)]
+    return outs
+
+
+# -- the rest of the reference module (tensor_ops.py) ----------------------------
+
+@register_op("reshape")
+def _reshape(ctx, op, ins):
+    """The v1 reshape: the `shape` attr (a 0 copies the input's dim), no
+    XShape."""
+    x = first(ins, "X")
+    shape = [x.shape[i] if s == 0 else int(s)
+             for i, s in enumerate(op.attr("shape", []))]
+    return {"Out": [x.reshape(shape)]}
+
+
+@register_op("flatten")
+@register_op("flatten2")
+def _flatten2(ctx, op, ins):
+    """(prod of the dims before `axis`, the rest)."""
+    x = first(ins, "X")
+    lead = 1
+    for s in x.shape[:op.attr("axis", 1)]:
+        lead *= int(s)
+    return _with_xshape(op, x, x.reshape(lead, -1))
+
+
+@register_op("expand")
+def _expand(ctx, op, ins):
+    """The v1 expand: tiles by `expand_times`."""
+    x = first(ins, "X")
+    times = op.attr("expand_times", [1] * x.ndim)
+    return {"Out": [torch.tile(x, tuple(int(t) for t in times))]}
+
+
+@register_op("broadcast_to")
+def _broadcast_to(ctx, op, ins):
+    return {"Out": [torch.broadcast_to(
+        first(ins, "X"), tuple(int(s) for s in op.attr("shape", [])))]}
+
+
+@register_op("reverse")
+def _reverse(ctx, op, ins):
+    x = first(ins, "X")
+    return {"Out": [torch.flip(x, tuple(_axis(a, x.ndim)
+                                        for a in op.attr("axis", [0])))]}
+
+
+def _pad_mode(x, pads, mode, value):
+    """torch's pad of the trailing axes, `pads` as (last lo, last hi,
+    next lo, ...); "edge" and "replicate" repeat the border, "wrap" and
+    "circular" wrap around."""
+    mode = {"edge": "replicate", "wrap": "circular"}.get(mode, mode)
+    if mode == "constant":
+        return torch.nn.functional.pad(x, pads, value=value)
+    return torch.nn.functional.pad(x, pads, mode=mode)
+
+
+@register_op("pad")
+def _pad(ctx, op, ins):
+    """`paddings` as (lo, hi) pairs for every axis from the first."""
+    x = first(ins, "X")
+    p = [int(v) for v in op.attr("paddings", [])]
+    pads = []
+    for i in reversed(range(x.ndim)):
+        pads += [p[2 * i], p[2 * i + 1]]
+    return {"Out": [torch.nn.functional.pad(
+        x, pads, value=op.attr("pad_value", 0.0))]}
+
+
+@register_op("pad2d")
+def _pad2d(ctx, op, ins):
+    """[top, bottom, left, right] on H and W, NCHW or NHWC; "constant",
+    "reflect", or else the border repeated (tensor_ops.py:474-492)."""
+    x = first(ins, "X")
+    t, b, l, r = (int(v) for v in op.attr("paddings", [0, 0, 0, 0]))
+    mode = op.attr("mode", "constant")
+    mode = mode if mode in ("constant", "reflect") else "edge"
+    nhwc = op.attr("data_format", "NCHW") != "NCHW"
+    xc = x.permute(0, 3, 1, 2) if nhwc else x
+    out = _pad_mode(xc, [l, r, t, b], mode, op.attr("pad_value", 0.0))
+    return {"Out": [out.permute(0, 2, 3, 1) if nhwc else out]}
+
+
+@register_op("pad3d")
+def _pad3d(ctx, op, ins):
+    """[left, right, top, bottom, front, back] on W, H and D, NCDHW or
+    NDHWC; "constant" (the `value` attr), "reflect", "replicate" or
+    else circular (tensor_ops.py:495-515)."""
+    x = first(ins, "X")
+    p = [int(v) for v in op.attr("paddings", [0] * 6)]
+    mode = op.attr("mode", "constant")
+    if mode not in ("constant", "reflect", "replicate"):
+        mode = "circular"
+    last = op.attr("data_format", "NCDHW") != "NCDHW"
+    xc = x.permute(0, 4, 1, 2, 3) if last else x
+    out = _pad_mode(xc, p, mode, op.attr("value", 0.0))
+    return {"Out": [out.permute(0, 2, 3, 4, 1) if last else out]}
+
+
+@register_op("one_hot")
+@register_op("one_hot_v2")
+def _one_hot(ctx, op, ins):
+    """float32 rows of `depth` (from the depth_tensor input, else the
+    attr) with a 1 at each id; a trailing dim of 1 is dropped first; an
+    id outside [0, depth) gives a row of zeros, as jax.nn.one_hot."""
+    x = first(ins, "X")
+    depth = int(_scalar(first(ins, "depth_tensor", op.attr("depth", 1))))
+    if x.ndim >= 1 and x.shape[-1] == 1:
+        x = x[..., 0]
+    cols = torch.arange(depth, device=x.device)
+    return {"Out": [(x[..., None] == cols).to(torch.float32)]}
+
+
+@register_op("masked_fill")
+def _masked_fill(ctx, op, ins):
+    x, mask = first(ins, "X"), first(ins, "Mask")
+    return {"Out": [torch.where(mask, torch.full_like(
+        x, op.attr("value", 0.0)), x)]}
+
+
+@register_op("masked_select")
+def _masked_select(ctx, op, ins):
+    """The static-shape form (tensor_ops.py:604-622): the selected
+    elements front-packed into x.size slots, the rest 0, and their count
+    (int32) when the op declares Count."""
+    x, mask = first(ins, "X"), first(ins, "Mask")
+    flat = x.reshape(-1)
+    m = torch.broadcast_to(mask, x.shape).reshape(-1)
+    order = torch.sort((~m).to(torch.uint8), stable=True).indices
+    n = torch.sum(m, dtype=torch.int32)
+    keep = torch.arange(flat.shape[0], device=x.device) < n
+    outs = {"Y": [torch.where(keep, flat[order], torch.zeros_like(flat))]}
+    if "Count" in op.outputs:
+        outs["Count"] = [n]
+    return outs
+
+
+@register_op("assign_value")
+def _assign_value(ctx, op, ins):
+    """The `values` attr in the `shape` attr's shape (its own without
+    one), as `dtype`."""
+    vals = np.asarray(op.attr("values"))
+    shape = op.attr("shape", None) or vals.shape
+    return {"Out": [torch.as_tensor(vals.reshape(shape),
+                                    dtype=tdt(op.attr("dtype", "float32")),
+                                    device=ctx.device)]}
+
+
+@register_op("shape")
+def _shape(ctx, op, ins):
+    """The input's shape as int32, as the reference gives it."""
+    x = first(ins, "Input")
+    return {"Out": [torch.tensor(list(x.shape), dtype=torch.int32,
+                                 device=x.device)]}
+
+
+@register_op("size")
+def _size(ctx, op, ins):
+    x = first(ins, "Input")
+    return {"Out": [torch.tensor(x.numel(), dtype=torch.int64,
+                                 device=x.device)]}
+
+
+@register_op("fill_constant_batch_size_like")
+def _fill_constant_bsl(ctx, op, ins):
+    """`shape` with dim output_dim_idx taken from the input's dim
+    input_dim_idx, filled with `value`."""
+    x = first(ins, "Input")
+    shape = [int(s) for s in op.attr("shape", [])]
+    shape[op.attr("output_dim_idx", 0)] = x.shape[op.attr("input_dim_idx",
+                                                           0)]
+    return {"Out": [torch.full(tuple(shape), op.attr("value", 0.0),
+                               dtype=tdt(op.attr("dtype", "float32")),
+                               device=x.device)]}
+
+
+@register_op("fill_zeros_like")
+def _fill_zeros_like(ctx, op, ins):
+    return {"Out": [torch.zeros_like(first(ins, "X"))]}
+
+
+@register_op("inverse")
+def _inverse(ctx, op, ins):
+    return {"Output": [torch.linalg.inv(first(ins, "Input"))]}
+
+
+@register_op("shuffle_batch")
+def _shuffle_batch(ctx, op, ins):
+    """A permutation of the rows (every dim but the last flattened into
+    the row index), drawn from the op's generator; ShuffleIdx records it
+    and SeedOut passes the Seed input on (tensor_ops.py:671-684).  The
+    draw is torch's, not JAX's: the same seed gives another
+    permutation."""
+    x, seed = first(ins, "X"), first(ins, "Seed")
+    rows = x.numel() // x.shape[-1]
+    perm = torch.randperm(rows, generator=ctx.generator(op),
+                          device=x.device)
+    out = x.reshape(rows, x.shape[-1])[perm].reshape(x.shape)
+    return {"Out": [out], "ShuffleIdx": [perm], "SeedOut": [seed]}
+
+
+@register_op("segment_pool")
+def _segment_pool(ctx, op, ins):
+    """Rows sharing a segment id pooled (SUM, MEAN, MAX, MIN) into row id
+    of an output of N rows (the static bound; rows past the last id are
+    0, and so is an empty segment's MAX or MIN), with SummedIds, the
+    rows a segment, when declared (tensor_ops.py:687-717)."""
+    x = first(ins, "X")
+    ids = first(ins, "SegmentIds").reshape(-1).long()
+    pool = op.attr("pooltype", "SUM").upper()
+    n = x.shape[0]
+    cnt = torch.zeros(n, dtype=x.dtype, device=x.device).index_add(
+        0, ids, torch.ones(n, dtype=x.dtype, device=x.device))
+    total = torch.zeros_like(x).index_add(0, ids, x)
+    if pool == "SUM":
+        out = total
+    elif pool == "MEAN":
+        out = total / torch.clamp(cnt, min=1.0)[:, None]
+    elif pool in ("MAX", "MIN"):
+        out = torch.zeros_like(x).scatter_reduce(
+            0, ids[:, None].expand_as(x), x,
+            "amax" if pool == "MAX" else "amin", include_self=False)
+        out = torch.where(torch.isfinite(out), out, torch.zeros_like(out))
+    else:
+        raise NotImplementedError(f"segment_pool: pooltype {pool}")
+    outs = {"Out": [out]}
+    if "SummedIds" in op.outputs:
+        outs["SummedIds"] = [cnt.reshape(-1, 1)]
     return outs

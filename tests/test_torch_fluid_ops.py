@@ -477,14 +477,373 @@ CASES.update({
         [0.5, -1.0, 0.5, 2.0])]}, {"axis": [0]}, []),
 })
 
+
+def _act_case(op, x, **attrs):
+    return (op, {"X": [x]}, attrs, ["Out"])
+
+
+_ROUNDED = np.round(_f(3, 4) * 2) / 2  # ties between x and y
+_ROUNDED_Y = np.round(_f(3, 4, seed=1) * 2) / 2
+_BOOLS_Y = np.array([[False, False, True], [True, False, True]])
+_WIDE = _f(3, 4) * 3  # reaches the kinks and clips of the activations
+
+
+def _lstm_ins(b=2, t=5, h=3, seed=0, init=False):
+    ins = {"Input": [_f(b, t, 4 * h, seed=seed)],
+           "Weight": [_f(h, 4 * h, seed=seed + 1, scale=0.5)],
+           "Bias": [_f(1, 4 * h, seed=seed + 2, scale=0.5)]}
+    if init:
+        ins["H0"] = [_f(b, h, seed=seed + 3)]
+        ins["C0"] = [_f(b, h, seed=seed + 4)]
+    return ins
+
+
+def _rnn_ins(mode, layers, ndir, t=4, b=3, i=2, h=3, lens=True):
+    g = {"LSTM": 4, "GRU": 3}.get(mode, 1)
+    ws, bs = [], []
+    for li in range(layers):
+        for d in range(ndir):
+            k = li * 10 + d
+            ws += [_f(g * h, i if li == 0 else h * ndir, seed=k, scale=0.5),
+                   _f(g * h, h, seed=k + 1, scale=0.5)]
+            bs += [_f(g * h, seed=k + 2, scale=0.5),
+                   _f(g * h, seed=k + 3, scale=0.5)]
+    pre = [_f(layers * ndir, b, h, seed=40)]
+    if mode == "LSTM":
+        pre.append(_f(layers * ndir, b, h, seed=41))
+    ins = {"Input": [_f(t, b, i, seed=42)], "PreState": pre,
+           "WeightList": ws + bs}
+    if lens:
+        ins["SequenceLength"] = [np.array([4, 2, 3], np.int64)]
+    return ins
+
+
+def _rnn_attrs(mode, layers, ndir, h=3):
+    return {"mode": mode, "num_layers": layers, "is_bidirec": ndir == 2,
+            "hidden_size": h, "dropout_prob": 0.0, "is_test": True}
+
+
+_CRF_EMISSION = _f(3, 6, 4)
+_CRF_TRANS = _f(6, 4, seed=1)
+_CRF_LABEL = _ids((3, 6), 4, seed=2)
+_CRF_LENGTH = np.array([6, 3, 1], np.int64)
+# every emission and transition an integer of a few values: Viterbi meets
+# equal scores, where the first index wins
+_CRF_TIES = np.round(_f(3, 6, 4, seed=3))
+_CRF_TIES_TRANS = np.round(_f(6, 4, seed=4))
+_SEQ_X = _f(3, 5, 4)
+_SEQ_LEN = np.array([5, 2, 0], np.int64)
+
+# the rules of the 1.x layer surface, the recurrences, CTC, CRF and the
+# sentiment program's sequence rules
+CASES.update({
+    # -- comparisons and logical ops -----------------------------------------
+    **{op: _binary_case(op, _ROUNDED, _ROUNDED_Y, grads=False) for op in (
+        "equal", "not_equal", "less_than", "less_equal", "greater_than",
+        "greater_equal")},
+    "less_than_axis": _binary_case("less_than", _f(2, 3, 4), _f(3, seed=1),
+                                   axis=1, grads=False),
+    **{op: _binary_case(op, _BOOLS, _BOOLS_Y, grads=False) for op in (
+        "logical_and", "logical_or", "logical_xor")},
+    "maximum": _binary_case("maximum", _f(3, 4), _f(3, 4, seed=1)),
+    "minimum": _binary_case("minimum", _f(2, 3, 4), _f(4, seed=1)),
+    "isfinite_any_nonfinite": ("isfinite", {"X": [_special(3, 4)]}, {}, []),
+    "isfinite_all_finite": ("isfinite", {"X": [_f(3, 4)]}, {}, []),
+    # -- products and norms -------------------------------------------------
+    "matmul_transposes_alpha": ("matmul", {"X": [_f(2, 4, 3)],
+                                           "Y": [_f(2, 5, 4, seed=1)]},
+                                {"transpose_X": True, "transpose_Y": True,
+                                 "alpha": 0.5}, ["Out"]),
+    "matmul_broadcast": ("matmul", {"X": [_f(2, 3, 4)],
+                                    "Y": [_f(4, 5, seed=1)]}, {}, ["Out"]),
+    "log_softmax": ("log_softmax", {"X": [_f(3, 5)]}, {"axis": 0},
+                    ["Out"]),
+    "squared_l2_norm": ("squared_l2_norm", {"X": [_f(3, 4)]}, {}, ["Out"]),
+    "p_norm": ("p_norm", {"X": [_f(3, 4)]},
+               {"porder": 2.0, "axis": 1, "keepdim": False}, ["Out"]),
+    "p_norm_3_keepdim": ("p_norm", {"X": [_f(2, 3, 4)]},
+                         {"porder": 3.0, "axis": -1, "keepdim": True},
+                         ["Out"]),
+    "p_norm_inf": ("p_norm", {"X": [_f(3, 4)]},
+                   {"porder": float("inf"), "axis": 0}, []),
+    "clip_by_norm_clipped": ("clip_by_norm", {"X": [_f(3, 4)]},
+                             {"max_norm": 1.0}, ["Out"]),
+    "clip_by_norm_within": ("clip_by_norm", {"X": [_f(3, 4)]},
+                            {"max_norm": 100.0}, ["Out"]),
+    "dist": ("dist", {"X": [_f(3, 4)], "Y": [_f(3, 4, seed=1)]},
+             {"p": 2.0}, ["Out"]),
+    "dist_p3_broadcast": ("dist", {"X": [_f(3, 4)], "Y": [_f(4, seed=1)]},
+                          {"p": 3.0}, ["Out"]),
+    "cross_first_axis_of_3": ("cross", {"X": [_f(2, 3)],
+                                        "Y": [_f(2, 3, seed=1)]}, {},
+                              ["Out"]),
+    "cross_dim0": ("cross", {"X": [_f(3, 4)], "Y": [_f(3, 4, seed=1)]},
+                   {"dim": 0}, ["Out"]),
+    # -- activations ----------------------------------------------------------
+    "gelu": _act_case("gelu", _WIDE, approximate=False),
+    "gelu_tanh": _act_case("gelu", _WIDE, approximate=True),
+    "leaky_relu": _act_case("leaky_relu", _WIDE, alpha=0.1),
+    "relu6": _act_case("relu6", _WIDE * 2, threshold=6.0),
+    "elu": _act_case("elu", _WIDE, alpha=0.5),
+    "softplus": _act_case("softplus", _WIDE, beta=2.0, threshold=1.5),
+    "swish": _act_case("swish", _WIDE, beta=1.5),
+    "hard_sigmoid": _act_case("hard_sigmoid", _WIDE, slope=0.3, offset=0.4),
+    "hard_swish": _act_case("hard_swish", _WIDE, threshold=6.0, scale=6.0,
+                            offset=3.0),
+    "hard_shrink": _act_case("hard_shrink", _WIDE, threshold=0.3),
+    "softshrink": _act_case("softshrink", _WIDE, **{"lambda": 0.4}),
+    **{op: _unary_case(op, _WIDE) for op in (
+        "logsigmoid", "tanh_shrink", "softsign", "silu", "mish", "asinh")},
+    "acosh": _unary_case("acosh", _pos(3, 4) + 1.0),
+    "atanh": _unary_case("atanh", np.tanh(_f(3, 4)) * 0.9),
+    # -- the v1 shape ops and the rest of the tensor bucket ------------------
+    "reshape": ("reshape", {"X": [_f(2, 3, 4)]}, {"shape": [0, -1]},
+                ["Out"]),
+    "transpose": ("transpose", {"X": [_f(2, 3, 4)]}, {"axis": [2, 0, 1]},
+                  ["Out"]),
+    "squeeze": ("squeeze", {"X": [_f(2, 1, 3)]}, {"axes": [1]}, ["Out"]),
+    "unsqueeze": ("unsqueeze", {"X": [_f(2, 3)]}, {"axes": [1]}, ["Out"]),
+    "flatten": ("flatten", {"X": [_f(2, 3, 4)]}, {"axis": 2}, ["Out"]),
+    "flatten2": ("flatten2", {"X": [_f(2, 3, 4)]}, {"axis": 1}, ["Out"]),
+    "expand": ("expand", {"X": [_f(1, 3, 2)]},
+               {"expand_times": [2, 1, 3]}, ["Out"]),
+    "top_k": ("top_k", {"X": [_f(3, 6)]}, {"k": 2}, ["Out"]),
+    "broadcast_to": ("broadcast_to", {"X": [_f(3, 1)]},
+                     {"shape": [2, 3, 4]}, ["Out"]),
+    "reverse": ("reverse", {"X": [_f(2, 3, 4)]}, {"axis": [0, -1]},
+                ["Out"]),
+    "pad": ("pad", {"X": [_f(2, 3)]},
+            {"paddings": [1, 0, 0, 2], "pad_value": 0.5}, ["Out"]),
+    "pad2d_constant": ("pad2d", {"X": [_f(2, 3, 4, 5)]},
+                       {"paddings": [1, 0, 2, 1], "mode": "constant",
+                        "pad_value": -1.0, "data_format": "NCHW"}, ["Out"]),
+    "pad2d_reflect": ("pad2d", {"X": [_f(2, 3, 4, 5)]},
+                      {"paddings": [1, 2, 2, 1], "mode": "reflect",
+                       "data_format": "NCHW"}, ["Out"]),
+    "pad2d_edge_nhwc": ("pad2d", {"X": [_f(2, 4, 5, 3)]},
+                        {"paddings": [2, 0, 1, 3], "mode": "edge",
+                         "data_format": "NHWC"}, ["Out"]),
+    "pad3d_constant": ("pad3d", {"X": [_f(1, 2, 3, 4, 5)]},
+                       {"paddings": [1, 0, 0, 2, 1, 1], "mode": "constant",
+                        "value": 0.25, "data_format": "NCDHW"}, ["Out"]),
+    "pad3d_reflect": ("pad3d", {"X": [_f(1, 2, 3, 4, 5)]},
+                      {"paddings": [1, 2, 1, 0, 2, 1], "mode": "reflect",
+                       "data_format": "NCDHW"}, ["Out"]),
+    "pad3d_replicate_ndhwc": ("pad3d", {"X": [_f(1, 3, 4, 5, 2)]},
+                              {"paddings": [2, 0, 1, 1, 0, 3],
+                               "mode": "replicate", "data_format": "NDHWC"},
+                              ["Out"]),
+    "pad3d_circular": ("pad3d", {"X": [_f(1, 2, 3, 4, 5)]},
+                       {"paddings": [1, 2, 1, 0, 2, 1], "mode": "circular",
+                        "data_format": "NCDHW"}, ["Out"]),
+    "one_hot_out_of_range": ("one_hot", {"X": [np.array(
+        [[1], [4], [0], [5]], np.int64)]}, {"depth": 5}, []),
+    "one_hot_v2": ("one_hot_v2", {"X": [_ids((2, 3), 4)]}, {"depth": 4},
+                   []),
+    "masked_fill": ("masked_fill", {"X": [_f(3, 4)],
+                                    "Mask": [_f(3, 4, seed=1) > 0]},
+                    {"value": 2.5}, ["Out"]),
+    "masked_select": ("masked_select", {"X": [_f(3, 4)],
+                                        "Mask": [_f(1, 4, seed=1) > 0]},
+                      {}, ["Y"]),
+    "assign_value": ("assign_value", {}, {"values": [0.5, 1., 2., 3., 4.,
+                                                     -1.],
+                                          "shape": [2, 3],
+                                          "dtype": "float32"}, []),
+    "assign_value_int64": ("assign_value", {}, {"values": [3, 1, 4],
+                                                "shape": [3],
+                                                "dtype": "int64"}, []),
+    "shape": ("shape", {"Input": [_f(2, 3, 4)]}, {}, []),
+    "size": ("size", {"Input": [_f(2, 3, 4)]}, {}, []),
+    "fill_constant_batch_size_like": (
+        "fill_constant_batch_size_like", {"Input": [_f(5, 3)]},
+        {"shape": [-1, 7], "input_dim_idx": 0, "output_dim_idx": 0,
+         "value": 1.5, "dtype": "float32"}, []),
+    "fill_constant_batch_size_like_dim1": (
+        "fill_constant_batch_size_like", {"Input": [_f(5, 3)]},
+        {"shape": [2, -1], "input_dim_idx": 1, "output_dim_idx": 1,
+         "value": 4.0, "dtype": "int64"}, []),
+    "fill_zeros_like": ("fill_zeros_like", {"X": [_f(3, 4)]}, {}, []),
+    "inverse": ("inverse", {"Input": [_spd(3)]}, {}, ["Output"]),
+    **{f"segment_pool_{p.lower()}": (
+        "segment_pool", {"X": [_f(5, 3)],
+                         "SegmentIds": [np.array([0, 0, 1, 3, 3],
+                                                 np.int64)]},
+        {"pooltype": p}, ["Out"]) for p in ("SUM", "MEAN", "MAX", "MIN")},
+    # -- the nn bucket: cos_sim and the losses of fluid.layers.loss ----------
+    "cos_sim": ("cos_sim", {"X": [_f(4, 3)], "Y": [_f(4, 3, seed=1)]}, {},
+                ["Out"]),
+    "cos_sim_one_row_y": ("cos_sim", {"X": [_f(4, 3)],
+                                      "Y": [_f(1, 3, seed=1)]}, {},
+                          ["Out"]),
+    "bce_loss": ("bce_loss", {"X": [_probs(4, 3)],
+                              "Label": [_probs(4, 3, seed=1)]}, {},
+                 ["Out"]),
+    "sigmoid_cross_entropy_with_logits": (
+        "sigmoid_cross_entropy_with_logits",
+        {"X": [_f(3, 4)], "Label": [_probs(3, 4, seed=1)]},
+        {"ignore_index": -100, "normalize": False}, ["Out"]),
+    "sigmoid_cross_entropy_with_logits_ignore_normalize": (
+        "sigmoid_cross_entropy_with_logits",
+        {"X": [_f(3, 4)], "Label": [np.where(
+            _f(3, 4, seed=2) > 0.5, -100.0, _probs(3, 4, seed=1))]},
+        {"ignore_index": -100, "normalize": True}, ["Out"]),
+    "huber_loss": ("huber_loss", {"X": [_f(4, 1)], "Y": [_f(4, 1, seed=1)]},
+                   {"delta": 0.8}, ["Out"]),
+    "smooth_l1_loss": ("smooth_l1_loss", {"X": [_f(3, 4)],
+                                          "Y": [_f(3, 4, seed=1)]},
+                       {"sigma": 1.5}, ["Out"]),
+    **{f"kldiv_loss_{r}": ("kldiv_loss", {
+        "X": [np.log(_probs(3, 4))],
+        "Target": [np.where(_f(3, 4, seed=2) > 1.0, 0.0,
+                            _probs(3, 4, seed=1))]},
+        {"reduction": r}, ["Loss"])
+       for r in ("mean", "sum", "batchmean", "none")},
+    # -- the recurrences -------------------------------------------------------
+    "lstm_default_activations": ("lstm", _lstm_ins(), {
+        "is_reverse": False, "gate_activation": "sigmoid",
+        "cell_activation": "tanh", "candidate_activation": "tanh"},
+        ["Hidden", "Cell"]),
+    "lstm_default_activations_reverse": ("lstm", _lstm_ins(seed=5), {
+        "is_reverse": True}, ["Hidden", "Cell"]),
+    "lstm_srl_activations_reverse": ("lstm", _lstm_ins(seed=7), {
+        "is_reverse": True, "gate_activation": "sigmoid",
+        "cell_activation": "sigmoid", "candidate_activation": "relu"},
+        ["Hidden", "Cell"]),
+    "lstm_initial_state": ("lstm", _lstm_ins(seed=9, init=True), {
+        "is_reverse": False}, ["Hidden", "Cell"]),
+    "gru": ("gru", {"Input": [_f(2, 4, 9)],
+                    "Weight": [_f(3, 9, seed=1, scale=0.5)],
+                    "Bias": [_f(1, 9, seed=2)]},
+            {"is_reverse": False, "origin_mode": False}, ["Hidden"]),
+    "gru_origin_reverse_h0": ("gru", {
+        "Input": [_f(2, 4, 9)], "Weight": [_f(3, 9, seed=1, scale=0.5)],
+        "Bias": [_f(1, 9, seed=2)], "H0": [_f(2, 3, seed=3)]},
+        {"is_reverse": True, "origin_mode": True,
+         "gate_activation": "sigmoid", "activation": "relu"}, ["Hidden"]),
+    "gru_unit": ("gru_unit", {"Input": [_f(2, 9)],
+                              "HiddenPrev": [_f(2, 3, seed=1)],
+                              "Weight": [_f(3, 9, seed=2)],
+                              "Bias": [_f(1, 9, seed=3)]},
+                 {"gate_activation": 1, "activation": 2,
+                  "origin_mode": False}, ["Hidden", "Gate"]),
+    "gru_unit_origin_relu": ("gru_unit", {
+        "Input": [_f(2, 9)], "HiddenPrev": [_f(2, 3, seed=1)],
+        "Weight": [_f(3, 9, seed=2)]},
+        {"gate_activation": 1, "activation": 3, "origin_mode": True},
+        ["Hidden"]),
+    "lstm_unit": ("lstm_unit", {"X": [_f(2, 12)],
+                                "C_prev": [_f(2, 3, seed=1)]},
+                  {"forget_bias": 1.0}, ["H", "C"]),
+    "lstmp_peepholes_clips": ("lstmp", {
+        "Input": [_f(2, 4, 12)], "Weight": [_f(2, 12, seed=1, scale=0.5)],
+        "ProjWeight": [_f(3, 2, seed=2, scale=0.5)],
+        "Bias": [_f(1, 21, seed=3, scale=0.5)]},
+        {"use_peepholes": True, "is_reverse": True, "cell_clip": 0.8,
+         "proj_clip": 0.5}, ["Projection", "Cell"]),
+    "lstmp_h0": ("lstmp", {
+        "Input": [_f(2, 4, 12)], "Weight": [_f(2, 12, seed=1, scale=0.5)],
+        "ProjWeight": [_f(3, 2, seed=2, scale=0.5)],
+        "Bias": [_f(1, 12, seed=3, scale=0.5)], "H0": [_f(2, 3, seed=4)],
+        "C0": [_f(2, 3, seed=5)]},
+        {"use_peepholes": False, "proj_activation": "identity"},
+        ["Projection"]),
+    "rnn_lstm_bidirectional_2_layers": (
+        "rnn", _rnn_ins("LSTM", 2, 2), _rnn_attrs("LSTM", 2, 2), ["Out"]),
+    "rnn_gru": ("rnn", _rnn_ins("GRU", 1, 1), _rnn_attrs("GRU", 1, 1),
+                ["Out"]),
+    "rnn_tanh_no_lengths": ("rnn", _rnn_ins("RNN_TANH", 1, 2, lens=False),
+                            _rnn_attrs("RNN_TANH", 1, 2), ["Out"]),
+    # -- beams -----------------------------------------------------------------
+    "beam_search": ("beam_search", {
+        "pre_ids": [np.array([[3], [1], [2], [4]], np.int64)],
+        "pre_scores": [_f(4, 1)], "ids": [_ids((4, 3), 9, seed=1)],
+        "scores": [_f(4, 3, seed=2)]},
+        {"beam_size": 2, "end_id": 1, "is_accumulated": False}, []),
+    "beam_search_accumulated_no_ids": ("beam_search", {
+        "pre_ids": [np.array([[3], [1], [2], [4]], np.int64)],
+        "pre_scores": [_f(4, 1)], "scores": [_f(4, 5, seed=2)]},
+        {"beam_size": 2, "end_id": 1}, []),
+    "beam_search_decode": ("beam_search_decode", {
+        "Ids": [_ids((3, 4), 9)],
+        "ParentIdx": [np.array([[0, 1, 2, 3], [1, 1, 3, 2], [0, 0, 2, 2]],
+                               np.int64)],
+        "Scores": [_f(3, 4)]}, {}, []),
+    "gather_tree": ("gather_tree", {
+        "Ids": [_ids((3, 2, 2), 9)],
+        "Parents": [np.array([[[0, 1], [1, 0]], [[1, 1], [0, 1]],
+                              [[1, 0], [0, 0]]], np.int64)]}, {}, []),
+    # -- CTC ----------------------------------------------------------------------
+    "warpctc": ("warpctc", {
+        "Logits": [_f(6, 2, 4)],
+        "Label": [np.array([[1, 2], [3, 0]], np.int64)],
+        "LogitsLength": [np.array([6, 5], np.int64)],
+        "LabelLength": [np.array([2, 1], np.int64)]},
+        {"blank": 0, "norm_by_times": False}, ["Loss"]),
+    "warpctc_norm_by_times_repeats": ("warpctc", {
+        "Logits": [_f(5, 2, 3)],
+        "Label": [np.array([[1, 1], [2, 1]], np.int64)]},
+        {"blank": 0, "norm_by_times": True}, ["Loss"]),
+    "ctc_align": ("ctc_align", {
+        "Input": [np.array([[0, 1, 1, 0, 2, 2], [3, 3, 0, 3, 1, 1]],
+                           np.int64)],
+        "InputLength": [np.array([[6], [4]], np.int64)]},
+        {"blank": 0, "padding_value": -1}, []),
+    "edit_distance": ("edit_distance", {
+        "Hyps": [np.array([[1, 2, 3, 4], [2, 2, 1, 0]], np.int64)],
+        "Refs": [np.array([[1, 3, 4], [2, 1, 1]], np.int64)],
+        "HypsLength": [np.array([4, 3], np.int64)],
+        "RefsLength": [np.array([3, 2], np.int64)]},
+        {"normalized": True}, []),
+    "edit_distance_raw": ("edit_distance", {
+        "Hyps": [np.array([[1, 2, 3, 4], [2, 2, 1, 0]], np.int64)],
+        "Refs": [np.array([[1, 3, 4], [2, 1, 1]], np.int64)]},
+        {"normalized": False}, []),
+    "row_conv": ("row_conv", {"X": [_f(2, 5, 3)],
+                              "Filter": [_f(3, 3, seed=1)]}, {}, ["Out"]),
+    # -- CRF ----------------------------------------------------------------------
+    "linear_chain_crf": ("linear_chain_crf", {
+        "Emission": [_CRF_EMISSION], "Transition": [_CRF_TRANS],
+        "Label": [_CRF_LABEL], "Length": [_CRF_LENGTH]}, {},
+        ["LogLikelihood"]),
+    "linear_chain_crf_full_rows": ("linear_chain_crf", {
+        "Emission": [_CRF_EMISSION * 3], "Transition": [_CRF_TRANS],
+        "Label": [_CRF_LABEL]}, {}, ["LogLikelihood"]),
+    "crf_decoding": ("crf_decoding", {
+        "Emission": [_CRF_EMISSION], "Transition": [_CRF_TRANS],
+        "Length": [_CRF_LENGTH]}, {}, []),
+    "crf_decoding_ties": ("crf_decoding", {
+        "Emission": [_CRF_TIES], "Transition": [_CRF_TIES_TRANS],
+        "Length": [_CRF_LENGTH]}, {}, []),
+    "crf_decoding_label_mask": ("crf_decoding", {
+        "Emission": [_CRF_EMISSION], "Transition": [_CRF_TRANS],
+        "Label": [_CRF_LABEL], "Length": [_CRF_LENGTH]}, {}, []),
+    # -- the sentiment program's sequence rules ----------------------------------
+    **{f"sequence_pool_{p.lower()}": (
+        "sequence_pool", {"X": [_SEQ_X], "Length": [_SEQ_LEN]},
+        {"pooltype": p, "pad_value": 0.5}, ["Out"])
+       for p in ("SUM", "AVERAGE", "SQRT", "MAX", "LAST", "FIRST")},
+    "sequence_conv": ("sequence_conv", {
+        "X": [_SEQ_X], "Filter": [_f(12, 5, seed=1)],
+        "Length": [_SEQ_LEN]},
+        {"contextLength": 3, "contextStart": -1, "contextStride": 1},
+        ["Out"]),
+    "sequence_conv_full_rows_lookback": ("sequence_conv", {
+        "X": [_SEQ_X], "Filter": [_f(8, 5, seed=1)]},
+        {"contextLength": 2, "contextStart": -2}, ["Out"]),
+})
+
+
 # int64 feeds and int outputs are exact; these rules also take float64
 # (linspace makes float32 whatever the feeds: under x64 the reference
 # computes its steps in float32 and lands within a float32 unit of the
-# exact values the port gives)
+# exact values the port gives; warpctc computes in float32 in both, as
+# the reference casts the logits)
 FLOAT64_OK = set(CASES) - {"fill_constant", "fill_constant_int64",
-                           "linspace"}
+                           "linspace", "warpctc",
+                           "warpctc_norm_by_times_repeats"}
 
-RANDOM = ("gaussian_random", "uniform_random")
+RANDOM = ("gaussian_random", "uniform_random", "shuffle_batch")
 
 
 def _cast(arrs, dtype):
@@ -612,6 +971,27 @@ def test_random_rules_draw_their_distribution(op_type, attrs, mean, std):
     np.testing.assert_array_equal(again["Out"][0], got["Out"][0])
     other, _ = _port(op_type, {}, dict(attrs, seed=5), ["Out"], [], [])
     assert not np.array_equal(other["Out"][0], got["Out"][0])
+
+
+def test_shuffle_batch_permutes_rows_by_its_seed():
+    """The rows (all dims but the last flattened) in the order of
+    ShuffleIdx, a permutation; the same seed gives the same one, another
+    seed another (torch's draw, not JAX's)."""
+    x = _f(4, 3, 5)
+    attrs = {"startup_seed": 0}
+    outs = []
+    for seed in (3, 3, 4):
+        got, _ = _port("shuffle_batch", {"X": [x], "Seed": [np.array([7])]},
+                       dict(attrs, seed=seed),
+                       ["Out", "ShuffleIdx", "SeedOut"], [], [])
+        outs.append(got)
+    perm = outs[0]["ShuffleIdx"][0]
+    assert sorted(perm.tolist()) == list(range(12))
+    np.testing.assert_array_equal(outs[0]["Out"][0],
+                                  x.reshape(12, 5)[perm].reshape(x.shape))
+    np.testing.assert_array_equal(outs[1]["Out"][0], outs[0]["Out"][0])
+    assert not np.array_equal(outs[2]["ShuffleIdx"][0], perm)
+    assert outs[0]["SeedOut"][0].tolist() == [7]
 
 
 def test_every_rule_is_covered():

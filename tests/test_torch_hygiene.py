@@ -21,7 +21,9 @@ FORBIDDEN = ("jax", "jaxlib", "paddle_tpu")
 
 
 # JAX-free helpers of the tests that chip_smoke.py imports too
-PROGRAMS = [ROOT / "tests" / "torch_seq2seq_program.py"]
+PROGRAMS = [ROOT / "tests" / "torch_seq2seq_program.py",
+            ROOT / "tests" / "torch_srl_program.py",
+            ROOT / "tests" / "torch_book_programs.py"]
 
 
 def _port_files():
@@ -70,7 +72,11 @@ def test_the_walk_sees_the_whole_package():
             "amp/__init__.py", "hapi/model.py", "hapi/callbacks.py",
             "tensor/__init__.py", "fluid/dygraph/__init__.py",
             "framework_io.py", "nn/layer/rnn.py", "nn/decode.py",
-            "ops/math_ops.py", "ops/tensor_ops.py"} <= names
+            "ops/math_ops.py", "ops/tensor_ops.py", "ops/sequence_ops.py",
+            "fluid/layers/compat.py", "fluid/layers/rnn.py",
+            "fluid/layers/learning_rate_scheduler.py",
+            "fluid/layers/sequence_lod.py", "static/__init__.py",
+            "static/nn.py"} <= names
 
 
 def _run(code_or_args, cwd, timeout=120):
