@@ -7,7 +7,8 @@ Fluid static-graph program through fluid.Executor and through the 2.x
 front end's hapi.Model.fit, train and decode the Transformer-base WMT
 model, run the quickstart's 2.x modes, train and decode Paddle 2.x's
 seq2seq with attention and the book's semantic-role-labelling program
-(a Fluid program through fluid.Executor), and check what comes out.
+(a Fluid program through fluid.Executor), train MobileNetV2, VGG16 and
+PaddleGAN's CycleGAN, and check what comes out.
 
     python3 chip_smoke.py
 
@@ -205,6 +206,32 @@ Phases, in order (any failure exits non-zero and prints no result):
               card against the CPU Executor from the same state
               (SRL_LOSS_RTOL, SRL_STATE_TOL, the decoded paths equal);
               the lstm rule's cuDNN arm against its loop (SRL_ARM_TOL)
+ 19. mobilenet  vision.models.mobilenet_v2() (3.5 M parameters, Dropout
+              0.2 live) and vgg16() (138 M, Dropout 0.5) trained through
+              vision.train.build_train_step at the resnet phase's
+              configuration (B=128, 224^2, bf16 over fp32 masters,
+              momentum SGD lr 0.1; VGG16 at VGG_LR = 0.001), cuDNN's
+              search on: 1 warm-up and
+              MOBILE_TIMED steps each, finite losses falling, moved
+              running statistics, finite velocities, no hand-written
+              kernel launched; step ms, images/s, MFU (conv_net_fwd_flops
+              from the layer shapes), peak memory, host syncs a step, one
+              step profiled with the depthwise convolutions' device time
+              named; then mobilenet_v2(scale=0.25) and
+              vgg11(batch_norm=True) in f32 on the card against the CPU
+              (RESNET_TOL, RESNET_KINK)
+ 20. cyclegan PaddleGAN's CycleGAN (tests/torch_cyclegan_program.py at
+              HORSE2ZEBRA: two ResnetGenerators of ngf 64 with 9 blocks,
+              two 70 x 70 PatchGANs, LSGAN + cycle + identity losses, Adam
+              2e-4 (0.5, 0.999) for each pair, image pools of 50; B=1,
+              256^2, f32) through the port's 2.x API: 1 warm-up and
+              CG_TIMED steps on one seeded pair, finite losses, the cycle
+              loss falling, finite Adam moments, the first upsampling's
+              output_padding row nonzero, 0 host syncs a step, no
+              hand-written kernel launched; step ms, images/s, peak
+              memory, one step profiled; the generator cut to 2 blocks
+              on the card against the CPU (CG_TOL, RESNET_KINK) and its
+              output_padding form against its crop form on the card
 
 The last two lines of stdout are a {"kernels": [...]} summary and the
 {"ok": true, "device": {...}} result.  Needs CUDA; imports nothing of JAX
@@ -2339,18 +2366,8 @@ def _resnet18_step(dev, x, y):
     """resnet18(num_classes=10) from seed 2, one f32 train forward and
     backward on `dev`: logits, loss, gradients and running statistics,
     on the CPU."""
-    model = VM.resnet18(num_classes=10, device=dev, seed=2).train()
-    xd = x.to(dev)
-    if dev == "cuda":
-        xd = xd.contiguous(memory_format=torch.channels_last)
-    logits = model(xd)
-    loss = -torch.log_softmax(logits, -1).gather(
-        1, y.to(dev)[:, None]).mean()
-    named = dict(model.named_parameters())
-    grads = torch.autograd.grad(loss, list(named.values()))
-    return dict(logits=logits.detach().cpu(), loss=loss.detach().cpu(),
-                grads={k: g.cpu() for k, g in zip(named, grads)},
-                stats={k: b.cpu() for k, b in model.named_buffers()})
+    return _mobile_step(lambda d: VM.resnet18(num_classes=10, device=d,
+                                              seed=2), dev, x, y)
 
 
 def _resnet_check():
@@ -3136,7 +3153,9 @@ def _sync_sites(caught):
     """{file:line: count} of the host syncs among caught warnings."""
     sites = {}
     for w in caught:
-        if "synchroniz" in str(w.message):
+        # the sync itself, not the notice that the first
+        # set_sync_debug_mode of a process prints
+        if "called a synchronizing" in str(w.message):
             key = f"{Path(w.filename).name}:{w.lineno}"
             sites[key] = sites.get(key, 0) + 1
     return sites
@@ -3999,6 +4018,483 @@ def srl():
     log("srl summary: " + json.dumps(summary))
     return {"srl": launches}
 
+# -- MobileNetV2 and VGG16 (phase 19) -------------------------------------------
+# paddle_tpu/vision/models.py's mobilenet_v2() (scale 1.0, 1000 classes;
+# Dropout 0.2 live) and vgg16() (Dropout 0.5 twice) at the resnet
+# phase's configuration: B=128, 224^2, bf16 over fp32 masters, momentum
+# 0.9, lr 0.1, one batch from RandomState(0).  1 warm-up and MOBILE_TIMED
+# steps timed; the loss falls: the mean of the last MOBILE_TAIL losses
+# under the first (the fixed batch is learned while the dropout masks
+# change every step)
+MOBILE_BATCH, MOBILE_HW, MOBILE_CLASSES = 128, 224, 1000
+MOBILE_TIMED, MOBILE_TAIL = 30, 5
+MOBILE_LR, MOBILE_MOMENTUM = 0.1, 0.9
+# VGG16 (no batch norm) from its Xavier start (a first loss of 20.94)
+# diverges at 0.1 (1.2e6, then NaN at step 3 on the H100) and at 0.01
+# its losses spike as the dropout masks change, to NaN at step 28 in one
+# run of five; at 0.001 the one batch is learned steadily (PERF.md)
+VGG_LR = 0.001
+# the f32 card-vs-CPU holds: mobilenet_v2(scale=0.25) and
+# vgg11(batch_norm=True), 10 classes, B=4 of 64 x 64, dropout off; the
+# resnet phase's RESNET_TOL for logits, loss and running statistics;
+# gradients in relative L2 within MOBILE_KINK: a ReLU6 kink flip moves a
+# whole term, and the BN weights in front of the first ReLU6s have small
+# gradients that are sums of cancelling terms (3.2 % between two f32
+# summation orders on the CPU alone; tests/test_torch_vision_models.py)
+MOBILE_HOLD_BATCH, MOBILE_HOLD_HW = 4, 64
+MOBILE_KINK = 5e-2
+# a gradient that is 0 in exact arithmetic (under 1e-10 in float64 on
+# the CPU) is f32 rounding noise, up to 1.5e-5 on the CPU: held under
+# ZERO_GRAD on the card
+ZERO_GRAD = 1e-4
+# PaddleGAN's CycleGAN (phase 20, tests/torch_cyclegan_program.
+# HORSE2ZEBRA: ngf 64, 9 blocks, ndf 64, 3 layers, B=1, 256^2, f32 with
+# TF32 off): 1 warm-up and CG_TIMED steps on one seeded pair; the cycle
+# loss (A + B) falls from step 1 to the last
+CG_TIMED = 10
+# the cut generator (ngf 64, 2 blocks, 64 x 64) on the card against the
+# CPU, f32: output within CG_TOL, every gradient within RESNET_KINK in
+# relative L2; the output_padding form against the crop form on the
+# card within CG_TOL (two algorithms of the same transposed convolution)
+CG_HOLD_BLOCKS, CG_HOLD_HW = 2, 64
+CG_TOL = dict(atol=1e-4, rtol=1e-4)
+# the gradient of a bias in front of an instance norm (exactly 0): f32
+# rounding of a sum over the 64 x 64 map of dL/dy terms of about 1e-4
+CG_BIAS_NOISE = 1e-5
+
+
+def conv_net_fwd_flops(model, batch, hw):
+    """The forward's FLOPs from the layer shapes: 2 x the MACs of every
+    Conv2D (output elements x in_channels / groups x kh x kw) and Linear
+    (rows x in x out), read by hooks on one B=1 forward, times `batch`.
+    Norms, activations and pools are left out (under 1 % of either
+    model)."""
+    macs = [0]
+
+    def conv_hook(mod, inp, out):
+        kh, kw = mod.weight.shape[2:]
+        macs[0] += out.numel() * mod.weight.shape[1] * kh * kw
+
+    def linear_hook(mod, inp, out):
+        macs[0] += out.numel() * mod.weight.shape[0]
+
+    hooks = [m.register_forward_hook(conv_hook) for m in model.modules()
+             if isinstance(m, pnn.Conv2D)]
+    hooks += [m.register_forward_hook(linear_hook) for m in model.modules()
+              if isinstance(m, pnn.Linear)]
+    was = model.training
+    model.eval()
+    try:
+        with torch.no_grad():
+            dev = next(iter(model.parameters())).device
+            model(torch.zeros(1, 3, hw, hw, device=dev))
+    finally:
+        for h in hooks:
+            h.remove()
+        model.train(was)
+    return 2.0 * macs[0] * batch
+
+
+def _conv_share(fn, depthwise):
+    """fn() once under torch.profiler with shapes: the device time of the
+    convolutions (forward and backward) whose weight is (C, 1, k, k)
+    with C = groups, i.e. the depthwise ones, and of all convolutions."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA],
+                       record_shapes=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dw = total = 0.0
+    for e in prof.events():
+        if e.name not in ("aten::convolution", "aten::convolution_backward"):
+            continue
+        ms = getattr(e, "device_time_total", 0.0) / 1e3
+        shapes = e.input_shapes or []
+        w = shapes[1] if e.name == "aten::convolution" else \
+            (shapes[2] if len(shapes) > 2 else None)
+        total += ms
+        if w and len(w) == 4 and w[1] == 1 and w[0] in depthwise:
+            dw += ms
+    return dw, total
+
+
+def _mobile_train(name, model, flops, lr):
+    """The resnet phase's step on `model` at `lr`: 1 warm-up,
+    MOBILE_TIMED timed steps (CUDA events; host syncs counted), one
+    profiled.  Returns (launches, summary)."""
+    step, state = VT.build_train_step(model, lr=lr,
+                                      momentum=MOBILE_MOMENTUM, bf16=True)
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.randn(MOBILE_BATCH, 3, MOBILE_HW, MOBILE_HW)
+                         .astype("float32")).cuda()
+    y = torch.from_numpy(rng.randint(0, MOBILE_CLASSES, MOBILE_BATCH)
+                         .astype("int64")).cuda()
+    buffers = [k for k, _ in model.named_buffers()]
+    stats0 = {k: state["params"][k].clone() for k in buffers}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in COUNTERS.values():
+        c.reset()
+    # -- the main path: counters at 0 before, read right after ---------------
+    losses = []
+    t0 = time.perf_counter()
+    state, loss = step(state, x, y)  # warm-up
+    losses.append(loss)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    with _SyncCount() as syncs:
+        t0 = time.perf_counter()
+        e0.record()
+        for _ in range(MOBILE_TIMED):
+            state, loss = step(state, x, y)
+            losses.append(loss)
+        e1.record()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / MOBILE_TIMED
+    launches = {n: c.value for n, c in COUNTERS.items()}
+    # --------------------------------------------------------------------------
+    mem = torch.cuda.max_memory_allocated()
+    step_ms = e0.elapsed_time(e1) / MOBILE_TIMED
+    sites = syncs.sites()
+    losses = [float(v) for v in losses]
+    log(f"{name} losses: {' '.join(f'{v:.4f}' for v in losses)}")
+    _expect_launches(launches, 0, (), f"{MOBILE_TIMED + 1} {name} steps")
+    if not all(np.isfinite(losses)) or not \
+            np.mean(losses[-MOBILE_TAIL:]) < losses[0]:
+        raise AssertionError(f"{name} losses are not finite and falling")
+    if not all(bool(torch.isfinite(v).all()) for v in state["vel"].values()):
+        raise AssertionError(f"a {name} velocity is not finite")
+    moved = sum(not torch.equal(state["params"][k], stats0[k])
+                for k in buffers)
+    if moved != len(buffers):
+        raise AssertionError(f"{name}: only {moved} of {len(buffers)} "
+                             f"running statistics moved")
+    summary = dict(step_ms=step_ms, host_step_ms=host_ms,
+                   images_per_s=MOBILE_BATCH / (step_ms / 1e3),
+                   step_flops=flops,
+                   mfu=flops / (step_ms / 1e3) / PEAK_BF16_FLOPS,
+                   warmup_step_s=warm_s, max_memory_allocated_bytes=mem,
+                   syncs_per_step=sum(sites.values()) / MOBILE_TIMED,
+                   sync_sites=sites, losses=losses)
+    log(f"{name} train step B={MOBILE_BATCH} {MOBILE_HW}^2 bf16: "
+        f"{step_ms:.3f} ms (CUDA events; host clock {host_ms:.3f} ms), "
+        f"{summary['images_per_s']:.1f} images/s, MFU "
+        f"{100 * summary['mfu']:.2f}% of 989 TFLOP/s ({flops / 1e12:.4f} "
+        f"TFLOP a step, 3 x conv_net_fwd_flops), warm-up step "
+        f"{warm_s:.2f} s, max_memory_allocated {mem / 2 ** 30:.2f} GiB, "
+        f"host syncs a step {summary['syncs_per_step']:.2f} at {sites}")
+    busy, wall, top = _profile(lambda: step(state, x, y), top=10)
+    depthwise = {m.weight.shape[0] for m in model.modules()
+                 if isinstance(m, pnn.Conv2D) and m._groups > 1
+                 and m._groups == m.weight.shape[0]}
+    dw_ms, conv_ms = _conv_share(lambda: step(state, x, y), depthwise)
+    summary.update(profiled_busy_ms=busy, profiled_wall_ms=wall,
+                   profiled_idle=max(0.0, 1 - busy / wall),
+                   conv_device_ms=conv_ms, depthwise_device_ms=dw_ms,
+                   top_kernels=[dict(name=k[:90], ms=ms, count=n)
+                                for k, ms, n in top])
+    log(f"{name}: convolutions {conv_ms:.3f} ms of the step's device "
+        f"time (forward and backward), of which depthwise {dw_ms:.3f} ms "
+        f"({100 * dw_ms / max(busy, 1e-9):.1f}% of the busy "
+        f"{busy:.3f} ms)")
+    return launches, summary
+
+
+def _mobile_step(make, dev, x, y, dtype=torch.float32):
+    """One train forward and backward of make() (dropout off) on `dev` in
+    `dtype`: logits, loss, gradients and running statistics, on the
+    CPU."""
+    model = make(dev).to(dtype).train()
+    x = x.to(dtype)
+    for m in model.modules():
+        if isinstance(m, pnn.Dropout):
+            m.p = 0.0
+    xd = x.to(dev)
+    if dev == "cuda":
+        xd = xd.contiguous(memory_format=torch.channels_last)
+    logits = model(xd)
+    loss = -torch.log_softmax(logits, -1).gather(1, y.to(dev)[:, None]) \
+        .mean()
+    named = dict(model.named_parameters())
+    grads = torch.autograd.grad(loss, list(named.values()))
+    return dict(logits=logits.detach().cpu(), loss=loss.detach().cpu(),
+                grads={k: g.cpu() for k, g in zip(named, grads)},
+                stats={k: b.cpu() for k, b in model.named_buffers()})
+
+
+def _mobile_hold(name, make):
+    rng = np.random.RandomState(3)
+    x = torch.from_numpy(rng.randn(MOBILE_HOLD_BATCH, 3, MOBILE_HOLD_HW,
+                                   MOBILE_HOLD_HW).astype("float32"))
+    y = torch.from_numpy(rng.randint(0, 10, MOBILE_HOLD_BATCH)
+                         .astype("int64"))
+    gpu, cpu = _mobile_step(make, "cuda", x, y), _mobile_step(make, "cpu",
+                                                             x, y)
+    truth = _mobile_step(make, "cpu", x, y, torch.float64)
+    worst = {}
+    for key in ("logits", "loss"):
+        ok, worst[key] = close(gpu[key], cpu[key], **RESNET_TOL)
+        if not ok:
+            raise AssertionError(f"{name} {key}: card vs CPU {worst[key]}")
+    for k, b in cpu["stats"].items():
+        ok, err = close(gpu["stats"][k], b, **RESNET_TOL)
+        worst["stats"] = max(worst.get("stats", 0.0), err)
+        if not ok:
+            raise AssertionError(f"{name} running stat {k}: {err}")
+    zeros = []
+    for k, g in cpu["grads"].items():
+        if float(truth["grads"][k].abs().max()) < 1e-10:
+            # 0 in exact arithmetic (under 1e-10 in float64 on the CPU): a
+            # BN bias whose output reaches the loss only through a linear
+            # layer and another train-mode BN, which takes the channel's
+            # mean off; f32 rounding noise on both devices, held by its
+            # size
+            zeros.append(k)
+            worst["zero_grads"] = max(worst.get("zero_grads", 0.0),
+                                      float(gpu["grads"][k].abs().max()))
+            if not worst["zero_grads"] < ZERO_GRAD:
+                raise AssertionError(f"{name} gradient {k}: "
+                                     f"{worst['zero_grads']} on the card")
+            continue
+        rel = float((gpu["grads"][k] - g).norm() / g.norm())
+        worst["grads_rel_l2"] = max(worst.get("grads_rel_l2", 0.0), rel)
+        if not (rel <= MOBILE_KINK and torch.isfinite(gpu["grads"][k]).all()):
+            raise AssertionError(f"{name} gradient {k}: relative L2 {rel}")
+    log(f"{name} f32 train step, card vs CPU: max abs logits "
+        f"{worst['logits']:.3g}, loss {worst['loss']:.3g}, running stats "
+        f"{worst['stats']:.3g} (limit {RESNET_TOL}); gradients' worst "
+        f"relative L2 {worst['grads_rel_l2']:.3g} (limit {MOBILE_KINK}); "
+        f"{len(zeros)} gradients 0 in exact arithmetic, at most "
+        f"{worst.get('zero_grads', 0.0):.3g} (limit {ZERO_GRAD})")
+    return worst
+
+
+@phase("mobilenet")
+def mobilenet():
+    """MobileNetV2 and VGG16 training at B=128, 224^2 through
+    vision.train.build_train_step (bf16 over fp32 masters, momentum
+    SGD lr 0.1, dropout live), cuDNN's algorithm search on; then
+    mobilenet_v2(scale=0.25) and vgg11(batch_norm=True) in f32 on the
+    card against the CPU.  Returns {"mobilenet": launches, "vgg16":
+    launches}."""
+    torch.backends.cudnn.benchmark = True
+    out, summary = {}, {}
+    for name, make, lr in (
+            ("mobilenet_v2", lambda: VM.mobilenet_v2(
+                num_classes=MOBILE_CLASSES), MOBILE_LR),
+            ("vgg16", lambda: VM.vgg16(num_classes=MOBILE_CLASSES), VGG_LR)):
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        model = make()
+        n = sum(p.numel() for p in model.parameters())
+        flops = 3 * conv_net_fwd_flops(model, MOBILE_BATCH, MOBILE_HW)
+        log(f"{name}: {n / 1e6:.2f} M parameters, built in "
+            f"{time.perf_counter() - t0:.1f} s; B={MOBILE_BATCH} "
+            f"{MOBILE_HW}x{MOBILE_HW}, bf16 over fp32 masters, lr {lr}, "
+            f"momentum {MOBILE_MOMENTUM}, dropout live")
+        out["mobilenet" if name == "mobilenet_v2" else name], \
+            summary[name] = _mobile_train(name, model, flops, lr)
+        summary[name]["parameters"] = n
+        del model
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.benchmark = False
+    summary["holds"] = {
+        "mobilenet_v2_0.25": _mobile_hold(
+            "mobilenet_v2(scale=0.25)", lambda dev: VM.mobilenet_v2(
+                scale=0.25, num_classes=10, device=dev, seed=2)),
+        "vgg11_bn": _mobile_hold(
+            "vgg11(batch_norm=True)", lambda dev: VM.vgg11(
+                batch_norm=True, num_classes=10, device=dev, seed=2))}
+    summary["card"] = card_line()
+    log("mobilenet summary: " + json.dumps(summary))
+    return out
+
+
+def _cg_program():
+    """tests/torch_cyclegan_program.py, the JAX-free program the parity
+    tests hold against paddle_tpu."""
+    tests = str(Path(__file__).resolve().parent / "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import torch_cyclegan_program as C
+    return C
+
+
+def _cg_hold(C):
+    """The generator cut to CG_HOLD_BLOCKS blocks at ngf 64: an L1 loss
+    of G(x) against y, forward and backward, on the card against the CPU
+    (f32); then the output_padding form against the crop form on the
+    card (the same weights: the same seed and state_dict order)."""
+    cfg = dict(C.HORSE2ZEBRA, n_blocks=CG_HOLD_BLOCKS, size=CG_HOLD_HW)
+    rng = np.random.RandomState(5)
+    x, y = (torch.from_numpy(rng.uniform(-1, 1, (1, 3, CG_HOLD_HW,
+                                                 CG_HOLD_HW))
+                             .astype("float32")) for _ in range(2))
+    res = {}
+    for dev in ("cuda", "cpu"):
+        paddle.set_device(dev)
+        try:
+            g = C.build(paddle, cfg, seed=7)["G_A"].to(dev)
+            out = g(x.to(dev))
+            loss = paddle.nn.L1Loss()(out, y.to(dev))
+            named = dict(g.named_parameters())
+            grads = torch.autograd.grad(loss, list(named.values()))
+            res[dev] = dict(out=out.detach().cpu(), grads={
+                k: v.cpu() for k, v in zip(named, grads)})
+        finally:
+            paddle.set_device("cuda")
+    ok, err = close(res["cuda"]["out"], res["cpu"]["out"], **CG_TOL)
+    if not ok:
+        raise AssertionError(f"cyclegan generator: card vs CPU {err}")
+    # a bias in front of an instance norm has an exact gradient of 0 (the
+    # norm takes the channel's mean off): both devices give rounding
+    # noise there, held by its size, not relatively
+    g_cpu = C.build(paddle, cfg, seed=7)["G_A"]
+    normed = {f"model.{i - 1}.bias" for i, m in enumerate(g_cpu.model)
+              if isinstance(m, pnn.InstanceNorm2D)}
+    normed |= {f"model.{i}.conv_block.{j - 1}.bias"
+               for i, m in enumerate(g_cpu.model)
+               if hasattr(m, "conv_block")
+               for j, n in enumerate(m.conv_block)
+               if isinstance(n, pnn.InstanceNorm2D)}
+    worst, noise = 0.0, 0.0
+    for k, g in res["cpu"]["grads"].items():
+        if k in normed:
+            noise = max(noise, float(res["cuda"]["grads"][k].abs().max()),
+                        float(g.abs().max()))
+            continue
+        rel = float((res["cuda"]["grads"][k] - g).norm()
+                    / g.norm().clamp(min=1e-12))
+        worst = max(worst, rel)
+        if not rel <= RESNET_KINK:
+            raise AssertionError(f"cyclegan gradient {k}: relative L2 {rel}")
+    if not noise <= CG_BIAS_NOISE:
+        raise AssertionError(f"a bias in front of an instance norm has a "
+                             f"gradient of {noise}")
+    with torch.no_grad():
+        a = C.build(paddle, cfg, seed=7)["G_A"].cuda()(x.cuda())
+        b = C.build(paddle, cfg, seed=7, upsample="crop")["G_A"].cuda()(
+            x.cuda())
+    ok, form_err = close(a, b, **CG_TOL)
+    if not ok:
+        raise AssertionError(f"output_padding form vs crop form {form_err}")
+    log(f"cyclegan generator (ngf 64, {CG_HOLD_BLOCKS} blocks, "
+        f"{CG_HOLD_HW}^2) f32, card vs CPU: max abs {err:.3g} (limit "
+        f"{CG_TOL}), gradients' worst relative L2 {worst:.3g} (limit "
+        f"{RESNET_KINK}), the {len(normed)} biases in front of an "
+        f"instance norm at most {noise:.3g} (exact: 0; limit "
+        f"{CG_BIAS_NOISE}); output_padding form vs crop form on the "
+        f"card: max abs {form_err:.3g}")
+    return dict(out_max_abs=err, grads_rel_l2=worst, normed_bias_grad=noise,
+                forms_max_abs=form_err)
+
+
+@phase("cyclegan")
+def cyclegan():
+    """PaddleGAN's CycleGAN at horse2zebra's widths (B=1, 256^2, f32)
+    through the port's 2.x API: two generators and two PatchGAN
+    discriminators, Adam for each pair, the image pools; then the cut
+    generator's holds."""
+    C = _cg_program()
+    cfg = C.HORSE2ZEBRA
+    torch.cuda.empty_cache()
+    # fixed shapes: cuDNN's search, as the resnet phase (without it the
+    # f32 step took 243.76 ms against 97.47 on the H100: PERF.md)
+    torch.backends.cudnn.benchmark = True
+    paddle.set_device("cuda")
+    t0 = time.perf_counter()
+    with unique_name.guard():
+        nets = {k: v.cuda() for k, v in C.build(paddle, cfg, seed=0).items()}
+    opts, pool = C.optimizers(paddle, nets, cfg), C.pools(cfg, seed=0)
+    real_a, real_b = (torch.from_numpy(a).cuda()
+                      for a in C.images(cfg, seed=0))
+    counts = {k: C.n_params(v) for k, v in nets.items()}
+    log(f"cyclegan: parameters G_A {counts['G_A'] / 1e6:.3f} M, G_B "
+        f"{counts['G_B'] / 1e6:.3f} M, D_A {counts['D_A'] / 1e6:.3f} M, "
+        f"D_B {counts['D_B'] / 1e6:.3f} M; built in "
+        f"{time.perf_counter() - t0:.1f} s; B={cfg['batch']} "
+        f"{cfg['size']}^2 f32, Adam {cfg['lr']} (0.5, 0.999)")
+    up = [m for m in nets["G_A"].modules()
+          if isinstance(m, pnn.Conv2DTranspose)][0]
+    seen = {}
+    hook = up.register_forward_hook(
+        lambda m, i, o: seen.__setitem__("edge", o[:, :, -1, :].detach()))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in COUNTERS.values():
+        c.reset()
+    # -- the main path: counters at 0 before, read right after ---------------
+    t0 = time.perf_counter()
+    history = [C.train_step(paddle, nets, opts, pool, real_a, real_b, cfg)]
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    hook.remove()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    with _SyncCount() as syncs:
+        t0 = time.perf_counter()
+        e0.record()
+        for _ in range(CG_TIMED):
+            history.append(C.train_step(paddle, nets, opts, pool, real_a,
+                                        real_b, cfg))
+        e1.record()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / CG_TIMED
+    launches = {n: c.value for n, c in COUNTERS.items()}
+    # --------------------------------------------------------------------------
+    mem = torch.cuda.max_memory_allocated()
+    step_ms = e0.elapsed_time(e1) / CG_TIMED
+    sites = syncs.sites()
+    losses = {k: [float(h[k].detach()) for h in history] for k in history[0]}
+    cycle = [a + b for a, b in zip(losses["cycle_A"], losses["cycle_B"])]
+    log("cyclegan losses: " + "; ".join(
+        f"{k} {' '.join(f'{v:.4f}' for v in vs)}"
+        for k, vs in losses.items()))
+    _expect_launches(launches, 0, (), f"{CG_TIMED + 1} CycleGAN steps")
+    if not all(np.isfinite(v).all() for v in losses.values()):
+        raise AssertionError("a CycleGAN loss is not finite")
+    if not cycle[-1] < cycle[0]:
+        raise AssertionError(f"the cycle loss did not fall: {cycle}")
+    for name, opt in opts.items():
+        for st in opt._state.values():
+            if not all(bool(torch.isfinite(v).all()) for v in st.values()):
+                raise AssertionError(f"a {name} Adam moment is not finite")
+    edge = float(seen["edge"].abs().max())
+    if not edge > 0.0:
+        raise AssertionError("the output_padding row of the first "
+                             "upsampling is zero")
+    syncs_per_step = sum(sites.values()) / CG_TIMED
+    if syncs_per_step:
+        raise AssertionError(f"{syncs_per_step} host syncs a step at {sites}")
+    busy, wall, top = _profile(lambda: C.train_step(
+        paddle, nets, opts, pool, real_a, real_b, cfg), top=10)
+    summary = dict(step_ms=step_ms, host_step_ms=host_ms,
+                   images_per_s=2 * cfg["batch"] / (step_ms / 1e3),
+                   warmup_step_s=warm_s, max_memory_allocated_bytes=mem,
+                   syncs_per_step=syncs_per_step, parameters=counts,
+                   output_padding_row_max_abs=edge, losses=losses,
+                   profiled_busy_ms=busy, profiled_wall_ms=wall,
+                   profiled_idle=max(0.0, 1 - busy / wall),
+                   top_kernels=[dict(name=k[:90], ms=ms, count=n)
+                                for k, ms, n in top])
+    log(f"cyclegan step B={cfg['batch']} {cfg['size']}^2 f32: "
+        f"{step_ms:.3f} ms (CUDA events; host clock {host_ms:.3f} ms), "
+        f"{summary['images_per_s']:.2f} images/s (one A and one B image "
+        f"a step), max_memory_allocated {mem / 2 ** 30:.2f} GiB, host "
+        f"syncs a step {syncs_per_step:.2f}; the first upsampling's "
+        f"output_padding row max |.| {edge:.4g}")
+    del nets, opts, pool
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.benchmark = False
+    summary["hold"] = _cg_hold(C)
+    summary["card"] = card_line()
+    log("cyclegan summary: " + json.dumps(summary))
+    return launches
+
 
 def main():
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4029,9 +4525,12 @@ def main():
     dygraph_path = dygraph_quickstart()
     s2s_paths = seq2seq()
     srl_paths = srl()
+    mobile_paths = mobilenet()
+    gan_path = cyclegan()
     if FAILURES or None in (rows, probed, served, decoded, trained, library,
                             resnet_path, fluid_path, wmt_paths, hapi_path,
-                            dygraph_path, s2s_paths, srl_paths):
+                            dygraph_path, s2s_paths, srl_paths,
+                            mobile_paths, gan_path):
         log(f"FAILED phases: {FAILURES}")
         print(f"FAILED phases: {FAILURES}", file=sys.stderr, flush=True)
         sys.exit(1)
@@ -4040,7 +4539,7 @@ def main():
              "probe": probed[1], "library_train": library,
              "resnet": resnet_path, "fluid": fluid_path, **wmt_paths,
              "hapi": hapi_path, "dygraph": dygraph_path, **s2s_paths,
-             **srl_paths}
+             **srl_paths, **mobile_paths, "cyclegan": gan_path}
     for r in rows:
         # `launches` is the count on the path where the kernel runs: the
         # probe for its three kernels, the decode path for ragged_paged,

@@ -16,7 +16,7 @@ paddle_tpu/fluid/layers/compat.py), as far as the port has the rules:
     `fluid.layers.rnn.dynamic_gru` computes.
 
 The reference's other wrappers wait for their rules (ROADMAP queue 1
-items 6, 8 and 12).
+items 8 and 12).
 """
 
 from __future__ import annotations
@@ -121,6 +121,57 @@ stanh = _static_op("stanh", ["X"],
 
 mish = _static_op("mish", ["X"], attr_names=("threshold",))
 size = _static_op("size", ["Input"], out_dtype="int64")
+
+# -- the nn and vision buckets' wrappers ----------------------------------------
+
+affine_channel = _static_op("affine_channel", ["X", "Scale", "Bias"])
+_affine_grid_op = _static_op("affine_grid", ["Theta", "OutputShape"],
+                             out_slot="Output")
+__all__.remove("affine_grid")
+
+
+def affine_grid(theta, out_shape, name=None):
+    """out_shape a Python list (the attr) or a Variable (the tensor
+    slot), as the reference takes it."""
+    if isinstance(out_shape, (list, tuple)):
+        return _affine_grid_op(theta, None,
+                               output_shape=[int(v) for v in out_shape])
+    return _affine_grid_op(theta, out_shape)
+
+
+__all__.append("affine_grid")
+bpr_loss = _static_op("bpr_loss", ["X", "Label"], out_slot="Y")
+grid_sampler = _static_op("grid_sampler", ["X", "Grid"],
+                          out_slot="Output")
+pad_constant_like = _static_op("pad_constant_like", ["X", "Y"])
+pixel_shuffle = _static_op("pixel_shuffle", ["X"],
+                           attr_names=("upscale_factor",))
+pool3d = _static_op("pool3d", ["X"])
+rank_loss = _static_op("rank_loss", ["Label", "Left", "Right"])
+margin_rank_loss = _static_op("margin_rank_loss", ["Label", "X1", "X2"],
+                              attr_names=("margin",))
+space_to_depth = _static_op("space_to_depth", ["X"],
+                            attr_names=("blocksize",))
+temporal_shift = _static_op("temporal_shift", ["X"],
+                            attr_names=("seg_num", "shift_ratio"))
+lrn = _static_op("lrn", ["X"], attr_names=("n", "k", "alpha", "beta"))
+deformable_conv = _static_op("deformable_conv",
+                             ["Input", "Offset", "Mask", "Filter"],
+                             out_slot="Output")
+resize_trilinear = _static_op("trilinear_interp", ["X"])
+resize_linear = _static_op("linear_interp", ["X"])
+selu = _static_op("selu", ["X"], attr_names=("scale", "alpha"))
+hsigmoid = _static_op("hierarchical_sigmoid", ["X", "Label", "W", "Bias"],
+                      extra_out_slots=("PreOut",))
+crop_tensor = _static_op("crop_tensor", ["X", "Shape", "Offsets"])
+crop = crop_tensor
+__all__.append("crop")
+# the factory appended op names where the Python name differs
+for _wrong, _right in [("trilinear_interp", "resize_trilinear"),
+                       ("linear_interp", "resize_linear"),
+                       ("hierarchical_sigmoid", "hsigmoid")]:
+    __all__.remove(_wrong)
+    __all__.append(_right)
 
 
 def scatter_nd(index, updates, shape, name=None):

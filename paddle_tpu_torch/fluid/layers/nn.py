@@ -1,10 +1,14 @@
 """Neural-network layers (counterpart of paddle_tpu/fluid/layers/nn.py):
 the layers of the ported programs (fc, embedding, conv2d, the pools,
 batch_norm), the activation, math, compare, logical, reduce and
-elementwise wrappers, and the CTC and CRF layers.  Each layer creates
-its parameters through LayerHelper and appends ops; the work is in the
-op rules (paddle_tpu_torch/ops/).  The reference's layers whose rules
-are not ported yet are left out (ROADMAP queue 1 items 6 and 8)."""
+elementwise wrappers, the CTC and CRF layers, and the layers of the nn
+bucket's rules (the transposed and 3-D convolutions, the norms,
+dropout, prelu, maxout, label_smooth, unfold, the resizes,
+bilinear_tensor_product, spectral_norm, data_norm, nce,
+deform_conv2d).  Each layer creates its parameters through LayerHelper
+and appends ops; the work is in the op rules (paddle_tpu_torch/ops/).
+The reference's layers whose rules are not ported yet are left out
+(ROADMAP queue 1 item 8)."""
 
 from __future__ import annotations
 
@@ -29,6 +33,11 @@ __all__ = [
     "logical_not", "logical_xor", "maximum", "minimum", "cumsum",
     "isfinite", "warpctc", "ctc_greedy_decoder", "edit_distance",
     "linear_chain_crf", "crf_decoding", "row_conv",
+    "conv2d_transpose", "conv3d", "layer_norm", "instance_norm",
+    "group_norm", "dropout", "prelu", "maxout", "label_smooth", "unfold",
+    "image_resize", "resize_nearest", "resize_bilinear", "interpolate",
+    "bilinear_tensor_product", "spectral_norm", "data_norm", "nce",
+    "deform_conv2d", "conv3d_transpose",
 ]
 
 
@@ -700,4 +709,453 @@ def row_conv(input, future_context_size, param_attr=None, act=None):
     out = helper.create_variable_for_type_inference(dtype=input.dtype)
     helper.append_op("row_conv", inputs={"X": [input], "Filter": [w]},
                      outputs={"Out": [out]})
+    return helper.append_activation(out, act)
+
+
+# -- the layers of the nn bucket's rules (nn.py:131-1234 of the reference) --
+
+def conv2d_transpose(input, num_filters, output_size=None, filter_size=None,
+                     padding=0, stride=1, dilation=1, groups=1,
+                     param_attr=None, bias_attr=None, use_cudnn=True,
+                     act=None, name=None):
+    helper = LayerHelper("conv2d_transpose", name=name, act=act)
+    stride = [stride, stride] if isinstance(stride, int) else list(stride)
+    dilation = ([dilation, dilation] if isinstance(dilation, int)
+                else list(dilation))
+    padding = ([padding, padding] if isinstance(padding, int)
+               else list(padding))
+    if filter_size is None:
+        assert output_size is not None
+        output_size = ([output_size, output_size]
+                       if isinstance(output_size, int) else list(output_size))
+        h_in, w_in = input.shape[2], input.shape[3]
+        filter_size = [
+            (output_size[0] - (h_in - 1) * stride[0] + 2 * padding[0]
+             - 1) // dilation[0] + 1,
+            (output_size[1] - (w_in - 1) * stride[1] + 2 * padding[1]
+             - 1) // dilation[1] + 1]
+    elif isinstance(filter_size, int):
+        filter_size = [filter_size, filter_size]
+    channels = input.shape[1]
+    w = helper.create_parameter(
+        param_attr, shape=[channels, num_filters // groups] + filter_size,
+        dtype=input.dtype)
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    helper.append_op("conv2d_transpose",
+                     inputs={"Input": [input], "Filter": [w]},
+                     outputs={"Output": [out]},
+                     attrs={"strides": stride, "paddings": padding,
+                            "dilations": dilation, "groups": groups,
+                            "padding_algorithm": "EXPLICIT"})
+    if bias_attr is not False:
+        b = helper.create_parameter(bias_attr, shape=[num_filters],
+                                    dtype=input.dtype, is_bias=True)
+        if b is not None:
+            pre = helper.create_variable_for_type_inference(input.dtype)
+            helper.append_op("elementwise_add", inputs={"X": [out], "Y": [b]},
+                             outputs={"Out": [pre]}, attrs={"axis": 1})
+            out = pre
+    return helper.append_activation(out, act)
+
+
+def conv3d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
+           groups=1, param_attr=None, bias_attr=None, act=None, name=None):
+    helper = LayerHelper("conv3d", name=name, act=act)
+    fs = ([filter_size] * 3 if isinstance(filter_size, int)
+          else list(filter_size))
+    stride = [stride] * 3 if isinstance(stride, int) else list(stride)
+    padding = [padding] * 3 if isinstance(padding, int) else list(padding)
+    dilation = [dilation] * 3 if isinstance(dilation, int) else list(dilation)
+    channels = input.shape[1]
+    w = helper.create_parameter(param_attr,
+                                shape=[num_filters, channels // groups] + fs,
+                                dtype=input.dtype)
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    helper.append_op("conv3d", inputs={"Input": [input], "Filter": [w]},
+                     outputs={"Output": [out]},
+                     attrs={"strides": stride, "paddings": padding,
+                            "dilations": dilation, "groups": groups,
+                            "padding_algorithm": "EXPLICIT"})
+    if bias_attr is not False:
+        b = helper.create_parameter(bias_attr, shape=[num_filters],
+                                    dtype=input.dtype, is_bias=True)
+        if b is not None:
+            pre = helper.create_variable_for_type_inference(input.dtype)
+            helper.append_op("elementwise_add", inputs={"X": [out], "Y": [b]},
+                             outputs={"Out": [pre]}, attrs={"axis": 1})
+            out = pre
+    return helper.append_activation(out, act)
+
+
+def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,
+               epsilon=1e-5, param_attr=None, bias_attr=None, act=None,
+               name=None):
+    helper = LayerHelper("layer_norm", name=name, act=act)
+    dtype = input.dtype
+    norm_size = 1
+    for s in input.shape[begin_norm_axis:]:
+        norm_size *= int(s)
+    inputs = {"X": [input]}
+    if scale:
+        s_p = helper.create_parameter(param_attr, shape=[norm_size],
+                                      dtype=dtype,
+                                      default_initializer=ConstantInitializer(1.0))
+        inputs["Scale"] = [s_p]
+    if shift:
+        b_p = helper.create_parameter(bias_attr, shape=[norm_size],
+                                      dtype=dtype, is_bias=True)
+        if b_p is not None:
+            inputs["Bias"] = [b_p]
+    y = helper.create_variable_for_type_inference(dtype)
+    mean = helper.create_variable_for_type_inference(dtype, stop_gradient=True)
+    var = helper.create_variable_for_type_inference(dtype, stop_gradient=True)
+    helper.append_op("layer_norm", inputs=inputs,
+                     outputs={"Y": [y], "Mean": [mean], "Variance": [var]},
+                     attrs={"epsilon": epsilon,
+                            "begin_norm_axis": begin_norm_axis})
+    return helper.append_activation(y, act)
+
+
+def instance_norm(input, epsilon=1e-5, param_attr=None, bias_attr=None,
+                  name=None):
+    helper = LayerHelper("instance_norm", name=name)
+    c = input.shape[1]
+    dtype = input.dtype
+    inputs = {"X": [input]}
+    if param_attr is not False:
+        scale = helper.create_parameter(param_attr, shape=[c], dtype=dtype,
+                                        default_initializer=ConstantInitializer(1.0))
+        inputs["Scale"] = [scale]
+    if bias_attr is not False:
+        bias = helper.create_parameter(bias_attr, shape=[c], dtype=dtype,
+                                       is_bias=True)
+        inputs["Bias"] = [bias]
+    y = helper.create_variable_for_type_inference(dtype)
+    sm = helper.create_variable_for_type_inference(dtype, stop_gradient=True)
+    sv = helper.create_variable_for_type_inference(dtype, stop_gradient=True)
+    helper.append_op("instance_norm", inputs=inputs,
+                     outputs={"Y": [y], "SavedMean": [sm],
+                              "SavedVariance": [sv]},
+                     attrs={"epsilon": epsilon})
+    return y
+
+
+def group_norm(input, groups, epsilon=1e-5, param_attr=None, bias_attr=None,
+               act=None, data_layout="NCHW", name=None):
+    helper = LayerHelper("group_norm", name=name, act=act)
+    c = input.shape[1]
+    dtype = input.dtype
+    inputs = {"X": [input]}
+    if param_attr is not False:
+        scale = helper.create_parameter(param_attr, shape=[c], dtype=dtype,
+                                        default_initializer=ConstantInitializer(1.0))
+        inputs["Scale"] = [scale]
+    if bias_attr is not False:
+        bias = helper.create_parameter(bias_attr, shape=[c], dtype=dtype,
+                                       is_bias=True)
+        inputs["Bias"] = [bias]
+    y = helper.create_variable_for_type_inference(dtype)
+    mean = helper.create_variable_for_type_inference(dtype, stop_gradient=True)
+    var = helper.create_variable_for_type_inference(dtype, stop_gradient=True)
+    helper.append_op("group_norm", inputs=inputs,
+                     outputs={"Y": [y], "Mean": [mean], "Variance": [var]},
+                     attrs={"epsilon": epsilon, "groups": groups})
+    return helper.append_activation(y, act)
+
+
+def dropout(x, dropout_prob, is_test=False, seed=None, name=None,
+            dropout_implementation="downgrade_in_infer"):
+    helper = LayerHelper("dropout", name=name)
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    mask = helper.create_variable_for_type_inference(dtype="uint8",
+                                                     stop_gradient=True)
+    helper.append_op("dropout", inputs={"X": [x]},
+                     outputs={"Out": [out], "Mask": [mask]},
+                     attrs={"dropout_prob": dropout_prob, "is_test": is_test,
+                            "seed": seed or 0, "fix_seed": seed is not None,
+                            "dropout_implementation": dropout_implementation})
+    return out
+
+
+def prelu(x, mode="all", param_attr=None, name=None):
+    helper = LayerHelper("prelu", name=name)
+    if mode == "all":
+        alpha_shape = [1]
+    elif mode == "channel":
+        alpha_shape = [x.shape[1]]
+    else:
+        alpha_shape = list(x.shape[1:])
+    alpha = helper.create_parameter(param_attr, shape=alpha_shape,
+                                    dtype=x.dtype,
+                                    default_initializer=ConstantInitializer(0.25))
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op("prelu", inputs={"X": [x], "Alpha": [alpha]},
+                     outputs={"Out": [out]}, attrs={"mode": mode})
+    return out
+
+
+def maxout(x, groups, name=None, axis=1):
+    helper = LayerHelper("maxout", name=name)
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op("maxout", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"groups": groups, "axis": axis})
+    return out
+
+
+def label_smooth(label, prior_dist=None, epsilon=0.1, dtype="float32",
+                 name=None):
+    helper = LayerHelper("label_smooth", name=name)
+    out = helper.create_variable_for_type_inference(dtype=dtype)
+    ins = {"X": [label]}
+    if prior_dist is not None:
+        ins["PriorDist"] = [prior_dist]
+    helper.append_op("label_smooth", inputs=ins, outputs={"Out": [out]},
+                     attrs={"epsilon": float(epsilon)})
+    return out
+
+
+def unfold(x, kernel_sizes, strides=1, paddings=0, dilations=1, name=None):
+    """im2col patches (reference layers/nn.py unfold; unfold_op.cc)."""
+    pair = lambda v: [v, v] if isinstance(v, int) else list(v)
+    helper = LayerHelper("unfold", name=name)
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op("unfold", inputs={"X": [x]}, outputs={"Y": [out]},
+                     attrs={"kernel_sizes": pair(kernel_sizes),
+                            "strides": pair(strides),
+                            "paddings": pair(paddings),
+                            "dilations": pair(dilations)})
+    return out
+
+
+def image_resize(input, out_shape=None, scale=None, resample="BILINEAR",
+                 name=None):
+    op = ("bilinear_interp_v2" if resample.upper() == "BILINEAR"
+          else "nearest_interp_v2")
+    helper = LayerHelper("image_resize", name=name)
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    attrs = {}
+    if out_shape is not None:
+        attrs["out_h"], attrs["out_w"] = int(out_shape[0]), int(out_shape[1])
+    else:
+        attrs["out_h"] = attrs["out_w"] = -1
+        attrs["scale"] = scale
+    helper.append_op(op, inputs={"X": [input]}, outputs={"Out": [out]},
+                     attrs=attrs)
+    return out
+
+
+def resize_nearest(input, out_shape=None, scale=None, name=None):
+    return image_resize(input, out_shape, scale, "NEAREST", name)
+
+
+def resize_bilinear(input, out_shape=None, scale=None, name=None):
+    return image_resize(input, out_shape, scale, "BILINEAR", name)
+
+
+def interpolate(input, out_shape=None, scale=None, mode="nearest",
+                align_corners=False, name=None):
+    return image_resize(input, out_shape, scale,
+                        "BILINEAR" if mode == "bilinear" else "NEAREST", name)
+
+
+def bilinear_tensor_product(x, y, size, act=None, name=None,
+                            param_attr=None, bias_attr=None):
+    """reference layers/nn.py bilinear_tensor_product: out_k = x W_k y^T
+    (+ bias, + act), weight (size, x_dim, y_dim)."""
+    helper = LayerHelper("bilinear_tensor_product", name=name)
+    w = helper.create_parameter(
+        param_attr, shape=[size, int(x.shape[1]), int(y.shape[1])],
+        dtype=x.dtype)
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op("bilinear_tensor_product",
+                     inputs={"X": [x], "Y": [y], "Weight": [w]},
+                     outputs={"Out": [out]})
+    out = helper.append_bias_op(out, bias_attr)
+    return helper.append_activation(out, act)
+
+
+def spectral_norm(weight, dim=0, power_iters=1, eps=1e-12, name=None):
+    """reference layers/nn.py spectral_norm: weight normalized by its
+    largest singular value via power iteration; u/v are persistable
+    power-iteration state."""
+    helper = LayerHelper("spectral_norm", name=name)
+    shape = [int(s) for s in weight.shape]
+    h = shape[dim]
+    w = 1
+    for i, s in enumerate(shape):
+        if i != dim:
+            w *= s
+    from ..initializer import NormalInitializer
+
+    u = helper.create_parameter(
+        None, shape=[h], dtype=weight.dtype,
+        default_initializer=NormalInitializer(0.0, 1.0))
+    v = helper.create_parameter(
+        None, shape=[w], dtype=weight.dtype,
+        default_initializer=NormalInitializer(0.0, 1.0))
+    u.stop_gradient = True
+    v.stop_gradient = True
+    out = helper.create_variable_for_type_inference(dtype=weight.dtype)
+    # U/V outputs alias the persistable vectors so the power iteration
+    # REFINES across steps (the kernel persists them only when these
+    # slots are declared — same pattern as batch_norm's MeanOut)
+    helper.append_op("spectral_norm",
+                     inputs={"Weight": [weight], "U": [u], "V": [v]},
+                     outputs={"Out": [out], "U": [u], "V": [v]},
+                     attrs={"dim": dim, "power_iters": power_iters,
+                            "eps": eps})
+    return out
+
+
+def data_norm(input, act=None, epsilon=1e-5, param_attr=None,
+              enable_scale_and_shift=False, name=None, moving_mean_name=None,
+              moving_variance_name=None, do_model_average_for_mean_and_var=True,
+              slot_dim=-1, summary_decay_rate=0.9999999):
+    """reference layers/nn.py data_norm: normalization by accumulated
+    batch statistics (CTR models); the three stat tensors are
+    persistable state initialized like the reference (size ~0, sum 0,
+    square-sum ~0 -> initial mean 0 / scale 1)."""
+    from ..initializer import ConstantInitializer
+
+    if enable_scale_and_shift:
+        raise NotImplementedError(
+            "data_norm(enable_scale_and_shift=True) is not supported "
+            "on this build; apply an explicit fc/elementwise affine "
+            "after data_norm instead (silently dropping the learnable "
+            "affine would change model capacity)")
+    helper = LayerHelper("data_norm", name=name)
+    c = int(input.shape[-1])
+    batch_size = helper.create_parameter(
+        None, shape=[c], dtype=input.dtype,
+        default_initializer=ConstantInitializer(1e4))
+    batch_sum = helper.create_parameter(
+        None, shape=[c], dtype=input.dtype,
+        default_initializer=ConstantInitializer(0.0))
+    batch_square_sum = helper.create_parameter(
+        None, shape=[c], dtype=input.dtype,
+        default_initializer=ConstantInitializer(1e4))
+    for t in (batch_size, batch_sum, batch_square_sum):
+        t.stop_gradient = True
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    # the *Out slots alias the persistable stats so they ACCUMULATE
+    # across steps (the kernel only writes them when declared)
+    helper.append_op("data_norm",
+                     inputs={"X": [input], "BatchSize": [batch_size],
+                             "BatchSum": [batch_sum],
+                             "BatchSquareSum": [batch_square_sum]},
+                     outputs={"Y": [out],
+                              "BatchSizeOut": [batch_size],
+                              "BatchSumOut": [batch_sum],
+                              "BatchSquareSumOut": [batch_square_sum]},
+                     attrs={"epsilon": epsilon})
+    return helper.append_activation(out, act)
+
+
+def nce(input, label, num_total_classes, sample_weight=None,
+        param_attr=None, bias_attr=None, num_neg_samples=None, name=None,
+        sampler="uniform", custom_dist=None, seed=0, is_sparse=False):
+    """reference layers/nn.py nce (noise-contrastive estimation loss)."""
+    if sampler != "uniform" or custom_dist is not None:
+        raise NotImplementedError(
+            f"nce sampler={sampler!r}/custom_dist is not supported on "
+            "this build (the lowering draws uniform noise); running a "
+            "different distribution silently would change the loss")
+    helper = LayerHelper("nce", name=name)
+    dim = int(input.shape[-1])
+    w = helper.create_parameter(param_attr,
+                                shape=[num_total_classes, dim],
+                                dtype=input.dtype)
+    b = helper.create_parameter(bias_attr, shape=[num_total_classes, 1],
+                                dtype=input.dtype, is_bias=True)
+    cost = helper.create_variable_for_type_inference(dtype=input.dtype)
+    helper.append_op("nce",
+                     inputs={"Input": [input], "Label": [label],
+                             "Weight": [w], "Bias": [b]},
+                     outputs={"Cost": [cost]},
+                     attrs={"num_total_classes": num_total_classes,
+                            "num_neg_samples": num_neg_samples or 10,
+                            "seed": seed, "sampler": 0},
+                     infer_shape=False)
+    return cost
+
+
+def deform_conv2d(x, offset, mask, num_filters, filter_size, stride=1,
+                  padding=0, dilation=1, groups=1, deformable_groups=1,
+                  im2col_step=1, weight_attr=None, bias_attr=None,
+                  name=None):
+    """reference static/nn/common.py deform_conv2d over the
+    deformable_conv lowering."""
+    helper = LayerHelper("deformable_conv", name=name)
+    c_in = int(x.shape[1])
+    k = [filter_size, filter_size] if isinstance(filter_size, int) \
+        else list(filter_size)
+    w = helper.create_parameter(
+        weight_attr, shape=[num_filters, c_in // groups] + k,
+        dtype=x.dtype)
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    pair = lambda v: [v, v] if isinstance(v, int) else list(v)
+    ins = {"Input": [x], "Offset": [offset], "Filter": [w]}
+    if mask is not None:
+        ins["Mask"] = [mask]
+    helper.append_op("deformable_conv", inputs=ins,
+                     outputs={"Output": [out]},
+                     attrs={"strides": pair(stride),
+                            "paddings": pair(padding),
+                            "dilations": pair(dilation),
+                            "groups": groups,
+                            "deformable_groups": deformable_groups,
+                            "im2col_step": im2col_step})
+    # per-FILTER bias on the channel axis (append_bias_op would size
+    # it by the trailing spatial dim and broadcast per column)
+    if bias_attr is not False:
+        b = helper.create_parameter(bias_attr, shape=[num_filters],
+                                    dtype=x.dtype, is_bias=True)
+        if b is not None:
+            pre = helper.create_variable_for_type_inference(x.dtype)
+            helper.append_op("elementwise_add",
+                             inputs={"X": [out], "Y": [b]},
+                             outputs={"Out": [pre]}, attrs={"axis": 1})
+            out = pre
+    return out
+
+
+def conv3d_transpose(input, num_filters, output_size=None,
+                     filter_size=None, padding=0, stride=1, dilation=1,
+                     groups=1, param_attr=None, bias_attr=None,
+                     use_cudnn=True, act=None, name=None,
+                     data_format="NCDHW"):
+    """reference layers/nn.py conv3d_transpose over the
+    conv3d_transpose lowering."""
+    helper = LayerHelper("conv3d_transpose", name=name, act=act)
+    trip = lambda v: [v] * 3 if isinstance(v, int) else list(v)
+    stride, dilation, padding = trip(stride), trip(dilation), trip(padding)
+    assert filter_size is not None, \
+        "conv3d_transpose requires filter_size on this build"
+    if output_size is not None:
+        raise NotImplementedError(
+            "conv3d_transpose(output_size=...) is not supported here "
+            "(the reference uses it to disambiguate stride>1 output "
+            "shapes); size the output via filter_size/stride/padding")
+    filter_size = trip(filter_size)
+    channels = int(input.shape[1])
+    w = helper.create_parameter(
+        param_attr, shape=[channels, num_filters // groups] + filter_size,
+        dtype=input.dtype)
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    helper.append_op("conv3d_transpose",
+                     inputs={"Input": [input], "Filter": [w]},
+                     outputs={"Output": [out]},
+                     attrs={"strides": stride, "paddings": padding,
+                            "dilations": dilation, "groups": groups,
+                            "padding_algorithm": "EXPLICIT",
+                            "data_format": data_format})
+    if bias_attr is not False:
+        b = helper.create_parameter(bias_attr, shape=[num_filters],
+                                    dtype=input.dtype, is_bias=True)
+        if b is not None:
+            pre = helper.create_variable_for_type_inference(input.dtype)
+            helper.append_op("elementwise_add",
+                             inputs={"X": [out], "Y": [b]},
+                             outputs={"Out": [pre]}, attrs={"axis": 1})
+            out = pre
     return helper.append_activation(out, act)

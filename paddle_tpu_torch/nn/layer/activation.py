@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 from .. import functional as F
+from ..initializer import Constant
 from .layers import Layer
 
 
@@ -25,7 +26,158 @@ class GELU(Layer):
         return F.gelu(x, self.approximate)
 
 
+class Sigmoid(Layer):
+    def forward(self, x):
+        return F.sigmoid(x)
+
+
 class Tanh(Layer):
     def forward(self, x):
         return F.tanh(x)
 
+
+class LeakyReLU(Layer):
+    def __init__(self, negative_slope=0.01, name=None):
+        super().__init__()
+        self._slope = negative_slope
+
+    def forward(self, x):
+        return F.leaky_relu(x, self._slope)
+
+
+class ELU(Layer):
+    def __init__(self, alpha=1.0, name=None):
+        super().__init__()
+        self._alpha = alpha
+
+    def forward(self, x):
+        return F.elu(x, self._alpha)
+
+
+class SELU(Layer):
+    def __init__(self, scale=1.0507009873554805, alpha=1.6732632423543772,
+                 name=None):
+        super().__init__()
+        self._scale, self._alpha = scale, alpha
+
+    def forward(self, x):
+        return F.selu(x, self._scale, self._alpha)
+
+
+class Softmax(Layer):
+    def __init__(self, axis=-1, name=None):
+        super().__init__()
+        self._axis = axis
+
+    def forward(self, x):
+        return F.softmax(x, self._axis)
+
+
+class LogSoftmax(Layer):
+    def __init__(self, axis=-1, name=None):
+        super().__init__()
+        self._axis = axis
+
+    def forward(self, x):
+        return F.log_softmax(x, self._axis)
+
+
+class Softplus(Layer):
+    def __init__(self, beta=1.0, threshold=20.0, name=None):
+        super().__init__()
+        self._beta, self._threshold = beta, threshold
+
+    def forward(self, x):
+        return F.softplus(x, self._beta, self._threshold)
+
+
+class Softshrink(Layer):
+    def __init__(self, threshold=0.5, name=None):
+        super().__init__()
+        self._threshold = threshold
+
+    def forward(self, x):
+        return F.softshrink(x, self._threshold)
+
+
+class Hardshrink(Layer):
+    def __init__(self, threshold=0.5, name=None):
+        super().__init__()
+        self._threshold = threshold
+
+    def forward(self, x):
+        return F.hardshrink(x, self._threshold)
+
+
+class Hardsigmoid(Layer):
+    def forward(self, x):
+        return F.hardsigmoid(x)
+
+
+class Hardswish(Layer):
+    def forward(self, x):
+        return F.hardswish(x)
+
+
+class Hardtanh(Layer):
+    def __init__(self, min=-1.0, max=1.0, name=None):
+        super().__init__()
+        self._min, self._max = min, max
+
+    def forward(self, x):
+        return F.hardtanh(x, self._min, self._max)
+
+
+class Swish(Layer):
+    def forward(self, x):
+        return F.swish(x)
+
+
+class Silu(Layer):
+    def forward(self, x):
+        return F.silu(x)
+
+
+class Mish(Layer):
+    def forward(self, x):
+        return F.mish(x)
+
+
+class Tanhshrink(Layer):
+    def forward(self, x):
+        return F.tanhshrink(x)
+
+
+class ThresholdedReLU(Layer):
+    def __init__(self, threshold=1.0, name=None):
+        super().__init__()
+        self._threshold = threshold
+
+    def forward(self, x):
+        return F.thresholded_relu(x, self._threshold)
+
+
+class PReLU(Layer):
+    """x where x >= 0, else weight x; `weight` has `num_parameters`
+    values, `init` each (the prelu op's mode 'all', as the reference
+    runs it: more than one value raises in its forward and here)."""
+
+    def __init__(self, num_parameters=1, init=0.25, weight_attr=None,
+                 data_format="NCHW", name=None):
+        super().__init__()
+        self._data_format = data_format
+        self.weight = self.create_parameter(
+            [num_parameters], weight_attr,
+            default_initializer=Constant(init))
+
+    def forward(self, x):
+        return F.prelu(x, self.weight, self._data_format)
+
+
+class Maxout(Layer):
+    def __init__(self, groups, axis=1, name=None):
+        super().__init__()
+        self._groups, self._axis = groups, axis
+
+    def forward(self, x):
+        return F.maxout(x, self._groups, self._axis)

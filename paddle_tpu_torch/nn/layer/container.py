@@ -1,4 +1,5 @@
-"""Sequential (counterpart of paddle_tpu/nn/layer/container.py)."""
+"""Containers (counterpart of paddle_tpu/nn/layer/container.py):
+Sequential, LayerList and ParameterList."""
 
 from __future__ import annotations
 
@@ -36,3 +37,66 @@ class Sequential(Layer):
         for layer in self._modules.values():
             x = layer(x)
         return x
+
+
+class LayerList(Layer):
+    """A list of sublayers named "0", "1", ... (reference :41)."""
+
+    def __init__(self, sublayers=None):
+        super().__init__()
+        for i, layer in enumerate(sublayers or []):
+            self.add_sublayer(str(i), layer)
+
+    def __getitem__(self, idx):
+        layers = list(self._modules.values())
+        if isinstance(idx, slice):
+            return LayerList(layers[idx])
+        return layers[idx]
+
+    def __setitem__(self, idx, layer):
+        keys = list(self._modules)
+        self._modules[keys[idx]] = layer
+
+    def __len__(self):
+        return len(self._modules)
+
+    def __iter__(self):
+        return iter(self._modules.values())
+
+    def append(self, layer):
+        self.add_sublayer(str(len(self._modules)), layer)
+        return self
+
+    def insert(self, index, layer):
+        layers = list(self._modules.values())
+        layers.insert(index, layer)
+        self._modules.clear()
+        for i, sub in enumerate(layers):
+            self._modules[str(i)] = sub
+
+    def extend(self, layers):
+        for layer in layers:
+            self.append(layer)
+        return self
+
+
+class ParameterList(Layer):
+    """A list of parameters named "0", "1", ... (reference :81)."""
+
+    def __init__(self, parameters=None):
+        super().__init__()
+        for i, p in enumerate(parameters or []):
+            self.add_parameter(str(i), p)
+
+    def __getitem__(self, idx):
+        return list(self._parameters.values())[idx]
+
+    def __len__(self):
+        return len(self._parameters)
+
+    def __iter__(self):
+        return iter(self._parameters.values())
+
+    def append(self, parameter):
+        self.add_parameter(str(len(self._parameters)), parameter)
+        return self

@@ -46,9 +46,9 @@ class Parameter(nn.Parameter):
     (the learning-rate multiplier), `regularizer` and `need_clip`.
     Arithmetic on it gives plain tensors, as on any nn.Parameter."""
 
-    def __new__(cls, data, name=None, trainable=True, optimize_attr=None,
+    def __new__(cls, value, name=None, trainable=True, optimize_attr=None,
                 regularizer=None, need_clip=True):
-        p = super().__new__(cls, data, requires_grad=bool(trainable))
+        p = super().__new__(cls, value, requires_grad=bool(trainable))
         p._name = name or unique_name.generate("param")
         p.optimize_attr = dict(optimize_attr or {"learning_rate": 1.0})
         p.regularizer = regularizer

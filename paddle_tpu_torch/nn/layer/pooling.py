@@ -53,3 +53,34 @@ class AdaptiveMaxPool2D(Layer):
 
     def forward(self, x):
         return F.adaptive_max_pool2d(x, self.output_size, self.return_mask)
+
+
+class MaxPool1D(Layer):
+    """max_pool2d over (B, C, 1, L); the stride defaults to the kernel."""
+
+    def __init__(self, kernel_size, stride=None, padding=0,
+                 return_mask=False, ceil_mode=False, name=None):
+        super().__init__()
+        self.ksize, self.stride = kernel_size, stride or kernel_size
+        self.padding, self.ceil_mode = padding, ceil_mode
+        self.return_mask = return_mask
+
+    def forward(self, x):
+        return F.max_pool1d(x, self.ksize, self.stride, self.padding,
+                            self.return_mask, self.ceil_mode)
+
+
+class AvgPool1D(Layer):
+    """avg_pool2d over (B, C, 1, L), exclusive (the reference passes no
+    `exclusive`: False raises)."""
+
+    def __init__(self, kernel_size, stride=None, padding=0, exclusive=True,
+                 ceil_mode=False, name=None):
+        super().__init__()
+        self.ksize, self.stride = kernel_size, stride or kernel_size
+        self.padding, self.ceil_mode = padding, ceil_mode
+        self.exclusive = exclusive
+
+    def forward(self, x):
+        return F.avg_pool1d(x, self.ksize, self.stride, self.padding,
+                            self.exclusive, self.ceil_mode)

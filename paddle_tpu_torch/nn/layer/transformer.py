@@ -40,22 +40,36 @@ class MultiHeadAttention(Layer):
     StaticCache = collections.namedtuple("StaticCache", ["k", "v"])
 
     def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0,
+                 kdim: Optional[int] = None, vdim: Optional[int] = None,
+                 need_weights: bool = False, weight_attr=None,
+                 bias_attr=None, *,
                  weight_init: Optional[Initializer] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         if embed_dim % num_heads:
             raise ValueError(f"embed_dim {embed_dim} is not a multiple of "
                              f"num_heads {num_heads}")
+        if need_weights:
+            # the reference stores the flag and never returns weights
+            raise NotImplementedError(
+                "need_weights=True: the reference returns no attention "
+                "weights (ROADMAP queue 3)")
         self.embed_dim = embed_dim
+        self.kdim, self.vdim = kdim or embed_dim, vdim or embed_dim
         self.num_heads = num_heads
         self.head_dim = embed_dim // num_heads
         self.dropout = dropout
+        self.need_weights = need_weights
         self.generator = generator
         kw = dict(weight_init=weight_init, generator=generator)
-        self.q_proj = Linear(embed_dim, embed_dim, **kw)
-        self.k_proj = Linear(embed_dim, embed_dim, **kw)
-        self.v_proj = Linear(embed_dim, embed_dim, **kw)
-        self.out_proj = Linear(embed_dim, embed_dim, **kw)
+        self.q_proj = Linear(embed_dim, embed_dim, weight_attr, bias_attr,
+                             **kw)
+        self.k_proj = Linear(self.kdim, embed_dim, weight_attr, bias_attr,
+                             **kw)
+        self.v_proj = Linear(self.vdim, embed_dim, weight_attr, bias_attr,
+                             **kw)
+        self.out_proj = Linear(embed_dim, embed_dim, weight_attr, bias_attr,
+                               **kw)
 
     def _split_heads(self, x):
         return x.reshape(x.shape[0], x.shape[1], self.num_heads,
@@ -100,7 +114,11 @@ class MultiHeadAttention(Layer):
 
 def _dense_ffn_block(layer, x):
     """linear2(dropout(act(linear1(x)))) through F.fused_feedforward, for
-    encoder and decoder layers alike."""
+    encoder and decoder layers alike; layer by layer when a linear has
+    no bias (bias_attr=False), as the reference routes it."""
+    if layer.linear1.bias is None or layer.linear2.bias is None:
+        return layer.linear2(layer.dropout(layer.activation(
+            layer.linear1(x))))
     act = layer.activation
     act_name = "relu" if isinstance(act, ReLU) else (
         "gelu_tanh" if act.approximate else "gelu")
@@ -127,25 +145,33 @@ class TransformerEncoderLayer(Layer):
                  dropout: float = 0.1, activation: str = "relu",
                  attn_dropout: Optional[float] = None,
                  act_dropout: Optional[float] = None,
-                 normalize_before: bool = False,
+                 normalize_before: bool = False, weight_attr=None,
+                 bias_attr=None, moe_experts: Optional[int] = None,
+                 moe_capacity_factor: float = 1.25, *,
                  weight_init: Optional[Initializer] = None,
-                 moe_experts: Optional[int] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         if moe_experts:
             raise NotImplementedError(
                 "Switch-MoE encoder layers (moe_experts > 0) are not "
                 "ported yet")
+        self._config = ((d_model, nhead, dim_feedforward, dropout,
+                         activation, attn_dropout, act_dropout,
+                         normalize_before, weight_attr, bias_attr,
+                         moe_experts, moe_capacity_factor),
+                        dict(weight_init=weight_init, generator=generator))
         attn_dropout = dropout if attn_dropout is None else attn_dropout
         act_dropout = dropout if act_dropout is None else act_dropout
         self.normalize_before = normalize_before
         self.self_attn = MultiHeadAttention(
-            d_model, nhead, dropout=attn_dropout, weight_init=weight_init,
+            d_model, nhead, dropout=attn_dropout, weight_attr=weight_attr,
+            bias_attr=bias_attr, weight_init=weight_init,
             generator=generator)
-        self.linear1 = Linear(d_model, dim_feedforward, weight_init,
-                              generator=generator)
-        self.linear2 = Linear(dim_feedforward, d_model, weight_init,
-                              generator=generator)
+        kw = dict(weight_init=weight_init, generator=generator)
+        self.linear1 = Linear(d_model, dim_feedforward, weight_attr,
+                              bias_attr, **kw)
+        self.linear2 = Linear(dim_feedforward, d_model, weight_attr,
+                              bias_attr, **kw)
         self.dropout = Dropout(act_dropout, generator=generator)
         self.norm1 = LayerNorm(d_model)
         self.norm2 = LayerNorm(d_model)
@@ -180,22 +206,29 @@ class TransformerDecoderLayer(Layer):
                  dropout: float = 0.1, activation: str = "relu",
                  attn_dropout: Optional[float] = None,
                  act_dropout: Optional[float] = None,
-                 normalize_before: bool = False,
+                 normalize_before: bool = False, weight_attr=None,
+                 bias_attr=None, *,
                  weight_init: Optional[Initializer] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        self._config = ((d_model, nhead, dim_feedforward, dropout,
+                         activation, attn_dropout, act_dropout,
+                         normalize_before, weight_attr, bias_attr),
+                        dict(weight_init=weight_init, generator=generator))
         attn_dropout = dropout if attn_dropout is None else attn_dropout
         act_dropout = dropout if act_dropout is None else act_dropout
         self.normalize_before = normalize_before
-        kw = dict(dropout=attn_dropout, weight_init=weight_init,
+        kw = dict(dropout=attn_dropout, weight_attr=weight_attr,
+                  bias_attr=bias_attr, weight_init=weight_init,
                   generator=generator)
         self.self_attn = MultiHeadAttention(d_model, nhead, **kw)
         self.cross_attn = MultiHeadAttention(d_model, nhead, **kw)
-        self.linear1 = Linear(d_model, dim_feedforward, weight_init,
-                              generator=generator)
+        lkw = dict(weight_init=weight_init, generator=generator)
+        self.linear1 = Linear(d_model, dim_feedforward, weight_attr,
+                              bias_attr, **lkw)
         self.dropout = Dropout(act_dropout, generator=generator)
-        self.linear2 = Linear(dim_feedforward, d_model, weight_init,
-                              generator=generator)
+        self.linear2 = Linear(dim_feedforward, d_model, weight_attr,
+                              bias_attr, **lkw)
         self.norm1 = LayerNorm(d_model)
         self.norm2 = LayerNorm(d_model)
         self.norm3 = LayerNorm(d_model)
@@ -232,15 +265,32 @@ class TransformerDecoderLayer(Layer):
         return incr, static
 
 
-class TransformerEncoder(Layer):
-    """`num_layers` encoder layers, each built by `layer_fn()` (a fresh,
-    independently initialized layer per call, where Paddle clones one
-    layer's constructor config), then `norm` if given."""
+def _clone_layer(layer):
+    """A fresh layer of the same constructor config (the reference's
+    `_clone_layer`): independent initialization, its own names."""
+    args, kw = layer._config
+    return type(layer)(*args, **kw)
 
-    def __init__(self, layer_fn, num_layers: int,
+
+def _stack(layer, num_layers):
+    """The layers of a stack: a layer instance is layer 0 and the rest
+    are clones of its config, as in the reference; any other callable is
+    a factory called once a layer."""
+    if isinstance(layer, nn.Module):
+        return [layer] + [_clone_layer(layer) for _ in range(num_layers - 1)]
+    return [layer() for _ in range(num_layers)]
+
+
+class TransformerEncoder(Layer):
+    """`num_layers` encoder layers, then `norm` if given.  The first
+    argument is the reference's `encoder_layer` (used as layer 0, the
+    others built from its config), or a factory `layer_fn()` called once
+    a layer."""
+
+    def __init__(self, encoder_layer, num_layers: int,
                  norm: Optional[nn.Module] = None):
         super().__init__()
-        self.layers = nn.ModuleList(layer_fn() for _ in range(num_layers))
+        self.layers = nn.ModuleList(_stack(encoder_layer, num_layers))
         self.num_layers = num_layers
         self.norm = norm
 
@@ -261,13 +311,14 @@ class TransformerEncoder(Layer):
 
 
 class TransformerDecoder(Layer):
-    """`num_layers` decoder layers from `layer_fn()`, then `norm` if
-    given.  `cache` is one (Cache, StaticCache) pair a layer."""
+    """`num_layers` decoder layers (from a `decoder_layer` instance or a
+    factory, as TransformerEncoder takes them), then `norm` if given.
+    `cache` is one (Cache, StaticCache) pair a layer."""
 
-    def __init__(self, layer_fn, num_layers: int,
+    def __init__(self, decoder_layer, num_layers: int,
                  norm: Optional[nn.Module] = None):
         super().__init__()
-        self.layers = nn.ModuleList(layer_fn() for _ in range(num_layers))
+        self.layers = nn.ModuleList(_stack(decoder_layer, num_layers))
         self.num_layers = num_layers
         self.norm = norm
 
@@ -302,15 +353,16 @@ class Transformer(Layer):
                  activation: str = "relu",
                  attn_dropout: Optional[float] = None,
                  act_dropout: Optional[float] = None,
-                 normalize_before: bool = False,
+                 normalize_before: bool = False, weight_attr=None,
+                 bias_attr=None, custom_encoder: Optional[nn.Module] = None,
+                 custom_decoder: Optional[nn.Module] = None, *,
                  weight_init: Optional[Initializer] = None,
-                 custom_encoder: Optional[nn.Module] = None,
-                 custom_decoder: Optional[nn.Module] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         kw = dict(dropout=dropout, activation=activation,
                   attn_dropout=attn_dropout, act_dropout=act_dropout,
-                  normalize_before=normalize_before, weight_init=weight_init,
+                  normalize_before=normalize_before, weight_attr=weight_attr,
+                  bias_attr=bias_attr, weight_init=weight_init,
                   generator=generator)
 
         def norm():

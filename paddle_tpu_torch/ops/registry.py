@@ -47,8 +47,9 @@ def _load_rules() -> None:
     if _RULES_LOADED[0]:
         return
     _RULES_LOADED[0] = True
-    from . import (math_ops, nn_ops, optimizer_ops,  # noqa: F401
-                   random_ops, rnn_ops, sequence_ops, tensor_ops)
+    from . import (math_ops, misc_ops, nn_ops,  # noqa: F401
+                   optimizer_ops, random_ops, rnn_ops, sequence_ops,
+                   tensor_ops, vision_ops)
 
 
 def register_op(op_type: str):

@@ -1,5 +1,5 @@
-"""LeNet and the ResNet family (counterpart of
-paddle_tpu/vision/models.py:20-136).
+"""LeNet, the ResNet family, VGG and MobileNet V1/V2 (counterpart of
+paddle_tpu/vision/models.py).
 
 The structure and the attribute names are the reference's (`conv1`,
 `bn1`, `layer1` ... `layer4`, `downsample`, `fc`; Paddle's (in, out)
@@ -25,11 +25,13 @@ import torch
 from torch import nn
 
 from .. import device as _device
-from ..nn import (AdaptiveAvgPool2D, BatchNorm2D, Conv2D, Flatten, Layer,
-                  Linear, MaxPool2D, ReLU, Sequential)
+from ..nn import (AdaptiveAvgPool2D, BatchNorm2D, Conv2D, Dropout, Flatten,
+                  Layer, Linear, MaxPool2D, ReLU, ReLU6, Sequential)
 
 __all__ = ["LeNet", "BasicBlock", "BottleneckBlock", "ResNet", "resnet18",
-           "resnet34", "resnet50", "resnet101", "resnet152"]
+           "resnet34", "resnet50", "resnet101", "resnet152", "VGG",
+           "vgg11", "vgg13", "vgg16", "vgg19", "MobileNetV1", "MobileNetV2",
+           "mobilenet_v1", "mobilenet_v2"]
 
 
 def _place(module: nn.Module, device, dtype) -> nn.Module:
@@ -167,3 +169,218 @@ def resnet101(num_classes=1000, **kw):
 
 def resnet152(num_classes=1000, **kw):
     return ResNet(BottleneckBlock, [3, 8, 36, 3], num_classes, **kw)
+
+
+# -- VGG and MobileNet (paddle_tpu/vision/models.py:138-317) ------------------
+
+def _make_divisible(v, divisor=8, min_value=None):
+    """Channel counts rounded to multiples of `divisor`, never more than
+    10 % below `v` (the reference's mobilenetv2 rule)."""
+    if min_value is None:
+        min_value = divisor
+    new_v = max(min_value, int(v + divisor / 2) // divisor * divisor)
+    if new_v < 0.9 * v:
+        new_v += divisor
+    return new_v
+
+
+class VGG(Layer):
+    """VGG: the conv stages `features`, an adaptive pool to 7 x 7 (with
+    `with_pool`) and the three-layer classifier with Dropout(0.5)."""
+
+    def __init__(self, features, num_classes=1000, with_pool=True, *,
+                 device=None, dtype: Optional[torch.dtype] = None,
+                 seed: int = 0, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        g = generator if generator is not None else \
+            torch.Generator().manual_seed(seed)
+        self.features = features
+        self.with_pool = with_pool
+        self.flatten = Flatten()
+        if with_pool:
+            self.avgpool = AdaptiveAvgPool2D((7, 7))
+        self.classifier = Sequential(
+            Linear(512 * 7 * 7, 4096, generator=g), ReLU(),
+            Dropout(generator=g), Linear(4096, 4096, generator=g), ReLU(),
+            Dropout(generator=g), Linear(4096, num_classes, generator=g))
+        _place(self, device, dtype)
+
+    def forward(self, x):
+        x = self.features(x)
+        if self.with_pool:
+            x = self.avgpool(x)
+        return self.classifier(self.flatten(x))
+
+
+_VGG_CFGS = {
+    "A": [64, "M", 128, "M", 256, 256, "M", 512, 512, "M", 512, 512, "M"],
+    "B": [64, 64, "M", 128, 128, "M", 256, 256, "M", 512, 512, "M",
+          512, 512, "M"],
+    "D": [64, 64, "M", 128, 128, "M", 256, 256, 256, "M", 512, 512, 512,
+          "M", 512, 512, 512, "M"],
+    "E": [64, 64, "M", 128, 128, "M", 256, 256, 256, 256, "M",
+          512, 512, 512, 512, "M", 512, 512, 512, 512, "M"],
+}
+
+
+def _vgg_features(cfg, batch_norm, generator):
+    layers, in_ch = [], 3
+    for v in cfg:
+        if v == "M":
+            layers.append(MaxPool2D(2, 2))
+        else:
+            layers.append(Conv2D(in_ch, v, 3, padding=1,
+                                 generator=generator))
+            if batch_norm:
+                layers.append(BatchNorm2D(v))
+            layers.append(ReLU())
+            in_ch = v
+    return Sequential(*layers)
+
+
+def _vgg(cfg, batch_norm, seed, kw):
+    g = torch.Generator().manual_seed(seed)
+    return VGG(_vgg_features(_VGG_CFGS[cfg], batch_norm, g), generator=g,
+               **kw)
+
+
+def vgg11(batch_norm=False, *, seed: int = 0, **kw):
+    return _vgg("A", batch_norm, seed, kw)
+
+
+def vgg13(batch_norm=False, *, seed: int = 0, **kw):
+    return _vgg("B", batch_norm, seed, kw)
+
+
+def vgg16(batch_norm=False, *, seed: int = 0, **kw):
+    return _vgg("D", batch_norm, seed, kw)
+
+
+def vgg19(batch_norm=False, *, seed: int = 0, **kw):
+    return _vgg("E", batch_norm, seed, kw)
+
+
+class _ConvBNReLU(Layer):
+    """Conv2D (no bias), BatchNorm2D, then ReLU6 unless `act` is off."""
+
+    def __init__(self, in_c, out_c, k, stride=1, padding=0, groups=1,
+                 act=True, generator=None):
+        super().__init__()
+        self.conv = Conv2D(in_c, out_c, k, stride=stride, padding=padding,
+                           groups=groups, bias_attr=False,
+                           generator=generator)
+        self.bn = BatchNorm2D(out_c)
+        self.act = ReLU6() if act else None
+
+    def forward(self, x):
+        x = self.bn(self.conv(x))
+        return self.act(x) if self.act is not None else x
+
+
+class MobileNetV1(Layer):
+    """Depthwise-separable stacks: each a depthwise 3 x 3 (groups = its
+    channels) and a pointwise 1 x 1, each with BN and ReLU6; channel
+    counts scaled by `scale` through `_make_divisible`."""
+
+    def __init__(self, scale=1.0, num_classes=1000, with_pool=True, *,
+                 device=None, dtype: Optional[torch.dtype] = None,
+                 seed: int = 0):
+        super().__init__()
+        g = torch.Generator().manual_seed(seed)
+
+        def s(c):
+            return _make_divisible(c * scale)
+
+        cfg = [(32, 64, 1), (64, 128, 2), (128, 128, 1), (128, 256, 2),
+               (256, 256, 1), (256, 512, 2)] + [(512, 512, 1)] * 5 + \
+            [(512, 1024, 2), (1024, 1024, 1)]
+        layers = [_ConvBNReLU(3, s(32), 3, stride=2, padding=1, generator=g)]
+        for in_c, out_c, stride in cfg:
+            layers.append(_ConvBNReLU(s(in_c), s(in_c), 3, stride=stride,
+                                      padding=1, groups=s(in_c),
+                                      generator=g))
+            layers.append(_ConvBNReLU(s(in_c), s(out_c), 1, generator=g))
+        self.features = Sequential(*layers)
+        self.with_pool = with_pool
+        self.flatten = Flatten()
+        if with_pool:
+            self.pool = AdaptiveAvgPool2D(1)
+        self.fc = Linear(s(1024), num_classes, generator=g)
+        _place(self, device, dtype)
+
+    def forward(self, x):
+        x = self.features(x)
+        if self.with_pool:
+            x = self.pool(x)
+        return self.fc(self.flatten(x))
+
+
+class _InvertedResidual(Layer):
+    """1 x 1 expansion (unless `expand` is 1), depthwise 3 x 3, linear 1 x 1
+    projection; the skip where the stride is 1 and the widths agree."""
+
+    def __init__(self, in_c, out_c, stride, expand, generator=None):
+        super().__init__()
+        hidden = int(round(in_c * expand))
+        self.use_res = stride == 1 and in_c == out_c
+        layers = []
+        if expand != 1:
+            layers.append(_ConvBNReLU(in_c, hidden, 1, generator=generator))
+        layers += [
+            _ConvBNReLU(hidden, hidden, 3, stride=stride, padding=1,
+                        groups=hidden, generator=generator),
+            _ConvBNReLU(hidden, out_c, 1, act=False, generator=generator),
+        ]
+        self.conv = Sequential(*layers)
+
+    def forward(self, x):
+        out = self.conv(x)
+        return x + out if self.use_res else out
+
+
+class MobileNetV2(Layer):
+    """Inverted residuals with linear bottlenecks, the last conv to
+    1280 x max(1, scale) channels, then Dropout(0.2) and the fc."""
+
+    def __init__(self, scale=1.0, num_classes=1000, with_pool=True, *,
+                 device=None, dtype: Optional[torch.dtype] = None,
+                 seed: int = 0):
+        super().__init__()
+        g = torch.Generator().manual_seed(seed)
+
+        def s(c):
+            return _make_divisible(c * scale)
+
+        cfg = [(1, 16, 1, 1), (6, 24, 2, 2), (6, 32, 3, 2), (6, 64, 4, 2),
+               (6, 96, 3, 1), (6, 160, 3, 2), (6, 320, 1, 1)]
+        layers = [_ConvBNReLU(3, s(32), 3, stride=2, padding=1, generator=g)]
+        in_c = s(32)
+        for expand, c, n, stride in cfg:
+            for i in range(n):
+                layers.append(_InvertedResidual(
+                    in_c, s(c), stride if i == 0 else 1, expand, g))
+                in_c = s(c)
+        last = _make_divisible(1280 * max(1.0, scale))
+        layers.append(_ConvBNReLU(in_c, last, 1, generator=g))
+        self.features = Sequential(*layers)
+        self.with_pool = with_pool
+        self.flatten = Flatten()
+        if with_pool:
+            self.pool = AdaptiveAvgPool2D(1)
+        self.classifier = Sequential(Dropout(0.2, generator=g),
+                                     Linear(last, num_classes, generator=g))
+        _place(self, device, dtype)
+
+    def forward(self, x):
+        x = self.features(x)
+        if self.with_pool:
+            x = self.pool(x)
+        return self.classifier(self.flatten(x))
+
+
+def mobilenet_v1(scale=1.0, **kw):
+    return MobileNetV1(scale=scale, **kw)
+
+
+def mobilenet_v2(scale=1.0, **kw):
+    return MobileNetV2(scale=scale, **kw)

@@ -349,9 +349,96 @@ def _sequence_module(fluid):
     return {"x": _f(3, 5, 4), "lens": np.array([5, 2, 0], np.int64)}, outs
 
 
+def _nn_bucket_module(fluid):
+    """The layers of the nn bucket's rules (nn.py of the reference,
+    :131-1234): the transposed and 3-D convolutions, depthwise conv2d,
+    the norms, dropout in test mode, prelu, maxout, label_smooth,
+    unfold, the resizes, bilinear_tensor_product, spectral_norm,
+    data_norm and deform_conv2d."""
+    L = fluid.layers
+    img = fluid.data("img", [2, 4, 5, 5], "float32")
+    vol = fluid.data("vol", [1, 2, 4, 4, 4], "float32")
+    x = fluid.data("x", [3, 4], "float32")
+    y = fluid.data("y", [3, 5], "float32")
+    onehot = fluid.data("onehot", [3, 4], "float32")
+    w = fluid.data("w", [4, 3, 2], "float32")
+    off = fluid.data("off", [2, 18, 5, 5], "float32")
+    msk = fluid.data("msk", [2, 9, 5, 5], "float32")
+    outs = [L.conv2d(img, 4, 3, padding=1, groups=4),
+            L.conv2d_transpose(img, 3, filter_size=3, stride=2, padding=1),
+            L.conv2d_transpose(img, 2, output_size=9, stride=2, act="relu"),
+            L.conv3d(vol, 3, 3, padding=1),
+            L.conv3d_transpose(vol, 2, filter_size=2, stride=2),
+            L.layer_norm(img, begin_norm_axis=2),
+            L.layer_norm(x, scale=False, shift=False),
+            L.instance_norm(img), L.group_norm(img, 2, act="relu"),
+            L.dropout(x, 0.3, is_test=True),
+            L.dropout(x, 0.3, is_test=True,
+                      dropout_implementation="upscale_in_train"),
+            L.prelu(img, "channel"), L.prelu(x, "all"),
+            L.maxout(img, 2), L.label_smooth(onehot, epsilon=0.2),
+            L.unfold(img, [2, 3], paddings=1),
+            L.image_resize(img, out_shape=[7, 8]),
+            L.resize_nearest(img, scale=2.0),
+            L.resize_bilinear(img, out_shape=[3, 4]),
+            L.interpolate(img, out_shape=[6, 6], mode="bilinear"),
+            L.bilinear_tensor_product(x, y, 2, act="tanh"),
+            L.spectral_norm(w, dim=1, power_iters=2),
+            L.data_norm(x), L.deform_conv2d(img, off, msk, 3, 3, padding=1)]
+    rng = np.random.RandomState(9)
+    feeds = {"img": _f(2, 4, 5, 5), "vol": _f(1, 2, 4, 4, 4, seed=1),
+             "x": _f(3, 4, seed=2), "y": _f(3, 5, seed=3),
+             "onehot": np.eye(4, dtype=np.float32)[[0, 2, 3]],
+             "w": _f(4, 3, 2, seed=4),
+             "off": (rng.randn(2, 18, 5, 5) * 0.7).astype(np.float32),
+             "msk": rng.rand(2, 9, 5, 5).astype(np.float32)}
+    return feeds, outs
+
+
+def _vision_compat_module(fluid):
+    """compat's wrappers of the nn and vision buckets' rules."""
+    L = fluid.layers
+    img = fluid.data("img", [2, 8, 4, 4], "float32")
+    grid = fluid.data("grid", [2, 3, 3, 2], "float32")
+    theta = fluid.data("theta", [2, 2, 3], "float32")
+    ch = fluid.data("ch", [8], "float32")
+    small = fluid.data("small", [2, 8, 2, 3], "float32")
+    vol = fluid.data("vol", [1, 2, 4, 4, 4], "float32")
+    line = fluid.data("line", [2, 3, 5], "float32")
+    lab = fluid.data("lab", [4, 1], "int64")
+    feat = fluid.data("feat", [4, 5], "float32")
+    left = fluid.data("left", [4, 1], "float32")
+    right = fluid.data("right", [4, 1], "float32")
+    sign = fluid.data("sign", [4, 1], "float32")
+    outs = [L.affine_channel(img, ch, ch), L.affine_grid(theta, [2, 1, 3, 4]),
+            L.grid_sampler(img, grid),
+            L.pad_constant_like(img, small, pad_value=0.5),
+            L.pixel_shuffle(img, 2), L.pool3d(vol, ksize=[2, 2, 2],
+                                              strides=[2, 2, 2]),
+            L.space_to_depth(img, 2), L.temporal_shift(img, 2, 0.25),
+            L.lrn(img, 5, 1.0, 1e-3, 0.75),
+            L.resize_trilinear(vol, out_d=6, out_h=3, out_w=5),
+            L.resize_linear(line, out_w=8), L.selu(img),
+            L.bpr_loss(feat, lab), L.rank_loss(sign, left, right),
+            L.margin_rank_loss(sign, left, right, 0.1),
+            L.crop(img, offsets=[0, 2, 1, 0], shape=[2, 4, 2, 3])]
+    rng = np.random.RandomState(3)
+    feeds = {"img": _f(2, 8, 4, 4), "grid": (rng.rand(2, 3, 3, 2) * 1.6
+                                             - 0.8).astype(np.float32),
+             "theta": _f(2, 2, 3, seed=1), "ch": _f(8, seed=2),
+             "small": _f(2, 8, 2, 3, seed=3),
+             "vol": _f(1, 2, 4, 4, 4, seed=4), "line": _f(2, 3, 5, seed=5),
+             "lab": _ids((4, 1), 5), "feat": _f(4, 5, seed=6),
+             "left": _f(4, 1, seed=7), "right": _f(4, 1, seed=8),
+             "sign": np.array([[1.], [0.], [1.], [0.]], np.float32)}
+    return feeds, outs
+
+
 MODULES = {"tensor": _tensor_module, "nn": _nn_module, "loss": _loss_module,
            "math_op_patch": _math_op_patch_module, "rnn": _rnn_module,
-           "compat": _compat_module, "sequence_lod": _sequence_module}
+           "compat": _compat_module, "sequence_lod": _sequence_module,
+           "nn_bucket": _nn_bucket_module,
+           "vision_compat": _vision_compat_module}
 
 
 @pytest.mark.parametrize("name", sorted(MODULES))
@@ -415,18 +502,14 @@ def _not_carried(fn):
 # the reference's compat layers the port leaves out, with the reason: their
 # op rules are not ported (ROADMAP queue 1 items 6, 8 and 12)
 LEFT_OUT = {
-    "add_position_encoding", "affine_channel", "affine_grid", "bpr_loss",
-    "continuous_value_model", "grid_sampler", "im2sequence", "lod_reset",
-    "mean_iou", "pad_constant_like", "pixel_shuffle",
-    "polygon_box_transform", "pool3d", "prroi_pool", "rank_loss",
-    "margin_rank_loss", "sampling_id", "sequence_reshape",
-    "sequence_scatter", "shard_index", "shuffle_channel", "space_to_depth",
-    "teacher_student_sigmoid_loss", "temporal_shift", "random_crop", "lrn",
+    "add_position_encoding", "continuous_value_model", "im2sequence",
+    "lod_reset", "mean_iou", "polygon_box_transform", "prroi_pool",
+    "sampling_id", "sequence_reshape", "sequence_scatter", "shard_index",
+    "shuffle_channel", "teacher_student_sigmoid_loss", "random_crop",
     "box_decoder_and_assign", "target_assign", "roi_pool", "psroi_pool",
-    "deformable_conv", "retinanet_detection_output", "resize_trilinear",
-    "resize_linear", "gaussian_random_batch_size_like",
-    "uniform_random_batch_size_like", "selu", "hsigmoid", "is_empty",
-    "crop_tensor", "crop", "birnn", "MultivariateNormalDiag",
+    "retinanet_detection_output", "gaussian_random_batch_size_like",
+    "uniform_random_batch_size_like", "is_empty", "birnn",
+    "MultivariateNormalDiag",
 }
 
 
@@ -487,3 +570,19 @@ def test_static_and_top_level_names():
             or getattr(T, name) is getattr(TF, name), name
     assert T.static.cpu_places(2)[1] == TF.CPUPlace() or \
         isinstance(T.static.cpu_places(2)[1], TF.CPUPlace)
+
+
+def test_random_nn_layers_build_the_reference_program():
+    """nce and training dropout draw (torch's bits, not jax.random's):
+    their programs are held by the JSON, their rules by the fluid ops
+    tests."""
+    def build(fluid):
+        L = fluid.layers
+        x = fluid.data("x", [4, 3], "float32")
+        lab = fluid.data("lab", [4, 1], "int64")
+        return {}, [L.nce(x, lab, 7, num_neg_samples=3),
+                    L.dropout(x, 0.5, seed=3)]
+
+    jm, js, _, _ = _build(JF, JU, build)
+    tm, ts, _, _ = _build(TF, TU, build)
+    assert _json(tm) == _json(jm) and _json(ts) == _json(js)

@@ -843,7 +843,7 @@ FLOAT64_OK = set(CASES) - {"fill_constant", "fill_constant_int64",
                            "linspace", "warpctc",
                            "warpctc_norm_by_times_repeats"}
 
-RANDOM = ("gaussian_random", "uniform_random", "shuffle_batch")
+RANDOM = ("gaussian_random", "uniform_random", "shuffle_batch", "nce")
 
 
 def _cast(arrs, dtype):
@@ -857,7 +857,9 @@ def _names(slots):
 
 
 def _reference(op_type, ins, attrs, ct_slots, cts):
-    """The reference rule's outputs and its jax.vjp input gradients."""
+    """The reference rule's outputs and its jax.vjp input gradients;
+    `cts` is the cotangents, or a function of the outputs (numpy) that
+    draws them."""
     prog = JFW.Program()
     op = JFW.Operator(prog.global_block(), 0, op_type,
                       _names({s: len(v) for s, v in ins.items()}), {},
@@ -869,6 +871,8 @@ def _reference(op_type, ins, attrs, ct_slots, cts):
     paths = [(s, i) for s, v in jins.items() for i, a in enumerate(v)
              if jnp.issubdtype(a.dtype, jnp.floating)]
     grads = {}
+    if callable(cts):
+        cts = cts({s: [np.asarray(a) for a in v] for s, v in outs.items()})
     if ct_slots and paths:
         def f(dvals):
             merged = {s: list(v) for s, v in jins.items()}
@@ -918,17 +922,22 @@ def _port(op_type, ins, attrs, out_slots, ct_slots, cts):
     return outs, grads
 
 
-def _check(name, dtype):
-    op_type, ins, attrs, ct_slots = CASES[name]
+def _check(name, dtype, cases=None):
+    op_type, ins, attrs, ct_slots = (CASES if cases is None else cases)[name]
     ins = {s: _cast(v, dtype) for s, v in ins.items()}
     tol = F64 if dtype == "float64" else F32
-    with jax.enable_x64(dtype == "float64"):
-        want, _ = _reference(op_type, ins, attrs, [], [])
+    drawn = []
+
+    def draw(outs):
         rng = _rng(7)
-        cts = [np.asarray(rng.randn(*want[s][0].shape),
-                          dtype=want[s][0].dtype) for s in ct_slots]
-        want, want_grads = _reference(op_type, ins, attrs, ct_slots, cts)
-    got, got_grads = _port(op_type, ins, attrs, list(want), ct_slots, cts)
+        drawn.extend(np.asarray(rng.randn(*outs[s][0].shape),
+                                dtype=outs[s][0].dtype) for s in ct_slots)
+        return drawn
+
+    with jax.enable_x64(dtype == "float64"):
+        want, want_grads = _reference(op_type, ins, attrs, ct_slots, draw)
+    got, got_grads = _port(op_type, ins, attrs, list(want), ct_slots,
+                           drawn)
     for slot, vals in want.items():
         w, g = vals[0], got[slot][0]
         assert g.shape == w.shape, (slot, g.shape, w.shape)
@@ -995,9 +1004,13 @@ def test_shuffle_batch_permutes_rows_by_its_seed():
 
 
 def test_every_rule_is_covered():
-    """Each registered port rule has a case here, under its reference
-    op-type name."""
-    covered = {c[0] for c in CASES.values()} | set(RANDOM)
+    """Each registered port rule has a case here or in
+    test_torch_fluid_ops_nn.py (the nn and vision buckets), under its
+    reference op-type name."""
+    from test_torch_fluid_ops_nn import CASES as NN_CASES
+
+    covered = {c[0] for c in list(CASES.values()) + list(NN_CASES.values())} \
+        | set(RANDOM)
     assert set(TREG.registered_ops()) == covered
     assert covered <= set(JREG.registered_ops())
 

@@ -23,7 +23,8 @@ FORBIDDEN = ("jax", "jaxlib", "paddle_tpu")
 # JAX-free helpers of the tests that chip_smoke.py imports too
 PROGRAMS = [ROOT / "tests" / "torch_seq2seq_program.py",
             ROOT / "tests" / "torch_srl_program.py",
-            ROOT / "tests" / "torch_book_programs.py"]
+            ROOT / "tests" / "torch_book_programs.py",
+            ROOT / "tests" / "torch_cyclegan_program.py"]
 
 
 def _port_files():
@@ -76,7 +77,10 @@ def test_the_walk_sees_the_whole_package():
             "fluid/layers/compat.py", "fluid/layers/rnn.py",
             "fluid/layers/learning_rate_scheduler.py",
             "fluid/layers/sequence_lod.py", "static/__init__.py",
-            "static/nn.py"} <= names
+            "static/nn.py", "ops/vision_ops.py", "ops/misc_ops.py",
+            "nn/functional/__init__.py", "nn/functional/extra.py",
+            "nn/layer/extra_layers.py", "nn/layer/container.py",
+            "vision/models.py"} <= names
 
 
 def _run(code_or_args, cwd, timeout=120):
@@ -103,9 +107,12 @@ def test_importing_the_port_loads_no_jax():
             "paddle_tpu_torch.hapi, paddle_tpu_torch.hapi.callbacks, "
             "paddle_tpu_torch.tensor, paddle_tpu_torch.fluid.dygraph, "
             "paddle_tpu_torch.framework_io, paddle_tpu_torch.nn.layer.loss, "
-            "paddle_tpu_torch.nn.layer.rnn, paddle_tpu_torch.nn.decode\n"
+            "paddle_tpu_torch.nn.layer.rnn, paddle_tpu_torch.nn.decode, "
+            "paddle_tpu_torch.nn.functional.extra, "
+            "paddle_tpu_torch.ops.vision_ops, "
+            "paddle_tpu_torch.vision.models\n"
             "sys.path.insert(0, 'tests')\n"
-            "import torch_seq2seq_program\n"
+            "import torch_seq2seq_program, torch_cyclegan_program\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu'))\n"
             "print(bad)\n")
