@@ -8,7 +8,8 @@ front end's hapi.Model.fit, train and decode the Transformer-base WMT
 model, run the quickstart's 2.x modes, train and decode Paddle 2.x's
 seq2seq with attention and the book's semantic-role-labelling program
 (a Fluid program through fluid.Executor), train MobileNetV2, VGG16 and
-PaddleGAN's CycleGAN, and check what comes out.
+PaddleGAN's CycleGAN, decode the seq2seq model through a 1.x While
+program, and check what comes out.
 
     python3 chip_smoke.py
 
@@ -171,10 +172,16 @@ Phases, in order (any failure exits non-zero and prints no result):
               bit for bit, the same optimizer state and the same next
               loss (HAPI_RELOAD_RTOL); resnet18's Model.fit in f32 on the
               card against the CPU (one step, then three)
- 16. dygraph  examples/quickstart_mnist.py's run_dygraph and run_hapi on
+ 16. dygraph  examples/quickstart_mnist.py's run_dygraph (line for line:
+              its float(loss.numpy()) on a CUDA tensor) and run_hapi on
               LeNet on the card through the port's names; the first
               dygraph step's loss and gradients against the CPU
-              (LENET_TOL); every loss finite
+              (LENET_TOL); every loss finite; one step of a 1.x
+              fluid.dygraph net (Conv2D act relu, Pool2D, Linear act
+              softmax) through .numpy(), .gradient() and
+              clear_gradients(), its loss and gradients against the CPU
+              (LENET_TOL), and a save_dygraph / load_dygraph round trip
+              of its parameters and Adam state (the next loss equal)
  17. seq2seq  Paddle 2.x's seq2seq with attention for IWSLT'15 en-vi
               (tests/torch_seq2seq_program.py at IWSLT15: PaddleNLP's
               seq2seq_attn defaults; uniform +-0.1 weights from a seed),
@@ -232,9 +239,30 @@ Phases, in order (any failure exits non-zero and prints no result):
               memory, one step profiled; the generator cut to 2 blocks
               on the card against the CPU (CG_TOL, RESNET_KINK) and its
               output_padding form against its crop form on the card
+ 21. static_decode  the seq2seq model's inference half as a 1.x static
+              program (tests/torch_seq2seq_static_program.py at IWSLT15:
+              embedding + dynamic_lstm, the decoder cell written out from
+              matmul / split / sigmoid / tanh, a While block over
+              capacity-S2S_MAX_LEN tensor arrays) through fluid.Executor,
+              B=128, T=50, f32, the seq2seq phase's seed: greedy ids
+              equal the 2.x greedy loop's token for token; at beam
+              S2S_BEAM each beam's score within S2S_SCORE_TOL of teacher
+              forcing; no hand-written kernel launched; decode ms a step
+              (CUDA events, host clock beside), steps, host reads and
+              syncs a step by line, ops a step and host us an op, one
+              beam decode profiled, and the 2.x beam decode and the
+              static one in turns; the two programs at STATIC_CUT sources
+              on the card against the CPU Executor (ids equal, scores
+              within S2S_SCORE_TOL)
 
 The last two lines of stdout are a {"kernels": [...]} summary and the
-{"ok": true, "device": {...}} result.  Needs CUDA; imports nothing of JAX
+{"ok": true, "device": {...}} result.
+
+`python3 chip_smoke.py --tensor-methods-ab` runs instead only the
+host-bound decode, seq2seq and srl phases, in turns with the `matmul` /
+`unsqueeze` extensions of fluid/dygraph/math_op_patch.py installed and
+with torch's own methods back, then counts each phase's calls to the
+two extensions and times one call of each form on the host.  Needs CUDA; imports nothing of JAX
 and nothing of the JAX package.  TF32 is off for matmuls and cuDNN, so
 every float32 product in the plain versions is a full float32 product.
 """
@@ -449,6 +477,9 @@ S2S_LSTM_GRAD = 1e-3
 # rows lie elsewhere in the products)
 S2S_BEAM, S2S_MAX_LEN = 10, 50
 S2S_SCORE_TOL = dict(atol=1e-3, rtol=1e-4)
+# the static decode program (phase 21) on the card against the CPU
+# Executor at this many of the batch's sources
+STATIC_CUT = 8
 # the book's semantic-role-labelling program (phase 18,
 # tests/torch_srl_program.BOOK: db_lstm of depth 8, 512 wide, CoNLL-05's
 # 44068 / 3162 / 106 vocabularies, B=10, T=64, f32) through
@@ -3495,12 +3526,109 @@ def _lenet_first_step_cpu(x, y):
     return float(loss), {n: p.grad for n, p in net.named_parameters()}
 
 
+def _dygraph_1x_net():
+    """A 1.x fluid.dygraph net at the quickstart's sizes:
+    Conv2D(1, 6, 5, act="relu"), Pool2D(2, "max", 2), Linear(864, 10,
+    act="softmax")."""
+    from paddle_tpu_torch.fluid import dygraph
+
+    class Net(dygraph.Layer):
+        def __init__(self):
+            super().__init__()
+            self.conv = dygraph.Conv2D(1, 6, 5, act="relu")
+            self.pool = dygraph.Pool2D(2, "max", 2)
+            self.fc = dygraph.Linear(6 * 12 * 12, 10, act="softmax")
+
+        def forward(self, x):
+            return self.fc(paddle.flatten(self.pool(self.conv(x)), 1))
+
+    return Net()
+
+
+def _dygraph_1x_step(net, opt, x, y):
+    """One step of the 1.x net: the loss (mean -log p of the label) as
+    numpy and the gradients by name, then the update and
+    clear_gradients()."""
+    prob = net(paddle.to_tensor(x))
+    loss = paddle.mean(-paddle.log(paddle.index_sample(prob,
+                                                       paddle.to_tensor(y))))
+    loss.backward()
+    grads = {n: p.gradient() for n, p in net.named_parameters()}
+    value = loss.numpy()
+    opt.step()
+    net.clear_gradients()
+    return value, grads
+
+
+def _dygraph_1x(x, y):
+    """One step of the 1.x net on the card and on the CPU from the same
+    weights (the loss and gradients within LENET_TOL), then a
+    save_dygraph / load_dygraph round trip of its parameters and
+    optimizer state into a fresh net and optimizer: the next step's loss
+    equal."""
+    from paddle_tpu_torch.fluid import dygraph
+
+    nets = {}
+    with unique_name.guard():
+        start = _dygraph_1x_net()
+    for dev in ("cuda", "cpu"):
+        paddle.set_device(dev)
+        try:
+            with unique_name.guard():
+                net = _dygraph_1x_net()
+            net.set_state_dict({k: v.numpy() for k, v in
+                                start.state_dict().items()})
+            net = net.to(dev)
+            opt = poptim.Adam(learning_rate=1e-3,
+                              parameters=net.parameters())
+            nets[dev] = (net, opt, _dygraph_1x_step(net, opt, x, y))
+        finally:
+            paddle.set_device("cuda")
+    (loss_d, grads_d), (loss_c, grads_c) = (nets[d][2] for d in
+                                            ("cuda", "cpu"))
+    worst = float(abs(loss_d - loss_c))
+    if not np.isfinite(loss_d) or worst > LENET_TOL["atol"] \
+            + LENET_TOL["rtol"] * float(abs(loss_c)):
+        raise AssertionError(f"1.x net loss {loss_d} vs CPU {loss_c}")
+    for n, g in grads_c.items():
+        ok, err = close(torch.from_numpy(grads_d[n]), torch.from_numpy(g),
+                        **LENET_TOL)
+        worst = max(worst, err)
+        if not ok:
+            raise AssertionError(f"1.x net gradient {n}: {err}")
+    net, opt, _ = nets["cuda"]
+    if any(p.grad is not None for p in net.parameters()):
+        raise AssertionError("clear_gradients() left a gradient")
+    with tempfile.TemporaryDirectory() as d:
+        path = str(Path(d) / "net")
+        dygraph.save_dygraph(net.state_dict(), path)
+        dygraph.save_dygraph(opt.state_dict(), path)
+        params, opt_state = dygraph.load_dygraph(path)
+    with unique_name.guard():
+        fresh = _dygraph_1x_net().to("cuda")
+    fresh.set_state_dict(params)
+    fresh_opt = poptim.Adam(learning_rate=1e-3,
+                            parameters=fresh.parameters())
+    fresh_opt.set_state_dict(opt_state)
+    loss_a, _ = _dygraph_1x_step(net, opt, x, y)
+    loss_b, _ = _dygraph_1x_step(fresh, fresh_opt, x, y)
+    if loss_a != loss_b:
+        raise AssertionError(f"after load_dygraph: loss {loss_b} vs {loss_a}")
+    log(f"1.x fluid.dygraph net (Conv2D relu, Pool2D, Linear softmax): card "
+        f"vs CPU max abs error {worst:.3g} (limit {LENET_TOL}); "
+        f"save_dygraph / load_dygraph: the next loss {float(loss_b):.6f} "
+        f"equal ({len(params)} parameters, {len(opt_state)} optimizer "
+        f"entries)")
+    return worst
+
+
 @phase("dygraph")
 def dygraph_quickstart():
-    """examples/quickstart_mnist.py's run_dygraph and run_hapi on the
-    card through the port's names (one line adapted: float(loss) for
-    float(loss.numpy())); the first dygraph step's loss and gradients
-    against the CPU."""
+    """examples/quickstart_mnist.py's run_dygraph line for line (its
+    `float(loss.numpy())` on a CUDA tensor) and run_hapi on the card
+    through the port's names; the first dygraph step's loss and gradients
+    against the CPU; one step of a 1.x fluid.dygraph net against the CPU
+    and a save_dygraph / load_dygraph round trip."""
     from paddle_tpu_torch.fluid import dygraph
 
     for c in COUNTERS.values():
@@ -3516,13 +3644,13 @@ def dygraph_quickstart():
             loss = pF.cross_entropy(logits, paddle.to_tensor(y))
             loss.backward()
             if i == 0:
-                first = (float(loss), {n: p.grad.cpu() for n, p in
-                                       net.named_parameters()}, x, y)
+                first = (float(loss.numpy()), {n: p.grad.cpu() for n, p in
+                                               net.named_parameters()}, x, y)
             opt.step()
             opt.clear_grad()
-            losses.append(float(loss))
+            losses.append(float(loss.numpy()))
             if i % 10 == 0:
-                log(f"step {i}: loss {float(loss):.4f}")
+                log(f"step {i}: loss {float(loss.numpy()):.4f}")
     dy_ms = (time.perf_counter() - t0) * 1e3 / len(losses)
     # -- run_hapi ---------------------------------------------------------------
     xs = np.concatenate([b[0] for b in _quickstart_batches(8)])
@@ -3542,6 +3670,9 @@ def dygraph_quickstart():
     cb = _Losses()
     model.fit(Samples(), batch_size=64, epochs=1, verbose=1,
               callbacks=[cb, hcb.ProgBarLogger(10, 1)])
+    # -- a 1.x fluid.dygraph net -------------------------------------------------
+    with dygraph.guard():
+        net_1x_err = _dygraph_1x(first[2], first[3])
     launches = {n: c.value for n, c in COUNTERS.items()}
     # ------------------------------------------------------------------------
     _expect_launches(launches, 0, (), "the quickstart's two modes")
@@ -3560,7 +3691,7 @@ def dygraph_quickstart():
     log(f"run_dygraph: 40 steps, {dy_ms:.2f} ms a step (host clock), "
         f"last loss {losses[-1]:.4f}; run_hapi: 8 steps, last loss "
         f"{cb.losses[-1]:.4f}; first step card vs CPU: max abs error "
-        f"{worst:.3g} (limit {LENET_TOL})")
+        f"{worst:.3g} (limit {LENET_TOL}); 1.x net {net_1x_err:.3g}")
     return launches
 
 
@@ -3767,6 +3898,204 @@ def seq2seq():
     summary["card"] = card_line()
     log("seq2seq summary: " + json.dumps(summary))
     return {"seq2seq_train": launches, "seq2seq_decode": decode_launches}
+
+
+def _s2s_static_program():
+    """tests/torch_seq2seq_static_program.py, the JAX-free 1.x decode
+    program the parity tests hold against paddle_tpu's Executor."""
+    _s2s_program()
+    import torch_seq2seq_static_program as SP
+    return SP
+
+
+def _static_run(exe, main, src, fetch, scope):
+    """One run of a decode program: (fetches as LazyFetch, CUDA-event ms,
+    host ms, {stat: delta} of the Executor's op count and host reads,
+    syncs by line)."""
+    stats0 = profiler.get_int_stats()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    with _SyncCount() as syncs:
+        t0 = time.perf_counter()
+        e0.record()
+        out = exe.run(main, feed={"src": src}, fetch_list=fetch, scope=scope,
+                      return_numpy=False)
+        e1.record()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+    stats = profiler.get_int_stats()
+    delta = {k: stats.get(k, 0) - stats0.get(k, 0) for k in (
+        "executor_op_count", "control_flow_host_reads")}
+    return out, e0.elapsed_time(e1), host_ms, delta, syncs.sites()
+
+
+def _eager_beam_ms(S, net, src, sl):
+    """The 2.x beam decode (the seq2seq phase's) timed by CUDA events:
+    (ms, steps)."""
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    e0.record()
+    out = S.beam_search(paddle, net, src, sl, S2S_BEAM, S2S_MAX_LEN)
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1), int(out["predicted_ids"].shape[1])
+
+
+def _static_cut_check(fluid, S, SP, net, cfg, src):
+    """The greedy and beam programs at STATIC_CUT sources on the card
+    against the same programs on the CPU Executor from the same weights:
+    the ids equal, the beam scores within S2S_SCORE_TOL."""
+    cpu_state = {k: v.detach().cpu() for k, v in net.state_dict().items()}
+    got = {}
+    for beam in (0, S2S_BEAM):
+        with unique_name.guard():
+            main, _, fetch = SP.build(fluid, cfg, STATIC_CUT, src.shape[1],
+                                      beam_size=beam)
+        runs = []
+        for dev, state in (("cuda", None), ("cpu", cpu_state)):
+            scope = fluid.Scope()
+            if state is None:
+                SP.load_from_2x(scope, net, cfg)
+                exe = fluid.Executor()
+            else:
+                for n, v in SP.program_weights(state, cfg).items():
+                    scope.set(n, v.contiguous())
+                exe = fluid.Executor(fluid.CPUPlace())
+            runs.append(exe.run(main, feed={"src": src[:STATIC_CUT].cpu()
+                                            .numpy()},
+                                fetch_list=fetch, scope=scope))
+        card_out, cpu_out = runs
+        if not np.array_equal(card_out[0], cpu_out[0]):
+            raise AssertionError(
+                f"beam {beam} at B={STATIC_CUT}: the card's ids differ from "
+                f"the CPU's at {int((card_out[0] != cpu_out[0]).sum())} of "
+                f"{card_out[0].size}")
+        got[f"beam_{beam}_steps"] = int(card_out[0].shape[1])
+        if beam:
+            ok, err = close(torch.from_numpy(card_out[1]),
+                            torch.from_numpy(cpu_out[1]), **S2S_SCORE_TOL)
+            if not ok:
+                raise AssertionError(f"beam scores card vs CPU: {err}")
+            got["beam_score_max_abs_err"] = err
+    log(f"static decode at B={STATIC_CUT}, card vs CPU Executor: greedy and "
+        f"beam {S2S_BEAM} ids equal, {got}")
+    return got
+
+
+@phase("static_decode")
+def static_decode():
+    """The seq2seq model's inference half as a 1.x static program
+    (tests/torch_seq2seq_static_program.py: embedding + dynamic_lstm, the
+    decoder cell written out, a While block over capacity-S2S_MAX_LEN
+    tensor arrays) through fluid.Executor on the card at IWSLT'15's
+    widths, B=128: greedy, held token for token against the 2.x greedy
+    loop over the same weights, and beam 10, each beam's score held
+    against teacher forcing (S2S_SCORE_TOL); decode ms a step beside the
+    2.x beam decode's, timed in turns; host reads and syncs a step, host
+    us an op, a profiled decode's idle share; then STATIC_CUT sources on
+    the card against the CPU Executor.  Returns the launches of the two
+    decodes."""
+    from paddle_tpu_torch import fluid
+
+    S, SP = _s2s_program(), _s2s_static_program()
+    cfg = S.IWSLT15
+    torch.cuda.empty_cache()
+    with unique_name.guard():
+        net = S.build(paddle, cfg, seed=0).to("cuda")
+    net.eval()
+    src, sl = (torch.from_numpy(a).cuda() for a in S.batch(cfg, seed=0)[:2])
+    b = src.shape[0]
+    summary, launches, fetched = {}, {}, {}
+    for beam in (0, S2S_BEAM):
+        what = "greedy" if not beam else f"beam_{beam}"
+        t0 = time.perf_counter()
+        with unique_name.guard():
+            main, _, fetch = SP.build(fluid, cfg, b, src.shape[1],
+                                      beam_size=beam)
+        scope, exe = fluid.Scope(), fluid.Executor()
+        SP.load_from_2x(scope, net, cfg)
+        build_s = time.perf_counter() - t0
+        exe.run(main, feed={"src": src}, fetch_list=fetch, scope=scope)
+        for c in COUNTERS.values():
+            c.reset()
+        # -- the main path: counters at 0 before, read right after ------------
+        out, ms, host_ms, delta, sites = _static_run(exe, main, src, fetch,
+                                                     scope)
+        launches[f"static_{what}"] = {n: c.value for n, c in
+                                      COUNTERS.items()}
+        # -----------------------------------------------------------------------
+        _expect_launches(launches[f"static_{what}"], 0, (),
+                         f"the static {what} decode")
+        fetched[beam] = [o.numpy() for o in out]
+        steps = fetched[beam][0].shape[1]
+        ops = delta["executor_op_count"]
+        summary[what] = dict(
+            steps=steps, decode_ms=ms, host_ms=host_ms, ms_a_step=ms / steps,
+            host_reads=delta["control_flow_host_reads"],
+            host_reads_per_step=delta["control_flow_host_reads"] / steps,
+            syncs_per_step=sum(sites.values()) / steps, sync_sites=sites,
+            ops=ops, ops_per_step=ops / steps,
+            host_us_per_op=1e3 * host_ms / ops, build_s=build_s,
+            block_ops=[len(blk.ops) for blk in main.blocks])
+        log(f"static {what} decode of {b} sources: {steps} steps in "
+            f"{ms:.1f} ms (CUDA events; host clock {host_ms:.1f} ms), "
+            f"{ms / steps:.3f} ms a step, {ops} ops run "
+            f"({ops / steps:.1f} a step, {1e3 * host_ms / ops:.1f} host us "
+            f"an op), host reads {summary[what]['host_reads']} "
+            f"({summary[what]['host_reads_per_step']:.2f} a step), syncs by "
+            f"line {sites}")
+        if beam:
+            busy, wall, top = _profile(lambda: exe.run(
+                main, feed={"src": src}, fetch_list=fetch, scope=scope,
+                return_numpy=False), top=8)
+            summary[what].update(
+                profiled_busy_ms=busy, profiled_wall_ms=wall,
+                profiled_idle=max(0.0, 1 - busy / wall),
+                top_kernels=[dict(name=k[:90], ms=t, count=n)
+                             for k, t, n in top])
+            turns = []
+            for order in ("eager", "static", "static", "eager"):
+                if order == "eager":
+                    t, n = _eager_beam_ms(S, net, src, sl)
+                else:
+                    _, t, _, _, _ = _static_run(exe, main, src, fetch, scope)
+                    n = steps
+                turns.append((order, t / n))
+            summary["beam_turns_ms_a_step"] = turns
+            log(f"beam {S2S_BEAM} ms a step in turns (2.x dynamic_decode / "
+                f"static While): {turns}")
+        del exe, scope
+    # greedy: token for token against the 2.x greedy loop
+    eager = S.greedy(paddle, net, src, sl, S2S_MAX_LEN)
+    static_ids = fetched[0][0]
+    if static_ids.shape != eager.shape or not np.array_equal(static_ids,
+                                                             eager):
+        diff = (static_ids != eager).sum() if static_ids.shape == \
+            eager.shape else "shape"
+        raise AssertionError(f"static greedy {static_ids.shape} vs 2.x "
+                             f"greedy {eager.shape}: {diff} tokens differ")
+    # beam: every beam's score against teacher forcing
+    seqs, scores = SP.sentence_scores(fetched[S2S_BEAM][0],
+                                      fetched[S2S_BEAM][1], S2S_BEAM)
+    if not np.isfinite(scores).all() or not (
+            np.diff(scores, axis=1) <= 0).all():
+        raise AssertionError("beam scores not finite or not best first")
+    forced = S.sequence_scores(paddle, net, src, sl, seqs)
+    ok, err = close(torch.from_numpy(scores), torch.from_numpy(forced),
+                    **S2S_SCORE_TOL)
+    if not ok:
+        raise AssertionError(f"static beam scores vs teacher forcing: {err}")
+    summary.update(greedy_equals_2x=True, greedy_tokens=int(eager.size),
+                   teacher_forced_max_abs_err=err,
+                   finished_beams=int((seqs == S.EOS).any(-1).sum()),
+                   best_scores=[float(v) for v in scores[:4, 0]])
+    log(f"static greedy = 2.x greedy over {eager.shape} tokens; beam "
+        f"{S2S_BEAM}: the {seqs.shape[0] * seqs.shape[1]} beams' scores "
+        f"within {err:.3g} of teacher forcing (limit {S2S_SCORE_TOL})")
+    summary["cut"] = _static_cut_check(fluid, S, SP, net, cfg, src)
+    summary["card"] = card_line()
+    log("static_decode summary: " + json.dumps(summary))
+    return launches
 
 
 def _book_modules():
@@ -4496,6 +4825,56 @@ def cyclegan():
     return launches
 
 
+def tensor_methods_ab(cycles=2):
+    """The decode, seq2seq and srl phases `cycles` times in the turns on,
+    off, off, on of the `matmul` / `unsqueeze` extensions (each phase
+    logs its own step times); then each phase once more with the
+    extensions counting their calls, and the host us of one call of
+    each, extended and torch's own, on small CUDA tensors."""
+    from paddle_tpu_torch.fluid.dygraph import math_op_patch as mp
+    own = {"matmul": mp._TORCH_MATMUL, "unsqueeze": mp._TORCH_UNSQUEEZE}
+    phases = {"decode": lambda: decode(None), "seq2seq": seq2seq,
+              "srl": srl}
+
+    def use(methods):
+        for name, fn in methods.items():
+            setattr(torch.Tensor, name, fn)
+
+    for turn in ("on", "off", "off", "on") * cycles:
+        use(mp.EXTENDED if turn == "on" else own)
+        log(f"== extensions {turn}")
+        for fn in phases.values():
+            fn()
+    calls = {}
+
+    def counting(name, fn):
+        def call(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        return call
+
+    for phase_name, fn in phases.items():
+        calls.update(matmul=0, unsqueeze=0)
+        use({n: counting(n, f) for n, f in mp.EXTENDED.items()})
+        t0 = time.perf_counter()
+        fn()
+        log(f"{phase_name}: extension calls {calls} in "
+            f"{time.perf_counter() - t0:.1f} s of the phase")
+    x, n = torch.ones(4, 4, device="cuda"), 100000
+    for turn, methods in (("on", mp.EXTENDED), ("off", own)) * 2:
+        use(methods)
+        us = {}
+        for name, call in (("matmul", lambda: x.matmul(x)),
+                           ("unsqueeze", lambda: x.unsqueeze(0))):
+            t0 = time.perf_counter()
+            for _ in range(n):
+                call()
+            torch.cuda.synchronize()
+            us[name] = (time.perf_counter() - t0) * 1e6 / n
+        log(f"host us a call, extensions {turn}: {us}")
+    use(mp.EXTENDED)
+
+
 def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4507,6 +4886,9 @@ def main():
     if FAILURES:
         sys.exit(1)
     build_kernels()
+    if "--tensor-methods-ab" in sys.argv[1:]:
+        tensor_methods_ab()
+        sys.exit(1 if FAILURES else 0)
     rows = kernels()
     probed = probe()
     kernel_ms = {r["name"]: r["ms"] for r in rows or []}
@@ -4527,10 +4909,11 @@ def main():
     srl_paths = srl()
     mobile_paths = mobilenet()
     gan_path = cyclegan()
+    static_paths = static_decode()
     if FAILURES or None in (rows, probed, served, decoded, trained, library,
                             resnet_path, fluid_path, wmt_paths, hapi_path,
                             dygraph_path, s2s_paths, srl_paths,
-                            mobile_paths, gan_path):
+                            mobile_paths, gan_path, static_paths):
         log(f"FAILED phases: {FAILURES}")
         print(f"FAILED phases: {FAILURES}", file=sys.stderr, flush=True)
         sys.exit(1)
@@ -4539,7 +4922,8 @@ def main():
              "probe": probed[1], "library_train": library,
              "resnet": resnet_path, "fluid": fluid_path, **wmt_paths,
              "hapi": hapi_path, "dygraph": dygraph_path, **s2s_paths,
-             **srl_paths, **mobile_paths, "cyclegan": gan_path}
+             **srl_paths, **mobile_paths, "cyclegan": gan_path,
+             **static_paths}
     for r in rows:
         # `launches` is the count on the path where the kernel runs: the
         # probe for its three kernels, the decode path for ragged_paged,

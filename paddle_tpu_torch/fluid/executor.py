@@ -12,13 +12,17 @@ powers, the learning rate), which go back into the Scope after the step.
 Each intermediate is dropped from the run's environment after its last
 use, and each forward op's graph after its grad op has run.
 
-The step makes no device->host sync: feeds staged on the device pass
-through, state stays on the device between steps, and with
-`return_numpy=False` fetches come back as `LazyFetch` handles, whose
-`.numpy()` is the sanctioned sync point (counted on
+The step makes no device->host sync but those of the control-flow
+rules (a `while` reads its condition once an iteration, a
+`conditional_block` its condition once; counted on
+`control_flow_host_reads` and `executor_sync_count`): feeds staged on
+the device pass through, state stays on the device between steps, and
+with `return_numpy=False` fetches come back as `LazyFetch` handles,
+whose `.numpy()` is the sanctioned sync point (counted on
 `executor_sync_count`).  Counters: `executor_run_count`,
-`executor_compile_count`, `executor_cache_hits`, `executor_op_count` (ops
-run) and the `dispatch_ms` / `host_feed_ms` / `sync_ms` timers.
+`executor_compile_count`, `executor_cache_hits`, `executor_op_count`
+(ops run, each iteration of a sub-block counted) and the `dispatch_ms`
+/ `host_feed_ms` / `sync_ms` timers.
 
 The callable runs eagerly, op by op: capturing it in a CUDA graph or
 compiling it is not ported, nor are train_from_dataset, the AOT cache,
@@ -193,26 +197,11 @@ def scope_guard(scope: Scope):
 
 def _analyze_block(block, feed_names):
     """The scope vars the block reads before writing them (state inputs),
-    and the persistable vars it writes (state outputs)."""
-    defined = set(feed_names)
-    reads_before_write = []
-    writes = []
-    seen_reads = set()
-    seen_writes = set()
-    for op in block.ops:
-        for name in op.input_arg_names():
-            if name == EMPTY_VAR_NAME:
-                continue
-            if name not in defined and name not in seen_reads:
-                seen_reads.add(name)
-                reads_before_write.append(name)
-        for name in op.output_arg_names():
-            if name == EMPTY_VAR_NAME:
-                continue
-            if name not in seen_writes:
-                seen_writes.add(name)
-                writes.append(name)
-            defined.add(name)
+    and the persistable vars it writes (state outputs); a `while` or
+    `conditional_block` op counts what its sub-block reads and writes,
+    so a parameter read only inside a loop body is state too."""
+    reads_before_write, writes = registry.block_reads_writes(block,
+                                                             feed_names)
     persistable_writes = []
     for name in writes:
         try:
@@ -226,12 +215,14 @@ def _analyze_block(block, feed_names):
 
 def _last_uses(block, keep) -> List[List[str]]:
     """frees[i]: the names whose last read or write is op i, outside
-    `keep` (fetches and state outputs); the run drops them there."""
+    `keep` (fetches and state outputs); the run drops them there.  A
+    name a sub-block touches is in use until its op's end (an encoder
+    output read by every iteration of a loop)."""
     last = {}
     for i, op in enumerate(block.ops):
-        for name in op.input_arg_names() + op.output_arg_names():
-            if name != EMPTY_VAR_NAME:
-                last[name] = i
+        r, w = registry.op_reads_writes(op)
+        for name in r + w:
+            last[name] = i
     frees: List[List[str]] = [[] for _ in block.ops]
     for name, i in last.items():
         if name not in keep:
@@ -381,8 +372,11 @@ class Executor:
             env.update(feeds)
             ctx = registry.LowerCtx(seed, device=device)
             with torch.no_grad():
-                ran = registry.lower_block(ctx, block, env, frees)
-            profiler.stat_add("executor_op_count", ran)
+                registry.lower_block(ctx, block, env, frees)
+            profiler.stat_add("executor_op_count", ctx.ops_run)
+            if ctx.host_reads:
+                profiler.count_sync(ctx.host_reads)
+                profiler.stat_add("control_flow_host_reads", ctx.host_reads)
             fetches = [env[n] for n in fetch_names]
             new_state = {n: env[n] for n in mutable_out if n in env}
             return fetches, new_state

@@ -2,7 +2,9 @@
 paddle_tpu/fluid/layers/compat.py), as far as the port has the rules:
 
   * one-op static wrappers through `_static_op` (cos_sim, gather_tree,
-    multiplex, unbind, stanh, mish, size, unique, ...) and a few
+    multiplex, unbind, stanh, mish, size, unique, the sequence bucket's
+    im2sequence, lod_reset, sequence_reshape and sequence_scatter, ...)
+    and a few
     compositions (sum, scatter_nd, brelu, soft_relu, has_inf, has_nan,
     dice_loss, sampled_softmax_with_cross_entropy);
   * (`dynamic_decode` and the cell and decoder classes resolve from the
@@ -164,6 +166,11 @@ selu = _static_op("selu", ["X"], attr_names=("scale", "alpha"))
 hsigmoid = _static_op("hierarchical_sigmoid", ["X", "Label", "W", "Bias"],
                       extra_out_slots=("PreOut",))
 crop_tensor = _static_op("crop_tensor", ["X", "Shape", "Offsets"])
+# the sequence bucket's four
+im2sequence = _static_op("im2sequence", ["X"])
+lod_reset = _static_op("lod_reset", ["X", "Y"])
+sequence_reshape = _static_op("sequence_reshape", ["X"])
+sequence_scatter = _static_op("sequence_scatter", ["X", "Ids", "Updates"])
 crop = crop_tensor
 __all__.append("crop")
 # the factory appended op names where the Python name differs

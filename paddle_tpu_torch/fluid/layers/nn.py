@@ -5,7 +5,7 @@ elementwise wrappers, the CTC and CRF layers, and the layers of the nn
 bucket's rules (the transposed and 3-D convolutions, the norms,
 dropout, prelu, maxout, label_smooth, unfold, the resizes,
 bilinear_tensor_product, spectral_norm, data_norm, nce,
-deform_conv2d).  Each layer creates its parameters through LayerHelper
+deform_conv2d), and Print over the control-flow bucket's `print`.  Each layer creates its parameters through LayerHelper
 and appends ops; the work is in the op rules (paddle_tpu_torch/ops/).
 The reference's layers whose rules are not ported yet are left out
 (ROADMAP queue 1 item 8)."""
@@ -37,7 +37,7 @@ __all__ = [
     "group_norm", "dropout", "prelu", "maxout", "label_smooth", "unfold",
     "image_resize", "resize_nearest", "resize_bilinear", "interpolate",
     "bilinear_tensor_product", "spectral_norm", "data_norm", "nce",
-    "deform_conv2d", "conv3d_transpose",
+    "deform_conv2d", "conv3d_transpose", "Print",
 ]
 
 
@@ -1159,3 +1159,20 @@ def conv3d_transpose(input, num_filters, output_size=None,
                              outputs={"Out": [pre]}, attrs={"axis": 1})
             out = pre
     return helper.append_activation(out, act)
+
+
+def Print(input, first_n=-1, message=None, summarize=20,
+          print_tensor_name=True, print_tensor_type=True,
+          print_tensor_shape=True, print_tensor_lod=False,
+          print_phase="both"):
+    """Debug print op (reference layers/control_flow.py Print:284): passes
+    `input` through and prints it on the host when the op runs
+    (ops/control_flow_ops.py `print`)."""
+    helper = LayerHelper("print")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("print", inputs={"In": input},
+                     outputs={"Out": out},
+                     attrs={"message": message or "",
+                            "first_n": first_n,
+                            "summarize": summarize})
+    return out

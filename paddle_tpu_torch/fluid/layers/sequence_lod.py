@@ -1,16 +1,28 @@
-"""Sequence layers (counterpart of paddle_tpu/fluid/layers/
-sequence_lod.py): sequence_conv and sequence_pool, with
-sequence_first_step and sequence_last_step over the pool.  A sequence
-is a padded dense tensor with an optional `length` (B,) beside it, as in
-the reference; the rest of its sequence layers wait for their rules
-(ROADMAP queue 1 item 8)."""
+"""Sequence layers (a copy of paddle_tpu/fluid/layers/sequence_lod.py,
+which follows the reference's python/paddle/fluid/layers/
+sequence_lod.py): sequence_conv, sequence_softmax, sequence_pool,
+sequence_concat, sequence_first_step, sequence_last_step,
+sequence_slice, sequence_expand, sequence_expand_as, sequence_pad,
+sequence_unpad, sequence_erase, sequence_enumerate, sequence_mask and
+sequence_reverse.
+
+A sequence is a padded dense tensor (B, T, ...) with an optional
+`length` (B,) beside it, not a LoDTensor; layers that drop steps return
+front-packed results and, where the reference carries them in the LoD,
+the new lengths (ops/sequence_ops.py).
+"""
 
 from __future__ import annotations
 
 from ..layer_helper import LayerHelper
 
-__all__ = ["sequence_conv", "sequence_pool", "sequence_first_step",
-           "sequence_last_step"]
+__all__ = [
+    "sequence_conv", "sequence_softmax", "sequence_pool",
+    "sequence_concat", "sequence_first_step", "sequence_last_step",
+    "sequence_slice", "sequence_expand", "sequence_expand_as",
+    "sequence_pad", "sequence_unpad", "sequence_erase",
+    "sequence_enumerate", "sequence_mask", "sequence_reverse",
+]
 
 
 def _seq_op(op_type, inputs, attrs=None, n_outs=("Out",), dtype=None,
@@ -60,6 +72,11 @@ def sequence_conv(input, num_filters, filter_size=3, filter_stride=1,
     return helper.append_activation(out, act)
 
 
+def sequence_softmax(input, length=None, use_cudnn=False, name=None):
+    return _seq_op("sequence_softmax", _with_len(input, length),
+                   dtype=input.dtype, name=name)
+
+
 def sequence_pool(input, pool_type, length=None, is_test=False,
                   pad_value=0.0, name=None):
     return _seq_op("sequence_pool", _with_len(input, length),
@@ -74,3 +91,81 @@ def sequence_first_step(input, length=None):
 
 def sequence_last_step(input, length=None):
     return sequence_pool(input, "LAST", length=length)
+
+
+def sequence_concat(input, length=None, name=None):
+    """Concat the i-th rows of all inputs time-wise; returns (out,
+    out_length) — the reference carries the new lengths in the LoD."""
+    ins = {"X": list(input)}
+    if length is not None:
+        ins["Length"] = list(length)
+    return _seq_op("sequence_concat", ins,
+                   n_outs=(("Out", input[0].dtype), ("OutLength", "int64")),
+                   name=name)
+
+
+def sequence_slice(input, offset, length, name=None):
+    return _seq_op("sequence_slice",
+                   {"X": [input], "Offset": [offset], "Length": [length]},
+                   dtype=input.dtype, name=name)
+
+
+def sequence_expand(x, y, ref_level=-1, length=None, name=None):
+    return _seq_op("sequence_expand",
+                   {"X": [x], "Y": [y]} | ({"Length": [length]}
+                                           if length is not None else {}),
+                   attrs={"ref_level": ref_level}, dtype=x.dtype,
+                   name=name)
+
+
+def sequence_expand_as(x, y, length=None, name=None):
+    return _seq_op("sequence_expand_as",
+                   {"X": [x], "Y": [y]} | ({"Length": [length]}
+                                           if length is not None else {}),
+                   dtype=x.dtype, name=name)
+
+
+def sequence_pad(x, pad_value, maxlen=None, length=None, name=None):
+    """Returns (out, length) like the reference (sequence_lod.py:894)."""
+    ins = _with_len(x, length)
+    ins["PadValue"] = [pad_value]
+    return _seq_op("sequence_pad", ins,
+                   attrs={"padded_length": -1 if maxlen is None
+                          else int(maxlen)},
+                   n_outs=(("Out", x.dtype), ("Length", "int64")),
+                   name=name)
+
+
+def sequence_unpad(x, length, name=None):
+    return _seq_op("sequence_unpad", _with_len(x, length),
+                   dtype=x.dtype, name=name)
+
+
+def sequence_erase(input, tokens, length=None, name=None):
+    """Returns (out, out_length): survivors front-packed."""
+    return _seq_op("sequence_erase", _with_len(input, length),
+                   attrs={"tokens": list(tokens)},
+                   n_outs=(("Out", input.dtype), ("OutLength", "int64")),
+                   name=name)
+
+
+def sequence_enumerate(input, win_size, pad_value=0, length=None,
+                       name=None):
+    return _seq_op("sequence_enumerate", _with_len(input, length),
+                   attrs={"win_size": win_size, "pad_value": pad_value},
+                   dtype=input.dtype, name=name)
+
+
+def sequence_mask(x, maxlen=None, dtype="int64", name=None):
+    if maxlen is None:
+        raise ValueError(
+            "sequence_mask needs a static maxlen (the reference derives "
+            "it from the LoD at run time)")
+    return _seq_op("sequence_mask", {"X": [x]},
+                   attrs={"maxlen": int(maxlen), "out_dtype": dtype},
+                   n_outs=("Y",), dtype=dtype, name=name)
+
+
+def sequence_reverse(x, length=None, name=None):
+    return _seq_op("sequence_reverse", _with_len(x, length),
+                   n_outs=("Y",), dtype=x.dtype, name=name)

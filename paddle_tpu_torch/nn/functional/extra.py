@@ -6,10 +6,8 @@ NotImplementedError with the same reason and alternative).
 
 Left out until their op buckets are ported (ROADMAP queue 1 item 8):
 the detection tail (roi_pool, prroi_pool, psroi_pool,
-polygon_box_transform, generate_proposals and its kin), the sequence
-names (sequence_reshape, sequence_scatter, im2sequence, lod_reset),
-tensor_array_to_tensor, and the misc and random ones
-(teacher_student_sigmoid_loss, continuous_value_model,
+polygon_box_transform, generate_proposals and its kin), and the misc
+and random ones (teacher_student_sigmoid_loss, continuous_value_model,
 add_position_encoding, random_crop, shuffle_channel).
 """
 
@@ -472,6 +470,48 @@ def lstm_unit(x_t, hidden_t_prev, cell_t_prev, forget_bias=0.0,
 def pad_constant_like(x, y, pad_value=0.0, name=None):
     return _op("pad_constant_like", {"X": x, "Y": y},
                {"pad_value": float(pad_value)})
+
+
+# -- the sequence and control-flow buckets' eager forms ----------------------------
+
+@_export
+def sequence_reshape(input, new_dim):
+    x = input[0] if isinstance(input, tuple) else input
+    return _op("sequence_reshape", {"X": x}, {"new_dim": new_dim})
+
+
+@_export
+def sequence_scatter(input, index, updates, name=None):
+    return _op("sequence_scatter",
+               {"X": input, "Ids": index, "Updates": updates})
+
+
+@_export
+def im2sequence(input, filter_size=1, stride=1, padding=0,
+                input_image_size=None, out_stride=1, name=None):
+    return _op("im2sequence", {"X": input},
+               {"kernels": _ntuple(filter_size, 2),
+                "strides": _ntuple(stride, 2),
+                "paddings": _ntuple(padding, 4)})
+
+
+@_export
+def lod_reset(x, y=None, target_lod=None):
+    ins = {"X": x}
+    if y is not None:
+        ins["Y"] = y
+    return _op("lod_reset", ins, {"target_lod": target_lod or []})
+
+
+@_export
+def tensor_array_to_tensor(input, axis=1, use_stack=False, name=None):
+    """(out, index) of an eager array, a list of same-shape tensors:
+    stacked on a new axis 0 under `use_stack`, else concatenated along
+    `axis` (the reference hands its rule the list, which reads a
+    buffer, and raises AttributeError)."""
+    from ...ops.control_flow_ops import array_to_tensor
+
+    return array_to_tensor(torch.stack(list(input)), axis, use_stack)
 
 
 # -- dropout variants (torch's bits, not the reference's jax.random ones) --------

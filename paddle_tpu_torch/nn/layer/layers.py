@@ -131,6 +131,14 @@ class Layer(nn.Module):
                          regularizer=attr.regularizer,
                          need_clip=attr.need_clip)
 
+    def create_variable(self, name=None, persistable=False, dtype=None):
+        """A zero tensor of shape [1] in `dtype` (default: the layer's),
+        with `persistable` set, as the reference's (layers.py:105); `name`
+        is not kept (a torch tensor has none)."""
+        t = torch.zeros([1], dtype=core.torch_dtype(dtype or self._dtype))
+        t.persistable = persistable
+        return t
+
     def register_buffer(self, name, tensor, persistable=True,
                         persistent=None):
         """A state tensor that is not a parameter (BN's running
@@ -171,7 +179,7 @@ class Layer(nn.Module):
             if p.grad is None:
                 continue
             if set_to_zero:
-                p.grad.zero_()
+                p.grad = torch.zeros_like(p.grad)
             else:
                 p.grad = None
 

@@ -47,9 +47,9 @@ def _load_rules() -> None:
     if _RULES_LOADED[0]:
         return
     _RULES_LOADED[0] = True
-    from . import (math_ops, misc_ops, nn_ops,  # noqa: F401
-                   optimizer_ops, random_ops, rnn_ops, sequence_ops,
-                   tensor_ops, vision_ops)
+    from . import (control_flow_ops, math_ops, misc_ops,  # noqa: F401
+                   nn_ops, optimizer_ops, random_ops, rnn_ops,
+                   sequence_ops, tensor_ops, vision_ops)
 
 
 def register_op(op_type: str):
@@ -113,8 +113,13 @@ def _mix(seed: int, op_id: int) -> int:
 
 
 class LowerCtx:
-    """Per-run context: the device, the step seed, and the kept forward
-    graphs (op id -> (outputs, input paths, leaves)) their grad ops use."""
+    """Per-run context: the device, the step seed, the kept forward
+    graphs (op id -> (outputs, input paths, leaves)) their grad ops use,
+    and for the control-flow rules the run's environment (`env`, which a
+    sub-block runs on), whether a differentiated sub-block is running
+    (`record`: its rules keep their graphs), the folded constants of
+    the tensor-array ops (`consts`) and the counts of ops run
+    (sub-blocks' included) and of host reads."""
 
     def __init__(self, seed: int = 0, device=None, abstract: bool = False):
         self.seed = int(seed)
@@ -123,6 +128,11 @@ class LowerCtx:
         # forward op ids that some *_grad op of the block references
         self.need_vjp: set = set()
         self.abstract = abstract  # True while inferring shapes on meta
+        self.env: Dict[str, Any] = {}
+        self.record = False
+        self.consts: Dict[tuple, Any] = {}
+        self.ops_run = 0
+        self.host_reads = 0
 
     def generator(self, op: Operator) -> torch.Generator:
         """The op's own generator on the context's device: seeded from the
@@ -175,23 +185,73 @@ def scan_need_vjp(block) -> set:
 
 
 def lower_block(ctx: LowerCtx, block, env: Dict[str, Any],
-                frees=None) -> int:
+                frees=None, scan: bool = True) -> int:
     """Run every op of `block` in order, reading and writing `env` (var
     name -> tensor).  `frees[i]`, when given, lists the names to drop from
-    `env` after op i (their last use).  Returns the count of ops run."""
+    `env` after op i (their last use).  A sub-block (a `while` or
+    `conditional_block` body) runs on the same `env`, as the reference's
+    interpreter runs it in a child of the outer scope.  `scan=False`
+    skips looking for the grad ops' forward ids (a loop's body, scanned
+    once before its first iteration).  Returns the count of the block's
+    ops."""
     _load_rules()
-    ctx.need_vjp |= scan_need_vjp(block)
+    if scan:
+        ctx.need_vjp |= scan_need_vjp(block)
+    ctx.env = env
     for i, op in enumerate(block.ops):
         lower_op(ctx, op, env)
+        ctx.ops_run += 1
         if frees is not None:
             for name in frees[i]:
                 env.pop(name, None)
     return len(block.ops)
 
 
+# ops that run a sub-block (attr "sub_block"): their declared inputs may
+# name vars the body writes before it reads them, unset before the loop
+SUB_BLOCK_OPS = ("while", "conditional_block")
+
+
 def _gather_ins(op: Operator, env) -> InsOuts:
-    return {slot: [env[n] if n != EMPTY_VAR_NAME else None for n in names]
+    get = env.get if op.type in SUB_BLOCK_OPS else env.__getitem__
+    return {slot: [get(n) if n != EMPTY_VAR_NAME else None for n in names]
             for slot, names in op.inputs.items()}
+
+
+def op_reads_writes(op: Operator):
+    """(names op reads, names op writes): its declared slots, and for an
+    op with a sub-block also what the body reads before writing it and
+    everything the body writes, walked recursively."""
+    reads = [n for n in op.input_arg_names() if n != EMPTY_VAR_NAME]
+    writes = [n for n in op.output_arg_names() if n != EMPTY_VAR_NAME]
+    idx = op.attr("sub_block", None)
+    if idx is not None and op.block is not None:
+        sub_reads, sub_writes = block_reads_writes(
+            op.block.program.blocks[idx])
+        reads += [n for n in sub_reads if n not in reads]
+        writes += [n for n in sub_writes if n not in writes]
+    return reads, writes
+
+
+def block_reads_writes(block, defined=()):
+    """(names the block reads before it writes them, names it writes),
+    each in first-seen order, sub-blocks walked recursively; `defined`
+    names count as written before the first op."""
+    defined = set(defined)
+    reads, writes = [], []
+    seen_r, seen_w = set(), set()
+    for op in block.ops:
+        r, w = op_reads_writes(op)
+        for n in r:
+            if n not in defined and n not in seen_r:
+                seen_r.add(n)
+                reads.append(n)
+        for n in w:
+            if n not in seen_w:
+                seen_w.add(n)
+                writes.append(n)
+            defined.add(n)
+    return reads, writes
 
 
 def _bind_outs(op: Operator, outs: InsOuts, env) -> None:
@@ -212,6 +272,8 @@ def lower_op(ctx: LowerCtx, op: Operator, env: Dict[str, Any]) -> None:
     ins = _gather_ins(op, env)
     if op.id in ctx.need_vjp:
         outs = _eval_with_vjp(ctx, op, fn, ins)
+    elif ctx.record:  # in a differentiated sub-block: keep the graph
+        outs = fn(ctx, op, ins)
     else:
         with torch.no_grad():
             outs = fn(ctx, op, ins)

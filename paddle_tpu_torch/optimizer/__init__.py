@@ -188,7 +188,7 @@ class Optimizer:
             if p.grad is None:
                 continue
             if set_to_zero:
-                p.grad.zero_()
+                p.grad = torch.zeros_like(p.grad)
             else:
                 p.grad = None
 

@@ -5,7 +5,7 @@ Left out until their modules are ported (ROADMAP queue 1 items 8 and
 11): CompiledProgram, BuildStrategy, ExecutionStrategy and
 ParallelExecutor (data-parallel compilation), save / load and
 load_program_state (`fluid.io`), save_inference_model /
-load_inference_model (`inference`), Print and py_func (their rules).
+load_inference_model (`inference`), py_func (its rule).
 """
 
 from ..fluid import (  # noqa: F401
@@ -14,7 +14,8 @@ from ..fluid import (  # noqa: F401
     gradients, program_guard, scope_guard,
 )
 from ..fluid.framework import Variable, name_scope  # noqa: F401
-from ..fluid.layers import create_global_var, create_parameter  # noqa: F401
+from ..fluid.layers import (Print, create_global_var,  # noqa: F401
+                            create_parameter)
 from ..fluid.layers.tensor import data  # noqa: F401
 from ..fluid.param_attr import WeightNormParamAttr  # noqa: F401
 from . import nn  # noqa: F401
@@ -63,4 +64,5 @@ __all__ = [
     "default_main_program", "default_startup_program", "Program", "data",
     "InputSpec", "set_program_state", "cpu_places", "cuda_places",
     "Variable", "Scope", "nn", "create_global_var", "create_parameter",
+    "Print",
 ]

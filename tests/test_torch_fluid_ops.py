@@ -1004,13 +1004,19 @@ def test_shuffle_batch_permutes_rows_by_its_seed():
 
 
 def test_every_rule_is_covered():
-    """Each registered port rule has a case here or in
-    test_torch_fluid_ops_nn.py (the nn and vision buckets), under its
-    reference op-type name."""
+    """Each registered port rule has a case here, in
+    test_torch_fluid_ops_nn.py (the nn and vision buckets) or in
+    test_torch_fluid_ops_seq.py (the sequence bucket and the control-flow
+    bucket's single-op rules; select_output by its own test there), or
+    runs in the programs of test_torch_control_flow.py (the sub-block and
+    tensor-array rules), under its reference op-type name."""
+    from test_torch_control_flow import PROGRAM_RULES
     from test_torch_fluid_ops_nn import CASES as NN_CASES
+    from test_torch_fluid_ops_seq import CASES as SEQ_CASES
 
-    covered = {c[0] for c in list(CASES.values()) + list(NN_CASES.values())} \
-        | set(RANDOM)
+    covered = {c[0] for c in list(CASES.values()) + list(NN_CASES.values())
+               + list(SEQ_CASES.values())} | set(RANDOM) | PROGRAM_RULES \
+        | {"select_output"}
     assert set(TREG.registered_ops()) == covered
     assert covered <= set(JREG.registered_ops())
 

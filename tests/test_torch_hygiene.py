@@ -22,6 +22,7 @@ FORBIDDEN = ("jax", "jaxlib", "paddle_tpu")
 
 # JAX-free helpers of the tests that chip_smoke.py imports too
 PROGRAMS = [ROOT / "tests" / "torch_seq2seq_program.py",
+            ROOT / "tests" / "torch_seq2seq_static_program.py",
             ROOT / "tests" / "torch_srl_program.py",
             ROOT / "tests" / "torch_book_programs.py",
             ROOT / "tests" / "torch_cyclegan_program.py"]
@@ -80,7 +81,9 @@ def test_the_walk_sees_the_whole_package():
             "static/nn.py", "ops/vision_ops.py", "ops/misc_ops.py",
             "nn/functional/__init__.py", "nn/functional/extra.py",
             "nn/layer/extra_layers.py", "nn/layer/container.py",
-            "vision/models.py"} <= names
+            "vision/models.py", "ops/control_flow_ops.py",
+            "fluid/layers/control_flow.py", "fluid/dygraph/varbase.py",
+            "fluid/dygraph/math_op_patch.py", "fluid/dygraph/nn.py"} <= names
 
 
 def _run(code_or_args, cwd, timeout=120):
@@ -110,9 +113,12 @@ def test_importing_the_port_loads_no_jax():
             "paddle_tpu_torch.nn.layer.rnn, paddle_tpu_torch.nn.decode, "
             "paddle_tpu_torch.nn.functional.extra, "
             "paddle_tpu_torch.ops.vision_ops, "
-            "paddle_tpu_torch.vision.models\n"
+            "paddle_tpu_torch.vision.models, "
+            "paddle_tpu_torch.ops.control_flow_ops, "
+            "paddle_tpu_torch.fluid.dygraph.nn\n"
             "sys.path.insert(0, 'tests')\n"
-            "import torch_seq2seq_program, torch_cyclegan_program\n"
+            "import torch_seq2seq_program, torch_cyclegan_program, "
+            "torch_seq2seq_static_program\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu'))\n"
             "print(bad)\n")

@@ -198,6 +198,15 @@ FUNCTIONAL = {
     "pool3d": [((_VOL,), {"pool_size": 2, "pool_stride": 2}, (0,)),
                ((_VOL,), {"pool_size": 3, "pool_type": "avg",
                           "pool_padding": 1}, (0,))],
+    # the sequence bucket's eager forms
+    "sequence_reshape": [((_f(2, 3, 4),), {"new_dim": 6}, (0,))],
+    "sequence_scatter": [((_f(3, 5), np.array([[0, 4, -1], [2, 2, 9],
+                                              [1, 3, 0]]),
+                           _f(3, 3, seed=1)), {}, (0, 2))],
+    "im2sequence": [((_f(2, 3, 5, 6),), {"filter_size": [2, 3],
+                                         "stride": [1, 2], "padding": 1},
+                     (0,))],
+    "lod_reset": [((_f(3, 4),), {"target_lod": [0, 1, 3]}, (0,))],
     # the repaired forms of the earlier functions
     "embedding": [((_ids((2, 3), 10), _f(10, 4)), {"padding_idx": 3},
                    (1,))],
@@ -211,6 +220,8 @@ HELD_BELOW = {
     "alpha_dropout": "random", "dropout2d": "random", "dropout3d": "random",
     "gru_unit": "raises in both packages", "lstm": "raises in both",
     "rnn": "drives a cell", "birnn": "drives two cells",
+    "tensor_array_to_tensor": "the reference's raises on an eager array "
+                              "(test_torch_control_flow.py)",
 }
 
 # names of the reference's nn.functional the port leaves out, by the op
@@ -226,13 +237,6 @@ LEFT_OUT = {
         "retinanet_target_assign", "roi_align", "roi_pool",
         "rpn_target_assign", "sigmoid_focal_loss", "target_assign",
         "yolo_box", "yolov3_loss"},
-    "sequence": {
-        "im2sequence", "lod_reset", "sequence_concat", "sequence_enumerate",
-        "sequence_expand", "sequence_expand_as", "sequence_pad",
-        "sequence_reshape", "sequence_reverse", "sequence_scatter",
-        "sequence_slice", "sequence_softmax", "sequence_unpad"},
-    "control_flow": {"array_length", "array_read", "array_write",
-                     "create_array", "tensor_array_to_tensor"},
     "misc": {"add_position_encoding", "continuous_value_model",
              "random_crop", "teacher_student_sigmoid_loss"},
     "random": {"shuffle_channel"},
