@@ -254,6 +254,35 @@ Phases, in order (any failure exits non-zero and prints no result):
               static one in turns; the two programs at STATIC_CUT sources
               on the card against the CPU Executor (ids equal, scores
               within S2S_SCORE_TOL)
+ 22. fluid_amp  BASELINE configs[1]'s static ResNet-50 program
+              (tests/torch_fluid_amp_program.py: build_train_program at
+              B=128, 224^2 with its optimizer= argument) trained in fp16
+              through fluid.contrib.mixed_precision.decorate(
+              LarsMomentumOptimizer) with fleet's amp_configs and
+              lars_configs, EMA(0.9999) updated after each step: 1
+              warm-up and AMP_STEPS steps, AMP_TIMED of them timed (CUDA
+              events, host clock beside) with the host syncs counted by
+              line (1 a step: the update block's condition), the loss
+              scale and its counts against the update_loss_scaling
+              rule's replay of the fetched overflow flags, the loss
+              falling over the steps that applied; ops a step, host us an
+              op, peak memory, one step profiled; inside ema.apply() each
+              parameter is its shadow and the for_test clone runs, after
+              it each is its training tensor again; two steps at
+              float32's largest loss scale skip the update bit for bit,
+              keep the scale, then halve it.  Then the f32 program with
+              the configs[1] Momentum, plain and under RecomputeOptimizer
+              (the 16 blocks' outputs as checkpoints), from one state:
+              the same loss (RECOMPUTE_LOSS_RTOL), each update within
+              RECOMPUTE_UPDATE_L2, a lower peak, both step times.  The
+              sixteen fluid optimizers, ClipGradByGlobalNorm, ModelAverage
+              and Lookahead on the cut resnet18, card against the CPU
+              Executor (FLUID_LOSS_RTOL, RESNET_KINK), and the decorated
+              program there too, with every op in f32 (the same limits)
+              and in fp16 (AMP_CUT_LOSS, the same flags and scales).  The
+              random rules at
+              RANDOM_DRAWS draws by their statistics, shuffle_channel
+              equal to the CPU's
 
 The last two lines of stdout are a {"kernels": [...]} summary and the
 {"ok": true, "device": {...}} result.
@@ -409,6 +438,21 @@ PEAK_F32_FLOPS = 67e12
 # 1e-6 counted as 1e-6 (a ReLU kink flip moves a whole gradient term; a
 # bias in front of a batch norm has an exact gradient of 0)
 FLUID_LOSS_RTOL = 1e-4
+# the fluid_amp phase: the fp16 LARS program's warm-up step, then AMP_TIMED
+# steps timed and AMP_STEPS in all; at least AMP_MIN_APPLIED of them apply
+# an update (the rest overflow while the scale falls from 32768)
+AMP_TIMED, AMP_STEPS, AMP_MIN_APPLIED = 10, 40, 20
+# recompute against the plain f32 step from one state: the loss (the same
+# forward ops) and each parameter's update in relative L2 (the backward's
+# sums in another order: a segment's autograd graph against per-op ones)
+RECOMPUTE_LOSS_RTOL, RECOMPUTE_UPDATE_L2 = 1e-5, 1e-3
+RECOMPUTE_STEPS = 3
+# the optimizer zoo's steps, and the random rules' draws
+ZOO_STEPS, RANDOM_DRAWS = 3, 10 ** 6
+# the decorated cut resnet18, card against CPU: its steps (the first
+# overflow at 32768 in fp16) and tests/test_torch_fluid_amp.py's fp16 loss
+# tolerance (fp16's unit is 9.8e-4)
+AMP_CUT_STEPS, AMP_CUT_LOSS = 5, dict(rtol=2e-3, atol=2e-4)
 # MNIST (configs[0], Adam lr 1e-3) on one batch of 64
 MNIST_BATCH, MNIST_STEPS = 64, 8
 # the decode configuration: pages, slots, buckets (the pool is 12 x 513
@@ -4825,6 +4869,622 @@ def cyclegan():
     return launches
 
 
+# -- the fluid_amp phase: static ResNet-50 in fp16 with LARS, recompute,
+# -- the optimizer zoo and the random rules --------------------------------
+
+def _amp_program():
+    """tests/torch_fluid_amp_program.py, the JAX-free program the parity
+    tests hold against paddle_tpu."""
+    tests = str(Path(__file__).resolve().parent / "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import torch_fluid_amp_program as AP
+    return AP
+
+
+def _state_clone(scope):
+    return {n: scope.get(n).clone() for n in scope.local_var_names()}
+
+
+def _amp_ema_check(fluid, exe, scope, main, feed, ema, fetches):
+    """Inside ema.apply() every parameter is its bias-corrected shadow
+    (bit for bit) and the for_test clone runs on them; after restore()
+    each is the training tensor itself again."""
+    trained = {n: scope.get(n) for n in ema._shadow}
+    corr = 1.0 - ema._decay_prod
+    test = main.clone(for_test=True)
+    with fluid.scope_guard(scope), ema.apply():
+        bad = [n for n, avg in ema._shadow.items()
+               if not torch.equal(scope.get(n),
+                                  (avg / corr).to(trained[n].dtype))]
+        loss = float(exe.run(test, feed=feed, fetch_list=fetches[:1],
+                             scope=scope)[0])
+    moved = [n for n in trained if scope.get(n) is not trained[n]]
+    if bad or moved or not np.isfinite(loss):
+        raise AssertionError(f"EMA: {len(bad)} shadows not applied, "
+                             f"{len(moved)} not restored, eval loss {loss}")
+    log(f"EMA(0.9999) over {ema._step} updates: {len(trained)} shadows "
+        f"applied bit for bit (bias correction 1 - {ema._decay_prod:.6f}),"
+        f" the for_test clone's loss on them {loss:.4f}, every parameter "
+        f"restored to its training tensor")
+    return loss
+
+
+def _amp_run(fluid, R, AP):
+    """The AMP + LARS program at full width: warm-up, AMP_TIMED steps by
+    CUDA events with the host syncs counted by line, AMP_STEPS in all;
+    the loss scale's trajectory against its rule; EMA."""
+    opt = AP.amp_optimizer(fluid)
+    t0 = time.perf_counter()
+    main, startup, _, fetches = AP.build(
+        fluid, R, unique_name, opt, class_num=FLUID_CLASSES,
+        image_shape=(3, FLUID_HW, FLUID_HW), batch_size=FLUID_BATCH)
+    built_s = time.perf_counter() - t0
+    names = list(AP.amp_state_names(main, opt))
+    block = main.global_block()
+    n_ops, n_sub = len(block.ops), len(main.blocks[1].ops)
+    casts = sum(op.type == "cast" for op in block.ops)
+    params = [p for p in main.all_parameters() if p.trainable]
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(startup, scope=scope)
+    rng = np.random.RandomState(0)
+    feed = {"image": torch.from_numpy(rng.randn(
+                FLUID_BATCH, 3, FLUID_HW, FLUID_HW).astype("float32")).cuda(),
+            "label": torch.from_numpy(rng.randint(
+                0, FLUID_CLASSES, (FLUID_BATCH, 1)).astype("int64")).cuda()}
+    ema = fluid.optimizer.ExponentialMovingAverage(0.9999)
+    fetch = fetches + names
+    log(f"static resnet50 fp16 + LARS (lr {AP.LR}, fleet's lars_configs) "
+        f"+ dynamic loss scaling (fleet's amp_configs): {len(params)} "
+        f"parameters, {n_ops} ops a step ({casts} casts) + {n_sub} in the "
+        f"update's conditional block; built in {built_s:.1f} s")
+
+    ema_s = [0.0]
+
+    def run():
+        out = exe.run(main, feed=feed, fetch_list=fetch, scope=scope,
+                      return_numpy=False)
+        t = time.perf_counter()
+        ema.update(scope, main)
+        ema_s[0] += time.perf_counter() - t
+        return out
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    profiler.stat_reset()
+    profiler.time_reset()
+    for c in COUNTERS.values():
+        c.reset()
+    # -- the main path: counters at 0 before, read right after --------------
+    out = []
+    t0 = time.perf_counter()
+    out.append(run())  # warm-up (cuDNN's algorithm search)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    reads0 = profiler.get_int_stats().get("control_flow_host_reads", 0)
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    with _SyncCount() as sc:
+        ema_s[0] = 0.0
+        h0 = time.perf_counter()
+        e0.record()
+        for _ in range(AMP_TIMED):
+            out.append(run())
+        e1.record()
+        host_s = time.perf_counter() - h0
+        ema_ms = ema_s[0] * 1e3 / AMP_TIMED
+    torch.cuda.synchronize()
+    timed_reads = profiler.get_int_stats().get(
+        "control_flow_host_reads", 0) - reads0
+    sites = sc.sites()
+    for _ in range(AMP_STEPS - AMP_TIMED):
+        out.append(run())
+    torch.cuda.synchronize()
+    mem = torch.cuda.max_memory_allocated()
+    launches = {n: c.value for n, c in COUNTERS.items()}
+    stats_all = profiler.get_int_stats()
+    # ------------------------------------------------------------------------
+    _expect_launches(launches, 0, (), f"{len(out)} static AMP steps")
+    step_ms = e0.elapsed_time(e1) / AMP_TIMED
+    host_ms = host_s * 1e3 / AMP_TIMED
+    ops_run = stats_all.get("executor_op_count", 0) / len(out)
+    losses = [float(o[0]) for o in out]
+    rows = [(float(o[2].numpy()[0]), int(o[3].numpy()[0]),
+             int(o[4].numpy()[0]), bool(o[5].numpy()[0])) for o in out]
+    found = [r[3] for r in rows]
+    replay = AP.replay_loss_scaling(found)
+    if [r[:3] for r in rows] != replay:
+        raise AssertionError(f"loss scaling {rows} is not its rule's "
+                             f"replay {replay}")
+    syncs = sum(sites.values())
+    if timed_reads != AMP_TIMED or syncs != AMP_TIMED:
+        raise AssertionError(f"{timed_reads} host reads and {syncs} syncs "
+                             f"({sites}) in {AMP_TIMED} steps, want 1 each "
+                             f"a step (the conditional block's condition)")
+    applied = [l for l, f in zip(losses, found) if not f]
+    if len(applied) < AMP_MIN_APPLIED or not all(np.isfinite(applied)) \
+            or not applied[-1] < applied[0]:
+        raise AssertionError(f"{len(applied)} steps applied an update, "
+                             f"their losses {applied} do not fall")
+    log(f"losses: {' '.join(f'{v:.4f}' for v in losses)}")
+    log(f"loss scale after each step: "
+        f"{' '.join(f'{r[0]:g}' for r in rows)}; good / bad counts "
+        f"{[r[1:3] for r in rows]}; {sum(found)} of {len(found)} steps "
+        f"skipped (overflow), as the update_loss_scaling rule replays")
+    flops = 3 * VT.resnet50_fwd_flops(FLUID_BATCH, FLUID_HW, FLUID_CLASSES)
+    summary = dict(
+        step_ms=step_ms, host_step_ms=host_ms,
+        images_per_s=FLUID_BATCH / (step_ms / 1e3),
+        mfu_bf16_peak=flops / (step_ms / 1e3) / PEAK_BF16_FLOPS,
+        ops_per_step=ops_run, program_ops=n_ops, update_block_ops=n_sub,
+        casts=casts, host_us_per_op=1e3 * host_ms / ops_run,
+        host_reads_per_step=timed_reads / AMP_TIMED,
+        ema_update_host_ms=ema_ms,
+        syncs_per_step=syncs / AMP_TIMED, sync_sites=sites,
+        warmup_step_s=warm_s, max_memory_allocated_bytes=mem,
+        losses=losses, loss_scale=[r[0] for r in rows],
+        good_steps=[r[1] for r in rows], bad_steps=[r[2] for r in rows],
+        skipped=sum(found), applied=len(applied), lr=AP.LR)
+    log(f"static resnet50 fp16 train step B={FLUID_BATCH}: {step_ms:.3f} ms "
+        f"(CUDA events over {AMP_TIMED} steps, EMA update included; host "
+        f"clock {host_ms:.3f} ms), {summary['images_per_s']:.1f} images/s, "
+        f"MFU {100 * summary['mfu_bf16_peak']:.2f}% of 989 TFLOP/s; "
+        f"{ops_run:.1f} ops a step at {summary['host_us_per_op']:.1f} host "
+        f"us an op (EMA's update {ema_ms:.3f} host ms of it); host reads {summary['host_reads_per_step']:.2f} and "
+        f"syncs {summary['syncs_per_step']:.2f} a step ({sites}); "
+        f"max_memory_allocated {mem / 2 ** 30:.2f} GiB; warm-up "
+        f"{warm_s:.2f} s")
+    busy, wall, top = _profile(lambda: run()[0].torch(), top=12)
+    summary.update(profiled_busy_ms=busy, profiled_wall_ms=wall,
+                   profiled_idle=max(0.0, 1 - busy / wall),
+                   top_kernels=[dict(name=k[:90], ms=ms, count=n)
+                                for k, ms, n in top])
+    summary["ema_eval_loss"] = _amp_ema_check(fluid, exe, scope, main,
+                                              feed, ema, fetches)
+    summary["injected_overflow"] = _amp_skip_check(exe, scope, main, feed,
+                                                   names, params, AP)
+    return launches, summary, feed
+
+
+def _amp_skip_check(exe, scope, main, feed, names, params, AP):
+    """Two more steps with the loss scale at float32's largest value and
+    the counts at 0: the scaled loss overflows, so every gradient does,
+    the update's block is skipped and each parameter and velocity stays
+    bit for bit; the first step counts one bad step and keeps the scale,
+    the second halves it (decr_every_n_nan_or_inf is 2), as the
+    update_loss_scaling rule replays."""
+    scale, good, bad, found = names
+    keep = [p.name for p in params] + [n for n in scope.local_var_names()
+                                       if n.endswith("_velocity_0")]
+    before = {n: scope.get(n).clone() for n in keep}
+    top = float(np.finfo(np.float32).max)
+    scope.set(scale, torch.full_like(scope.get(scale), top))
+    scope.set(good, torch.zeros_like(scope.get(good)))
+    scope.set(bad, torch.zeros_like(scope.get(bad)))
+    rows = []
+    for _ in range(2):
+        got = exe.run(main, feed=feed, fetch_list=[scale, good, bad, found],
+                      scope=scope)
+        rows.append((float(got[0][0]), int(got[1][0]), int(got[2][0]),
+                     bool(got[3][0])))
+    want = [r + (True,) for r in AP.replay_loss_scaling(
+        [True, True], dict(AP.AMP, init_loss_scaling=top))]
+    changed = [n for n in keep if not torch.equal(scope.get(n), before[n])]
+    if rows != want or changed:
+        raise AssertionError(f"two overflowing steps: (scale, good, bad, "
+                             f"found) {rows}, the rule's {want}; "
+                             f"{len(changed)} of {len(keep)} vars moved")
+    log(f"two injected overflows (loss scale {top:g}) skip the update on "
+        f"the card: {len(keep)} parameters and velocities unchanged bit "
+        f"for bit; (scale, good, bad, found) {rows}, the rule's replay")
+    return dict(vars_unchanged=len(keep), rows=rows)
+
+
+def _amp_cut_check(fluid, R, AP):
+    """The decorated program (LARS, dynamic loss scaling) on the cut
+    resnet18 (width 8, B=8, 32 x 32), AMP_CUT_STEPS steps on the card's
+    Executor against the CPU's, each from the CPU's state, in two forms.
+    f32: every white-listed op moved to the black list, so the scaled,
+    checked and unscaled gradients and the conditional update run in
+    float32: the loss within FLUID_LOSS_RTOL and every float state var
+    within RESNET_KINK, as the fluid phase holds resnet18.  fp16: the
+    same overflow flags, scales and counts, the loss within AMP_CUT_LOSS
+    (tests/test_torch_fluid_amp.py's fp16 tolerance); its updates are
+    reported and not bounded, since each device rounds every fp16
+    convolution's inputs and outputs and the ReLUs and the batch
+    statistics of 8 images move whole terms of a gradient on a rounding."""
+    from paddle_tpu_torch.convert import load_jax_scope
+
+    black = fluid.contrib.mixed_precision.AutoMixedPrecisionLists(
+        custom_black_list=["conv2d", "mul", "matmul"])
+    forms = {"f32": dict(amp_lists=black), "fp16": {}}
+    out = {}
+    for form, kw in forms.items():
+        opt = fluid.contrib.mixed_precision.decorate(
+            fluid.optimizer.LarsMomentumOptimizer(AP.LR, **AP.LARS),
+            dtype="float16", **kw, **AP.AMP)
+        main, startup, _, fetches = AP.build(
+            fluid, R, unique_name, opt, depth=18, class_num=10,
+            image_shape=(3, 32, 32), batch_size=8, width=8)
+        names = list(AP.amp_state_names(main, opt))
+        params = [p.name for p in main.all_parameters() if p.trainable]
+        gpu, cpu = fluid.Executor(), fluid.Executor(fluid.CPUPlace())
+        gs, cs = fluid.Scope(), fluid.Scope()
+        gpu.run(startup, scope=gs)
+        cpu.run(startup, scope=cs)
+        load_jax_scope(cs, {n: gs.get(n).cpu().numpy()
+                            for n in gs.local_var_names()})
+        rng = np.random.RandomState(0)
+        loss_tol = AMP_CUT_LOSS if form == "fp16" else dict(
+            rtol=FLUID_LOSS_RTOL, atol=0.0)
+        loss_err, state_err, update_err, found = 0.0, {}, 0.0, []
+        for step in range(AMP_CUT_STEPS):
+            feed = {"image": rng.rand(8, 3, 32, 32).astype("float32"),
+                    "label": rng.randint(0, 10, (8, 1)).astype("int64")}
+            load_jax_scope(gs, {n: cs.get(n).numpy()
+                                for n in cs.local_var_names()})
+            before = {n: cs.get(n).double() for n in params}
+            g = gpu.run(main, feed=feed, fetch_list=fetches[:1] + names,
+                        scope=gs)
+            c = cpu.run(main, feed=feed, fetch_list=fetches[:1] + names,
+                        scope=cs)
+            gl, cl = float(g[0]), float(c[0])
+            loss_err = max(loss_err, abs(gl - cl) / abs(cl))
+            rows = [[np.asarray(v).tolist() for v in r[1:]] for r in (g, c)]
+            if not np.isfinite(gl) or abs(gl - cl) > loss_tol["atol"] \
+                    + loss_tol["rtol"] * abs(cl) or rows[0] != rows[1]:
+                raise AssertionError(f"{form} step {step}: card loss {gl} "
+                                     f"vs CPU {cl}, (scale, good, bad, "
+                                     f"found) {rows}")
+            found.append(bool(rows[1][3][0]))
+            num = den = 0.0
+            for n in params:
+                d = gs.get(n).double().cpu() - before[n]
+                w = cs.get(n).double() - before[n]
+                num += float((d - w).norm()) ** 2
+                den += float(w.norm()) ** 2
+            if den:
+                update_err = max(update_err, (num / den) ** 0.5)
+            for n, e in _fluid_state_errors(gs, cs).items():
+                state_err[n] = max(state_err.get(n, 0.0), e)
+        var, err = max(state_err.items(), key=lambda kv: kv[1])
+        if form == "f32" and (err > RESNET_KINK or any(found)):
+            raise AssertionError(f"f32-decorated cut resnet18: {var} "
+                                 f"relative L2 {err}, found {found}")
+        out[form] = dict(loss_rel=loss_err, update_rel_l2=update_err,
+                         worst_var=var, worst_rel_l2=err, found=found)
+        log(f"the decorated cut resnet18 ({form}, LARS, loss scaling), "
+            f"card vs CPU Executor over {AMP_CUT_STEPS} steps each from "
+            f"the CPU's state: loss {loss_err:.2e} (limit {loss_tol}), the "
+            f"same flags {found}, scales and counts; the whole update's "
+            f"relative L2 {update_err:.2e}, the worst of {len(state_err)} "
+            f"state vars {var} {err:.2e}"
+            + (f" (limit {RESNET_KINK})" if form == "f32" else ""))
+    return out
+
+
+def _rel_update(after, before, ref_after):
+    """Relative L2 of one update against another's, from one state."""
+    d, w = (after - before).double(), (ref_after - before).double()
+    return float((d - w).norm()) / max(float(w.norm()), 1e-12)
+
+
+def _amp_recompute(fluid, R, AP, feed):
+    """The f32 program with the configs[1] Momentum, plain and wrapped in
+    RecomputeOptimizer (checkpoints: the 16 blocks' outputs), one step
+    each from one state after a warm-up step each: the same loss
+    (RECOMPUTE_LOSS_RTOL), each parameter's update within
+    RECOMPUTE_UPDATE_L2, a lower peak."""
+    def momentum():
+        return fluid.optimizer.Momentum(
+            learning_rate=0.1, momentum=0.9,
+            regularization=fluid.regularizer.L2Decay(1e-4))
+
+    forms = {}
+    for name, opt in (("plain", momentum()),
+                      ("recompute", AP.recompute_optimizer(fluid,
+                                                           momentum()))):
+        main, startup, _, fetches = AP.build(
+            fluid, R, unique_name, opt, class_num=FLUID_CLASSES,
+            image_shape=(3, FLUID_HW, FLUID_HW), batch_size=FLUID_BATCH)
+        forms[name] = (main, startup, fetches)
+    n_seg = sum(op.type == "recompute_segment_grad"
+                for op in forms["recompute"][0].global_block().ops)
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(forms["plain"][1], scope=scope)
+    state0 = _state_clone(scope)
+    got = {}
+    for name, (main, _, fetches) in forms.items():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        times, peaks = [], []
+        # a warm-up (cuDNN's search), then RECOMPUTE_STEPS steps, each
+        # from the same state
+        for i in range(1 + RECOMPUTE_STEPS):
+            for n, v in state0.items():
+                scope.set(n, v.clone())
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            e0, e1 = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+            e0.record()
+            loss = exe.run(main, feed=feed, fetch_list=fetches[:1],
+                           scope=scope, return_numpy=False)[0]
+            e1.record()
+            torch.cuda.synchronize()
+            if i:
+                times.append(e0.elapsed_time(e1))
+                peaks.append(torch.cuda.max_memory_allocated())
+        got[name] = dict(loss=float(loss), ms=float(np.median(times)),
+                         ms_each=times, peak=max(peaks),
+                         peak_over_state=max(peaks) - base,
+                         state=_state_clone(scope))
+    params = [p.name for p in forms["plain"][0].all_parameters()
+              if p.trainable]
+    worst = max((_rel_update(got["recompute"]["state"][n], state0[n],
+                             got["plain"]["state"][n]), n) for n in params)
+    rel = abs(got["recompute"]["loss"] - got["plain"]["loss"]) \
+        / abs(got["plain"]["loss"])
+    log(f"recompute ({n_seg} segments) vs plain, f32 Momentum, one step "
+        f"from one state: loss {got['recompute']['loss']:.6f} / "
+        f"{got['plain']['loss']:.6f} (rel {rel:.2e}, limit "
+        f"{RECOMPUTE_LOSS_RTOL}); worst update {worst[1]} rel L2 "
+        f"{worst[0]:.2e} (limit {RECOMPUTE_UPDATE_L2}); step (median of "
+        f"{RECOMPUTE_STEPS}) {got['recompute']['ms']:.3f} / "
+        f"{got['plain']['ms']:.3f} ms; peak "
+        f"{got['recompute']['peak'] / 2 ** 30:.2f} / "
+        f"{got['plain']['peak'] / 2 ** 30:.2f} GiB (above the state: "
+        f"{got['recompute']['peak_over_state'] / 2 ** 30:.2f} / "
+        f"{got['plain']['peak_over_state'] / 2 ** 30:.2f})")
+    if not rel <= RECOMPUTE_LOSS_RTOL or worst[0] > RECOMPUTE_UPDATE_L2 \
+            or not got["recompute"]["peak"] < got["plain"]["peak"]:
+        raise AssertionError("recompute does not match the plain step, or "
+                             "does not peak lower")
+    return {k: {m: v for m, v in g.items() if m != "state"}
+            for k, g in got.items()} | dict(
+        segments=n_seg, loss_rel=rel, worst_update=worst[1],
+        worst_update_rel_l2=worst[0])
+
+
+def _zoo(fluid):
+    """name -> the optimizer (wrapper) to minimize with: the sixteen
+    update optimizers, ClipGradByGlobalNorm on Momentum, ModelAverage on
+    Adam, Lookahead on Lamb.  Dpsgd at sigma 0 (its noise is held by its
+    statistics)."""
+    O = fluid.optimizer
+    return {
+        "SGD": lambda: O.SGD(0.05),
+        "Momentum": lambda: O.Momentum(0.05, 0.9),
+        "LarsMomentum": lambda: O.LarsMomentum(2.0, 0.9),
+        "Adagrad": lambda: O.Adagrad(0.01),
+        "Adam": lambda: O.Adam(0.001),
+        "AdamW": lambda: O.AdamW(0.001, weight_decay=0.01),
+        "Adamax": lambda: O.Adamax(0.001),
+        "Adadelta": lambda: O.Adadelta(1.0),
+        "RMSProp": lambda: O.RMSProp(0.001, momentum=0.9),
+        "Lamb": lambda: O.Lamb(0.001),
+        "DGCMomentum": lambda: O.DGCMomentum(0.05, 0.9, sparsity=[0.99]),
+        "DecayedAdagrad": lambda: O.DecayedAdagrad(0.01),
+        "ProximalGD": lambda: O.ProximalGD(
+            0.05, l1_regularization_strength=1e-4),
+        "ProximalAdagrad": lambda: O.ProximalAdagrad(
+            0.01, l1_regularization_strength=1e-4),
+        "Ftrl": lambda: O.Ftrl(0.01, l1=1e-4),
+        "Dpsgd": lambda: O.Dpsgd(0.05, clip=10.0, batch_size=8.0,
+                                 sigma=0.0),
+        "Momentum+ClipGradByGlobalNorm": lambda: O.Momentum(
+            0.05, 0.9, grad_clip=fluid.clip.ClipGradByGlobalNorm(1.0)),
+        "Adam+ModelAverage": lambda: O.Adam(0.001),
+        "Lookahead(Lamb)": lambda: O.LookaheadOptimizer(O.Lamb(0.001),
+                                                        alpha=0.5, k=2),
+    }
+
+
+def _optimizer_zoo(fluid, R):
+    """Each optimizer of _zoo on the cut resnet18 (width 8, B=8, 32 x
+    32): ZOO_STEPS steps on the card's Executor against the CPU's, each
+    from the CPU's state; the loss within FLUID_LOSS_RTOL, every float
+    state var within RESNET_KINK (as the fluid phase holds resnet18),
+    and ModelAverage's averages within RESNET_KINK."""
+    from paddle_tpu_torch.convert import load_jax_scope
+
+    rng = np.random.RandomState(0)
+    feed = {"image": rng.rand(8, 3, 32, 32).astype("float32"),
+            "label": rng.randint(0, 10, (8, 1)).astype("int64")}
+    worst = {}
+    for name, make in _zoo(fluid).items():
+        with unique_name.guard():
+            main, startup, _, fetches = R.build_train_program(
+                depth=18, class_num=10, image_shape=(3, 32, 32),
+                batch_size=8, width=8, optimizer=make())
+        gpu, cpu = fluid.Executor(), fluid.Executor(fluid.CPUPlace())
+        gs, cs = fluid.Scope(), fluid.Scope()
+        gpu.run(startup, scope=gs)
+        cpu.run(startup, scope=cs)
+        load_jax_scope(cs, {n: gs.get(n).cpu().numpy()
+                            for n in gs.local_var_names()})
+        avg = {s: fluid.optimizer.ModelAverage(0.15) for s in ("g", "c")} \
+            if "ModelAverage" in name else None
+        loss_err, state_err = 0.0, {}
+        for _ in range(ZOO_STEPS):
+            load_jax_scope(gs, {n: cs.get(n).numpy()
+                                for n in cs.local_var_names()})
+            g = float(gpu.run(main, feed=feed, fetch_list=fetches[:1],
+                              scope=gs)[0])
+            c = float(cpu.run(main, feed=feed, fetch_list=fetches[:1],
+                              scope=cs)[0])
+            loss_err = max(loss_err, abs(g - c) / abs(c))
+            if not np.isfinite(g) or loss_err > FLUID_LOSS_RTOL:
+                raise AssertionError(f"{name}: card loss {g} vs CPU {c}")
+            for n, e in _fluid_state_errors(gs, cs).items():
+                state_err[n] = max(state_err.get(n, 0.0), e)
+            if avg is not None:
+                avg["g"].update(gs, main)
+                avg["c"].update(cs, main)
+        if avg is not None:
+            for n, a in avg["c"]._shadow.items():
+                w, d = a.double(), avg["g"]._shadow[n].double().cpu()
+                state_err["average:" + n] = float((d - w).norm()) / max(
+                    float(w.norm()), 1e-6 * w.numel() ** 0.5)
+        var, err = max(state_err.items(), key=lambda kv: kv[1])
+        worst[name] = dict(loss_rel=loss_err, worst_var=var,
+                           worst_rel_l2=err, state_vars=len(state_err))
+        if err > RESNET_KINK:
+            raise AssertionError(f"{name}: {var} relative L2 {err}")
+    log(f"optimizer zoo on the cut resnet18, card vs CPU Executor over "
+        f"{ZOO_STEPS} steps each from the CPU's state (loss limit "
+        f"{FLUID_LOSS_RTOL}, state limit {RESNET_KINK}):")
+    for name, w in worst.items():
+        log(f"  {name:32s} loss {w['loss_rel']:.2e}, worst of "
+            f"{w['state_vars']} vars {w['worst_var']} {w['worst_rel_l2']:.2e}")
+    return worst
+
+
+def _chi2_limit(k):
+    """The 1 - 1e-6 quantile of a chi-square of k degrees of freedom
+    (Wilson-Hilferty)."""
+    return k * (1 - 2 / (9 * k) + 4.753 * (2 / (9 * k)) ** 0.5) ** 3
+
+
+def _random_rules():
+    """The random and drawing rules on the card at RANDOM_DRAWS draws,
+    by their statistics (5 standard errors; chi-square below its 1 -
+    1e-6 quantile), and shuffle_channel equal to the CPU's exactly."""
+    from math import erf, exp, pi, sqrt
+
+    from paddle_tpu_torch.fluid.framework import Operator, Program
+    from paddle_tpu_torch.ops import registry
+
+    blk = Program().global_block()
+
+    def rule(op_type, ins, attrs, slot="Out", device="cuda", seed=7):
+        op = Operator(blk, 11, op_type, {s: [s] for s in ins},
+                      {slot: [slot]}, attrs)
+        out = registry.forward_rule(op_type)(
+            registry.LowerCtx(seed, device=device), op,
+            {s: [v] for s, v in ins.items()})[slot][0]
+        if device == "cuda" and out.device.type != "cuda":
+            raise AssertionError(f"{op_type} ran off the card")
+        return out
+
+    def within(name, x, mean, std):
+        n = x.numel()
+        m, s = float(x.double().mean()), float(x.double().std())
+        if abs(m - mean) > 5 * std / n ** 0.5 \
+                or abs(s - std) > 5 * std / (2 * n) ** 0.5:
+            raise AssertionError(f"{name}: mean {m} std {s}, want {mean} "
+                                 f"{std}")
+        return dict(mean=m, std=s)
+
+    def chi2(name, counts, probs):
+        exp_ = counts.sum() * probs
+        stat = float(((counts - exp_) ** 2 / exp_).sum())
+        if stat > _chi2_limit(len(counts) - 1):
+            raise AssertionError(f"{name}: chi-square {stat}")
+        return stat
+
+    n = RANDOM_DRAWS
+    out = {}
+    t = rule("truncated_gaussian_random", {},
+             {"shape": [n], "mean": -1.0, "std": 3.0, "dtype": "float32"})
+    phi2 = exp(-2.0) / sqrt(2 * pi)
+    std = 3.0 * sqrt(1 - 4 * phi2 / erf(2 / sqrt(2)))
+    if float(t.min()) < -7.0 or float(t.max()) > 5.0:
+        raise AssertionError("truncated_gaussian_random beyond 2 std")
+    out["truncated_gaussian_random"] = within("truncated", t, -1.0, std)
+    perm = rule("randperm", {}, {"n": n})
+    if not torch.equal(torch.sort(perm).values,
+                       torch.arange(n, device="cuda")):
+        raise AssertionError("randperm is not a permutation")
+    out["randperm"] = "a permutation of 10^6"
+    ri = rule("randint", {}, {"shape": [n], "low": -3, "high": 5,
+                              "dtype": "int64"})
+    if int(ri.min()) < -3 or int(ri.max()) > 4:
+        raise AssertionError("randint out of range")
+    out["randint_chi2"] = chi2("randint", torch.bincount(
+        ri + 3, minlength=8).cpu().double().numpy(), np.full(8, 1 / 8))
+    p = torch.tensor([0.05, 0.3, 0.5, 0.9], device="cuda")
+    b = rule("bernoulli", {"X": p.repeat(n // 4, 1)}, {})
+    means = b.mean(0).tolist()
+    for pj, mj in zip(p.tolist(), means):
+        if abs(mj - pj) > 5 * (pj * (1 - pj) / (n // 4)) ** 0.5:
+            raise AssertionError(f"bernoulli mean {mj} for p {pj}")
+    out["bernoulli_means"] = means
+    w = torch.tensor([1.0, 2.0, 3.0, 4.0, 0.5], device="cuda")
+    for rep in (True, False):
+        m = rule("multinomial", {"X": w.repeat(n // 4, 1)},
+                 {"num_samples": 4 if rep else 3, "replacement": rep})
+        first = m.reshape(-1) if rep else m[:, 0]
+        out[f"multinomial_chi2_{'with' if rep else 'without'}"] = chi2(
+            "multinomial", torch.bincount(first, minlength=5).cpu()
+            .double().numpy(), (w / w.sum()).cpu().double().numpy())
+        if not rep and not bool((m[:, 0] != m[:, 1]).all()
+                                & (m[:, 1] != m[:, 2]).all()
+                                & (m[:, 0] != m[:, 2]).all()):
+            raise AssertionError("multinomial drew a category twice")
+    sid = rule("sampling_id", {"X": (w / w.sum()).repeat(n // 5, 1)}, {})
+    out["sampling_id_chi2"] = chi2("sampling_id", torch.bincount(
+        sid, minlength=5).cpu().double().numpy(),
+        (w / w.sum()).cpu().double().numpy())
+    like = torch.empty(1000, 3, device="cuda")
+    out["uniform_random_batch_size_like"] = within(
+        "uniform_bsl", rule("uniform_random_batch_size_like",
+                            {"Input": like},
+                            {"shape": [-1, n // 1000], "min": -2.0,
+                             "max": 4.0}), 1.0, 6.0 / 12 ** 0.5)
+    out["gaussian_random_batch_size_like"] = within(
+        "gaussian_bsl", rule("gaussian_random_batch_size_like",
+                             {"Input": like},
+                             {"shape": [-1, n // 1000], "mean": 0.5,
+                              "std": 2.0}), 0.5, 2.0)
+    z = torch.zeros(n, device="cuda")
+    out["dpsgd_noise"] = within("dpsgd", rule(
+        "dpsgd", {"Param": z, "Grad": z,
+                  "LearningRate": torch.ones(1, device="cuda")},
+        {"clip": 1.5, "batch_size": 4.0, "sigma": 2.0}, slot="ParamOut"),
+        0.0, 2.0 * 1.5 / 4.0)
+    x = torch.randn(128, 64, 28, 28, device="cuda")
+    sc = rule("shuffle_channel", {"X": x}, {"group": 4})
+    if not torch.equal(sc.cpu(), rule("shuffle_channel", {"X": x.cpu()},
+                                      {"group": 4}, device="cpu")):
+        raise AssertionError("shuffle_channel differs from the CPU")
+    out["shuffle_channel"] = "equal to the CPU"
+    log(f"random rules on the card at {n} draws: {json.dumps(out)}")
+    return out
+
+
+@phase("fluid_amp")
+def fluid_amp():
+    """BASELINE configs[1]'s static ResNet-50 program
+    (tests/torch_fluid_amp_program.py: models/resnet.build_train_program
+    at its defaults, B=128, 224^2) trained in fp16 through
+    fluid.contrib.mixed_precision.decorate(LarsMomentumOptimizer) with
+    dynamic loss scaling, EMA(0.9999) updated each step; then the f32
+    program plain and under RecomputeOptimizer; the optimizer zoo and the
+    decorated fp16 program on the cut resnet18 against the CPU; the
+    random rules at 10^6 draws."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models import resnet as R
+
+    AP = _amp_program()
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.benchmark = True
+    try:
+        launches, summary, feed = _amp_run(fluid, R, AP)
+        torch.cuda.empty_cache()
+        summary["recompute"] = _amp_recompute(fluid, R, AP, feed)
+        del feed
+        torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.benchmark = False
+    summary["zoo"] = _optimizer_zoo(fluid, R)
+    summary["cut_fp16"] = _amp_cut_check(fluid, R, AP)
+    summary["random"] = _random_rules()
+    summary["card"] = card_line()
+    log("fluid_amp summary: " + json.dumps(summary))
+    return launches
+
+
 def tensor_methods_ab(cycles=2):
     """The decode, seq2seq and srl phases `cycles` times in the turns on,
     off, off, on of the `matmul` / `unsqueeze` extensions (each phase
@@ -4910,10 +5570,11 @@ def main():
     mobile_paths = mobilenet()
     gan_path = cyclegan()
     static_paths = static_decode()
+    amp_path = fluid_amp()
     if FAILURES or None in (rows, probed, served, decoded, trained, library,
                             resnet_path, fluid_path, wmt_paths, hapi_path,
                             dygraph_path, s2s_paths, srl_paths,
-                            mobile_paths, gan_path, static_paths):
+                            mobile_paths, gan_path, static_paths, amp_path):
         log(f"FAILED phases: {FAILURES}")
         print(f"FAILED phases: {FAILURES}", file=sys.stderr, flush=True)
         sys.exit(1)
@@ -4923,7 +5584,7 @@ def main():
              "resnet": resnet_path, "fluid": fluid_path, **wmt_paths,
              "hapi": hapi_path, "dygraph": dygraph_path, **s2s_paths,
              **srl_paths, **mobile_paths, "cyclegan": gan_path,
-             **static_paths}
+             **static_paths, "fluid_amp": amp_path}
     for r in rows:
         # `launches` is the count on the path where the kernel runs: the
         # probe for its three kernels, the decode path for ragged_paged,

@@ -28,13 +28,13 @@ from .framework import (Program, Variable, Parameter, OpRole,
 from .executor import (Executor, LazyFetch, Scope, global_scope,
                        scope_guard)
 from .backward import append_backward, gradients
-from . import initializer, regularizer
+from . import initializer, regularizer, clip
 from .param_attr import ParamAttr, WeightNormParamAttr
 from . import layers
 from . import optimizer
 from . import dygraph
 from .layers.tensor import data
-
+from . import contrib, metrics  # noqa: E402,F401
 
 
 def cpu_places(device_count=1):

@@ -1,12 +1,15 @@
 """append_backward: autodiff as a Program transform (a copy of
-paddle_tpu/fluid/backward.py: `append_backward` and `gradients`).
+paddle_tpu/fluid/backward.py: `append_backward`, `gradients` and
+`append_backward_with_checkpoints`).
 
 One generic mechanism covers every op: each emitted `<type>_grad` op
 carries `fwd_op_id`, and when the block runs, the forward op's own autograd
 graph (kept by paddle_tpu_torch/ops/registry.py) gives the exact
 reverse-mode gradient, reusing the forward residuals.  A var with several
 consumers gets its contributions under `@GRAD@RENAME@i` names, summed by a
-`sum` op.  Checkpointed (recompute) segments are not ported.
+`sum` op.  With checkpoints (recompute), each forward segment between
+two checkpoints gets one `recompute_segment_grad` op, which replays the
+segment when the backward reaches it.
 """
 
 from __future__ import annotations
@@ -233,3 +236,77 @@ def gradients(targets, inputs, target_gradients=None, no_grad_set=None):
         g = _merge_grads(block, v.name, grad_map)
         outs.append(block.var(g) if g else None)
     return outs
+
+
+def append_backward_with_checkpoints(loss, checkpoints, parameter_list=None,
+                                     no_grad_set=None):
+    """Recompute-aware backward (backward.py:244-316 of the reference):
+    the forward ops are cut into segments after each op that writes a
+    checkpoint var; each segment gets one `recompute_segment_grad` op,
+    which re-runs the segment from its inputs when the backward reaches
+    it, so between forward and backward only the segments' inputs (the
+    checkpoints, the feeds and the parameters) stay live."""
+    block = loss.block
+    program = block.program
+    no_grad = set(no_grad_set or ())
+    req = _requires_grad_set(block, no_grad)
+    req.add(loss.name)
+    ckpt_names = {c.name if isinstance(c, Variable) else str(c)
+                  for c in checkpoints}
+
+    fwd_ops = [op for op in block.ops
+               if "fwd_op_id" not in op.attrs
+               and op.attr("op_role", 0) not in (OpRole.Backward,
+                                                 OpRole.Optimize)]
+    # segment boundaries: after the op that produces each checkpoint var
+    cut_after = set()
+    for i, op in enumerate(fwd_ops):
+        if set(op.output_arg_names()) & ckpt_names:
+            cut_after.add(i)
+    segments = []
+    start = 0
+    for i in sorted(cut_after):
+        segments.append((start, i + 1))
+        start = i + 1
+    if start < len(fwd_ops):
+        segments.append((start, len(fwd_ops)))
+
+    grad_map = _seed_target_grad(block, loss.name)
+
+    for a, b in reversed(segments):
+        seg_ops = fwd_ops[a:b]
+        produced = set()
+        seg_inputs = []
+        seen = set()
+        for op in seg_ops:
+            for n in op.input_arg_names():
+                if n != EMPTY_VAR_NAME and n not in produced and n not in seen:
+                    seen.add(n)
+                    seg_inputs.append(n)
+            produced |= set(op.output_arg_names())
+        seg_outputs = [n for n in dict.fromkeys(
+            n for op in seg_ops for n in op.output_arg_names())
+            if n in grad_map]
+        if not seg_outputs:
+            continue
+        targets = [n for n in seg_inputs if n in req and n not in no_grad]
+        if not targets:
+            continue
+        out_grad_names = [_merge_grads(block, n, grad_map)
+                          for n in seg_outputs]
+        in_grad_names = []
+        for n in seg_inputs:
+            if n in targets:
+                in_grad_names.append(_record_grad(block, n, grad_map))
+            else:
+                in_grad_names.append(EMPTY_VAR_NAME)
+        block.append_op(
+            "recompute_segment_grad",
+            inputs={"Inputs": seg_inputs, "OutGrads": out_grad_names},
+            outputs={"InGrads": in_grad_names},
+            attrs={"seg_op_ids": [o.id for o in seg_ops],
+                   "seg_inputs": seg_inputs, "seg_outputs": seg_outputs,
+                   "op_role": OpRole.Backward},
+            infer_shape=False)
+
+    return _finalize_params_grads(block, program, parameter_list, grad_map)

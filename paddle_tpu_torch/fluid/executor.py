@@ -230,6 +230,51 @@ def _last_uses(block, keep) -> List[List[str]]:
     return frees
 
 
+def _orphans(block, feed_names, fetch_names, scope) -> set:
+    """Indices of the ops a run skips as dead code: an op (not one with
+    a sub-block) that reads a var which is not persistable, not fed, not
+    in the scope and written by no earlier op, and whose outputs are not
+    persistable, not fetched and read by no later op.  In a for_test
+    clone of an AMP-decorated program that is the `logical_not` of the
+    overflow flag, whose backward writer the clone pruned; the
+    reference's Executor drops it in its dead-code pass."""
+    rw = [registry.op_reads_writes(op) for op in block.ops]
+    written_before = set(feed_names)
+    dropped = set()
+    for i, op in enumerate(block.ops):
+        reads, writes = rw[i]
+        missing = op.type not in registry.SUB_BLOCK_OPS and any(
+            n not in written_before and not _persistable(block, n)
+            and not (scope.has(n) and scope.get(n) is not None)
+            for n in reads)
+        written_before.update(writes)
+        if not missing:
+            continue
+        later = {n for r, _ in rw[i + 1:] for n in r} | set(fetch_names)
+        if not any(n in later or _persistable(block, n) for n in writes):
+            dropped.add(i)
+    return dropped
+
+
+def _persistable(block, name) -> bool:
+    try:
+        return block._var_recursive(name).persistable
+    except ValueError:
+        return False
+
+
+class _LiveBlock:
+    """A block with the ops a run skips taken out; everything else is
+    the block's own."""
+
+    def __init__(self, block, ops):
+        self._block = block
+        self.ops = ops
+
+    def __getattr__(self, name):
+        return getattr(self._block, name)
+
+
 class _Entry:
     """One built block: the callable and the names it reads and writes.
     `program` and `scope` pin the originals, so the id()-based cache key
@@ -353,6 +398,10 @@ class Executor:
     def _build(self, program: Program, feed_arrays, fetch_names,
                scope: Scope) -> _Entry:
         block = program.global_block()
+        dead = _orphans(block, feed_arrays.keys(), fetch_names, scope)
+        if dead:
+            block = _LiveBlock(block, [op for i, op in enumerate(block.ops)
+                                       if i not in dead])
         reads, persistable_writes = _analyze_block(block, feed_arrays.keys())
         for name in reads:
             if not scope.has(name) or scope.get(name) is None:

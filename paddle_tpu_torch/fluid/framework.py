@@ -576,6 +576,26 @@ def grad_var_name(name: str) -> str:
     return name + GRAD_SUFFIX
 
 
+def block_io(blk: "Block"):
+    """(names read before written, names written) of a block's own ops,
+    each in first-seen order: what an op running the block as its
+    sub-block lists as its inputs and outputs."""
+    defined = set()
+    reads, writes = [], []
+    seen_r, seen_w = set(), set()
+    for op in blk.ops:
+        for n in op.input_arg_names():
+            if n not in defined and n not in seen_r:
+                seen_r.add(n)
+                reads.append(n)
+        for n in op.output_arg_names():
+            if n not in seen_w:
+                seen_w.add(n)
+                writes.append(n)
+            defined.add(n)
+    return reads, writes
+
+
 @contextlib.contextmanager
 def name_scope(prefix=None):
     """Name-scope prefix for debugging/visualization.  Op naming is flat,

@@ -3,8 +3,9 @@ paddle_tpu/fluid/layers/compat.py), as far as the port has the rules:
 
   * one-op static wrappers through `_static_op` (cos_sim, gather_tree,
     multiplex, unbind, stanh, mish, size, unique, the sequence bucket's
-    im2sequence, lod_reset, sequence_reshape and sequence_scatter, ...)
-    and a few
+    im2sequence, lod_reset, sequence_reshape and sequence_scatter, the
+    misc and random buckets' add_position_encoding, mean_iou,
+    shuffle_channel, random_crop, ...) and a few
     compositions (sum, scatter_nd, brelu, soft_relu, has_inf, has_nan,
     dice_loss, sampled_softmax_with_cross_entropy);
   * (`dynamic_decode` and the cell and decoder classes resolve from the
@@ -17,8 +18,8 @@ paddle_tpu/fluid/layers/compat.py), as far as the port has the rules:
     after `rnn`, this module's guard wins), while
     `fluid.layers.rnn.dynamic_gru` computes.
 
-The reference's other wrappers wait for their rules (ROADMAP queue 1
-items 8 and 12).
+The reference's other wrappers (the detection bucket's) wait for their
+rules (ROADMAP queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -166,6 +167,31 @@ selu = _static_op("selu", ["X"], attr_names=("scale", "alpha"))
 hsigmoid = _static_op("hierarchical_sigmoid", ["X", "Label", "W", "Bias"],
                       extra_out_slots=("PreOut",))
 crop_tensor = _static_op("crop_tensor", ["X", "Shape", "Offsets"])
+# the misc and random buckets' eleven
+add_position_encoding = _static_op("add_position_encoding", ["X"])
+continuous_value_model = _static_op("cvm", ["X", "CVM"], out_slot="Y")
+mean_iou = _static_op("mean_iou", ["Predictions", "Labels"],
+                      out_slot="OutMeanIou",
+                      extra_out_slots=("OutWrong", "OutCorrect"),
+                      attr_names=("num_classes",))
+sampling_id = _static_op("sampling_id", ["X"],
+                         attr_names=("min", "max", "seed"))
+shard_index = _static_op("shard_index", ["X"],
+                         attr_names=("index_num", "nshards",
+                                     "shard_id", "ignore_value"))
+shuffle_channel = _static_op("shuffle_channel", ["X"],
+                             attr_names=("group",))
+teacher_student_sigmoid_loss = _static_op(
+    "teacher_student_sigmoid_loss", ["X", "Label"], out_slot="Y",
+    attr_names=("soft_max_up_bound", "soft_max_lower_bound"))
+random_crop = _static_op("random_crop", ["X"],
+                         attr_names=("shape", "startup_seed"))
+gaussian_random_batch_size_like = _static_op(
+    "gaussian_random_batch_size_like", ["Input"])
+uniform_random_batch_size_like = _static_op(
+    "uniform_random_batch_size_like", ["Input"])
+is_empty = _static_op("is_empty", ["X"], out_dtype="bool")
+
 # the sequence bucket's four
 im2sequence = _static_op("im2sequence", ["X"])
 lod_reset = _static_op("lod_reset", ["X", "Y"])
@@ -174,7 +200,8 @@ sequence_scatter = _static_op("sequence_scatter", ["X", "Ids", "Updates"])
 crop = crop_tensor
 __all__.append("crop")
 # the factory appended op names where the Python name differs
-for _wrong, _right in [("trilinear_interp", "resize_trilinear"),
+for _wrong, _right in [("cvm", "continuous_value_model"),
+                       ("trilinear_interp", "resize_trilinear"),
                        ("linear_interp", "resize_linear"),
                        ("hierarchical_sigmoid", "hsigmoid")]:
     __all__.remove(_wrong)

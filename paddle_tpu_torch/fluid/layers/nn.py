@@ -5,10 +5,11 @@ elementwise wrappers, the CTC and CRF layers, and the layers of the nn
 bucket's rules (the transposed and 3-D convolutions, the norms,
 dropout, prelu, maxout, label_smooth, unfold, the resizes,
 bilinear_tensor_product, spectral_norm, data_norm, nce,
-deform_conv2d), and Print over the control-flow bucket's `print`.  Each layer creates its parameters through LayerHelper
-and appends ops; the work is in the op rules (paddle_tpu_torch/ops/).
-The reference's layers whose rules are not ported yet are left out
-(ROADMAP queue 1 item 8)."""
+deform_conv2d), Print over the control-flow bucket's `print`, and the
+misc bucket's py_func and auc.  Each layer creates its parameters
+through LayerHelper and appends ops; the work is in the op rules
+(paddle_tpu_torch/ops/).  The reference's layers whose rules are not
+ported yet are left out (ROADMAP queue 1 item 8)."""
 
 from __future__ import annotations
 
@@ -37,7 +38,7 @@ __all__ = [
     "group_norm", "dropout", "prelu", "maxout", "label_smooth", "unfold",
     "image_resize", "resize_nearest", "resize_bilinear", "interpolate",
     "bilinear_tensor_product", "spectral_norm", "data_norm", "nce",
-    "deform_conv2d", "conv3d_transpose", "Print",
+    "deform_conv2d", "conv3d_transpose", "Print", "py_func", "auc",
 ]
 
 
@@ -1176,3 +1177,55 @@ def Print(input, first_n=-1, message=None, summarize=20,
                             "first_n": first_n,
                             "summarize": summarize})
     return out
+
+
+def py_func(func, x, out, backward_func=None,
+            skip_vars_in_backward_input=None):
+    """A host Python function as an op: `func` gets numpy copies of `x`
+    and returns arrays for `out`, vars the caller created with static
+    shapes and dtypes.  A backward_func is not supported, as in the
+    reference: the outputs are stop_gradient."""
+    if backward_func is not None:
+        raise NotImplementedError(
+            "py_func backward_func is not supported; compute the "
+            "backward in-graph or mark outputs stop_gradient")
+    from ...ops.misc_ops import register_py_func
+
+    helper = LayerHelper("py_func")
+    xs = x if isinstance(x, (list, tuple)) else [x]
+    outs = out if isinstance(out, (list, tuple)) else [out]
+    for o in outs:
+        o.stop_gradient = True
+    fid = register_py_func(func)
+    helper.append_op("py_func", inputs={"X": list(xs)},
+                     outputs={"Out": list(outs)},
+                     attrs={"forward_callable_id": fid},
+                     infer_shape=False)
+    return out
+
+
+def auc(input, label, curve="ROC", num_thresholds=4095, topk=1,
+        slide_steps=0):
+    """Streaming AUC: returns (auc_out, [auc_out], [stat_pos,
+    stat_neg]), the histograms persistable global vars that each run
+    updates."""
+    from .tensor import create_global_var
+
+    helper = LayerHelper("auc")
+    n = num_thresholds + 1
+    stat_pos = create_global_var([n], 0.0, "float32", persistable=True,
+                                 name=helper.name + ".stat_pos")
+    stat_neg = create_global_var([n], 0.0, "float32", persistable=True,
+                                 name=helper.name + ".stat_neg")
+    auc_out = helper.create_variable_for_type_inference(
+        dtype="float32", stop_gradient=True)
+    helper.append_op(
+        "auc",
+        inputs={"Predict": [input], "Label": [label],
+                "StatPos": [stat_pos], "StatNeg": [stat_neg]},
+        outputs={"AUC": [auc_out], "StatPosOut": [stat_pos],
+                 "StatNegOut": [stat_neg]},
+        attrs={"num_thresholds": num_thresholds,
+               "slide_steps": slide_steps, "curve": curve},
+        infer_shape=False)
+    return auc_out, [auc_out], [stat_pos, stat_neg]

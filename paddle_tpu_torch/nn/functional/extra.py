@@ -4,11 +4,9 @@ paddle_tpu/nn/functional/extra.py): wrappers over the registry's rules
 the reference's guards for the names it does not carry (they raise
 NotImplementedError with the same reason and alternative).
 
-Left out until their op buckets are ported (ROADMAP queue 1 item 8):
-the detection tail (roi_pool, prroi_pool, psroi_pool,
-polygon_box_transform, generate_proposals and its kin), and the misc
-and random ones (teacher_student_sigmoid_loss, continuous_value_model,
-add_position_encoding, random_crop, shuffle_channel).
+Left out until their op bucket is ported (ROADMAP queue 1 item 8): the
+detection tail (roi_pool, prroi_pool, psroi_pool, polygon_box_transform,
+generate_proposals and its kin).
 """
 
 from __future__ import annotations
@@ -94,6 +92,37 @@ def fsp_matrix(x, y):
 @_export
 def bpr_loss(input, label, name=None):
     return _op("bpr_loss", {"X": input, "Label": label}, slot="Y")
+
+
+@_export
+def teacher_student_sigmoid_loss(input, label, soft_max_up_bound=15.0,
+                                 soft_max_lower_bound=-15.0):
+    return _op("teacher_student_sigmoid_loss", {"X": input, "Label": label},
+               {"soft_max_up_bound": soft_max_up_bound,
+                "soft_max_lower_bound": soft_max_lower_bound}, slot="Y")
+
+
+@_export
+def shuffle_channel(x, group, name=None):
+    return _op("shuffle_channel", {"X": x}, {"group": group})
+
+
+@_export
+def random_crop(x, shape, seed=None):
+    return _op("random_crop", {"X": x}, {"shape": list(shape),
+                                         "startup_seed": int(seed or 0)})
+
+
+@_export
+def add_position_encoding(input, alpha=1.0, beta=1.0, name=None):
+    return _op("add_position_encoding", {"X": input},
+               {"alpha": alpha, "beta": beta})
+
+
+@_export
+def continuous_value_model(input, cvm, use_cvm=True):
+    return _op("cvm", {"X": input, "CVM": cvm}, {"use_cvm": use_cvm},
+               slot="Y")
 
 
 _CENTER_BUFFERS = {}

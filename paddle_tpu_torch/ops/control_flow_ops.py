@@ -34,8 +34,12 @@ elements written, the reference's intent (:338-340; one host read):
 under its Executor's single jit the length is a tracer and it gives all
 C (ROADMAP queue 3).
 
-Not ported: `recompute_segment_grad` (queue 1 item 8, with
-`append_backward_with_checkpoints`).
+`recompute_segment_grad` is the backward of a recompute segment
+(`fluid.backward.append_backward_with_checkpoints`): it re-runs the
+segment's forward rules from its boundary inputs under autograd and takes
+`torch.autograd.grad`, as the reference takes `jax.vjp` of
+`jax.checkpoint` (:168-222).  The segment's interior values are not among
+its inputs, so the Executor frees them after their last forward reader.
 """
 
 from __future__ import annotations
@@ -46,6 +50,47 @@ import torch
 
 from . import registry
 from .registry import first, register_grad, register_op
+
+
+@register_op("recompute_segment_grad")
+def _recompute_segment_grad(ctx, op, ins):
+    """Replay the forward ops `seg_op_ids` on the segment's inputs
+    (`seg_inputs`; its float ones as fresh leaves) in an environment of
+    their own, then the gradients of `seg_outputs` against OutGrads (0
+    for an output without one) to the leaves.  The replay's context
+    carries the run's seed and device, so a random op redraws the bits
+    of its forward run (its generator is seeded from the seed and its op
+    id), and no shared generator advances."""
+    block = op.block
+    by_id = {o.id: o for o in block.ops}
+    seg_ops = [by_id[i] for i in op.attr("seg_op_ids")]
+    seg_outputs = op.attr("seg_outputs")
+    in_vals = ins.get("Inputs", [])
+    leaves = [v.detach().requires_grad_()
+              if v is not None and registry._is_diff(v) else v
+              for v in in_vals]
+    env = dict(zip(op.attr("seg_inputs"), leaves))
+    inner = registry.LowerCtx(ctx.seed, device=ctx.device)
+    inner.record, inner.env = True, env
+    with torch.enable_grad():
+        for o in seg_ops:
+            registry.lower_op(inner, o, env)
+    ctx.ops_run += len(seg_ops)
+    ctx.host_reads += inner.host_reads
+    ys, cts = [], []
+    for name, g in zip(seg_outputs, ins.get("OutGrads", [])):
+        y = env[name]
+        if y.requires_grad:
+            ys.append(y)
+            cts.append(g if g is not None else torch.zeros_like(y))
+    diff = [i for i, v in enumerate(leaves)
+            if isinstance(v, torch.Tensor) and v.requires_grad]
+    got = torch.autograd.grad(ys, [leaves[i] for i in diff], cts,
+                              allow_unused=True) if ys and diff else []
+    grads = [None] * len(in_vals)
+    for i, g in zip(diff, got):
+        grads[i] = torch.zeros_like(leaves[i]) if g is None else g
+    return {"InGrads": grads}
 
 
 class TensorArrayVal(NamedTuple):

@@ -59,11 +59,15 @@ register_op("elementwise_floordiv")(_elementwise(_floordiv))
 
 @register_op("scale")
 def _scale(ctx, op, ins):
-    """math_ops.py:65-83 (the data-parallel `divide_by_axis_size` attr
-    waits for the collective ops)."""
+    """math_ops.py:65-83; a `divide_by_axis_size` attr divides by the
+    data-parallel world size, 1 in one process."""
     x = first(ins, "X")
     scale = first(ins, "ScaleTensor", op.attr("scale", 1.0))
     bias = op.attr("bias", 0.0)
+    if op.attr("divide_by_axis_size", None) is not None:
+        from .collective_ops import check_single_process
+
+        check_single_process("scale(divide_by_axis_size)")
     if isinstance(scale, torch.Tensor):
         scale = scale.to(x.dtype)
     elif not x.is_floating_point():

@@ -47,9 +47,9 @@ def _load_rules() -> None:
     if _RULES_LOADED[0]:
         return
     _RULES_LOADED[0] = True
-    from . import (control_flow_ops, math_ops, misc_ops,  # noqa: F401
-                   nn_ops, optimizer_ops, random_ops, rnn_ops,
-                   sequence_ops, tensor_ops, vision_ops)
+    from . import (collective_ops, control_flow_ops,  # noqa: F401
+                   math_ops, misc_ops, nn_ops, optimizer_ops, random_ops,
+                   rnn_ops, sequence_ops, tensor_ops, vision_ops)
 
 
 def register_op(op_type: str):
@@ -134,13 +134,15 @@ class LowerCtx:
         self.ops_run = 0
         self.host_reads = 0
 
-    def generator(self, op: Operator) -> torch.Generator:
-        """The op's own generator on the context's device: seeded from the
-        op's `seed` attr when it has one, else from the step seed mixed
-        with the op id.  The seed is a host integer: drawing costs no
-        sync."""
+    def generator(self, op: Operator, device=None) -> torch.Generator:
+        """The op's own generator on the context's device (or on
+        `device`: "cpu" for draws the host needs, as a crop's offsets):
+        seeded from the op's `seed` attr when it has one, else from the
+        step seed mixed with the op id.  The seed is a host integer:
+        drawing costs no sync."""
         seed = op.attr("seed", 0)
-        g = torch.Generator(device=self.device)
+        g = torch.Generator(device=device if device is not None
+                            else self.device)
         g.manual_seed(int(seed) if seed else _mix(self.seed, op.id))
         return g
 

@@ -5,7 +5,7 @@ Left out until their modules are ported (ROADMAP queue 1 items 8 and
 11): CompiledProgram, BuildStrategy, ExecutionStrategy and
 ParallelExecutor (data-parallel compilation), save / load and
 load_program_state (`fluid.io`), save_inference_model /
-load_inference_model (`inference`), py_func (its rule).
+load_inference_model (`inference`).
 """
 
 from ..fluid import (  # noqa: F401
@@ -15,7 +15,7 @@ from ..fluid import (  # noqa: F401
 )
 from ..fluid.framework import Variable, name_scope  # noqa: F401
 from ..fluid.layers import (Print, create_global_var,  # noqa: F401
-                            create_parameter)
+                            create_parameter, py_func)
 from ..fluid.layers.tensor import data  # noqa: F401
 from ..fluid.param_attr import WeightNormParamAttr  # noqa: F401
 from . import nn  # noqa: F401

@@ -502,13 +502,9 @@ def _not_carried(fn):
 # the reference's compat layers the port leaves out, with the reason: their
 # op rules are not ported (ROADMAP queue 1 items 6, 8 and 12)
 LEFT_OUT = {
-    "add_position_encoding", "continuous_value_model", "mean_iou",
-    "polygon_box_transform", "prroi_pool", "sampling_id", "shard_index",
-    "shuffle_channel", "teacher_student_sigmoid_loss", "random_crop",
+    "polygon_box_transform", "prroi_pool",
     "box_decoder_and_assign", "target_assign", "roi_pool", "psroi_pool",
-    "retinanet_detection_output", "gaussian_random_batch_size_like",
-    "uniform_random_batch_size_like", "is_empty", "birnn",
-    "MultivariateNormalDiag",
+    "retinanet_detection_output", "birnn", "MultivariateNormalDiag",
 }
 
 

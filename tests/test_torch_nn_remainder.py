@@ -136,6 +136,16 @@ FUNCTIONAL = {
                      np.array([1, 0, 1, 2], np.int64)), {}, (0, 1))],
     "fsp_matrix": [((_f(2, 3, 4, 4), _f(2, 5, 4, 4, seed=1)), {}, (0, 1))],
     "bpr_loss": [((_f(4, 5), _ids((4, 1), 5, seed=1)), {}, (0,))],
+    "teacher_student_sigmoid_loss": [(
+        (_f(6, 1), np.array([[-2.0], [-0.5], [0.3], [1.7], [0.0], [1.0]])),
+        {}, (0,))],
+    "shuffle_channel": [((_f(2, 6, 3, 3), 3), {}, (0,))],
+    "add_position_encoding": [((_f(2, 5, 6),), {"alpha": 0.5, "beta": 2.0},
+                               (0,))],
+    "continuous_value_model": [
+        ((np.abs(_f(4, 5)), np.abs(_f(4, 2, seed=1))), {}, (0,)),
+        ((np.abs(_f(4, 5)), np.abs(_f(4, 2, seed=1))), {"use_cvm": False},
+         (0,))],
     "center_loss": [((_f(5, 3), np.array([[0], [2], [0], [1], [2]],
                                          np.int64), 3, 0.1), {}, (0,))],
     "ctc_loss": [((_f(6, 2, 4), np.array([[1, 2], [3, 0]], np.int64),
@@ -222,6 +232,7 @@ HELD_BELOW = {
     "rnn": "drives a cell", "birnn": "drives two cells",
     "tensor_array_to_tensor": "the reference's raises on an eager array "
                               "(test_torch_control_flow.py)",
+    "random_crop": "draws its offsets (torch's bits, not jax.random's)",
 }
 
 # names of the reference's nn.functional the port leaves out, by the op
@@ -237,15 +248,10 @@ LEFT_OUT = {
         "retinanet_target_assign", "roi_align", "roi_pool",
         "rpn_target_assign", "sigmoid_focal_loss", "target_assign",
         "yolo_box", "yolov3_loss"},
-    "misc": {"add_position_encoding", "continuous_value_model",
-             "random_crop", "teacher_student_sigmoid_loss"},
-    "random": {"shuffle_channel"},
 }
 # the reference's nn names the port leaves out, by queue item
 NN_LEFT_OUT = {
     "item 10 (the collective path)": {"SwitchMoE", "SyncBatchNorm"},
-    "item 8 (fluid.clip)": {"ClipGradByGlobalNorm", "ClipGradByNorm",
-                            "ClipGradByValue", "clip", "clip_by_norm"},
 }
 NOT_API = {"np", "Tensor", "trace_fn", "trace_op"}
 
@@ -496,7 +502,13 @@ def test_every_new_layer_is_held():
         "BeamSearchDecoder", "Decoder", "dynamic_decode", "functional",
         "initializer", "conv", "loss", "vision", "layer", "decode"}
     held = set(LAYERS) | {"LayerList", "ParameterList", "SpectralNorm"}
-    assert new == held
+    # the static graph's clip names, held in test_torch_fluid_optimizer.py
+    static_clip = {"ClipGradByGlobalNorm", "ClipGradByNorm",
+                   "ClipGradByValue", "clip", "clip_by_norm"}
+    assert new == held | static_clip
+    for name in static_clip:
+        assert getattr(T.nn, name) is getattr(T.fluid.clip, name, None) \
+            or getattr(T.nn, name) is getattr(T.fluid.layers, name), name
 
 
 def test_spectral_norm_layer_refines_its_vectors_as_the_reference():
@@ -582,6 +594,20 @@ def test_nce_draws_its_negatives():
     assert cost.shape == (4, 1) and bool((cost > 0).all())
     cost.sum().backward()
     assert torch.isfinite(x.grad).all() and torch.isfinite(w.grad).all()
+
+
+def test_random_crop_takes_a_window_of_its_input():
+    """F.random_crop through the random_crop rule: the trailing dims cut
+    to `shape` at offsets it draws, every row of the batch at the same
+    ones, as the reference's rule crops."""
+    x = torch.arange(2 * 3 * 6 * 7, dtype=torch.float32).reshape(2, 3, 6, 7)
+    out = T.nn.functional.random_crop(x, [4, 5], seed=3)
+    assert out.shape == (2, 3, 4, 5)
+    r0 = int(out[0, 0, 0, 0]) // 7 % 6
+    c0 = int(out[0, 0, 0, 0]) % 7
+    assert 0 <= r0 <= 2 and 0 <= c0 <= 2
+    np.testing.assert_array_equal(out.numpy(),
+                                  x[:, :, r0:r0 + 4, c0:c0 + 5].numpy())
 
 
 def test_rnn_and_birnn_drive_cells_as_the_reference():
