@@ -9,7 +9,9 @@ model, run the quickstart's 2.x modes, train and decode Paddle 2.x's
 seq2seq with attention and the book's semantic-role-labelling program
 (a Fluid program through fluid.Executor), train MobileNetV2, VGG16 and
 PaddleGAN's CycleGAN, decode the seq2seq model through a 1.x While
-program, and check what comes out.
+program, train the static ResNet-50 in fp16, train, quantize and decode
+PaddleCV's MobileNet-SSD through the detection rules, and check what
+comes out.
 
     python3 chip_smoke.py
 
@@ -283,9 +285,39 @@ Phases, in order (any failure exits non-zero and prints no result):
               random rules at
               RANDOM_DRAWS draws by their statistics, shuffle_channel
               equal to the CPU's
+ 23. ssd      PaddleCV's MobileNet-SSD on Pascal VOC
+              (tests/torch_ssd_program.py at FULL: MobileNet V1 at scale
+              1.0 with its four extra blocks, multi_box_head over six maps,
+              1917 priors, 21 classes, 300^2, B=64, Paddle's ssd_loss
+              composed from the detection rules, RMSProp lr 0.001 over
+              piecewise_decay with L2Decay 5e-5, f32) through
+              fluid.Executor with cuDNN's search on: 1 warm-up and
+              SSD_TIMED steps timed (CUDA events, host clock beside),
+              SSD_STEPS in all, the loss finite and falling, 0 host reads
+              and 0 syncs a step, no hand-written kernel launched; ms a
+              step, images/s, ops a step, host us an op, peak memory, the
+              idle share and top device ops of a profiled step.  Decoding
+              the batch through detection_output (multiclass_nms3) on the
+              trained scope: ms, detections an image, padding rows,
+              DetectionMAP (reported, not held); detection_output alone
+              on the full width's head outputs, card against CPU (counts
+              equal, SSD_DET_AGREE of the rows alike, SSD_DET_TOL).
+              The program through
+              fluid.contrib.slim's QuantizationTransformPass: 1 warm-up and
+              SSD_QAT_STEPS timed, its ms against the float step, the
+              quant ops inserted, every observer scale finite and
+              positive.  The cut program (SMALL), float and QAT, on the
+              card against the CPU Executor (SSD_LOSS_RTOL, SSD_UPDATE,
+              SSD_MOMENT, SSD_STATE; QAT_LOSS_RTOL, QAT_SCALE) and the cut
+              decode program (counts and labels equal); each case of
+              tests/torch_det_cases.py (every detection and quantize
+              rule) on the card against the CPU (DET_RULE_TOL)
 
 The last two lines of stdout are a {"kernels": [...]} summary and the
 {"ok": true, "device": {...}} result.
+
+`python3 chip_smoke.py --ssd` runs only the card and ssd phases (no
+kernel is built: none is on that path).
 
 `python3 chip_smoke.py --tensor-methods-ab` runs instead only the
 host-bound decode, seq2seq and srl phases, in turns with the `matmul` /
@@ -538,6 +570,33 @@ SRL_STEPS = 30
 # SRL_STATE_TOL in relative L2, the decoded paths equal on the live
 # positions
 SRL_LOSS_RTOL, SRL_STATE_TOL, BOOK_STEPS = 1e-4, 1e-4, 5
+# PaddleCV's MobileNet-SSD (phase 23, tests/torch_ssd_program.FULL: 300^2,
+# 21 classes, 1917 priors, B=64, RMSProp lr 0.001 over piecewise_decay,
+# L2Decay 5e-5, f32 with TF32 off) through fluid.Executor: 1 warm-up and
+# SSD_TIMED steps timed, SSD_STEPS in all, the loss read at the last
+# against the first (the one batch is learned); the quantization-aware
+# program: 1 warm-up and SSD_QAT_STEPS timed
+SSD_TIMED, SSD_STEPS, SSD_QAT_STEPS = 10, 12, 6
+# the cut program (tests/torch_ssd_program.SMALL) on the card against the
+# CPU Executor, each step from the CPU's state, as tests/test_torch_ssd.py
+# holds it against paddle_tpu: the 1x1 maps' batch norms multiply the
+# float32 rounding, and RMSProp's first step is sign-like, so an element
+# whose gradient is within rounding of 0 may step either way; the
+# updates and moments are held as one vector each (measured on the CPU
+# against paddle_tpu: loss 5.4e-7, updates 8.3e-3, moments 7.8e-3, other
+# state 1.2e-5); the loss at 1e-4 for two devices' summation orders
+SSD_CUT_STEPS = 3
+SSD_LOSS_RTOL, SSD_UPDATE, SSD_MOMENT, SSD_STATE = 1e-4, 5e-2, 5e-2, 1e-4
+# the cut QAT program: level flips (tests/test_torch_slim.py)
+QAT_LOSS_RTOL, QAT_SCALE = 2e-2, 0.3
+# decoded scores and boxes on the card against the CPU: float32 softmax
+# and box arithmetic in other orders; on the full width's heads the share
+# of detections both keep (near-equal scores may trade places)
+SSD_DET_TOL = dict(atol=1e-5, rtol=1e-4)
+SSD_DET_AGREE = 0.99
+# each detection and quantize rule's case (tests/torch_det_cases.py) on the
+# card against the CPU in float32
+DET_RULE_TOL = dict(atol=1e-5, rtol=1e-4)
 # the lstm rule's fused arm (one torch.lstm, cuDNN) against its loop at
 # the book SRL test's default activations, (B, T, 4H) = (10, 64, 512):
 # Hidden and Cell within SRL_ARM_TOL (64 steps of a contracting
@@ -5485,6 +5544,415 @@ def fluid_amp():
     return launches
 
 
+# -- MobileNet-SSD with its detection and quantize rules (phase 23) -----------
+
+def _ssd_modules():
+    """tests/torch_ssd_program.py and tests/torch_det_cases.py, the
+    JAX-free program and rule cases the parity tests hold against
+    paddle_tpu."""
+    tests = str(Path(__file__).resolve().parent / "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import torch_det_cases as C
+    import torch_ssd_program as S
+    return S, C
+
+
+def _ssd_train(fluid, S, quant=False):
+    """The full-width program (quantization-aware with `quant`) through
+    fluid.Executor: a warm-up, then the timed steps by CUDA events with
+    the host syncs counted by line and the host reads by the Executor's
+    counter, more to the step count; the loss finite and falling, 0
+    reads and syncs a step, no hand-written kernel launched.  Returns
+    (launches, summary, (exe, scope, feed, out, main))."""
+    cfg = S.FULL
+    t0 = time.perf_counter()
+    main, startup, out = S.build(fluid, cfg, quant=quant)
+    built_s = time.perf_counter() - t0
+    ops = main.global_block().ops
+    n_quant = sum(op.type.startswith("fake_") and not op.type.endswith(
+        "_grad") for op in ops)
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(startup, scope=scope)
+    host_feed = S.batch(cfg, seed=0)
+    feed = {k: torch.from_numpy(v).cuda() for k, v in host_feed.items()}
+    loss = out["loss"].name
+
+    def run():
+        return exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                       return_numpy=False)
+
+    timed = SSD_QAT_STEPS if quant else SSD_TIMED
+    total = SSD_QAT_STEPS + 1 if quant else SSD_STEPS
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    profiler.stat_reset()
+    for c in COUNTERS.values():
+        c.reset()
+    # -- the main path: counters at 0 before, read right after --------------
+    t0 = time.perf_counter()
+    fetched = [run()]  # warm-up (cuDNN's algorithm search)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    stats0 = profiler.get_int_stats()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    with _SyncCount() as sc:
+        h0 = time.perf_counter()
+        e0.record()
+        for _ in range(timed):
+            fetched.append(run())
+        e1.record()
+        host_s = time.perf_counter() - h0
+    torch.cuda.synchronize()
+    stats1 = profiler.get_int_stats()
+    sites = sc.sites()
+    while len(fetched) < total:
+        fetched.append(run())
+    torch.cuda.synchronize()
+    mem = torch.cuda.max_memory_allocated()
+    launches = {n: c.value for n, c in COUNTERS.items()}
+    # ------------------------------------------------------------------------
+    what = f"{len(fetched)} ssd{' qat' if quant else ''} steps"
+    _expect_launches(launches, 0, (), what)
+    reads = stats1.get("control_flow_host_reads", 0) - stats0.get(
+        "control_flow_host_reads", 0)
+    ops_run = (stats1.get("executor_op_count", 0)
+               - stats0.get("executor_op_count", 0)) / timed
+    losses = [float(o[0]) for o in fetched]
+    syncs = sum(sites.values())
+    if reads or syncs:
+        raise AssertionError(f"{what}: {reads} host reads and {syncs} syncs "
+                             f"({sites}) in {timed} timed steps, want 0")
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise AssertionError(f"{what}: losses {losses}")
+    step_ms = e0.elapsed_time(e1) / timed
+    host_ms = host_s * 1e3 / timed
+    summary = dict(
+        step_ms=step_ms, host_step_ms=host_ms,
+        images_per_s=cfg["batch"] / (step_ms / 1e3), ops_per_step=ops_run,
+        program_ops=len(ops), quant_ops=n_quant,
+        host_us_per_op=1e3 * host_ms / ops_run, host_reads_per_step=0.0,
+        syncs_per_step=0.0, warmup_step_s=warm_s, built_s=built_s,
+        max_memory_allocated_bytes=mem, losses=losses)
+    log(f"losses: {' '.join(f'{v:.4f}' for v in losses)}")
+    log(f"mobilenet-ssd{' qat' if quant else ''} B={cfg['batch']} "
+        f"{cfg['image']}^2 f32 through fluid.Executor: {step_ms:.3f} ms a "
+        f"step (CUDA events over {timed} steps; host clock {host_ms:.3f} "
+        f"ms), {summary['images_per_s']:.1f} images/s, {ops_run:.0f} ops a "
+        f"step at {summary['host_us_per_op']:.1f} host us an op, {n_quant} "
+        f"quant ops, host reads and syncs a step 0, max_memory_allocated "
+        f"{mem / 2 ** 30:.2f} GiB, warm-up {warm_s:.2f} s, built in "
+        f"{built_s:.1f} s")
+    busy, wall, top = _profile(lambda: run(), top=12)
+    summary.update(profiled_busy_ms=busy, profiled_wall_ms=wall,
+                   profiled_idle=max(0.0, 1 - busy / wall),
+                   top_kernels=[dict(name=k[:90], ms=ms, count=n)
+                                for k, ms, n in top])
+    if quant:
+        scales = {n: scope.get(n) for n in scope.local_var_names()
+                  if ".quant_scale" in n}
+        vals = torch.cat([t.reshape(-1) for t in scales.values()]).cpu()
+        if not (torch.isfinite(vals).all() and (vals > 0).all()):
+            raise AssertionError(f"observer scales {vals.tolist()}")
+        summary.update(observer_scales=len(scales),
+                       scale_min=float(vals.min()),
+                       scale_max=float(vals.max()))
+        log(f"qat observers: {len(scales)} scales after {len(fetched)} "
+            f"steps, in [{float(vals.min()):.4g}, {float(vals.max()):.4g}]")
+    return launches, summary, (exe, scope, feed, out, main)
+
+
+def _ssd_decode(fluid, S, exe, scope, feed):
+    """The decode program on the trained scope (its parameters share the
+    train program's names): ms, detections an image, padding rows,
+    shape and label checks; DetectionMAP over the result (on synthetic
+    data its value means nothing: reported, not held)."""
+    cfg = S.FULL
+    dmain, _, dout = S.build(fluid, cfg, train=False)
+    fetch = [dout["nmsed"].name, dout["count"].name]
+
+    def run():
+        return exe.run(dmain, feed={"image": feed["image"]},
+                       fetch_list=fetch, scope=scope, return_numpy=False)
+
+    run()
+    torch.cuda.synchronize()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    with _SyncCount() as sc:
+        e0.record()
+        got = run()
+        e1.record()
+    torch.cuda.synchronize()
+    ms = e0.elapsed_time(e1)
+    det, count = got[0].numpy(), got[1].numpy()
+    b, keep = cfg["batch"], cfg["keep_top_k"]
+    rows = np.arange(keep)[None, :] < count[:, None]
+    labels = det[..., 0]
+    if det.shape != (b, keep, 6) or not np.isfinite(det).all() \
+            or (labels[~rows] != -1).any() or (labels[rows] < 1).any() \
+            or (labels[rows] >= cfg["classes"]).any():
+        raise AssertionError(f"decode: shape {det.shape}, counts {count}")
+    gt_box = feed["gt_box"].cpu().numpy()
+    gt_label = feed["gt_label"].cpu().numpy()
+    dmap = fluid.metrics.DetectionMAP(overlap_threshold=0.5,
+                                      ap_version="11point")
+    for i in range(b):
+        real = (gt_box[i, :, 2] > gt_box[i, :, 0])
+        dmap.update(det[i, :count[i]], gt_box[i][real], gt_label[i][real])
+    summary = dict(decode_ms=ms, detections_per_image=float(count.mean()),
+                   padding_rows=int((~rows).sum()),
+                   decode_syncs=sum(sc.sites().values()),
+                   map_11point=float(dmap.eval()))
+    log(f"mobilenet-ssd decode B={b} through detection_output "
+        f"(multiclass_nms3, nms_top_k {cfg['nms_top_k']}, keep_top_k "
+        f"{keep}): {ms:.3f} ms (CUDA events), "
+        f"{summary['detections_per_image']:.1f} detections an image, "
+        f"{summary['padding_rows']} rows of label -1, host syncs "
+        f"{summary['decode_syncs']}; DetectionMAP (11point, synthetic "
+        f"data: not held) {summary['map_11point']:.4f}")
+    return summary
+
+
+def _ssd_state_errors(gs, cs, before, trainable):
+    """The card's state against the CPU's after one step from the same
+    state, relative L2: the trainable parameters' updates as one vector,
+    RMSProp's moments as one, and the worst other float var (with its
+    name).  Integer vars must be equal."""
+    upd, mom, worst = ([], []), ([], []), (0.0, "")
+    for n in cs.local_var_names():
+        want, got = cs.get(n), gs.get(n).cpu()
+        if not want.is_floating_point():
+            if not torch.equal(got, want):
+                raise AssertionError(f"{n} differs")
+            continue
+        want, got = want.double(), got.double()
+        if n in trainable:
+            upd[0].append((got - before[n]).reshape(-1))
+            upd[1].append((want - before[n]).reshape(-1))
+        elif n.endswith(("_mean_square_0", "_momentum_0")):
+            mom[0].append(got.reshape(-1))
+            mom[1].append(want.reshape(-1))
+        else:
+            err = _rel_l2(got, want)
+            if err > worst[0]:
+                worst = (err, n)
+    return {"update": (_rel_l2(torch.cat(upd[0]), torch.cat(upd[1])),
+                       "all parameters"),
+            "moment": (_rel_l2(torch.cat(mom[0]), torch.cat(mom[1])),
+                       "all moments"),
+            "state": worst}
+
+
+def _rel_l2(got, want):
+    floor = 1e-6 * max(want.numel(), 1) ** 0.5
+    return float((got - want).norm()) / max(float(want.norm()), floor)
+
+
+def _ssd_cut_check(fluid, S, quant=False):
+    """The cut program (SMALL) on the card against the CPU Executor, each
+    step from the CPU's state; the float program within SSD_LOSS_RTOL,
+    SSD_UPDATE, SSD_MOMENT and SSD_STATE, the QAT one within
+    QAT_LOSS_RTOL with every observer scale within QAT_SCALE.  Then (the
+    float program) the cut decode program from the same state: counts
+    and each image's labels equal, its scores within SSD_DET_TOL."""
+    from paddle_tpu_torch.convert import load_jax_scope
+
+    cfg = S.SMALL
+    main, startup, out = S.build(fluid, cfg, quant=quant)
+    gpu, cpu = fluid.Executor(), fluid.Executor(fluid.CPUPlace())
+    gs, cs = fluid.Scope(), fluid.Scope()
+    gpu.run(startup, scope=gs)
+    cpu.run(startup, scope=cs)
+    load_jax_scope(cs, {n: gs.get(n).cpu().numpy()
+                        for n in gs.local_var_names()})
+    feed = S.batch(cfg, seed=0)
+    trainable = {p.name for p in main.all_parameters() if p.trainable}
+    what = f"ssd{' qat' if quant else ''} cut"
+    losses, worst = [], {}
+    for i in range(SSD_CUT_STEPS):
+        load_jax_scope(gs, {n: cs.get(n).numpy()
+                            for n in cs.local_var_names()})
+        before = {n: cs.get(n).double() for n in trainable}
+        g = float(gpu.run(main, feed=feed, fetch_list=[out["loss"]],
+                          scope=gs)[0])
+        c = float(cpu.run(main, feed=feed, fetch_list=[out["loss"]],
+                          scope=cs)[0])
+        losses.append((g, c))
+        rtol = QAT_LOSS_RTOL if quant else SSD_LOSS_RTOL
+        if not (np.isfinite(g) and abs(g - c) <= rtol * abs(c)):
+            raise AssertionError(f"{what} step {i}: card loss {g} vs CPU {c}")
+        if quant:
+            for n in cs.local_var_names():
+                if ".quant_scale" not in n:
+                    continue
+                w, t = cs.get(n).double(), gs.get(n).double().cpu()
+                err = float((t - w).norm()) / float(w.norm())
+                if not (torch.isfinite(t).all() and (t > 0).all()
+                        and err <= QAT_SCALE):
+                    raise AssertionError(f"{what} step {i}: {n} {t} vs {w}")
+                worst[n] = max(worst.get(n, 0.0), err)
+            continue
+        for kind, (err, n) in _ssd_state_errors(gs, cs, before,
+                                                trainable).items():
+            limit = {"update": SSD_UPDATE, "moment": SSD_MOMENT,
+                     "state": SSD_STATE}[kind]
+            if err > limit:
+                raise AssertionError(f"{what} step {i}: {kind} {n} {err}")
+            if err > worst.get(kind, (0.0, ""))[0]:
+                worst[kind] = (err, n)
+    if quant:
+        name, err = max(worst.items(), key=lambda kv: kv[1])
+        worst = {"scale": (err, name)}
+    result = dict(losses=losses, worst={k: list(v) for k, v in worst.items()})
+    log(f"{what} card vs CPU Executor, {SSD_CUT_STEPS} steps each from the "
+        f"CPU's state: losses {[(round(a, 6), round(b, 6)) for a, b in losses]}"
+        f", worst {result['worst']}")
+    if quant:
+        return result
+    dmain, _, dout = S.build(fluid, cfg, train=False)
+    load_jax_scope(gs, {n: cs.get(n).numpy() for n in cs.local_var_names()})
+    fetch = [dout["nmsed"], dout["count"]]
+    g = gpu.run(dmain, feed={"image": feed["image"]}, fetch_list=fetch,
+                scope=gs)
+    c = cpu.run(dmain, feed={"image": feed["image"]}, fetch_list=fetch,
+                scope=cs)
+    if not np.array_equal(g[1], c[1]):
+        raise AssertionError(f"cut decode counts {g[1]} vs {c[1]}")
+    for gi, ci, n in zip(g[0], c[0], c[1]):
+        if sorted(gi[:n, 0]) != sorted(ci[:n, 0]):
+            raise AssertionError("cut decode labels differ")
+        ok, err = close(torch.from_numpy(np.sort(gi[:n, 1])),
+                        torch.from_numpy(np.sort(ci[:n, 1])), **SSD_DET_TOL)
+        if not ok:
+            raise AssertionError(f"cut decode scores differ by {err}")
+    result["decode_counts"] = c[1].tolist()
+    log(f"ssd cut decode card vs CPU: counts {c[1].tolist()} and labels "
+        f"equal, scores within {SSD_DET_TOL}")
+    return result
+
+
+def _ssd_head_check(fluid, S, main, exe, scope, feed, out):
+    """detection_output alone on the full width's head outputs (those of
+    one more train step): the card against the CPU Executor on the same
+    inputs.  The counts are equal; the rows as each image's set of
+    (label, box): at 64 x 1917 x 20 candidates, scores a float32 unit
+    apart between the devices' softmaxes swap places at the keep_top_k
+    boundary or in a suppression, so at least SSD_DET_AGREE of the rows
+    agree (the scores and boxes of agreeing rows within SSD_DET_TOL)."""
+    heads = exe.run(main, feed=feed, fetch_list=[
+        out[k] for k in ("locs", "confs", "box", "var")], scope=scope)
+    hfeed = dict(zip(("loc", "conf", "box", "var"), heads))
+    hmain, _, hout, hcount = S.head_program(fluid, S.FULL)
+    fetch = [hout, hcount]
+    g = fluid.Executor().run(hmain, feed=hfeed, fetch_list=fetch,
+                             scope=fluid.Scope())
+    c = fluid.Executor(fluid.CPUPlace()).run(hmain, feed=hfeed,
+                                             fetch_list=fetch,
+                                             scope=fluid.Scope())
+    if not np.array_equal(g[1], c[1]):
+        raise AssertionError(f"full-width detection_output counts {g[1]} "
+                             f"vs {c[1]}")
+    got, want, rows = [], [], 0
+    for gi, ci, n in zip(g[0], c[0], c[1]):
+        cpu_rows = {(int(r[0]), tuple(np.round(r[2:], 4))): r
+                    for r in ci[:n]}
+        for r in gi[:n]:
+            hit = cpu_rows.get((int(r[0]), tuple(np.round(r[2:], 4))))
+            if hit is not None:
+                got.append(r)
+                want.append(hit)
+        rows += int(n)
+    agree, share = len(got), len(got) / max(rows, 1)
+    ok, worst = close(torch.from_numpy(np.stack(got)),
+                      torch.from_numpy(np.stack(want)), **SSD_DET_TOL)
+    if share < SSD_DET_AGREE or not ok:
+        raise AssertionError(f"full-width detection_output: {share:.4f} of "
+                             f"the rows agree, worst {worst}")
+    log(f"full-width detection_output (B={S.FULL['batch']}, "
+        f"{S.num_priors(S.FULL)} priors) card vs CPU on the same heads: "
+        f"counts equal, {agree} of {rows} rows the same label and box "
+        f"({100 * share:.2f} %), their scores and boxes within {worst:.3g}")
+    return dict(rows=rows, agree=agree, max_abs_err=worst)
+
+
+def _det_rules_on_card(C, card="cuda"):
+    """Every case of tests/torch_det_cases.py (each detection and quantize
+    rule) on the card against the same rule on the CPU, float32: floats
+    within DET_RULE_TOL, integers equal (the subsampling cases draw too
+    few to bind: the devices' generators differ)."""
+    from paddle_tpu_torch.fluid import framework as TFW
+    from paddle_tpu_torch.ops import registry as R
+
+    worst, types = (0.0, ""), set()
+    for name, (op_type, ins, attrs, _) in sorted(C.CASES.items()):
+        outs = {}
+        for dev in ("cpu", card):
+            op = TFW.Operator(TFW.Program().global_block(), 0, op_type,
+                              {s: [f"{s}_{i}" for i in range(len(v))]
+                               for s, v in ins.items()}, {}, dict(attrs))
+            vals = {s: [torch.from_numpy(np.asarray(
+                a, np.float32 if np.issubdtype(np.asarray(a).dtype,
+                                               np.floating) else None))
+                .to(dev) for a in v] for s, v in ins.items()}
+            with torch.no_grad():
+                outs[dev] = R.forward_rule(op_type)(
+                    R.LowerCtx(0, device=dev), op, vals)
+        for slot, want in outs["cpu"].items():
+            got = outs[card][slot]
+            for w, g in zip(want, got):
+                if g.device.type != card:
+                    raise AssertionError(f"{name} {slot} left the card")
+                g = g.cpu()
+                if w.is_floating_point():
+                    ok, err = close(g, w, **DET_RULE_TOL)
+                    if err > worst[0]:
+                        worst = (err, f"{name}.{slot}")
+                else:
+                    ok = torch.equal(g, w)
+                if not ok:
+                    raise AssertionError(f"{name} {slot}: card {g} vs {w}")
+        types.add(op_type)
+    log(f"detection and quantize rules: {len(C.CASES)} cases of "
+        f"{len(types)} op types on the card against the CPU, worst "
+        f"{worst[0]:.3g} at {worst[1]} (limits {DET_RULE_TOL})")
+    return dict(cases=len(C.CASES), op_types=len(types), worst=list(worst))
+
+
+@phase("ssd")
+def ssd():
+    """PaddleCV's MobileNet-SSD on VOC at 300^2 (tests/torch_ssd_program.py
+    at FULL) through fluid.Executor: trained in f32, then as
+    quantization-aware training, decoded through detection_output; the
+    cut program float and QAT on the card against the CPU; every
+    detection and quantize rule's case on the card against the CPU."""
+    from paddle_tpu_torch import fluid
+
+    S, C = _ssd_modules()
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.benchmark = True
+    try:
+        launches, summary, (exe, scope, feed, out, main) = _ssd_train(
+            fluid, S)
+        summary["decode"] = _ssd_decode(fluid, S, exe, scope, feed)
+        summary["head_check"] = _ssd_head_check(fluid, S, main, exe, scope,
+                                                feed, out)
+        del exe, scope, feed, main
+        torch.cuda.empty_cache()
+        qat_launches, summary["qat"], _ = _ssd_train(fluid, S, quant=True)
+        summary["qat"]["step_vs_float"] = (summary["qat"]["step_ms"]
+                                           / summary["step_ms"])
+        torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.benchmark = False
+    _expect_launches(qat_launches, 0, (), "ssd qat steps")
+    summary["cut"] = _ssd_cut_check(fluid, S)
+    summary["cut_qat"] = _ssd_cut_check(fluid, S, quant=True)
+    summary["rules"] = _det_rules_on_card(C)
+    summary["card"] = card_line()
+    log("ssd summary: " + json.dumps(summary))
+    return launches
+
+
 def tensor_methods_ab(cycles=2):
     """The decode, seq2seq and srl phases `cycles` times in the turns on,
     off, off, on of the `matmul` / `unsqueeze` extensions (each phase
@@ -5545,6 +6013,9 @@ def main():
     card()
     if FAILURES:
         sys.exit(1)
+    if "--ssd" in sys.argv[1:]:
+        ssd()
+        sys.exit(1 if FAILURES else 0)
     build_kernels()
     if "--tensor-methods-ab" in sys.argv[1:]:
         tensor_methods_ab()
@@ -5571,10 +6042,12 @@ def main():
     gan_path = cyclegan()
     static_paths = static_decode()
     amp_path = fluid_amp()
+    ssd_path = ssd()
     if FAILURES or None in (rows, probed, served, decoded, trained, library,
                             resnet_path, fluid_path, wmt_paths, hapi_path,
                             dygraph_path, s2s_paths, srl_paths,
-                            mobile_paths, gan_path, static_paths, amp_path):
+                            mobile_paths, gan_path, static_paths, amp_path,
+                            ssd_path):
         log(f"FAILED phases: {FAILURES}")
         print(f"FAILED phases: {FAILURES}", file=sys.stderr, flush=True)
         sys.exit(1)
@@ -5584,7 +6057,7 @@ def main():
              "resnet": resnet_path, "fluid": fluid_path, **wmt_paths,
              "hapi": hapi_path, "dygraph": dygraph_path, **s2s_paths,
              **srl_paths, **mobile_paths, "cyclegan": gan_path,
-             **static_paths, "fluid_amp": amp_path}
+             **static_paths, "fluid_amp": amp_path, "ssd": ssd_path}
     for r in rows:
         # `launches` is the count on the path where the kernel runs: the
         # probe for its three kernels, the decode path for ragged_paged,

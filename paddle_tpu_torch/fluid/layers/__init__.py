@@ -1,7 +1,8 @@
 """fluid.layers: the op-emitting layer library (counterpart of
 paddle_tpu/fluid/layers/): tensor, nn, loss, control_flow, rnn, the
-learning-rate schedules, the sequence layers and compat's legacy-name
-tail, star-imported in the reference's order (compat last)."""
+learning-rate schedules, the sequence layers, the detection layers and
+compat's legacy-name tail, star-imported in the reference's order
+(compat last)."""
 
 from . import math_op_patch  # noqa: F401 - installs Variable operator sugar
 from .tensor import *  # noqa: F401,F403
@@ -11,8 +12,9 @@ from .control_flow import *  # noqa: F401,F403
 from .rnn import *  # noqa: F401,F403
 from .learning_rate_scheduler import *  # noqa: F401,F403
 from .sequence_lod import *  # noqa: F401,F403
+from .detection import *  # noqa: F401,F403
 from . import (tensor, nn, loss, control_flow, rnn,  # noqa: F401
-               learning_rate_scheduler, sequence_lod)
+               learning_rate_scheduler, sequence_lod, detection)
 from .compat import *  # noqa: F401,F403 - the legacy-name tail
 from . import compat as _compat  # noqa: F401
 

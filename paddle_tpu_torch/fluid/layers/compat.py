@@ -8,8 +8,12 @@ paddle_tpu/fluid/layers/compat.py), as far as the port has the rules:
     shuffle_channel, random_crop, ...) and a few
     compositions (sum, scatter_nd, brelu, soft_relu, has_inf, has_nan,
     dice_loss, sampled_softmax_with_cross_entropy);
+  * the detection bucket's seven (box_decoder_and_assign, target_assign,
+    roi_pool, psroi_pool, prroi_pool, polygon_box_transform,
+    retinanet_detection_output);
   * (`dynamic_decode` and the cell and decoder classes resolve from the
-    port's 2.x API through fluid.layers' module `__getattr__`);
+    port's 2.x API through fluid.layers' module `__getattr__`; `birnn`
+    calls nn.functional's on use);
   * the reference's `_na` table: names it does not carry raise
     NotImplementedError with the reason and the alternative, worded as
     the reference words them.  `lstm`, `lstm_unit`, `gru_unit`,
@@ -18,8 +22,6 @@ paddle_tpu/fluid/layers/compat.py), as far as the port has the rules:
     after `rnn`, this module's guard wins), while
     `fluid.layers.rnn.dynamic_gru` computes.
 
-The reference's other wrappers (the detection bucket's) wait for their
-rules (ROADMAP queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -199,6 +201,24 @@ sequence_reshape = _static_op("sequence_reshape", ["X"])
 sequence_scatter = _static_op("sequence_scatter", ["X", "Ids", "Updates"])
 crop = crop_tensor
 __all__.append("crop")
+
+# the detection bucket's seven
+polygon_box_transform = _static_op("polygon_box_transform", ["Input"],
+                                   out_slot="Output")
+prroi_pool = _static_op("prroi_pool", ["X", "ROIs"])
+box_decoder_and_assign = _static_op(
+    "box_decoder_and_assign",
+    ["PriorBox", "PriorBoxVar", "TargetBox", "BoxScore"],
+    out_slot="DecodeBox", extra_out_slots=("OutputAssignBox",))
+target_assign = _static_op("target_assign", ["X", "MatchIndices"],
+                           extra_out_slots=("OutWeight",))
+roi_pool = _static_op("roi_pool", ["X", "ROIs"],
+                      extra_out_slots=("Argmax",))
+psroi_pool = _static_op("psroi_pool", ["X", "ROIs"])
+retinanet_detection_output = _static_op(
+    "retinanet_detection_output",
+    ["BBoxes", "Scores", "Anchors", "ImInfo"])
+
 # the factory appended op names where the Python name differs
 for _wrong, _right in [("cvm", "continuous_value_model"),
                        ("trilinear_interp", "resize_trilinear"),
@@ -299,6 +319,17 @@ def sampled_softmax_with_cross_entropy(logits, label, num_samples,
 
 
 __all__.append("sampled_softmax_with_cross_entropy")
+
+
+def birnn(*args, **kwargs):
+    """nn.functional.birnn, looked up on call (nn imports fluid: an
+    import here would cycle), as the reference's lazy alias."""
+    from ...nn import functional
+
+    return functional.birnn(*args, **kwargs)
+
+
+__all__.append("birnn")
 
 
 # -- loud guards for what is not carried ---------------------------------------

@@ -39,6 +39,7 @@ __all__ = [
     "image_resize", "resize_nearest", "resize_bilinear", "interpolate",
     "bilinear_tensor_product", "spectral_norm", "data_norm", "nce",
     "deform_conv2d", "conv3d_transpose", "Print", "py_func", "auc",
+    "multi_box_head",
 ]
 
 
@@ -1229,3 +1230,80 @@ def auc(input, label, curve="ROC", num_thresholds=4095, topk=1,
                "slide_steps": slide_steps, "curve": curve},
         infer_shape=False)
     return auc_out, [auc_out], [stat_pos, stat_neg]
+
+
+def multi_box_head(inputs, image, base_size, num_classes,
+                   aspect_ratios, min_ratio=None, max_ratio=None,
+                   min_sizes=None, max_sizes=None, steps=None,
+                   step_w=None, step_h=None, offset=0.5, variance=None,
+                   flip=True, clip=False, kernel_size=1, pad=0,
+                   stride=1, name=None,
+                   min_max_aspect_ratios_order=False):
+    """The SSD head (Paddle's layers/detection.py multi_box_head): per
+    feature map a conv head for the box locations, one for the class
+    confidences and a prior_box grid, each concatenated over the maps.
+    Returns (mbox_locs, mbox_confs, prior_boxes, variances)."""
+    from .detection import prior_box as _prior_box
+    from .tensor import concat
+
+    n_maps = len(inputs)
+    if min_sizes is None:
+        # reference ratio schedule: evenly spaced in [min_ratio,
+        # max_ratio] percent of base_size, first map at half min
+        assert min_ratio is not None and max_ratio is not None
+        min_sizes, max_sizes = [], []
+        step = int((max_ratio - min_ratio) / max(1, n_maps - 2))
+        for r in range(min_ratio, max_ratio + 1, step):
+            min_sizes.append(base_size * r / 100.0)
+            max_sizes.append(base_size * (r + step) / 100.0)
+        min_sizes = [base_size * 0.1] + min_sizes
+        max_sizes = [base_size * 0.2] + max_sizes
+    variance = list(variance or (0.1, 0.1, 0.2, 0.2))
+    locs, confs, boxes_all, vars_all = [], [], [], []
+    for i, x in enumerate(inputs):
+        mins = min_sizes[i]
+        maxs = max_sizes[i] if max_sizes else None
+        ar = aspect_ratios[i]
+        mins = [mins] if not isinstance(mins, (list, tuple)) else mins
+        maxs = ([maxs] if maxs is not None
+                and not isinstance(maxs, (list, tuple)) else maxs)
+        ar = [ar] if not isinstance(ar, (list, tuple)) else list(ar)
+        box, var = _prior_box(
+            x, image, mins, maxs, ar, variance, flip, clip,
+            steps=((lambda sv: [sv, sv] if not isinstance(
+                sv, (list, tuple)) else list(sv))(steps[i])
+                if steps else
+                [step_w[i] if step_w else 0.0,
+                 step_h[i] if step_h else 0.0]),
+            offset=offset,
+            min_max_aspect_ratios_order=min_max_aspect_ratios_order)
+        # priors per spatial cell, computed like the reference op's
+        # ExpandAspectRatios (prior_box_op.h): [1.0] + each new ar
+        # (+ its flip), times min sizes, plus one per max size
+        import math as _math
+
+        # NB math.fabs, not abs: this module defines a layer named
+        # `abs` that shadows the builtin
+        expanded = [1.0]
+        for a in ar:
+            if not any(_math.fabs(a - e) < 1e-6 for e in expanded):
+                expanded.append(a)
+                if flip and _math.fabs(a - 1.0) > 1e-6:
+                    expanded.append(1.0 / a)
+        num_priors = len(expanded) * len(mins) + len(maxs or [])
+        loc = conv2d(x, num_priors * 4, kernel_size, stride=stride,
+                     padding=pad)
+        conf = conv2d(x, num_priors * num_classes, kernel_size,
+                      stride=stride, padding=pad)
+        # NCHW -> (N, priors, 4 / classes)
+        loc = transpose(loc, [0, 2, 3, 1])
+        conf = transpose(conf, [0, 2, 3, 1])
+        locs.append(reshape(loc, [0, -1, 4]))
+        confs.append(reshape(conf, [0, -1, num_classes]))
+        boxes_all.append(reshape(box, [-1, 4]))
+        vars_all.append(reshape(var, [-1, 4]))
+    mbox_locs = concat(locs, axis=1)
+    mbox_confs = concat(confs, axis=1)
+    prior_boxes = concat(boxes_all, axis=0)
+    box_vars = concat(vars_all, axis=0)
+    return mbox_locs, mbox_confs, prior_boxes, box_vars

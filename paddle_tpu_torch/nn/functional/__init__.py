@@ -1077,13 +1077,12 @@ def _reexport_fluid_layers():
             setattr(mod, n, getattr(_L, n))
 
 
-# less generate_proposals, which the reference's extra.py replaces by its
-# detection op (left out with the detection bucket)
+# (generate_proposals is then replaced by extra.py's, as in the reference)
 _REEXPORTED = [
     "anchor_generator", "array_length", "array_read", "array_write",
     "assign", "bipartite_match", "box_clip", "box_coder", "create_array",
     "detection_output", "dynamic_gru", "dynamic_lstm", "erf", "fc",
-    "grid_sampler", "image_resize",
+    "generate_proposals", "grid_sampler", "image_resize",
     "linear_chain_crf", "multiclass_nms", "pad2d", "pool2d", "prior_box",
     "resize_bilinear", "resize_nearest", "roi_align", "sequence_concat",
     "sequence_conv", "sequence_enumerate", "sequence_expand",

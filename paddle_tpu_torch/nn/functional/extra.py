@@ -2,11 +2,10 @@
 paddle_tpu/nn/functional/extra.py): wrappers over the registry's rules
 (`_op`), torch compositions where the reference composes jax.numpy, and
 the reference's guards for the names it does not carry (they raise
-NotImplementedError with the same reason and alternative).
-
-Left out until their op bucket is ported (ROADMAP queue 1 item 8): the
-detection tail (roi_pool, prroi_pool, psroi_pool, polygon_box_transform,
-generate_proposals and its kin).
+NotImplementedError with the same reason and alternative), and the
+detection tail over the detection rules (the ROI pools,
+polygon_box_transform, generate_proposals and its kin), each running its
+op with no output slot declared, as the reference's trace_op does.
 """
 
 from __future__ import annotations
@@ -687,3 +686,221 @@ def pool3d(input, pool_size=-1, pool_type="max", pool_stride=1,
     return _pool3d(input, pool_size, pool_stride, pool_padding, pool_type,
                    ceil_mode, exclusive, global_pooling)
 
+
+# -- the detection tail (the reference's extra.py:484-518, 863-1037) -------------
+
+def _det(op_type, ins, attrs):
+    """The rule's {slot: [tensors]}, run as the reference's trace_op runs
+    it: the op declares no output slot."""
+    from ...tensor import _run
+
+    return _run(op_type, ins, attrs, ())
+
+
+@_export
+def roi_pool(x, boxes, boxes_num=None, output_size=1, spatial_scale=1.0,
+             name=None):
+    osz = ([output_size] * 2 if isinstance(output_size, int)
+           else list(output_size))
+    return _det("roi_pool", {"X": x, "ROIs": boxes},
+                {"pooled_height": osz[0], "pooled_width": osz[1],
+                 "spatial_scale": spatial_scale})["Out"][0]
+
+
+@_export
+def prroi_pool(x, boxes, output_channels=None, spatial_scale=1.0,
+               pooled_height=1, pooled_width=1, batch_roi_nums=None,
+               name=None):
+    return _det("prroi_pool", {"X": x, "ROIs": boxes},
+                {"pooled_height": pooled_height,
+                 "pooled_width": pooled_width,
+                 "spatial_scale": spatial_scale})["Out"][0]
+
+
+@_export
+def psroi_pool(x, boxes, boxes_num=None, output_channels=1,
+               spatial_scale=1.0, pooled_height=1, pooled_width=1,
+               name=None):
+    return _det("psroi_pool", {"X": x, "ROIs": boxes},
+                {"output_channels": output_channels,
+                 "pooled_height": pooled_height,
+                 "pooled_width": pooled_width,
+                 "spatial_scale": spatial_scale})["Out"][0]
+
+
+@_export
+def polygon_box_transform(input, name=None):
+    return _det("polygon_box_transform", {"Input": input}, {})["Output"][0]
+
+
+@_export
+def generate_proposals(scores, bbox_deltas, im_info, anchors, variances,
+                       pre_nms_top_n=6000, post_nms_top_n=1000,
+                       nms_thresh=0.5, min_size=0.1, eta=1.0,
+                       return_rois_num=False, name=None):
+    """(rois, probs), and with return_rois_num a third None: the op
+    declares no RpnRoisNum slot, as the reference's."""
+    outs = _det("generate_proposals",
+                {"Scores": scores, "BboxDeltas": bbox_deltas,
+                 "ImInfo": im_info, "Anchors": anchors,
+                 "Variances": variances},
+                {"pre_nms_topN": pre_nms_top_n,
+                 "post_nms_topN": post_nms_top_n,
+                 "nms_thresh": nms_thresh, "min_size": min_size,
+                 "eta": eta})
+    rois, probs = outs["RpnRois"][0], outs["RpnRoiProbs"][0]
+    if return_rois_num:
+        return rois, probs, outs.get("RpnRoisNum", [None])[0]
+    return rois, probs
+
+
+@_export
+def distribute_fpn_proposals(fpn_rois, min_level, max_level,
+                             refer_level, refer_scale,
+                             rois_num=None, name=None):
+    """(the levels' packed rois, RestoreIndex)."""
+    outs = _det("distribute_fpn_proposals", {"FpnRois": fpn_rois},
+                {"min_level": min_level, "max_level": max_level,
+                 "refer_level": refer_level, "refer_scale": refer_scale})
+    return outs["MultiFpnRois"], outs["RestoreIndex"][0]
+
+
+@_export
+def collect_fpn_proposals(multi_rois, multi_scores, min_level,
+                          max_level, post_nms_top_n, rois_num=None,
+                          name=None):
+    return _det("collect_fpn_proposals",
+                {"MultiLevelRois": list(multi_rois),
+                 "MultiLevelScores": list(multi_scores)},
+                {"post_nms_topN": post_nms_top_n})["FpnRois"][0]
+
+
+@_export
+def density_prior_box(input, image, densities=None, fixed_sizes=None,
+                      fixed_ratios=None, variance=(0.1, 0.1, 0.2, 0.2),
+                      clip=False, steps=(0.0, 0.0), offset=0.5,
+                      flatten_to_2d=False, name=None):
+    """(boxes, variances).  The rule reads step_w / step_h, not the
+    `steps` attr this passes (the reference's does the same)."""
+    outs = _det("density_prior_box", {"Input": input, "Image": image},
+                {"densities": list(densities or []),
+                 "fixed_sizes": list(fixed_sizes or []),
+                 "fixed_ratios": list(fixed_ratios or []),
+                 "variances": list(variance), "clip": clip,
+                 "steps": list(steps), "offset": offset,
+                 "flatten_to_2d": flatten_to_2d})
+    return outs["Boxes"][0], outs["Variances"][0]
+
+
+@_export
+def box_decoder_and_assign(prior_box, prior_box_var, target_box,
+                           box_score, box_clip, name=None):
+    outs = _det("box_decoder_and_assign",
+                {"PriorBox": prior_box, "PriorBoxVar": prior_box_var,
+                 "TargetBox": target_box, "BoxScore": box_score},
+                {"box_clip": box_clip})
+    return outs["DecodeBox"][0], outs["OutputAssignBox"][0]
+
+
+@_export
+def retinanet_detection_output(bboxes, scores, anchors, im_info,
+                               score_threshold=0.05, nms_top_k=1000,
+                               keep_top_k=100, nms_threshold=0.3,
+                               nms_eta=1.0):
+    return _det("retinanet_detection_output",
+                {"BBoxes": list(bboxes), "Scores": list(scores),
+                 "Anchors": list(anchors), "ImInfo": im_info},
+                {"score_threshold": score_threshold,
+                 "nms_top_k": nms_top_k, "keep_top_k": keep_top_k,
+                 "nms_threshold": nms_threshold,
+                 "nms_eta": nms_eta})["Out"][0]
+
+
+@_export
+def retinanet_target_assign(bbox_pred, cls_logits, anchor_box,
+                            anchor_var, gt_boxes, gt_labels, is_crowd,
+                            im_info, num_classes=1,
+                            positive_overlap=0.5,
+                            negative_overlap=0.4):
+    """Paddle's signature returns the sampled anchors' index lists; the
+    dense rule gives per-anchor targets and masks, no LocationIndex:
+    KeyError, as in the reference."""
+    outs = _det("retinanet_target_assign",
+                {"Anchor": anchor_box, "GtBoxes": gt_boxes,
+                 "GtLabels": gt_labels, "IsCrowd": is_crowd,
+                 "ImInfo": im_info},
+                {"positive_overlap": positive_overlap,
+                 "negative_overlap": negative_overlap})
+    return (None, None, outs["TargetBBox"][0], outs["TargetLabel"][0],
+            outs["LocationIndex"][0], outs["ScoreIndex"][0],
+            outs.get("ForegroundNumber", [None])[0])
+
+
+@_export
+def rpn_target_assign(bbox_pred, cls_logits, anchor_box, anchor_var,
+                      gt_boxes, is_crowd, im_info,
+                      rpn_batch_size_per_im=256,
+                      rpn_straddle_thresh=0.0, rpn_fg_fraction=0.5,
+                      rpn_positive_overlap=0.7,
+                      rpn_negative_overlap=0.3, use_random=True):
+    """As retinanet_target_assign: KeyError on LocationIndex, as in the
+    reference."""
+    outs = _det("rpn_target_assign",
+                {"Anchor": anchor_box, "GtBoxes": gt_boxes,
+                 "IsCrowd": is_crowd, "ImInfo": im_info},
+                {"rpn_batch_size_per_im": rpn_batch_size_per_im,
+                 "rpn_straddle_thresh": rpn_straddle_thresh,
+                 "rpn_fg_fraction": rpn_fg_fraction,
+                 "rpn_positive_overlap": rpn_positive_overlap,
+                 "rpn_negative_overlap": rpn_negative_overlap,
+                 "use_random": use_random})
+    return (outs["LocationIndex"][0], outs["ScoreIndex"][0],
+            outs["TargetBBox"][0], outs["TargetLabel"][0],
+            outs.get("BBoxInsideWeight", [None])[0])
+
+
+@_export
+def target_assign(input, matched_indices, negative_indices=None,
+                  mismatch_value=None, name=None):
+    ins = {"X": input, "MatchIndices": matched_indices}
+    if negative_indices is not None:
+        ins["NegIndices"] = negative_indices
+    outs = _det("target_assign", ins, {"mismatch_value": mismatch_value or 0})
+    return outs["Out"][0], outs["OutWeight"][0]
+
+
+@_export
+def generate_proposal_labels(rpn_rois, gt_classes, is_crowd, gt_boxes,
+                             im_info, batch_size_per_im=256,
+                             fg_fraction=0.25, fg_thresh=0.25,
+                             bg_thresh_hi=0.5, bg_thresh_lo=0.0,
+                             bbox_reg_weights=(0.1, 0.1, 0.2, 0.2),
+                             class_nums=None, use_random=True,
+                             is_cls_agnostic=False,
+                             is_cascade_rcnn=False):
+    outs = _det("generate_proposal_labels",
+                {"RpnRois": rpn_rois, "GtClasses": gt_classes,
+                 "IsCrowd": is_crowd, "GtBoxes": gt_boxes,
+                 "ImInfo": im_info},
+                {"batch_size_per_im": batch_size_per_im,
+                 "fg_fraction": fg_fraction, "fg_thresh": fg_thresh,
+                 "bg_thresh_hi": bg_thresh_hi,
+                 "bg_thresh_lo": bg_thresh_lo,
+                 "bbox_reg_weights": list(bbox_reg_weights),
+                 "class_nums": class_nums or 81,
+                 "use_random": use_random})
+    return (outs["Rois"][0], outs["LabelsInt32"][0],
+            outs["BboxTargets"][0], outs["BboxInsideWeights"][0],
+            outs["BboxOutsideWeights"][0])
+
+
+@_export
+def generate_mask_labels(im_info, gt_classes, is_crowd, gt_segms,
+                         rois, labels_int32, num_classes, resolution):
+    outs = _det("generate_mask_labels",
+                {"ImInfo": im_info, "GtClasses": gt_classes,
+                 "IsCrowd": is_crowd, "GtSegms": gt_segms,
+                 "Rois": rois, "LabelsInt32": labels_int32},
+                {"num_classes": num_classes, "resolution": resolution})
+    return (outs["MaskRois"][0], outs["RoiHasMaskInt32"][0],
+            outs["MaskInt32"][0])

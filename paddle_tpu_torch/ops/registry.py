@@ -48,8 +48,9 @@ def _load_rules() -> None:
         return
     _RULES_LOADED[0] = True
     from . import (collective_ops, control_flow_ops,  # noqa: F401
-                   math_ops, misc_ops, nn_ops, optimizer_ops, random_ops,
-                   rnn_ops, sequence_ops, tensor_ops, vision_ops)
+                   detection_ops, math_ops, misc_ops, nn_ops,
+                   optimizer_ops, quantize_ops, random_ops, rnn_ops,
+                   sequence_ops, tensor_ops, vision_ops)
 
 
 def register_op(op_type: str):

@@ -499,12 +499,10 @@ def _not_carried(fn):
     return None
 
 
-# the reference's compat layers the port leaves out, with the reason: their
-# op rules are not ported (ROADMAP queue 1 items 6, 8 and 12)
+# the reference's compat layers the port leaves out, with the queue item
+# they wait for
 LEFT_OUT = {
-    "polygon_box_transform", "prroi_pool",
-    "box_decoder_and_assign", "target_assign", "roi_pool", "psroi_pool",
-    "retinanet_detection_output", "birnn", "MultivariateNormalDiag",
+    "MultivariateNormalDiag",  # paddle.distribution (queue 1 item 12)
 }
 
 

@@ -1007,13 +1007,15 @@ def test_every_rule_is_covered():
     """Each registered port rule has a case here, in
     test_torch_fluid_ops_nn.py (the nn and vision buckets), in
     test_torch_fluid_ops_seq.py (the sequence bucket and the control-flow
-    bucket's single-op rules; select_output by its own test there) or in
+    bucket's single-op rules; select_output by its own test there), in
     test_torch_fluid_ops_opt.py (the optimizer, random and misc buckets;
-    the drawing and host rules by their own tests there), or runs in the
-    programs of test_torch_control_flow.py (the sub-block and
+    the drawing and host rules by their own tests there) or in
+    test_torch_fluid_ops_det.py (the detection and quantize buckets), or
+    runs in the programs of test_torch_control_flow.py (the sub-block and
     tensor-array rules) or test_torch_fluid_optimizer.py
     (recompute_segment_grad), under its reference op-type name."""
     from test_torch_control_flow import PROGRAM_RULES
+    from test_torch_fluid_ops_det import CASES as DET_CASES
     from test_torch_fluid_ops_nn import CASES as NN_CASES
     from test_torch_fluid_ops_opt import CASES as OPT_CASES
     from test_torch_fluid_ops_opt import HELD_BELOW as OPT_HELD
@@ -1022,7 +1024,8 @@ def test_every_rule_is_covered():
     from test_torch_fluid_ops_seq import CASES as SEQ_CASES
 
     covered = {c[0] for c in list(CASES.values()) + list(NN_CASES.values())
-               + list(SEQ_CASES.values()) + list(OPT_CASES.values())} \
+               + list(SEQ_CASES.values()) + list(OPT_CASES.values())
+               + list(DET_CASES.values())} \
         | set(RANDOM) | PROGRAM_RULES | {"select_output"} | OPT_RANDOM \
         | OPT_HELD | OPT_PROGRAM
     assert set(TREG.registered_ops()) == covered

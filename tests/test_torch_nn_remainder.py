@@ -234,21 +234,18 @@ HELD_BELOW = {
                               "(test_torch_control_flow.py)",
     "random_crop": "draws its offsets (torch's bits, not jax.random's)",
 }
+# the detection tail, held in test_torch_detection.py
+HELD_BELOW.update(dict.fromkeys((
+    "roi_pool", "prroi_pool", "psroi_pool", "polygon_box_transform",
+    "generate_proposals", "distribute_fpn_proposals", "collect_fpn_proposals",
+    "density_prior_box", "box_decoder_and_assign",
+    "retinanet_detection_output", "retinanet_target_assign",
+    "rpn_target_assign", "target_assign", "generate_proposal_labels",
+    "generate_mask_labels"), "test_torch_detection.py"))
 
-# names of the reference's nn.functional the port leaves out, by the op
-# bucket (ROADMAP queue 1 item 8) their bodies reach
-LEFT_OUT = {
-    "detection": {
-        "anchor_generator", "bipartite_match", "box_clip", "box_coder",
-        "box_decoder_and_assign", "collect_fpn_proposals",
-        "density_prior_box", "detection_output", "distribute_fpn_proposals",
-        "generate_mask_labels", "generate_proposal_labels",
-        "generate_proposals", "multiclass_nms", "polygon_box_transform",
-        "prior_box", "prroi_pool", "psroi_pool", "retinanet_detection_output",
-        "retinanet_target_assign", "roi_align", "roi_pool",
-        "rpn_target_assign", "sigmoid_focal_loss", "target_assign",
-        "yolo_box", "yolov3_loss"},
-}
+# names of the reference's nn.functional the port leaves out, by the queue
+# item they wait for (none since the detection bucket landed)
+LEFT_OUT = {}
 # the reference's nn names the port leaves out, by queue item
 NN_LEFT_OUT = {
     "item 10 (the collective path)": {"SwitchMoE", "SyncBatchNorm"},
@@ -262,7 +259,7 @@ def _public(mod):
 
 def test_the_port_lacks_only_the_left_out_names():
     missing_f = _public(J.nn.functional) - _public(T.nn.functional) - NOT_API
-    assert missing_f == set().union(*LEFT_OUT.values())
+    assert missing_f == set().union(set(), *LEFT_OUT.values())
     assert _public(J.nn) - _public(T.nn) == set().union(
         *NN_LEFT_OUT.values())
 
