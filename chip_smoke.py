@@ -301,7 +301,9 @@ Phases, in order (any failure exits non-zero and prints no result):
               trained scope: ms, detections an image, padding rows,
               DetectionMAP (reported, not held); detection_output alone
               on the full width's head outputs, card against CPU (counts
-              equal, SSD_DET_AGREE of the rows alike, SSD_DET_TOL).
+              equal; every row whose score is separated from the other
+              candidates' by more than a tie, SSD_TIE_ULPS, alike within
+              SSD_DET_TOL; a row on one side only must be such a tie).
               The program through
               fluid.contrib.slim's QuantizationTransformPass: 1 warm-up and
               SSD_QAT_STEPS timed, its ms against the float step, the
@@ -313,11 +315,42 @@ Phases, in order (any failure exits non-zero and prints no result):
               tests/torch_det_cases.py (every detection and quantize
               rule) on the card against the CPU (DET_RULE_TOL)
 
+ 24. ctr      PaddleRec's CTR-DNN on Criteo (tests/torch_ctr_program.py
+              at FULL: 13 dense features, 26 slots into one [1000001, 10]
+              table, fc 400 x 3, softmax, auc over 4096 thresholds, Adam
+              1e-4, B=1000) through fluid.DatasetFactory: CTR_FILES
+              synthetic MultiSlot files of CTR_LINES lines written by
+              MultiSlotDataGenerator, loaded by an InMemoryDataset with
+              CTR_THREADS parser threads (s and lines/s) and shuffled;
+              a warm-up pass, then one timed pass of 100 steps through
+              Executor.train_from_dataset(CompiledProgram) with the
+              counts at 0: ms a step by CUDA events (host clock beside),
+              samples/s, ops a step, host us an op, host reads and syncs,
+              the ring's occupancy, waits and stall attribution, peak
+              memory; the loss finite and falling (the last 10 steps'
+              mean below the first 10's), the AUC above 0.5; the idle
+              share, host-to-device copies a step and top device ops of
+              a profiled pass.  A QueueDataset pass against an
+              unshuffled InMemoryDataset pass from the same weights
+              (CTR_QUEUE_RTOL) and its samples/s; CompiledProgram's
+              first 3 steps equal to Executor.run's bit for bit;
+              FLAGS_check_nan_inf's cost a step, and a planted NaN
+              raising within prefetch_depth steps, naming a variable;
+              save_persistables / load_persistables into a fresh scope
+              bit for bit; save_inference_model of [predict, auc],
+              load_inference_model into a fresh scope and
+              infer_from_dataset over the held-out file against the
+              trained scope's forward (CTR_INFER_RTOL, the auc
+              histograms equal), ms a batch; SMALL trained on the card
+              against the CPU Executor over the same files and weights
+              (CTR_LOSS_RTOL, CTR_UPDATE, the histograms equal).  No
+              hand-written kernel is on this path (0 launches)
+
 The last two lines of stdout are a {"kernels": [...]} summary and the
 {"ok": true, "device": {...}} result.
 
 `python3 chip_smoke.py --ssd` runs only the card and ssd phases (no
-kernel is built: none is on that path).
+kernel is built: none is on that path); `--ctr` the card and ctr phases.
 
 `python3 chip_smoke.py --tensor-methods-ab` runs instead only the
 host-bound decode, seq2seq and srl phases, in turns with the `matmul` /
@@ -331,6 +364,8 @@ every float32 product in the plain versions is a full float32 product.
 from __future__ import annotations
 
 import json
+import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -590,10 +625,11 @@ SSD_LOSS_RTOL, SSD_UPDATE, SSD_MOMENT, SSD_STATE = 1e-4, 5e-2, 5e-2, 1e-4
 # the cut QAT program: level flips (tests/test_torch_slim.py)
 QAT_LOSS_RTOL, QAT_SCALE = 2e-2, 0.3
 # decoded scores and boxes on the card against the CPU: float32 softmax
-# and box arithmetic in other orders; on the full width's heads the share
-# of detections both keep (near-equal scores may trade places)
+# and box arithmetic in other orders; on the full width's heads two
+# candidates whose scores are within SSD_TIE_ULPS times the devices'
+# largest softmax difference are a tie, which may trade places
 SSD_DET_TOL = dict(atol=1e-5, rtol=1e-4)
-SSD_DET_AGREE = 0.99
+SSD_TIE_ULPS = 4
 # each detection and quantize rule's case (tests/torch_det_cases.py) on the
 # card against the CPU in float32
 DET_RULE_TOL = dict(atol=1e-5, rtol=1e-4)
@@ -603,6 +639,32 @@ DET_RULE_TOL = dict(atol=1e-5, rtol=1e-4)
 # recurrence, two orders of 128-term products), each gradient within
 # S2S_LSTM_GRAD of its tensor's largest element
 SRL_ARM_TOL = dict(atol=1e-4, rtol=1e-3)
+# PaddleRec's CTR-DNN (tests/torch_ctr_program.py) at FULL through the
+# dataset path: CTR_FILES training files of CTR_LINES lines (100 000
+# samples: 100 steps at B=1000) loaded with CTR_THREADS parser threads
+# and shuffled from CTR_SEED; a warm-up pass over a file of
+# CTR_WARM_LINES lines (10 steps), which the QueueDataset, compiled-
+# program, NaN and profile checks read too; CTR_HELD_LINES held-out lines
+# for inference
+CTR_FILES, CTR_LINES, CTR_WARM_LINES, CTR_HELD_LINES = 8, 12500, 10000, 10000
+CTR_THREADS, CTR_SEED = 4, 7
+# a QueueDataset pass against an unshuffled InMemoryDataset pass over the
+# same file from the same weights, on the card: the same ops on the same
+# batches in the same order; each loss within
+CTR_QUEUE_RTOL = 1e-6
+# the inference model in a fresh scope against the trained scope's
+# pruned forward over the held-out file: each prediction within
+CTR_INFER_RTOL = 1e-6
+# SMALL (3 files of 40 lines, B=32) trained by train_from_dataset on the
+# card against the CPU Executor from the same weights over the same
+# shuffled files, float32 sums in other orders: each loss within
+# CTR_LOSS_RTOL, the parameters' updates and Adam's moments as one vector
+# each within CTR_UPDATE (Adam's first steps are sign-like; the CPU
+# against paddle_tpu measured 8.4e-6 and 1.1e-7 in
+# tests/test_torch_ctr.py), the auc histograms equal
+CTR_LOSS_RTOL, CTR_UPDATE = 1e-5, 1e-3
+# the planted NaN: a dense value of this batch of the warm-up file
+CTR_NAN_BATCH = 2
 MEASURED = {}  # numbers one phase hands a later one
 FAILURES = []
 
@@ -5831,14 +5893,36 @@ def _ssd_cut_check(fluid, S, quant=False):
     return result
 
 
+def _score_ties(conf, tie):
+    """Each image's candidate scores (softmax over the classes, the
+    background's left out) sorted, on the CPU, and a function giving a
+    row's separation: the distance from its score to the nearest other
+    candidate's (the nearest one, within `tie`, being its own)."""
+    scores = torch.softmax(torch.from_numpy(conf).double(), -1)[..., 1:]
+    sorted_scores = [np.sort(s.reshape(-1).numpy()) for s in scores]
+
+    def separation(image, score):
+        cand = sorted_scores[image]
+        at = np.searchsorted(cand, score)
+        near = np.abs(cand[max(0, at - 3):at + 3] - score)
+        near.sort()
+        own = near[0] <= tie
+        return float(near[1] if own and len(near) > 1 else near[0])
+    return separation
+
+
 def _ssd_head_check(fluid, S, main, exe, scope, feed, out):
     """detection_output alone on the full width's head outputs (those of
     one more train step): the card against the CPU Executor on the same
-    inputs.  The counts are equal; the rows as each image's set of
-    (label, box): at 64 x 1917 x 20 candidates, scores a float32 unit
-    apart between the devices' softmaxes swap places at the keep_top_k
-    boundary or in a suppression, so at least SSD_DET_AGREE of the rows
-    agree (the scores and boxes of agreeing rows within SSD_DET_TOL)."""
+    inputs.  The two devices' softmaxes give each candidate's score a
+    float32 unit or so apart (TIE: SSD_TIE_ULPS times the largest
+    difference of the two devices' softmax of the same heads), so two
+    candidates whose scores are within TIE may trade places at the
+    keep_top_k cut or in a suppression.  Every detection whose score is
+    more than TIE from every other candidate's of its image is the same
+    on both (label and box, score and box within SSD_DET_TOL); a
+    detection on one side only must be such a tie, else the NMS rule is
+    at fault on the card.  The counts are equal."""
     heads = exe.run(main, feed=feed, fetch_list=[
         out[k] for k in ("locs", "confs", "box", "var")], scope=scope)
     hfeed = dict(zip(("loc", "conf", "box", "var"), heads))
@@ -5852,27 +5936,46 @@ def _ssd_head_check(fluid, S, main, exe, scope, feed, out):
     if not np.array_equal(g[1], c[1]):
         raise AssertionError(f"full-width detection_output counts {g[1]} "
                              f"vs {c[1]}")
-    got, want, rows = [], [], 0
-    for gi, ci, n in zip(g[0], c[0], c[1]):
-        cpu_rows = {(int(r[0]), tuple(np.round(r[2:], 4))): r
-                    for r in ci[:n]}
-        for r in gi[:n]:
-            hit = cpu_rows.get((int(r[0]), tuple(np.round(r[2:], 4))))
-            if hit is not None:
-                got.append(r)
-                want.append(hit)
+    conf = torch.from_numpy(hfeed["conf"])
+    soft_diff = float((torch.softmax(conf.cuda(), -1).cpu()
+                       - torch.softmax(conf, -1)).abs().max())
+    tie = SSD_TIE_ULPS * max(soft_diff, 2.0 ** -24)
+    separation = _score_ties(hfeed["conf"], tie)
+    got, want, rows, ties, faults = [], [], 0, [], []
+    for i, (gi, ci, n) in enumerate(zip(g[0], c[0], c[1])):
+        gi, ci = gi[:n], ci[:n]
+        used = np.zeros(len(gi), bool)
+        for r in ci:
+            same = (gi[:, 0] == r[0]) & (np.abs(gi[:, 2:] - r[2:]).max(1)
+                                         <= 1e-4) & ~used
+            if same.any():
+                j = int(np.argmax(same))
+                used[j] = True
+                got.append(gi[j])
+                want.append(r)
+            else:
+                (ties if separation(i, r[1]) <= tie else faults).append(
+                    ("cpu", i, r.tolist()))
+        for r in gi[~used]:
+            (ties if separation(i, r[1]) <= tie else faults).append(
+                ("card", i, r.tolist()))
         rows += int(n)
-    agree, share = len(got), len(got) / max(rows, 1)
     ok, worst = close(torch.from_numpy(np.stack(got)),
                       torch.from_numpy(np.stack(want)), **SSD_DET_TOL)
-    if share < SSD_DET_AGREE or not ok:
-        raise AssertionError(f"full-width detection_output: {share:.4f} of "
-                             f"the rows agree, worst {worst}")
+    if faults or not ok:
+        raise AssertionError(
+            f"full-width detection_output: {len(faults)} detections on one "
+            f"side only with scores separated by more than {tie:.3g} (the "
+            f"NMS rule on the card), first {faults[:3]}; matched rows within "
+            f"{worst}")
     log(f"full-width detection_output (B={S.FULL['batch']}, "
         f"{S.num_priors(S.FULL)} priors) card vs CPU on the same heads: "
-        f"counts equal, {agree} of {rows} rows the same label and box "
-        f"({100 * share:.2f} %), their scores and boxes within {worst:.3g}")
-    return dict(rows=rows, agree=agree, max_abs_err=worst)
+        f"counts equal, {len(got)} of {rows} rows the same label and box, "
+        f"their scores and boxes within {worst:.3g}; {len(ties)} rows on "
+        f"one side only, each a tie (its score within {tie:.3g} of another "
+        f"candidate's; the softmaxes {soft_diff:.3g} apart)")
+    return dict(rows=rows, agree=len(got), tie_rows=len(ties),
+                tie=tie, softmax_diff=soft_diff, max_abs_err=worst)
 
 
 def _det_rules_on_card(C, card="cuda"):
@@ -5953,6 +6056,378 @@ def ssd():
     return launches
 
 
+def _ctr_module():
+    """tests/torch_ctr_program.py, the JAX-free program and data writer
+    the parity tests hold against paddle_tpu."""
+    tests = str(Path(__file__).resolve().parent / "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import torch_ctr_program as C
+    return C
+
+
+def _ctr_state(scope):
+    return {n: scope.get(n).clone() for n in scope.local_var_names()}
+
+
+def _ctr_restore(scope, state):
+    for n, v in state.items():
+        scope.set(n, v.clone())
+
+
+def _ctr_pass(exe, prog, ds, fetch, scope):
+    """One train_from_dataset pass: (every step's fetch handles, the last
+    fetches as numpy)."""
+    handles = []
+    last = exe.train_from_dataset(
+        prog, ds, scope=scope, fetch_list=fetch,
+        step_callback=lambda step, k, outs: handles.append(outs))
+    return handles, last
+
+
+def _ctr_timed(fn):
+    """fn() between two CUDA events: (its result, device ms, host ms)."""
+    torch.cuda.synchronize()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    h0 = time.perf_counter()
+    e0.record()
+    out = fn()
+    e1.record()
+    host = (time.perf_counter() - h0) * 1e3
+    torch.cuda.synchronize()
+    return out, e0.elapsed_time(e1), host
+
+
+def _ctr_train(fluid, C, work):
+    """Write, load, warm up, then the timed pass with the counts at 0.
+    Returns (launches, summary, the objects later checks use)."""
+    cfg = C.FULL
+    t0 = time.perf_counter()
+    files = C.write_files(os.path.join(work, "train"), cfg, CTR_FILES,
+                          CTR_LINES, seed=0)
+    warm = C.write_files(os.path.join(work, "warm"), cfg, 1,
+                         CTR_WARM_LINES, seed=500)
+    held = C.write_files(os.path.join(work, "held"), cfg, 1,
+                         CTR_HELD_LINES, seed=1000)
+    write_s = time.perf_counter() - t0
+    main, startup, out = C.build(fluid, cfg, seed=CTR_SEED)
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(startup, scope=scope)
+    compiled = fluid.CompiledProgram(main).with_data_parallel(
+        loss_name=out["loss"].name)
+    fetch = [out["loss"], out["auc"]]
+    t0 = time.perf_counter()
+    ds = C.dataset(fluid, "InMemoryDataset", out["feeds"], files, cfg,
+                   threads=CTR_THREADS, seed=CTR_SEED)
+    load_s = time.perf_counter() - t0
+    lines = ds.get_memory_data_size()
+    wds = C.dataset(fluid, "InMemoryDataset", out["feeds"], warm, cfg)
+    t0 = time.perf_counter()
+    _ctr_pass(exe, compiled, wds, fetch, scope)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    start = _ctr_state(scope)
+    torch.cuda.reset_peak_memory_stats()
+    profiler.stat_reset()
+    profiler.time_reset()
+    for c in COUNTERS.values():
+        c.reset()
+    # -- the main path: counters at 0 before, read right after --------------
+    with _SyncCount() as sc:
+        (handles, last), dev_ms, host_ms = _ctr_timed(
+            lambda: _ctr_pass(exe, compiled, ds, fetch, scope))
+    stats, times = profiler.get_int_stats(), profiler.get_time_stats()
+    launches = {n: c.value for n, c in COUNTERS.items()}
+    mem = torch.cuda.max_memory_allocated()
+    # ------------------------------------------------------------------------
+    _expect_launches(launches, 0, (), "the ctr pass")
+    steps = len(handles)
+    if steps != lines // cfg["batch"]:
+        raise AssertionError(f"ctr pass: {steps} steps for {lines} lines")
+    losses = [float(h[0]) for h in handles]
+    auc = float(last[1])
+    first, final = np.mean(losses[:10]), np.mean(losses[-10:])
+    if not (np.isfinite(losses).all() and final < first and auc > 0.5):
+        raise AssertionError(f"ctr pass: loss {first} -> {final} over the "
+                             f"first and last 10 steps, auc {auc}")
+    from paddle_tpu_torch.dataset import feed_pipeline
+    ops = stats.get("executor_op_count", 0) / steps
+    step_ms, host_step = dev_ms / steps, host_ms / steps
+    sites = sc.sites()
+    summary = dict(
+        step_ms=step_ms, host_step_ms=host_step,
+        samples_per_s=cfg["batch"] / (step_ms / 1e3), steps=steps,
+        ops_per_step=ops, host_us_per_op=1e3 * host_step / ops,
+        host_reads=stats.get("executor_sync_count", 0),
+        syncs=sum(sites.values()), sync_sites=sites,
+        ring_occupancy_max=stats.get("ring_occupancy_max", 0),
+        in_flight_max=stats.get("in_flight_steps_max", 0),
+        ring_empty_wait_ms=times.get("ring_empty_wait_ms", 0.0),
+        ring_full_wait_ms=times.get("ring_full_wait_ms", 0.0),
+        parser_wait_ms=times.get("parser_wait_ms", 0.0),
+        host_feed_ms=times.get("host_feed_ms", 0.0),
+        stall=feed_pipeline.attribute_stall(times),
+        max_memory_allocated_bytes=mem, load_s=load_s,
+        load_lines_per_s=lines / load_s, write_s=write_s, warmup_s=warm_s,
+        auc=auc, loss_first10=first, loss_last10=final,
+        positives=float(np.mean([np.mean(b["label"]) for b in
+                                 ds.batch_iter()])))
+    log(f"ctr-dnn B={cfg['batch']} through train_from_dataset"
+        f"(CompiledProgram): {step_ms:.3f} ms a step (CUDA events over "
+        f"{steps} steps; host clock {host_step:.3f} ms), "
+        f"{summary['samples_per_s']:.0f} samples/s, {ops:.0f} ops a step at "
+        f"{summary['host_us_per_op']:.1f} host us an op; host reads "
+        f"{summary['host_reads']} and syncs {summary['syncs']} in the pass "
+        f"({sites}); ring occupancy max {summary['ring_occupancy_max']}, "
+        f"empty-wait {summary['ring_empty_wait_ms']:.1f} ms, full-wait "
+        f"{summary['ring_full_wait_ms']:.1f} ms ({summary['stall']}); "
+        f"max_memory_allocated {mem / 2 ** 30:.2f} GiB; loss {first:.4f} "
+        f"-> {final:.4f} (first and last 10 steps), auc {auc:.4f}; "
+        f"load {lines} lines in {load_s:.2f} s ({lines / load_s:.0f} "
+        f"lines/s, {CTR_THREADS} threads), files written in {write_s:.1f} "
+        f"s, warm-up pass {warm_s:.2f} s")
+    pds = C.dataset(fluid, "InMemoryDataset", out["feeds"], warm, cfg)
+    busy, wall, top = _profile(lambda: _ctr_pass(exe, compiled, pds, fetch,
+                                                 scope), top=200)
+    pstep = CTR_WARM_LINES // cfg["batch"]
+    summary.update(
+        profiled_busy_ms=busy / pstep, profiled_wall_ms=wall / pstep,
+        profiled_idle=max(0.0, 1 - busy / wall),
+        h2d_copies_per_step=sum(n for k, _, n in top if "HtoD" in k) / pstep,
+        top_kernels=[dict(name=k[:90], ms=ms, count=n)
+                     for k, ms, n in top[:12]])
+    log(f"profiled pass of {pstep} steps: host-to-device copies a step "
+        f"{summary['h2d_copies_per_step']:.2f}")
+    return launches, summary, dict(
+        exe=exe, scope=scope, main=main, out=out, compiled=compiled,
+        fetch=fetch, start=start, warm=warm, held=held, cfg=cfg)
+
+
+def _ctr_loaders(fluid, C, R):
+    """A QueueDataset pass and an unshuffled InMemoryDataset pass over the
+    warm-up file from the same weights (CTR_QUEUE_RTOL), the queue's
+    samples/s; then CompiledProgram's first 3 steps against Executor.run's
+    from the same weights, bit for bit (losses and every scope var)."""
+    exe, scope, cfg = R["exe"], R["scope"], R["cfg"]
+    feeds = R["out"]["feeds"]
+    _ctr_restore(scope, R["start"])
+    mem, _ = _ctr_pass(exe, R["compiled"], C.dataset(
+        fluid, "InMemoryDataset", feeds, R["warm"], cfg), R["fetch"], scope)
+    _ctr_restore(scope, R["start"])
+    q = C.dataset(fluid, "QueueDataset", feeds, R["warm"], cfg)
+    t0 = time.perf_counter()
+    queue, _ = _ctr_pass(exe, R["compiled"], q, R["fetch"], scope)
+    torch.cuda.synchronize()
+    queue_s = time.perf_counter() - t0
+    a = np.array([float(h[0]) for h in queue])
+    b = np.array([float(h[0]) for h in mem])
+    err = float(np.max(np.abs(a - b) / np.abs(b)))
+    if len(a) != len(b) or not err <= CTR_QUEUE_RTOL:
+        raise AssertionError(f"QueueDataset losses {a} vs InMemoryDataset "
+                             f"{b}")
+    batches = list(C.dataset(fluid, "InMemoryDataset", feeds, R["warm"],
+                             cfg).batch_iter())[:3]
+    runs = []
+    for prog in (R["main"], R["compiled"]):
+        _ctr_restore(scope, R["start"])
+        losses = [exe.run(prog, feed=b, fetch_list=R["fetch"][:1],
+                          scope=scope)[0] for b in batches]
+        runs.append((losses, {n: scope.get(n).cpu() for n in
+                              scope.local_var_names()}))
+    (pl, ps), (cl, cs) = runs
+    differ = [n for n in ps if not torch.equal(ps[n], cs[n])]
+    if not all(np.array_equal(x, y) for x, y in zip(pl, cl)) or differ:
+        raise AssertionError(f"CompiledProgram steps {cl} vs Executor.run "
+                             f"{pl}; vars apart {differ[:5]}")
+    log(f"QueueDataset against InMemoryDataset over {len(a)} steps from one "
+        f"state: losses within {err:.3g}; the queue pass "
+        f"{CTR_WARM_LINES / queue_s:.0f} samples/s; CompiledProgram's "
+        f"3 steps equal Executor.run's bit for bit ({len(ps)} vars)")
+    return dict(queue_vs_memory=err, queue_samples_per_s=CTR_WARM_LINES
+                / queue_s, compiled_bits_equal=True)
+
+
+def _ctr_nan(fluid, C, R, work):
+    """FLAGS_check_nan_inf: the pass over the warm-up file with the flag
+    off, on, on, off (ms a step by CUDA events); then a NaN planted in
+    batch CTR_NAN_BATCH raises within prefetch_depth steps of it, naming
+    a variable of the program."""
+    from paddle_tpu_torch.dataset.feed_pipeline import DEFAULT_PREFETCH_DEPTH
+    from paddle_tpu_torch.fluid import flags
+
+    exe, scope, cfg = R["exe"], R["scope"], R["cfg"]
+    feeds = R["out"]["feeds"]
+    ms = {False: [], True: []}
+    try:
+        for on in (False, True, True, False):
+            flags.set_flags({"FLAGS_check_nan_inf": on})
+            ds = C.dataset(fluid, "InMemoryDataset", feeds, R["warm"], cfg)
+            _, dev, _ = _ctr_timed(lambda: _ctr_pass(
+                exe, R["compiled"], ds, R["fetch"], scope))
+            ms[on].append(dev / (CTR_WARM_LINES // cfg["batch"]))
+        with open(R["warm"][0]) as f:
+            lines = f.readlines()
+        row = CTR_NAN_BATCH * cfg["batch"] + 5
+        toks = lines[row].split(" ")
+        toks[1] = "nan"  # the first dense value
+        lines[row] = " ".join(toks)
+        bad = os.path.join(work, "nan-000")
+        with open(bad, "w") as f:
+            f.writelines(lines)
+        flags.set_flags({"FLAGS_check_nan_inf": True})
+        _ctr_restore(scope, R["start"])
+        ds = C.dataset(fluid, "QueueDataset", feeds, [bad], cfg)
+        done = []
+        try:
+            exe.train_from_dataset(
+                R["compiled"], ds, scope=scope, fetch_list=R["fetch"],
+                step_callback=lambda s, k, o: done.append(k))
+            raise AssertionError("a planted NaN did not raise")
+        except RuntimeError as e:
+            msg = str(e)
+    finally:
+        flags.set_flags({"FLAGS_check_nan_inf": False})
+    names = {v.name for v in R["main"].list_vars()}
+    var = msg.split("variable ")[1].split()[0].strip("'")         if "NaN/Inf detected in variable" in msg else None
+    after = len(done) - (CTR_NAN_BATCH + 1)
+    if var not in names or not 0 <= after <= DEFAULT_PREFETCH_DEPTH:
+        raise AssertionError(f"planted NaN at step {CTR_NAN_BATCH + 1}: "
+                             f"raised after {len(done)} steps: {msg}")
+    off, on = float(np.mean(ms[False])), float(np.mean(ms[True]))
+    log(f"FLAGS_check_nan_inf: {on:.3f} ms a step on against {off:.3f} off "
+        f"(in turns: off {ms[False]}, on {ms[True]}); the NaN planted in "
+        f"step {CTR_NAN_BATCH + 1} raised {after} steps after it, naming "
+        f"{var!r}")
+    return dict(nan_on_ms=on, nan_off_ms=off, nan_steps_after=after,
+                nan_variable=var)
+
+
+def _ctr_io(fluid, C, R, work):
+    """save_persistables / load_persistables into a fresh scope, bit for
+    bit; save_inference_model of [predict, auc], load_inference_model
+    into a fresh scope and infer_from_dataset over the held-out file
+    against the trained scope's pruned forward: predictions within
+    CTR_INFER_RTOL, the auc histograms equal; ms a batch."""
+    exe, scope, out, cfg = R["exe"], R["scope"], R["out"], R["cfg"]
+    pdir, mdir = os.path.join(work, "persist"), os.path.join(work, "model")
+    with fluid.scope_guard(scope):
+        fluid.io.save_persistables(exe, pdir, R["main"])
+    fresh = fluid.Scope()
+    with fluid.scope_guard(fresh):
+        fluid.io.load_persistables(exe, pdir, R["main"])
+    differ = [n for n in scope.local_var_names()
+              if not torch.equal(fresh.get(n), scope.get(n).cpu())]
+    if differ or len(fresh.local_var_names()) != len(
+            scope.local_var_names()):
+        raise AssertionError(f"persistables apart after a round trip: "
+                             f"{differ[:5]}")
+    names = C.feed_names()
+    targets = [out["predict"], out["auc"]]
+    with fluid.scope_guard(scope):
+        fluid.io.save_inference_model(mdir, names, targets, exe, R["main"])
+    model = fluid.Scope()
+    with fluid.scope_guard(model):
+        prog, feed_names, fetches = fluid.io.load_inference_model(mdir, exe)
+    block = prog.global_block()
+    pruned = fluid.io._prune_for_targets(R["main"], names,
+                                         [t.name for t in targets])
+    runs = {}
+    for what, program, sc in (("loaded", prog, model),
+                              ("trained", pruned, scope)):
+        ds = C.dataset(fluid, "QueueDataset",
+                       [block.var(n) for n in feed_names], R["held"], cfg)
+        handles = []
+        _, dev, _ = _ctr_timed(lambda: exe.infer_from_dataset(
+            program, ds, scope=sc, fetch_list=[t.name for t in targets],
+            step_callback=lambda s, k, o: handles.append(o)))
+        runs[what] = ([h[0].numpy() for h in handles], dev / len(handles),
+                      {n: sc.get(n).cpu() for n in (out["stat_pos"].name,
+                                                    out["stat_neg"].name)})
+    (lp, lms, lh), (tp, _, th) = runs["loaded"], runs["trained"]
+    err = max(float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-30)))
+              for a, b in zip(lp, tp))
+    hist_equal = all(torch.equal(lh[n], th[n]) for n in lh)
+    if len(lp) != CTR_HELD_LINES // cfg["batch"] or not err <= \
+            CTR_INFER_RTOL or not hist_equal:
+        raise AssertionError(f"inference: {len(lp)} batches, predictions "
+                             f"within {err}, histograms equal {hist_equal}")
+    log(f"save/load_persistables: {len(differ) == 0} bit for bit over "
+        f"{len(scope.local_var_names())} vars; the inference model "
+        f"({len(block.ops)} ops) loaded in a fresh scope over {len(lp)} "
+        f"held-out batches: {lms:.3f} ms a batch, predictions within "
+        f"{err:.3g} of the trained scope's, auc histograms equal")
+    return dict(persist_bits_equal=True, infer_ms_per_batch=lms,
+                infer_rel_err=err, infer_ops=len(block.ops))
+
+
+def _ctr_card_vs_cpu(fluid, C, work):
+    """SMALL trained by train_from_dataset on the card and on the CPU
+    Executor from the same weights over the same shuffled files: each
+    loss within CTR_LOSS_RTOL, the updates and Adam's moments within
+    CTR_UPDATE, the auc histograms equal."""
+    cfg = C.SMALL
+    files = C.write_files(os.path.join(work, "small"), cfg, 3, 40)
+    main, startup, out = C.build(fluid, cfg)
+    gpu, cpu = fluid.Executor(), fluid.Executor(fluid.CPUPlace())
+    gs, cs = fluid.Scope(), fluid.Scope()
+    cpu.run(startup, scope=cs)
+    for n in cs.local_var_names():
+        gs.set(n, cs.get(n).cuda())
+    before = {n: cs.get(n).double() for n in cs.local_var_names()}
+    losses = []
+    for exe, sc in ((gpu, gs), (cpu, cs)):
+        ds = C.dataset(fluid, "InMemoryDataset", out["feeds"], files, cfg,
+                       threads=2, seed=CTR_SEED)
+        handles, _ = _ctr_pass(exe, main, ds, [out["loss"]], sc)
+        losses.append(np.array([float(h[0]) for h in handles]))
+    params = [p.name for p in main.all_parameters()]
+    moments = sorted(n for n in cs.local_var_names() if "moment" in n)
+
+    def vec(scope, names, minus=None):
+        return torch.cat([(scope.get(n).double().cpu()
+                           - (minus[n] if minus else 0)).reshape(-1)
+                          for n in names])
+
+    upd = _rel_l2(vec(gs, params, before), vec(cs, params, before))
+    mom = _rel_l2(vec(gs, moments), vec(cs, moments))
+    loss_err = float(np.max(np.abs(losses[0] - losses[1])
+                            / np.abs(losses[1])))
+    hist = [out["stat_pos"].name, out["stat_neg"].name]
+    hist_equal = all(torch.equal(gs.get(n).cpu(), cs.get(n)) for n in hist)
+    if not (loss_err <= CTR_LOSS_RTOL and upd <= CTR_UPDATE
+            and mom <= CTR_UPDATE and hist_equal):
+        raise AssertionError(f"ctr SMALL card vs CPU: losses {loss_err}, "
+                             f"updates {upd}, moments {mom}, histograms "
+                             f"equal {hist_equal}")
+    log(f"ctr SMALL card vs CPU over {len(losses[0])} steps: losses within "
+        f"{loss_err:.3g}, updates {upd:.3g}, Adam moments {mom:.3g} "
+        f"(relative L2), auc histograms equal")
+    return dict(loss=loss_err, update=upd, moment=mom)
+
+
+@phase("ctr")
+def ctr():
+    """PaddleRec's CTR-DNN on Criteo-format files (tests/torch_ctr_program.py
+    at FULL) through the dataset path: see the module's docstring."""
+    from paddle_tpu_torch import fluid
+
+    C = _ctr_module()
+    work = tempfile.mkdtemp(prefix="ctr_")
+    try:
+        launches, summary, R = _ctr_train(fluid, C, work)
+        summary.update(_ctr_io(fluid, C, R, work))
+        summary.update(_ctr_loaders(fluid, C, R))
+        summary.update(_ctr_nan(fluid, C, R, work))
+        del R
+        torch.cuda.empty_cache()
+        summary["card_vs_cpu"] = _ctr_card_vs_cpu(fluid, C, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    summary["card"] = card_line()
+    log("ctr summary: " + json.dumps(summary))
+    return launches
+
+
 def tensor_methods_ab(cycles=2):
     """The decode, seq2seq and srl phases `cycles` times in the turns on,
     off, off, on of the `matmul` / `unsqueeze` extensions (each phase
@@ -6016,6 +6491,9 @@ def main():
     if "--ssd" in sys.argv[1:]:
         ssd()
         sys.exit(1 if FAILURES else 0)
+    if "--ctr" in sys.argv[1:]:
+        ctr()
+        sys.exit(1 if FAILURES else 0)
     build_kernels()
     if "--tensor-methods-ab" in sys.argv[1:]:
         tensor_methods_ab()
@@ -6043,11 +6521,12 @@ def main():
     static_paths = static_decode()
     amp_path = fluid_amp()
     ssd_path = ssd()
+    ctr_path = ctr()
     if FAILURES or None in (rows, probed, served, decoded, trained, library,
                             resnet_path, fluid_path, wmt_paths, hapi_path,
                             dygraph_path, s2s_paths, srl_paths,
                             mobile_paths, gan_path, static_paths, amp_path,
-                            ssd_path):
+                            ssd_path, ctr_path):
         log(f"FAILED phases: {FAILURES}")
         print(f"FAILED phases: {FAILURES}", file=sys.stderr, flush=True)
         sys.exit(1)
@@ -6057,7 +6536,8 @@ def main():
              "resnet": resnet_path, "fluid": fluid_path, **wmt_paths,
              "hapi": hapi_path, "dygraph": dygraph_path, **s2s_paths,
              **srl_paths, **mobile_paths, "cyclegan": gan_path,
-             **static_paths, "fluid_amp": amp_path, "ssd": ssd_path}
+             **static_paths, "fluid_amp": amp_path, "ssd": ssd_path,
+             "ctr": ctr_path}
     for r in rows:
         # `launches` is the count on the path where the kernel runs: the
         # probe for its three kernels, the decode path for ragged_paged,

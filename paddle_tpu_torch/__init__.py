@@ -71,10 +71,13 @@ from .tensor import (acos, asin, atan, cosh, sinh, log1p, log2,  # noqa
 # the static-graph names of the top level (reference
 # python/paddle/__init__.py): `shape` stays the 2.x tensor function
 from .fluid import (CPUPlace, CUDAPinnedPlace, CUDAPlace, TPUPlace,  # noqa
-                    Executor, Program, Variable, append_backward,
-                    cpu_places, cuda_places, default_main_program,
-                    default_startup_program, global_scope, program_guard,
-                    scope_guard)
+                    Executor, LoDTensor, LoDTensorArray, Program, Variable,
+                    append_backward, cpu_places, cuda_places,
+                    default_main_program, default_startup_program,
+                    global_scope, is_compiled_with_cuda, program_guard,
+                    scope_guard, tpu_places)
+from .fluid.dygraph import enable_dygraph as disable_static_mode  # noqa
+from .fluid.flags import get_flags, set_flags  # noqa: F401
 from .fluid.layers import (create_global_var, create_parameter,  # noqa
                            elementwise_add, elementwise_sub,
                            elementwise_mul, elementwise_div,
@@ -93,3 +96,16 @@ def enable_static():
 
 def disable_static(place=None):
     enable_dygraph(place)
+
+
+def get_cuda_rng_state():
+    """The state of each card's torch CUDA generator (the reference, with
+    no CUDA generators, returns [])."""
+    return torch.cuda.get_rng_state_all() if torch.cuda.is_available() \
+        else []
+
+
+def set_cuda_rng_state(state_list):
+    """Restore what get_cuda_rng_state gave, one state a card."""
+    if state_list:
+        torch.cuda.set_rng_state_all(state_list)

@@ -61,6 +61,9 @@ def auto_cast(enable=True, custom_white_list=None, custom_black_list=None,
 
 
 
+amp_guard = auto_cast  # the fluid.dygraph name
+
+
 def cast_inputs(op_type, *tensors):
     """The op's inputs under the active policy: each float32 tensor in
     the low dtype when the policy casts `op_type`, else as given."""
@@ -76,6 +79,18 @@ def cast_inputs(op_type, *tensors):
     low = _LOW[state["dtype"]]
     return tuple(t.to(low) if isinstance(t, torch.Tensor)
                  and t.dtype == torch.float32 else t for t in tensors)
+
+
+def cast_inputs_if_amp(op_type, ins_vals):
+    """The reference tracer's form of cast_inputs: `ins_vals` maps each
+    input slot to its list of values; returns (the slots under the active
+    policy, whether it cast)."""
+    state = amp_state()
+    if state is None or (op_type in state["black"] if state["level"] == "O2"
+                         else op_type not in state["white"]):
+        return ins_vals, False
+    return {s: list(cast_inputs(op_type, *vs))
+            for s, vs in ins_vals.items()}, True
 
 
 class GradScaler:
@@ -175,3 +190,6 @@ def decorate(models, optimizers=None, level="O2", dtype="bfloat16",
     if optimizers is None:
         return models if single else model_list
     return (models if single else model_list), optimizers
+
+
+AmpScaler = GradScaler  # the fluid.dygraph name

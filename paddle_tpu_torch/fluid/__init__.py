@@ -21,7 +21,9 @@ built by either package runs in both Executors.
 from __future__ import annotations
 
 from . import core, unique_name
-from .core import CPUPlace, CUDAPinnedPlace, CUDAPlace, TPUPlace
+from .core import (CPUPlace, CUDAPinnedPlace, CUDAPlace, LoDTensor,
+                   LoDTensorArray, TPUPlace, device_count,
+                   is_compiled_with_cuda, is_compiled_with_tpu)
 from .framework import (Program, Variable, Parameter, OpRole,
                         default_main_program, default_startup_program,
                         program_guard, in_dygraph_mode, name_scope)
@@ -35,6 +37,11 @@ from . import optimizer
 from . import dygraph
 from .layers.tensor import data
 from . import contrib, metrics  # noqa: E402,F401
+from . import compiler, dataset, incubate, io  # noqa: E402,F401
+from .compiler import (BuildStrategy, CompiledProgram,  # noqa: E402,F401
+                       ExecutionStrategy)
+from .dataset import (DatasetFactory, InMemoryDataset,  # noqa: E402,F401
+                      QueueDataset)
 
 
 def cpu_places(device_count=1):
@@ -48,3 +55,6 @@ def cuda_places(device_ids=None):
     ids = device_ids if device_ids is not None \
         else range(torch.cuda.device_count())
     return [CUDAPlace(i) for i in ids]
+
+
+tpu_places = cuda_places

@@ -144,3 +144,57 @@ class CUDAPinnedPlace:
 
     def device(self) -> torch.device:
         return torch.device("cpu")
+
+
+class LoDTensor:
+    """The feed shim of the reference's LoDTensor
+    (paddle_tpu/fluid/__init__.py:57-95): `t = fluid.LoDTensor();
+    t.set(arr, place)` scripts run.  It holds the array as given (numpy,
+    or a torch tensor), which the Executor feeds without a copy, and
+    keeps the recursive sequence lengths the caller attaches for its own
+    bookkeeping (dense arrays with explicit lengths replace LoD here, as
+    in the reference)."""
+
+    def __init__(self):
+        self._array = None
+        self._lengths = []
+
+    def set(self, array, place=None):
+        self._array = array if isinstance(array, torch.Tensor) \
+            else np.asarray(array)
+
+    def set_recursive_sequence_lengths(self, lengths):
+        self._lengths = [list(l) for l in lengths]
+
+    set_lod = set_recursive_sequence_lengths
+
+    def recursive_sequence_lengths(self):
+        return self._lengths
+
+    lod = recursive_sequence_lengths
+
+    def shape(self):
+        return [] if self._array is None else list(self._array.shape)
+
+    def __array__(self, dtype=None, copy=None):
+        a = np.empty((0,)) if self._array is None else np.asarray(
+            self._array)
+        return a.astype(dtype) if dtype is not None else a
+
+
+class LoDTensorArray(list):
+    """The reference's LoDTensorArray: a plain list of arrays."""
+
+
+def is_compiled_with_cuda() -> bool:
+    """True when torch has CUDA (the reference, a TPU build, says
+    False)."""
+    return torch.cuda.is_available()
+
+
+def is_compiled_with_tpu() -> bool:
+    return False
+
+
+def device_count() -> int:
+    return torch.cuda.device_count()

@@ -24,14 +24,29 @@ whose `.numpy()` is the sanctioned sync point (counted on
 (ops run, each iteration of a sub-block counted) and the `dispatch_ms`
 / `host_feed_ms` / `sync_ms` timers.
 
+`run` takes a `CompiledProgram` (fluid/compiler.py: one card, the same
+block) and `LoDTensor` feeds.  With `FLAGS_check_nan_inf` every run
+computes one device-side non-finite flag per float output and state
+array and copies them to pinned host memory behind an event
+(`_NanMonitor`); a hit raises at the next `run()` entry whose flags have
+arrived, at `sync()`, or at a dataset loop's exit, naming the first
+variable.  `train_from_dataset` / `infer_from_dataset` drive a fluid
+dataset through `dataset.feed_pipeline.FeedPipeline` (batches staged
+ahead on a side stream) with the host at most `prefetch_depth` steps
+ahead of the device.
+
 The callable runs eagerly, op by op: capturing it in a CUDA graph or
-compiling it is not ported, nor are train_from_dataset, the AOT cache,
-the NaN monitor, numerics and CompiledProgram.
+compiling it is not ported, nor are the AOT cache and numerics (ROADMAP
+queue 1 items 11 and 13), or train_from_dataset's checkpointing (item 11)
+and telemetry (item 13).
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import os
+import threading
 import time
 from typing import Any, Dict, List, Optional
 
@@ -41,10 +56,17 @@ import torch
 from .. import profiler
 from ..device import resolve
 from ..ops import registry
-from . import core
+from . import core, flags
 from .compile_cache import CompileCache
 from .framework import EMPTY_VAR_NAME, Program, Variable, \
     default_main_program
+
+
+def dataset_np_dtype(var) -> np.dtype:
+    """The numpy dtype a feed of `var` takes on the host (bfloat16 feeds
+    stay float32 there)."""
+    name = core.convert_dtype(var.dtype)
+    return np.dtype("float32" if name == "bfloat16" else name)
 
 
 class LazyFetch:
@@ -195,6 +217,142 @@ def scope_guard(scope: Scope):
         _scope_stack.pop()
 
 
+class _NanMonitor:
+    """FLAGS_check_nan_inf without a sync a step: `submit` computes one
+    device-side bool per array (non-finite anywhere), copies the flags to
+    pinned host memory without blocking and records an event; `poll`
+    reads the flags of the runs whose event has passed and raises on the
+    first hit; `drain` waits for every event first."""
+
+    def __init__(self):
+        self._pending = collections.deque()
+
+    def submit(self, names, arrays, step):
+        """`arrays`: the run's float outputs and state, non-empty."""
+        maxabs = torch._foreach_norm([a.detach() for a in arrays],
+                                     float("inf"))
+        bad = ~torch.isfinite(torch.stack([m.float() for m in maxabs]))
+        event = None
+        if bad.is_cuda:
+            host = torch.empty(bad.shape, dtype=torch.bool,
+                               pin_memory=True)
+            host.copy_(bad, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
+            bad = host
+        self._pending.append((bad, event, list(names), step))
+
+    def _check(self, pending):
+        bad, _, names, step = pending
+        hits = [n for n, b in zip(names, bad.tolist()) if b]
+        if hits:
+            self._pending.clear()
+            profiler.stat_add("nan_inf_hits_total", len(hits))
+            raise RuntimeError(
+                f"NaN/Inf detected in variable {hits[0]!r} after "
+                f"Executor.run at step {step} (FLAGS_check_nan_inf is set; "
+                f"async scan, all hits: {hits})")
+
+    def poll(self):
+        while self._pending and (self._pending[0][1] is None
+                                 or self._pending[0][1].query()):
+            self._check(self._pending.popleft())
+
+    def drain(self):
+        while self._pending:
+            pending = self._pending.popleft()
+            if pending[1] is not None:
+                pending[1].synchronize()
+            self._check(pending)
+
+
+class FetchHandler:
+    """`handler` receives {name: ndarray} snapshots of `var_dict`'s scope
+    vars every `period_secs` while a dataset loop runs."""
+
+    def __init__(self, var_dict=None, period_secs=60):
+        assert var_dict is not None
+        self.var_dict = var_dict
+        self.period_secs = period_secs
+
+    def handler(self, res_dict):
+        import sys
+        for key, val in res_dict.items():
+            if isinstance(val, np.ndarray):
+                sys.stdout.write(f"{key}[0]: {val.ravel()[:1]} ")
+        sys.stdout.write("\n")
+
+
+class FetchHandlerMonitor:
+    """The thread that drives a FetchHandler: it copies the requested
+    scope vars to the host every period and hands them to handler()."""
+
+    def __init__(self, scope, handler):
+        self._scope = scope
+        self._handler = handler
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+
+    def _loop(self):
+        while not self._stop.wait(self._handler.period_secs):
+            res = {}
+            for key, var in self._handler.var_dict.items():
+                name = getattr(var, "name", var)
+                if self._scope.has(name):
+                    val = self._scope.get(name)
+                    if isinstance(val, torch.Tensor):
+                        res[key] = val.detach().cpu().numpy()
+                    elif val is not None:
+                        res[key] = np.asarray(val)
+            self._handler.handler(res)
+
+    def start(self):
+        self._thread.start()
+
+    def stop(self):
+        self._stop.set()
+        self._thread.join(timeout=5)
+
+
+class _StagedFeed:
+    """A batch staged for the card by the feed pipeline's producer: the
+    feed's tensors are views of one device buffer, filled from one
+    pinned host buffer on a side stream, and `done` follows that copy."""
+
+    __slots__ = ("feed", "buffer", "done")
+
+    def __init__(self, feed, buffer, done):
+        self.feed, self.buffer, self.done = feed, buffer, done
+
+    def arrive(self, device):
+        from ..io import arrive
+
+        arrive(self.buffer, self.done, device)
+        return self.feed
+
+
+def _pack(arrays):
+    """One pinned uint8 buffer holding `arrays` (name -> contiguous numpy
+    array) at 16-byte offsets: (buffer, [(name, offset, nbytes, dtype,
+    shape)])."""
+    layout, total = [], 0
+    for name, a in arrays.items():
+        layout.append((name, total, a.nbytes, a.dtype, a.shape))
+        total += -(-a.nbytes // 16) * 16
+    buf = torch.empty(max(total, 16), dtype=torch.uint8, pin_memory=True)
+    for name, off, n, _, _ in layout:
+        if n:
+            buf[off:off + n].copy_(torch.from_numpy(
+                arrays[name].reshape(-1).view(np.uint8)))
+    return buf, layout
+
+
+def _unpack(buf, layout):
+    return {name: buf[off:off + n].view(
+        core.torch_dtype(dtype)).reshape(shape)
+        for name, off, n, dtype, shape in layout}
+
+
 def _analyze_block(block, feed_names):
     """The scope vars the block reads before writing them (state inputs),
     and the persistable vars it writes (state outputs); a `while` or
@@ -307,6 +465,8 @@ class Executor:
         self._cache: CompileCache = CompileCache(
             self.CACHE_CAPACITY, stat_prefix="executor",
             on_evict=self._on_entry_evict)
+        self._nan_monitor = _NanMonitor()
+        self._copy_stream = None  # the dataset loops' side stream
         self._step = 0
 
     @staticmethod
@@ -318,9 +478,16 @@ class Executor:
     # -- public API --------------------------------------------------------
     def run(self, program=None, feed=None, fetch_list=None, scope=None,
             return_numpy=True, use_program_cache=True):
+        from .compiler import CompiledProgram
+
+        if isinstance(program, CompiledProgram):
+            return program._run(self, feed, fetch_list, scope,
+                                return_numpy=return_numpy)
         program = program if program is not None else default_main_program()
         scope = scope if scope is not None else global_scope()
         profiler.stat_add("executor_run_count")
+        # a non-finite value of an earlier run whose flags have arrived
+        self._nan_monitor.poll()
         feed_arrays = self._normalize_feed(program, feed or {})
         fetch_names = [v.name if isinstance(v, Variable) else str(v)
                        for v in (fetch_list or [])]
@@ -353,6 +520,8 @@ class Executor:
             out = {}
             block = program.global_block()
             for name, val in feed.items():
+                if isinstance(val, core.LoDTensor):
+                    val = val._array
                 if isinstance(val, (_VarHolder, LazyFetch)):
                     val = val.numpy()
                 if not isinstance(val, torch.Tensor):
@@ -397,6 +566,7 @@ class Executor:
 
     def _build(self, program: Program, feed_arrays, fetch_names,
                scope: Scope) -> _Entry:
+        flags.check_unported(flags.COMPILE_FLAGS)
         block = program.global_block()
         dead = _orphans(block, feed_arrays.keys(), fetch_names, scope)
         if dead:
@@ -465,9 +635,18 @@ class Executor:
         mutable_state = {n: self._as_device_tensor(scope.get(n))
                          for n in entry.mutable_in_names}
         const_state = self._const_state(entry, scope)
+        step = self._step
         seed = self._next_seed(entry.program)
         fetches, new_state = entry.fn(mutable_state, const_state,
                                       feed_arrays, seed)
+        if flags.flag("check_nan_inf"):
+            # the reference's order: the state written, then the fetches
+            checked = [(n, v) for n, v in list(new_state.items())
+                       + list(zip(entry.fetch_names, fetches))
+                       if v.is_floating_point() and v.numel()]
+            if checked:
+                self._nan_monitor.submit([n for n, _ in checked],
+                                         [v for _, v in checked], step)
         for name, val in new_state.items():
             scope.set(name, val)
         profiler.time_add("dispatch_ms", (time.perf_counter() - t0) * 1e3)
@@ -480,5 +659,156 @@ class Executor:
                 return [f.detach().cpu().numpy() for f in fetches]
         return [LazyFetch(f, n) for n, f in zip(entry.fetch_names, fetches)]
 
+    def sync(self):
+        """Wait for the non-finite flags of every run so far and raise on
+        a hit; fetches are not read."""
+        self._nan_monitor.drain()
+
     def close(self):
+        self._nan_monitor.drain()
         self._cache.clear()
+
+    # -- the dataset loops ---------------------------------------------------
+    def _stage_feed(self, program, feed):
+        """A host batch made ready for `run` on the producer thread: each
+        array checked against its var and cast to its dtype on the host;
+        for the card, all of them packed into one pinned buffer and copied
+        with one non-blocking copy on `self._copy_stream`."""
+        with profiler.timed("host_feed_ms"):
+            block = program.global_block()
+            host = {}
+            for name, val in feed.items():
+                a = np.asarray(val)
+                self._check_feed_shape(block, name, a.shape)
+                if block.has_var(name):
+                    a = a.astype(dataset_np_dtype(block.var(name)),
+                                 copy=False)
+                host[name] = np.ascontiguousarray(a)
+            if self.device.type != "cuda":
+                return {n: torch.from_numpy(a) for n, a in host.items()}
+            from ..io import copy_ahead
+
+            buf, layout = _pack(host)
+            dev_buf, done = copy_ahead(buf, self.device, self._copy_stream)
+            return _StagedFeed(_unpack(dev_buf, layout), dev_buf, done)
+
+    def train_from_dataset(self, program=None, dataset=None, scope=None,
+                           thread=0, debug=False, fetch_list=None,
+                           fetch_info=None, print_period=100,
+                           fetch_handler=None, prefetch_depth=None,
+                           checkpoint_dir=None,
+                           checkpoint_every_steps=None,
+                           checkpoint_every_secs=None,
+                           checkpoint_keep=None, resume=None,
+                           step_callback=None):
+        """Run `program` (or a CompiledProgram) once a batch over one pass
+        of `dataset` (the reference's executor.py:900-1060).
+
+        A FeedPipeline stages batch N+1..N+K while step N runs; `thread`
+        sizes the dataset's parser pool.  Each step dispatches with lazy
+        fetches and records a CUDA event; once more than
+        `prefetch_depth` (default PADDLE_PREFETCH_DEPTH, 2) steps are in
+        flight, the host waits on the oldest step's event (no device to
+        host read).  With `debug`, the fetches are read and printed
+        every `print_period` steps; `fetch_handler` (a FetchHandler) gets
+        scope snapshots on its own thread; `step_callback(step,
+        step_in_epoch, fetches)` runs after each step with LazyFetch
+        handles.  The NaN monitor is drained at the loop's exit.  Returns
+        the last step's fetches as numpy (None for an empty pass).
+
+        Auto-checkpointing (the checkpoint arguments, FLAGS_ckpt_* or
+        PADDLE_CKPT_DIR) waits for ROADMAP queue 1 item 11 and raises;
+        the telemetry flags (FLAGS_obs_*) wait for item 13."""
+        ckpt = dict(checkpoint_dir=checkpoint_dir,
+                    checkpoint_every_steps=checkpoint_every_steps,
+                    checkpoint_every_secs=checkpoint_every_secs,
+                    checkpoint_keep=checkpoint_keep, resume=resume)
+        asked = {k: v for k, v in ckpt.items() if v is not None}
+        if os.environ.get("PADDLE_CKPT_DIR"):
+            asked["PADDLE_CKPT_DIR"] = os.environ["PADDLE_CKPT_DIR"]
+        if asked:
+            raise NotImplementedError(
+                f"train_from_dataset {asked}: auto-checkpointing waits for "
+                f"ROADMAP queue 1 item 11 (ckpt/)")
+        flags.check_unported(flags.LOOP_FLAGS)
+        return self._dataset_loop(program, dataset, scope, thread, debug,
+                                  fetch_list, fetch_info, print_period,
+                                  fetch_handler, prefetch_depth,
+                                  step_callback)
+
+    def infer_from_dataset(self, program=None, dataset=None, scope=None,
+                           thread=0, debug=False, fetch_list=None,
+                           fetch_info=None, print_period=100,
+                           fetch_handler=None, prefetch_depth=None,
+                           step_callback=None):
+        """train_from_dataset's loop over a program without optimizer ops
+        (the reference's infer_from_dataset takes the first eight
+        arguments; the port also takes the loop's last three)."""
+        return self._dataset_loop(program, dataset, scope, thread, debug,
+                                  fetch_list, fetch_info, print_period,
+                                  fetch_handler, prefetch_depth,
+                                  step_callback)
+
+    def _dataset_loop(self, program, dataset, scope, thread, debug,
+                      fetch_list, fetch_info, print_period, fetch_handler,
+                      prefetch_depth, step_callback):
+        from ..dataset.feed_pipeline import DEFAULT_PREFETCH_DEPTH, \
+            FeedPipeline
+        from .compiler import CompiledProgram
+
+        if dataset is None:
+            raise ValueError("train_from_dataset needs a dataset")
+        if thread:
+            dataset.set_thread(thread)
+        fetch_list = fetch_list or []
+        fetch_info = fetch_info or [getattr(v, "name", str(v))
+                                    for v in fetch_list]
+        depth = DEFAULT_PREFETCH_DEPTH if prefetch_depth is None \
+            else max(1, int(prefetch_depth))
+        program = program if program is not None else \
+            default_main_program()
+        block_program = program._program if isinstance(
+            program, CompiledProgram) else program
+        scope = scope if scope is not None else global_scope()
+        cuda = self.device.type == "cuda"
+        if cuda and self._copy_stream is None:
+            self._copy_stream = torch.cuda.Stream(self.device)
+        monitor = None
+        if fetch_handler is not None:
+            monitor = FetchHandlerMonitor(scope, fetch_handler)
+            monitor.start()
+        step, last = 0, None
+        in_flight = collections.deque()
+        batches = iter(FeedPipeline(
+            lambda f: self._stage_feed(block_program, f), dataset,
+            depth=depth))
+        try:
+            for staged in batches:
+                feed = staged.arrive(self.device) if isinstance(
+                    staged, _StagedFeed) else staged
+                outs = self.run(program, feed=feed, fetch_list=fetch_list,
+                                scope=scope, return_numpy=False)
+                last = outs
+                step += 1
+                if cuda:
+                    done = torch.cuda.Event()
+                    done.record()
+                    in_flight.append(done)
+                    profiler.stat_set("in_flight_steps", len(in_flight))
+                    profiler.stat_max("in_flight_steps_max", len(in_flight))
+                    if len(in_flight) > depth:
+                        # the host runs at most `depth` steps ahead
+                        in_flight.popleft().synchronize()
+                if step_callback is not None:
+                    step_callback(self._step, step, outs)
+                if debug and fetch_list and step % print_period == 0:
+                    msg = ", ".join(f"{n}={o.numpy().ravel()[:1]}"
+                                    for n, o in zip(fetch_info, outs))
+                    print(f"[train_from_dataset] step {step}: {msg}")
+        finally:
+            batches.close()  # stops the producer, on an error too
+            profiler.stat_set("in_flight_steps", 0)
+            if monitor is not None:
+                monitor.stop()
+        self._nan_monitor.drain()
+        return None if last is None else [h.numpy() for h in last]

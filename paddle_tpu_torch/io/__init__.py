@@ -412,6 +412,34 @@ def get_worker_info():
 
 # -- DataLoader ---------------------------------------------------------------
 
+def _pinned(a) -> torch.Tensor:
+    if isinstance(a, torch.Tensor) and a.is_pinned():
+        return a
+    return torch.from_numpy(np.asarray(a)).pin_memory()
+
+
+def copy_ahead(tree, dev, stream):
+    """The arrays of `tree` (numpy, or pinned tensors) copied to `dev` on
+    `stream` through pinned host memory without blocking the host:
+    (the tree on `dev`, an event recorded on `stream` after the copies).
+    The consumer hands both to `arrive`."""
+    with torch.cuda.device(dev), torch.cuda.stream(stream):
+        out = _tree(tree, lambda a: _pinned(a).to(dev, non_blocking=True))
+        done = torch.cuda.Event()
+        done.record(stream)
+    return out, done
+
+
+def arrive(tree, done, dev):
+    """`tree` ready for the current stream of `dev`: the stream waits for
+    `done` on the device (the host does not), and the tensors are marked
+    used there, so the allocator keeps them until that work ends."""
+    cur = torch.cuda.current_stream(dev)
+    cur.wait_event(done)
+    _tree(tree, lambda x: x.record_stream(cur))
+    return tree
+
+
 class DataLoader:
     def __init__(self, dataset, feed_list=None, places=None,
                  return_list=True, batch_sampler=None, batch_size=1,
@@ -706,21 +734,13 @@ class DataLoader:
                     pass
             return False
 
-        def to_dev(a):
-            host = torch.from_numpy(np.asarray(a)).pin_memory()
-            return host.to(dev, non_blocking=True)
-
         def run():
             try:
                 with torch.cuda.device(dev), torch.cuda.stream(stream):
                     for batch in gen:
-                        if isinstance(batch, _Slot):  # pinned already
-                            out = _tree(batch.arrays, lambda t: t.to(
-                                dev, non_blocking=True))
-                        else:
-                            out = _tree(batch, to_dev)
-                        done = torch.cuda.Event()
-                        done.record(stream)
+                        out, done = copy_ahead(
+                            batch.arrays if isinstance(batch, _Slot)
+                            else batch, dev, stream)
                         if isinstance(batch, _Slot):
                             # this thread waits for the copy (the GIL
                             # released), then hands the slot back
@@ -743,10 +763,7 @@ class DataLoader:
                     return
                 if kind == "err":
                     raise out
-                cur = torch.cuda.current_stream(dev)
-                cur.wait_event(done)
-                _tree(out, lambda x: x.record_stream(cur))
-                yield out
+                yield arrive(out, done, dev)
         finally:
             stop.set()
             t.join(timeout=30)

@@ -1,13 +1,17 @@
 """Parameter initializers BERT and the vision models use (counterpart of
 paddle_tpu/fluid/initializer.py).  Each draws from the torch.Generator it
 is given, in float32 on the CPU, so a seed gives the same weights on
-every device."""
+every device.  The reference's twelve 2.x names are here: the four
+above, and Assign, Bilinear, KaimingNormal / KaimingUniform,
+MSRAInitializer, XavierInitializer, XavierNormal / XavierUniform over
+the fluid initializers (paddle_tpu/nn/initializer/__init__.py)."""
 
 from __future__ import annotations
 
 import math
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 
@@ -96,3 +100,108 @@ class MSRA(Initializer):
             limit = math.sqrt(6.0 / fan_in)
             return t.uniform_(-limit, limit, generator=generator)
         return t.normal_(0.0, math.sqrt(2.0 / fan_in), generator=generator)
+
+
+# -- the 2.x names over the fluid initializers (paddle_tpu/nn/initializer/
+# __init__.py:6-33): each is the fluid class, so a static program's
+# ParamAttr appends its startup op, and a Layer draws it eagerly here
+# from the same fans (fluid.initializer._fan_in_out)
+
+from ..fluid import initializer as _fluid
+
+
+def _fans(shape):
+    class _Shape:  # _fan_in_out reads `.shape` only
+        pass
+
+    s = _Shape()
+    s.shape = list(shape)
+    return _fluid._fan_in_out(s)
+
+
+class _Eager(Initializer):
+    """A fluid initializer a Layer can call with (shape, generator); a
+    call with (var, block) appends the fluid class's startup op."""
+
+    def __call__(self, shape, generator=None):
+        if not isinstance(shape, (list, tuple, torch.Size)):
+            return self._startup(shape, generator)
+        return self._draw([int(s) for s in shape], generator)
+
+    def _startup(self, var, block):
+        for base in type(self).__mro__:
+            if base.__module__ == _fluid.__name__:
+                return base.__call__(self, var, block)
+        raise TypeError(f"{type(self).__name__} has no fluid initializer")
+
+
+def _uniform(shape, limit, generator):
+    t = torch.empty(tuple(shape), dtype=torch.float32)
+    return t.uniform_(-limit, limit, generator=generator)
+
+
+def _normal(shape, std, generator):
+    t = torch.empty(tuple(shape), dtype=torch.float32)
+    return t.normal_(0.0, std, generator=generator)
+
+
+class XavierInitializer(_Eager, _fluid.XavierInitializer):
+    """Glorot: uniform in +-sqrt(6 / (fan_in + fan_out)), or normal with
+    std sqrt(2 / (fan_in + fan_out)); fans from the shape unless given."""
+
+    def _draw(self, shape, generator):
+        fi, fo = _fans(shape)
+        fi = self.fan_in if self.fan_in is not None else fi
+        fo = self.fan_out if self.fan_out is not None else fo
+        if self.uniform:
+            return _uniform(shape, math.sqrt(6.0 / (fi + fo)), generator)
+        return _normal(shape, math.sqrt(2.0 / (fi + fo)), generator)
+
+
+class MSRAInitializer(_Eager, _fluid.MSRAInitializer):
+    """Kaiming: uniform in +-sqrt(6 / fan_in), or normal with std
+    sqrt(2 / fan_in); fan_in from the shape unless given."""
+
+    def _draw(self, shape, generator):
+        fi = self.fan_in if self.fan_in is not None else _fans(shape)[0]
+        if self.uniform:
+            return _uniform(shape, math.sqrt(6.0 / fi), generator)
+        return _normal(shape, math.sqrt(2.0 / fi), generator)
+
+
+class XavierNormal(XavierInitializer):
+    def __init__(self, fan_in=None, fan_out=None, name=None):
+        super().__init__(uniform=False, fan_in=fan_in, fan_out=fan_out)
+
+
+class XavierUniform(XavierInitializer):
+    def __init__(self, fan_in=None, fan_out=None, name=None):
+        super().__init__(uniform=True, fan_in=fan_in, fan_out=fan_out)
+
+
+class KaimingNormal(MSRAInitializer):
+    def __init__(self, fan_in=None, name=None):
+        super().__init__(uniform=False, fan_in=fan_in)
+
+
+class KaimingUniform(MSRAInitializer):
+    def __init__(self, fan_in=None, name=None):
+        super().__init__(uniform=True, fan_in=fan_in)
+
+
+class Bilinear(_Eager, _fluid.BilinearInitializer):
+    """The bilinear upsampling kernel of a transposed convolution."""
+
+    def _draw(self, shape, generator):
+        return torch.from_numpy(self._weight(shape))
+
+
+class Assign(_Eager, _fluid.NumpyArrayInitializer):
+    """The given values (a shape of the same size takes them reshaped)."""
+
+    def _draw(self, shape, generator):
+        value = np.asarray(self.value, dtype=np.float32)
+        if value.size != math.prod(shape):
+            raise ValueError(f"Assign: {value.shape} values for a parameter "
+                             f"of shape {shape}")
+        return torch.from_numpy(value.reshape(shape).copy())

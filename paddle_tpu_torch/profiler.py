@@ -1,7 +1,9 @@
 """Process-wide counters and millisecond timers (copy of the StatRegistry
 half of paddle_tpu/profiler/__init__.py).
 
-`stat_add`/`stat_set` bump named integer counters, `time_add`/`timed`
+`stat_add`/`stat_set`/`stat_max` bump named integer counters and gauges
+(the feed pipeline's `ring_occupancy` / `ring_occupancy_max`,
+`prefetch_depth`, `in_flight_steps`), `time_add`/`time_set`/`timed`
 accumulate milliseconds on named pipeline stages, and `count_sync`
 counts device->host materializations.  `get_int_stats()` /
 `get_time_stats()` snapshot them.  `timed` also records its interval as
@@ -30,6 +32,12 @@ def stat_set(name: str, value: int) -> None:
         _STATS[name] = int(value)
 
 
+def stat_max(name: str, value: int) -> None:
+    """Raise a named gauge to `value` if it is below it."""
+    with _STATS_LOCK:
+        _STATS[name] = max(_STATS.get(name, 0), int(value))
+
+
 def stat_reset(name: str = None) -> None:
     """Clear one counter, or all of them."""
     with _STATS_LOCK:
@@ -49,6 +57,11 @@ def time_add(name: str, ms: float) -> None:
     """Accumulate `ms` milliseconds on a named pipeline stage."""
     with _STATS_LOCK:
         _TIMES[name] = _TIMES.get(name, 0.0) + float(ms)
+
+
+def time_set(name: str, ms: float) -> None:
+    with _STATS_LOCK:
+        _TIMES[name] = float(ms)
 
 
 def time_reset(name: str = None) -> None:

@@ -139,6 +139,48 @@ def test_decorated_resnet18_trains_as_the_reference(dtype):
                        for op in out[TF][0].global_block().ops)
 
 
+# a loss scale at which the fp16 cut resnet18's first step on _feed(0)
+# applies in both packages (at the default 32768 it may overflow).  The
+# applied updates, as one vector, point the same way: cosine above
+# UPDATE_COS (measured on the CPU: 0.986, at a relative L2 of 0.17; the
+# fp16 gradients through eight batch norms over 8 values a channel on
+# the 1x1 maps differ by more than the parameters' 2e-3 allows, and
+# the zero-initialised batch-norm biases are their updates alone)
+APPLY_SCALE = 1024.0
+UPDATE_COS = 0.9
+
+
+def test_a_decorated_fp16_step_applies_in_both_packages():
+    """Beside the parity case above, which may see every step overflow:
+    from APPLY_SCALE the same feed's step finds no overflow in either
+    package, every trainable parameter moves in both, and the updates
+    agree in direction (UPDATE_COS)."""
+    out, (jexe, jscope), (texe, tscope) = _both(
+        lambda f: P.amp_optimizer(f, dtype="float16"), _resnet)
+    main, _, fetches, opt = out[TF]
+    scale, good, bad, found = P.amp_state_names(main, opt)
+    params = [p.name for p in main.all_parameters() if p.trainable]
+    value = np.array([APPLY_SCALE], np.float32)
+    jscope.set(scale, value)
+    tscope.set(scale, torch.from_numpy(value.copy()))
+    before = {n: np.array(np.asarray(jscope.get(n))) for n in params}
+    jfound = jexe.run(out[JF][0], feed=_feed(0), fetch_list=[found],
+                      scope=jscope)[0]
+    tfound = texe.run(main, feed=_feed(0), fetch_list=[found],
+                      scope=tscope)[0]
+    assert not bool(np.asarray(jfound)[0]) and not bool(tfound[0])
+    for n in params:
+        jd = np.asarray(jscope.get(n)) - before[n]
+        td = tscope.get(n).numpy() - before[n]
+        assert np.abs(jd).max() > 0 and np.abs(td).max() > 0, n
+    jd = np.concatenate([(np.asarray(jscope.get(n)) - before[n]).ravel()
+                         for n in params]).astype(np.float64)
+    td = np.concatenate([(tscope.get(n).numpy() - before[n]).ravel()
+                         for n in params]).astype(np.float64)
+    cos = float(jd @ td / np.linalg.norm(jd) / np.linalg.norm(td))
+    assert cos > UPDATE_COS, cos
+
+
 def _persistable(scope, names):
     return {n: scope.get(n).clone() for n in names}
 

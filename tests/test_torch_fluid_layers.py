@@ -553,8 +553,9 @@ def test_static_and_top_level_names():
         TF.layers.data
     assert static.nn.fc is TF.layers.fc
     assert static.nn.crf_decoding is TF.layers.crf_decoding
-    for name in ("CompiledProgram", "BuildStrategy", "load_inference_model",
-                 "save_inference_model"):
+    for name in ("CompiledProgram", "BuildStrategy", "ExecutionStrategy"):
+        assert getattr(static, name) is getattr(TF, name), name
+    for name in ("load_inference_model", "save_inference_model"):
         assert not hasattr(static, name), name
     for name in ("Executor", "Program", "program_guard", "data", "CUDAPlace",
                  "CPUPlace", "elementwise_add", "elementwise_pow",
