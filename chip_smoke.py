@@ -10,8 +10,10 @@ seq2seq with attention and the book's semantic-role-labelling program
 (a Fluid program through fluid.Executor), train MobileNetV2, VGG16 and
 PaddleGAN's CycleGAN, decode the seq2seq model through a 1.x While
 program, train the static ResNet-50 in fp16, train, quantize and decode
-PaddleCV's MobileNet-SSD through the detection rules, and check what
-comes out.
+PaddleCV's MobileNet-SSD through the detection rules, train and serve
+PaddleRec's CTR-DNN through the dataset path, checkpoint and resume it,
+export BERT-base to an inference Predictor and serve it beside the CTR
+model from one ModelRegistry, and check what comes out.
 
     python3 chip_smoke.py
 
@@ -345,12 +347,54 @@ Phases, in order (any failure exits non-zero and prints no result):
               against the CPU Executor over the same files and weights
               (CTR_LOSS_RTOL, CTR_UPDATE, the histograms equal).  No
               hand-written kernel is on this path (0 launches)
+ 25. deploy   checkpoints, export and serving two tenants.  (a) CTR-DNN at
+              FULL through train_from_dataset(CompiledProgram) over
+              DEPLOY_FILES files of DEPLOY_LINES lines (12 steps at
+              B=1000): passes from one state without checkpoints, with one
+              every DEPLOY_EVERY steps, and without again (the losses
+              within DEPLOY_RESUME_RTOL; ms a step by CUDA events, commits
+              and their bytes, the writer's ms a commit, a snapshot's host
+              enqueue and device copy and their share of the steps); a
+              pass preempted by an exception from step_callback after
+              step DEPLOY_PREEMPT, resumed in a fresh Executor and Scope
+              (the startup program's random values overwritten) from the
+              last checkpoint: the remaining losses within
+              DEPLOY_RESUME_RTOL, the updates and Adam's moments within
+              CTR_UPDATE of the uninterrupted pass.  (b) BertModel(base)
+              in bf16 (eval) through inference.save_inference_model at
+              (DEPLOY_BATCH, SEQ) under the default FFN arm and under
+              enable_fused_ffn, and load_inference_model: the graph holds
+              12 paddle_tpu_torch::flash_forward and 12 ::ffn_act_fwd
+              (::ffn_forward) operators; one Predictor.run with the counts
+              at 0 launches flash_fwd and ffn_act_fwd (ffn_fwd) 12 times;
+              its outputs against the eager model's (SERVE_MAX_ABS,
+              SERVE_MEAN_ABS).  (c) one ModelRegistry serving "bert" (the
+              default-arm Predictor) and "ctr" (a ProgramModel over the
+              CTR inference program saved from the untrained weights and
+              loaded by fluid.io.load_inference_model), each with its
+              quota and priority, from two client threads each, the
+              counts at 0: mid-traffic reload_weights("ctr", (a)'s
+              checkpoint root), bert answering during it; each ctr
+              response equals the direct run
+              of the program on the old or the new weights
+              (DEPLOY_CTR_TOL), every one submitted after the reload the
+              new; every bert response finite and the first 8 against the
+              eager model; 12 flash_fwd and ffn_act_fwd launches a bert
+              model call; per-tenant p50/p99, completions, rejections;
+              then a burst past ctr's quota refused for tenant:ctr alone
+              beside admitted bert requests, and unregister("ctr")
+              cancelling its queued requests while bert's are answered.
+              (d) tests/torch_ckpt_worker.py on the card at
+              DEPLOY_KILL_CFG (the table cut to 100003 rows, B=256): a
+              worker SIGKILLed at a step boundary and restarted against
+              an uninterrupted one, each loss within DEPLOY_RESUME_RTOL
 
 The last two lines of stdout are a {"kernels": [...]} summary and the
 {"ok": true, "device": {...}} result.
 
 `python3 chip_smoke.py --ssd` runs only the card and ssd phases (no
-kernel is built: none is on that path); `--ctr` the card and ctr phases.
+kernel is built: none is on that path); `--ctr` the card and ctr phases;
+`--deploy` the card, build and deploy phases.
 
 `python3 chip_smoke.py --tensor-methods-ab` runs instead only the
 host-bound decode, seq2seq and srl phases, in turns with the `matmul` /
@@ -384,6 +428,7 @@ from paddle_tpu_torch import metric as pmetric
 from paddle_tpu_torch import nn as pnn
 from paddle_tpu_torch import optimizer as poptim
 from paddle_tpu_torch import profiler
+from paddle_tpu_torch.ckpt import latest_checkpoint
 from paddle_tpu_torch.fluid import unique_name
 from paddle_tpu_torch.hapi import callbacks as hcb
 from paddle_tpu_torch.nn import functional as pF
@@ -400,6 +445,9 @@ from paddle_tpu_torch.serving import (AutoregressiveEngine, Engine,
 from paddle_tpu_torch.tools import kernel4d_probe as K4
 from paddle_tpu_torch.vision import models as VM
 from paddle_tpu_torch.vision import train as VT
+
+# the FFN switch as the package starts it (main() opens the kernel arm)
+_FFN_DEFAULT = F._FFN_DISABLED
 
 # published H100 SXM peaks (dense): bf16 tensor cores, HBM3
 PEAK_BF16_FLOPS = 989e12
@@ -6428,6 +6476,662 @@ def ctr():
     return launches
 
 
+# the deploy phase.  (a) CTR-DNN at FULL (tests/torch_ctr_program.py)
+# through train_from_dataset(CompiledProgram) with auto-checkpoints every
+# DEPLOY_EVERY steps, over DEPLOY_FILES files of DEPLOY_LINES synthetic
+# lines (12 steps at B=1000: the files are cut, not the widths),
+# preempted by an exception from step_callback after step DEPLOY_PREEMPT
+# of the epoch and resumed in a fresh Executor and Scope
+DEPLOY_FILES, DEPLOY_LINES, DEPLOY_EVERY, DEPLOY_PREEMPT = 2, 6000, 4, 6
+# the card's embedding and index_add backward sum with atomics, in no
+# fixed order, so a resumed run is held to the uninterrupted one's losses
+# within DEPLOY_RESUME_RTOL, and its parameters' updates and Adam's
+# moments, as one vector each, within CTR_UPDATE (relative L2)
+DEPLOY_RESUME_RTOL = 1e-5
+# (b) BERT-base in bf16, eval, exported at (DEPLOY_BATCH, SEQ); each
+# Predictor's outputs against the eager BertModel's: SERVE_MAX_ABS and
+# SERVE_MEAN_ABS (the same kernels on the same inputs measured 0)
+DEPLOY_BATCH = 32
+DEPLOY_BERT = dict(cfg=bert.BertConfig.base, layers=LAYERS)
+# (c) one ModelRegistry: "bert" (the default-arm Predictor) and "ctr" (a
+# ProgramModel over the CTR inference program); DEPLOY_BERT_REQS requests
+# of 1-16 rows and DEPLOY_CTR_REQS of DEPLOY_CTR_ROWS rows from two
+# client threads each; quotas and priorities per tenant
+DEPLOY_BERT_REQS, DEPLOY_CTR_REQS = 24, 48
+DEPLOY_CTR_ROWS = (16, 33)
+DEPLOY_BERT_QUOTA, DEPLOY_CTR_QUOTA = 32, 8
+# a CTR response against the inference program run directly on the card
+# on the weights its batch resolved, float32 products blocked for another
+# batch shape
+DEPLOY_CTR_TOL = dict(rtol=1e-5, atol=1e-6)
+# (d) tests/torch_ckpt_worker.py on the card at a cut width (the table
+# cut to 100003 rows, B=256; the fc widths are FULL's), two files of
+# DEPLOY_KILL_LINES lines: 8 steps, checkpoints every 2
+DEPLOY_KILL_CFG = dict(hash_dim=100003, width=400, batch=256)
+DEPLOY_KILL_LINES = 1024
+
+
+class _Preempted(Exception):
+    """Raised from step_callback: a preemption inside the process."""
+
+
+def _deploy_pass(fluid, C, cfg, prog, out, files, start, ckpt=None,
+                 preempt_at=None, fresh_startup=None, every=None):
+    """One pass of a fresh 'process': a new Executor and Scope (holding
+    `start`, or the startup program's random values when `fresh_startup`
+    is given: a resume must overwrite them), a new dataset over `files`,
+    `prog` through train_from_dataset, auto-checkpointing into `ckpt`
+    every `every` steps (DEPLOY_EVERY), stopped by an exception from
+    step_callback after step `preempt_at` of the epoch.  Returns (losses
+    by step in the epoch, the scope, times): `times["step_ms"]` is the
+    host's mean interval between two steps' callbacks (the loop runs at
+    most prefetch_depth steps ahead of the card), `times["end_ms"]` the
+    host time from the last callback to the return (the end-of-pass
+    checkpoint's write, waited for), `times["pass_ms"]` the pass by CUDA
+    events."""
+    exe, scope = fluid.Executor(), fluid.Scope()
+    if fresh_startup is not None:
+        exe.run(fresh_startup, scope=scope)
+    else:
+        _ctr_restore(scope, start)
+    ds = C.dataset(fluid, "InMemoryDataset", out["feeds"], files, cfg,
+                   threads=CTR_THREADS, seed=CTR_SEED)
+    handles, stamps = {}, []
+
+    def cb(step, k, outs):
+        handles[k] = outs[0]
+        stamps.append(time.perf_counter())
+        if k == preempt_at:
+            raise _Preempted(k)
+
+    def run():
+        try:
+            exe.train_from_dataset(
+                prog, ds, scope=scope, fetch_list=[out["loss"]],
+                checkpoint_dir=ckpt,
+                checkpoint_every_steps=(every or DEPLOY_EVERY) if ckpt
+                else None,
+                step_callback=cb)
+        except _Preempted:
+            pass
+        return time.perf_counter()
+
+    end, pass_ms, _ = _ctr_timed(run)
+    times = dict(pass_ms=pass_ms, end_ms=(end - stamps[-1]) * 1e3,
+                 step_ms=(stamps[-1] - stamps[0]) * 1e3 / max(
+                     len(stamps) - 1, 1))
+    return {k: float(h) for k, h in handles.items()}, scope, times
+
+
+def _loss_err(got, want):
+    return max(abs(got[k] - want[k]) / abs(want[k]) for k in got)
+
+
+def _rel_vec(scope, ref, start, names, update=True):
+    def vec(s):
+        return torch.cat([(s.get(n).double().cpu() - (
+            start[n].double().cpu() if update else 0)).reshape(-1)
+            for n in names])
+    return _rel_l2(vec(scope), vec(ref))
+
+
+def _deploy_ckpt(fluid, C, work):
+    """(a): the uninterrupted pass with and without checkpoints from one
+    state (turns: without, with, without), the preempted pass and its
+    resume; returns the summary and what (c) serves."""
+    cfg = C.FULL
+    files = C.write_files(os.path.join(work, "train"), cfg, DEPLOY_FILES,
+                          DEPLOY_LINES, seed=0)
+    warm = C.write_files(os.path.join(work, "warm"), cfg, 1, 2 * cfg[
+        "batch"], seed=500)
+    main, startup, out = C.build(fluid, cfg, seed=CTR_SEED)
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(startup, scope=scope)
+    fresh = _ctr_state(scope)  # the untrained weights (c) starts from
+    compiled = fluid.CompiledProgram(main).with_data_parallel(
+        loss_name=out["loss"].name)
+    # the warm-up pass checkpoints each of its 2 steps: the first two
+    # snapshots' pinned buffers come from cudaHostAlloc, later ones from
+    # the caching host allocator
+    profiler.stat_reset()
+    profiler.time_reset()
+    _deploy_pass(fluid, C, cfg, compiled, out, warm, fresh,
+                 ckpt=os.path.join(work, "warm_ckpt"), every=1)
+    cold_ms = profiler.get_time_stats().get("ckpt_stall_ms", 0.0) / max(
+        profiler.get_int_stats().get("ckpt_snapshots_total", 0), 1)
+    start = fresh
+    steps = DEPLOY_FILES * DEPLOY_LINES // cfg["batch"]
+    root = os.path.join(work, "ckpt")
+    profiler.stat_reset()
+    profiler.time_reset()
+    plain, _, plain_t = _deploy_pass(fluid, C, cfg, compiled, out, files,
+                                     start)
+    whole, wscope, ck_t = _deploy_pass(fluid, C, cfg, compiled, out, files,
+                                       start, ckpt=root)
+    stats, times = profiler.get_int_stats(), profiler.get_time_stats()
+    plain2, _, plain2_t = _deploy_pass(fluid, C, cfg, compiled, out, files,
+                                       start)
+    if sorted(whole) != list(range(1, steps + 1)) or sorted(plain) != \
+            sorted(whole) or max(_loss_err(plain, whole),
+                                 _loss_err(plain2, whole)) > \
+            DEPLOY_RESUME_RTOL:
+        raise AssertionError(f"checkpointing moved the losses: {whole} "
+                             f"against {plain} / {plain2}")
+    saves = stats.get("ckpt_saves_total", 0)
+    snaps = stats.get("ckpt_snapshots_total", 0)
+    newest = latest_checkpoint(root)
+    manifest = json.loads(Path(newest, "manifest.json").read_text())
+    commit_bytes = sum(int(np.prod(v["shape"])) * np.dtype(
+        "int16" if v["dtype"] == "bfloat16" else v["dtype"]).itemsize
+        for v in manifest["vars"].values())
+    file_bytes = os.path.getsize(os.path.join(newest, "shard_00000.npz"))
+    if saves != steps // DEPLOY_EVERY or snaps != saves or \
+            manifest["meta"]["step_in_epoch"] != steps:
+        raise AssertionError(f"{saves} commits and {snaps} snapshots for "
+                             f"{steps} steps at every {DEPLOY_EVERY}; "
+                             f"meta {manifest['meta']}")
+    # the preempted pass and its resume in a fresh Executor and Scope
+    cut_root = os.path.join(work, "cut")
+    part, _, _ = _deploy_pass(fluid, C, cfg, compiled, out, files, start,
+                              ckpt=cut_root, preempt_at=DEPLOY_PREEMPT)
+    rest, rscope, _ = _deploy_pass(fluid, C, cfg, compiled, out, files,
+                                   start, ckpt=cut_root,
+                                   fresh_startup=startup)
+    resumed_at = DEPLOY_PREEMPT - DEPLOY_PREEMPT % DEPLOY_EVERY
+    if sorted(part) != list(range(1, DEPLOY_PREEMPT + 1)) or \
+            sorted(rest) != list(range(resumed_at + 1, steps + 1)):
+        raise AssertionError(f"preempted steps {sorted(part)}, resumed "
+                             f"steps {sorted(rest)}")
+    loss_err = _loss_err(rest, whole)
+    params = [p.name for p in main.all_parameters()]
+    moments = sorted(n for n in wscope.local_var_names() if "moment" in n)
+    upd = _rel_vec(rscope, wscope, start, params)
+    mom = _rel_vec(rscope, wscope, start, moments, update=False)
+    bits = all(torch.equal(rscope.get(n), wscope.get(n))
+               for n in wscope.local_var_names())
+    if not (loss_err <= DEPLOY_RESUME_RTOL and upd <= CTR_UPDATE
+            and mom <= CTR_UPDATE):
+        raise AssertionError(f"resumed: losses within {loss_err}, updates "
+                             f"{upd}, moments {mom}")
+    step_plain = (plain_t["step_ms"] + plain2_t["step_ms"]) / 2
+    summary = dict(
+        steps=steps, every=DEPLOY_EVERY,
+        step_ms_plain=[plain_t["step_ms"], plain2_t["step_ms"]],
+        step_ms_ckpt=ck_t["step_ms"],
+        pass_ms_plain=[plain_t["pass_ms"], plain2_t["pass_ms"]],
+        pass_ms_ckpt=ck_t["pass_ms"], end_of_pass_ms_ckpt=ck_t["end_ms"],
+        end_of_pass_ms_plain=[plain_t["end_ms"], plain2_t["end_ms"]],
+        commits=saves, commit_bytes=commit_bytes, file_bytes=file_bytes,
+        cold_snapshot_host_ms=cold_ms,
+        commit_ms=times.get("ckpt_save_ms", 0.0) / max(saves, 1),
+        snapshot_host_ms=times.get("ckpt_stall_ms", 0.0) / max(snaps, 1),
+        snapshot_copy_ms=times.get("ckpt_copy_ms", 0.0) / max(snaps, 1),
+        resumed_at=resumed_at, resume_loss_err=loss_err,
+        resume_update=upd, resume_moment=mom, resume_bits_equal=bits)
+    summary["snapshot_share_of_a_step"] = (
+        summary["snapshot_host_ms"] + summary["snapshot_copy_ms"]) / (
+        DEPLOY_EVERY * step_plain)
+    log(f"ctr-dnn B={cfg['batch']}, {steps} steps: {step_plain:.3f} ms a "
+        f"step without checkpoints ({plain_t['step_ms']:.3f}, "
+        f"{plain2_t['step_ms']:.3f} in turns; host clock between steps), "
+        f"{ck_t['step_ms']:.3f} with one every {DEPLOY_EVERY}; the pass "
+        f"{ck_t['pass_ms']:.1f} ms by CUDA events against "
+        f"{plain_t['pass_ms']:.1f} / {plain2_t['pass_ms']:.1f}, of which "
+        f"{ck_t['end_ms']:.1f} ms after the last step (the end-of-pass "
+        f"commit waited for) against {plain_t['end_ms']:.1f} / "
+        f"{plain2_t['end_ms']:.1f}; {saves} commits of "
+        f"{commit_bytes / 2 ** 20:.1f} MiB ({file_bytes / 2 ** 20:.1f} MiB "
+        f"on disk) at {summary['commit_ms']:.1f} ms each on the writer "
+        f"thread; a snapshot {summary['snapshot_host_ms']:.3f} ms of host "
+        f"enqueue and {summary['snapshot_copy_ms']:.3f} ms of device copy, "
+        f"{100 * summary['snapshot_share_of_a_step']:.2f} % of the steps "
+        f"between two (a cold snapshot, allocating its pinned buffers: "
+        f"{cold_ms:.3f} ms of host); the losses with and without within "
+        f"{max(_loss_err(plain, whole), _loss_err(plain2, whole)):.3g}")
+    log(f"preempted after step {DEPLOY_PREEMPT}, resumed in a fresh "
+        f"Executor and Scope from step {resumed_at}: losses within "
+        f"{loss_err:.3g}, updates {upd:.3g}, moments {mom:.3g} (relative "
+        f"L2); bit for bit: {bits}")
+    return summary, dict(main=main, out=out, fresh=fresh, trained=wscope,
+                         root=root, cfg=cfg, exe=exe)
+
+
+class _BertServe(pnn.Layer):
+    """BertModel's (encoded, pooled) over (ids, types, padding mask), the
+    form serve_slice serves."""
+
+    def __init__(self, model):
+        super().__init__()
+        self.model = model
+
+    def forward(self, ids, types, mask):
+        return self.model(ids, types,
+                          attention_mask=(mask != 0)[:, None, None, :])
+
+
+def _graph_ops(pred):
+    return [str(n.target) for n in pred._exported.graph.nodes
+            if n.op == "call_function"
+            and str(n.target).startswith("paddle_tpu_torch.")]
+
+
+def _deploy_export(work):
+    """(b): BERT-base exported under the default FFN arm and under
+    enable_fused_ffn, each loaded and run once on an export-sized batch
+    with the counts at 0: its operators in the graph, its launches, its
+    outputs against the eager model's.  Returns (the default-arm
+    Predictor, the eager layer, launches of both runs, summary)."""
+    from paddle_tpu_torch import inference
+
+    cfg = DEPLOY_BERT["cfg"]()
+    model = bert.BertModel(cfg, dtype=torch.bfloat16, seed=0).eval()
+    layer = _BertServe(model)
+    reqs = _request_batches(cfg, 4, seed=11)
+    batch = [np.concatenate(cols)[:DEPLOY_BATCH] for cols in zip(*reqs)]
+    batch = [np.concatenate([b] * (-(-DEPLOY_BATCH // len(b))))[
+        :DEPLOY_BATCH] for b in batch]
+    summary, launches, preds = {}, {}, {}
+    want_ops = {"default": {"flash_forward": DEPLOY_BERT["layers"],
+                            "ffn_act_fwd": DEPLOY_BERT["layers"]},
+                "fused": {"flash_forward": DEPLOY_BERT["layers"],
+                          "ffn_forward": DEPLOY_BERT["layers"]}}
+    want_launch = {"default": ("flash_fwd", "ffn_act_fwd"),
+                   "fused": ("flash_fwd", "ffn_fwd")}
+    for arm in ("default", "fused"):
+        F._FFN_DISABLED = None if arm == "fused" else _FFN_DEFAULT
+        try:
+            t0 = time.perf_counter()
+            prefix = inference.save_inference_model(
+                os.path.join(work, f"bert_{arm}"), layer, batch)
+            export_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            pred = inference.load_inference_model(prefix)
+            load_s = time.perf_counter() - t0
+            ops = _graph_ops(pred)
+            counted = {o.split(".")[1]: ops.count(o) for o in set(ops)}
+            if counted != want_ops[arm]:
+                raise AssertionError(f"{arm} arm: the graph holds {counted},"
+                                     f" want {want_ops[arm]}")
+            pred.run(batch)  # warm-up
+            torch.cuda.synchronize()
+            for c in COUNTERS.values():
+                c.reset()
+            # -- the main path: counters at 0 before, read right after --
+            got = pred.run(batch)
+            launches[arm] = {n: c.value for n, c in COUNTERS.items()}
+            # -----------------------------------------------------------------
+            for n, v in launches[arm].items():
+                want = DEPLOY_BERT["layers"] if n in want_launch[arm] else 0
+                if v != want:
+                    raise AssertionError(f"{arm} Predictor.run: {n} launched "
+                                         f"{v} times, want {want}")
+            with torch.inference_mode():
+                eager = layer(*[torch.from_numpy(b).cuda() for b in batch])
+            err = [np.abs(g - e.float().cpu().numpy()) for g, e in
+                   zip(got, eager)]
+            worst_max = max(float(e.max()) for e in err)
+            worst_mean = max(float(e.mean()) for e in err)
+            if worst_max > SERVE_MAX_ABS or worst_mean > SERVE_MEAN_ABS or \
+                    not all(np.isfinite(g).all() for g in got):
+                raise AssertionError(f"{arm} Predictor vs eager: max abs "
+                                     f"{worst_max}, mean {worst_mean}")
+            xs = [torch.from_numpy(b).cuda() for b in batch]
+            with torch.inference_mode():
+                eager_ms = time_ms(lambda: layer(*xs), iters=5, warmup=1)
+            run_ms = time_ms(lambda: pred.run_handles(batch), iters=5,
+                             warmup=1)
+            summary[arm] = dict(graph_ops=counted, launches={
+                n: v for n, v in launches[arm].items() if v},
+                export_s=export_s, load_s=load_s, max_abs=worst_max,
+                mean_abs=worst_mean, run_ms=run_ms, eager_ms=eager_ms,
+                pt2_bytes=os.path.getsize(prefix + ".pt2"))
+            preds[arm] = pred
+            log(f"BERT-base bf16 exported under the {arm} FFN arm in "
+                f"{export_s:.1f} s ({summary[arm]['pt2_bytes'] / 2 ** 20:.0f}"
+                f" MiB .pt2), loaded in {load_s:.1f} s: graph operators "
+                f"{counted}; Predictor.run of {DEPLOY_BATCH} x {SEQ} "
+                f"launched {summary[arm]['launches']}; against the eager "
+                f"model max abs {worst_max:.4g}, worst mean abs "
+                f"{worst_mean:.4g}; run_handles {run_ms:.3f} ms, eager "
+                f"forward {eager_ms:.3f} ms (CUDA events, the feed's copy "
+                f"in the first)")
+        finally:
+            F.enable_fused_ffn()  # main()'s arm for the other phases
+    return preds["default"], layer, launches, summary
+
+
+def _ctr_requests(C, cfg, n, seed):
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        rows = int(rng.integers(*DEPLOY_CTR_ROWS))
+        dense, ids, _ = C.rows(cfg, rows, seed * 1000 + i)
+        out.append([dense.astype(np.float32)] + [ids[:, j:j + 1]
+                                                  for j in range(C.SLOTS)])
+    return out
+
+
+def _deploy_serve(fluid, C, work, pred, layer, trained):
+    """(c): one ModelRegistry serving "bert" and "ctr" to client threads,
+    a mid-traffic reload of "ctr" from (a)'s checkpoint root, then a quota
+    overrun and an unregister under bert traffic."""
+    from paddle_tpu_torch.serving import (EngineOverloaded, ModelRegistry,
+                                          ProgramModel, RequestCancelled)
+
+    cfg, main, out = trained["cfg"], trained["main"], trained["out"]
+    names = C.feed_names()[:-1]  # the label is not a prediction's input
+    mdir = os.path.join(work, "ctr_model")
+    old_scope = fluid.Scope()
+    _ctr_restore(old_scope, trained["fresh"])
+    exe = fluid.Executor()
+    with fluid.scope_guard(old_scope):
+        fluid.io.save_inference_model(mdir, names, [out["predict"]], exe,
+                                      main)
+    served = fluid.Scope()
+    with fluid.scope_guard(served):
+        prog, feeds, fetches = fluid.io.load_inference_model(mdir, exe)
+    new_scope = fluid.Scope()
+    for n in served.local_var_names():
+        new_scope.set(n, trained["trained"].get(n).clone())
+    ctr_model = ProgramModel(exe, prog, feeds, fetches, scope=served,
+                             buckets=[DEPLOY_CTR_ROWS[1] - 1])
+    bcfg = DEPLOY_BERT["cfg"]()
+    reg = ModelRegistry(EngineConfig(max_batch_size=DEPLOY_BATCH,
+                                     max_queue_delay_ms=5.0, max_queue=128,
+                                     max_in_flight=2))
+    bert_calls = [0]
+    wrapped = reg.register("bert", pred, quota=DEPLOY_BERT_QUOTA,
+                           priority=1.0)
+    runner_call = wrapped.runner._call
+
+    def counted(padded):  # one model call (warm-ups and chunks too)
+        bert_calls[0] += 1
+        return runner_call(padded)
+
+    wrapped.runner._call = counted
+    reg.register("ctr", ctr_model, quota=DEPLOY_CTR_QUOTA, priority=0.0)
+    breqs = _request_batches(bcfg, DEPLOY_BERT_REQS, seed=13)
+    creqs = _ctr_requests(C, cfg, DEPLOY_CTR_REQS, seed=17)
+    reg.infer("bert", breqs[0], timeout=300)  # warm both tenants
+    reg.infer("ctr", creqs[0], timeout=300)
+    profiler.stat_reset()
+    profiler.time_reset()
+    reset_latency()
+    bert_calls[0] = 0
+    for c in COUNTERS.values():
+        c.reset()
+    cresp, csub = [None] * len(creqs), [0.0] * len(creqs)
+    bsent, bdone, reload_at = [], {}, {}
+    stop = threading.Event()
+
+    def bclient(lo):
+        # bert traffic until the reload is over and a little after
+        i = lo
+        while not stop.is_set():
+            try:
+                bsent.append((i % len(breqs),
+                              reg.submit("bert", breqs[i % len(breqs)])))
+                i += 2
+            except EngineOverloaded:
+                pass  # its quota: wait and resubmit
+            time.sleep(0.05)
+
+    def cclient(lo):
+        for i in range(lo, len(creqs), 2):
+            while True:
+                try:
+                    csub[i] = time.perf_counter()
+                    cresp[i] = reg.submit("ctr", creqs[i])
+                    break
+                except EngineOverloaded:
+                    time.sleep(0.002)  # its quota: wait and resubmit
+            time.sleep(0.1)
+
+    def stamp():
+        # when each bert response is done (polled each ms)
+        while not (stop.is_set() and len(bdone) == len(bsent)):
+            now = time.perf_counter()
+            for _, r in list(bsent):
+                if id(r) not in bdone and r.done():
+                    bdone[id(r)] = now
+            time.sleep(0.001)
+
+    # -- the main path: counters at 0 before, read right after -------------
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=f, args=(lo,)) for f in
+               (bclient, cclient) for lo in range(2)]
+    threads.append(threading.Thread(target=stamp))
+    for th in threads:
+        th.start()
+    while sum(r is not None and r.done() for r in cresp) < \
+            DEPLOY_CTR_REQS // 3:
+        time.sleep(0.002)
+    reload_at["t0"] = time.perf_counter()
+    swapped = reg.reload_weights("ctr", trained["root"])
+    reload_at["t1"] = time.perf_counter()
+    for th in threads[2:4]:
+        th.join()
+    time.sleep(0.2)
+    stop.set()
+    for th in threads:
+        th.join()
+    bout = [(i, r.result(timeout=300)) for i, r in bsent]
+    couts = [r.result(timeout=300) for r in cresp]
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = {n: c.value for n, c in COUNTERS.items()}
+    stats = {t: reg.stats(t) for t in ("bert", "ctr")}
+    # ------------------------------------------------------------------------
+    calls = bert_calls[0]
+    for n, v in launches.items():
+        want = DEPLOY_BERT["layers"] * calls if n in ("flash_fwd",
+                                                      "ffn_act_fwd") else 0
+        if v != want or (want == 0 and n in ("flash_fwd", "ffn_act_fwd")):
+            raise AssertionError(f"bert tenant: {n} launched {v} times over "
+                                 f"{calls} model calls (want {want})")
+    # bert: every response finite and equal to the eager forward (8 held)
+    worst = 0.0
+    with torch.inference_mode():
+        for i, (enc, pooled) in bout[:8]:
+            e, p = layer(*[torch.from_numpy(a).cuda() for a in breqs[i]])
+            for got, want in ((enc, e), (pooled, p)):
+                worst = max(worst, float(np.abs(
+                    got - want.float().cpu().numpy()).max()))
+    if worst > SERVE_MAX_ABS or not all(
+            np.isfinite(o).all() for _, resp in bout for o in resp):
+        raise AssertionError(f"bert responses: max abs {worst}")
+    # bert never paused: its responses kept coming during the reload
+    # (one at least, where the reload outlasts the longest wait between
+    # two bert responses elsewhere); the waits across it are printed
+    times = sorted(bdone.values())
+    during = [t for t in times if reload_at["t0"] <= t <= reload_at["t1"]]
+    spans = list(zip(times, times[1:]))
+    gap_in = max([b - a for a, b in spans if b >= reload_at["t0"]
+                  and a <= reload_at["t1"]] or [0.0])
+    gap_out = max([b - a for a, b in spans if b < reload_at["t0"]
+                   or a > reload_at["t1"]] or [0.0])
+    if not during and reload_at["t1"] - reload_at["t0"] > gap_out:
+        raise AssertionError(f"no bert response during the reload's "
+                             f"{(reload_at['t1'] - reload_at['t0']) * 1e3:.1f}"
+                             f" ms (the longest wait elsewhere "
+                             f"{gap_out * 1e3:.1f} ms)")
+    # ctr: before the reload the old weights' forward, submitted after it
+    # the new weights', in between either
+    kinds = {"old": 0, "new": 0}
+    sep = float("inf")
+    for req, (pred_out,), sub in zip(creqs, couts, csub):
+        want = {}
+        for kind, sc in (("old", old_scope), ("new", new_scope)):
+            want[kind] = exe.run(prog, feed=dict(zip(feeds, req)),
+                                 fetch_list=fetches, scope=sc)[0]
+        sep = min(sep, float(np.abs(want["old"] - want["new"]).max()))
+        match = [k for k in ("old", "new")
+                 if np.allclose(pred_out, want[k], **DEPLOY_CTR_TOL)]
+        must = "new" if sub > reload_at["t1"] else None
+        if not match or (must and must not in match):
+            raise AssertionError(f"ctr response submitted at {sub - t0:.3f}"
+                                 f" s (reload {reload_at['t0'] - t0:.3f}-"
+                                 f"{reload_at['t1'] - t0:.3f} s) matches "
+                                 f"{match}")
+        kinds[match[-1]] += 1
+    if kinds["new"] == 0 or kinds["old"] == 0:
+        raise AssertionError(f"ctr responses by weights: {kinds}")
+    summary = dict(
+        wall_s=wall, swapped_vars=swapped,
+        reload_ms=(reload_at["t1"] - reload_at["t0"]) * 1e3,
+        ctr_by_weights=kinds, old_new_min_separation=sep,
+        bert_requests=len(bsent), bert_done_during_reload=len(during),
+        bert_longest_gap_across_reload_ms=gap_in * 1e3,
+        bert_longest_gap_elsewhere_ms=gap_out * 1e3,
+        bert_calls=calls, bert_launches_per_batch={
+            n: v / calls for n, v in launches.items() if v},
+        tenants={t: dict(completed=s["completed_total"],
+                         rejected=s["rejected_total"],
+                         p50_ms=s.get("latency", {}).get("p50_ms"),
+                         p99_ms=s.get("latency", {}).get("p99_ms"))
+                 for t, s in stats.items()},
+        bert_max_abs=worst)
+    log(f"two tenants over {wall:.2f} s: bert {stats['bert']['latency']}, "
+        f"ctr {stats['ctr']['latency']}; completed "
+        f"{ {t: s['completed_total'] for t, s in stats.items()} }, "
+        f"rejected (a client resubmits) "
+        f"{ {t: s['rejected_total'] for t, s in stats.items()} }; "
+        f"bert launches a batch {summary['bert_launches_per_batch']} over "
+        f"{calls} batches; reload of {swapped} vars in "
+        f"{summary['reload_ms']:.1f} ms mid-traffic, {len(during)} bert "
+        f"responses inside it (the longest wait between two bert "
+        f"responses {gap_in * 1e3:.1f} ms across it, "
+        f"{gap_out * 1e3:.1f} ms elsewhere), "
+        f"ctr responses on the "
+        f"old / new weights {kinds} (the two forwards at least {sep:.3g} "
+        f"apart), bert responses max abs {worst:.4g} from the eager model")
+    # a quota overrun: ctr's burst is refused for ctr alone
+    burst, rejected = [], []
+    for req in creqs[:4 * DEPLOY_CTR_QUOTA]:
+        try:
+            burst.append(reg.submit("ctr", req))
+        except EngineOverloaded as e:
+            rejected.append(e.resource)
+    others = [reg.submit("bert", breqs[i]) for i in range(4)]
+    for r in burst + others:
+        r.result(timeout=300)
+    if not rejected or set(rejected) != {"tenant:ctr"}:
+        raise AssertionError(f"quota overrun: rejected {rejected}")
+    # unregister: ctr's queued requests cancelled, bert's answered
+    bq = [reg.submit("bert", breqs[i], priority=5.0) for i in range(8)]
+    cq = [reg.submit("ctr", req) for req in creqs[:DEPLOY_CTR_QUOTA]]
+    reg.unregister("ctr")
+    cancelled = answered = 0
+    for r in cq:
+        try:
+            r.result(timeout=300)
+            answered += 1
+        except RequestCancelled:
+            cancelled += 1
+    for r in bq:
+        r.result(timeout=300)
+    if cancelled == 0 or reg.model_names() != ["bert"]:
+        raise AssertionError(f"unregister: {cancelled} cancelled, "
+                             f"{answered} answered, {reg.model_names()}")
+    reg.close()
+    summary.update(quota_rejections=len(rejected),
+                   quota_admitted=len(burst), unregister_cancelled=cancelled,
+                   unregister_answered=answered)
+    log(f"quota {DEPLOY_CTR_QUOTA}: a burst of {4 * DEPLOY_CTR_QUOTA} ctr "
+        f"requests, {len(rejected)} refused (tenant:ctr only), 4 bert "
+        f"requests admitted beside it; unregister('ctr') cancelled "
+        f"{cancelled} queued requests ({answered} were in flight), 8 bert "
+        f"requests answered")
+    return launches, summary
+
+
+def _deploy_sigkill(C, work, device="cuda"):
+    """(d): tests/torch_ckpt_worker.py on the card at DEPLOY_KILL_CFG, the
+    golden and the killed worker at once, then the resumed one."""
+    cfg = dict(C.SMALL, **DEPLOY_KILL_CFG)
+    data = os.path.join(work, "kill_data")
+    C.write_files(data, cfg, 2, DEPLOY_KILL_LINES, seed=40)
+    worker = str(Path(__file__).resolve().parent / "tests"
+                 / "torch_ckpt_worker.py")
+
+    def start(out, ck, kill_at=-1):
+        env = dict(os.environ, DATA_DIR=data, DEVICE=device,
+                   CTR_CFG=json.dumps(DEPLOY_KILL_CFG),
+                   PYTHONPATH=str(Path(__file__).resolve().parent),
+                   PADDLE_CKPT_DIR=ck, PADDLE_CKPT_EVERY_STEPS="2",
+                   KILL_AT_STEP=str(kill_at))
+        return subprocess.Popen([sys.executable, worker, out], env=env,
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+
+    def finish(p):
+        try:
+            out, err = p.communicate(timeout=300)
+        finally:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        return p.returncode, out + err
+
+    gold, log_ = os.path.join(work, "gold.txt"), os.path.join(work, "t.txt")
+    steps = 2 * DEPLOY_KILL_LINES // cfg["batch"]
+    kill_at = 1 + steps // 2  # the executor's step: startup is step 1
+    t0 = time.perf_counter()
+    pg = start(gold, os.path.join(work, "ck_gold"))
+    pk = start(log_, os.path.join(work, "ck_kill"), kill_at)
+    (rg, og), (rk, ok) = finish(pg), finish(pk)
+    if rg != 0 or rk != -9:
+        raise AssertionError(f"golden worker rc {rg}, killed worker rc "
+                             f"{rk}:\n{og[-2000:]}\n{ok[-2000:]}")
+    rr, orr = finish(start(log_, os.path.join(work, "ck_kill")))
+    wall = time.perf_counter() - t0
+    if rr != 0:
+        raise AssertionError(f"resumed worker rc {rr}:\n{orr[-2000:]}")
+
+    def traj(path):
+        out = {}
+        for line in Path(path).read_text().splitlines():
+            s, loss = line.split()
+            out[int(s)] = float(loss)
+        return out
+
+    want, got = traj(gold), traj(log_)
+    err = max(abs(got[s] - want[s]) / abs(want[s]) for s in want)
+    if sorted(got) != sorted(want) or len(want) != steps or \
+            err > DEPLOY_RESUME_RTOL:
+        raise AssertionError(f"SIGKILL resume: steps {sorted(got)} vs "
+                             f"{sorted(want)}, losses within {err}")
+    log(f"SIGKILL at step {kill_at} of {steps} (table {cfg['hash_dim']} x "
+        f"10, fc {cfg['width']}, B={cfg['batch']}; checkpoints every 2), "
+        f"resumed in a new process: every step's loss within {err:.3g} of "
+        f"the uninterrupted worker's ({wall:.1f} s for the three workers)")
+    return dict(kill_at=kill_at, steps=steps, loss_err=err, wall_s=wall)
+
+
+@phase("deploy")
+def deploy():
+    """Checkpoints, export and two-tenant serving: see the module's
+    docstring."""
+    from paddle_tpu_torch import fluid
+
+    C = _ctr_module()
+    work = tempfile.mkdtemp(prefix="deploy_")
+    try:
+        summary, trained = _deploy_ckpt(fluid, C, work)
+        pred, layer, summary["export_launches"], summary["export"] = \
+            _deploy_export(work)
+        launches, summary["serve"] = _deploy_serve(fluid, C, work, pred,
+                                                   layer, trained)
+        del pred, layer, trained
+        torch.cuda.empty_cache()
+        summary["sigkill"] = _deploy_sigkill(C, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    summary["card"] = card_line()
+    log("deploy summary: " + json.dumps(summary, default=str))
+    return launches
+
+
 def tensor_methods_ab(cycles=2):
     """The decode, seq2seq and srl phases `cycles` times in the turns on,
     off, off, on of the `matmul` / `unsqueeze` extensions (each phase
@@ -6495,6 +7199,9 @@ def main():
         ctr()
         sys.exit(1 if FAILURES else 0)
     build_kernels()
+    if "--deploy" in sys.argv[1:]:
+        deploy()
+        sys.exit(1 if FAILURES else 0)
     if "--tensor-methods-ab" in sys.argv[1:]:
         tensor_methods_ab()
         sys.exit(1 if FAILURES else 0)
@@ -6522,11 +7229,12 @@ def main():
     amp_path = fluid_amp()
     ssd_path = ssd()
     ctr_path = ctr()
+    deploy_path = deploy()
     if FAILURES or None in (rows, probed, served, decoded, trained, library,
                             resnet_path, fluid_path, wmt_paths, hapi_path,
                             dygraph_path, s2s_paths, srl_paths,
                             mobile_paths, gan_path, static_paths, amp_path,
-                            ssd_path, ctr_path):
+                            ssd_path, ctr_path, deploy_path):
         log(f"FAILED phases: {FAILURES}")
         print(f"FAILED phases: {FAILURES}", file=sys.stderr, flush=True)
         sys.exit(1)
@@ -6537,7 +7245,7 @@ def main():
              "hapi": hapi_path, "dygraph": dygraph_path, **s2s_paths,
              **srl_paths, **mobile_paths, "cyclegan": gan_path,
              **static_paths, "fluid_amp": amp_path, "ssd": ssd_path,
-             "ctr": ctr_path}
+             "ctr": ctr_path, "deploy": deploy_path}
     for r in rows:
         # `launches` is the count on the path where the kernel runs: the
         # probe for its three kernels, the decode path for ragged_paged,

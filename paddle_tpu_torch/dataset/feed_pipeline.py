@@ -20,6 +20,13 @@ backpressured: the device sets the pace) and `ring_empty_wait_ms`
 (consumer starved: the feed does); `attribute_stall` classifies them
 and `FeedPipeline.feed_report` sums them up.
 
+Mid-epoch resume (paddle_tpu_torch.ckpt): opening a fluid dataset
+records the feed epoch on it (`_feed_epoch`, one more a pass unless the
+caller names it), and the first `skip_batches` batches of a resumed
+epoch are drawn and dropped on the producer thread before anything is
+staged (`feed_skipped_batches`), as the reference does; the order itself
+is the dataset's, the same for the same files and seed.
+
 One process: `host_topology` reports a single host, and the datasets
 refuse a shard of more than one host until ROADMAP queue 1 item 10
 brings torch.distributed in.  The shard math (`epoch_order`,
@@ -166,19 +173,29 @@ class FeedPipeline:
     """Iterable of staged feeds: parser pool -> `stage_fn` (producer
     thread) -> `DeviceRing` -> consumer.
 
-    `source` is a fluid dataset (one pass of its `batch_iter`) or any
-    iterable of host feed dicts.  `stage_fn(feed)` runs on the producer
-    thread."""
+    `source` is a fluid dataset (one pass of its `batch_iter`, feed epoch
+    `epoch`, default the next) or any iterable of host feed dicts.
+    `stage_fn(feed)` runs on the producer thread; the first
+    `skip_batches` batches are dropped unstaged (a resumed epoch)."""
 
     def __init__(self, stage_fn: Callable[[Any], Any], source,
-                 depth: Optional[int] = None):
+                 depth: Optional[int] = None, epoch: Optional[int] = None,
+                 skip_batches: int = 0):
         self._stage = stage_fn
         self._depth = DEFAULT_PREFETCH_DEPTH if depth is None \
             else max(1, int(depth))
+        self._skip = max(0, int(skip_batches))
         self._ring = DeviceRing(self._depth)
         batch_iter = getattr(source, "batch_iter", None)
-        self._batch_iter = iter(source) if batch_iter is None \
-            else batch_iter()
+        if batch_iter is None:
+            self._batch_iter = iter(source)
+        else:
+            # the epoch counter advances a pass: the checkpoints key the
+            # mid-epoch resume off it
+            if epoch is None:
+                epoch = getattr(source, "_feed_epoch", -1) + 1
+            source._feed_epoch = int(epoch)
+            self._batch_iter = batch_iter()
         self.epoch_feed_ms = 0.0
         profiler.stat_set("prefetch_depth", self._depth)
         self._thread = threading.Thread(target=self._produce, daemon=True,
@@ -190,6 +207,15 @@ class FeedPipeline:
         t_start = time.perf_counter()
         try:
             it = self._batch_iter
+            skipped = 0
+            while skipped < self._skip:
+                try:
+                    next(it)  # consumed before the checkpoint: not staged
+                except StopIteration:
+                    break
+                skipped += 1
+            if skipped:
+                profiler.stat_add("feed_skipped_batches", skipped)
             while True:
                 t0 = time.perf_counter()
                 try:

@@ -33,19 +33,18 @@ arrived, at `sync()`, or at a dataset loop's exit, naming the first
 variable.  `train_from_dataset` / `infer_from_dataset` drive a fluid
 dataset through `dataset.feed_pipeline.FeedPipeline` (batches staged
 ahead on a side stream) with the host at most `prefetch_depth` steps
-ahead of the device.
+ahead of the device; `train_from_dataset` checkpoints and resumes through
+`_AutoCheckpoint` (paddle_tpu_torch.ckpt).
 
 The callable runs eagerly, op by op: capturing it in a CUDA graph or
 compiling it is not ported, nor are the AOT cache and numerics (ROADMAP
-queue 1 items 11 and 13), or train_from_dataset's checkpointing (item 11)
-and telemetry (item 13).
+queue 1 items 11 and 13), or train_from_dataset's telemetry (item 13).
 """
 
 from __future__ import annotations
 
 import collections
 import contextlib
-import os
 import threading
 import time
 from typing import Any, Dict, List, Optional
@@ -433,6 +432,150 @@ class _LiveBlock:
         return getattr(self._block, name)
 
 
+class _AutoCheckpoint:
+    """train_from_dataset's auto-checkpoint (the reference's
+    executor.py:482-640): owns the CheckpointManager, the every-N-steps
+    or -seconds cadence and the resume.
+
+    Against the dataset's feed-epoch counter (a pass is one epoch):
+    - the checkpoint's feed_epoch is this pass's: a mid-epoch resume
+      (restore the state and the executor's step, re-deal the epoch,
+      skip the consumed batches);
+    - it is a later one: this pass ran before the preemption (restore,
+      consume the epoch counter, `skip_pass`);
+    - it is older than the live in-process state: ignored (a live job
+      never moves backwards)."""
+
+    def __init__(self, exe, program, scope, dataset, manager,
+                 every_steps: int, every_secs: float):
+        self._exe = exe
+        self._program = program
+        self._scope = scope
+        self._dataset = dataset
+        self.manager = manager
+        self.every_steps = every_steps
+        self.every_secs = every_secs
+        self.epoch: Optional[int] = None
+        self.step_in_epoch = 0
+        self.skip_pass = False
+        self.restored_from: Optional[str] = None
+        self._steps_since_save = 0
+        self._last_save_t = time.perf_counter()
+
+    @staticmethod
+    def setup(exe, program, scope, dataset, checkpoint_dir, every_steps,
+              every_secs, keep, resume) -> Optional["_AutoCheckpoint"]:
+        if checkpoint_dir is None:
+            checkpoint_dir = flags.flag("ckpt_dir", "") or None
+        if not checkpoint_dir:
+            return None
+        from ..ckpt import CheckpointManager
+
+        every_steps = int(flags.flag("ckpt_every_steps", 0)
+                          if every_steps is None else every_steps)
+        every_secs = float(flags.flag("ckpt_every_secs", 0.0)
+                           if every_secs is None else every_secs)
+        resume = bool(flags.flag("ckpt_resume", True)) if resume is None \
+            else bool(resume)
+        manager = CheckpointManager(checkpoint_dir, keep=keep)
+        self = _AutoCheckpoint(exe, program, scope, dataset, manager,
+                               every_steps, every_secs)
+        if resume:
+            self._try_resume()
+        return self
+
+    def _try_resume(self) -> None:
+        import warnings
+
+        path = self.manager.latest()
+        if path is None:
+            return
+        manifest = self.manager.read_meta(path)
+        meta = manifest.get("meta", {})
+        feed_epoch = int(meta.get("feed_epoch", 0))
+        ds_next = int(getattr(self._dataset, "_feed_epoch", -1)) + 1
+        if feed_epoch < ds_next:
+            return  # the live in-process state is ahead of the checkpoint
+        state, _ = self.manager.restore(path)
+        self._apply_state(state)
+        self._exe._step = int(meta.get("executor_step", 0))
+        saved_seed = meta.get("feed_seed")
+        live_seed = int(getattr(self._dataset, "_seed", 0))
+        if saved_seed is not None and int(saved_seed) != live_seed:
+            warnings.warn(
+                f"checkpoint {path} was written with feed seed "
+                f"{saved_seed}, the dataset uses {live_seed}: the "
+                f"resumed data order will NOT match the saved run")
+        if feed_epoch > ds_next:
+            # this pass ran before the preemption: consume its epoch
+            self._dataset._feed_epoch = ds_next
+            self.skip_pass = True
+        else:
+            self.epoch = feed_epoch
+            self.step_in_epoch = int(meta.get("step_in_epoch", 0))
+        self.restored_from = path
+        profiler.stat_add("ckpt_resume_count")
+
+    def _apply_state(self, state) -> None:
+        """Each persistable var of the program that the checkpoint holds,
+        in the var's dtype, onto the Executor's device."""
+        persist = {v.name: v for v in self._program.list_vars()
+                   if v.persistable}
+        for name, val in state.items():
+            var = persist.get(name)
+            if var is None:
+                continue
+            val = val.to(core.torch_dtype(var.dtype))
+            self._scope.set(name, self._exe._to_device(val))
+
+    def bind_epoch(self, dataset) -> None:
+        """The feed epoch the pipeline opened."""
+        if self.epoch is None:
+            self.epoch = int(getattr(dataset, "_feed_epoch", 0) or 0)
+
+    def on_step(self) -> None:
+        self.step_in_epoch += 1
+        self._steps_since_save += 1
+        due = (self.every_steps > 0
+               and self._steps_since_save >= self.every_steps)
+        if not due and self.every_secs > 0:
+            due = (time.perf_counter() - self._last_save_t
+                   >= self.every_secs)
+        if due:
+            self._save_now()
+
+    def on_pass_end(self) -> None:
+        """The end-of-pass save; then the writer is drained and stopped,
+        raising what it hit."""
+        if self._steps_since_save > 0:
+            self._save_now()
+        self.manager.close()
+
+    def abandon(self) -> None:
+        """The loop failed: commit what was enqueued, then stop the
+        writer; its errors stand behind the loop's own."""
+        try:
+            self.manager.close()
+        except Exception:  # noqa: BLE001 - the loop's error propagates
+            pass
+
+    def _save_now(self) -> None:
+        from .io import _persistable_names
+
+        scope, state = self._scope, {}
+        for name in _persistable_names(self._program):
+            if scope.has(name) and scope.get(name) is not None:
+                state[name] = scope.get(name)
+        self.manager.save_async(state, step=self._exe._step, meta={
+            "feed_epoch": int(self.epoch or 0),
+            "step_in_epoch": self.step_in_epoch,
+            "executor_step": int(self._exe._step),
+            "feed_seed": int(getattr(self._dataset, "_seed", 0)),
+        })
+        self._steps_since_save = 0
+        self._last_save_t = time.perf_counter()
+
+
 class _Entry:
     """One built block: the callable and the names it reads and writes.
     `program` and `scope` pin the originals, so the id()-based cache key
@@ -716,25 +859,27 @@ class Executor:
         handles.  The NaN monitor is drained at the loop's exit.  Returns
         the last step's fetches as numpy (None for an empty pass).
 
-        Auto-checkpointing (the checkpoint arguments, FLAGS_ckpt_* or
-        PADDLE_CKPT_DIR) waits for ROADMAP queue 1 item 11 and raises;
-        the telemetry flags (FLAGS_obs_*) wait for item 13."""
-        ckpt = dict(checkpoint_dir=checkpoint_dir,
-                    checkpoint_every_steps=checkpoint_every_steps,
-                    checkpoint_every_secs=checkpoint_every_secs,
-                    checkpoint_keep=checkpoint_keep, resume=resume)
-        asked = {k: v for k, v in ckpt.items() if v is not None}
-        if os.environ.get("PADDLE_CKPT_DIR"):
-            asked["PADDLE_CKPT_DIR"] = os.environ["PADDLE_CKPT_DIR"]
-        if asked:
-            raise NotImplementedError(
-                f"train_from_dataset {asked}: auto-checkpointing waits for "
-                f"ROADMAP queue 1 item 11 (ckpt/)")
+        Auto-checkpointing: with `checkpoint_dir` (or FLAGS_ckpt_dir /
+        PADDLE_CKPT_DIR) the loop saves async checkpoints at step
+        boundaries, every `checkpoint_every_steps` steps and/or
+        `checkpoint_every_secs` seconds and once at the pass's end, keeps
+        `checkpoint_keep` of them, and with `resume` (default on) first
+        restores the newest: the scope's persistables, the executor's
+        step, and the feed order's place (the manifest's feed_epoch and
+        step_in_epoch; the consumed batches are skipped), so a run killed
+        at a step boundary and resumed gives the uninterrupted run's
+        losses.  `step_callback`'s second argument is then the step in
+        the epoch.  The telemetry flags (FLAGS_obs_*) wait for ROADMAP
+        queue 1 item 13."""
         flags.check_unported(flags.LOOP_FLAGS)
         return self._dataset_loop(program, dataset, scope, thread, debug,
                                   fetch_list, fetch_info, print_period,
                                   fetch_handler, prefetch_depth,
-                                  step_callback)
+                                  step_callback, dict(
+                                      checkpoint_dir=checkpoint_dir,
+                                      every_steps=checkpoint_every_steps,
+                                      every_secs=checkpoint_every_secs,
+                                      keep=checkpoint_keep, resume=resume))
 
     def infer_from_dataset(self, program=None, dataset=None, scope=None,
                            thread=0, debug=False, fetch_list=None,
@@ -751,7 +896,7 @@ class Executor:
 
     def _dataset_loop(self, program, dataset, scope, thread, debug,
                       fetch_list, fetch_info, print_period, fetch_handler,
-                      prefetch_depth, step_callback):
+                      prefetch_depth, step_callback, checkpoint=None):
         from ..dataset.feed_pipeline import DEFAULT_PREFETCH_DEPTH, \
             FeedPipeline
         from .compiler import CompiledProgram
@@ -770,6 +915,11 @@ class Executor:
         block_program = program._program if isinstance(
             program, CompiledProgram) else program
         scope = scope if scope is not None else global_scope()
+        ckpt = None if checkpoint is None else _AutoCheckpoint.setup(
+            self, block_program, scope, dataset, **checkpoint)
+        if ckpt is not None and ckpt.skip_pass:
+            ckpt.manager.close()
+            return None  # this pass ran before the checkpoint was taken
         cuda = self.device.type == "cuda"
         if cuda and self._copy_stream is None:
             self._copy_stream = torch.cuda.Stream(self.device)
@@ -781,7 +931,10 @@ class Executor:
         in_flight = collections.deque()
         batches = iter(FeedPipeline(
             lambda f: self._stage_feed(block_program, f), dataset,
-            depth=depth))
+            depth=depth, epoch=None if ckpt is None else ckpt.epoch,
+            skip_batches=0 if ckpt is None else ckpt.step_in_epoch))
+        if ckpt is not None:
+            ckpt.bind_epoch(dataset)
         try:
             for staged in batches:
                 feed = staged.arrive(self.device) if isinstance(
@@ -799,16 +952,25 @@ class Executor:
                     if len(in_flight) > depth:
                         # the host runs at most `depth` steps ahead
                         in_flight.popleft().synchronize()
+                if ckpt is not None:
+                    ckpt.on_step()
                 if step_callback is not None:
-                    step_callback(self._step, step, outs)
+                    step_callback(self._step, step if ckpt is None
+                                  else ckpt.step_in_epoch, outs)
                 if debug and fetch_list and step % print_period == 0:
                     msg = ", ".join(f"{n}={o.numpy().ravel()[:1]}"
                                     for n, o in zip(fetch_info, outs))
                     print(f"[train_from_dataset] step {step}: {msg}")
+        except BaseException:
+            if ckpt is not None:
+                ckpt.abandon()
+            raise
         finally:
             batches.close()  # stops the producer, on an error too
             profiler.stat_set("in_flight_steps", 0)
             if monitor is not None:
                 monitor.stop()
+        if ckpt is not None:
+            ckpt.on_pass_end()
         self._nan_monitor.drain()
         return None if last is None else [h.numpy() for h in last]

@@ -6,18 +6,19 @@ read with `flag(name)` and set with `set_flags({"FLAGS_<name>": value})`;
 unknown names raise, as in the reference.  Three kinds:
 
 - honoured: `check_nan_inf` (the Executor's non-finite monitor),
-  `op_callstack` (the construction stack on every appended op) and
-  `cudnn_deterministic` (torch.backends.cudnn.deterministic);
+  `op_callstack` (the construction stack on every appended op),
+  `cudnn_deterministic` (torch.backends.cudnn.deterministic) and the
+  `ckpt_*` flags of train_from_dataset's auto-checkpoint, seeded as in
+  the reference from PADDLE_CKPT_* before FLAGS_ckpt_*;
 - kept for parity, as the reference keeps them (allocator and threading
   knobs that neither package acts on): any value is accepted;
-- the reference's machinery that the port lacks (checkpointing,
-  telemetry, quantized collectives, the AOT cache, autotuning, the
-  program verifier and transform passes, per-op numerics): the default
-  is accepted, and another value raises NotImplementedError naming its
-  ROADMAP item, when it is set and, for a value from the environment,
-  where the machinery would run (`check_unported`).  The reference's
-  PADDLE_* aliases of these (PADDLE_AOT_CACHE_DIR, PADDLE_OBS_*, ...)
-  are not read, but PADDLE_CKPT_DIR, which train_from_dataset checks.
+- the reference's machinery that the port lacks (telemetry, quantized
+  collectives, the AOT cache, autotuning, the program verifier and
+  transform passes, per-op numerics): the default is accepted, and
+  another value raises NotImplementedError naming its ROADMAP item, when
+  it is set and, for a value from the environment, where the machinery
+  would run (`check_unported`).  The reference's PADDLE_* aliases of
+  these (PADDLE_AOT_CACHE_DIR, PADDLE_OBS_*, ...) are not read.
 """
 
 from __future__ import annotations
@@ -28,17 +29,20 @@ from typing import Any, Callable, Dict
 _REGISTRY: Dict[str, dict] = {}
 
 # ROADMAP items of the machinery behind the flags the port lacks
-_CKPT = "queue 1 item 11 (ckpt/, auto-checkpoint)"
 _AOT = "queue 1 item 11 (fluid/aot_cache.py)"
 _COLL = "queue 1 item 10 (parallel and distributed)"
 _TOOLS = "queue 1 item 13 (tooling: obs, analysis, transforms, tune)"
 
 
 def _define(name, default, help_str="", on_set: Callable = None,
-            typ=None, unported: str = None):
+            typ=None, unported: str = None, env_var: str = None):
+    """`env_var` names an environment variable read before
+    FLAGS_<name>, as the reference reads PADDLE_CKPT_*."""
     typ = typ or type(default)
     value = default
-    env = os.environ.get(f"FLAGS_{name}")
+    env = os.environ.get(env_var) if env_var is not None else None
+    if env is None:
+        env = os.environ.get(f"FLAGS_{name}")
     if env is not None:
         value = env.lower() in ("1", "true", "yes") if typ is bool \
             else typ(env)
@@ -65,6 +69,21 @@ _define("op_callstack", False,
 _define("cudnn_deterministic", False,
         "deterministic cuDNN algorithms (torch.backends.cudnn."
         "deterministic)", _set_deterministic)
+# train_from_dataset's auto-checkpoint (paddle_tpu_torch.ckpt)
+_define("ckpt_dir", "", "auto-checkpoint root of train_from_dataset",
+        env_var="PADDLE_CKPT_DIR")
+_define("ckpt_every_steps", 0,
+        "auto-checkpoint every N steps (0 = only the end-of-pass save)",
+        env_var="PADDLE_CKPT_EVERY_STEPS")
+_define("ckpt_every_secs", 0.0,
+        "auto-checkpoint every N seconds (0 = off; whichever of the two "
+        "fires first)", env_var="PADDLE_CKPT_EVERY_SECS")
+_define("ckpt_keep", 3, "checkpoints kept", env_var="PADDLE_CKPT_KEEP")
+_define("ckpt_max_in_flight", 2,
+        "snapshots pending before save_async backpressures",
+        env_var="PADDLE_CKPT_MAX_IN_FLIGHT")
+_define("ckpt_resume", True, "resume from the newest checkpoint",
+        env_var="PADDLE_CKPT_RESUME")
 # -- kept for parity (the reference acts on none of them either) -------------
 _define("allocator_strategy", "auto_growth", "host-staging allocator")
 _define("eager_delete_tensor_gb", 0.0, "GC threshold")
@@ -85,17 +104,6 @@ _define("graph_transforms", "on", "transform pass pipeline",
         unported=_TOOLS)
 _define("transform_debug", False, "per-pass transform bisection",
         unported=_TOOLS)
-_define("ckpt_dir", "", "auto-checkpoint root of train_from_dataset",
-        unported=_CKPT)
-_define("ckpt_every_steps", 0, "auto-checkpoint every N steps",
-        unported=_CKPT)
-_define("ckpt_every_secs", 0.0, "auto-checkpoint every N seconds",
-        unported=_CKPT)
-_define("ckpt_keep", 3, "checkpoints kept", unported=_CKPT)
-_define("ckpt_max_in_flight", 2, "checkpoint write queue bound",
-        unported=_CKPT)
-_define("ckpt_resume", True, "resume from the newest checkpoint",
-        unported=_CKPT)
 _define("obs_sample_s", 1.0, "telemetry sampler period", unported=_TOOLS)
 _define("obs_http_port", -1, "telemetry HTTP port", unported=_TOOLS)
 _define("obs_flight_dir", "artifacts/flight", "flight-recorder dir",
@@ -125,9 +133,7 @@ COMPILE_FLAGS = ("check_numerics", "verify_program", "graph_transforms",
                  "autotune_max_candidates", "quant_collectives",
                  "quant_collectives_min_bytes")
 # checked at each train_from_dataset, where the reference arms them
-LOOP_FLAGS = ("ckpt_dir", "ckpt_every_steps", "ckpt_every_secs",
-              "ckpt_keep", "ckpt_max_in_flight", "ckpt_resume",
-              "obs_sample_s", "obs_http_port", "obs_flight_dir",
+LOOP_FLAGS = ("obs_sample_s", "obs_http_port", "obs_flight_dir",
               "obs_flight_keep", "obs_flight_min_interval_s")
 
 

@@ -1,5 +1,4 @@
 """fluid.incubate (counterpart of paddle_tpu/fluid/incubate): the
-MultiSlot data generator.  The auto-checkpoint half waits for ROADMAP
-queue 1 item 11 (ckpt/)."""
+MultiSlot data generator and the epoch auto-checkpoint."""
 
-from . import data_generator  # noqa: F401
+from . import checkpoint, data_generator  # noqa: F401

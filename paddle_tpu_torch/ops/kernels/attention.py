@@ -31,7 +31,7 @@ package drop the same probabilities for the same seed.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -240,19 +240,92 @@ def _flash_forward_cuda(q, k, v, key_bias, seed, causal, causal_offset,
     return out, lse
 
 
+def register_grads(op, plain):
+    """Autograd of a kernel's forward operator on the CPU: the plain
+    version's own autograd, recomputed, as it was before the forward
+    became an operator.  On the card the training paths differentiate
+    through their autograd.Functions (whose forward runs with grad off),
+    and a gradient asked of the operator itself raises."""
+
+    def setup(ctx, inputs, output):
+        ctx.save_for_backward(*[x for x in inputs
+                                if isinstance(x, torch.Tensor)])
+        ctx.others = [None if isinstance(x, torch.Tensor) else x
+                      for x in inputs]
+        ctx.tensor_at = {i for i, x in enumerate(inputs)
+                         if isinstance(x, torch.Tensor)}
+
+    def backward(ctx, *grads):
+        if any(g is not None and g.is_cuda for g in grads):
+            raise NotImplementedError(
+                f"{op}: differentiate through the kernels' autograd "
+                f"Function (FlashAttentionFunction, FusedFFNFunction, "
+                f"FFNLibraryFunction), whose backward is a kernel")
+        saved = iter(ctx.saved_tensors)
+        leaves = [next(saved).detach().requires_grad_(need)
+                  if i in ctx.tensor_at else x
+                  for i, (x, need) in enumerate(zip(ctx.others,
+                                                    ctx.needs_input_grad))]
+        with torch.enable_grad():
+            outs = plain(*leaves)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        pairs = [(o, g) for o, g in zip(outs, grads)
+                 if g is not None and o.requires_grad]
+        wrt = [x for x in leaves if isinstance(x, torch.Tensor)
+               and x.requires_grad]
+        got = iter(torch.autograd.grad(
+            [o for o, _ in pairs], wrt, [g for _, g in pairs],
+            allow_unused=True) if pairs and wrt else [None] * len(wrt))
+        return tuple(next(got) if isinstance(x, torch.Tensor)
+                     and x.requires_grad else None for x in leaves)
+
+    op.register_autograd(backward, setup_context=setup)
+
+
+# The forward as an operator, `paddle_tpu_torch::flash_forward`: its CUDA
+# implementation launches the kernel, its CPU implementation is the plain
+# version.  A graph traced by torch.export records the operator, not the
+# branch one of them takes, so an exported model launches the kernel on
+# the card.
+@torch.library.custom_op("paddle_tpu_torch::flash_forward", mutates_args=())
+def _flash_forward_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      key_bias: Optional[torch.Tensor], seed: int,
+                      causal: bool, causal_offset: int, scale: float,
+                      dropout_p: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    if q.is_cuda:
+        raise RuntimeError("flash_forward: no CUDA implementation reached")
+    return flash_forward_reference(q, k, v, key_bias, seed, causal,
+                                   causal_offset, scale, dropout_p)
+
+
+@_flash_forward_op.register_kernel("cuda")
+def _(q, k, v, key_bias, seed, causal, causal_offset, scale, dropout_p):
+    return _flash_forward_cuda(q, k, v, key_bias, seed, causal,
+                               causal_offset, scale, dropout_p)
+
+
+@_flash_forward_op.register_fake
+def _(q, k, v, key_bias, seed, causal, causal_offset, scale, dropout_p):
+    b, sq, h, _ = q.shape
+    return (q.new_empty(q.shape),
+            q.new_empty((b, h, sq), dtype=torch.float32))
+
+
+register_grads(_flash_forward_op, flash_forward_reference)
+
+
 def flash_forward(q, k, v, key_bias=None, seed=0, causal=False,
                   causal_offset=None, scale=None, dropout_p=0.0):
-    """(out, lse) of the flash forward: the CUDA kernel for CUDA tensors,
+    """(out, lse) of the flash forward, through the operator
+    `paddle_tpu_torch::flash_forward`: the CUDA kernel for CUDA tensors,
     the plain version for CPU tensors (and nothing else for either)."""
     d = q.shape[-1]
     scale = scale if scale is not None else 1.0 / (d ** 0.5)
     if causal_offset is None:
         causal_offset = k.shape[1] - q.shape[1]
-    if q.is_cuda:
-        return _flash_forward_cuda(q, k, v, key_bias, seed, causal,
-                                   causal_offset, scale, dropout_p)
-    return flash_forward_reference(q, k, v, key_bias, seed, causal,
-                                   causal_offset, scale, dropout_p)
+    return _flash_forward_op(q, k, v, key_bias, int(seed), bool(causal),
+                             int(causal_offset), float(scale),
+                             float(dropout_p))
 
 
 # -- backward: plain version -----------------------------------------------------

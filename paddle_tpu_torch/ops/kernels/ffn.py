@@ -39,7 +39,8 @@ import os
 import torch
 
 from ... import profiler
-from .attention import _M32, _finalize, _mul32, _threshold
+from .attention import (_M32, _finalize, _mul32, _threshold,
+                        register_grads)
 from .build import LaunchCounter, check, library, sm_count as _sm_count
 
 FFN_FWD = LaunchCounter("ffn_fwd")
@@ -214,15 +215,39 @@ def _ffn_forward_cuda(x, w1, b1, w2, b2, activation, dropout_p, seed):
     return out
 
 
+# The forward as an operator, `paddle_tpu_torch::ffn_forward` (as
+# attention.py's flash_forward): an exported graph records it and
+# launches the kernel on the card.
+@torch.library.custom_op("paddle_tpu_torch::ffn_forward", mutates_args=())
+def _ffn_forward_op(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                    w2: torch.Tensor, b2: torch.Tensor, activation: str,
+                    dropout_p: float, seed: int) -> torch.Tensor:
+    if x.is_cuda:
+        raise RuntimeError("ffn_forward: no CUDA implementation reached")
+    return ffn_forward_reference(x, w1, b1, w2, b2, activation, dropout_p,
+                                 seed)
+
+
+@_ffn_forward_op.register_kernel("cuda")
+def _(x, w1, b1, w2, b2, activation, dropout_p, seed):
+    return _ffn_forward_cuda(x, w1, b1, w2, b2, activation, dropout_p, seed)
+
+
+@_ffn_forward_op.register_fake
+def _(x, w1, b1, w2, b2, activation, dropout_p, seed):
+    return x.new_empty((x.shape[0], w2.shape[1]))
+
+
+register_grads(_ffn_forward_op, ffn_forward_reference)
+
+
 def ffn_forward(x, w1, b1, w2, b2, activation="gelu", dropout_p=0.0,
                 seed=0):
-    """x (T, H) -> (T, H): the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors (and nothing else for either)."""
-    if x.is_cuda:
-        return _ffn_forward_cuda(x, w1, b1, w2, b2, activation,
-                                 float(dropout_p), seed)
-    return ffn_forward_reference(x, w1, b1, w2, b2, activation,
-                                 float(dropout_p), seed)
+    """x (T, H) -> (T, H), through the operator
+    `paddle_tpu_torch::ffn_forward`: the CUDA kernel for CUDA tensors,
+    the plain version for CPU tensors (and nothing else for either)."""
+    return _ffn_forward_op(x, w1, b1, w2, b2, str(activation),
+                           float(dropout_p), int(seed))
 
 
 # -- backward -----------------------------------------------------------------
@@ -471,13 +496,7 @@ def _act_rng(dropout_p, seed):
             float(1.0 - dropout_p), int(seed) & _M32)
 
 
-def ffn_act_fwd(pre, b1, activation="gelu", dropout_p=0.0, seed=0):
-    """h = drop(act(pre + b1)), (T, F): the kernel `ffn_act_fwd`
-    (csrc/ffn_act.cu) for CUDA tensors, the plain version for CPU
-    tensors (and nothing else for either)."""
-    if not pre.is_cuda:
-        return ffn_act_fwd_reference(pre, b1, activation, float(dropout_p),
-                                     seed)
+def _ffn_act_fwd_cuda(pre, b1, activation, dropout_p, seed):
     pre, b1 = _act_operands(pre, b1, (), activation)
     h = torch.empty_like(pre)
     lib = _act_lib()
@@ -488,6 +507,38 @@ def ffn_act_fwd(pre, b1, activation="gelu", dropout_p=0.0, seed=0):
     check(lib, err, "ffn_act_fwd")
     FFN_ACT_FWD.add()
     return h
+
+
+# The element pass as an operator, `paddle_tpu_torch::ffn_act_fwd` (as
+# attention.py's flash_forward).
+@torch.library.custom_op("paddle_tpu_torch::ffn_act_fwd", mutates_args=())
+def _ffn_act_fwd_op(pre: torch.Tensor, b1: torch.Tensor, activation: str,
+                    dropout_p: float, seed: int) -> torch.Tensor:
+    if pre.is_cuda:
+        raise RuntimeError("ffn_act_fwd: no CUDA implementation reached")
+    return ffn_act_fwd_reference(pre, b1, activation, dropout_p, seed)
+
+
+@_ffn_act_fwd_op.register_kernel("cuda")
+def _(pre, b1, activation, dropout_p, seed):
+    return _ffn_act_fwd_cuda(pre, b1, activation, dropout_p, seed)
+
+
+@_ffn_act_fwd_op.register_fake
+def _(pre, b1, activation, dropout_p, seed):
+    return pre.new_empty(pre.shape)
+
+
+register_grads(_ffn_act_fwd_op, ffn_act_fwd_reference)
+
+
+def ffn_act_fwd(pre, b1, activation="gelu", dropout_p=0.0, seed=0):
+    """h = drop(act(pre + b1)), (T, F), through the operator
+    `paddle_tpu_torch::ffn_act_fwd`: the kernel `ffn_act_fwd`
+    (csrc/ffn_act.cu) for CUDA tensors, the plain version for CPU
+    tensors (and nothing else for either)."""
+    return _ffn_act_fwd_op(pre, b1, str(activation), float(dropout_p),
+                           int(seed))
 
 
 def ffn_act_bwd(pre, b1, dh, activation="gelu", dropout_p=0.0, seed=0):

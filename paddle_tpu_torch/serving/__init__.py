@@ -1,5 +1,5 @@
 """paddle_tpu_torch.serving — continuous-batching inference engine
-(counterpart of paddle_tpu.serving, default-model path).
+(counterpart of paddle_tpu.serving).
 
     from paddle_tpu_torch import serving
 
@@ -11,6 +11,16 @@ Pipeline: submit() -> DynamicBatcher (coalesce by signature, bounded
 queue, EngineOverloaded at the bound) -> dispatch loop (warm buckets
 only; new buckets park with the off-path warm-up thread) -> completer
 (the ONE device->host boundary, after the batch's CUDA event).
+
+Several models on one card (per-tenant quota and priority, live
+register / unregister / weight reload):
+
+    reg = serving.ModelRegistry(serving.EngineConfig(max_batch_size=32))
+    reg.register("bert", predictor, quota=16, priority=1.0)
+    reg.register("ctr", serving.ProgramModel(exe, prog, feeds, fetches,
+                                             scope=scope), quota=64)
+    out = reg.infer("ctr", batch)
+    reg.reload_weights("ctr", "ckpt_root")   # newest checkpoint, live
 
 Token generation over paged KV state:
 
@@ -25,9 +35,11 @@ from .batcher import DynamicBatcher, Request, Response
 from .bucketing import (BucketedRunner, bucket_for, bucket_ladder,
                         input_signature, pad_batch)
 from .engine import (AutoregressiveEngine, Engine, EngineConfig,
-                     LayeredDecoder)
+                     LayeredDecoder, ProgramModel)
 from .kv_cache import PagedKVCache, PageTable
-from .metrics import latency_stats, mean_occupancy, reset_latency
+from .metrics import (latency_stats, mean_occupancy, reset_latency,
+                      tenant_stat)
+from .registry import ModelRegistry, active_tenants
 
 __all__ = [
     "AdmissionController",
@@ -39,11 +51,14 @@ __all__ = [
     "EngineConfig",
     "EngineOverloaded",
     "LayeredDecoder",
+    "ModelRegistry",
     "PageTable",
     "PagedKVCache",
+    "ProgramModel",
     "Request",
     "RequestCancelled",
     "Response",
+    "active_tenants",
     "bucket_for",
     "bucket_ladder",
     "input_signature",
@@ -51,4 +66,5 @@ __all__ = [
     "mean_occupancy",
     "pad_batch",
     "reset_latency",
+    "tenant_stat",
 ]

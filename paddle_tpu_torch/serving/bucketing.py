@@ -73,19 +73,45 @@ class BucketedRunner:
     fn(*tensors) -> tensor / list of tensors, called on `device` under
     torch.inference_mode().  Outputs whose leading dim equals the padded
     batch are sliced back to the real row count (on the device, no
-    transfer)."""
+    transfer).  The warmed entries live in a bounded `CompileCache`
+    (`cache`, or one of CACHE_CAPACITY), keyed by (bucket, signature,
+    donate); the model registry gives each tenant its own.
 
-    def __init__(self, fn: Callable, buckets: Sequence[int], device=None):
+    `bucketed=False` runs exact request shapes, unpadded (the inference
+    `switch_ir_optim(False)` mapping).  `donate=True` (the inference
+    `enable_memory_optim` mapping) has no buffer donation to map to in
+    eager PyTorch: the padded feed on the device is released as soon as
+    the model has been called, where it is otherwise kept with the batch
+    until its outputs reach the host (`run_with_feed`); no answer
+    changes.  `aot_token` is accepted and ignored (the persistent AOT
+    cache is not ported: ROADMAP queue 1 item 11)."""
+
+    CACHE_CAPACITY = 32
+
+    def __init__(self, fn: Callable, buckets: Sequence[int], device=None,
+                 donate: bool = False, bucketed: bool = True,
+                 cache=None, aot_token: Optional[str] = None):
+        from ..fluid.compile_cache import CompileCache
+
         if not buckets:
             raise ValueError("BucketedRunner needs >= 1 bucket")
         self._fn = fn
         self.buckets = sorted(set(int(b) for b in buckets))
         self.device = _device.resolve(device)
-        self._compiled = set()
+        self.donate = bool(donate)
+        self.bucketed = bool(bucketed)
+        self.aot_token = aot_token
+        self._cache = cache if cache is not None else CompileCache(
+            self.CACHE_CAPACITY, stat_prefix="serving")
         self._compile_lock = threading.Lock()
 
     # -- entry management --------------------------------------------------
+    def _key(self, bucket: int, sig: Tuple) -> Tuple:
+        return (bucket, sig, self.donate)
+
     def _bucket_of(self, rows: int) -> int:
+        if not self.bucketed:
+            return rows
         b = bucket_for(rows, self.buckets)
         return b if b is not None else self.buckets[-1]
 
@@ -95,39 +121,40 @@ class BucketedRunner:
                 input_signature(inputs))
 
     def is_compiled(self, inputs: Sequence[Any]) -> bool:
-        return self.plan(inputs) in self._compiled
+        return self._key(*self.plan(inputs)) in self._cache
 
     def ensure_compiled(self, inputs: Sequence[Any]) -> None:
         """Warm up the entry for these inputs if it is new — the off-path
         half of the contract: the engine's compiler thread calls this
         with the request parked, the dispatch loop never does."""
-        key = self.plan(inputs)
-        if key in self._compiled:
+        bucket, sig = self.plan(inputs)
+        key = self._key(bucket, sig)
+        if self._cache.get(key) is not None:
             return
         # one warm-up at a time: racing threads would warm the same entry
         # twice (correct but wasteful)
         with self._compile_lock:
-            if key in self._compiled:
+            if self._cache.get(key) is not None:
                 return
             from ..profiler import stat_add, timed
 
-            bucket = key[0]
             with timed("serving_compile_ms"):
                 rows = min(inputs[0].shape[0], bucket)
                 self._call([pad_batch(a[:rows], bucket) for a in inputs])
                 if self.device.type == "cuda":
                     torch.cuda.synchronize(self.device)
             stat_add(TRACE_STAT)
-            self._compiled.add(key)
+            self._cache.put(key, True)
 
-    def _call(self, padded: Sequence[np.ndarray]) -> List[torch.Tensor]:
+    def _call(self, padded: Sequence[np.ndarray]):
+        """(outputs, the feed on the device)."""
         # inference_mode is thread-local: entered in the thread that runs
         # the model
         with torch.inference_mode():
             xs = [torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
                   for a in padded]
             out = self._fn(*xs)
-        return list(out) if isinstance(out, (list, tuple)) else [out]
+        return (list(out) if isinstance(out, (list, tuple)) else [out]), xs
 
     # -- execution ---------------------------------------------------------
     def run(self, inputs: Sequence[np.ndarray]) -> List[torch.Tensor]:
@@ -135,15 +162,21 @@ class BucketedRunner:
         bucketed entry; returns DEVICE tensors sliced to the real row
         count — the device may still be working on them (the caller
         waits at its own sanctioned boundary)."""
+        return self.run_with_feed(inputs)[0]
+
+    def run_with_feed(self, inputs: Sequence[np.ndarray]):
+        """`run`'s outputs and the device feed to keep with them until
+        they reach the host (None with `donate`)."""
         rows = inputs[0].shape[0]
         top = self.buckets[-1]
-        if rows > top:
-            return self._run_chunked(inputs, rows, top)
+        if self.bucketed and rows > top:
+            return self._run_chunked(inputs, rows, top), None
         bucket, _sig = self.plan(inputs)
         self.ensure_compiled(inputs)
-        outs = self._call([pad_batch(a, bucket) for a in inputs])
-        return [o[:rows] if o.ndim and o.shape[0] == bucket else o
+        outs, xs = self._call([pad_batch(a, bucket) for a in inputs])
+        outs = [o[:rows] if o.ndim and o.shape[0] == bucket else o
                 for o in outs]
+        return outs, None if self.donate else xs
 
     def _run_chunked(self, inputs, rows: int, top: int):
         """rows > max bucket: stream through the top bucket and
@@ -162,4 +195,4 @@ class BucketedRunner:
 
     @property
     def trace_count(self) -> int:
-        return len(self._compiled)
+        return len(self._cache)

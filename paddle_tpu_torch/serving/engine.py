@@ -1,5 +1,5 @@
 """The serving Engine: request queue -> dynamic batcher -> dispatch loop
-(counterpart of paddle_tpu/serving/engine.py, default-model path).
+(counterpart of paddle_tpu/serving/engine.py).
 
     submit()            bounded admission (EngineOverloaded at the bound)
       -> DynamicBatcher coalesce by signature, max_queue_delay_ms
@@ -13,10 +13,13 @@
                         fulfill futures
 
 The dispatch loop never waits on the device and never warms a bucket.
-The model is any callable `fn(*tensors) -> tensor(s)` run on the engine's
-device (cuda unless EngineConfig(device="cpu")).  Outputs come back as
-numpy arrays; bf16 outputs are widened to float32 on the host, since
-numpy has no bfloat16.
+A model is a callable `fn(*tensors) -> tensor(s)` run on the engine's
+device (cuda unless EngineConfig(device="cpu")), an inference.Predictor
+(on its own device), or a ProgramModel (an Executor and a Program, on
+the executor's device); besides the default model, named models share
+the pipeline as tenants (add_model, serving/registry.py).  Outputs come
+back as numpy arrays; bf16 outputs are widened to float32 on the host,
+since numpy has no bfloat16.
 
 `AutoregressiveEngine` (second half of this module) is the token
 generation engine: prefill/decode over a paged KV cache, chunked
@@ -40,7 +43,8 @@ from . import metrics
 from .admission import (AdmissionController, EngineClosed, EngineOverloaded,
                         RequestCancelled)
 from .batcher import DynamicBatcher, Request, Response
-from .bucketing import BucketedRunner, bucket_for, bucket_ladder
+from .bucketing import (BucketedRunner, bucket_for, bucket_ladder,
+                        input_signature, pad_batch)
 
 _SENTINEL = object()
 
@@ -57,21 +61,29 @@ class EngineConfig:
                        slices responses
     buckets            batch-shape ladder; default: power-of-2 ladder
                        over [min_bucket, max_batch_size]
-    device             where the model runs (default cuda; raises
-                       without CUDA unless "cpu" is named)
+    donate             release each batch's padded feed on the device
+                       right after the dispatch (inference
+                       Config.enable_memory_optim; see BucketedRunner)
+    bucketed           False = exact request shapes, no padding
+                       (inference Config.switch_ir_optim(False))
+    device             where callables run (default cuda; raises without
+                       CUDA unless "cpu" is named)
     """
 
     def __init__(self, max_batch_size: int = 8,
                  max_queue_delay_ms: float = 2.0, max_queue: int = 64,
                  max_in_flight: int = 2,
                  buckets: Optional[Sequence[int]] = None,
-                 min_bucket: int = 8, device=None):
+                 min_bucket: int = 8, donate: bool = False,
+                 bucketed: bool = True, device=None):
         self.max_batch_size = int(max_batch_size)
         self.max_queue_delay_ms = float(max_queue_delay_ms)
         self.max_queue = int(max_queue)
         self.max_in_flight = max(1, int(max_in_flight))
         self.buckets = list(buckets) if buckets else bucket_ladder(
             self.max_batch_size, min_bucket=min_bucket)
+        self.donate = bool(donate)
+        self.bucketed = bool(bucketed)
         self.device = device
 
 
@@ -82,19 +94,157 @@ def _to_host(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
-class Engine:
-    """Continuous-batching inference engine over one loaded model."""
+class _RunnerModel:
+    """BucketedRunner-backed model (callables and Predictors)."""
 
-    def __init__(self, model, config: Optional[EngineConfig] = None,
+    def __init__(self, runner: BucketedRunner):
+        self.runner = runner
+        self.buckets = runner.buckets
+        self.device = runner.device
+
+    def plan(self, inputs):
+        return self.runner.plan(inputs)
+
+    def is_compiled(self, inputs) -> bool:
+        return self.runner.is_compiled(inputs)
+
+    def ensure_compiled(self, inputs) -> None:
+        self.runner.ensure_compiled(inputs)
+
+    def run(self, inputs):
+        return self.runner.run(inputs)
+
+    def run_with_feed(self, inputs):
+        return self.runner.run_with_feed(inputs)
+
+
+class ProgramModel:
+    """Engine model over an Executor and a Program (or CompiledProgram).
+
+    Each batch is padded to its bucket and run by `executor.run` with
+    lazy fetches; bucketing pins the feed signatures to the ladder, so
+    the Executor's entry cache sees at most `len(buckets)` of them.  The
+    first batch of a bucket builds its entry inline, in whichever engine
+    thread runs it: the engine sends unseen buckets to its warm-up
+    thread, so that happens off the dispatch loop with the batch parked.
+    Runs on the executor's device."""
+
+    def __init__(self, executor, program, feed_names: Sequence[str],
+                 fetch_list: Sequence, scope=None,
+                 buckets: Optional[Sequence[int]] = None,
+                 bucketed: bool = True):
+        self.executor = executor
+        self.program = program
+        self.feed_names = list(feed_names)
+        self.fetch_list = list(fetch_list)
+        self.scope = scope
+        self.buckets = sorted(buckets) if buckets else bucket_ladder(8)
+        self.bucketed = bucketed
+        self.device = executor.device
+        self._seen = set()
+        # a batch runs on all old or all new weights, never a mix
+        self._swap = threading.Lock()
+
+    def plan(self, inputs):
+        rows = inputs[0].shape[0]
+        if self.bucketed:
+            b = bucket_for(rows, self.buckets)
+            bucket = b if b is not None else self.buckets[-1]
+        else:
+            bucket = rows
+        return bucket, input_signature(inputs)
+
+    def is_compiled(self, inputs) -> bool:
+        return self.plan(inputs) in self._seen
+
+    def ensure_compiled(self, inputs) -> None:
+        pass  # the entry is built inside run(); see the class docstring
+
+    def reload_weights(self, path: str) -> int:
+        """Swap this model's parameters from a checkpoint (a ckpt dir or a
+        checkpoint root: its newest complete one).  The new values are
+        moved to the executor's device first, then committed to the scope
+        together, between two batches: the Executor's const-state
+        identity check takes them at the next dispatch, batches already
+        dispatched finish on the old ones, and nothing drains.  Returns
+        the number of parameters swapped."""
+        from ..ckpt import read_state
+        from ..fluid import core
+        from ..fluid.executor import global_scope
+
+        state, _ = read_state(path)
+        scope = self.scope if self.scope is not None else global_scope()
+        program = getattr(self.program, "_program", self.program)
+        persist = {v.name: v for v in program.list_vars() if v.persistable}
+        new = {name: self.executor._to_device(
+                   val.to(core.torch_dtype(persist[name].dtype)))
+               for name, val in state.items() if name in persist}
+        with self._swap:
+            for name, val in new.items():
+                scope.set(name, val)
+        return len(new)
+
+    def run(self, inputs):
+        rows = inputs[0].shape[0]
+        top = self.buckets[-1]
+        if self.bucketed and rows > top:
+            parts = [self.run([a[lo:min(lo + top, rows)] for a in inputs])
+                     for lo in range(0, rows, top)]
+            return [torch.cat(vals, dim=0) for vals in zip(*parts)]
+        bucket, sig = self.plan(inputs)
+        padded = [pad_batch(a, bucket) for a in inputs]
+        with self._swap:
+            handles = self.executor.run(
+                self.program, feed=dict(zip(self.feed_names, padded)),
+                fetch_list=self.fetch_list, scope=self.scope,
+                return_numpy=False)
+        self._seen.add((bucket, sig))
+        return [h.torch()[:rows] for h in handles]
+
+
+def _as_model(model, config: EngineConfig):
+    if isinstance(model, (_RunnerModel, ProgramModel)):
+        return model
+    if hasattr(model, "_traceable_fn"):  # inference.Predictor
+        fn = model._traceable_fn()
+        fixed = model._fixed_batch()
+        buckets = [fixed] if fixed is not None else config.buckets
+        # the predictor's inference.Config flags map onto the runner's
+        # options: enable_memory_optim -> donate, switch_ir_optim(False)
+        # -> exact shapes
+        pcfg = getattr(model, "_config", None)
+        donate = config.donate or bool(getattr(pcfg, "memory_optim",
+                                               False))
+        bucketed = config.bucketed and bool(getattr(pcfg, "ir_optim",
+                                                    True))
+        return _RunnerModel(BucketedRunner(
+            fn, buckets, device=model.device, donate=donate,
+            bucketed=bucketed if fixed is None else True))
+    if callable(model):
+        return _RunnerModel(BucketedRunner(
+            model, config.buckets, device=config.device,
+            donate=config.donate, bucketed=config.bucketed))
+    raise TypeError(
+        f"Engine model must be a Predictor, a callable, or a "
+        f"ProgramModel; got {type(model).__name__}")
+
+
+class Engine:
+    """Continuous-batching inference engine over one loaded model — or,
+    through `add_model` / `ModelRegistry` (serving/registry.py), a fleet
+    of named models sharing this one pipeline.  `model` may be None when
+    every request names a registered model."""
+
+    def __init__(self, model=None, config: Optional[EngineConfig] = None,
                  start: bool = True):
         self.config = config or EngineConfig()
-        if not callable(model):
-            raise TypeError(f"Engine model must be a callable; got "
-                            f"{type(model).__name__}")
-        # the engine drives the bucketed runner directly: plan /
-        # is_compiled / ensure_compiled / run
-        self.model = BucketedRunner(model, self.config.buckets,
-                                    device=self.config.device)
+        self.model = _as_model(model, self.config) \
+            if model is not None else None
+        # named tenants: name -> wrapped model, changed live by
+        # add_model / remove_model without draining; a batch resolves its
+        # model at dispatch and never mixes tenants
+        self._models: dict = {}
+        self._models_lock = threading.Lock()
         self._batcher = DynamicBatcher(
             max_batch_size=self.config.max_batch_size,
             max_queue_delay_ms=self.config.max_queue_delay_ms,
@@ -160,14 +310,59 @@ class Engine:
     def __exit__(self, *exc) -> None:
         self.shutdown(drain=True)
 
+    # -- multi-tenant fleet (serving/registry.py) --------------------------
+    def add_model(self, name: str, model, quota: Optional[int] = None,
+                  priority: float = 0.0):
+        """Register (or hot-swap) a named model live: batches already
+        dispatched finish on the model they resolved, requests after this
+        call see the new one.  `quota` bounds the tenant's queued
+        requests (EngineOverloaded beyond it); `priority` is its base
+        scheduling priority (aged by waiting time)."""
+        wrapped = _as_model(model, self.config)
+        with self._models_lock:
+            self._models[str(name)] = wrapped
+        self._batcher.set_tenant(str(name), quota=quota,
+                                 priority=priority)
+        return wrapped
+
+    def remove_model(self, name: str, cancel_queued: bool = True):
+        """Unregister a named model without draining the others; its
+        queued requests are cancelled (batches in flight finish)."""
+        with self._models_lock:
+            wrapped = self._models.pop(str(name), None)
+        if cancel_queued:
+            self._batcher.cancel_tenant(str(name))
+        self._batcher.clear_tenant(str(name))
+        return wrapped
+
+    def model_names(self) -> List[str]:
+        with self._models_lock:
+            return sorted(self._models)
+
+    def _model_of(self, tenant: Optional[str]):
+        if tenant is None:
+            if self.model is None:
+                raise EngineClosed(
+                    "engine has no default model — submit with "
+                    "model=<name> or register one via add_model")
+            return self.model
+        with self._models_lock:
+            m = self._models.get(tenant)
+        if m is None:
+            raise EngineClosed(f"model {tenant!r} is not registered")
+        return m
+
     # -- client surface ----------------------------------------------------
-    def submit(self, inputs: Sequence[Any], priority: float = 0.0) \
-            -> Response:
-        """Queue one request (inputs share a leading batch dim).  Raises
-        EngineOverloaded at the queue bound, EngineClosed after
-        shutdown."""
+    def submit(self, inputs: Sequence[Any], model: Optional[str] = None,
+               priority: float = 0.0) -> Response:
+        """Queue one request (inputs share a leading batch dim).  `model`
+        names a model registered by add_model (None = the default one).
+        Raises EngineOverloaded at the queue bound or the tenant's quota,
+        EngineClosed after shutdown."""
         if self._closed:
             raise EngineClosed("engine is shut down")
+        if model is not None:
+            self._model_of(str(model))  # an unknown tenant fails fast
         arrays = []
         for a in inputs:
             a = a if isinstance(a, np.ndarray) else np.asarray(a)
@@ -176,19 +371,45 @@ class Engine:
                     "engine inputs need a leading batch dim (got a "
                     "scalar); wrap single examples as shape (1, ...)")
             arrays.append(a)
-        return self._batcher.submit(Request(arrays, priority=priority))
+        return self._batcher.submit(Request(
+            arrays, tenant=None if model is None else str(model),
+            priority=priority))
 
     def infer(self, inputs: Sequence[Any],
-              timeout: Optional[float] = None) -> List[np.ndarray]:
+              timeout: Optional[float] = None,
+              model: Optional[str] = None) -> List[np.ndarray]:
         """Synchronous convenience: submit + wait."""
-        return self.submit(inputs).result(timeout)
+        return self.submit(inputs, model=model).result(timeout)
+
+    def reload_weights(self, path: str) -> int:
+        """Swap the default model's parameters from a ckpt checkpoint
+        without draining (see ProgramModel.reload_weights).  Only a
+        ProgramModel has the seam (its parameters live in the scope);
+        callables and Predictors carry their weights in what they run,
+        and raise TypeError: build a new Engine for them.  Returns the
+        number of parameters swapped."""
+        from .. import obs
+        from ..profiler import stat_add
+
+        swap = getattr(self.model, "reload_weights", None)
+        if swap is None:
+            raise TypeError(
+                "reload_weights needs a ProgramModel-backed engine "
+                "(parameters live in the scope); "
+                f"{type(self.model).__name__} bakes its weights into "
+                "the traced computation — rebuild the Engine to swap "
+                "models")
+        with obs.span("ckpt.reload"):
+            count = swap(path)
+        stat_add("ckpt_reload_count")
+        return count
 
     # -- pipeline threads --------------------------------------------------
     def _dispatch_loop(self):
         """Hot path: pull coalesced batches and dispatch the warmed ones;
-        park batches whose bucket is new with the compiler thread.
-        Never warms up, never waits on the device, never transfers to
-        the host."""
+        park batches whose bucket is new with the warm-up thread.  Never
+        warms up, never waits on the device, never transfers to the
+        host."""
         from .. import obs
 
         while not self._stop.is_set():
@@ -206,12 +427,13 @@ class Engine:
                              time.perf_counter() - t0,
                              flow=[r.flow for r in batch])
                 inputs = self._concat(batch)
-                if self.model.is_compiled(inputs):
-                    self._dispatch_batch(batch, inputs)
+                model = self._model_of(batch[0].tenant)
+                if model.is_compiled(inputs):
+                    self._dispatch_batch(batch, inputs, model)
                 else:
                     with self._inflight_cond:
                         self._compiling += 1
-                    self._compile_q.put((batch, inputs))
+                    self._compile_q.put((batch, inputs, model))
             except Exception as e:  # noqa: BLE001 - fail the batch, keep serving
                 for req in batch:
                     req.set_exception(e)
@@ -230,12 +452,12 @@ class Engine:
             item = self._compile_q.get()
             if item is _SENTINEL:
                 return
-            batch, inputs = item
+            batch, inputs, model = item
             try:
                 with obs.span("serving.compile",
                               flow=[r.flow for r in batch]):
-                    self.model.ensure_compiled(inputs)
-                self._dispatch_batch(batch, inputs)
+                    model.ensure_compiled(inputs)
+                self._dispatch_batch(batch, inputs, model)
             except Exception as e:  # noqa: BLE001 - fail the batch, keep serving
                 for req in batch:
                     req.set_exception(e)
@@ -250,11 +472,12 @@ class Engine:
         return [np.concatenate([r.inputs[i] for r in batch], axis=0)
                 for i in range(len(batch[0].inputs))]
 
-    def _dispatch_batch(self, batch: List[Request], inputs) -> None:
+    def _dispatch_batch(self, batch: List[Request], inputs, model) -> None:
         """Launch one batch on the device without waiting for it, and
         record a CUDA event after it on this thread's stream; bounded
         dispatch-ahead: at most max_in_flight batches between here and
-        the completer."""
+        the completer.  The batch's device feed stays with it until its
+        outputs reach the host, unless the model donates it."""
         from .. import obs
         from ..profiler import stat_set, timed
 
@@ -268,18 +491,20 @@ class Engine:
                         EngineClosed("engine stopped before dispatch"))
                 return
         rows = inputs[0].shape[0]
-        bucket, _sig = self.model.plan(inputs)
+        bucket, _sig = model.plan(inputs)
         with obs.span("serving.dispatch",
                       flow=[r.flow for r in batch]), \
                 timed("serving_dispatch_ms"):
-            outs = self.model.run(inputs)  # async: device tensors out
+            run_with_feed = getattr(model, "run_with_feed", None)
+            outs, feed = run_with_feed(inputs) if run_with_feed \
+                else (model.run(inputs), None)
             done = None
-            if self.model.device.type == "cuda":
+            if model.device.type == "cuda":
                 done = torch.cuda.Event()
-                done.record(torch.cuda.current_stream(self.model.device))
+                done.record(torch.cuda.current_stream(model.device))
         metrics.observe_batch(len(batch), rows, max(0, bucket - rows))
         with self._inflight_cond:
-            self._inflight.append((batch, outs, done))
+            self._inflight.append((batch, outs, done, feed))
             stat_set("serving_in_flight", len(self._inflight))
             self._inflight_cond.notify_all()
 
@@ -288,7 +513,8 @@ class Engine:
         in-flight batch's event, copy its outputs to the host, slice per
         request, fulfill futures."""
         from .. import obs
-        from ..profiler import count_sync, stat_add, stat_set, timed
+        from ..profiler import (count_sync, stat_add, stat_set, time_add,
+                                timed)
 
         while True:
             with self._inflight_cond:
@@ -298,7 +524,7 @@ class Engine:
                     if self._stop.is_set():
                         return
                     continue
-                batch, outs, done = self._inflight.popleft()
+                batch, outs, done, feed = self._inflight.popleft()
                 stat_set("serving_in_flight", len(self._inflight))
                 self._inflight_cond.notify_all()
             try:
@@ -313,6 +539,7 @@ class Engine:
                 for req in batch:
                     req.set_exception(e)
                 continue
+            del feed  # the outputs are on the host: the feed may go
             total = sum(r.rows for r in batch)
             offset = 0
             now = time.perf_counter()
@@ -323,8 +550,24 @@ class Engine:
                 offset += req.rows
                 req.set_result(sl)
                 stat_add("serving_completed_total")
-                metrics.record_latency("serving_request_ms",
-                                       (now - req.submitted_at) * 1e3)
+                latency_ms = (now - req.submitted_at) * 1e3
+                metrics.record_latency("serving_request_ms", latency_ms)
+                if req.tenant is not None:
+                    stat_add(metrics.tenant_stat(req.tenant,
+                                                 "completed_total"))
+                    name = metrics.tenant_stat(req.tenant, "request_ms")
+                    time_add(name, latency_ms)
+                    metrics.record_latency(name, latency_ms)
+
+    # -- introspection -----------------------------------------------------
+    @property
+    def queue_depth(self) -> int:
+        return self._batcher.depth
+
+    @property
+    def in_flight(self) -> int:
+        with self._inflight_cond:
+            return len(self._inflight)
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,5 @@
 """Serving observability: profiler-exported stats + latency percentiles
-(copy of paddle_tpu/serving/metrics.py without the per-tenant series,
-which come with the model registry).
+(copy of paddle_tpu/serving/metrics.py).
 
 Int stats (profiler.get_int_stats):
 
@@ -34,6 +33,22 @@ AutoregressiveEngine adds:
 | serving_kv_paused_total       | slots paused under pool pressure        |
 | serving_kv_preempt_total      | slots preempted by the all-paused escape|
 
+Per-tenant series (serving/registry.py): every registered model `<t>`
+gets its own family, named by `tenant_stat(t, suffix)`
+(`serving_tenant_<t>_<suffix>`):
+
+| stat                                | meaning                              |
+|-------------------------------------|--------------------------------------|
+| serving_tenant_<t>_requests_total   | requests admitted for tenant t       |
+| serving_tenant_<t>_rejected_total   | tenant-quota rejections for t        |
+| serving_tenant_<t>_completed_total  | requests answered for tenant t       |
+| serving_tenant_<t>_queued           | gauge: t's requests currently queued |
+| serving_tenant_<t>_cache_evictions  | t's bucket-cache evictions           |
+
+Per-tenant timers: `serving_tenant_<t>_request_ms` (summed submit ->
+response latency; the same name feeds a latency reservoir for the
+tenant's p50/p99 via `latency_stats`).
+
 Time stats (profiler.get_time_stats, milliseconds):
 
 | timer                | meaning                                        |
@@ -54,6 +69,7 @@ chunk step), drained by `latency_stats()`.
 
 from __future__ import annotations
 
+import re
 import threading
 from collections import deque
 from typing import Dict, Optional
@@ -63,6 +79,15 @@ from ..profiler import stat_add, stat_set
 _CAP = 8192
 _LAT: Dict[str, deque] = {}
 _LAT_LOCK = threading.Lock()
+
+
+_TENANT_SAFE = re.compile(r"[^0-9A-Za-z_]")
+
+
+def tenant_stat(tenant: str, suffix: str) -> str:
+    """Stat name of one tenant's series: `serving_tenant_<t>_<suffix>`,
+    the tenant's name cut to the identifier alphabet."""
+    return f"serving_tenant_{_TENANT_SAFE.sub('_', str(tenant))}_{suffix}"
 
 
 def record_latency(name: str, ms: float) -> None:

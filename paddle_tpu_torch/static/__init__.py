@@ -3,9 +3,8 @@ paddle_tpu/static/__init__.py): aliases over the port's `fluid`.
 
 CompiledProgram, BuildStrategy, ExecutionStrategy and the
 ParallelExecutor shim run on one card (fluid/compiler.py); save / load
-and load_program_state come from `fluid.io`.  Left out until the
-inference slice (ROADMAP queue 1 item 8): save_inference_model /
-load_inference_model, the 2.x `inference` forms.
+and load_program_state come from `fluid.io`; save_inference_model /
+load_inference_model are the 2.x `inference` forms, as in the reference.
 """
 
 from ..fluid import (  # noqa: F401
@@ -21,6 +20,8 @@ from ..fluid.layers import (Print, create_global_var,  # noqa: F401
                             create_parameter, py_func)
 from ..fluid.layers.tensor import data  # noqa: F401
 from ..fluid.param_attr import WeightNormParamAttr  # noqa: F401
+from ..inference import (load_inference_model,  # noqa: F401
+                         save_inference_model)
 from . import nn  # noqa: F401
 
 

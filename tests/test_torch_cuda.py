@@ -12,7 +12,9 @@ bits in two runs; the grid of its plan, read from the profiler), the shapes and 
 the wrappers refuse, tiny BERT served on the card, decoded on the card
 through AutoregressiveEngine, its train step on the card, and the
 layout-probe kernel in its three layouts (4d, fold3d, merged) at the
-probe tool's shape, ragged and long S, bit for bit alike and twice.  These
+probe tool's shape, ragged and long S, bit for bit alike and twice, a
+checkpoint's snapshot ordered before the next in-place update, and a
+tiny BERT exported to a Predictor that launches the kernels.  These
 need an NVIDIA GPU with nvcc; the `cuda` fixture skips them, with a
 reason, where there is none.  Run them on the card with
 
@@ -1531,3 +1533,82 @@ def test_tiny_seq2seq_trains_and_decodes_on_the_card(cuda):
                                    atol=1e-4)
     finally:
         paddle.device._CURRENT[0] = None
+
+
+def test_a_checkpoint_snapshot_is_ordered_before_the_next_update(cuda,
+                                                                 tmp_path):
+    """CheckpointManager.save_async copies CUDA tensors into pinned host
+    memory on a side stream and returns; an in-place update enqueued right
+    after (a long kernel queue ahead of both) does not reach the file, and
+    the copy's device time is counted."""
+    from paddle_tpu_torch import ckpt, profiler
+
+    w = torch.arange(1 << 20, dtype=torch.float32, device="cuda")
+    h = torch.ones(256, 4, dtype=torch.bfloat16, device="cuda")
+    big = torch.randn(4096, 4096, device="cuda")
+    for _ in range(8):
+        big = big @ big / 64.0  # keeps the stream busy past save_async
+    m = ckpt.CheckpointManager(str(tmp_path))
+    profiler.time_reset("ckpt_copy_ms")
+    m.save_async({"w": w, "h": h, "step": torch.tensor(3)}, step=1)
+    w.mul_(-1.0)
+    h.zero_()
+    m.wait()
+    state, _ = ckpt.read_state(str(tmp_path))
+    assert torch.equal(state["w"], torch.arange(1 << 20,
+                                                dtype=torch.float32))
+    assert state["h"].dtype == torch.bfloat16 and bool((state["h"] == 1).all())
+    assert int(state["step"]) == 3
+    assert profiler.get_time_stats()["ckpt_copy_ms"] > 0
+    assert bool(torch.isfinite(big).all())
+
+
+def test_the_kernel_operators_on_the_card(cuda, tmp_path):
+    """A tiny BERT at a kernel width exported on the card: its Predictor
+    launches flash_fwd and ffn_act_fwd once a layer, gives the eager
+    model's outputs, and refuses the CPU; a gradient asked of an operator
+    itself raises."""
+    from paddle_tpu_torch import inference, nn
+
+    cfg = bert.BertConfig.tiny(hidden_size=128, intermediate_size=256,
+                               num_attention_heads=2,
+                               hidden_dropout_prob=0.0,
+                               attention_probs_dropout_prob=0.0)
+    model = bert.BertModel(cfg, dtype=torch.bfloat16, seed=0).eval()
+
+    class Serve(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.model = model
+
+        def forward(self, ids, types, mask):
+            return self.model(ids, types,
+                              attention_mask=(mask != 0)[:, None, None, :])
+
+    fb = bert.fake_batch(cfg, 4, 64, seed=1)
+    feeds = [fb[k] for k in ("input_ids", "token_type_ids",
+                             "attention_mask")]
+    arm = F._FFN_DISABLED
+    F._FFN_DISABLED = "the default arm"
+    try:
+        prefix = inference.save_inference_model(str(tmp_path / "b"),
+                                                Serve(), feeds)
+        pred = inference.load_inference_model(prefix)
+        pred.run(feeds)  # the bucket's warm-up run
+        for c in COUNTERS.values():
+            c.reset()
+        got = pred.run(feeds)
+        assert COUNTERS["flash_fwd"].value == COUNTERS[
+            "ffn_act_fwd"].value == cfg.num_hidden_layers
+        with torch.inference_mode():
+            want = Serve()(*[torch.from_numpy(a).cuda() for a in feeds])
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w.float().cpu().numpy())
+    finally:
+        F._FFN_DISABLED = arm
+    with pytest.raises(RuntimeError, match="traced on cuda"):
+        inference.load_inference_model(prefix, device="cpu")
+    q = _bf16(cuda, 1, 16, 2, 64).requires_grad_()
+    out, _ = A.flash_forward(q, q, q)
+    with pytest.raises(NotImplementedError, match="autograd Function"):
+        out.float().sum().backward()

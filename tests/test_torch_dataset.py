@@ -322,15 +322,32 @@ def test_a_fetch_handler_sees_the_scope():
     assert seen and np.array_equal(seen[-1]["w"], scope.get(w).numpy())
 
 
-def test_checkpointing_raises(files, monkeypatch):
+def test_checkpointing_raises(files, tmp_path):
+    """Checkpointing runs (tests/test_torch_ckpt.py holds it against the
+    reference): the loop commits checkpoints; what raises is a resume
+    from a checkpoint written by two processes."""
+    import json
+
+    from paddle_tpu_torch import ckpt
+
     main, startup, x, y, loss = _program(TF)
-    exe = TF.Executor(TF.CPUPlace())
-    ds = _dataset(TF, "QueueDataset", x, y, files)
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-        exe.train_from_dataset(main, ds, checkpoint_dir="/tmp/ck")
-    monkeypatch.setenv("PADDLE_CKPT_DIR", "/tmp/ck")
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-        exe.train_from_dataset(main, ds)
+    exe, scope = TF.Executor(TF.CPUPlace()), TF.Scope()
+    exe.run(startup, scope=scope)
+    root = str(tmp_path / "ck")
+    exe.train_from_dataset(main, _dataset(TF, "QueueDataset", x, y, files),
+                           scope=scope, checkpoint_dir=root,
+                           checkpoint_every_steps=2)
+    newest = ckpt.latest_checkpoint(root)
+    manifest = json.loads((tmp_path / "ck" / newest.split("/")[-1]
+                           / ckpt.MANIFEST_FILE).read_text())
+    assert manifest["meta"]["step_in_epoch"] == 8  # 120 lines at B=16
+    manifest["process_count"] = 2
+    (tmp_path / "ck" / newest.split("/")[-1] / ckpt.MANIFEST_FILE) \
+        .write_text(json.dumps(manifest))
+    with pytest.raises(ckpt.CheckpointError, match="topology mismatch"):
+        exe.train_from_dataset(main, _dataset(TF, "QueueDataset", x, y,
+                                              files), scope=scope,
+                               checkpoint_dir=root)
 
 
 # -- the NaN monitor ----------------------------------------------------------

@@ -42,8 +42,7 @@ STATIC = ["CompiledProgram", "BuildStrategy", "ExecutionStrategy",
 AMP = ["AmpScaler", "amp_guard", "cast_inputs_if_amp"]
 UNPORTED = {"check_numerics": True, "verify_program": "off",
             "graph_transforms": "off", "transform_debug": True,
-            "ckpt_dir": "/tmp/ck", "ckpt_every_steps": 5,
-            "ckpt_resume": False, "obs_http_port": 0,
+            "obs_http_port": 0,
             "obs_flight_dir": "x", "quant_collectives": "int8",
             "quant_collectives_min_bytes": 1, "aot_cache": "off",
             "aot_cache_dir": "y", "autotune": "force",

@@ -25,7 +25,9 @@ PROGRAMS = [ROOT / "tests" / "torch_seq2seq_program.py",
             ROOT / "tests" / "torch_seq2seq_static_program.py",
             ROOT / "tests" / "torch_srl_program.py",
             ROOT / "tests" / "torch_book_programs.py",
-            ROOT / "tests" / "torch_cyclegan_program.py"]
+            ROOT / "tests" / "torch_cyclegan_program.py",
+            ROOT / "tests" / "torch_ctr_program.py",
+            ROOT / "tests" / "torch_ckpt_worker.py"]
 
 
 def _port_files():
