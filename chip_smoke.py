@@ -13,7 +13,10 @@ program, train the static ResNet-50 in fp16, train, quantize and decode
 PaddleCV's MobileNet-SSD through the detection rules, train and serve
 PaddleRec's CTR-DNN through the dataset path, checkpoint and resume it,
 export BERT-base to an inference Predictor and serve it beside the CTR
-model from one ModelRegistry, and check what comes out.
+model from one ModelRegistry, serve BERT-base's encoder and LeNet through
+the inference C ABI from a ctypes host and a pure-C host, train MNIST
+from files through the 1.x readers and PyReader, and check what comes
+out.
 
     python3 chip_smoke.py
 
@@ -388,13 +391,48 @@ Phases, in order (any failure exits non-zero and prints no result):
               DEPLOY_KILL_CFG (the table cut to 100003 rows, B=256): a
               worker SIGKILLed at a step boundary and restarted against
               an uninterrupted one, each loss within DEPLOY_RESUME_RTOL
+ 26. capi     the inference C ABI: csrc/c_api.cc built by g++ with
+              libpython (core_native.build_c_api(embed=True)).  (a)
+              BERT-base's encoder in bf16 behind one float32 tensor in
+              and out (_EncoderF32), exported at DEPLOY_BATCH x SEQ x 768
+              under the default FFN arm: 12 flash_forward and 12
+              ffn_act_fwd operators in the graph; a ctypes host in a clean
+              subprocess (nothing of torch or the port loaded before
+              PT_NewPredictor) runs PT_Init, PT_NewPredictor and
+              PT_PredictorRun: its output equals the in-process
+              Predictor.run bit for bit and is within SERVE_MAX_ABS /
+              SERVE_MEAN_ABS of the eager encoder, one call launches
+              flash_fwd and ffn_act_fwd 12 times each and nothing else
+              (counted in the host's process), the -2 contract and a bad
+              prefix hold, and CAPI_RUNS calls are timed in turns with
+              run_handles + the host copy (host clock and CUDA events).
+              (b) examples/c_inference/predictor_demo.c compiled
+              unchanged by gcc against the library, serving LeNet
+              exported on the card: its printed logits within
+              CAPI_LENET_TOL of the in-process Predictor's
+ 27. feed     BASELINE configs[0] from files: MNIST-format IDX gzip files
+              of FEED_TRAIN images written from FEED_SEED; models/mnist.py
+              (Adam 1e-3) for one epoch at FEED_BATCH fed by paddle.batch
+              over reader.shuffle(reader.map_readers(..., dataset.mnist
+              .train(...))) through fluid.io.PyReader, and through
+              DataLoader.from_generator over xmap_readers (FEED_WORKERS,
+              ordered), from one state, cuDNN deterministic: the first
+              FEED_HOLD losses bit for bit a numpy-fed run's, finite
+              falling losses, 0 launches; seconds, samples/s, host ms
+              waiting on the feed against Executor.run, host reads and
+              syncs a step, the idle share of the epoch's last
+              FEED_PROFILED steps under the profiler.  Then a batch
+              generator of tensors already on the card: they reach the
+              Executor as the same objects, 0 syncs a step, the first
+              FEED_HOLD losses bit for bit the numpy-fed run's
 
 The last two lines of stdout are a {"kernels": [...]} summary and the
 {"ok": true, "device": {...}} result.
 
 `python3 chip_smoke.py --ssd` runs only the card and ssd phases (no
 kernel is built: none is on that path); `--ctr` the card and ctr phases;
-`--deploy` the card, build and deploy phases.
+`--feed` the card and feed phases; `--deploy` the card, build and deploy
+phases; `--capi` the card, build and capi phases.
 
 `python3 chip_smoke.py --tensor-methods-ab` runs instead only the
 host-bound decode, seq2seq and srl phases, in turns with the `matmul` /
@@ -7132,6 +7170,601 @@ def deploy():
     return launches
 
 
+# -- capi: the inference C ABI serving BERT-base's encoder and LeNet -----------
+# (a) BERT-base's encoder (12 layers, d_model 768, 12 heads, d_ff 3072) in
+# bf16 behind _EncoderF32, exported at DEPLOY_BATCH x SEQ x 768 float32
+# under the default FFN arm and served by a ctypes host in a clean
+# subprocess: its output bit for bit the in-process Predictor.run's, and
+# within SERVE_MAX_ABS / SERVE_MEAN_ABS of the eager encoder; CAPI_RUNS
+# PT_PredictorRun calls timed in turns with run_handles + the host copy
+# (b) examples/c_inference/predictor_demo.c, compiled unchanged by gcc
+# against the library built with libpython, serving LeNet exported on the
+# card: its printed logits (6 decimals) within CAPI_LENET_TOL of the
+# in-process Predictor's
+CAPI_RUNS = 8
+CAPI_LENET_TOL = 1e-5
+
+# the ctypes host: imports nothing of the port (nor torch) before
+# PT_NewPredictor, so the first CUDA context is made inside the bridge,
+# under the GIL that PT_* takes; then one warm-up run, one run with the
+# launch counts at 0 (read in this process), the output saved, the -2
+# contract and a bad prefix; then, on the parent's go (a line on stdin),
+# CAPI_RUNS calls timed in turns with the same work in process
+# (run_handles and the one host copy into a buffer kept across calls) and
+# with Predictor.run (which allocates its host arrays); one JSON line
+_CAPI_HOST = r"""
+import ctypes, json, sys, time
+import numpy as np
+
+so, prefix, inp, outp, runs = sys.argv[1:6]
+runs = int(runs)
+lib = ctypes.CDLL(so)
+lib.PT_GetLastError.restype = ctypes.c_char_p
+lib.PT_Init.argtypes = [ctypes.c_char_p]
+lib.PT_NewPredictor.restype = ctypes.c_void_p
+lib.PT_NewPredictor.argtypes = [ctypes.c_char_p]
+F32P = ctypes.POINTER(ctypes.c_float)
+I64P = ctypes.POINTER(ctypes.c_int64)
+lib.PT_PredictorRun.argtypes = [
+    ctypes.c_void_p, F32P, I64P, ctypes.c_int, F32P, ctypes.c_int64, I64P,
+    I64P, ctypes.POINTER(ctypes.c_int)]
+lib.PT_DeletePredictor.argtypes = [ctypes.c_void_p]
+clean = not any(m == "torch" or m.startswith(("torch.", "paddle_tpu"))
+                for m in sys.modules)
+assert lib.PT_Init(b"") == 0, lib.PT_GetLastError()
+t0 = time.perf_counter()
+h = lib.PT_NewPredictor(prefix.encode())
+new_s = time.perf_counter() - t0
+assert h, lib.PT_GetLastError()
+x = np.ascontiguousarray(np.load(inp), np.float32)
+shape = (ctypes.c_int64 * x.ndim)(*x.shape)
+out = np.zeros(x.size * 2, np.float32)
+count, ondim = ctypes.c_int64(), ctypes.c_int()
+oshape = (ctypes.c_int64 * 8)()
+
+
+def run(buf):
+    return lib.PT_PredictorRun(
+        h, x.ctypes.data_as(F32P), shape, x.ndim, buf.ctypes.data_as(F32P),
+        buf.size, ctypes.byref(count), oshape, ctypes.byref(ondim))
+
+
+assert run(out) == 0, lib.PT_GetLastError()  # warm-up
+from paddle_tpu_torch.ops.kernels import COUNTERS
+for c in COUNTERS.values():
+    c.reset()
+rc = run(out)
+launches = {n: c.value for n, c in COUNTERS.items()}
+assert rc == 0, lib.PT_GetLastError()
+got = out[:count.value].reshape([oshape[i] for i in range(ondim.value)])
+np.save(outp, got)
+small = np.zeros(16, np.float32)
+rc_small, small_count = run(small), count.value
+import torch
+from paddle_tpu_torch import inference
+pred = inference.load_inference_model(prefix)
+host = torch.empty(tuple(got.shape))
+calls = {"abi": lambda: run(out),
+         "run_handles": lambda: host.copy_(pred.run_handles([x])[0].torch()),
+         "predictor_run": lambda: pred.run([x])}
+ms, ev = {k: [] for k in calls}, {k: [] for k in calls}
+for call in calls.values():
+    call()
+sys.stdout.write("ready\n")
+sys.stdout.flush()
+sys.stdin.readline()  # the parent's go: no other process on the card
+turns = list(calls)
+for turn in (turns + turns[::-1]) * (runs // 2):
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    e0.record()
+    calls[turn]()
+    e1.record()
+    torch.cuda.synchronize()
+    ms[turn].append((time.perf_counter() - t0) * 1e3)
+    ev[turn].append(e0.elapsed_time(e1))
+lib.PT_DeletePredictor(h)
+bad = lib.PT_NewPredictor(b"/nonexistent/model")
+print(json.dumps(dict(
+    clean=clean, new_predictor_s=new_s, launches=launches, count=count.value,
+    rc_small=rc_small, small_count=small_count, bad_prefix_null=bad is None,
+    bad_prefix_error=lib.PT_GetLastError().decode(), host_ms=ms,
+    event_ms=ev)))
+"""
+
+
+class _EncoderF32(torch.nn.Module):
+    """An encoder behind the C ABI's contract: one float32 tensor in (the
+    embeddings' output, B x S x d_model), one float32 tensor out; the
+    encoder's own dtype inside."""
+
+    def __init__(self, encoder, dtype):
+        super().__init__()
+        self.encoder = encoder
+        self.dtype = dtype
+
+    def forward(self, x):
+        return self.encoder(x.to(self.dtype)).float()
+
+
+def _c_host_env():
+    """The environment a host process needs to import the port: the repo
+    and this interpreter's site-packages on PYTHONPATH (an embedded
+    interpreter starts from libpython's prefix, not from a venv's)."""
+    import site
+
+    paths = [str(Path(__file__).resolve().parent)] + site.getsitepackages()
+    old = os.environ.get("PYTHONPATH")
+    return dict(os.environ, PYTHONPATH=os.pathsep.join(
+        paths + ([old] if old else [])))
+
+
+def _capi_encoder(work, so, demo):
+    """(a); the ctypes host starts its imports beside (b)'s demo and times
+    its calls once the demo has ended, so no other process shares the card
+    then.  Returns (the host's launch counts, summary)."""
+    from paddle_tpu_torch import inference
+
+    cfg = bert.BertConfig.base()
+    model = bert.BertModel(cfg, dtype=torch.bfloat16, seed=0).eval()
+    layer = _EncoderF32(model.encoder, torch.bfloat16).eval()
+    x = np.random.default_rng(23).standard_normal(
+        (DEPLOY_BATCH, SEQ, cfg.hidden_size)).astype(np.float32)
+    F._FFN_DISABLED = _FFN_DEFAULT
+    try:
+        t0 = time.perf_counter()
+        prefix = inference.save_inference_model(
+            os.path.join(work, "encoder"), layer, [x])
+        export_s = time.perf_counter() - t0
+        with torch.inference_mode():  # the arm the export took
+            eager = layer(torch.from_numpy(x).cuda()).cpu().numpy()
+    finally:
+        F.enable_fused_ffn()  # main()'s arm for the other phases
+    with open(prefix + ".json") as f:
+        spec = json.load(f)["inputs"]
+    if spec != [{"shape": list(x.shape), "dtype": "float32"}]:
+        raise AssertionError(f"the export records inputs {spec}")
+    inp, outp = os.path.join(work, "x.npy"), os.path.join(work, "y.npy")
+    np.save(inp, x)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-c", _CAPI_HOST, so, prefix, inp, outp,
+         str(CAPI_RUNS)], stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, env=_c_host_env())
+    ready = ""
+    try:
+        pred = inference.load_inference_model(prefix)
+        ops = _graph_ops(pred)
+        counted = {o.split(".")[1]: ops.count(o) for o in set(ops)}
+        want_ops = {"flash_forward": LAYERS, "ffn_act_fwd": LAYERS}
+        if counted != want_ops:
+            raise AssertionError(f"the encoder's graph holds {counted}, "
+                                 f"want {want_ops}")
+        want = pred.run([x])[0]
+        err = np.abs(want - eager)
+        if not np.isfinite(want).all() or float(err.max()) > SERVE_MAX_ABS \
+                or float(err.mean()) > SERVE_MEAN_ABS:
+            raise AssertionError(f"Predictor vs the eager encoder: max abs "
+                                 f"{err.max()}, mean {err.mean()}")
+        del pred, model, layer
+        torch.cuda.empty_cache()
+        c_host = demo()
+        ready = proc.stdout.readline()
+        if ready.strip() == "ready":
+            proc.stdin.write("go\n")
+            proc.stdin.flush()
+        stdout, stderr = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    host_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"ctypes host exit {proc.returncode}:\n"
+                             f"{ready}{stdout[-2000:]}\n{stderr[-4000:]}")
+    rep = json.loads(stdout.strip().splitlines()[-1])
+    got = np.load(outp)
+    if got.shape != want.shape or not np.array_equal(
+            got.view(np.uint32), want.view(np.uint32)):
+        raise AssertionError(f"PT_PredictorRun {got.shape} differs from "
+                             f"Predictor.run {want.shape}: max abs "
+                             f"{np.abs(got - want).max()}")
+    launches = rep["launches"]
+    for n, v in launches.items():
+        need = LAYERS if n in ("flash_fwd", "ffn_act_fwd") else 0
+        if v != need:
+            raise AssertionError(f"PT_PredictorRun launched {n} {v} times, "
+                                 f"want {need}")
+    if not rep["clean"] or rep["rc_small"] != -2 or \
+            rep["small_count"] != want.size or not rep["bad_prefix_null"] \
+            or not rep["bad_prefix_error"]:
+        raise AssertionError(f"ctypes host contract: {rep}")
+    stat = {k: dict(host_ms=float(np.median(rep["host_ms"][k])),
+                    event_ms=float(np.median(rep["event_ms"][k])))
+            for k in rep["host_ms"]}
+    share = stat["abi"]["host_ms"] - stat["run_handles"]["host_ms"]
+    summary = dict(
+        export_s=export_s, graph_ops=counted, launches={
+            n: v for n, v in launches.items() if v},
+        max_abs_vs_eager=float(err.max()), mean_abs_vs_eager=float(
+            err.mean()), new_predictor_s=rep["new_predictor_s"],
+        host_process_s=host_s, medians=stat, abi_share_ms=share,
+        host_ms=rep["host_ms"], event_ms=rep["event_ms"],
+        bad_prefix_error=rep["bad_prefix_error"][:120], c_host=c_host)
+    log(f"C ABI, BERT-base encoder bf16 ({LAYERS} layers) at {DEPLOY_BATCH}"
+        f" x {SEQ} x {cfg.hidden_size} f32 in and out, exported in "
+        f"{export_s:.1f} s: graph operators {counted}; a clean ctypes host "
+        f"(PT_NewPredictor {rep['new_predictor_s']:.1f} s, the process "
+        f"{host_s:.1f} s) launched {summary['launches']} in one "
+        f"PT_PredictorRun, its output bit for bit Predictor.run's (max abs "
+        f"{err.max():.4g} and mean {err.mean():.4g} from the eager "
+        f"encoder); -2 with count {rep['small_count']}, a bad prefix NULL "
+        f"({summary['bad_prefix_error'][:60]!r}); medians of "
+        f"{CAPI_RUNS // 2 * 2} calls each in turns (host clock / CUDA "
+        f"events, ms): PT_PredictorRun {stat['abi']['host_ms']:.3f} / "
+        f"{stat['abi']['event_ms']:.3f}, run_handles + the same host copy "
+        f"{stat['run_handles']['host_ms']:.3f} / "
+        f"{stat['run_handles']['event_ms']:.3f}, Predictor.run "
+        f"{stat['predictor_run']['host_ms']:.3f} / "
+        f"{stat['predictor_run']['event_ms']:.3f}: the ABI's share "
+        f"{share:.3f} ms a call")
+    return launches, summary
+
+
+def _capi_c_host(work, so):
+    """(b): the reference's pure-C demo against the port's library,
+    serving LeNet on the card.  Started here, in the background (its
+    interpreter start and imports overlap the encoder's export); returns
+    finish(), which waits for it and checks its logits."""
+    import sysconfig
+
+    from paddle_tpu_torch import inference
+    from paddle_tpu_torch.vision.models import LeNet
+
+    net = LeNet(num_classes=10, device="cuda", seed=3).eval()
+    prefix = inference.save_inference_model(
+        os.path.join(work, "lenet"), net, [([1, 1, 28, 28], "float32")])
+    x = np.random.RandomState(0).uniform(-1, 1, (1, 1, 28, 28)).astype(
+        np.float32)
+    want = inference.load_inference_model(prefix).run([x])[0].reshape(-1)
+    inp = os.path.join(work, "x.f32")
+    x.tofile(inp)
+    demo = str(Path(__file__).resolve().parent / "examples" / "c_inference"
+               / "predictor_demo.c")
+    exe, libdir = os.path.join(work, "predictor_demo"), os.path.dirname(so)
+    cmd = ["gcc", "-O2", demo, "-o", exe, f"-L{libdir}",
+           "-lpaddle_tpu_torch_c", f"-Wl,-rpath,{libdir}",
+           f"-L{sysconfig.get_config_var('LIBDIR')}",
+           f"-lpython{sysconfig.get_config_var('LDVERSION')}", "-ldl", "-lm"]
+    t0 = time.perf_counter()
+    cc = subprocess.run(cmd, capture_output=True, text=True)
+    cc_s = time.perf_counter() - t0
+    if cc.returncode != 0:
+        raise AssertionError(f"gcc predictor_demo.c: {cc.stderr[-2000:]}")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([exe, str(Path(__file__).resolve().parent),
+                             prefix, inp], stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            env=_c_host_env())
+
+    def finish():
+        try:
+            out, err_text = proc.communicate(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        run_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"predictor_demo exit {proc.returncode}:\n"
+                                 f"{out[-1000:]}\n{err_text[-3000:]}")
+        got = np.asarray([float(ln.split("=")[1]) for ln in
+                          out.splitlines() if ln.startswith("out[")],
+                         np.float32)
+        err = float(np.abs(got - want).max()) if got.shape == want.shape \
+            else float("inf")
+        if err > CAPI_LENET_TOL:
+            raise AssertionError(f"predictor_demo printed {got}, the "
+                                 f"Predictor gives {want} (max abs {err})")
+        log(f"pure-C host: examples/c_inference/predictor_demo.c compiled "
+            f"unchanged by gcc in {cc_s:.2f} s against {so}; served LeNet "
+            f"on the card in {run_s:.1f} s of process (interpreter, import, "
+            f"load, one run; beside the encoder's export): {len(got)} "
+            f"logits within {err:.3g} of the in-process Predictor's")
+        return dict(gcc_s=cc_s, process_s=run_s, max_abs=err)
+
+    finish.proc = proc
+    return finish
+
+
+@phase("capi")
+def capi():
+    """The inference C ABI: see _CAPI_HOST and the constants above."""
+    from paddle_tpu_torch import core_native
+
+    work, demo = tempfile.mkdtemp(prefix="capi_"), None
+    try:
+        t0 = time.perf_counter()
+        so = core_native.build_c_api(embed=True)
+        build_s = time.perf_counter() - t0
+        log(f"g++ built {so} (linked with libpython) in {build_s:.2f} s")
+        demo = _capi_c_host(work, so)
+        launches, summary = _capi_encoder(work, so, demo)
+    finally:
+        if demo is not None and demo.proc.poll() is None:
+            demo.proc.kill()
+            demo.proc.wait()
+        shutil.rmtree(work, ignore_errors=True)
+    summary.update(build_s=build_s, card=card_line())
+    log("capi summary: " + json.dumps(summary, default=str))
+    return launches
+
+
+# -- feed: BASELINE configs[0] trained from files, the 1.x way -----------------
+# MNIST's size (60000 train images, 28 x 28 u8) written as IDX gzip files
+# from FEED_SEED: each class a random template, each image its class's
+# template plus noise, so the program can learn; one epoch of
+# models/mnist.py's program (Adam lr 1e-3) at FEED_BATCH (937 steps) fed by
+# paddle.batch(reader.shuffle(reader.map_readers(..., dataset.mnist.train
+# (...)), FEED_SHUFFLE)) through fluid.io.PyReader, and again through
+# DataLoader.from_generator(...).set_sample_generator over xmap_readers
+# (FEED_WORKERS, ordered), from one state; each epoch's last FEED_PROFILED
+# steps run under the profiler.  Both loaders' first FEED_HOLD losses
+# equal bit for bit those of a run fed the same batches straight from
+# numpy; every loss finite, the last 50 steps' mean below the first 50's.
+# Then FEED_HOLD of those batches, made on the card first, through
+# from_generator's set_batch_generator: each reaches the Executor as the
+# same tensor, with no sync, and the losses are again the numpy-fed
+# run's.  cuDNN is deterministic for the phase (its search off), so runs
+# of one batch order can agree
+FEED_TRAIN, FEED_BATCH, FEED_SHUFFLE, FEED_CAPACITY = 60000, 64, 8192, 16
+FEED_WORKERS, FEED_XMAP_BUFFER, FEED_SEED = 4, 256, 0
+FEED_HOLD, FEED_PROFILED = 20, 50
+
+
+def _feed_files(work):
+    """MNIST-format train-images / train-labels IDX gzip files."""
+    import gzip
+    import struct
+
+    rng = np.random.default_rng(FEED_SEED)
+    templates = rng.integers(0, 256, (10, 28, 28)).astype(np.float32)
+    labels = rng.integers(0, 10, FEED_TRAIN).astype(np.uint8)
+    noise = rng.normal(0.0, 48.0, (FEED_TRAIN, 28, 28)).astype(np.float32)
+    images = np.clip(templates[labels] + noise, 0, 255).astype(np.uint8)
+    ip = os.path.join(work, "train-images-idx3-ubyte.gz")
+    lp = os.path.join(work, "train-labels-idx1-ubyte.gz")
+    with gzip.open(ip, "wb", compresslevel=1) as f:
+        f.write(struct.pack(">IIII", 2051, FEED_TRAIN, 28, 28))
+        f.write(images.tobytes())
+    with gzip.open(lp, "wb", compresslevel=1) as f:
+        f.write(struct.pack(">II", 2049, FEED_TRAIN))
+        f.write(labels.tobytes())
+    return (ip, lp), images, labels
+
+
+def _as_chw(sample):
+    """dataset.mnist's (784 floats in [-1, 1], label) as the program's
+    (1 x 28 x 28 image, [label] int64)."""
+    img, label = sample
+    return img.reshape(1, 28, 28), np.array([label], np.int64)
+
+
+def _numpy_batches(images, labels, steps):
+    """The batches the readers give under random.seed(FEED_SEED), made
+    straight from the arrays: reader.shuffle's buffers of FEED_SHUFFLE
+    shuffled in turn (random.shuffle draws by the list's length only),
+    dataset.mnist's scaling in float32."""
+    import random
+
+    random.seed(FEED_SEED)
+    order = []
+    for s in range(0, FEED_TRAIN, FEED_SHUFFLE):
+        chunk = list(range(s, min(s + FEED_SHUFFLE, FEED_TRAIN)))
+        random.shuffle(chunk)
+        order += chunk
+    for k in range(steps):
+        idx = np.asarray(order[k * FEED_BATCH:(k + 1) * FEED_BATCH])
+        img = images[idx].reshape(-1, 784).astype(np.float32) / 127.5 - 1.0
+        yield {"img": img.reshape(-1, 1, 28, 28),
+               "label": labels[idx].astype(np.int64).reshape(-1, 1)}
+
+
+def _feed_loader(fluid, kind, samples, feeds):
+    """A fresh loader of one epoch over `samples` (dataset.mnist.train's
+    reader creator, which read the files once), its shuffle seeded."""
+    import random
+
+    random.seed(FEED_SEED)
+    if kind == "pyreader":
+        reader = paddle.batch(paddle.reader.shuffle(paddle.reader.map_readers(
+            _as_chw, samples), FEED_SHUFFLE), FEED_BATCH, drop_last=True)
+        loader = fluid.io.PyReader(feed_list=feeds, capacity=FEED_CAPACITY,
+                                   iterable=True)
+        loader.decorate_sample_list_generator(reader,
+                                              places=fluid.CUDAPlace(0))
+        return loader
+    mapped = paddle.reader.xmap_readers(
+        _as_chw, paddle.reader.shuffle(samples, FEED_SHUFFLE), FEED_WORKERS,
+        FEED_XMAP_BUFFER, order=True)
+    return fluid.io.DataLoader.from_generator(
+        feed_list=feeds, capacity=FEED_CAPACITY, return_list=False
+    ).set_sample_generator(mapped, FEED_BATCH, drop_last=True,
+                           places=fluid.CUDAPlace(0))
+
+
+def _feed_steps(exe, main, scope, loss, it, steps=None):
+    """Steps over the feeds of `it`: (the loss handles, host s waiting on
+    the first feed (the shuffle buffer's fill), host s waiting on the
+    others, host s in Executor.run)."""
+    handles, waits, run = [], [], 0.0
+    while steps is None or len(handles) < steps:
+        t0 = time.perf_counter()
+        feed = next(it, None)
+        t1 = time.perf_counter()
+        if feed is None:
+            break
+        handles.append(exe.run(main, feed=feed, fetch_list=[loss],
+                               scope=scope, return_numpy=False)[0])
+        waits.append(t1 - t0)
+        run += time.perf_counter() - t1
+    return handles, sum(waits[:1]), sum(waits[1:]), run
+
+
+@phase("feed")
+def feed():
+    """BASELINE configs[0] trained from MNIST-format files: see the
+    constants above."""
+    t_phase = time.perf_counter()
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.dataset import mnist
+    from paddle_tpu_torch.models import mnist as M
+
+    work = tempfile.mkdtemp(prefix="feed_")
+    det = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    try:
+        t0 = time.perf_counter()
+        paths, images, labels = _feed_files(work)
+        write_s = time.perf_counter() - t0
+        raw = sum(os.path.getsize(p) for p in paths)
+        t0 = time.perf_counter()
+        samples = mnist.train(*paths)
+        read_s = time.perf_counter() - t0
+        with unique_name.guard():
+            main, startup, _, fetches = M.build_train_program()
+        loss = fetches[0]
+        gb = main.global_block()
+        feeds = [gb.var("img"), gb.var("label")]
+        exe, scope = fluid.Executor(), fluid.Scope()
+        exe.run(startup, scope=scope)
+        start = _ctr_state(scope)
+        steps = FEED_TRAIN // FEED_BATCH
+        # warm-up: the program's kernels and the allocator, then back
+        _feed_steps(exe, main, scope, loss,
+                    iter(_numpy_batches(images, labels, 5)))
+        _ctr_restore(scope, start)
+        ref = [float(h) for h in _feed_steps(
+            exe, main, scope, loss,
+            iter(_numpy_batches(images, labels, FEED_HOLD)))[0]]
+        on_card = [[torch.from_numpy(b["img"]).cuda(),
+                    torch.from_numpy(b["label"]).cuda()]
+                   for b in _numpy_batches(images, labels, FEED_HOLD)]
+        del images, labels
+        setup_s = time.perf_counter() - t_phase
+        runs, launches = {}, None
+        timed = steps - FEED_PROFILED
+        for kind in ("pyreader", "from_generator"):
+            t_run = time.perf_counter()
+            _ctr_restore(scope, start)
+            it = iter(_feed_loader(fluid, kind, samples, feeds))
+            profiler.stat_reset()
+            profiler.time_reset()
+            for c in COUNTERS.values():
+                c.reset()
+            torch.cuda.synchronize()
+            # -- the main path: counters at 0 before, read right after --
+            with _SyncCount() as sc:
+                t0 = time.perf_counter()
+                handles, first_s, wait, run = _feed_steps(
+                    exe, main, scope, loss, it, timed)
+                torch.cuda.synchronize()
+                epoch_s = time.perf_counter() - t0
+            stats = profiler.get_int_stats()
+            # the epoch's last FEED_PROFILED steps, under the profiler
+            tail = []
+            busy, wall, _ = _profile(lambda: tail.extend(_feed_steps(
+                exe, main, scope, loss, it, FEED_PROFILED)[0]), top=8)
+            counts = {n: c.value for n, c in COUNTERS.items()}
+            # ------------------------------------------------------------
+            if launches is None:
+                launches = counts
+            _expect_launches(counts, 0, (), f"the {kind} epoch")
+            if next(it, None) is not None:
+                raise AssertionError(f"{kind}: more than {steps} batches")
+            del it
+            losses = [float(h) for h in handles + tail]
+            if len(losses) != steps:
+                raise AssertionError(f"{kind}: {len(losses)} steps, "
+                                     f"want {steps}")
+            first, last = np.mean(losses[:50]), np.mean(losses[-50:])
+            if not np.isfinite(losses).all() or not last < first:
+                raise AssertionError(f"{kind}: losses {first} -> {last}"
+                                     f" (first and last 50 steps)")
+            if not np.array_equal(np.float32(losses[:FEED_HOLD]),
+                                  np.float32(ref)):
+                raise AssertionError(
+                    f"{kind}: first losses {losses[:FEED_HOLD]} against "
+                    f"the numpy-fed {ref}")
+            sites = sc.sites()
+            runs[kind] = r = dict(
+                steps=steps, timed_steps=timed, seconds=epoch_s,
+                samples_per_s=timed * FEED_BATCH / epoch_s,
+                first_batch_s=first_s, feed_ms=1e3 * wait / (timed - 1),
+                run_ms=1e3 * run / timed,
+                host_reads=stats.get("executor_sync_count", 0) / timed,
+                syncs=sum(sites.values()) / timed, sync_sites=sites,
+                idle=max(0.0, 1 - busy / wall),
+                profiled_step_ms=wall / FEED_PROFILED,
+                loss_first50=first, loss_last50=last,
+                wall_s=time.perf_counter() - t_run)
+            log(f"MNIST through {kind}: the epoch's first {timed} of "
+                f"{steps} steps in {epoch_s:.2f} s "
+                f"({r['samples_per_s']:.0f} samples/s, CUDA-synced host "
+                f"clock); the first batch (the shuffle buffer's "
+                f"{FEED_SHUFFLE} samples) {first_s:.3f} s, then host ms a "
+                f"step waiting on the feed {r['feed_ms']:.3f}, in "
+                f"Executor.run {r['run_ms']:.3f}; host reads "
+                f"{r['host_reads']:.2f} and syncs {r['syncs']:.2f} a step "
+                f"({sites}); idle {100 * r['idle']:.1f}% of the last "
+                f"{FEED_PROFILED} steps, profiled; loss {first:.4f} -> "
+                f"{last:.4f}; first {FEED_HOLD} losses bit for bit the "
+                f"numpy-fed run's")
+        # a batch generator of tensors already on the card
+        t_run = time.perf_counter()
+        _ctr_restore(scope, start)
+        loader = fluid.io.DataLoader.from_generator(
+            feed_list=feeds, capacity=FEED_CAPACITY, return_list=False
+        ).set_batch_generator(lambda: iter(on_card))
+        handed, handles = [], []
+        torch.cuda.synchronize()
+        with _SyncCount() as sc:
+            for feed in loader:
+                handed.append(feed["img"] is on_card[len(handed)][0]
+                              and feed["label"] is on_card[len(handed)][1])
+                handles.append(exe.run(main, feed=feed, fetch_list=[loss],
+                                       scope=scope, return_numpy=False)[0])
+            torch.cuda.synchronize()
+        sites = sc.sites()
+        losses = [float(h) for h in handles]
+        if len(handed) != FEED_HOLD or not all(handed):
+            raise AssertionError(f"device batches: {sum(handed)} of "
+                                 f"{len(handed)} handed over as they were")
+        if sites:
+            raise AssertionError(f"device batches: syncs {sites}")
+        if not np.array_equal(np.float32(losses), np.float32(ref)):
+            raise AssertionError(f"device batches: losses {losses} against "
+                                 f"the numpy-fed {ref}")
+        runs["device_batches"] = dict(steps=FEED_HOLD, syncs=0.0,
+                                      same_objects=True,
+                                      wall_s=time.perf_counter() - t_run)
+        log(f"a batch generator of tensors on the card through "
+            f"from_generator: {FEED_HOLD} steps, each batch the same "
+            f"tensors, 0 syncs a step, the losses bit for bit the numpy-fed "
+            f"run's")
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+            det
+        shutil.rmtree(work, ignore_errors=True)
+    summary = dict(files_bytes=raw, write_s=write_s, read_s=read_s,
+                   setup_s=setup_s, steps=steps,
+                   numpy_first=ref[:3], runs=runs, card=card_line())
+    log("feed summary: " + json.dumps(summary, default=str))
+    return launches
+
+
 def tensor_methods_ab(cycles=2):
     """The decode, seq2seq and srl phases `cycles` times in the turns on,
     off, off, on of the `matmul` / `unsqueeze` extensions (each phase
@@ -7198,9 +7831,15 @@ def main():
     if "--ctr" in sys.argv[1:]:
         ctr()
         sys.exit(1 if FAILURES else 0)
+    if "--feed" in sys.argv[1:]:
+        feed()
+        sys.exit(1 if FAILURES else 0)
     build_kernels()
     if "--deploy" in sys.argv[1:]:
         deploy()
+        sys.exit(1 if FAILURES else 0)
+    if "--capi" in sys.argv[1:]:
+        capi()
         sys.exit(1 if FAILURES else 0)
     if "--tensor-methods-ab" in sys.argv[1:]:
         tensor_methods_ab()
@@ -7230,11 +7869,14 @@ def main():
     ssd_path = ssd()
     ctr_path = ctr()
     deploy_path = deploy()
+    capi_path = capi()
+    feed_path = feed()
     if FAILURES or None in (rows, probed, served, decoded, trained, library,
                             resnet_path, fluid_path, wmt_paths, hapi_path,
                             dygraph_path, s2s_paths, srl_paths,
                             mobile_paths, gan_path, static_paths, amp_path,
-                            ssd_path, ctr_path, deploy_path):
+                            ssd_path, ctr_path, deploy_path, capi_path,
+                            feed_path):
         log(f"FAILED phases: {FAILURES}")
         print(f"FAILED phases: {FAILURES}", file=sys.stderr, flush=True)
         sys.exit(1)
@@ -7245,7 +7887,8 @@ def main():
              "hapi": hapi_path, "dygraph": dygraph_path, **s2s_paths,
              **srl_paths, **mobile_paths, "cyclegan": gan_path,
              **static_paths, "fluid_amp": amp_path, "ssd": ssd_path,
-             "ctr": ctr_path, "deploy": deploy_path}
+             "ctr": ctr_path, "deploy": deploy_path, "capi": capi_path,
+             "feed": feed_path}
     for r in rows:
         # `launches` is the count on the path where the kernel runs: the
         # probe for its three kernels, the decode path for ragged_paged,

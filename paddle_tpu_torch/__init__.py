@@ -30,6 +30,8 @@ from .device import get_device, set_device  # noqa: F401
 from . import amp, fluid, hapi, io, metric, nn, optimizer, tensor  # noqa
 from . import vision  # noqa: F401
 from . import inference, static  # noqa: F401
+from . import dataset, reader, text  # noqa: F401
+from .batch import batch  # noqa: F401
 from .fluid.dygraph import (disable_dygraph, enable_dygraph, grad,  # noqa
                             no_grad, to_variable)
 from .fluid.framework import in_dygraph_mode  # noqa: F401

@@ -10,6 +10,10 @@ either package loads and runs in the other.  State is read from and
 written to `global_scope()`, as in the reference (`scope_guard` picks
 another).  Inference export prunes the program to what the targets need
 from the feeds and clones it for test (framework/prune.cc in Paddle).
+
+`PyReader` and `DataLoader` (with `DataLoader.from_generator`) are
+paddle.io's, here as in Paddle's fluid.io; the reference's fluid.io lacks
+them (ROADMAP queue 3 item 40).
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ import torch
 from . import core
 from .executor import global_scope
 from .framework import Program, Variable, default_main_program
+from ..io import DataLoader, PyReader  # noqa: F401
 
 _PARAMS_FILE = "params.npz"
 _PROGRAM_FILE = "program.json"

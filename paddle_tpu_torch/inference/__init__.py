@@ -42,6 +42,9 @@ import torch
 from .. import device as _device
 
 FORMAT = "torch.export.pt2"
+# Config(device=EXPORTED): run where the program was traced (the C ABI's
+# bridge loads models so)
+EXPORTED = "exported"
 _WARNED: set = set()
 
 
@@ -170,10 +173,10 @@ def load_inference_model(path_prefix, device=None):
 
 class Config:
     """Predictor config (Paddle's AnalysisConfig): the model's prefix,
-    the device to run on (default cuda, through device.resolve), the
-    cipher, and two serving knobs mapped onto the bucketed runner
-    (`enable_memory_optim` -> donate, `switch_ir_optim(False)` -> exact
-    shapes)."""
+    the device to run on (default cuda, through device.resolve;
+    EXPORTED: the device the program was traced on), the cipher, and two
+    serving knobs mapped onto the bucketed runner (`enable_memory_optim`
+    -> donate, `switch_ir_optim(False)` -> exact shapes)."""
 
     def __init__(self, model_path_prefix=None, device=None):
         self.model_prefix = model_path_prefix
@@ -263,8 +266,9 @@ class Predictor:
                 cipher = AESCipher(mode)  # the manifest's mode wins
             blob = cipher.decrypt(blob, config.cipher_key)
         self._exported = torch.export.load(io.BytesIO(blob))
-        self.device = _device.resolve(config.device)
         traced = _traced_device(self._exported)
+        self.device = _device.resolve(
+            traced if config.device == EXPORTED else config.device)
         if (traced.type, traced.index or 0) != (self.device.type,
                                                 self.device.index or 0):
             raise RuntimeError(

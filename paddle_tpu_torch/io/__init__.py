@@ -25,6 +25,15 @@ issues a non_blocking copy on a side stream; the consumer's stream
 waits for that copy on the device, never on the host.  Batches then
 come as tensors on the device (`places`, else the current device);
 without it they come as the workers made them (numpy).
+
+`DataLoader.from_generator` and `PyReader` (the 1.x feeding readers,
+counterparts of paddle_tpu/io/__init__.py:588, :664) batch a sample,
+sample-list or batch generator with the reference's collate, order and
+dtypes, and yield its batches as they come (numpy from the sample
+forms).  A producer thread (`reader.buffered`) runs the generator up to
+`capacity` batches ahead, handing each batch over as the same object;
+`use_double_buffer` and `places` are accepted and not read, as in the
+reference: the Executor copies a numpy feed to the device itself.
 """
 
 from __future__ import annotations
@@ -40,12 +49,13 @@ import numpy as np
 import torch
 
 from .. import device as _device
+from ..reader import buffered as _buffered_reader
 
 __all__ = ["Dataset", "IterableDataset", "TensorDataset", "ComposeDataset",
            "ChainDataset", "Subset", "random_split", "Sampler",
            "SequenceSampler", "RandomSampler", "WeightedRandomSampler",
            "BatchSampler", "DistributedBatchSampler", "default_collate_fn",
-           "DataLoader", "get_worker_info", "WorkerInfo"]
+           "DataLoader", "PyReader", "get_worker_info", "WorkerInfo"]
 
 
 # -- datasets -----------------------------------------------------------------
@@ -767,3 +777,127 @@ class DataLoader:
         finally:
             stop.set()
             t.join(timeout=30)
+
+
+# -- the 1.x generator loaders ------------------------------------------------
+
+class _GeneratorLoader:
+    """What DataLoader.from_generator returns (Paddle's fluid/reader.py:337
+    GeneratorLoader; the reference's loader in paddle_tpu/io:588): an
+    iterable over the batches of the generator set by one of the set_*
+    methods.  The reference inserts no reader ops into the program either:
+    the Executor is fed the batches.  `places` is not read, as in the
+    reference."""
+
+    def __init__(self, feed_list=None, capacity=16, return_list=True,
+                 drop_last=True):
+        self._feed_names = [getattr(v, "name", str(v))
+                            for v in (feed_list or [])]
+        self._capacity = capacity
+        self._return_list = return_list
+        self._drop_last = drop_last
+        self._gen = None
+
+    def set_sample_generator(self, reader, batch_size, drop_last=None,
+                             places=None):
+        if drop_last is None:
+            drop_last = self._drop_last
+
+        def gen():
+            batch = []
+            for sample in reader():
+                batch.append(sample if isinstance(sample, (list, tuple))
+                             else (sample,))
+                if len(batch) == batch_size:
+                    yield list(default_collate_fn(batch))
+                    batch = []
+            if batch and not drop_last:
+                yield list(default_collate_fn(batch))
+
+        return self._set(gen)
+
+    def set_sample_list_generator(self, reader, places=None):
+        def gen():
+            for samples in reader():
+                yield list(default_collate_fn(list(samples)))
+
+        return self._set(gen)
+
+    def set_batch_generator(self, reader, places=None):
+        return self._set(reader)
+
+    def _set(self, gen):
+        self._gen = gen
+        return self
+
+    def __call__(self):
+        return iter(self)
+
+    def __iter__(self):
+        if self._gen is None:
+            raise RuntimeError(
+                "DataLoader.from_generator: no generator set — call "
+                "set_sample_generator / set_sample_list_generator / "
+                "set_batch_generator first")
+        for batch in _buffered_reader(self._gen,
+                                      max(1, int(self._capacity)))():
+            if self._return_list:
+                yield list(batch)
+            else:
+                if len(self._feed_names) != len(batch):
+                    raise ValueError(
+                        "DataLoader.from_generator(return_list="
+                        f"False): {len(batch)} batch columns but "
+                        f"{len(self._feed_names)} feed vars — a "
+                        "silent zip would drop data")
+                yield dict(zip(self._feed_names, batch))
+
+
+def _dataloader_from_generator(feed_list=None, capacity=16,
+                               use_double_buffer=True, iterable=True,
+                               return_list=True, use_multiprocess=False,
+                               drop_last=True):
+    """DataLoader.from_generator (reference paddle_tpu/io:588): the loader
+    of a sample, sample-list or batch generator.  `use_double_buffer`,
+    `iterable` and `use_multiprocess` are accepted and not read, as in the
+    reference."""
+    return _GeneratorLoader(feed_list, capacity, return_list, drop_last)
+
+
+DataLoader.from_generator = staticmethod(_dataloader_from_generator)
+
+
+class PyReader:
+    """The fluid-era feeding reader (Paddle's fluid/reader.py PyReader:1327;
+    reference paddle_tpu/io:664), iterable mode only: the Executor is fed
+    the batches, there is no in-program read op to start() or reset()."""
+
+    def __init__(self, feed_list=None, capacity=16, use_double_buffer=True,
+                 iterable=True, return_list=False):
+        if not iterable:
+            raise NotImplementedError(
+                "PyReader(iterable=False) relied on in-program reader ops "
+                "(create_py_reader/read); the Executor is fed arrays "
+                "directly — use iterable=True and pass the batch as feed")
+        self._loader = _dataloader_from_generator(
+            feed_list=feed_list, capacity=capacity,
+            use_double_buffer=use_double_buffer, iterable=True,
+            return_list=return_list)
+        self._feed_list = feed_list or []
+
+    def decorate_sample_generator(self, sample_generator, batch_size,
+                                  drop_last=True, places=None):
+        self._loader.set_sample_generator(sample_generator, batch_size,
+                                          drop_last, places)
+
+    def decorate_sample_list_generator(self, reader, places=None):
+        self._loader.set_sample_list_generator(reader, places)
+
+    def decorate_batch_generator(self, reader, places=None):
+        self._loader.set_batch_generator(reader, places)
+
+    def __call__(self):
+        return iter(self)
+
+    def __iter__(self):
+        return iter(self._loader)

@@ -1,4 +1,5 @@
-"""paddle_tpu_torch.vision — the vision models and their train step
-(counterpart of paddle_tpu.vision)."""
+"""paddle_tpu_torch.vision — the vision models, their train step and the
+vision datasets (counterpart of paddle_tpu.vision; its `transforms` wait
+for ROADMAP queue 1 item 12)."""
 
-from . import models, train  # noqa: F401
+from . import datasets, models, train  # noqa: F401

@@ -85,7 +85,28 @@ def test_the_walk_sees_the_whole_package():
             "nn/layer/extra_layers.py", "nn/layer/container.py",
             "vision/models.py", "ops/control_flow_ops.py",
             "fluid/layers/control_flow.py", "fluid/dygraph/varbase.py",
-            "fluid/dygraph/math_op_patch.py", "fluid/dygraph/nn.py"} <= names
+            "fluid/dygraph/math_op_patch.py", "fluid/dygraph/nn.py",
+            "core_native/__init__.py", "inference/c_bridge.py", "reader.py",
+            "batch.py", "fluid/contrib/reader/__init__.py",
+            "vision/datasets.py", "text/__init__.py", "text/datasets.py",
+            "dataset/__init__.py", "dataset/_shim.py", "dataset/common.py",
+            "dataset/image.py", "dataset/mnist.py", "dataset/cifar.py",
+            "dataset/flowers.py", "dataset/voc2012.py", "dataset/imdb.py",
+            "dataset/imikolov.py", "dataset/movielens.py",
+            "dataset/uci_housing.py", "dataset/conll05.py",
+            "dataset/wmt14.py", "dataset/wmt16.py"} <= names
+
+
+def test_the_c_abi_reaches_only_the_ports_bridge():
+    """csrc/c_api.cc imports one Python module, the port's bridge, and
+    names no module of the reference."""
+    import re
+
+    src = (PORT / "csrc" / "c_api.cc").read_text()
+    imported = re.findall(r'PyImport_ImportModule\("([^"]+)"\)', src)
+    assert imported == ["paddle_tpu_torch.inference.c_bridge"]
+    named = set(re.findall(r"\bpaddle_tpu(?:_torch)?\.[\w.]+", src))
+    assert named and all(n.startswith("paddle_tpu_torch.") for n in named)
 
 
 def _run(code_or_args, cwd, timeout=120):
@@ -117,7 +138,13 @@ def test_importing_the_port_loads_no_jax():
             "paddle_tpu_torch.ops.vision_ops, "
             "paddle_tpu_torch.vision.models, "
             "paddle_tpu_torch.ops.control_flow_ops, "
-            "paddle_tpu_torch.fluid.dygraph.nn\n"
+            "paddle_tpu_torch.fluid.dygraph.nn, "
+            "paddle_tpu_torch.core_native, "
+            "paddle_tpu_torch.inference.c_bridge, paddle_tpu_torch.reader, "
+            "paddle_tpu_torch.batch, paddle_tpu_torch.vision.datasets, "
+            "paddle_tpu_torch.text.datasets, paddle_tpu_torch.dataset.mnist, "
+            "paddle_tpu_torch.dataset.image, "
+            "paddle_tpu_torch.fluid.contrib.reader\n"
             "sys.path.insert(0, 'tests')\n"
             "import torch_seq2seq_program, torch_cyclegan_program, "
             "torch_seq2seq_static_program\n"
