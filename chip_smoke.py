@@ -15,8 +15,9 @@ PaddleRec's CTR-DNN through the dataset path, checkpoint and resume it,
 export BERT-base to an inference Predictor and serve it beside the CTR
 model from one ModelRegistry, serve BERT-base's encoder and LeNet through
 the inference C ABI from a ctypes host and a pure-C host, train MNIST
-from files through the 1.x readers and PyReader, and check what comes
-out.
+from files through the 1.x readers and PyReader, train BERT-base and the
+static ResNet-50 data-parallel over torch.distributed, and check what
+comes out.
 
     python3 chip_smoke.py
 
@@ -425,6 +426,34 @@ Phases, in order (any failure exits non-zero and prints no result):
               generator of tensors already on the card: they reach the
               Executor as the same objects, 0 syncs a step, the first
               FEED_HOLD losses bit for bit the numpy-fed run's
+ 28. dist     data parallelism over torch.distributed, the ranks started
+              by the port's distributed.spawn under the PADDLE_* contract
+              and loading the kernels the build phase built.  With two or
+              more cards one NCCL group of min(cards, 4) ranks, a card
+              each; with one card a world-one NCCL group, then two ranks
+              sharing the card under gloo (PADDLE_DISTRI_BACKEND=gloo).
+              (a) every collective rule on CUDA tensors against numpy
+              oracles of the same shards (DIST_RULE_TOL), the comm-stream
+              all-reduce behind its fence; (b) BERT-base's data-parallel
+              build_pretrain_step at full width, bf16 over f32 masters,
+              AdamW, dropout 0, the global batch DIST_BERT_BATCH x 512
+              with 76 masked split over the ranks, DIST_STEPS steps: the
+              parameters' bits the same on every rank after each step,
+              each rank's kernel launches counted, step ms, all-reduce ms
+              a step (CUDA events and host clock) and bytes; the
+              rank-mean losses within DIST_LOSS1_RTOL (step 1) and
+              DIST_LOSS_RTOL of one process on the whole batch on this
+              card; (c) BASELINE configs[4]'s
+              Fleet path on the static ResNet-50 (fleet.init ->
+              distributed_optimizer(Momentum) -> GraphExecutionOptimizer
+              -> GradAllReduce -> CompiledProgram.with_data_parallel),
+              global batch DIST_RESNET_BATCH at 224^2, f32, per-rank batch
+              norm: one c_allreduce_sum a gradient, the parameters the
+              same on every rank after each step, step 1's losses the
+              one-process forwards of the same rows, finite losses; then
+              one step with BuildStrategy.sync_batch_norm, whose rank-mean
+              loss is within DIST_SBN_RTOL of the whole batch's
+              one-process forward
 
 The last two lines of stdout are a {"kernels": [...]} summary and the
 {"ok": true, "device": {...}} result.
@@ -432,7 +461,8 @@ The last two lines of stdout are a {"kernels": [...]} summary and the
 `python3 chip_smoke.py --ssd` runs only the card and ssd phases (no
 kernel is built: none is on that path); `--ctr` the card and ctr phases;
 `--feed` the card and feed phases; `--deploy` the card, build and deploy
-phases; `--capi` the card, build and capi phases.
+phases; `--capi` the card, build and capi phases; `--dist` the card,
+build and dist phases.
 
 `python3 chip_smoke.py --tensor-methods-ab` runs instead only the
 host-bound decode, seq2seq and srl phases, in turns with the `matmul` /
@@ -7765,6 +7795,489 @@ def feed():
     return launches
 
 
+# -- data parallelism over torch.distributed (phase 28) --------------------------
+
+# the ranks' runs: with two or more cards one NCCL group of min(cards, 4)
+# ranks, a card each; with one card a world-one NCCL group (every rule
+# through NCCL), then two gloo ranks sharing the card (asked for by
+# PADDLE_DISTRI_BACKEND=gloo, as Paddle 2.x selects it)
+DIST_STEPS = 3
+DIST_BERT_BATCH, DIST_BERT_MASKED = 32, 76
+DIST_RESNET_BATCH = 128
+# one collective of f32 shards over <= 4 ranks: NCCL's (or gloo's) order
+# of the sums against numpy's; prod through exp/log; moves exactly
+DIST_RULE_TOL = dict(atol=1e-5, rtol=1e-5)
+# BERT-base bf16: the data-parallel step's global mean loss against one
+# process's on the whole batch, relative.  Step 1 is a forward of the
+# same masters: the rows' kernels at other batch sizes (cuBLAS may take
+# other tiles at M = B*S/2) round bf16 elsewhere (measured 5.8e-6 on an
+# H100, PERF.md).  Later steps part by AdamW's first updates, which move
+# every element by about lr whatever its gradient's size: where a
+# gradient is within bf16's rounding of 0 its sign is the rounding's,
+# and the losses part by the curvature over those elements (measured
+# 6.0e-5 to 3.3e-4 at steps 2 and 3)
+DIST_LOSS1_RTOL = 1e-4
+DIST_LOSS_RTOL = 1e-3
+# the static ResNet-50's step-1 loss with the group's batch statistics
+# (float32 sums all-reduced) against cuDNN's batch norm over the whole
+# batch in one process: f32 sums in other orders through 53 norms
+DIST_SBN_RTOL = 1e-4
+# a rank's step-1 loss against the forward of its rows in the same
+# process: the same ops on the same card (cuDNN deterministic); the
+# train program runs them with autograd recording, which may take other
+# kernels only in the last bits
+DIST_FWD_RTOL = 1e-6
+
+
+def _dist_plan(cards):
+    if cards >= 2:
+        n = min(cards, 4)
+        return [("nccl", n, list(range(n)), ("rules", "bert", "resnet"))]
+    return [("nccl", 1, [0], ("rules",)),
+            ("gloo", 2, [0], ("rules", "bert", "resnet"))]
+
+
+def _fingerprint(tensors):
+    """Two int64 sums a tensor of its float32 words (plain and weighted
+    by position): equal across ranks only for equal bits, to the odds of
+    a collision."""
+    fp = []
+    for t in tensors:
+        b = t.detach().reshape(-1).view(torch.int32).to(torch.int64)
+        w = torch.arange(b.numel(), device=b.device) % 65521 + 1
+        fp.append(torch.stack([b.sum(), (b * w).sum()]))
+    return torch.stack(fp)
+
+
+def _same_on_every_rank(fp, what):
+    from paddle_tpu_torch.distributed import comm
+
+    got = comm.all_gather(fp[None])
+    if not bool((got == got[:1]).all()):
+        raise AssertionError(f"{what}: the ranks' parameters differ")
+
+
+def _dist_rules(world, rank, dev):
+    """Every collective rule once on CUDA tensors at this world, against
+    numpy oracles of the same seeded shards (every rank draws them all).
+    Returns {case: max abs err}."""
+    from paddle_tpu_torch.fluid import framework as TFW
+    from paddle_tpu_torch.ops import registry as TREG
+
+    def op(t, attrs, ins=("X",), outs=("Out",)):
+        return TFW.Operator(TFW.Program().global_block(), 0, t,
+                            {s: [f"{s}_0"] for s in ins},
+                            {s: [f"{s}_0"] for s in outs}, dict(attrs))
+
+    def ctx():
+        return TREG.LowerCtx(0, device=dev)
+
+    rng = np.random.RandomState(5)
+
+    def shards(*shape, pos=False):
+        x = rng.uniform(0.5, 1.5, (world,) + shape) if pos \
+            else rng.randn(world, *shape)
+        return x.astype(np.float32)
+
+    root, src, dst = world - 1, min(1, world - 1), world - 1
+    piece = 8 // world
+
+    def a2a(x, r):
+        return np.concatenate([x[k].reshape(world, -1, 3)[r]
+                               for k in range(world)])
+
+    def p2p(x, r):
+        return x[src] if r == dst else np.zeros_like(x[r])
+
+    x43, x83, x23, x28 = shards(4, 3), shards(8, 3), shards(2, 3), \
+        shards(2, 8)
+    xpos = shards(4, 3, pos=True)
+    cases = [
+        ("c_allreduce_sum", {}, x43, lambda x, r: x.sum(0)),
+        ("c_allreduce_max", {}, x43, lambda x, r: x.max(0)),
+        ("c_allreduce_min", {}, x43, lambda x, r: x.min(0)),
+        ("c_allreduce_prod", {}, xpos, lambda x, r: x.prod(0)),
+        ("mp_allreduce_sum", {}, x43, lambda x, r: x.sum(0)),
+        ("c_reduce_sum", {"root_id": 0}, x43, lambda x, r: x.sum(0)),
+        ("c_broadcast", {"root": root}, x43, lambda x, r: x[root]),
+        ("c_allgather", {"nranks": world}, x23,
+         lambda x, r: np.concatenate(list(x))),
+        ("c_reducescatter", {}, x83,
+         lambda x, r: x.sum(0).reshape(world, -1, 3)[r]),
+        ("c_concat", {}, x23, lambda x, r: np.concatenate(list(x), -1)),
+        ("c_split", {}, x28,
+         lambda x, r: x[r][..., r * piece:(r + 1) * piece]),
+        ("c_identity", {}, x43, lambda x, r: x[r]),
+        ("alltoall", {}, x83, a2a),
+        ("barrier", {}, x43, lambda x, r: x[r]),
+        ("c_sync_calc_stream", {}, x43, lambda x, r: x[r]),
+        ("c_sync_comm_stream", {}, x43, lambda x, r: x[r]),
+    ]
+    errs = {}
+    for name, attrs, x, want in cases:
+        got = TREG.forward_rule(name)(
+            ctx(), op(name, {"ring_id": 0, **attrs}),
+            {"X": [torch.from_numpy(x[rank]).to(dev)]})["Out"][0]
+        ok, err = close(got.cpu(), torch.from_numpy(want(x, rank)),
+                        **DIST_RULE_TOL)
+        if not ok or got.device != dev:
+            raise AssertionError(f"{name}: max abs err {err} on {got.device}")
+        errs[name] = err
+    # issued on the comm stream, then the fence: the compute stream waits
+    got = TREG.forward_rule("c_allreduce_sum")(
+        ctx(), op("c_allreduce_sum", {"ring_id": 0, "use_calc_stream": False}),
+        {"X": [torch.from_numpy(x43[rank]).to(dev)]})["Out"][0]
+    TREG.forward_rule("c_sync_comm_stream")(
+        ctx(), op("c_sync_comm_stream", {"ring_id": 0}), {"X": [got]})
+    ok, errs["comm_stream_sum"] = close((got * 1.0).cpu(),
+                                        torch.from_numpy(x43.sum(0)),
+                                        **DIST_RULE_TOL)
+    if not ok:
+        raise AssertionError("the comm-stream all-reduce after its fence")
+    for name in ("c_comm_init", "c_comm_init_all", "c_gen_nccl_id",
+                 "c_wait_calc_stream", "c_wait_comm_stream"):
+        if TREG.forward_rule(name)(ctx(), op(name, {}, (), ()), {}) != {}:
+            raise AssertionError(name)
+        errs[name] = 0.0
+    c = ctx()
+    TREG.forward_rule("send_v2")(c, op("send_v2", {"peer": dst}, ("X",), ()),
+                                 {"X": [torch.from_numpy(x43[rank]).to(dev)]})
+    got = TREG.forward_rule("recv_v2")(
+        c, op("recv_v2", {"peer": src, "out_shape": [4, 3]}, (), ("Out",)),
+        {})["Out"][0]
+    if not torch.equal(got.cpu(), torch.from_numpy(p2p(x43, rank))):
+        raise AssertionError("send_v2 / recv_v2")
+    errs["send_v2+recv_v2"] = 0.0
+    torch.cuda.synchronize()
+    return errs
+
+
+def _dist_bert(world, rank, dev):
+    """BERT-base's data-parallel pretraining step at full width, bf16 over
+    f32 masters, dropout 0: DIST_STEPS steps on this rank's rows of the
+    global batch, the launch counters at 0 just before and read just
+    after, the parameters' bits compared across the ranks after each
+    step (and whole at the end)."""
+    from paddle_tpu_torch.distributed import comm
+    from paddle_tpu_torch.parallel import mesh as M
+
+    cfg = bert.BertConfig.base(hidden_dropout_prob=0.0,
+                               attention_probs_dropout_prob=0.0)
+    model = bert.BertForPretraining(cfg, seed=0)
+    mesh = M.make_mesh({"dp": world})
+    step, state = bert.build_pretrain_step(model, mesh=mesh, dp_axis="dp")
+    del model
+    fb = bert.fake_batch(cfg, DIST_BERT_BATCH, SEQ,
+                         num_masked=DIST_BERT_MASKED, seed=11)
+    mine = {k: torch.from_numpy(v).to(dev)
+            for k, v in M.shard_host_batch(mesh, fb).items()}
+    n_params = sum(v.numel() for v in state["params"].values())
+    reduce_times = []
+    dp_mean = bert._dp_mean
+
+    def timed_dp_mean(grads, loss, group, n):
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        h0 = time.perf_counter()
+        e0.record()
+        out = dp_mean(grads, loss, group, n)
+        e1.record()
+        reduce_times.append((time.perf_counter() - h0, e0, e1))
+        return out
+
+    bert._dp_mean = timed_dp_mean
+    torch.cuda.synchronize()
+    for c in COUNTERS.values():
+        c.reset()
+    # -- the main path: counters at 0 before, read right after --------------
+    losses, step_ms, host_ms = [], [], []
+    try:
+        for _ in range(DIST_STEPS):
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            h0 = time.perf_counter()
+            e0.record()
+            state, loss = step(state, mine, TRAIN_LR)
+            e1.record()
+            torch.cuda.synchronize()
+            host_ms.append((time.perf_counter() - h0) * 1e3)
+            step_ms.append(e0.elapsed_time(e1))
+            losses.append(float(loss))
+            _same_on_every_rank(_fingerprint(state["params"].values()),
+                                f"bert step {len(losses)}")
+        launches = {n: c.value for n, c in COUNTERS.items()}
+    finally:
+        bert._dp_mean = dp_mean
+    # ------------------------------------------------------------------------
+    flat = torch.cat([v.reshape(-1) for v in state["params"].values()])
+    if not torch.equal(comm.broadcast(flat, 0), flat):
+        raise AssertionError("bert: the ranks' masters differ after the steps")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"bert losses {losses}")
+    _expect_launches(launches, LAYERS * DIST_STEPS, TRAIN_KERNELS,
+                     f"{DIST_STEPS} data-parallel BERT steps")
+    return dict(losses=losses, step_ms=step_ms, host_step_ms=host_ms,
+                allreduce_ms_events=[e0.elapsed_time(e1)
+                                     for _, e0, e1 in reduce_times],
+                allreduce_ms_host=[h * 1e3 for h, _, _ in reduce_times],
+                allreduce_bytes=4 * (n_params + 1), launches=launches,
+                rows=int(mine["input_ids"].shape[0]))
+
+
+class _NoOptimizer:
+    """build_train_program's optimizer for the forward alone."""
+
+    def minimize(self, loss):
+        return [], []
+
+
+def _dist_resnet_program(optimizer):
+    from paddle_tpu_torch.models import resnet as R
+
+    with unique_name.guard():
+        main, startup, _, fetches = R.build_train_program(
+            depth=50, class_num=FLUID_CLASSES,
+            image_shape=(3, FLUID_HW, FLUID_HW), optimizer=optimizer)
+    main.random_seed = startup.random_seed = 7
+    return main, startup, fetches
+
+
+def _dist_resnet_batch():
+    rng = np.random.RandomState(0)
+    return (rng.randn(DIST_RESNET_BATCH, 3, FLUID_HW, FLUID_HW)
+            .astype("float32"),
+            rng.randint(0, FLUID_CLASSES, (DIST_RESNET_BATCH, 1))
+            .astype("int64"))
+
+
+def _dist_forward_loss(fluid, x, y):
+    """One process's forward of rows (x, y) from the startup values:
+    the train program's forward ops, batch norm in training mode."""
+    main, startup, fetches = _dist_resnet_program(_NoOptimizer())
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(startup, scope=scope)
+    (loss,) = exe.run(main, feed={"image": x, "label": y},
+                      fetch_list=fetches[:1], scope=scope)
+    return float(np.asarray(loss).reshape(-1)[0])
+
+
+def _dist_resnet(world, rank, dev, sync_bn):
+    """BASELINE configs[4]'s Fleet path on the static ResNet-50:
+    fleet.init(is_collective=True) -> distributed_optimizer(Momentum) ->
+    GraphExecutionOptimizer -> GradAllReduce ->
+    CompiledProgram.with_data_parallel, this rank's rows of a global
+    batch of DIST_RESNET_BATCH at 224^2, f32.  Per-rank batch norm:
+    DIST_STEPS steps, one c_allreduce_sum a parameter gradient, the
+    parameters' bits the same on every rank after each step, step 1's
+    loss a one-process forward of the same rows.  `sync_bn`: one step
+    with BuildStrategy.sync_batch_norm (the sync_batch_norm rules)."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.distributed import fleet
+
+    fleet.init(is_collective=True)
+    opt = fleet.distributed_optimizer(fluid.optimizer.Momentum(
+        learning_rate=0.1, momentum=0.9,
+        regularization=fluid.regularizer.L2Decay(1e-4)))
+    main, startup, fetches = _dist_resnet_program(opt)
+    applied = fleet.fleet.applied_meta_list()
+    if applied != ["GraphExecutionOptimizer"]:
+        raise AssertionError(f"applied meta-optimizers {applied}")
+    ops = main.global_block().ops
+    params = [p.name for p in main.all_parameters() if p.trainable]
+    n_allreduce = sum(op.type == "c_allreduce_sum" for op in ops)
+    if n_allreduce != len(params):
+        raise AssertionError(f"{n_allreduce} c_allreduce_sum for "
+                             f"{len(params)} parameter gradients")
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(startup, scope=scope)
+    bs = fluid.BuildStrategy()
+    bs.sync_batch_norm = sync_bn
+    prog = fluid.CompiledProgram(main, bs).with_data_parallel(
+        loss_name=fetches[0].name)
+    x, y = _dist_resnet_batch()
+    k = DIST_RESNET_BATCH // world
+    feed = {"image": torch.from_numpy(x[rank * k:(rank + 1) * k]).to(dev),
+            "label": torch.from_numpy(y[rank * k:(rank + 1) * k]).to(dev)}
+    losses, host_ms = [], []
+    for _ in range(1 if sync_bn else DIST_STEPS):
+        h0 = time.perf_counter()
+        (loss, _) = exe.run(prog, feed=feed, fetch_list=fetches, scope=scope)
+        host_ms.append((time.perf_counter() - h0) * 1e3)
+        losses.append(float(np.asarray(loss).reshape(-1)[0]))
+        _same_on_every_rank(_fingerprint([scope.get(n) for n in params]),
+                            f"resnet step {len(losses)}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"resnet losses {losses}")
+    out = dict(losses=losses, host_step_ms=host_ms, rows=k,
+               allreduce_ops=n_allreduce, grads=len(params),
+               allreduce_bytes=4 * sum(int(scope.get(n).numel())
+                                       for n in params))
+    if not sync_bn:
+        want = _dist_forward_loss(fluid, feed["image"], feed["label"])
+        if abs(losses[0] - want) > DIST_FWD_RTOL * abs(want):
+            raise AssertionError(f"rank {rank} step-1 loss {losses[0]!r} vs "
+                                 f"its rows' one-process forward {want!r}")
+        out["forward_loss"] = want
+    return out
+
+
+def dist_rank(workdir, tag, parts):
+    """One rank of the dist phase (started by distributed.spawn): joins
+    the group the launcher's PADDLE_* contract describes and writes what
+    it measured to workdir/tag.RANK.json.  Any failure exits non-zero."""
+    import paddle_tpu_torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    F.enable_fused_ffn()
+    env = dist.init_parallel_env()
+    dev = dist.parallel.device()
+    rank, world = env.rank, env.world_size
+    out = dict(rank=rank, world=world, backend=dist.parallel.backend(),
+               device=str(dev), card=card_line())
+    t0 = time.perf_counter()
+    if "rules" in parts:
+        out["rules"] = _dist_rules(world, rank, dev)
+    if "bert" in parts:
+        out["bert"] = _dist_bert(world, rank, dev)
+        torch.cuda.empty_cache()
+    if "resnet" in parts:
+        out["resnet"] = _dist_resnet(world, rank, dev, sync_bn=False)
+        out["resnet_sync_bn"] = _dist_resnet(world, rank, dev, sync_bn=True)
+    out["rank_s"] = time.perf_counter() - t0
+    with open(os.path.join(workdir, f"{tag}.{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_parallel_env()
+
+
+def _dist_one_process(fluid, bert_runs, resnet_runs):
+    """The one-process references on this card: BERT-base's step on the
+    whole batch from the same seed, and the static ResNet-50's forward of
+    the whole batch."""
+    cfg = bert.BertConfig.base(hidden_dropout_prob=0.0,
+                               attention_probs_dropout_prob=0.0)
+    model = bert.BertForPretraining(cfg, seed=0)
+    step, state = bert.build_pretrain_step(model)
+    del model
+    fb = bert.fake_batch(cfg, DIST_BERT_BATCH, SEQ,
+                         num_masked=DIST_BERT_MASKED, seed=11)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in fb.items()}
+    want = []
+    for _ in range(DIST_STEPS):
+        state, loss = step(state, batch, TRAIN_LR)
+        want.append(float(loss))
+    del state, step
+    torch.cuda.empty_cache()
+    for tag, runs in bert_runs.items():
+        got = np.mean([r["losses"] for r in runs], axis=0)
+        rel = np.abs(got - np.asarray(want)) / np.abs(np.asarray(want))
+        log(f"dist {tag}: BERT rank-mean losses {got.tolist()} against one "
+            f"process {want}: rel err {rel.tolist()} (step 1 rtol "
+            f"{DIST_LOSS1_RTOL}, then {DIST_LOSS_RTOL})")
+        if rel[0] > DIST_LOSS1_RTOL or rel.max() > DIST_LOSS_RTOL:
+            raise AssertionError(f"{tag}: BERT losses off by {rel}")
+    x, y = _dist_resnet_batch()
+    whole = _dist_forward_loss(fluid, torch.from_numpy(x).cuda(),
+                               torch.from_numpy(y).cuda())
+    torch.cuda.empty_cache()
+    for tag, runs in resnet_runs.items():
+        got = float(np.mean([r["losses"][0] for r in runs]))
+        rel = abs(got - whole) / abs(whole)
+        log(f"dist {tag}: static ResNet-50 sync_batch_norm step-1 rank-mean "
+            f"loss {got!r} against the whole batch's one-process forward "
+            f"{whole!r}: rel err {rel:.2e} (rtol {DIST_SBN_RTOL})")
+        if rel > DIST_SBN_RTOL:
+            raise AssertionError(f"{tag}: sync batch norm loss off by {rel}")
+    return want, whole
+
+
+@phase("dist")
+def dist():
+    """Phase 28: data parallelism over torch.distributed, each rank a
+    process started by the port's distributed.spawn under the PADDLE_*
+    contract, loading the kernels the build phase built: (a) every
+    collective rule on CUDA tensors against numpy, (b) BERT-base's
+    data-parallel step, (c) BASELINE configs[4]'s Fleet path on the
+    static ResNet-50 (and once with sync_batch_norm); then the
+    one-process references on this card.  Returns rank 0's launches of
+    the BERT run."""
+    import importlib
+
+    import paddle_tpu_torch.distributed as dist_mod
+    from paddle_tpu_torch import fluid
+
+    cards = torch.cuda.device_count()
+    plan = _dist_plan(cards)
+    card = card_line()
+    log(f"dist: {card}; {cards} card(s); runs "
+        f"{[(b, n, g) for b, n, g, _ in plan]}")
+    # the ranks import this file by name: spawn cannot ship __main__'s
+    rank_fn = importlib.import_module("chip_smoke").dist_rank
+    root = str(Path(__file__).resolve().parent)
+    work = tempfile.mkdtemp(prefix="dist_")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    results, bert_runs, sbn_runs, launches = {}, {}, {}, None
+    try:
+        for backend, n, gpus, parts in plan:
+            tag = f"{backend}{n}"
+            env = {"PADDLE_DISTRI_BACKEND": backend,
+                   "PYTHONPATH": os.pathsep.join(
+                       [root] + [p for p in os.environ.get(
+                           "PYTHONPATH", "").split(os.pathsep) if p])}
+            t0 = time.perf_counter()
+            dist_mod.spawn(rank_fn, args=(work, tag, parts), nprocs=n,
+                           gpus=gpus, env=env)
+            wall = time.perf_counter() - t0
+            runs = [json.load(open(os.path.join(work, f"{tag}.{r}.json")))
+                    for r in range(n)]
+            results[tag] = runs
+            got = {(r["backend"], r["world"]) for r in runs}
+            if got != {(backend, n)}:
+                raise AssertionError(f"{tag}: the ranks ran {got}")
+            log(f"dist {tag}: backend {backend}, world {n}, cards {gpus} "
+                f"({cards} on the host); spawn to exit {wall:.1f} s; ranks "
+                f"{[round(r['rank_s'], 1) for r in runs]} s of work; rule "
+                f"max abs err {max(max(r['rules'].values()) for r in runs):.2e}"
+                f" over {len(runs[0]['rules'])} checks a rank")
+            if "bert" in parts:
+                b = [r["bert"] for r in runs]
+                bert_runs[tag] = b
+                launches = launches or b[0]["launches"]
+                for r, x in enumerate(b):
+                    log(f"dist {tag} rank {r}: BERT-base dp step B="
+                        f"{x['rows']}/{DIST_BERT_BATCH} S={SEQ}: losses "
+                        f"{x['losses']}; step ms (CUDA events) "
+                        f"{[round(v, 3) for v in x['step_ms']]}, host "
+                        f"{[round(v, 3) for v in x['host_step_ms']]}; "
+                        f"all-reduce ms a step (CUDA events) "
+                        f"{[round(v, 3) for v in x['allreduce_ms_events']]},"
+                        f" host clock "
+                        f"{[round(v, 3) for v in x['allreduce_ms_host']]}; "
+                        f"{x['allreduce_bytes']} bytes all-reduced a step; "
+                        f"launches {x['launches']}")
+            if "resnet" in parts:
+                sbn_runs[tag] = [r["resnet_sync_bn"] for r in runs]
+                for r, x in enumerate(r["resnet"] for r in runs):
+                    log(f"dist {tag} rank {r}: static ResNet-50 Fleet "
+                        f"B={x['rows']}/{DIST_RESNET_BATCH}: losses "
+                        f"{x['losses']} (step 1 = its rows' one-process "
+                        f"forward {x['forward_loss']!r}); host ms a step "
+                        f"{[round(v, 1) for v in x['host_step_ms']]}; "
+                        f"{x['allreduce_ops']} c_allreduce_sum for "
+                        f"{x['grads']} gradients, {x['allreduce_bytes']} "
+                        f"bytes a step")
+        want, whole = _dist_one_process(fluid, bert_runs, sbn_runs)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    summary = dict(card=card, cards=cards, runs={
+        tag: [{k: v for k, v in r.items() if k != "rules"} for r in runs]
+        for tag, runs in results.items()}, one_process_bert=want,
+        one_process_resnet_forward=whole)
+    log("dist summary: " + json.dumps(summary, default=str))
+    return launches
+
+
 def tensor_methods_ab(cycles=2):
     """The decode, seq2seq and srl phases `cycles` times in the turns on,
     off, off, on of the `matmul` / `unsqueeze` extensions (each phase
@@ -7841,6 +8354,9 @@ def main():
     if "--capi" in sys.argv[1:]:
         capi()
         sys.exit(1 if FAILURES else 0)
+    if "--dist" in sys.argv[1:]:
+        dist()
+        sys.exit(1 if FAILURES else 0)
     if "--tensor-methods-ab" in sys.argv[1:]:
         tensor_methods_ab()
         sys.exit(1 if FAILURES else 0)
@@ -7871,12 +8387,13 @@ def main():
     deploy_path = deploy()
     capi_path = capi()
     feed_path = feed()
+    dist_path = dist()
     if FAILURES or None in (rows, probed, served, decoded, trained, library,
                             resnet_path, fluid_path, wmt_paths, hapi_path,
                             dygraph_path, s2s_paths, srl_paths,
                             mobile_paths, gan_path, static_paths, amp_path,
                             ssd_path, ctr_path, deploy_path, capi_path,
-                            feed_path):
+                            feed_path, dist_path):
         log(f"FAILED phases: {FAILURES}")
         print(f"FAILED phases: {FAILURES}", file=sys.stderr, flush=True)
         sys.exit(1)
@@ -7888,7 +8405,7 @@ def main():
              **srl_paths, **mobile_paths, "cyclegan": gan_path,
              **static_paths, "fluid_amp": amp_path, "ssd": ssd_path,
              "ctr": ctr_path, "deploy": deploy_path, "capi": capi_path,
-             "feed": feed_path}
+             "feed": feed_path, "dist": dist_path}
     for r in rows:
         # `launches` is the count on the path where the kernel runs: the
         # probe for its three kernels, the decode path for ragged_paged,

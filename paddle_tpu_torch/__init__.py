@@ -34,6 +34,7 @@ from . import dataset, reader, text  # noqa: F401
 from .batch import batch  # noqa: F401
 from .fluid.dygraph import (disable_dygraph, enable_dygraph, grad,  # noqa
                             no_grad, to_variable)
+from .fluid.dygraph.parallel import DataParallel  # noqa: F401
 from .fluid.framework import in_dygraph_mode  # noqa: F401
 from .fluid.param_attr import ParamAttr  # noqa: F401
 from .framework_io import load, save  # noqa: F401

@@ -31,9 +31,9 @@ thread a job), `ckpt_snapshot_bytes` (bytes copied but not yet written),
 `ckpt_restore_count`.
 
 One process: `process_count` above 1 raises NotImplementedError until
-ROADMAP queue 1 item 10 brings torch.distributed in, so the rendezvous
-before the commit has nothing to wait for, and the manifest records no
-mesh axes.  Restore returns `(state, manifest)` with every value a CPU
+ROADMAP queue 1 item 10b brings per-host shards and their barrier, so
+the rendezvous before the commit has nothing to wait for, and the
+manifest records no mesh axes.  Restore returns `(state, manifest)` with every value a CPU
 tensor of the manifest's dtype; it refuses partial checkpoints and (with
 `strict_topology`) ones written by another process count.
 """
@@ -54,8 +54,8 @@ from . import manifest as mf
 from .manifest import CheckpointError
 from .writer import WriterPool
 
-MULTI_PROCESS = ("checkpoints over more than one process wait for ROADMAP "
-                 "queue 1 item 10 (torch.distributed)")
+MULTI_PROCESS = ("checkpoints over more than one process (per-host shards "
+                 "and their barrier) wait for ROADMAP queue 1 item 10b")
 
 
 def _host_topology(process_index, process_count) -> Tuple[int, int]:

@@ -27,11 +27,13 @@ epoch are drawn and dropped on the producer thread before anything is
 staged (`feed_skipped_batches`), as the reference does; the order itself
 is the dataset's, the same for the same files and seed.
 
-One process: `host_topology` reports a single host, and the datasets
-refuse a shard of more than one host until ROADMAP queue 1 item 10
-brings torch.distributed in.  The shard math (`epoch_order`,
-`shard_plan`) is the reference's, so the same seed gives the same
-per-epoch plan.
+Several hosts: `host_topology` reads the live process group (rank,
+world size), and a fluid dataset's pass deals each rank its disjoint,
+exhaustive shard of the epoch's permutation (files, or records where
+there are fewer files than ranks), unless the dataset was already
+loaded sharded (`load_into_memory(shard_by_host=True)`).  The shard math
+(`epoch_order`, `shard_plan`) is the reference's, so the same seed gives
+the same per-epoch plan on every rank.
 """
 
 from __future__ import annotations
@@ -47,22 +49,18 @@ from .. import profiler
 
 DEFAULT_PREFETCH_DEPTH = int(os.environ.get("PADDLE_PREFETCH_DEPTH", "2"))
 
-MULTI_HOST = ("a shard over more than one host waits for ROADMAP queue 1 "
-              "item 10 (torch.distributed)")
-
-
 def host_topology(process_index: Optional[int] = None,
                   process_count: Optional[int] = None) -> Tuple[int, int]:
-    """(index, count) of this host: the arguments where both are given,
-    else one process."""
-    if process_index is not None and process_count is not None:
-        return int(process_index), max(1, int(process_count))
-    return 0, 1
+    """(index, count) of this host: the arguments where given, else the
+    live process group's (rank, world size), else the PADDLE_* contract,
+    else one host."""
+    from ..distributed import parallel
 
-
-def single_host(count: int, what: str) -> None:
-    if count > 1:
-        raise NotImplementedError(f"{what} over {count} hosts: {MULTI_HOST}")
+    index = parallel.process_index() if process_index is None \
+        else int(process_index)
+    count = parallel.process_count() if process_count is None \
+        else int(process_count)
+    return index, max(1, count)
 
 
 def epoch_order(n: int, seed: int, epoch: int) -> List[int]:
@@ -174,13 +172,15 @@ class FeedPipeline:
     thread) -> `DeviceRing` -> consumer.
 
     `source` is a fluid dataset (one pass of its `batch_iter`, feed epoch
-    `epoch`, default the next) or any iterable of host feed dicts.
+    `epoch`, default the next; this host's shard of it where there are
+    several hosts, host_topology) or any iterable of host feed dicts.
     `stage_fn(feed)` runs on the producer thread; the first
     `skip_batches` batches are dropped unstaged (a resumed epoch)."""
 
     def __init__(self, stage_fn: Callable[[Any], Any], source,
                  depth: Optional[int] = None, epoch: Optional[int] = None,
-                 skip_batches: int = 0):
+                 skip_batches: int = 0, process_index: Optional[int] = None,
+                 process_count: Optional[int] = None):
         self._stage = stage_fn
         self._depth = DEFAULT_PREFETCH_DEPTH if depth is None \
             else max(1, int(depth))
@@ -195,7 +195,12 @@ class FeedPipeline:
             if epoch is None:
                 epoch = getattr(source, "_feed_epoch", -1) + 1
             source._feed_epoch = int(epoch)
-            self._batch_iter = batch_iter()
+            index, count = host_topology(process_index, process_count)
+            if count <= 1 or getattr(source, "_host_sharded", False):
+                self._batch_iter = batch_iter()
+            else:
+                self._batch_iter = batch_iter(shard=(index, count),
+                                              epoch=int(epoch))
         self.epoch_feed_ms = 0.0
         profiler.stat_set("prefetch_depth", self._depth)
         self._thread = threading.Thread(target=self._produce, daemon=True,

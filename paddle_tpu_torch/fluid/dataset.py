@@ -10,8 +10,13 @@ them with `random.Random(seed)` (the reference's global_shuffle on one
 host); `QueueDataset` streams them while the loop trains.  The same
 files and seed give the reference's order, batch by batch.
 
-One process: a shard over more than one host raises (ROADMAP queue 1
-item 10); `set_pipe_command` raises as in the reference.
+Several hosts (the reference's per-host sharding): `batch_iter(shard=
+(index, count), epoch)` deals each host a disjoint, exhaustive shard of
+the epoch's permutation (a strided slice of the files; of each file's
+records where there are fewer files than hosts), and
+`load_into_memory(shard_by_host=True)` loads only this host's shard (the
+topology from the process group, feed_pipeline.host_topology).
+`set_pipe_command` raises as in the reference.
 """
 
 from __future__ import annotations
@@ -96,6 +101,9 @@ class DatasetBase:
         self._parse_fn = None
         self._drop_last = False
         self._seed = 0
+        # set by load_into_memory(shard_by_host=True): the store holds
+        # only this host's shard, which no pass shards again
+        self._host_sharded = False
 
     def set_batch_size(self, batch_size):
         self._batch_size = int(batch_size)
@@ -123,9 +131,24 @@ class DatasetBase:
         """Seeds the in-memory global shuffle."""
         self._seed = int(seed)
 
-    def _check_shard(self, shard):
-        if shard:
-            feed_pipeline.single_host(max(1, int(shard[1])), "a dataset")
+    def _shard_files(self, shard, epoch=0):
+        """(files, keep) of one host's shard: a strided slice of the
+        epoch's file permutation (feed_pipeline.shard_plan) where there
+        are at least as many files as hosts; else every file, of whose
+        records `keep(line index)` takes a disjoint, exhaustive slice."""
+        if not shard:
+            return list(self._filelist), None
+        index, count = int(shard[0]), max(1, int(shard[1]))
+        if count <= 1:
+            return list(self._filelist), None
+        if len(self._filelist) >= count:
+            order = feed_pipeline.shard_plan(len(self._filelist), index,
+                                             count, epoch=epoch,
+                                             seed=self._seed)
+            return [self._filelist[i] for i in order], None
+        offset = (index + int(epoch)) % count
+        return list(self._filelist), \
+            lambda li, _c=count, _o=offset: li % _c == _o
 
     def _parse_line(self, line):
         if self._parse_fn is not None:
@@ -140,15 +163,20 @@ class DatasetBase:
             pos += 1 + n
         return out
 
-    def _iter_samples(self, files):
+    def _iter_samples(self, files, keep=None):
+        """The files' samples in order; `keep(line index)` filters the
+        records before they are parsed (a record shard)."""
         for path in files:
             with open(path) as f:
+                li = 0
                 for line in f:
                     line = line.strip()
                     if line:
-                        yield self._parse_line(line)
+                        if keep is None or keep(li):
+                            yield self._parse_line(line)
+                        li += 1
 
-    def _iter_samples_keyed(self, files, file_base):
+    def _iter_samples_keyed(self, files, file_base, keep=None):
         """((file, line) key, sample): a threaded load restores the
         files' order from the keys."""
         for fi, path in enumerate(files):
@@ -157,7 +185,9 @@ class DatasetBase:
                 for line in f:
                     line = line.strip()
                     if line:
-                        yield (file_base[fi], li), self._parse_line(line)
+                        if keep is None or keep(li):
+                            yield (file_base[fi], li), \
+                                self._parse_line(line)
                         li += 1
 
     def _batch(self, samples, columns=None, lo=0):
@@ -206,21 +236,25 @@ class InMemoryDataset(DatasetBase):
     def load_into_memory(self, shard_by_host=False, process_index=None,
                          process_count=None):
         """Parse every file into host memory with `thread` parser
-        threads, in the files' order."""
+        threads, in the files' order; `shard_by_host` loads only this
+        host's shard (of `process_count` hosts, the group's by
+        default)."""
         if not self._filelist:
             raise ValueError("set_filelist() before load_into_memory()")
+        filelist, keep = self._filelist, None
         if shard_by_host:
-            feed_pipeline.single_host(feed_pipeline.host_topology(
-                process_index, process_count)[1], "load_into_memory")
-        filelist = self._filelist
+            index, count = feed_pipeline.host_topology(process_index,
+                                                       process_count)
+            filelist, keep = self._shard_files((index, count))
+            self._host_sharded = count > 1
         if self._thread <= 1 or len(filelist) <= 1:
-            self._samples = list(self._iter_samples(filelist))
+            self._samples = list(self._iter_samples(filelist, keep))
             self._stack_columns()
             return
         q = _Queue(4096)
         jobs = [self._iter_samples_keyed(filelist[i::self._thread],
                                          list(range(i, len(filelist),
-                                                    self._thread)))
+                                                    self._thread)), keep)
                 for i in range(min(self._thread, len(filelist)))]
         threads = _start_parsers(jobs, q)
         done, keyed = 0, []
@@ -245,9 +279,6 @@ class InMemoryDataset(DatasetBase):
         """One permutation over every loaded sample."""
         if self._samples is None:
             raise ValueError("load_into_memory() before global_shuffle()")
-        if fleet is not None:
-            raise NotImplementedError(f"global_shuffle over a fleet: "
-                                      f"{feed_pipeline.MULTI_HOST}")
         # the reference's random.Random(seed).shuffle of the samples, as a
         # permutation (the same swaps), applied to them and the columns
         order = list(range(len(self._samples)))
@@ -265,15 +296,23 @@ class InMemoryDataset(DatasetBase):
         return len(self._samples or [])
 
     def batch_iter(self, shard=None, epoch=0):
+        """`shard=(index, count)`: only this host's slice of the epoch's
+        permutation of the store, unless the store was loaded sharded."""
         if self._samples is None:
             raise ValueError("load_into_memory() first")
-        self._check_shard(shard)
-        samples = self._samples
+        samples, columns = self._samples, self._columns
+        if shard and not self._host_sharded and int(shard[1]) > 1:
+            order = feed_pipeline.shard_plan(len(samples), int(shard[0]),
+                                             int(shard[1]), epoch=epoch,
+                                             seed=self._seed)
+            samples = [samples[i] for i in order]
+            idx = np.asarray(order, dtype=np.int64)
+            columns = [None if c is None else c[idx] for c in columns]
         for i in range(0, len(samples), self._batch_size):
             chunk = samples[i:i + self._batch_size]
             if self._drop_last and len(chunk) < self._batch_size:
                 break
-            yield self._batch(chunk, self._columns, i)
+            yield self._batch(chunk, columns, i)
 
 
 class QueueDataset(DatasetBase):
@@ -281,12 +320,15 @@ class QueueDataset(DatasetBase):
     loop trains; with one thread the samples come in the files' order."""
 
     def batch_iter(self, shard=None, epoch=0):
+        """`shard=(index, count)`: the parsers read only this host's
+        shard of the epoch's files (records)."""
         if not self._filelist:
             raise ValueError("set_filelist() before iterating")
-        self._check_shard(shard)
-        filelist = self._filelist
+        filelist, keep = self._shard_files(shard, epoch=epoch)
+        if not filelist:
+            return
         q = _Queue(1024)
-        jobs = [self._iter_samples(filelist[i::self._thread])
+        jobs = [self._iter_samples(filelist[i::self._thread], keep)
                 for i in range(min(self._thread, len(filelist)))]
         threads = _start_parsers(jobs, q)
         try:

@@ -12,8 +12,9 @@ methods torch answers otherwise; both install at this import
 switches `fluid.framework.in_dygraph_mode()`, which is what chooses
 hapi.Model's adapter, as in the reference.
 
-Not ported: `DataParallel`, `ParallelEnv` and `prepare_context` (queue 1
-item 10), and the jit names `declarative`, `dygraph_to_static_func`,
+`DataParallel`, `ParallelEnv` and `prepare_context` are the data-parallel
+names (parallel.py, over distributed/).  Not ported: the jit names
+`declarative`, `dygraph_to_static_func`,
 `set_code_level`, `set_verbosity`, `TracedLayer`, `TranslatedLayer` and
 `ProgramTranslator` (queue 1 item 12), which raise NotImplementedError.
 """
@@ -162,7 +163,8 @@ set_verbosity = _not_ported("set_verbosity", 12)
 TracedLayer = _not_ported("TracedLayer", 12)
 TranslatedLayer = _not_ported("TranslatedLayer", 12)
 ProgramTranslator = _not_ported("ProgramTranslator", 12)
-prepare_context = _not_ported("prepare_context", 10)
+from ...distributed.parallel import ParallelEnv, prepare_context  # noqa
+from .parallel import DataParallel  # noqa: F401
 
 # names resolved on first use (nn imports fluid, so an import here would
 # cycle): module, attribute

@@ -24,8 +24,8 @@ whose `.numpy()` is the sanctioned sync point (counted on
 (ops run, each iteration of a sub-block counted) and the `dispatch_ms`
 / `host_feed_ms` / `sync_ms` timers.
 
-`run` takes a `CompiledProgram` (fluid/compiler.py: one card, the same
-block) and `LoDTensor` feeds.  With `FLAGS_check_nan_inf` every run
+`run` takes a `CompiledProgram` (parallel/compiler.py: this rank's block
+over the process group) and `LoDTensor` feeds.  With `FLAGS_check_nan_inf` every run
 computes one device-side non-finite flag per float output and state
 array and copies them to pinned host memory behind an event
 (`_NanMonitor`); a hit raises at the next `run()` entry whose flags have
@@ -611,6 +611,7 @@ class Executor:
         self._nan_monitor = _NanMonitor()
         self._copy_stream = None  # the dataset loops' side stream
         self._step = 0
+        self._seed_rank = 0  # set by CompiledProgram for its runs
 
     @staticmethod
     def _on_entry_evict(key, entry: _Entry) -> None:
@@ -647,6 +648,11 @@ class Executor:
         else:
             base = (self._step * 2 + 1) & 0xFFFFFFFF
         self._step += 1
+        if self._seed_rank:
+            # a data-parallel run (CompiledProgram): each rank draws its
+            # own masks, as the reference folds the data-axis index into
+            # each shard's key; rank 0 keeps the one-process seed
+            base = (base ^ (self._seed_rank * 0x9E3779B1)) & 0xFFFFFFFF
         return base
 
     def _to_device(self, t: torch.Tensor) -> torch.Tensor:

@@ -232,6 +232,13 @@ def _step_seed(key: int, t: int) -> int:
     return (z ^ (z >> 31)) >> 1
 
 
+def _dropout_seed(t: int, rank: int = 0) -> int:
+    """The seed of step t's dropout draws on data-parallel rank `rank`:
+    rank 0's is the one-process step's, another rank's is mixed with its
+    index (ROADMAP queue 3 item 44)."""
+    return _step_seed(_DROPOUT_KEY + (int(rank) << 20), t)
+
+
 def _decays(name: str, p: torch.Tensor) -> bool:
     """AdamW's weight-decay rule: none for biases and norms (ndim <= 1)
     nor for stacked biases named `.b1`/`.b2`."""
@@ -246,7 +253,7 @@ def _to_device(a, device) -> torch.Tensor:
 def build_pretrain_step(model: BertForPretraining, weight_decay=0.01,
                         bf16=True, remat=False, device=None, mesh=None,
                         mp_axis=None, sp_axis=None, use_ring_attention=False,
-                        use_ulysses=False):
+                        use_ulysses=False, dp_axis="dp"):
     """The BERT pretraining step: forward, backward and AdamW.
 
     Returns (step_fn, state), with
@@ -270,10 +277,22 @@ def build_pretrain_step(model: BertForPretraining, weight_decay=0.01,
     runs in its current mode (train() by default).
 
     `device`: where the state lives (default: the model's device).
-    `remat`, `mesh` (data parallelism), `mp_axis` (tensor parallelism),
-    `sp_axis` with ring/Ulysses attention and Switch-MoE models are not
-    ported yet and raise NotImplementedError."""
-    asked = {"remat": remat, "mesh": mesh is not None,
+
+    `mesh` (parallel.mesh.make_mesh over the process group) makes the
+    step data-parallel over its `dp_axis` (the reference's
+    models/bert.py:396-423): each rank is fed ITS rows of the global
+    batch (mesh.shard_host_batch), the masters start as rank 0's, the
+    gradients and the loss are summed over the axis in one flat f32
+    all-reduce a step before AdamW and divided by the axis's size, so
+    every rank applies the global batch's mean gradient and returns the
+    global mean loss.  Each rank draws its own dropout masks: rank 0 the
+    one-process masks of its rows, rank r > 0 from a seed mixed with r
+    (ROADMAP queue 3 item 44; the reference draws the global batch's
+    masks).  A mesh whose data axis has size 1 is the one-process step.
+    `remat`, `mp_axis` (tensor parallelism), `sp_axis` with ring/Ulysses
+    attention and Switch-MoE models are not ported yet (ROADMAP queue 1
+    item 10b) and raise NotImplementedError."""
+    asked = {"remat": remat,
              "mp_axis": mp_axis is not None, "sp_axis": sp_axis is not None,
              "use_ring_attention": use_ring_attention,
              "use_ulysses": use_ulysses,
@@ -281,7 +300,8 @@ def build_pretrain_step(model: BertForPretraining, weight_decay=0.01,
     missing = [k for k, v in asked.items() if v]
     if missing:
         raise NotImplementedError(
-            f"build_pretrain_step: {', '.join(missing)} not ported yet")
+            f"build_pretrain_step: {', '.join(missing)} not ported yet "
+            "(ROADMAP queue 1 item 10b)")
     dev = (next(model.parameters()).device if device is None
            else _device.resolve(device))
     criterion = BertPretrainingCriterion(model.bert.config.vocab_size)
@@ -289,6 +309,18 @@ def build_pretrain_step(model: BertForPretraining, weight_decay=0.01,
               for k, v in functional_state(model).items()}
     names = list(params)
     decay = [k for k in names if weight_decay and _decays(k, params[k])]
+    group, n_dp, rank = None, 1, 0
+    if mesh is not None:
+        from ..distributed import comm
+
+        if mesh.data_axis != dp_axis and dp_axis not in mesh.axis_names:
+            raise ValueError(f"dp_axis {dp_axis!r} is not an axis of {mesh}")
+        n_dp = mesh.data_size
+        if n_dp > 1:
+            group, rank = mesh.group, comm.rank(mesh.group)
+            with torch.no_grad():
+                for v in params.values():
+                    v.copy_(comm.broadcast(v, 0, group))
     state = {"params": params,
              "m": {k: torch.zeros_like(v) for k, v in params.items()},
              "v": {k: torch.zeros_like(v) for k, v in params.items()},
@@ -311,9 +343,11 @@ def build_pretrain_step(model: BertForPretraining, weight_decay=0.01,
         batch = {k: _to_device(v, dev) for k, v in batch.items()}
         leaves = [state["params"][k].detach().requires_grad_(True)
                   for k in names]
-        with F.rng_scope(_step_seed(_DROPOUT_KEY, t)):
+        with F.rng_scope(_dropout_seed(t, rank)):
             loss = loss_fn(dict(zip(names, leaves)), batch)
         grads = [g.float() for g in torch.autograd.grad(loss, leaves)]
+        if n_dp > 1:
+            grads, loss = _dp_mean(grads, loss, group, n_dp)
         p, m, v = ([state[s][k] for k in names] for s in ("params", "m", "v"))
         with torch.no_grad():
             torch._foreach_mul_(m, _ADAM_B1)
@@ -336,6 +370,23 @@ def build_pretrain_step(model: BertForPretraining, weight_decay=0.01,
         return state, loss.detach()
 
     return step_fn, state
+
+
+def _dp_mean(grads, loss, group, n):
+    """The gradients and the loss averaged over the data axis: one flat
+    f32 buffer, one all-reduce."""
+    from ..distributed import comm
+
+    flat = torch.cat([g.reshape(-1) for g in grads]
+                     + [loss.detach().float().reshape(1)])
+    comm.all_reduce_(flat, "sum", group)
+    flat.div_(n)
+    out, off = [], 0
+    for g in grads:
+        k = g.numel()
+        out.append(flat[off:off + k].view_as(g))
+        off += k
+    return out, flat[off]
 
 
 def fake_batch(cfg, batch_size, seq_len, num_masked=20, seed=0):

@@ -533,16 +533,61 @@ def batch_norm_train(x, weight, bias, epsilon=1e-5, c_axis=1):
     return (y if c_axis == 1 else y.movedim(1, c_axis)), mean, var, invstd
 
 
+def _group_live() -> bool:
+    from ...distributed import comm
+
+    return comm.live()
+
+
+def _sync_batch_norm_train(x, weight, bias, epsilon=1e-5, c_axis=1,
+                          group=None):
+    """batch_norm_train over the batch of every rank of `group`: each rank
+    sums x and x^2 over its own non-channel axes in float32, one
+    differentiable all-reduce adds the sums (and the counts) up, and x is
+    normalised by the group's mean and BIASED variance E[x^2] - E[x]^2,
+    the reference's sync_batch_norm rule (nn_ops.py:279-282); `group`
+    defaults to the data axis's.  Returns (y in x's dtype, mean, var,
+    1/sqrt(var + eps)), differentiable in x, weight and bias through the
+    all-reduce's adjoint."""
+    from ...distributed import comm
+
+    if group is None:
+        group = comm.default_group()
+
+    axes = [i for i in range(x.ndim) if i != c_axis]
+    xf = x.float()
+    count = torch.full((1,), float(x.numel() // x.shape[c_axis]),
+                       device=x.device)
+    stats = comm.all_reduce_sum(torch.cat(
+        [xf.sum(axes), (xf * xf).sum(axes), count]), group)
+    c = x.shape[c_axis]
+    n = stats[2 * c]
+    mean = stats[:c] / n
+    var = stats[c:2 * c] / n - mean * mean
+    inv_std = torch.rsqrt(var + epsilon)
+    shape = [1] * x.ndim
+    shape[c_axis] = c
+    y = (xf - mean.view(shape)) * inv_std.view(shape)
+    if weight is not None:
+        y = y * weight.float().view(shape)
+    if bias is not None:
+        y = y + bias.float().view(shape)
+    return y.to(x.dtype), mean, var.detach(), inv_std
+
+
 def batch_norm(x, running_mean, running_var, weight, bias, training=False,
                momentum=0.9, epsilon=1e-5, data_format="NCHW",
-               use_global_stats=None, name=None):
+               use_global_stats=None, name=None, *, sync_group=False):
     """Batch norm with paddle_tpu's semantics (nn_ops.py:253-300), which
     are not torch's.  In training (unless `use_global_stats`) x is
     normalised by its batch statistics and the running buffers are
     updated IN PLACE as running * momentum + batch * (1 - momentum), with
     the BIASED batch variance, in the buffers' dtype; otherwise by the
     running statistics, which stay as they are.  The channel axis is 1
-    for data formats that begin "NC" and the last one otherwise."""
+    for data formats that begin "NC" and the last one otherwise.
+    `sync_group` (SyncBatchNorm's): under a process group of more than
+    one, the batch statistics are the whole group's
+    (_sync_batch_norm_train)."""
     if weight is not None and x.dtype != weight.dtype:
         # the reference's promotion: a bf16 input (an O1 convolution's)
         # normalised with f32 parameters gives f32
@@ -552,7 +597,12 @@ def batch_norm(x, running_mean, running_var, weight, bias, training=False,
     shape = [1] * x.ndim
     shape[c_axis] = x.shape[c_axis]
     if training and not use_global_stats:
-        y, mean, var, _ = batch_norm_train(x, weight, bias, epsilon, c_axis)
+        if sync_group and _group_live():
+            y, mean, var, _ = _sync_batch_norm_train(x, weight, bias,
+                                                    epsilon, c_axis)
+        else:
+            y, mean, var, _ = batch_norm_train(x, weight, bias, epsilon,
+                                               c_axis)
         with torch.no_grad():
             for buf, stat in ((running_mean, mean), (running_var, var)):
                 buf.copy_(buf * momentum + stat.to(buf.dtype) * (1 - momentum))

@@ -18,7 +18,7 @@ from .loss import (BCELoss, BCEWithLogitsLoss, CrossEntropyLoss,  # noqa
 from .norm import (BatchNorm, BatchNorm1D, BatchNorm2D,  # noqa: F401
                    BatchNorm3D, GroupNorm, InstanceNorm1D, InstanceNorm2D,
                    InstanceNorm3D, LayerNorm, LocalResponseNorm,
-                   SpectralNorm)
+                   SpectralNorm, SyncBatchNorm)
 from .rnn import (GRU, LSTM, RNN, BiRNN, GRUCell, LSTMCell,  # noqa: F401
                   RNNCellBase, SimpleRNN, SimpleRNNCell)
 from .pooling import (AdaptiveAvgPool2D, AdaptiveMaxPool2D,  # noqa: F401

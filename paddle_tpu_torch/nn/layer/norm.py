@@ -74,6 +74,43 @@ class BatchNorm2D(BatchNorm):
     pass
 
 
+class SyncBatchNorm(BatchNorm):
+    """Batch norm whose training statistics are the whole process
+    group's (reference nn/layer/norm.py:64): each rank sums its batch in
+    float32 and one differentiable all-reduce adds the sums up
+    (F._sync_batch_norm_train), so every rank normalises by the global
+    batch's mean and variance and updates the same running statistics.
+    With no group, or a group of one, it is BatchNorm."""
+
+    def forward(self, x):
+        return F.batch_norm(x, self._mean, self._variance, self.weight,
+                            self.bias, training=self.training,
+                            momentum=self._momentum, epsilon=self._epsilon,
+                            data_format=self._data_format,
+                            use_global_stats=self._use_global_stats,
+                            sync_group=True)
+
+    @classmethod
+    def convert_sync_batchnorm(cls, layer):
+        """`layer` with every BatchNorm under it replaced by a
+        SyncBatchNorm that shares its parameters and statistics."""
+        if isinstance(layer, BatchNorm) and not isinstance(
+                layer, SyncBatchNorm):
+            new = SyncBatchNorm(layer._num_features, layer._momentum,
+                                layer._epsilon,
+                                data_format=layer._data_format,
+                                use_global_stats=layer._use_global_stats)
+            new.weight = layer.weight
+            new.bias = layer.bias
+            new._mean = layer._mean
+            new._variance = layer._variance
+            new.train(layer.training)
+            return new
+        for name, sub in list(layer._modules.items()):
+            layer._modules[name] = cls.convert_sync_batchnorm(sub)
+        return layer
+
+
 class BatchNorm3D(BatchNorm):
     """Batch norm over NCDHW, channel axis 1 (the reference passes NCHW
     on whatever data_format is given)."""

@@ -59,15 +59,18 @@ register_op("elementwise_floordiv")(_elementwise(_floordiv))
 
 @register_op("scale")
 def _scale(ctx, op, ins):
-    """math_ops.py:65-83; a `divide_by_axis_size` attr divides by the
-    data-parallel world size, 1 in one process."""
+    """math_ops.py:65-83; a `divide_by_axis_size` attr divides the scale
+    by the size of the data axis's group, as the reference divides by
+    its mesh axis (nothing with no group)."""
     x = first(ins, "X")
     scale = first(ins, "ScaleTensor", op.attr("scale", 1.0))
     bias = op.attr("bias", 0.0)
-    if op.attr("divide_by_axis_size", None) is not None:
-        from .collective_ops import check_single_process
+    if op.attr("divide_by_axis_size", None) is not None \
+            and not ctx.abstract:
+        from ..distributed import comm, parallel
 
-        check_single_process("scale(divide_by_axis_size)")
+        if parallel.is_initialized():
+            scale = scale / comm.world(comm.group_for_ring(0))
     if isinstance(scale, torch.Tensor):
         scale = scale.to(x.dtype)
     elif not x.is_floating_point():

@@ -188,7 +188,34 @@ def _batch_norm(ctx, op, ins):
     }
 
 
-register_op("sync_batch_norm")(_batch_norm)  # one card: batch_norm itself
+@register_op("sync_batch_norm")
+def _sync_batch_norm(ctx, op, ins):
+    """nn_ops.py:279-282: in training under a process group of more than
+    one, the batch statistics are the group's (F._sync_batch_norm_train:
+    float32 sums, one differentiable all-reduce); otherwise batch_norm
+    itself."""
+    from ..distributed import comm
+
+    if ctx.abstract or not comm.live() or op.attr("is_test", False) \
+            or op.attr("use_global_stats", False):
+        return _batch_norm(ctx, op, ins)
+    x = first(ins, "X")
+    scale, bias = first(ins, "Scale"), first(ins, "Bias")
+    mean, var = first(ins, "Mean"), first(ins, "Variance")
+    momentum = op.attr("momentum", 0.9)
+    c_axis = 1 if op.attr("data_layout", "NCHW") in ("NCHW", "AnyLayout") \
+        else x.ndim - 1
+    y, bm, bv, inv_std = F._sync_batch_norm_train(
+        x, scale, bias, op.attr("epsilon", 1e-5), c_axis)
+    return {
+        "Y": [y],
+        "MeanOut": [mean * momentum + bm.detach().to(mean.dtype)
+                    * (1 - momentum)],
+        "VarianceOut": [var * momentum + bv.to(var.dtype) * (1 - momentum)],
+        "SavedMean": [bm],
+        "SavedVariance": [inv_std],
+        "ReserveSpace": [torch.empty((0,), dtype=x.dtype, device=x.device)],
+    }
 
 
 @register_op("layer_norm")

@@ -69,10 +69,10 @@ def shuffle(reader, buf_size):
 def shard(reader, num_shards=None, shard_id=None):
     """Per-host disjoint shard of a reader (the reader-decorator face
     of the feed pipeline): sample i is yielded on the host where
-    `i % num_shards == shard_id`.  Without both arguments the topology is
-    one host (feed_pipeline.host_topology; more waits for ROADMAP queue 1
-    item 10), which yields every sample.  The union over all hosts is
-    exactly the underlying reader's stream, with no overlap."""
+    `i % num_shards == shard_id`.  An argument left out comes from the
+    live process group (feed_pipeline.host_topology: rank, world size;
+    one host yields every sample).  The union over all hosts is exactly
+    the underlying reader's stream, with no overlap."""
 
     def creator():
         from .dataset.feed_pipeline import host_topology

@@ -2,7 +2,8 @@
 paddle_tpu/static/__init__.py): aliases over the port's `fluid`.
 
 CompiledProgram, BuildStrategy, ExecutionStrategy and the
-ParallelExecutor shim run on one card (fluid/compiler.py); save / load
+ParallelExecutor shim run each rank's program on its card over the
+process group (parallel/compiler.py); save / load
 and load_program_state come from `fluid.io`; save_inference_model /
 load_inference_model are the 2.x `inference` forms, as in the reference.
 """
@@ -71,20 +72,29 @@ def set_program_state(program, state):
 class ParallelExecutor:
     """The reference's shim (paddle_tpu/static/__init__.py:89-116):
     `ParallelExecutor(use_cuda, loss_name=...)` runs the program through
-    a CompiledProgram and an Executor on one card (the CPU without
-    `use_cuda`).  More than one trainer raises (ROADMAP queue 1 item
-    10)."""
+    a CompiledProgram and an Executor on this rank's card (the CPU
+    without `use_cuda`).  `num_trainers` > 1 runs data-parallel over the
+    live process group, which must have `num_trainers` ranks, this one
+    `trainer_id` (start it with init_parallel_env or
+    distributed.launch)."""
 
     def __init__(self, use_cuda=True, loss_name=None, main_program=None,
                  share_vars_from=None, exec_strategy=None,
                  build_strategy=None, num_trainers=1, trainer_id=0,
                  scope=None):
+        from ..distributed import parallel
         from ..fluid import CPUPlace
 
         if num_trainers != 1 or trainer_id != 0:
-            raise NotImplementedError(
-                f"ParallelExecutor num_trainers={num_trainers}: more than "
-                "one trainer waits for ROADMAP queue 1 item 10")
+            live = (parallel.process_count(), parallel.process_index()) \
+                if parallel.is_initialized() else None
+            if live != (num_trainers, trainer_id):
+                raise RuntimeError(
+                    f"ParallelExecutor num_trainers={num_trainers} "
+                    f"trainer_id={trainer_id}: the live process group is "
+                    f"{'none' if live is None else live} (world, rank); "
+                    "start it with init_parallel_env() or "
+                    "distributed.launch")
         self._program = main_program or default_main_program()
         self._compiled = CompiledProgram(self._program).with_data_parallel(
             loss_name=loss_name, exec_strategy=exec_strategy,

@@ -10,8 +10,8 @@ test_async_executor.py.
   global shuffle (threads 2, one seed) gives the reference's order;
   QueueDataset with one thread streams InMemoryDataset's unshuffled
   order; epoch_order and shard_plan are the reference's.
-- One process: a shard over more than one host raises, naming ROADMAP
-  queue 1 item 10; set_pipe_command raises in both.
+- A host's shard of a dataset (by file, by sample, streamed, by record)
+  is the reference's; set_pipe_command raises in both.
 - DeviceRing: backpressure bounds the ring at its depth, the waits are
   accounted, close releases a blocked producer, and FeedPipeline
   forwards an upstream error to the consumer.
@@ -186,24 +186,50 @@ def test_shard_plans_are_the_references(n, count, epoch, seed):
         TP.shard_plan(4, 5, 2)
 
 
-def test_more_than_one_host_raises(files):
+def _shard_batches(fluid, files, how):
+    main, startup, x, y, _ = _program(fluid)
+    kind = "QueueDataset" if how[0] == "queue" else "InMemoryDataset"
+    ds = _dataset(fluid, kind, x, y, files)
+    if how[0] == "load":
+        ds.load_into_memory(shard_by_host=True, process_index=how[1],
+                            process_count=how[2])
+        it = ds.batch_iter(shard=(how[1], how[2]))
+    elif how[0] == "memory":
+        ds.load_into_memory()
+        it = ds.batch_iter(shard=(how[1], how[2]), epoch=1)
+    else:
+        it = ds.batch_iter(shard=(how[1], how[2]), epoch=0)
+    return [(b["x"], b["y"]) for b in it]
+
+
+def test_more_than_one_host_shards_as_the_reference(files):
+    """Each host's shard of a dataset is the reference's: a file shard
+    loaded by host (shard_by_host), a sample shard of the whole store,
+    a streamed file shard, and the record fallback (fewer files than
+    hosts); the shards of all hosts hold every sample once.  With no
+    group the topology is one host; set_pipe_command raises in both."""
+    for how in (("load", 0, 2), ("load", 1, 2), ("memory", 1, 2),
+                ("queue", 1, 2), ("queue", 3, 4)):
+        want = _shard_batches(JF, files, how)
+        got = _shard_batches(TF, files, how)
+        assert len(got) == len(want) and got, how
+        for (gx, gy), (wx, wy) in zip(got, want):
+            np.testing.assert_array_equal(gx, wx)
+            np.testing.assert_array_equal(gy, wy)
+    rows = sorted(float(x[0]) for r in range(4)
+                  for xs, _ in _shard_batches(TF, files, ("queue", r, 4))
+                  for x in xs)
+    assert len(rows) == 120 and len(set(rows)) == 120
+    assert TP.host_topology() == (0, 1)
     main, startup, x, y, _ = _program(TF)
     ds = _dataset(TF, "InMemoryDataset", x, y, files)
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        ds.load_into_memory(shard_by_host=True, process_index=0,
-                            process_count=2)
     ds.load_into_memory(shard_by_host=True)
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        next(ds.batch_iter(shard=(0, 2)))
-    q = _dataset(TF, "QueueDataset", x, y, files)
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        next(q.batch_iter(shard=(1, 2)))
-    assert TP.host_topology() == (0, 1)
+    assert ds.get_memory_data_size() == 120
+    ds.release_memory()
+    assert ds.get_memory_data_size() == 0
     for fluid in (JF, TF):
         with pytest.raises(NotImplementedError):
             fluid.DatasetFactory().create_dataset().set_pipe_command("cat")
-    ds.release_memory()
-    assert ds.get_memory_data_size() == 0
 
 
 # -- the ring --------------------------------------------------------------

@@ -355,8 +355,9 @@ def test_create_variable():
 def test_the_aliases_and_the_names_left_out():
     """Every name of the reference's _NN_ALIASES resolves in the port, to
     the port's class of that name (amp_guard and AmpScaler to auto_cast
-    and GradScaler); the jit names raise naming queue 1 item 12,
-    prepare_context item 10; DataParallel is left out (item 10)."""
+    and GradScaler); the jit names raise naming queue 1 item 12;
+    prepare_context (with no job of several ranks: no group) gives the
+    ParallelEnv of one rank, and DataParallel is the 2.x top level's."""
     for name in Jdy._NN_ALIASES:
         obj = getattr(Tdy, name)
         assert obj.__name__ == getattr(Jdy, name).__name__ \
@@ -370,9 +371,11 @@ def test_the_aliases_and_the_names_left_out():
                  "ProgramTranslator"):
         with pytest.raises(NotImplementedError, match="item 12"):
             getattr(Tdy, name)()
-    with pytest.raises(NotImplementedError, match="item 10"):
-        Tdy.prepare_context()
-    assert not hasattr(Tdy, "DataParallel")
+    env = Tdy.prepare_context()
+    assert isinstance(env, Tdy.ParallelEnv)
+    assert (env.rank, env.nranks) == (0, 1)
+    assert Tdy.DataParallel is T.DataParallel
+    assert Tdy.DataParallel.__name__ == Jdy.DataParallel.__name__
     assert Tdy.load is T.load and Tdy.save is T.save
     with Tdy.no_grad_():
         assert not torch.is_grad_enabled()

@@ -180,17 +180,24 @@ def test_parallel_executor_gives_executor_runs_bits():
 
 
 def test_more_than_one_device_raises():
+    """One process drives one card: several places raise (start a rank a
+    card); a data axis of two, or two trainers, needs a live group of two
+    (test_torch_data_parallel.py runs one); a model-parallel axis waits
+    for queue 1 item 10b."""
     main = TF.Program()
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
+    with pytest.raises(NotImplementedError, match="one process drives one"):
         TF.CompiledProgram(main).with_data_parallel(
             places=[TF.CUDAPlace(0), TF.CUDAPlace(1)])
     bs = TF.BuildStrategy()
     bs.mesh_axes = {"data": 2}
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
+    with pytest.raises(ValueError, match="!= 1 ranks"):
+        TF.CompiledProgram(main, bs).with_data_parallel()
+    bs.mesh_axes = {"data": 1, "tp": 2}
+    with pytest.raises(NotImplementedError, match="queue 1 item 10b"):
         TF.CompiledProgram(main, bs).with_data_parallel()
     bs.mesh_axes = {"data": 1}
     TF.CompiledProgram(main, bs).with_data_parallel()
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
+    with pytest.raises(RuntimeError, match="num_trainers=2"):
         TS.ParallelExecutor(use_cuda=False, main_program=main,
                             num_trainers=2)
 

@@ -221,6 +221,17 @@ CASES = {
     "c_allreduce_sum": ("c_allreduce_sum", {"X": [_f(3, 4)]},
                         {"ring_id": 0}, []),
 }
+# the other rules of the collective bucket with an X and an Out: with no
+# group each is the identity, as the reference's is outside a mesh
+# (test_torch_collective.py holds them over four ranks)
+CASES.update({t: (t, {"X": [_pos(3, 4) if t == "c_allreduce_prod"
+                            else _f(3, 4)]}, {"ring_id": 0}, [])
+              for t in ("c_allreduce_max", "c_allreduce_min",
+                        "c_allreduce_prod", "mp_allreduce_sum",
+                        "c_reduce_sum", "c_broadcast", "c_allgather",
+                        "c_reducescatter", "c_concat", "c_split",
+                        "c_identity", "alltoall", "barrier",
+                        "c_sync_calc_stream", "c_sync_comm_stream")})
 
 # rules the reference computes in float32 whatever its input (auc's and
 # mean_iou's counts) or only defines for integers, and those whose
@@ -235,6 +246,11 @@ RANDOM = {"uniform_random_batch_size_like", "truncated_gaussian_random",
 # held by what they call, read and write: py_func below, the io rules in
 # test_torch_fluid_misc.py
 HELD_BELOW = {"py_func", "save", "save_combine", "load", "load_combine"}
+# the collective rules with no X -> Out form, held in
+# test_torch_collective.py (in one process and over four ranks)
+HELD_BELOW |= {"c_comm_init", "c_comm_init_all", "c_gen_nccl_id",
+               "c_wait_calc_stream", "c_wait_comm_stream", "send_v2",
+               "recv_v2"}
 
 
 @pytest.mark.parametrize("name", sorted(CASES))
@@ -341,12 +357,13 @@ def test_update_loss_scaling_grows_and_keeps_its_floor():
 @pytest.mark.parametrize("op_type,attrs", [
     ("c_allreduce_sum", {}),
     ("scale", {"scale": 0.5, "divide_by_axis_size": "data"})])
-def test_a_collective_raises_under_a_group_of_two(op_type, attrs,
-                                                  monkeypatch):
+def test_a_collective_keeps_its_bits_under_a_group_of_one(op_type, attrs):
     """In one process c_allreduce_sum is the identity and the scale's
     divide_by_axis_size divides by 1 (the reference's rules outside a
-    mesh); under a live group of two each raises, since the all-reduce
-    is not ported."""
+    mesh); under a live gloo group of one the all-reduce runs on its one
+    rank and the scale divides by the group's size, 1: the bits stay
+    (test_torch_collective.py holds four ranks)."""
+    import paddle_tpu_torch.distributed as dist
     from test_torch_fluid_ops import TFW, TREG
 
     x = torch.from_numpy(_f(3, 4))
@@ -357,14 +374,15 @@ def test_a_collective_raises_under_a_group_of_two(op_type, attrs,
         return TREG.forward_rule(op_type)(
             TREG.LowerCtx(0, device="cpu"), op, {"X": [x]})["Out"][0]
 
-    torch.testing.assert_close(run(), x * attrs.get("scale", 1.0),
-                               rtol=0, atol=0)
-    dist = torch.distributed
-    monkeypatch.setattr(dist, "is_available", lambda: True)
-    monkeypatch.setattr(dist, "is_initialized", lambda: True)
-    monkeypatch.setattr(dist, "get_world_size", lambda *a: 2)
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        run()
+    want = x * attrs.get("scale", 1.0)
+    torch.testing.assert_close(run(), want, rtol=0, atol=0)
+    env = dist.init_parallel_env(backend="gloo", device="cpu", rank=0,
+                                 world_size=1)
+    try:
+        assert (env.rank, env.world_size) == (0, 1)
+        torch.testing.assert_close(run(), want, rtol=0, atol=0)
+    finally:
+        dist.destroy_parallel_env()
 
 
 # -- the drawing rules -----------------------------------------------------------

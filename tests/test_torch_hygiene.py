@@ -27,7 +27,8 @@ PROGRAMS = [ROOT / "tests" / "torch_seq2seq_program.py",
             ROOT / "tests" / "torch_book_programs.py",
             ROOT / "tests" / "torch_cyclegan_program.py",
             ROOT / "tests" / "torch_ctr_program.py",
-            ROOT / "tests" / "torch_ckpt_worker.py"]
+            ROOT / "tests" / "torch_ckpt_worker.py",
+            ROOT / "tests" / "torch_dist_worker.py"]
 
 
 def _port_files():
@@ -94,7 +95,18 @@ def test_the_walk_sees_the_whole_package():
             "dataset/flowers.py", "dataset/voc2012.py", "dataset/imdb.py",
             "dataset/imikolov.py", "dataset/movielens.py",
             "dataset/uci_housing.py", "dataset/conll05.py",
-            "dataset/wmt14.py", "dataset/wmt16.py"} <= names
+            "dataset/wmt14.py", "dataset/wmt16.py",
+            "distributed/__init__.py", "distributed/parallel.py",
+            "distributed/comm.py", "distributed/collective.py",
+            "distributed/launch.py", "distributed/launch_utils.py",
+            "distributed/spawn.py", "distributed/fleet/__init__.py",
+            "distributed/fleet/base/fleet_base.py",
+            "distributed/fleet/meta_optimizers/__init__.py",
+            "distributed/fleet/metrics/metric.py",
+            "distributed/fleet/utils/fs.py", "parallel/__init__.py",
+            "parallel/mesh.py", "parallel/compiler.py",
+            "fluid/transpiler/collective.py",
+            "fluid/dygraph/parallel.py"} <= names
 
 
 def test_the_c_abi_reaches_only_the_ports_bridge():
@@ -144,10 +156,14 @@ def test_importing_the_port_loads_no_jax():
             "paddle_tpu_torch.batch, paddle_tpu_torch.vision.datasets, "
             "paddle_tpu_torch.text.datasets, paddle_tpu_torch.dataset.mnist, "
             "paddle_tpu_torch.dataset.image, "
-            "paddle_tpu_torch.fluid.contrib.reader\n"
+            "paddle_tpu_torch.fluid.contrib.reader, "
+            "paddle_tpu_torch.distributed, "
+            "paddle_tpu_torch.distributed.fleet, "
+            "paddle_tpu_torch.distributed.launch, "
+            "paddle_tpu_torch.parallel, paddle_tpu_torch.fluid.transpiler\n"
             "sys.path.insert(0, 'tests')\n"
             "import torch_seq2seq_program, torch_cyclegan_program, "
-            "torch_seq2seq_static_program\n"
+            "torch_seq2seq_static_program, torch_dist_worker\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu'))\n"
             "print(bad)\n")

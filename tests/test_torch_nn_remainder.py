@@ -248,7 +248,8 @@ HELD_BELOW.update(dict.fromkeys((
 LEFT_OUT = {}
 # the reference's nn names the port leaves out, by queue item
 NN_LEFT_OUT = {
-    "item 10 (the collective path)": {"SwitchMoE", "SyncBatchNorm"},
+    "item 10b (the model-parallel half of the collective path)":
+        {"SwitchMoE"},
 }
 NOT_API = {"np", "Tensor", "trace_fn", "trace_op"}
 
@@ -418,6 +419,8 @@ LAYERS = {
                          (_f(2, 3, 4, 4),), (0,))],
     "Conv3D": [((2, 3, 3), {"padding": [1, 1, 1]}, (_VOL,), (0,))],
     "BatchNorm3D": [((2,), {}, (_VOL,), (0,))],
+    # one process: BatchNorm (over ranks: test_torch_data_parallel.py)
+    "SyncBatchNorm": [((3,), {}, (_IMG,), (0,))],
     "InstanceNorm1D": [((3,), {}, (_f(2, 3, 7),), (0,))],
     "InstanceNorm2D": [((3,), {"weight_attr": False, "bias_attr": False},
                         (_IMG,), (0,))],

@@ -269,17 +269,44 @@ def test_loss_is_a_0d_tensor_and_state_is_updated_in_place():
 
 
 @pytest.mark.parametrize("option", [
-    dict(remat=True), dict(mesh=object()), dict(mp_axis="mp"),
+    dict(remat=True), "mesh_tp", dict(mp_axis="mp"),
     dict(sp_axis="sp"), dict(use_ring_attention=True),
     dict(use_ulysses=True), "moe"])
 def test_unsupported_options_raise(option):
+    """The model-parallel options wait for ROADMAP queue 1 item 10b; a
+    data-parallel mesh is taken (test_torch_data_parallel.py), one with
+    a model-parallel axis is refused when it is made."""
+    from paddle_tpu_torch.parallel import mesh as M
+
     model = TB.BertForPretraining(TB.BertConfig.tiny(**NO_DROP),
                                   device="cpu")
     if option == "moe":
         model.bert.config.moe_experts = 4
         option = {}
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="item 10b"):
+        if option == "mesh_tp":
+            option = dict(mesh=M.make_mesh({"dp": 1, "tp": 2},
+                                           devices=range(2)))
         TB.build_pretrain_step(model, **option)
+
+
+def test_a_data_parallel_mesh_of_one_is_the_one_process_step():
+    """make_mesh({"dp": 1}) with no group: the step's bits are the
+    one-process step's."""
+    from paddle_tpu_torch.parallel import mesh as M
+
+    batch = {k: torch.from_numpy(v) for k, v in _batch(2).items()}
+    runs = []
+    for mesh in (None, M.make_mesh({"dp": 1})):
+        torch.manual_seed(0)
+        model = TB.BertForPretraining(TB.BertConfig.tiny(**NO_DROP),
+                                      device="cpu", seed=4)
+        step, st = TB.build_pretrain_step(model, bf16=False, mesh=mesh)
+        st, loss = step(st, batch, LR)
+        runs.append((loss, st["params"]))
+    assert torch.equal(runs[0][0], runs[1][0])
+    for k, v in runs[0][1].items():
+        assert torch.equal(v, runs[1][1][k]), k
 
 
 def test_step_flops_formula_matches_the_benchmark():
