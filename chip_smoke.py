@@ -16,8 +16,10 @@ export BERT-base to an inference Predictor and serve it beside the CTR
 model from one ModelRegistry, serve BERT-base's encoder and LeNet through
 the inference C ABI from a ctypes host and a pure-C host, train MNIST
 from files through the 1.x readers and PyReader, train BERT-base and the
-static ResNet-50 data-parallel over torch.distributed, and check what
-comes out.
+static ResNet-50 data-parallel over torch.distributed, train BERT-base
+tensor-parallel and the static ResNet-50 with its state sharded (ZeRO
+through Fleet, data x fsdp x tp through the compiler's SPMD arm), and
+check what comes out.
 
     python3 chip_smoke.py
 
@@ -454,6 +456,33 @@ Phases, in order (any failure exits non-zero and prints no result):
               one step with BuildStrategy.sync_batch_norm, whose rank-mean
               loss is within DIST_SBN_RTOL of the whole batch's
               one-process forward
+ 29. spmd     model parallelism (parallel/, models/bert.py mp_axis):
+              the flash kernels at a tensor-parallel rank's heads (q/k/v
+              (32, 512, 3, 64), heads 6-8 of 12, dropout 0.1) and the FFN
+              kernels and ffn_act at its d_ff columns (T=16384, columns
+              1536-2303 of 3072) against their plain versions at those
+              offsets and, bit for bit, the whole width's launch sliced
+              (ffn_act's mask bit for bit with _ffn_keep), timed there
+              beside bound, plain version and library call; then ranks
+              started by distributed.spawn (four or more cards: one NCCL
+              group of 4, a card each; else two gloo ranks sharing the
+              card): BERT-base's tensor-parallel step (mp_axis) at full
+              width, bf16, dropout 0.1, SPMD_STEPS steps on {dp: 1, mp:
+              ranks} (B=32 under NCCL, 8 under gloo, S=512, 76 masked),
+              each rank's launches counted, step ms, param and moment
+              bytes a rank, the replicated masters' bits the same on
+              every rank, the losses within SPMD_LOSS_RTOL and the
+              gathered masters within SPMD_MASTER_ATOL of rank 0's
+              one-process step on the same batch and seed; with four
+              ranks {dp: 2, mp: 2} at dropout 0 likewise; the static
+              ResNet-50 of the dist phase, SPMD_RESNET_STEPS steps,
+              through Fleet's sharding at stages 1 and 3 (each rank's
+              losses within SPMD_RESNET_RTOL
+              of the plain Fleet run's, its accumulator bytes a rank's
+              share) and through BuildStrategy.mesh_axes {data: 1, fsdp:
+              2, tp: 2} ({data: 1, fsdp: 2} on two ranks; the fc weight
+              and its velocity one shard a rank, the losses within
+              SPMD_RESNET_RTOL of the same mesh with every spec P())
 
 The last two lines of stdout are a {"kernels": [...]} summary and the
 {"ok": true, "device": {...}} result.
@@ -462,7 +491,7 @@ The last two lines of stdout are a {"kernels": [...]} summary and the
 kernel is built: none is on that path); `--ctr` the card and ctr phases;
 `--feed` the card and feed phases; `--deploy` the card, build and deploy
 phases; `--capi` the card, build and capi phases; `--dist` the card,
-build and dist phases.
+build and dist phases; `--spmd` the card, build and spmd phases.
 
 `python3 chip_smoke.py --tensor-methods-ab` runs instead only the
 host-bound decode, seq2seq and srl phases, in turns with the `matmul` /
@@ -8278,6 +8307,564 @@ def dist():
     return launches
 
 
+# -- model parallelism over torch.distributed (phase 29) -------------------------
+
+# the ranks: with four or more cards one NCCL group of 4, a card each; with
+# fewer, two gloo ranks sharing card 0 (PADDLE_DISTRI_BACKEND=gloo)
+SPMD_STEPS = 3
+SPMD_BERT_BATCH = {"nccl": 32, "gloo": 8}
+SPMD_DROPOUT = 0.1
+# the tensor-parallel BERT-base step (bf16 forward) against one process's
+# step on the same batch and seed, relative, every step.  Each rank
+# rounds its row-parallel partial product to bf16 before the all-reduce
+# adds the ranks' (one process rounds the f32 sum once): a few bf16 units
+# (2^-8) on those sums, averaged over the 76 x 32 masked positions'
+# log-softmax
+SPMD_LOSS_RTOL = 5e-3
+# the gathered masters against one process's, absolute: AdamW moves an
+# element by about lr a step whatever its gradient's size (|m^/sqrt(v^)|
+# is at most 1.0034 over steps 1-3 at b1 0.9, b2 0.999; the decay adds
+# under 1e-3 of that), so where a gradient is within bf16's rounding of
+# 0 its sign is the rounding's and the element may move the other way:
+# 2.01 lr a step at most
+SPMD_MASTER_ATOL = 2.01 * SPMD_STEPS * TRAIN_LR
+# the static ResNet-50 through the SPMD arm against the same rows'
+# replicated run, each rank's loss at steps 1 and 2: step 1 is the same
+# forward, step 2 follows one update whose f32 gradient means are formed
+# in another order (Fleet's transpiled program scales and all-reduces
+# each gradient where the arm reduce-scatters the sum, then scales; one
+# f32 unit apart on the CPU's 2-rank rehearsal).  A third step is not
+# compared: at lr 0.1 the second update carries those units to 3.7e-3
+# of the loss (my chip call 2, PR 26)
+SPMD_RESNET_STEPS = 2
+SPMD_RESNET_RTOL = 1e-4
+
+
+def _spmd_plan(cards):
+    if cards >= 4:
+        return [("nccl", 4, [0, 1, 2, 3])]
+    return [("gloo", 2, [0])]
+
+
+def _tp_flash(g, rows):
+    """The flash kernels on a tensor-parallel rank's heads: q/k/v
+    (32, 512, 3, 64), heads 6-8 of 12 (rank 2 of mp 4), key padding,
+    dropout 0.1: against the plain versions at that offset, and bit for
+    bit against the whole 12 heads' launch sliced to them (the same
+    masks); then graph-timed in turns with SDPA at that shape."""
+    b, s, h, d, mp, r, p, seed = 32, SEQ, 12, 64, 4, 2, SPMD_DROPOUT, 4321
+    hl = h // mp
+    sl = slice(r * hl, (r + 1) * hl)
+    q, k, v, gr = (_rand(g, b, s, h, d) for _ in range(4))
+    bias = _padding_bias(g, b, s)
+    full, full_lse = A.flash_forward(q, k, v, bias, seed, False, None, None,
+                                     p)
+    fdq, fdk, fdv = A.flash_backward(q, k, v, bias, seed, full, full_lse, gr,
+                                     False, None, None, p)
+    ql, kl, vl, gl = (t[:, :, sl].contiguous() for t in (q, k, v, gr))
+    out, lse = A.flash_forward(ql, kl, vl, bias, seed, False, None, None, p,
+                               h, r * hl)
+    out0, _ = A.flash_forward(ql, kl, vl, bias, seed, False, None, None, p)
+    grads = A.flash_backward(ql, kl, vl, bias, seed, out, lse, gl, False,
+                             None, None, p, h, r * hl)
+    torch.cuda.synchronize()
+    ref_out, ref_lse = A.flash_forward_reference(ql, kl, vl, bias, seed,
+                                                 False, None, None, p, h,
+                                                 r * hl)
+    refs = A.flash_backward_reference(ql, kl, vl, bias, seed, out, lse, gl,
+                                      False, None, None, p, h, r * hl)
+    ok_o, err_o = close(out, ref_out, **BF16_TOL)
+    ok_l, _ = close(lse, ref_lse, **LSE_TOL)
+    checks = {n: close_grad(a, w) for n, a, w in zip(("dq", "dk", "dv"),
+                                                       grads, refs)}
+    same = (torch.equal(out, full[:, :, sl]) and torch.equal(
+        lse, full_lse[:, sl]) and all(torch.equal(a, w[:, :, sl]) for a, w in
+                                      zip(grads, (fdq, fdk, fdv))))
+    moved = not torch.equal(out0, out)
+    ok = ok_o and ok_l and all(c[0] for c in checks.values()) and same \
+        and moved
+    log(f"spmd flash at heads {sl.start}-{sl.stop - 1} of {h} "
+        f"(q/k/v ({b},{s},{hl},{d}), p={p}): O err {err_o:.3g}, "
+        + " ".join(f"{n} err {c[1]:.3g}" for n, c in checks.items())
+        + f"; the whole launch's bits sliced {same}; other bits than "
+        f"offset 0 {moved} {'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        raise AssertionError("the flash kernels at a head offset")
+    rows["flash_fwd"]["max_abs_err"] = err_o
+    rows["flash_bwd_dkv"]["max_abs_err"] = max(checks["dk"][1],
+                                               checks["dv"][1])
+    rows["flash_bwd_dq"]["max_abs_err"] = checks["dq"][1]
+    del full, fdq, fdk, fdv, q, k, v, gr
+    scale = d ** -0.5
+    _, launch_dkv, launch_dq = A._flash_bwd_launchers(
+        ql, kl, vl, bias, seed, out, lse, gl, False, 0, scale, p, h, r * hl)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (ql, kl, vl))
+    gt = gl.transpose(1, 2)
+    keep = (bias == 0)[:, None, None, :]
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=keep)
+    arms = {"fwd": lambda: A.flash_forward(ql, kl, vl, bias, seed, False,
+                                           None, None, p, h, r * hl),
+            "dkv": launch_dkv, "dq": launch_dq, "sdpa": sdpa,
+            "sdpa_fb": lambda: torch.autograd.grad(sdpa(), (qt, kt, vt), gt)}
+    times = K4.graphs_ms({key: (lambda fn=fn: [fn() for _ in range(2)])
+                          for key, fn in arms.items()}, 2)
+    plain_f = time_ms(lambda: A.flash_forward_reference(
+        ql, kl, vl, bias, seed, False, None, None, p, h, r * hl), iters=2,
+        warmup=1)
+    plain_b = time_ms(lambda: A.flash_backward_reference(
+        ql, kl, vl, bias, seed, out, lse, gl, False, None, None, p, h,
+        r * hl), iters=2, warmup=1)
+    qkv = b * s * hl * d * 2
+    product = 2 * b * hl * s * s * d
+    rows_bytes = 2 * b * hl * s * 4 + b * s * 4
+    for name, key, n_products, nbytes, plain, lib in (
+            ("flash_fwd", "fwd", 2, 4 * qkv + b * s * 4 + b * hl * s * 4,
+             plain_f, times["sdpa"]),
+            ("flash_bwd_dkv", "dkv", 4, 6 * qkv + rows_bytes, plain_b,
+             times["sdpa_fb"] - times["sdpa"]),
+            ("flash_bwd_dq", "dq", 3, 5 * qkv + rows_bytes, plain_b,
+             times["sdpa_fb"] - times["sdpa"])):
+        bound_ms, bound_by = bound(n_products * product, nbytes)
+        rows[name].update(
+            ms=times[key], plain_ms=plain, bound_ms=bound_ms,
+            bound_by=bound_by, library_ms=lib,
+            shape=f"q/k/v ({b},{s},{hl},{d}) bf16, heads {sl.start}-"
+                  f"{sl.stop - 1} of {h}, key padding, dropout {p}")
+
+
+def _tp_ffn(g, rows):
+    """The FFN kernels on a tensor-parallel rank's d_ff columns: T=16384
+    tokens, d_model 768, columns 1536-2303 of 3072 (rank 2 of mp 4),
+    dropout 0.1: ffn_act against its plain version and bit for bit
+    against the whole width's launch sliced, its mask bit for bit with
+    `_ffn_keep` at the offset; ffn_fwd and both backward kernels against
+    their plain versions at the offset; then each timed at that shape."""
+    t, hid, ff, mp, r, p, seed = 32 * SEQ, 768, 3072, 4, 2, SPMD_DROPOUT, 21
+    fl = ff // mp
+    off = r * fl
+    cs = slice(off, off + fl)
+    pre_w, dh_w = _rand(g, t, ff, scale=2.0), _rand(g, t, ff)
+    b1_w = _rand(g, ff, scale=0.1)
+    h_w = F.ffn_act_fwd(pre_w, b1_w, "gelu", p, seed)
+    dpre_w, _ = F.ffn_act_bwd(pre_w, b1_w, dh_w, "gelu", p, seed)
+    pre, dh, b1 = (pre_w[:, cs].contiguous(), dh_w[:, cs].contiguous(),
+                   b1_w[cs].contiguous())
+    del pre_w, dh_w
+    h = F.ffn_act_fwd(pre, b1, "gelu", p, seed, off)
+    dpre, h2 = F.ffn_act_bwd(pre, b1, dh, "gelu", p, seed, off)
+    torch.cuda.synchronize()
+    ok_h, err_h = close(h, F.ffn_act_fwd_reference(pre, b1, "gelu", p, seed,
+                                                   off), **ACT_TOL[torch.bfloat16])
+    ok_d, err_d = close(dpre, F.ffn_act_bwd_reference(
+        pre, b1, dh, "gelu", p, seed, off)[0], **ACT_TOL[torch.bfloat16])
+    same = torch.equal(h, h_w[:, cs]) and torch.equal(dpre, dpre_w[:, cs]) \
+        and torch.equal(h, h2)
+    del h_w, dpre_w
+    three = torch.full_like(pre, 3.0)
+    zero = torch.zeros_like(b1)
+    keep = F._ffn_keep(seed, 0, off, t, fl, p, device=pre.device)
+    mask = torch.equal(F.ffn_act_fwd(three, zero, "relu", p, seed, off) != 0,
+                       keep) and torch.equal(F.ffn_act_bwd(
+                           three, zero, torch.ones_like(three), "relu", p,
+                           seed, off)[0] != 0, keep)
+    del three
+    # the fused kernels (the kernel arm's) at the offset
+    x = _rand(g, t, hid)
+    w1, w2 = _rand(g, hid, fl, scale=0.03), _rand(g, fl, hid, scale=0.03)
+    b2 = torch.zeros(hid, dtype=torch.bfloat16, device="cuda")
+    go = _rand(g, t, hid)
+    out = F.ffn_forward(x, w1, b1, w2, b2, "gelu", p, seed, off)
+    out0 = F.ffn_forward(x, w1, b1, w2, b2, "gelu", p, seed)
+    grads = F.ffn_backward(x, w1, b1, w2, b2, seed, go, "gelu", p, off)
+    torch.cuda.synchronize()
+    ok_f, err_f = close(out, F.ffn_forward_reference(
+        x, w1, b1, w2, b2, "gelu", p, seed, off), **BF16_TOL)
+    want = F.ffn_backward_reference(x, w1, b1, w2, b2, seed, go, "gelu", p,
+                                    off)
+    gchecks = {n: close_grad(a, w) for n, a, w in zip(
+        ("dx", "dw1", "db1", "dw2", "db2"), grads, want)}
+    moved = not torch.equal(out, out0)
+    ok = ok_h and ok_d and same and mask and ok_f and moved and all(
+        c[0] for c in gchecks.values())
+    log(f"spmd ffn at columns {off}-{off + fl - 1} of {ff} (T={t}, p={p}): "
+        f"ffn_act h err {err_h:.3g}, dpre err {err_d:.3g}, the whole "
+        f"width's bits sliced {same}, mask bit for bit {mask}; ffn_fwd err "
+        f"{err_f:.3g}, other bits than offset 0 {moved}; "
+        + " ".join(f"{n} err {c[1]:.3g}" for n, c in gchecks.items())
+        + f" {'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        raise AssertionError("the FFN kernels at a column offset")
+    rows["ffn_act_fwd"]["max_abs_err"] = err_h
+    rows["ffn_act_bwd"]["max_abs_err"] = err_d
+    rows["ffn_fwd"]["max_abs_err"] = err_f
+    rows["ffn_bwd_dw"]["max_abs_err"] = max(gchecks[n][1] for n in
+                                            ("dw1", "db1", "dw2"))
+    rows["ffn_bwd_dx"]["max_abs_err"] = gchecks["dx"][1]
+    _, launch_dw, launch_dx = F._ffn_bwd_launchers(
+        x, w1, b1, w2, b2, seed, go, "gelu", p, off)
+    gelu, gelu_bw = torch.nn.functional.gelu, torch.ops.aten.gelu_backward
+
+    def dw_arm():  # the library calls that compute dW1, dW2 and db1
+        pre_ = torch.addmm(b1, x, w1)
+        dpre_ = gelu_bw(go @ w2.t(), pre_)
+        return x.t() @ dpre_, gelu(pre_).t() @ go, dpre_.sum(0)
+
+    def dx_arm():  # ... and dx
+        return gelu_bw(go @ w2.t(), torch.addmm(b1, x, w1)) @ w1.t()
+
+    times = K4.graphs_ms({
+        "act_fwd": lambda: [F.ffn_act_fwd(pre, b1, "gelu", p, seed, off)
+                            for _ in range(4)],
+        "act_bwd": lambda: [F.ffn_act_bwd(pre, b1, dh, "gelu", p, seed, off)
+                            for _ in range(4)],
+        "aten_bias_gelu": lambda: [gelu(pre + b1) for _ in range(4)],
+        "fwd": lambda: [F.ffn_forward(x, w1, b1, w2, b2, "gelu", p, seed,
+                                      off) for _ in range(4)],
+        "dw": lambda: [launch_dw() for _ in range(4)],
+        "dx": lambda: [launch_dx() for _ in range(4)],
+        "library_fwd": lambda: [torch.addmm(b2, gelu(torch.addmm(b1, x, w1)),
+                                            w2) for _ in range(4)],
+        "library_dw": lambda: [dw_arm() for _ in range(4)],
+        "library_dx": lambda: [dx_arm() for _ in range(4)]}, 4)
+    plain = {
+        "act_fwd": time_ms(lambda: F.ffn_act_fwd_reference(
+            pre, b1, "gelu", p, seed, off), iters=2, warmup=1),
+        "act_bwd": time_ms(lambda: F.ffn_act_bwd_reference(
+            pre, b1, dh, "gelu", p, seed, off), iters=2, warmup=1),
+        "fwd": time_ms(lambda: F.ffn_forward_reference(
+            x, w1, b1, w2, b2, "gelu", p, seed, off), iters=2, warmup=1),
+        "bwd": time_ms(lambda: F.ffn_backward_reference(
+            x, w1, b1, w2, b2, seed, go, "gelu", p, off), iters=2,
+            warmup=1)}
+    # the counts of _ffn_backward_rows, at d_ff = fl
+    mm = 2 * t * hid * fl
+    act_bytes, weight_bytes = t * hid * 2, hid * fl * 2
+    shape = (f"x ({t},{hid}) W1 ({hid},{fl}) W2 ({fl},{hid}) bf16, columns "
+             f"{off}-{off + fl - 1} of {ff}, gelu, dropout {p}")
+    for name, key, flops, nbytes, plain_ms, lib, shp in (
+            ("ffn_act_fwd", "act_fwd", 0, (2 * t * fl + fl) * 2,
+             plain["act_fwd"], None, f"pre ({t},{fl}) at column {off}"),
+            ("ffn_act_bwd", "act_bwd", 0, (4 * t * fl + fl) * 2,
+             plain["act_bwd"], None, f"pre/dh ({t},{fl}) at column {off}"),
+            ("ffn_fwd", "fwd", 2 * mm,
+             2 * act_bytes + 2 * weight_bytes + (fl + hid) * 2, plain["fwd"],
+             times["library_fwd"], shape),
+            ("ffn_bwd_dw", "dw", 4 * mm,
+             2 * act_bytes + 4 * weight_bytes + 2 * fl * 2, plain["bwd"],
+             times["library_dw"], shape),
+            ("ffn_bwd_dx", "dx", 3 * mm,
+             3 * act_bytes + 2 * weight_bytes + fl * 2, plain["bwd"],
+             times["library_dx"], shape)):
+        if flops:
+            bound_ms, bound_by = bound(flops, nbytes)
+        else:
+            bound_ms, bound_by = nbytes / PEAK_BYTES * 1e3, "bytes"
+        rows[name].update(ms=times[key], plain_ms=plain_ms,
+                          bound_ms=bound_ms, bound_by=bound_by,
+                          library_ms=lib, shape=shp)
+    rows["ffn_act_fwd"]["aten_bias_gelu_ms"] = times["aten_bias_gelu"]
+
+
+def _spmd_bert(world, rank, dev, axes, p, batch_size, one_process):
+    """BERT-base's tensor-parallel step at full width on mesh `axes`
+    ({dp, mp}), bf16 over f32 masters, dropout p: SPMD_STEPS steps on this
+    rank's rows, the launch counters at 0 just before and read just
+    after; the replicated tensors' bits the same on every rank; the
+    masters gathered.  With `one_process` (rank 0) the one-process step on
+    the whole batch from the same model, after."""
+    from paddle_tpu_torch.convert import gather_shards
+    from paddle_tpu_torch.parallel import mesh as M
+
+    cfg = bert.BertConfig.base(hidden_dropout_prob=p,
+                               attention_probs_dropout_prob=p)
+    model = bert.BertForPretraining(cfg, seed=0)
+    mesh = M.make_mesh(axes)
+    step, state = bert.build_pretrain_step(model, mesh=mesh, dp_axis="dp",
+                                           mp_axis="mp")
+    one = bert.build_pretrain_step(model) if one_process else None
+    del model
+    fb = bert.fake_batch(cfg, batch_size, SEQ, num_masked=DIST_BERT_MASKED,
+                         seed=11)
+    mine = {k: torch.from_numpy(v).to(dev)
+            for k, v in M.shard_host_batch(mesh, fb).items()}
+    torch.cuda.synchronize()
+    for c in COUNTERS.values():
+        c.reset()
+    # -- the main path: counters at 0 before, read right after --------------
+    losses, step_ms = [], []
+    for _ in range(SPMD_STEPS):
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        state, loss = step(state, mine, TRAIN_LR)
+        e1.record()
+        torch.cuda.synchronize()
+        step_ms.append(e0.elapsed_time(e1))
+        losses.append(float(loss))
+    launches = {n: c.value for n, c in COUNTERS.items()}
+    # ------------------------------------------------------------------------
+    _expect_launches(launches, LAYERS * SPMD_STEPS, TRAIN_KERNELS,
+                     f"{SPMD_STEPS} tensor-parallel BERT steps")
+    repl = [k for k in sorted(state["params"]) if not tuple(step.specs[k])]
+    _same_on_every_rank(_fingerprint([state["params"][k] for k in repl]),
+                        f"BERT {axes}: replicated masters")
+    local = lambda part: sum(v.numel() * v.element_size()
+                             for v in state[part].values())
+    out = dict(axes=axes, dropout=p, losses=losses, step_ms=step_ms,
+               launches=launches, rows=int(mine["input_ids"].shape[0]),
+               param_bytes=local("params"),
+               moment_bytes=local("m") + local("v"),
+               split=sum(bool(tuple(s)) for s in step.specs.values()))
+    masters = {k: gather_shards(state["params"][k], step.specs[k], mesh)
+               for k in sorted(state["params"])}
+    out["full_param_bytes"] = sum(a.nbytes for a in masters.values())
+    del state, step, mine
+    torch.cuda.empty_cache()
+    if one is not None:
+        step1, st1 = one
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in fb.items()}
+        ref = []
+        for _ in range(SPMD_STEPS):
+            st1, loss = step1(st1, batch, TRAIN_LR)
+            ref.append(float(loss))
+        out["one_process"] = ref
+        out["master_max_abs"] = max(
+            float((torch.from_numpy(masters[k]).to(dev) - v).abs().max())
+            for k, v in st1["params"].items())
+        del st1, step1, batch
+        torch.cuda.empty_cache()
+    return out
+
+
+def _spmd_resnet(world, rank, dev):
+    """The static ResNet-50 of the dist phase (Momentum 0.1 with L2Decay,
+    the global batch DIST_RESNET_BATCH at 224^2, f32): Fleet's plain
+    collective run (each rank fed its rows); Fleet's sharding strategy at
+    stages 1 and 3 (the SPMD arm on {data: ranks}, fed the global batch);
+    BuildStrategy.mesh_axes {data: 1, fsdp: 2, tp: 2} (or {data: 1,
+    fsdp: 2} on two ranks), and the same mesh with every spec overridden
+    to P(): its replicated data-parallel twin over the same rows."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.parallel import spec_layout
+
+    x, y = _dist_resnet_batch()
+    k = DIST_RESNET_BATCH // world
+    whole = {"image": torch.from_numpy(x).to(dev),
+             "label": torch.from_numpy(y).to(dev)}
+    mine = {n: v[rank * k:(rank + 1) * k] for n, v in whole.items()}
+    axes = {"data": 1, "fsdp": 2, "tp": 2} if world == 4 else \
+        {"data": 1, "fsdp": 2}
+
+    def run(stage=None, mesh_axes=None, replicate=False):
+        opt = fluid.optimizer.Momentum(
+            learning_rate=0.1, momentum=0.9,
+            regularization=fluid.regularizer.L2Decay(1e-4))
+        if mesh_axes is None:
+            st = fleet.DistributedStrategy()
+            if stage is not None:
+                st.sharding = True
+                st.sharding_configs = {"stage": stage}
+            fleet.init(is_collective=True, strategy=st)
+            opt = fleet.distributed_optimizer(opt, st)
+        main, startup, fetches = _dist_resnet_program(opt)
+        exe, scope = fluid.Executor(), fluid.Scope()
+        exe.run(startup, scope=scope)
+        if replicate:
+            for n in scope.local_var_names():
+                spec_layout.register_spec(n, spec_layout.P())
+        bs = fluid.BuildStrategy()
+        bs.mesh_axes = mesh_axes
+        prog = fluid.CompiledProgram(main, bs).with_data_parallel(
+            loss_name=fetches[0].name)
+        feed = mine if (stage is None and mesh_axes is None) else whole
+        losses, host_ms = [], []
+        try:
+            for _ in range(SPMD_RESNET_STEPS):
+                h0 = time.perf_counter()
+                (loss, _) = exe.run(prog, feed=feed, fetch_list=fetches,
+                                    scope=scope)
+                host_ms.append((time.perf_counter() - h0) * 1e3)
+                losses.append(float(np.asarray(loss).reshape(-1)[0]))
+        finally:
+            spec_layout.clear_specs()
+        fc = next(p.name for p in main.all_parameters()
+                  if p.name.startswith("fc") and len(p.shape) == 2)
+        acc = [n for n in scope.local_var_names() if "_velocity" in n]
+        out = dict(losses=losses, host_step_ms=host_ms,
+                   acc_bytes=sum(scope.get(n).numel()
+                                 * scope.get(n).element_size() for n in acc),
+                   fc=fc, fc_shape=list(scope.get(fc).shape),
+                   fc_full=list(main.global_block().var(fc).shape),
+                   fc_velocity_shape=list(scope.get(
+                       fc + "_velocity_0").shape))
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"resnet losses {losses}")
+        del exe, scope
+        torch.cuda.empty_cache()
+        return out
+
+    runs = {"plain": run(), "stage1": run(stage=1), "stage3": run(stage=3),
+            "mesh": run(mesh_axes=axes),
+            "mesh_replicated": run(mesh_axes=axes, replicate=True)}
+    for tag, base in (("stage1", "plain"), ("stage3", "plain"),
+                      ("mesh", "mesh_replicated")):
+        got, want = np.array(runs[tag]["losses"]), np.array(
+            runs[base]["losses"])
+        rel = np.abs(got - want) / np.abs(want)
+        runs[tag]["rel_err"] = rel.tolist()
+        if rel.max() > SPMD_RESNET_RTOL:
+            raise AssertionError(f"resnet {tag} rank {rank}: losses {got} "
+                                 f"against {base}'s {want}")
+    for tag in ("stage1", "stage3"):
+        share = runs[tag]["acc_bytes"] * world
+        if share != runs["plain"]["acc_bytes"]:
+            raise AssertionError(f"resnet {tag}: {runs[tag]['acc_bytes']} "
+                                 f"accumulator bytes a rank")
+    m = runs["mesh"]
+    want = [m["fc_full"][0] // 2, m["fc_full"][1] // axes.get("tp", 1)]
+    if m["fc_shape"] != want or m["fc_velocity_shape"] != want:
+        raise AssertionError(f"resnet mesh: the fc weight {m['fc_shape']} "
+                             f"and its velocity {m['fc_velocity_shape']}")
+    runs["mesh_axes"] = axes
+    return runs
+
+
+def spmd_rank(workdir, tag, parts):
+    """One rank of the spmd phase (started by distributed.spawn), as
+    dist_rank: writes what it measured to workdir/tag.RANK.json."""
+    import paddle_tpu_torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    F.enable_fused_ffn()
+    env = dist.init_parallel_env()
+    dev = dist.parallel.device()
+    rank, world = env.rank, env.world_size
+    backend = dist.parallel.backend()
+    out = dict(rank=rank, world=world, backend=backend, device=str(dev),
+               card=card_line())
+    t0 = time.perf_counter()
+    batch = SPMD_BERT_BATCH[backend]
+    if "bert" in parts:
+        out["bert"] = _spmd_bert(world, rank, dev, {"dp": 1, "mp": world},
+                                 SPMD_DROPOUT, batch, rank == 0)
+    if "bert_dp_mp" in parts:
+        out["bert_dp_mp"] = _spmd_bert(world, rank, dev, {"dp": 2, "mp": 2},
+                                       0.0, batch, rank == 0)
+    if "resnet" in parts:
+        out["resnet"] = _spmd_resnet(world, rank, dev)
+    out["rank_s"] = time.perf_counter() - t0
+    with open(os.path.join(workdir, f"{tag}.{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_parallel_env()
+
+
+@phase("spmd")
+def spmd():
+    """Phase 29: model parallelism.  The kernels at a tensor-parallel
+    rank's head and column offsets against their plain versions (and,
+    bit for bit, the whole width's launch sliced), timed at those shapes;
+    then ranks started by distributed.spawn: BERT-base's tensor-parallel
+    step on {dp: 1, mp: ranks} at dropout 0.1 (and, with four ranks,
+    {dp: 2, mp: 2} at dropout 0) against the one-process step, and the
+    static ResNet-50 through Fleet's sharding (stages 1 and 3) and
+    BuildStrategy.mesh_axes.  Returns (rank 0's launches of the
+    {dp: 1, mp: ranks} run, the kernels' rows at the tensor-parallel
+    shapes)."""
+    import importlib
+
+    import paddle_tpu_torch.distributed as dist_mod
+
+    g = torch.Generator().manual_seed(29)
+    tp_rows = {n: {} for n in TRAIN_KERNELS + ACT_KERNELS}
+    _tp_flash(g, tp_rows)
+    torch.cuda.empty_cache()
+    _tp_ffn(g, tp_rows)
+    torch.cuda.empty_cache()
+    for name, r in tp_rows.items():
+        lib = "none" if r["library_ms"] is None else \
+            f"{r['library_ms']:.4f}"
+        log(f"spmd {name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, "
+            f"library {lib}, bound {r['bound_ms']:.4f} {r['bound_by']}) at "
+            f"{r['shape']}")
+    cards = torch.cuda.device_count()
+    card = card_line()
+    rank_fn = importlib.import_module("chip_smoke").spmd_rank
+    root = str(Path(__file__).resolve().parent)
+    work = tempfile.mkdtemp(prefix="spmd_")
+    launches, results = None, {}
+    try:
+        for backend, n, gpus in _spmd_plan(cards):
+            tag = f"{backend}{n}"
+            parts = ("bert", "resnet") + (("bert_dp_mp",) if n == 4 else ())
+            env = {"PADDLE_DISTRI_BACKEND": backend,
+                   "PYTHONPATH": os.pathsep.join(
+                       [root] + [p for p in os.environ.get(
+                           "PYTHONPATH", "").split(os.pathsep) if p])}
+            t0 = time.perf_counter()
+            dist_mod.spawn(rank_fn, args=(work, tag, parts), nprocs=n,
+                           gpus=gpus, env=env)
+            wall = time.perf_counter() - t0
+            runs = [json.load(open(os.path.join(work, f"{tag}.{r}.json")))
+                    for r in range(n)]
+            results[tag] = runs
+            log(f"spmd {tag}: backend {backend}, world {n}, cards {gpus} "
+                f"({cards} on the host); spawn to exit {wall:.1f} s; ranks "
+                f"{[round(r['rank_s'], 1) for r in runs]} s of work")
+            for key in ("bert", "bert_dp_mp"):
+                if key not in runs[0]:
+                    continue
+                b = [r[key] for r in runs]
+                launches = launches if key != "bert" else b[0]["launches"]
+                got = np.mean([x["losses"] for x in b], axis=0) \
+                    if key == "bert_dp_mp" else np.array(b[0]["losses"])
+                want = np.array(b[0]["one_process"])
+                rel = np.abs(got - want) / np.abs(want)
+                for r, x in enumerate(b):
+                    log(f"spmd {tag} rank {r}: BERT-base {x['axes']} "
+                        f"dropout {x['dropout']} B={x['rows']} S={SEQ}: "
+                        f"losses {x['losses']}; step ms (CUDA events) "
+                        f"{[round(v, 3) for v in x['step_ms']]} (min "
+                        f"{min(x['step_ms']):.3f}, max "
+                        f"{max(x['step_ms']):.3f}); param bytes "
+                        f"{x['param_bytes']} of {x['full_param_bytes']}, "
+                        f"moment bytes {x['moment_bytes']}; {x['split']} "
+                        f"tensors split; launches {x['launches']}")
+                log(f"spmd {tag}: BERT-base {b[0]['axes']} losses "
+                    f"{got.tolist()} against one process {want.tolist()}: "
+                    f"rel err {rel.tolist()} (rtol {SPMD_LOSS_RTOL}); "
+                    f"gathered masters max abs diff "
+                    f"{b[0]['master_max_abs']:.3g} (atol "
+                    f"{SPMD_MASTER_ATOL:.3g})")
+                if rel.max() > SPMD_LOSS_RTOL or \
+                        b[0]["master_max_abs"] > SPMD_MASTER_ATOL:
+                    raise AssertionError(f"{tag} {key}: the tensor-parallel "
+                                         "step parts from one process")
+            for r, x in enumerate(run["resnet"] for run in runs):
+                log(f"spmd {tag} rank {r}: static ResNet-50 "
+                    + "; ".join(
+                        f"{t}: losses {x[t]['losses']}"
+                        + (f" (rel err {x[t]['rel_err']})"
+                           if "rel_err" in x[t] else "")
+                        + f", accumulator bytes {x[t]['acc_bytes']}, host "
+                        f"ms {[round(v, 1) for v in x[t]['host_step_ms']]}"
+                        for t in ("plain", "stage1", "stage3", "mesh",
+                                  "mesh_replicated"))
+                    + f"; mesh {x['mesh_axes']}: {x['mesh']['fc']} "
+                    f"{x['mesh']['fc_shape']} of {x['mesh']['fc_full']}, "
+                    f"its velocity {x['mesh']['fc_velocity_shape']}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log("spmd summary: " + json.dumps(dict(card=card, cards=cards,
+                                           kernels=tp_rows, runs=results),
+                                      default=str))
+    return launches, tp_rows
+
+
 def tensor_methods_ab(cycles=2):
     """The decode, seq2seq and srl phases `cycles` times in the turns on,
     off, off, on of the `matmul` / `unsqueeze` extensions (each phase
@@ -8357,6 +8944,9 @@ def main():
     if "--dist" in sys.argv[1:]:
         dist()
         sys.exit(1 if FAILURES else 0)
+    if "--spmd" in sys.argv[1:]:
+        spmd()
+        sys.exit(1 if FAILURES else 0)
     if "--tensor-methods-ab" in sys.argv[1:]:
         tensor_methods_ab()
         sys.exit(1 if FAILURES else 0)
@@ -8388,12 +8978,13 @@ def main():
     capi_path = capi()
     feed_path = feed()
     dist_path = dist()
+    spmd_out = spmd()
     if FAILURES or None in (rows, probed, served, decoded, trained, library,
                             resnet_path, fluid_path, wmt_paths, hapi_path,
                             dygraph_path, s2s_paths, srl_paths,
                             mobile_paths, gan_path, static_paths, amp_path,
                             ssd_path, ctr_path, deploy_path, capi_path,
-                            feed_path, dist_path):
+                            feed_path, dist_path, spmd_out):
         log(f"FAILED phases: {FAILURES}")
         print(f"FAILED phases: {FAILURES}", file=sys.stderr, flush=True)
         sys.exit(1)
@@ -8405,7 +8996,7 @@ def main():
              **srl_paths, **mobile_paths, "cyclegan": gan_path,
              **static_paths, "fluid_amp": amp_path, "ssd": ssd_path,
              "ctr": ctr_path, "deploy": deploy_path, "capi": capi_path,
-             "feed": feed_path, "dist": dist_path}
+             "feed": feed_path, "dist": dist_path, "spmd": spmd_out[0]}
     for r in rows:
         # `launches` is the count on the path where the kernel runs: the
         # probe for its three kernels, the decode path for ragged_paged,
@@ -8418,6 +9009,10 @@ def main():
             "train" if name in TRAIN_KERNELS else "decode"
         r["launches"] = paths[path][name]
         r["launches_by_path"] = {p: n[name] for p, n in paths.items()}
+        if name in spmd_out[1]:
+            # its time, bound and library call at a tensor-parallel
+            # rank's shape and offsets (the spmd phase)
+            r["tensor_parallel"] = spmd_out[1][name]
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -31,7 +31,7 @@ thread a job), `ckpt_snapshot_bytes` (bytes copied but not yet written),
 `ckpt_restore_count`.
 
 One process: `process_count` above 1 raises NotImplementedError until
-ROADMAP queue 1 item 10b brings per-host shards and their barrier, so
+ROADMAP queue 1 item 10b (ii) brings per-host shards and their barrier, so
 the rendezvous before the commit has nothing to wait for, and the
 manifest records no mesh axes.  Restore returns `(state, manifest)` with every value a CPU
 tensor of the manifest's dtype; it refuses partial checkpoints and (with
@@ -55,7 +55,7 @@ from .manifest import CheckpointError
 from .writer import WriterPool
 
 MULTI_PROCESS = ("checkpoints over more than one process (per-host shards "
-                 "and their barrier) wait for ROADMAP queue 1 item 10b")
+                 "and their barrier) wait for ROADMAP queue 1 item 10b (ii)")
 
 
 def _host_topology(process_index, process_count) -> Tuple[int, int]:

@@ -19,6 +19,13 @@ step, so a JAX run can continue in the port.
 persistable values of a paddle_tpu `fluid.Scope` (numpy, by variable name)
 replace those of a port `fluid.Scope` that the port's own startup program
 has filled, so the same Program continues in the port's Executor.
+
+Sharded state (the compiler's SPMD arm, the tensor-parallel BERT step)
+crosses in both directions: `shard_jax_array(a, spec, mesh)` is this
+rank's shard of one of the reference's full arrays under a
+PartitionSpec, `load_jax_scope_sharded` fills a scope the SPMD arm has
+sharded, and `gather_shards` / `gather_sharded_scope` give the full
+arrays back, through an all-gather over the spec's axes.
 """
 
 from __future__ import annotations
@@ -120,3 +127,69 @@ def load_jax_scope(scope, arrays: Dict[str, np.ndarray]):
         scope.set(name, torch.from_numpy(np.array(arrays[name])).to(
             device=t.device, dtype=t.dtype))
     return scope
+
+
+def shard_jax_array(a, spec, mesh) -> torch.Tensor:
+    """This rank's shard (a CPU tensor) of the full array `a` laid out by
+    `spec` over `mesh` (parallel/spec_layout.py): each dim cut into the
+    product of its entry's axes, as the SPMD arm cuts the scope."""
+    from .parallel.compiler import shard_of
+
+    return shard_of(torch.from_numpy(np.array(a)), spec, mesh)
+
+
+def gather_shards(t: torch.Tensor, spec, mesh) -> np.ndarray:
+    """The full array, as numpy, from every rank's shard `t` laid out by
+    `spec` (an all-gather over each sharded axis: every rank calls it)."""
+    from .parallel.compiler import gather_full
+
+    return gather_full(t, spec, mesh).detach().cpu().numpy() \
+        if tuple(spec) else t.detach().cpu().numpy()
+
+
+def _scope_specs(program, mesh, names):
+    from .parallel import spec_layout
+
+    block = program.global_block()
+    out = {}
+    for n in names:
+        try:
+            v = block._var_recursive(n)
+        except ValueError:
+            continue
+        if v.shape and all(d >= 0 for d in v.shape):
+            out[n] = spec_layout.spec_for(n, v.shape, mesh, var=v)
+    return out
+
+
+def load_jax_scope_sharded(scope, arrays: Dict[str, np.ndarray], program,
+                           mesh):
+    """`load_jax_scope` for a scope the SPMD arm holds in shards: each
+    var whose spec over `mesh` (from `program`'s variables) is not P()
+    takes this rank's shard of the reference's full array; the others
+    take the whole array."""
+    specs = _scope_specs(program, mesh, arrays)
+    cut = {n: (shard_jax_array(a, specs[n], mesh).numpy()
+               if tuple(specs.get(n, ())) else np.asarray(a))
+           for n, a in arrays.items()}
+    return load_jax_scope(scope, cut)
+
+
+def gather_sharded_scope(scope, program, mesh) -> Dict[str, np.ndarray]:
+    """Every value of the scope as a full numpy array: the shards of the
+    SPMD arm's sharded vars gathered over their axes (every rank calls
+    it, in the same order), the others as they are."""
+    names = sorted(n for n in scope.local_var_names()
+                   if scope.get(n) is not None)
+    specs = _scope_specs(program, mesh, names)
+    out = {}
+    for n in names:
+        v = scope.get(n)
+        full = tuple(program.global_block()._var_recursive(n).shape) \
+            if n in specs else None
+        if tuple(specs.get(n, ())) and tuple(v.shape) != full:
+            out[n] = gather_shards(v, specs[n], mesh)
+        else:
+            out[n] = v.detach().cpu().numpy() if isinstance(
+                v, torch.Tensor) else np.asarray(v)
+    return out

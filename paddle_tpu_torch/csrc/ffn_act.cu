@@ -44,7 +44,8 @@ constexpr int THREADS = 256;
 
 struct Drop {
   uint32_t seed, thresh;
-  float keep;  // 1 - p, the divisor of a kept value
+  float keep;     // 1 - p, the divisor of a kept value
+  uint32_t col0;  // the hash's first column (a tensor-parallel rank's)
 };
 
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -77,7 +78,7 @@ __device__ __forceinline__ float fwd_value(float pre, float b, uint32_t t,
                                            uint32_t c, const Drop& d) {
   const float a = ffn::act<ACT>(pre + b);
   if (!DROP) return a;
-  return ffn::keep_hash(d.seed, t, c) >= d.thresh ? a / d.keep : 0.f;
+  return ffn::keep_hash(d.seed, t, c + d.col0) >= d.thresh ? a / d.keep : 0.f;
 }
 
 // dpre, and the forward's value into *h
@@ -88,7 +89,7 @@ __device__ __forceinline__ float bwd_value(float pre, float b, float dh,
   const float x = pre + b;
   float a = ffn::act<ACT>(x);
   if (DROP) {
-    const bool kept = ffn::keep_hash(d.seed, t, c) >= d.thresh;
+    const bool kept = ffn::keep_hash(d.seed, t, c + d.col0) >= d.thresh;
     dh = kept ? dh / d.keep : 0.f;
     a = kept ? a / d.keep : 0.f;
   }
@@ -211,7 +212,7 @@ void launch_act(bool drop, bool vec, const void* pre, const void* b1,
 template <typename T>
 int run(const void* pre, const void* b1, const void* dh, void* out, void* h,
         long long T_, int F, int act_id, int drop, unsigned int thresh,
-        float keep_prob, unsigned int seed, void* stream) {
+        float keep_prob, unsigned int seed, int col0, void* stream) {
   if (T_ < 0 || F < 1 || (dh != nullptr && h == nullptr))
     return (int)cudaErrorInvalidValue;
   const long long n = T_ * F;
@@ -219,7 +220,7 @@ int run(const void* pre, const void* b1, const void* dh, void* out, void* h,
   const bool vec = F % kVec<T> == 0 && aligned16(pre) && aligned16(b1) &&
                    aligned16(out) &&
                    (dh == nullptr || (aligned16(dh) && aligned16(h)));
-  const Drop d{seed, thresh, keep_prob};
+  const Drop d{seed, thresh, keep_prob, (uint32_t)col0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (act_id) {
     case ffn::ACT_GELU:
@@ -246,14 +247,14 @@ enum { DT_BF16 = 0, DT_F32 = 1 };
 int run_dtype(int dtype, const void* pre, const void* b1, const void* dh,
               void* out, void* h, long long T_, int F, int act_id, int drop,
               unsigned int thresh, float keep_prob, unsigned int seed,
-              void* stream) {
+              int col0, void* stream) {
   switch (dtype) {
     case DT_BF16:
       return run<__nv_bfloat16>(pre, b1, dh, out, h, T_, F, act_id, drop,
-                                thresh, keep_prob, seed, stream);
+                                thresh, keep_prob, seed, col0, stream);
     case DT_F32:
       return run<float>(pre, b1, dh, out, h, T_, F, act_id, drop, thresh,
-                        keep_prob, seed, stream);
+                        keep_prob, seed, col0, stream);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -268,14 +269,15 @@ const char* error_string(int err) {
 
 // dtype: 0 bf16, 1 f32 (every operand).  act_id: 0 gelu (A-S
 // erf), 1 gelu_tanh, 2 relu.  drop: 1 when p > 0; a value is then kept
-// where the hash is >= drop_thresh and divided by keep_prob = 1 - p.
+// where the hash is >= drop_thresh and divided by keep_prob = 1 - p; the
+// hash takes column c as col0 + c (a tensor-parallel rank's d_ff columns).
 // T x F values; one launch.
 int ffn_act_fwd(int dtype, const void* pre, const void* b1, void* h,
                 long long T, int F, int act_id, int drop,
                 unsigned int drop_thresh, float keep_prob, unsigned int seed,
-                void* stream) {
+                int col0, void* stream) {
   return run_dtype(dtype, pre, b1, nullptr, h, nullptr, T, F, act_id, drop,
-                   drop_thresh, keep_prob, seed, stream);
+                   drop_thresh, keep_prob, seed, col0, stream);
 }
 
 // The gradient: dpre from pre, b1 and dh, and h (the forward's output,
@@ -283,10 +285,10 @@ int ffn_act_fwd(int dtype, const void* pre, const void* b1, void* h,
 int ffn_act_bwd(int dtype, const void* pre, const void* b1, const void* dh,
                 void* dpre, void* h, long long T, int F, int act_id,
                 int drop, unsigned int drop_thresh, float keep_prob,
-                unsigned int seed, void* stream) {
+                unsigned int seed, int col0, void* stream) {
   if (dh == nullptr) return (int)cudaErrorInvalidValue;
   return run_dtype(dtype, pre, b1, dh, dpre, h, T, F, act_id, drop,
-                   drop_thresh, keep_prob, seed, stream);
+                   drop_thresh, keep_prob, seed, col0, stream);
 }
 
 }  // extern "C"

@@ -137,7 +137,7 @@ ffn_bwd_dpre_kernel(const __grid_constant__ CUtensorMap tm_x,
                     const __grid_constant__ CUtensorMap tm_w2,
                     const bf16* __restrict__ b1, bf16* __restrict__ dpre,
                     int T, int H, int F, uint32_t drop_thresh,
-                    float inv_keep, uint32_t seed) {
+                    float inv_keep, uint32_t seed, uint32_t drop_col0) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + DpRing::BAR);
@@ -225,7 +225,8 @@ ffn_bwd_dpre_kernel(const __grid_constant__ CUtensorMap tm_x,
         float d = dh[i + e];
         if (drop_thresh != 0u) {
           const bool keep =
-              keep_hash(seed, (uint32_t)t, (uint32_t)(f + e)) >= drop_thresh;
+              keep_hash(seed, (uint32_t)t, (uint32_t)(f + e) + drop_col0) >=
+              drop_thresh;
           d = keep ? d * inv_keep : 0.f;
         }
         v[e] = d * act_grad<ACT>(pv);
@@ -368,7 +369,7 @@ ffn_bwd_dw_kernel(const __grid_constant__ CUtensorMap tm_x,
                   const __grid_constant__ CUtensorMap tm_w2,
                   const bf16* __restrict__ b1, float* __restrict__ ws, int T,
                   int F, int tiles_per_split, uint32_t drop_thresh,
-                  float inv_keep, uint32_t seed) {
+                  float inv_keep, uint32_t seed, uint32_t drop_col0) {
   using P = DwPlan<H>;
   using namespace hopper;
   extern __shared__ unsigned char smem_raw[];
@@ -490,8 +491,9 @@ ffn_bwd_dw_kernel(const __grid_constant__ CUtensorMap tm_x,
         float d = sD[t * BFW + n];
         float hv = act<ACT>(pv);
         if (drop_thresh != 0u) {
-          const bool keep = keep_hash(seed, (uint32_t)(i * BT + t),
-                                      (uint32_t)(f0 + n)) >= drop_thresh;
+          const bool keep =
+              keep_hash(seed, (uint32_t)(i * BT + t),
+                        (uint32_t)(f0 + n) + drop_col0) >= drop_thresh;
           hv = keep ? hv * inv_keep : 0.f;
           d = keep ? d * inv_keep : 0.f;
         }
@@ -584,6 +586,8 @@ struct Args {
   uint32_t drop_thresh;
   float inv_keep;
   uint32_t seed;
+  uint32_t drop_col0;  // the hash's first d_ff column (a tensor-parallel
+                       // rank's; 0 outside tensor parallelism)
   cudaStream_t stream;
 };
 
@@ -614,7 +618,7 @@ cudaError_t launch_dx(const Args& a, int H, bf16* dx, bf16* dpre) {
   ffn_bwd_dpre_kernel<ACT><<<dim3((a.F + GN - 1) / GN, mt), GTHREADS,
                              DpRing::BYTES, a.stream>>>(
       mx, mg, m1, m2, a.b1, dpre, a.T, H, a.F, a.drop_thresh, a.inv_keep,
-      a.seed);
+      a.seed, a.drop_col0);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   ffn_bwd_dx_kernel<<<dim3(H / GN, mt), GTHREADS, DxRing::BYTES, a.stream>>>(
@@ -647,7 +651,7 @@ cudaError_t launch_dw(const Args& a, bf16* dw1, bf16* db1, bf16* dw2,
   dim3 grid(a.F / BFW, splits);
   ffn_bwd_dw_kernel<H, ACT><<<grid, 384, P::BYTES, a.stream>>>(
       mx, mg, m1, m2, a.b1, ws, a.T, a.F, per_split, a.drop_thresh,
-      a.inv_keep, a.seed);
+      a.inv_keep, a.seed, a.drop_col0);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const long long HF = (long long)H * a.F;
@@ -675,11 +679,12 @@ cudaError_t dispatch_dw(int act_id, const Args& a, bf16* dw1, bf16* db1,
 
 Args make_args(const void* x, const void* g, const void* w1, const void* b1,
                const void* w2, int T, int F, unsigned int drop_thresh,
-               float inv_keep, unsigned int seed, void* stream) {
+               float inv_keep, unsigned int seed, int drop_col0,
+               void* stream) {
   return Args{static_cast<const bf16*>(x), static_cast<const bf16*>(g),
               static_cast<const bf16*>(w1), static_cast<const bf16*>(b1),
               static_cast<const bf16*>(w2), T, F, drop_thresh, inv_keep,
-              seed, static_cast<cudaStream_t>(stream)};
+              seed, (uint32_t)drop_col0, static_cast<cudaStream_t>(stream)};
 }
 
 }  // namespace
@@ -690,17 +695,18 @@ const char* error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// act_id: 0 gelu (A-S erf), 1 gelu_tanh, 2 relu; inv_keep = 1 / (1 - p).
+// act_id: 0 gelu (A-S erf), 1 gelu_tanh, 2 relu; inv_keep = 1 / (1 - p);
+// drop_col0: the dropout hash takes d_ff column f as drop_col0 + f.
 // ws: n_split x (2*H*F + F) f32 scratch.  Two launches: the dW pass and
 // the reduce over splits.
 int ffn_bwd_dw_bf16(const void* x, const void* g, const void* w1,
                     const void* b1, const void* w2, void* dw1, void* db1,
                     void* dw2, void* ws, int T, int H, int F, int act_id,
                     int n_split, unsigned int drop_thresh, float inv_keep,
-                    unsigned int seed, void* stream) {
+                    unsigned int seed, int drop_col0, void* stream) {
   if (T < 1 || n_split < 1) return (int)cudaErrorInvalidValue;
   const Args a = make_args(x, g, w1, b1, w2, T, F, drop_thresh, inv_keep,
-                           seed, stream);
+                           seed, drop_col0, stream);
   bf16 *d1 = static_cast<bf16*>(dw1), *d2 = static_cast<bf16*>(dw2);
   bf16* db = static_cast<bf16*>(db1);
   float* w = static_cast<float*>(ws);
@@ -720,11 +726,11 @@ int ffn_bwd_dx_bf16(const void* x, const void* g, const void* w1,
                     const void* b1, const void* w2, void* dx, void* dpre,
                     int T, int H, int F, int act_id,
                     unsigned int drop_thresh, float inv_keep,
-                    unsigned int seed, void* stream) {
+                    unsigned int seed, int drop_col0, void* stream) {
   if (T < 1 || H < GN || H > 1024 || H % GN != 0 || F < KS || F % KS != 0)
     return (int)cudaErrorInvalidValue;
   const Args a = make_args(x, g, w1, b1, w2, T, F, drop_thresh, inv_keep,
-                           seed, stream);
+                           seed, drop_col0, stream);
   bf16* o = static_cast<bf16*>(dx);
   bf16* dp = static_cast<bf16*>(dpre);
   switch (act_id) {

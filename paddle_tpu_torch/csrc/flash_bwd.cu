@@ -171,7 +171,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
                     const float* __restrict__ delta, int rows_ld,
                     bf16* __restrict__ dq, int H, int Sq, int Sk, int causal,
                     int causal_offset, float scale, uint32_t drop_thresh,
-                    float inv_keep, uint32_t seed) {
+                    float inv_keep, uint32_t seed, int HT, int HO) {
   using T = DqSmem<D>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -236,7 +236,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
     rd[i] = in ? delta[(long long)bh * rows_ld + row0 + 8 * i] : 0.f;
   }
   const GradTile gt{row0, cq, Sk, causal_offset, scale, inv_keep,
-                    drop_thresh, seed, (uint32_t)bh};
+                    drop_thresh, seed, (uint32_t)(b * HT + HO + h)};
 
   float dqa[D / 2];   // dQ: rows r0, r0 + 8 as an f32 accumulator
   float s[BK / 2];    // S of one key tile, then p~ (unread here)
@@ -297,7 +297,7 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_k,
                      bf16* __restrict__ dk, bf16* __restrict__ dv, int H,
                      int Sq, int Sk, int causal, int causal_offset,
                      float scale, uint32_t drop_thresh, float inv_keep,
-                     uint32_t seed) {
+                     uint32_t seed, int HT, int HO) {
   using T = DkvSmem<D>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -383,7 +383,7 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_k,
     rb[i] = kbias != nullptr && row0 + 8 * i < Sk
                 ? kbias[(long long)b * bias_ld + row0 + 8 * i] : 0.f;
   const GradTile gt{row0, cq, Sq, causal_offset, scale, inv_keep,
-                    drop_thresh, seed, (uint32_t)bh};
+                    drop_thresh, seed, (uint32_t)(b * HT + HO + h)};
 
   float dka[D / 2], dva[D / 2];  // dK, dV: rows r0, r0 + 8, f32
   float s[BK / 2];               // S^T of one query tile, then p~^T
@@ -449,6 +449,7 @@ struct Args {
   uint32_t drop_thresh;
   float inv_keep;
   uint32_t seed;
+  int HT, HO;  // the dropout hash's batch-head: b * HT + HO + h
   cudaStream_t stream;
 };
 
@@ -482,7 +483,7 @@ cudaError_t launch_dq(const Args& a, bf16* dq) {
   flash_bwd_dq_kernel<D, DROP><<<grid, nc * 128, bytes, a.stream>>>(
       maps[0], maps[1], maps[2], maps[3], maps[4], a.kbias != nullptr, a.lse,
       a.delta, a.rows_ld, dq, a.H, a.Sq, a.Sk, a.causal, a.causal_offset,
-      a.scale, a.drop_thresh, a.inv_keep, a.seed);
+      a.scale, a.drop_thresh, a.inv_keep, a.seed, a.HT, a.HO);
   return cudaGetLastError();
 }
 
@@ -507,7 +508,7 @@ cudaError_t launch_dkv(const Args& a, bf16* dk, bf16* dv) {
   flash_bwd_dkv_kernel<D, DROP><<<grid, nc * 128, bytes, a.stream>>>(
       maps[0], maps[1], maps[2], maps[3], maps[4], maps[5], a.kbias,
       a.bias_ld, dk, dv, a.H, a.Sq, a.Sk, a.causal, a.causal_offset, a.scale,
-      a.drop_thresh, a.inv_keep, a.seed);
+      a.drop_thresh, a.inv_keep, a.seed, a.HT, a.HO);
   return cudaGetLastError();
 }
 
@@ -538,11 +539,12 @@ Args make_args(const void* q, const void* k, const void* v, const void* g,
                const void* delta, int rows_ld, int B, int H, int Sq, int Sk,
                const long long* strides, int block, int causal,
                int causal_offset, float scale, unsigned int drop_thresh,
-               float inv_keep, unsigned int seed, void* stream) {
+               float inv_keep, unsigned int seed, int HT, int HO,
+               void* stream) {
   return Args{q, k, v, g, static_cast<const float*>(kbias), bias_ld,
               static_cast<const float*>(lse), static_cast<const float*>(delta),
               rows_ld, B, H, Sq, Sk, strides, block, causal, causal_offset,
-              scale, drop_thresh, inv_keep, seed,
+              scale, drop_thresh, inv_keep, seed, HT, HO,
               static_cast<cudaStream_t>(stream)};
 }
 
@@ -571,7 +573,8 @@ int flash_bwd_smem_bytes(int D, int dkv) {
 // aligned, row stride bias_ld a multiple of 4.  lse, delta: (B*H, Sq) f32,
 // 16-byte aligned, row stride rows_ld a multiple of 4.  block: 64 or 128
 // keys (dkv) or queries (dq) a CTA, the plan's choice.  inv_keep =
-// 1 / (1 - p_drop).
+// 1 / (1 - p_drop).  HT, HO: the dropout hash takes head h of batch b as
+// batch-head b * HT + HO + h (HT = H, HO = 0 outside tensor parallelism).
 int flash_bwd_dkv_bf16(const void* q, const void* k, const void* v,
                        const void* g, const void* kbias, int bias_ld,
                        const void* lse, const void* delta, int rows_ld,
@@ -579,10 +582,11 @@ int flash_bwd_dkv_bf16(const void* q, const void* k, const void* v,
                        const long long* strides, int block, int causal,
                        int causal_offset, float scale,
                        unsigned int drop_thresh, float inv_keep,
-                       unsigned int seed, void* stream) {
+                       unsigned int seed, int HT, int HO, void* stream) {
   const Args a = make_args(q, k, v, g, kbias, bias_ld, lse, delta, rows_ld, B,
                            H, Sq, Sk, strides, block, causal, causal_offset,
-                           scale, drop_thresh, inv_keep, seed, stream);
+                           scale, drop_thresh, inv_keep, seed, HT, HO,
+                           stream);
   return dispatch(a, D, nullptr, static_cast<bf16*>(dk),
                   static_cast<bf16*>(dv));
 }
@@ -594,10 +598,11 @@ int flash_bwd_dq_bf16(const void* q, const void* k, const void* v,
                       const long long* strides, int block, int causal,
                       int causal_offset, float scale,
                       unsigned int drop_thresh, float inv_keep,
-                      unsigned int seed, void* stream) {
+                      unsigned int seed, int HT, int HO, void* stream) {
   const Args a = make_args(q, k, v, g, kbias, bias_ld, lse, delta, rows_ld, B,
                            H, Sq, Sk, strides, block, causal, causal_offset,
-                           scale, drop_thresh, inv_keep, seed, stream);
+                           scale, drop_thresh, inv_keep, seed, HT, HO,
+                           stream);
   return dispatch(a, D, static_cast<bf16*>(dq), nullptr, nullptr);
 }
 

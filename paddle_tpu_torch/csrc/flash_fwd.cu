@@ -178,7 +178,8 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
                  const __grid_constant__ CUtensorMap tm_bias, int has_bias,
                  bf16* __restrict__ o, float* __restrict__ lse, int H, int Sq,
                  int Sk, int causal, int causal_offset, float scale,
-                 uint32_t drop_thresh, float keep_prob, uint32_t seed) {
+                 uint32_t drop_thresh, float keep_prob, uint32_t seed, int HT,
+                 int HO) {
   using T = Tile<D>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -233,7 +234,8 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int row0 = q0 + c * BM + r0;         // absolute query rows
   unsigned char* sq = smem + T::Q + c * BM * T::ROWB;
   Softmax sm{row0, row0 + 8, cq, Sk, causal, causal_offset, q0 + c * BM,
-             scale, drop_thresh, 1.f / keep_prob, seed, (uint32_t)bh};
+             scale, drop_thresh, 1.f / keep_prob, seed,
+             (uint32_t)(b * HT + HO + h)};  // the hash's global batch-head
 
   float oacc[D / 2];  // O: rows r0, r0 + 8 as an f32 accumulator
   float s[BK / 2];    // S of one key tile, then its probabilities
@@ -313,7 +315,7 @@ cudaError_t launch(const CUtensorMap* maps, int has_bias, void* o, float* lse,
                    int B, int H, int Sq, int Sk, int nc, int causal,
                    int causal_offset,
                    float scale, uint32_t drop_thresh, float keep_prob,
-                   uint32_t seed, cudaStream_t stream) {
+                   uint32_t seed, int HT, int HO, cudaStream_t stream) {
   const size_t bytes = Tile<D>::BYTES;
   static bool configured = false;
   if (!configured) {
@@ -326,7 +328,8 @@ cudaError_t launch(const CUtensorMap* maps, int has_bias, void* o, float* lse,
   dim3 grid((Sq + nc * BM - 1) / (nc * BM), B * H);
   flash_fwd_kernel<D, DROP><<<grid, nc * 128, bytes, stream>>>(
       maps[0], maps[1], maps[2], maps[3], has_bias, static_cast<bf16*>(o), lse,
-      H, Sq, Sk, causal, causal_offset, scale, drop_thresh, keep_prob, seed);
+      H, Sq, Sk, causal, causal_offset, scale, drop_thresh, keep_prob, seed,
+      HT, HO);
   return cudaGetLastError();
 }
 
@@ -336,7 +339,8 @@ cudaError_t run(const void* q, const void* k, const void* v, const float* kbias,
                 int bias_ld, void* o, float* lse, int B, int H, int Sq, int Sk,
                 const long long* st, int block_q, int causal,
                 int causal_offset, float scale, uint32_t drop_thresh,
-                float keep_prob, uint32_t seed, cudaStream_t stream) {
+                float keep_prob, uint32_t seed, int HT, int HO,
+                cudaStream_t stream) {
   const int nc = block_q / BM;
   if (nc < 1 || nc > MAX_NC || nc * BM != block_q) return cudaErrorInvalidValue;
   CUtensorMap maps[4];
@@ -352,10 +356,10 @@ cudaError_t run(const void* q, const void* k, const void* v, const float* kbias,
   return drop_thresh != 0u
              ? launch<D, true>(maps, has_bias, o, lse, B, H, Sq, Sk, nc, causal,
                                causal_offset, scale, drop_thresh, keep_prob,
-                               seed, stream)
+                               seed, HT, HO, stream)
              : launch<D, false>(maps, has_bias, o, lse, B, H, Sq, Sk, nc,
                                 causal, causal_offset, scale, drop_thresh,
-                                keep_prob, seed, stream);
+                                keep_prob, seed, HT, HO, stream);
 }
 
 }  // namespace
@@ -369,14 +373,15 @@ const char* error_string(int err) {
 // strides (in elements): q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss,
 // v_sh; kbias: null or (B, Sk) f32, 16-byte aligned, with row stride
 // bias_ld a multiple of 4; block_q: 64 or 128 queries a CTA (the plan's
-// choice)
+// choice); HT, HO: the dropout hash takes head h of batch b as batch-head
+// b * HT + HO + h (HT = H, HO = 0 outside tensor parallelism)
 int flash_fwd_bf16(const void* q, const void* k, const void* v,
                    const void* kbias, int bias_ld, void* o, void* lse, int B,
                    int H,
                    int Sq, int Sk, int D, const long long* strides,
                    int block_q, int causal, int causal_offset, float scale,
                    unsigned int drop_thresh, float keep_prob,
-                   unsigned int seed, void* stream) {
+                   unsigned int seed, int HT, int HO, void* stream) {
   const float* kb = static_cast<const float*>(kbias);
   float* ls = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -385,19 +390,19 @@ int flash_fwd_bf16(const void* q, const void* k, const void* v,
     case 16:
       return run<16>(q, k, v, kb, bias_ld, o, ls, B, H, Sq, Sk, strides,
                      block_q, causal, causal_offset, scale, drop_thresh, keep_prob,
-                     seed, s);
+                     seed, HT, HO, s);
     case 32:
       return run<32>(q, k, v, kb, bias_ld, o, ls, B, H, Sq, Sk, strides,
                      block_q, causal, causal_offset, scale, drop_thresh, keep_prob,
-                     seed, s);
+                     seed, HT, HO, s);
     case 64:
       return run<64>(q, k, v, kb, bias_ld, o, ls, B, H, Sq, Sk, strides,
                      block_q, causal, causal_offset, scale, drop_thresh, keep_prob,
-                     seed, s);
+                     seed, HT, HO, s);
     case 128:
       return run<128>(q, k, v, kb, bias_ld, o, ls, B, H, Sq, Sk, strides,
                       block_q, causal, causal_offset, scale, drop_thresh, keep_prob,
-                      seed, s);
+                      seed, HT, HO, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

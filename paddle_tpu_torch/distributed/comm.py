@@ -4,7 +4,7 @@ paddle_tpu/ops/collective_ops.py).
 
 A ring id names a group: ring 0 is the data axis (the current mesh's
 data group, else the whole world); another ring raises until the
-model-parallel axes name it.  With no group, or a group of one, `live()`
+pipeline names it (ROADMAP queue 1 item 10b (iv)).  With no group, or a group of one, `live()`
 is False for the callers that keep the identity; the functions here
 still run the collective on a group of one (its result is the input's
 bits), so a world-one NCCL group sends every rule through NCCL.
@@ -49,17 +49,22 @@ def reset() -> None:
 
 
 def group_for_ring(ring_id: int = 0):
-    """The process group ring `ring_id` names (None: the whole world);
-    raises for a ring the mesh does not name."""
+    """The process group ring `ring_id` names (None: the whole world):
+    ring 0 is the current mesh's data axis, as the reference maps its
+    rings onto mesh axes; raises for a ring the mesh does not name."""
     if int(ring_id) != 0:
         raise ValueError(
             f"ring_id {ring_id}: the mesh names only ring 0 (the data "
-            "axis); other rings come with the model-parallel axes (ROADMAP "
-            "queue 1 item 10b)")
+            "axis); the model and pipeline rings come with ROADMAP queue 1 "
+            "item 10b (iv)")
     from ..parallel import mesh
 
     m = mesh.current_mesh()
-    return m.group if m is not None else None
+    if m is None:
+        return None
+    if m.data_axis not in m.axis_names and m.device_mesh is not None:
+        raise ValueError(f"ring 0 is the data axis, and mesh {m} has none")
+    return m.group
 
 
 def world(group=None) -> int:
@@ -235,6 +240,62 @@ class _Broadcast(torch.autograd.Function):
         if rank(ctx.group) != ctx.root:
             s = torch.zeros_like(s)
         return s, None, None
+
+
+class _CopyToGroup(torch.autograd.Function):
+    """Megatron's "f": the identity forward, the group's all-reduce
+    backward (a replicated input of a column-parallel product)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, "sum", ctx.group), None
+
+
+class _ReduceFromGroup(torch.autograd.Function):
+    """Megatron's "g": the group's all-reduce forward, the identity
+    backward (the partial sums of a row-parallel product)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce(x, "sum", group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherLast(torch.autograd.Function):
+    """The group's slices of the last dim concatenated in rank order;
+    the backward takes this rank's slice of the (replicated) gradient."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group, ctx.width = group, x.shape[-1]
+        ctx.rank = rank(group)
+        g = all_gather(x.movedim(-1, 0).contiguous(), group)
+        return g.movedim(0, -1)
+
+    @staticmethod
+    def backward(ctx, g):
+        w, r = ctx.width, ctx.rank
+        return g[..., r * w:(r + 1) * w].contiguous(), None
+
+
+def copy_to_group(x, group=None):
+    return _CopyToGroup.apply(x, group)
+
+
+def reduce_from_group(x, group=None):
+    return _ReduceFromGroup.apply(x, group)
+
+
+def gather_last_dim(x, group=None):
+    return _GatherLast.apply(x, group)
 
 
 def all_reduce_sum(x, group=None):

@@ -6,8 +6,9 @@ What each strategy does here: amp -> the bf16 (or fp16 with loss
 scaling) cast rewrite, recompute -> segment-checkpointed backward,
 gradient_merge -> a conditional optimizer sub-block, lamb/lars ->
 optimizer swap, dgc -> DGC momentum, fp16_allreduce -> half-precision
-gradient all-reduce, localsgd (k_steps 1) -> parameter averaging;
-sharding and pipeline wait for ROADMAP queue 1 item 10b."""
+gradient all-reduce, localsgd (k_steps 1) -> parameter averaging,
+sharding -> ZeRO's annotation for the compiler's SPMD arm; pipeline
+waits for ROADMAP queue 1 item 10b (iv)."""
 
 from __future__ import annotations
 

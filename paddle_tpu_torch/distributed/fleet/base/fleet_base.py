@@ -4,8 +4,10 @@ composes meta-optimizers from the DistributedStrategy and rewrites the
 user's program, in the reference's order, with its warning for a
 dropped candidate.  `init` starts the process group when the role maker
 counts more than one worker; `distributed_model` wraps a dygraph layer
-in DataParallel under a group of more than one.  Sharding and pipeline
-wait for ROADMAP queue 1 item 10b and raise at minimize.  There is no
+in DataParallel under a group of more than one.  `sharding` annotates
+the optimizer state for the compiler's SPMD arm (ShardingOptimizer);
+`pipeline` waits for ROADMAP queue 1 item 10b (iv) and raises at
+minimize.  There is no
 parameter-server mode: init_server / run_server raise."""
 
 from __future__ import annotations
@@ -137,12 +139,10 @@ class Fleet:
                  no_grad_set=None):
         strategy = self._user_defined_strategy
         inner = self._user_defined_optimizer
-        for flag in ("sharding", "pipeline"):
-            if getattr(strategy, flag, False):
-                raise NotImplementedError(
-                    f"DistributedStrategy.{flag}: waits for ROADMAP queue 1 "
-                    "item 10b (the model-parallel half of the collective "
-                    "path)")
+        if getattr(strategy, "pipeline", False):
+            raise NotImplementedError(
+                "DistributedStrategy.pipeline: waits for ROADMAP queue 1 "
+                "item 10b (iv), the pipeline")
         candidates = []
         for cls in _META_OPTIMIZER_CLASSES:
             opt = cls(inner)

@@ -1,7 +1,8 @@
 """LocalSGD meta-optimizer: train locally and average the parameters over
 the ranks every k steps through the LocalSGD transpile.  k_steps > 1
 keeps per-rank parameters apart between syncs, which the reference runs
-through its mesh-level step; that waits for ROADMAP queue 1 item 10b."""
+through its mesh-level step; that waits for ROADMAP queue 1 item 10b
+(iv)."""
 
 from __future__ import annotations
 
@@ -32,7 +33,7 @@ class LocalSGDOptimizer(MetaOptimizerBase):
             raise NotImplementedError(
                 "localsgd k_steps>1 in static-program mode: the mesh-level "
                 "step (parallel/localsgd.py) waits for ROADMAP queue 1 "
-                "item 10b")
+                "item 10b (iv)")
         t = LocalSGD(k_steps=int(cfg.get("k_steps", 1)))
         nranks = self.role_maker.worker_num()
         t.transpile(startup_program or default_startup_program(),

@@ -1,13 +1,13 @@
 """Pipeline meta-optimizer: carries the strategy's config.  The pipelined
 run itself (parallel/pipeline.py, PipelineOptimizer's sections) waits
-for ROADMAP queue 1 item 10b: minimize and build_pipeline raise."""
+for ROADMAP queue 1 item 10b (iv): minimize and build_pipeline raise."""
 
 from __future__ import annotations
 
 from .meta_optimizer_base import MetaOptimizerBase
 
-_LATER = ("the pipeline strategy waits for ROADMAP queue 1 item 10b (the "
-          "model-parallel half of the collective path)")
+_LATER = ("the pipeline strategy waits for ROADMAP queue 1 item 10b (iv), "
+          "the pipeline")
 
 
 class PipelineOptimizer(MetaOptimizerBase):

@@ -432,6 +432,21 @@ class _LiveBlock:
         return getattr(self._block, name)
 
 
+def run_ops(block, ops, env, seed, device, frees=None) -> None:
+    """Run `ops`, a run of `block`'s ops in order, on `env` (var name ->
+    tensor), as a step runs the whole block: the compiler's SPMD arm runs
+    a step's forward and backward ops on one environment (gathered
+    parameters, the rank's rows) and its optimize ops on a second one
+    (shards).  `frees[i]` drops names after the i-th op of `ops`."""
+    ctx = registry.LowerCtx(seed, device=device)
+    with torch.no_grad():
+        registry.lower_block(ctx, _LiveBlock(block, list(ops)), env, frees)
+    profiler.stat_add("executor_op_count", ctx.ops_run)
+    if ctx.host_reads:
+        profiler.count_sync(ctx.host_reads)
+        profiler.stat_add("control_flow_host_reads", ctx.host_reads)
+
+
 class _AutoCheckpoint:
     """train_from_dataset's auto-checkpoint (the reference's
     executor.py:482-640): owns the CheckpointManager, the every-N-steps
@@ -738,13 +753,7 @@ class Executor:
             env.update(const_state)
             env.update(mutable_state)
             env.update(feeds)
-            ctx = registry.LowerCtx(seed, device=device)
-            with torch.no_grad():
-                registry.lower_block(ctx, block, env, frees)
-            profiler.stat_add("executor_op_count", ctx.ops_run)
-            if ctx.host_reads:
-                profiler.count_sync(ctx.host_reads)
-                profiler.stat_add("control_flow_host_reads", ctx.host_reads)
+            run_ops(block, block.ops, env, seed, device, frees)
             fetches = [env[n] for n in fetch_names]
             new_state = {n: env[n] for n in mutable_out if n in env}
             return fetches, new_state

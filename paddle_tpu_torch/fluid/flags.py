@@ -30,7 +30,7 @@ _REGISTRY: Dict[str, dict] = {}
 
 # ROADMAP items of the machinery behind the flags the port lacks
 _AOT = "queue 1 item 11 (fluid/aot_cache.py)"
-_COLL = "queue 1 item 10b (quantized collectives)"
+_COLL = "queue 1 item 10b (ii) (quantized collectives)"
 _TOOLS = "queue 1 item 13 (tooling: obs, analysis, transforms, tune)"
 
 

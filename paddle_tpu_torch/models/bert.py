@@ -12,11 +12,14 @@ seeded with `seed`, then moved to `device` (default cuda; raises without
 CUDA unless device="cpu") and cast to `dtype`.
 
 `build_pretrain_step` is the train step: forward, backward and AdamW over
-fp32 masters, the forward on their bf16 cast.
+fp32 masters, the forward on their bf16 cast, data-parallel over a
+mesh's `dp_axis` and tensor-parallel over its `mp_axis` (Megatron's
+layout, `bert_param_spec`).
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import numpy as np
@@ -29,6 +32,7 @@ from ..nn import (GELU, Dropout, Embedding, LayerNorm, Linear, ReLU, Tanh,
                   TransformerEncoder, TransformerEncoderLayer)
 from ..nn import functional as F
 from ..nn.initializer import TruncatedNormal
+from ..nn.layer.transformer import tensor_parallel, tp_context
 
 
 class BertConfig:
@@ -80,6 +84,7 @@ class BertEmbeddings(nn.Module):
     def __init__(self, cfg: BertConfig, generator=None):
         super().__init__()
         kw = dict(weight_init=_init(cfg), generator=generator)
+        self.vocab_size = cfg.vocab_size
         self.word_embeddings = Embedding(cfg.vocab_size, cfg.hidden_size,
                                          **kw)
         self.position_embeddings = Embedding(cfg.max_position_embeddings,
@@ -89,13 +94,31 @@ class BertEmbeddings(nn.Module):
         self.layer_norm = LayerNorm(cfg.hidden_size)
         self.dropout = Dropout(cfg.hidden_dropout_prob, generator=generator)
 
+    def _words(self, input_ids):
+        """The word embeddings; under tensor parallelism with the table
+        split over the vocab, this rank's rows looked up where the ids fall
+        in them (zeros elsewhere) and summed over the group."""
+        w = self.word_embeddings.weight
+        tp = tp_context()
+        if tp is None or w.shape[0] == self.vocab_size:
+            return self.word_embeddings(input_ids)
+        from ..distributed import comm
+
+        group, rank, _ = tp
+        lo, rows = rank * w.shape[0], w.shape[0]
+        local = input_ids - lo
+        mine = (local >= 0) & (local < rows)
+        e = F.embedding(torch.where(mine, local, torch.zeros_like(local)), w)
+        e = torch.where(mine[..., None], e, torch.zeros_like(e))
+        return comm.reduce_from_group(e, group)
+
     def forward(self, input_ids, token_type_ids=None, position_ids=None):
         if position_ids is None:
             position_ids = torch.arange(input_ids.shape[1],
                                         device=input_ids.device)[None, :]
         if token_type_ids is None:
             token_type_ids = torch.zeros_like(input_ids)
-        s = (self.word_embeddings(input_ids)
+        s = (self._words(input_ids)
              + self.position_embeddings(position_ids)
              + self.token_type_embeddings(token_type_ids))
         return self.dropout(self.layer_norm(s))
@@ -167,7 +190,19 @@ class BertPretrainingHeads(nn.Module):
             idx = masked_positions.long()[..., None].expand(
                 -1, -1, x.shape[-1])
             x = torch.gather(x, 1, idx)
-        mlm = torch.matmul(x, self.decoder_weight.t()) + self.decoder_bias
+        w = self.decoder_weight
+        tp = tp_context()
+        if tp is not None and w.shape[0] != self.decoder_bias.shape[0]:
+            # the tied table split over the vocab: this rank's logits,
+            # gathered before the criterion
+            from ..distributed import comm
+
+            group = tp[0]
+            mlm = comm.gather_last_dim(torch.matmul(
+                comm.copy_to_group(x, group), w.t()), group)
+            mlm = mlm + self.decoder_bias
+        else:
+            mlm = torch.matmul(x, w.t()) + self.decoder_bias
         nsp = self.seq_relationship(pooled)
         return mlm, nsp
 
@@ -281,46 +316,106 @@ def build_pretrain_step(model: BertForPretraining, weight_decay=0.01,
     `mesh` (parallel.mesh.make_mesh over the process group) makes the
     step data-parallel over its `dp_axis` (the reference's
     models/bert.py:396-423): each rank is fed ITS rows of the global
-    batch (mesh.shard_host_batch), the masters start as rank 0's, the
-    gradients and the loss are summed over the axis in one flat f32
+    batch (mesh.shard_host_batch), the masters start as global rank 0's,
+    the gradients and the loss are summed over the axis in one flat f32
     all-reduce a step before AdamW and divided by the axis's size, so
     every rank applies the global batch's mean gradient and returns the
-    global mean loss.  Each rank draws its own dropout masks: rank 0 the
-    one-process masks of its rows, rank r > 0 from a seed mixed with r
-    (ROADMAP queue 3 item 44; the reference draws the global batch's
-    masks).  A mesh whose data axis has size 1 is the one-process step.
-    `remat`, `mp_axis` (tensor parallelism), `sp_axis` with ring/Ulysses
-    attention and Switch-MoE models are not ported yet (ROADMAP queue 1
-    item 10b) and raise NotImplementedError."""
-    asked = {"remat": remat,
-             "mp_axis": mp_axis is not None, "sp_axis": sp_axis is not None,
-             "use_ring_attention": use_ring_attention,
-             "use_ulysses": use_ulysses,
-             "moe_experts": getattr(model.bert.config, "moe_experts", 0)}
-    missing = [k for k, v in asked.items() if v]
+    global mean loss.  Each data-parallel rank draws its own dropout
+    masks: rank 0 the one-process masks of its rows, rank r > 0 from a
+    seed mixed with r (ROADMAP queue 3 item 44; the reference draws the
+    global batch's masks).
+
+    `mp_axis` (an axis of `mesh`) makes it tensor-parallel over that axis
+    too, with the reference's layout (`bert_param_spec`): each rank's
+    state holds its shards of the column-parallel q/k/v_proj and linear1
+    weights, of the row-parallel out_proj and linear2 weights and of the
+    word-embedding table (split over the vocab where the axis divides it,
+    else replicated: `spec_rules.fit_entries`), the other tensors whole.
+    The forward runs inside `nn.layer.transformer.tensor_parallel`: the
+    rank's heads and d_ff columns, one all-reduce over the axis after
+    each row-parallel product and after the vocab-split lookup, the tied
+    decoder's logits gathered before the criterion.  The replicated
+    biases the column-parallel layers slice get their gradient summed
+    over the axis, the other replicated tensors theirs averaged over it
+    (one flat all-reduce): the ranks compute the same gradient but for
+    the order of CUDA's atomic adds (the embedding and gather
+    backwards), so the replicated masters stay the same bits on every
+    rank.  The tensor-parallel ranks of one data-parallel rank
+    draw the same masks, the kernels' hash taking their heads and
+    columns by their global indices, so at dp 1 the step draws the
+    one-process step's masks.  The axis must divide the heads and
+    d_ff (ValueError).
+
+    `remat` waits for ROADMAP queue 1 item 1; `sp_axis` with ring or
+    Ulysses attention for item 10b (iii); Switch-MoE models for item
+    10b (iv): they raise NotImplementedError."""
+    cfg = model.bert.config
+    later = [("remat", remat, "queue 1 item 1"),
+             ("sp_axis", sp_axis is not None, "queue 1 item 10b (iii)"),
+             ("use_ring_attention", use_ring_attention,
+              "queue 1 item 10b (iii)"),
+             ("use_ulysses", use_ulysses, "queue 1 item 10b (iii)"),
+             ("moe_experts", getattr(cfg, "moe_experts", 0),
+              "queue 1 item 10b (iv)")]
+    missing = [f"{k} (ROADMAP {item})" for k, v, item in later if v]
     if missing:
         raise NotImplementedError(
-            f"build_pretrain_step: {', '.join(missing)} not ported yet "
-            "(ROADMAP queue 1 item 10b)")
+            f"build_pretrain_step: {', '.join(missing)} not ported yet")
     dev = (next(model.parameters()).device if device is None
            else _device.resolve(device))
-    criterion = BertPretrainingCriterion(model.bert.config.vocab_size)
-    params = {k: v.to(dev, torch.float32, copy=True)
-              for k, v in functional_state(model).items()}
-    names = list(params)
-    decay = [k for k in names if weight_decay and _decays(k, params[k])]
+    criterion = BertPretrainingCriterion(cfg.vocab_size)
+    full = {k: v.to(dev, torch.float32, copy=True)
+            for k, v in functional_state(model).items()}
+    names = list(full)
     group, n_dp, rank = None, 1, 0
+    mp = None  # (group, rank, size) of the tensor axis
+    specs = {}
+    if mp_axis is not None and mesh is None:
+        raise ValueError("mp_axis needs a mesh")
     if mesh is not None:
         from ..distributed import comm
+        from ..parallel import mesh as M
 
         if mesh.data_axis != dp_axis and dp_axis not in mesh.axis_names:
             raise ValueError(f"dp_axis {dp_axis!r} is not an axis of {mesh}")
-        n_dp = mesh.data_size
+        if mp_axis is not None and mp_axis not in mesh.axis_names:
+            raise ValueError(f"mp_axis {mp_axis!r} is not an axis of {mesh}")
+        n_dp = int(mesh.shape.get(dp_axis, mesh.data_size))
         if n_dp > 1:
-            group, rank = mesh.group, comm.rank(mesh.group)
+            group = M.axis_group(mesh, dp_axis)
+            rank = M.axis_rank(mesh, dp_axis)
+        n_mp = int(mesh.shape[mp_axis]) if mp_axis is not None else 1
+        if n_mp > 1:
+            for what, total in (("num_attention_heads",
+                                 cfg.num_attention_heads),
+                                ("intermediate_size",
+                                 cfg.intermediate_size)):
+                if total % n_mp:
+                    raise ValueError(
+                        f"mp_axis {mp_axis!r} of size {n_mp} must divide "
+                        f"{what} ({total}); GSPMD splits the columns "
+                        "whatever the heads (ROADMAP queue 3)")
+            mp = (M.axis_group(mesh, mp_axis), M.axis_rank(mesh, mp_axis),
+                  n_mp)
+            specs = {k: mp_spec(k, tuple(v.shape), mesh, mp_axis)
+                     for k, v in full.items()}
+        if comm.live():
+            # every rank starts from global rank 0's masters
             with torch.no_grad():
-                for v in params.values():
-                    v.copy_(comm.broadcast(v, 0, group))
+                for v in full.values():
+                    v.copy_(comm.broadcast(v, 0))
+    if specs:
+        from ..parallel.compiler import shard_of
+
+        params = {k: shard_of(v, specs[k], mesh) if tuple(specs[k]) else v
+                  for k, v in full.items()}
+    else:
+        params = full
+    decay = [k for k in names if weight_decay and _decays(k, params[k])]
+    partial = [k for k in names if mp is not None
+               and k.endswith(MP_SLICED_BIASES)]
+    whole = [k for k in names if mp is not None and k not in partial
+             and not tuple(specs[k])]
     state = {"params": params,
              "m": {k: torch.zeros_like(v) for k, v in params.items()},
              "v": {k: torch.zeros_like(v) for k, v in params.items()},
@@ -343,9 +438,13 @@ def build_pretrain_step(model: BertForPretraining, weight_decay=0.01,
         batch = {k: _to_device(v, dev) for k, v in batch.items()}
         leaves = [state["params"][k].detach().requires_grad_(True)
                   for k in names]
-        with F.rng_scope(_dropout_seed(t, rank)):
+        with F.rng_scope(_dropout_seed(t, rank)), (
+                tensor_parallel(*mp) if mp is not None
+                else contextlib.nullcontext()):
             loss = loss_fn(dict(zip(names, leaves)), batch)
         grads = [g.float() for g in torch.autograd.grad(loss, leaves)]
+        if mp is not None:
+            grads = _mp_reduce(grads, names, partial, whole, mp[0], mp[2])
         if n_dp > 1:
             grads, loss = _dp_mean(grads, loss, group, n_dp)
         p, m, v = ([state[s][k] for k in names] for s in ("params", "m", "v"))
@@ -369,7 +468,66 @@ def build_pretrain_step(model: BertForPretraining, weight_decay=0.01,
         state["t"] = t
         return state, loss.detach()
 
+    # the state's layout: PartitionSpec by name (empty without mp_axis)
+    step_fn.specs = specs
+    step_fn.mesh = mesh
     return step_fn, state
+
+
+# the replicated biases a column-parallel layer slices: their gradient
+# covers this rank's slice only and is summed over the tensor axis
+MP_SLICED_BIASES = ("q_proj.bias", "k_proj.bias", "v_proj.bias",
+                    "linear1.bias")
+
+
+def bert_param_spec(name, shape, mp_axis="mp"):
+    """Megatron's tensor-parallel PartitionSpec of a BERT parameter by its
+    name (the reference's `bert_param_spec`): column-parallel q/k/v_proj
+    and linear1 weights split over their output dim, row-parallel
+    out_proj and linear2 weights over their input dim, the word-embedding
+    table over the vocab; everything else replicated."""
+    from ..parallel.spec_layout import P
+
+    if len(shape) == 2:
+        if any(s in name for s in ("q_proj.w", "k_proj.w", "v_proj.w",
+                                   "linear1.w")):
+            return P(None, mp_axis)
+        if any(s in name for s in ("out_proj.w", "linear2.w")):
+            return P(mp_axis, None)
+        if "word_embeddings" in name:
+            return P(mp_axis, None)
+    return P()
+
+
+def mp_spec(name, shape, mesh, mp_axis="mp"):
+    """`bert_param_spec` fitted to the mesh and shape
+    (`spec_rules.fit_entries`): a dim the axis does not divide (the
+    vocab of 30522 over 4) stays whole."""
+    from ..parallel import spec_layout, spec_rules
+
+    fitted, _ = spec_rules.fit_entries(
+        tuple(bert_param_spec(name, shape, mp_axis)), shape,
+        spec_layout.mesh_axes_dict(mesh))
+    return spec_layout.P(*fitted)
+
+
+def _mp_reduce(grads, names, partial, whole, group, n):
+    """Over the tensor axis, in one flat all-reduce: the gradients of the
+    sliced replicated biases summed (each rank's covers its slice), those
+    of the other replicated tensors averaged."""
+    from ..distributed import comm
+
+    at = [names.index(k) for k in partial + whole]
+    flat = torch.cat([grads[i].reshape(-1) for i in at])
+    comm.all_reduce_(flat, "sum", group)
+    cut = sum(grads[names.index(k)].numel() for k in partial)
+    flat[cut:].div_(n)
+    out, off = list(grads), 0
+    for i in at:
+        k = grads[i].numel()
+        out[i] = flat[off:off + k].view_as(grads[i])
+        off += k
+    return out
 
 
 def _dp_mean(grads, loss, group, n):

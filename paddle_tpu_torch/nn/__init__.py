@@ -4,7 +4,7 @@ functional ops and the decode API, and, as the reference binds them,
 the static graph's `ClipGradByGlobalNorm`, `ClipGradByNorm`,
 `ClipGradByValue` (`fluid.clip`), `clip` and `clip_by_norm` (the 1.x
 layers).  Left out with its queue item: `SwitchMoE` (the model-parallel
-half of the collective path, ROADMAP queue 1 item 10b)."""
+half of the collective path, ROADMAP queue 1 item 10b (iv))."""
 
 from . import functional, initializer  # noqa: F401
 from .layer import *  # noqa: F401,F403

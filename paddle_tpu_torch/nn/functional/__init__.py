@@ -227,28 +227,35 @@ def _kernel_seed(generator=None) -> int:
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p=0.0, is_causal=False,
                                  training=True, name=None, *,
-                                 generator=None):
+                                 generator=None, heads_total=0,
+                                 head_offset=0):
     """Fused attention over (batch, seq, heads, head_dim) inputs: the
     flash kernels (forward and backward) on CUDA tensors, their plain
     versions on CPU tensors.  Attention dropout runs in the kernels,
-    seeded from the host generator."""
+    seeded from the host generator; `heads_total` / `head_offset` give
+    the heads' global indices in its hash (a tensor-parallel rank's local
+    heads draw the one-process masks of the heads they are)."""
     p = dropout_p if training else 0.0
     seed = _kernel_seed(generator) if p > 0.0 else None
     return _attn.scaled_dot_product_attention(
         query, key, value, mask=attn_mask, is_causal=is_causal,
-        dropout_p=p, dropout_seed=seed)
+        dropout_p=p, dropout_seed=seed, heads_total=heads_total,
+        head_offset=head_offset)
 
 
 def fused_feedforward(x, w1, b1, w2, b2, activation="gelu",
                       act_dropout=0.0, training=True, name=None, *,
-                      generator=None):
+                      generator=None, col_offset=0):
     """Fused transformer FFN: dropout(act(x@w1+b1), p) @ w2 + b2, through
     `ops.kernels.ffn.fused_ffn` (the library arm by default, the kernels
-    once opted in); differentiable in x and the four weights."""
+    once opted in); differentiable in x and the four weights.
+    `col_offset`: the d_ff columns' global index in the dropout hash (a
+    tensor-parallel rank's columns)."""
     p = act_dropout if training else 0.0
     seed = _kernel_seed(generator) if p > 0.0 else None
     return _ffn.fused_ffn(x, w1, b1, w2, b2, activation=activation,
-                          dropout_p=p, dropout_seed=seed)
+                          dropout_p=p, dropout_seed=seed,
+                          col_offset=col_offset)
 
 
 # -- convolution and pooling --------------------------------------------------

@@ -10,11 +10,24 @@ path for the rest, as the reference dispatches) and the dense FFN
 through `F.fused_feedforward`.  Layout is (batch, seq, d_model)
 throughout, (batch, seq, heads, head_dim) inside attention, as in
 Paddle's 2.x API.
+
+Inside `tensor_parallel(group, rank, size)` self-attention and the dense
+FFN run Megatron's tensor parallelism on the weights a caller hands them
+(`jit.functional_call` with each rank's shards, as the BERT step does):
+q/k/v_proj and linear1 column-parallel (their weights hold this rank's
+output columns; their replicated biases are sliced to them), out_proj
+and linear2 row-parallel (their weights hold this rank's input rows; one
+all-reduce over the group follows each, then the bias is added once).
+The rank's heads and d_ff columns take their global indices in the
+kernels' dropout hash, so they draw the one-process step's masks.
+Outside the context nothing changes.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
+import threading
 from typing import Optional
 
 import torch
@@ -27,6 +40,50 @@ from .activation import GELU, ReLU
 from .common import Dropout, Linear
 from .layers import Layer
 from .norm import LayerNorm
+
+_TP = threading.local()
+
+
+@contextlib.contextmanager
+def tensor_parallel(group, rank: int, size: int):
+    """Run the layers called inside on this rank's tensor-parallel shards
+    of `size` over `group` (the process group of the tensor axis)."""
+    old = getattr(_TP, "ctx", None)
+    _TP.ctx = (group, int(rank), int(size))
+    try:
+        yield
+    finally:
+        _TP.ctx = old
+
+
+def tp_context():
+    """(group, rank, size) of the enclosing `tensor_parallel`, or None."""
+    return getattr(_TP, "ctx", None)
+
+
+def _local(what: str, total: int, size: int) -> int:
+    if total % size:
+        raise ValueError(f"tensor parallelism over {size} ranks needs "
+                         f"{what} ({total}) to divide by it")
+    return total // size
+
+
+def _column(x, lin, rank: int):
+    """A column-parallel Linear: this rank's output columns, the
+    replicated bias sliced to them."""
+    k = lin.weight.shape[1]
+    b = lin.bias
+    return F.linear(x, lin.weight,
+                    None if b is None else b[rank * k:(rank + 1) * k])
+
+
+def _row(x, lin, group):
+    """A row-parallel Linear: the partial products summed over the group,
+    then the bias."""
+    from ...distributed import comm
+
+    out = comm.reduce_from_group(F.linear(x, lin.weight), group)
+    return out if lin.bias is None else out + lin.bias
 
 
 class MultiHeadAttention(Layer):
@@ -88,8 +145,35 @@ class MultiHeadAttention(Layer):
                             dtype=self.k_proj.weight.dtype, device=key.device)
         return self.Cache(empty, empty)
 
+    def _tp_forward(self, query, attn_mask, tp):
+        from ...distributed import comm
+
+        group, rank, size = tp
+        heads = _local("num_heads", self.num_heads, size)
+        if self.q_proj.weight.shape[1] != heads * self.head_dim:
+            raise ValueError(
+                f"tensor parallelism over {size} ranks: q_proj.weight holds "
+                f"{self.q_proj.weight.shape[1]} columns, not this rank's "
+                f"{heads * self.head_dim}")
+        x = comm.copy_to_group(query, group)
+        q, k, v = (_column(x, lin, rank).reshape(
+            x.shape[0], x.shape[1], heads, self.head_dim)
+            for lin in (self.q_proj, self.k_proj, self.v_proj))
+        out = F.scaled_dot_product_attention(
+            q, k, v, attn_mask=attn_mask, dropout_p=self.dropout,
+            training=self.training, generator=self.generator,
+            heads_total=self.num_heads, head_offset=rank * heads)
+        return _row(out.reshape(out.shape[0], out.shape[1], -1),
+                    self.out_proj, group)
+
     def forward(self, query, key=None, value=None, attn_mask=None,
                 cache=None):
+        tp = tp_context()
+        if tp is not None:
+            if cache is not None or (key is not None and key is not query):
+                raise NotImplementedError(
+                    "tensor parallelism runs self-attention without a cache")
+            return self._tp_forward(query, attn_mask, tp)
         key = query if key is None else key
         value = key if value is None else value
         q = self._split_heads(self.q_proj(query))
@@ -116,17 +200,44 @@ def _dense_ffn_block(layer, x):
     """linear2(dropout(act(linear1(x)))) through F.fused_feedforward, for
     encoder and decoder layers alike; layer by layer when a linear has
     no bias (bias_attr=False), as the reference routes it."""
-    if layer.linear1.bias is None or layer.linear2.bias is None:
-        return layer.linear2(layer.dropout(layer.activation(
-            layer.linear1(x))))
     act = layer.activation
     act_name = "relu" if isinstance(act, ReLU) else (
         "gelu_tanh" if act.approximate else "gelu")
+    tp = tp_context()
+    if tp is not None:
+        return _tp_ffn_block(layer, x, act_name, tp)
+    if layer.linear1.bias is None or layer.linear2.bias is None:
+        return layer.linear2(layer.dropout(layer.activation(
+            layer.linear1(x))))
     return F.fused_feedforward(
         x, layer.linear1.weight, layer.linear1.bias, layer.linear2.weight,
         layer.linear2.bias, activation=act_name,
         act_dropout=layer.dropout.p, training=layer.training,
         generator=layer.dropout.generator)
+
+
+def _tp_ffn_block(layer, x, act_name, tp):
+    """The dense FFN on this rank's d_ff columns: linear1 column-parallel
+    and linear2 row-parallel in one F.fused_feedforward (its b2 zero),
+    then the all-reduce over the group and linear2's bias."""
+    from ...distributed import comm
+
+    group, rank, size = tp
+    w1, w2 = layer.linear1.weight, layer.linear2.weight
+    b1, b2 = layer.linear1.bias, layer.linear2.bias
+    if b1 is None or b2 is None:
+        raise NotImplementedError(
+            "tensor parallelism runs the FFN with its biases")
+    f = w1.shape[1]
+    if w2.shape[0] != f or b1.shape[0] != f * size:
+        raise ValueError(f"tensor parallelism over {size} ranks: linear1 "
+                         f"holds {f} columns, linear1.bias {b1.shape[0]}")
+    out = F.fused_feedforward(
+        comm.copy_to_group(x, group), w1, b1[rank * f:(rank + 1) * f], w2,
+        torch.zeros_like(b2), activation=act_name,
+        act_dropout=layer.dropout.p, training=layer.training,
+        generator=layer.dropout.generator, col_offset=rank * f)
+    return comm.reduce_from_group(out, group) + b2
 
 
 def _sublayer(norm, normalize_before, x, fn):

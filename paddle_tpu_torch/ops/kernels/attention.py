@@ -74,15 +74,23 @@ def _threshold(dropout_p: float) -> int:
 
 
 def _keep_mask3(seed, bh0, q0, k0, block_h, block_q, block_k, dropout_p,
-                device=None) -> torch.Tensor:
+                device=None, heads=None, heads_total=None,
+                head_offset=0) -> torch.Tensor:
     """(block_h, block_q, block_k) keep mask for block_h consecutive
     batch-heads starting at bh0 — paddle_tpu's `_keep_mask3`, bit for bit:
     a 32-bit hash of (seed, bh, absolute q, absolute k), computed in int64
-    masked to 32 bits after every multiply."""
+    masked to 32 bits after every multiply.  With `heads` (the heads of
+    the tensor the batch-heads index) and `heads_total` / `head_offset`,
+    local batch-head b*heads + h hashes as global b*heads_total +
+    head_offset + h: a tensor-parallel rank's heads draw the one-process
+    masks of the heads they are."""
     ar = lambda n: torch.arange(n, dtype=torch.int64, device=device)
     r = (q0 + ar(block_q)).view(1, -1, 1)
     c = (k0 + ar(block_k)).view(1, 1, -1)
     bh = (bh0 + ar(block_h)).view(-1, 1, 1)
+    if heads is not None:
+        bh = (bh // heads) * (heads_total or heads) + head_offset \
+            + bh % heads
     x = _mul32(r, 0x9E3779B1) ^ _mul32(c, 0x85EBCA77)
     x = x ^ _mul32(bh + 1, 0x27D4EB2F)
     x = x ^ ((int(seed) & _M32) * 0x165667B1 & _M32)
@@ -107,13 +115,16 @@ def _scores(q, k, key_bias, causal, causal_offset, scale):
 
 
 def flash_forward_reference(q, k, v, key_bias=None, seed=0, causal=False,
-                            causal_offset=None, scale=None, dropout_p=0.0):
+                            causal_offset=None, scale=None, dropout_p=0.0,
+                            heads_total=0, head_offset=0):
     """Plain PyTorch version of the flash forward kernel.
 
     q (B, Sq, H, D), k/v (B, Sk, H, D); key_bias (B, Sk) f32 or None.
     Returns (out (B, Sq, H, D) in q's dtype, lse (B, H, Sq) f32).  Scores
     and softmax in f32; the dropped probabilities are cast to v's dtype
-    before the second product, as in the kernel."""
+    before the second product, as in the kernel.  The dropout hash takes
+    head h as head `head_offset + h` of `heads_total` (0: H), a
+    tensor-parallel rank's heads."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
     scale = scale if scale is not None else 1.0 / (d ** 0.5)
@@ -126,7 +137,8 @@ def flash_forward_reference(q, k, v, key_bias=None, seed=0, causal=False,
     lse = (m + torch.log(l)).squeeze(-1)
     if dropout_p > 0.0:
         keep = _keep_mask3(seed, 0, 0, 0, b * h, sq, sk, dropout_p,
-                           device=q.device).view(b, h, sq, sk)
+                           device=q.device, heads=h, heads_total=heads_total,
+                           head_offset=head_offset).view(b, h, sq, sk)
         p = torch.where(keep, p / (1.0 - dropout_p), torch.zeros_like(p))
     acc = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float())
     out = acc / l.permute(0, 2, 1, 3)
@@ -143,7 +155,7 @@ def _lib():
         fn.argtypes = [vp, vp, vp, vp, ci, vp, vp, ci, ci, ci, ci, ci,
                        ctypes.POINTER(ctypes.c_longlong), ci, ci, ci,
                        ctypes.c_float, ctypes.c_uint, ctypes.c_float,
-                       ctypes.c_uint, vp]
+                       ctypes.c_uint, ci, ci, vp]
         fn.restype = ci
     return lib
 
@@ -202,7 +214,7 @@ def _bias_for_tma(key_bias, b: int, sk: int):
 
 
 def _flash_forward_cuda(q, k, v, key_bias, seed, causal, causal_offset,
-                        scale, dropout_p):
+                        scale, dropout_p, heads_total=0, head_offset=0):
     b, sq, h, d = q.shape
     sk = k.shape[1]
     if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
@@ -234,7 +246,8 @@ def _flash_forward_cuda(q, k, v, key_bias, seed, causal, causal_offset,
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if kb is None else kb.data_ptr(), bias_ld, out.data_ptr(), lse.data_ptr(), b, h, sq, sk, d, strides, block_q,
         int(bool(causal)), int(causal_offset), float(scale), thresh,
-        float(1.0 - dropout_p), int(seed) & _M32, stream)
+        float(1.0 - dropout_p), int(seed) & _M32, int(heads_total or h),
+        int(head_offset), stream)
     check(lib, err, "flash_fwd")
     FLASH_FWD.add()
     return out, lse
@@ -291,21 +304,27 @@ def register_grads(op, plain):
 def _flash_forward_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       key_bias: Optional[torch.Tensor], seed: int,
                       causal: bool, causal_offset: int, scale: float,
-                      dropout_p: float) -> Tuple[torch.Tensor, torch.Tensor]:
+                      dropout_p: float, heads_total: int = 0,
+                      head_offset: int = 0
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     if q.is_cuda:
         raise RuntimeError("flash_forward: no CUDA implementation reached")
     return flash_forward_reference(q, k, v, key_bias, seed, causal,
-                                   causal_offset, scale, dropout_p)
+                                   causal_offset, scale, dropout_p,
+                                   heads_total, head_offset)
 
 
 @_flash_forward_op.register_kernel("cuda")
-def _(q, k, v, key_bias, seed, causal, causal_offset, scale, dropout_p):
+def _(q, k, v, key_bias, seed, causal, causal_offset, scale, dropout_p,
+      heads_total=0, head_offset=0):
     return _flash_forward_cuda(q, k, v, key_bias, seed, causal,
-                               causal_offset, scale, dropout_p)
+                               causal_offset, scale, dropout_p, heads_total,
+                               head_offset)
 
 
 @_flash_forward_op.register_fake
-def _(q, k, v, key_bias, seed, causal, causal_offset, scale, dropout_p):
+def _(q, k, v, key_bias, seed, causal, causal_offset, scale, dropout_p,
+      heads_total=0, head_offset=0):
     b, sq, h, _ = q.shape
     return (q.new_empty(q.shape),
             q.new_empty((b, h, sq), dtype=torch.float32))
@@ -315,14 +334,23 @@ register_grads(_flash_forward_op, flash_forward_reference)
 
 
 def flash_forward(q, k, v, key_bias=None, seed=0, causal=False,
-                  causal_offset=None, scale=None, dropout_p=0.0):
+                  causal_offset=None, scale=None, dropout_p=0.0,
+                  heads_total=0, head_offset=0):
     """(out, lse) of the flash forward, through the operator
     `paddle_tpu_torch::flash_forward`: the CUDA kernel for CUDA tensors,
-    the plain version for CPU tensors (and nothing else for either)."""
+    the plain version for CPU tensors (and nothing else for either).
+    `heads_total` / `head_offset`: the dropout hash takes head h as head
+    head_offset + h of heads_total (0: q's H), a tensor-parallel rank's
+    heads; the defaults give the one-process bits."""
     d = q.shape[-1]
     scale = scale if scale is not None else 1.0 / (d ** 0.5)
     if causal_offset is None:
         causal_offset = k.shape[1] - q.shape[1]
+    if heads_total or head_offset:
+        return _flash_forward_op(q, k, v, key_bias, int(seed), bool(causal),
+                                 int(causal_offset), float(scale),
+                                 float(dropout_p), int(heads_total),
+                                 int(head_offset))
     return _flash_forward_op(q, k, v, key_bias, int(seed), bool(causal),
                              int(causal_offset), float(scale),
                              float(dropout_p))
@@ -332,7 +360,7 @@ def flash_forward(q, k, v, key_bias=None, seed=0, causal=False,
 
 def flash_backward_reference(q, k, v, key_bias, seed, out, lse, g,
                              causal=False, causal_offset=None, scale=None,
-                             dropout_p=0.0):
+                             dropout_p=0.0, heads_total=0, head_offset=0):
     """Plain PyTorch version of the two flash backward kernels: the
     formulas of paddle_tpu's `_flash_bwd_dkv_kernel` and
     `_flash_bwd_dq_kernel` in the (B, S, H, D) layout, scores in f32,
@@ -348,7 +376,8 @@ def flash_backward_reference(q, k, v, key_bias, seed, out, lse, g,
     dp = torch.einsum("bqhd,bkhd->bhqk", g.float(), v.float())
     if dropout_p > 0.0:
         keep = _keep_mask3(seed, 0, 0, 0, b * h, sq, sk, dropout_p,
-                           device=q.device).view(b, h, sq, sk)
+                           device=q.device, heads=h, heads_total=heads_total,
+                           head_offset=head_offset).view(b, h, sq, sk)
         inv = 1.0 / (1.0 - dropout_p)
         p_drop = torch.where(keep, p * inv, torch.zeros_like(p))
         dp = torch.where(keep, dp * inv, torch.zeros_like(dp))
@@ -403,13 +432,14 @@ def _bwd_lib():
             fn.argtypes = ([vp] * 5 + [ci, vp, vp, ci] + outs + [ci] * 5
                            + [ctypes.POINTER(ctypes.c_longlong), ci, ci, ci,
                               ctypes.c_float, ctypes.c_uint, ctypes.c_float,
-                              ctypes.c_uint, vp])
+                              ctypes.c_uint, ci, ci, vp])
             fn.restype = ci
     return lib
 
 
 def _flash_bwd_launchers(q, k, v, key_bias, seed, out, lse, g, causal,
-                         causal_offset, scale, dropout_p):
+                         causal_offset, scale, dropout_p, heads_total=0,
+                         head_offset=0):
     """Check the operands, allocate dq/dk/dv and compute delta; return
     ((dq, dk, dv), launch_dkv, launch_dq), each launcher running its
     kernel once (chip_smoke times the two kernels apart)."""
@@ -449,7 +479,8 @@ def _flash_bwd_launchers(q, k, v, key_bias, seed, out, lse, g, causal,
               lse.data_ptr(), delta.data_ptr(), rows_ld)
     dims = (b, h, sq, sk, d, strides)
     tail = (int(bool(causal)), int(causal_offset), float(scale), thresh,
-            float(1.0 / (1.0 - dropout_p)), int(seed) & _M32)
+            float(1.0 / (1.0 - dropout_p)), int(seed) & _M32,
+            int(heads_total or h), int(head_offset))
     keep = (q, k, v, g, kb, lse, delta)  # alive while launchers are
     # the stream current at each launch (a CUDA graph's capture stream)
     stream = lambda: torch.cuda.current_stream(q.device).cuda_stream
@@ -480,10 +511,11 @@ def _flash_backward_cuda(*args):
 
 
 def flash_backward(q, k, v, key_bias, seed, out, lse, g, causal=False,
-                   causal_offset=None, scale=None, dropout_p=0.0):
+                   causal_offset=None, scale=None, dropout_p=0.0,
+                   heads_total=0, head_offset=0):
     """(dq, dk, dv) of the flash forward: the CUDA kernels for CUDA
     tensors, the plain version for CPU tensors (and nothing else for
-    either)."""
+    either); `heads_total` / `head_offset` as flash_forward's."""
     d = q.shape[-1]
     scale = scale if scale is not None else 1.0 / (d ** 0.5)
     if causal_offset is None:
@@ -491,10 +523,12 @@ def flash_backward(q, k, v, key_bias, seed, out, lse, g, causal=False,
     if q.is_cuda:
         return _flash_backward_cuda(q, k, v, key_bias, seed, out, lse, g,
                                     causal, causal_offset, scale,
-                                    float(dropout_p))
+                                    float(dropout_p), heads_total,
+                                    head_offset)
     return flash_backward_reference(q, k, v, key_bias, seed, out, lse, g,
                                     causal, causal_offset, scale,
-                                    float(dropout_p))
+                                    float(dropout_p), heads_total,
+                                    head_offset)
 
 
 class FlashAttentionFunction(torch.autograd.Function):
@@ -504,40 +538,44 @@ class FlashAttentionFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, key_bias, seed, causal, causal_offset, scale,
-                dropout_p):
+                dropout_p, heads_total=0, head_offset=0):
         out, lse = flash_forward(q, k, v, key_bias, seed, causal,
-                                 causal_offset, scale, dropout_p)
+                                 causal_offset, scale, dropout_p,
+                                 heads_total, head_offset)
         ctx.save_for_backward(q, k, v, key_bias, out, lse)
-        ctx.args = (seed, causal, causal_offset, scale, dropout_p)
+        ctx.args = (seed, causal, causal_offset, scale, dropout_p,
+                    heads_total, head_offset)
         return out
 
     @staticmethod
     def backward(ctx, g):
         q, k, v, key_bias, out, lse = ctx.saved_tensors
-        seed, causal, causal_offset, scale, dropout_p = ctx.args
-        dq, dk, dv = flash_backward(q, k, v, key_bias, seed, out, lse, g,
-                                    causal, causal_offset, scale, dropout_p)
-        return dq, dk, dv, None, None, None, None, None, None
+        dq, dk, dv = flash_backward(q, k, v, key_bias, ctx.args[0], out, lse,
+                                    g, *ctx.args[1:])
+        return dq, dk, dv, None, None, None, None, None, None, None, None
 
 
 # -- shim, mask normalization, dispatcher ---------------------------------------
 
 def flash_attention(q, k, v, key_bias=None, is_causal=False, scale=None,
-                    dropout_p=0.0, dropout_seed=None):
+                    dropout_p=0.0, dropout_seed=None, heads_total=0,
+                    head_offset=0):
     """(B, S, H, D) flash attention (paddle_tpu `flash_attention`).
 
     key_bias: optional (B, Sk) additive bias applied to every query row
     (the kernel's form of a key-padding mask), treated as a constant.
     Any Sq/Sk is accepted: the kernels mask the ragged edges, so there is
     no padding of the inputs and no slicing of the output.
-    Differentiable in q, k and v through the backward kernels."""
+    Differentiable in q, k and v through the backward kernels.
+    `heads_total` / `head_offset`: the heads' global indices in the
+    dropout hash (a tensor-parallel rank's heads; flash_forward)."""
     if key_bias is not None:
         key_bias = key_bias.detach().to(torch.float32)
     seed = 0 if (dropout_p <= 0.0 or dropout_seed is None) \
         else int(dropout_seed)
     return FlashAttentionFunction.apply(
         q, k, v, key_bias, seed, is_causal, k.shape[1] - q.shape[1], scale,
-        float(dropout_p))
+        float(dropout_p), int(heads_total), int(head_offset))
 
 
 def _mask_as_key_bias(mask, batch, sk) -> Optional[torch.Tensor]:
@@ -575,7 +613,8 @@ def _flash_takes(dtypes, head_dim: int) -> bool:
 
 def scaled_dot_product_attention(q, k, v, mask=None, is_causal=False,
                                  scale=None, dropout_p=0.0,
-                                 dropout_seed=None):
+                                 dropout_seed=None, heads_total=0,
+                                 head_offset=0):
     """Dispatcher, as paddle_tpu's (attention.py:1152-1161): a key-padding
     mask (any form constant over query and head dims, bool or additive)
     or no mask runs in the flash kernels as a key bias (their plain
@@ -585,18 +624,26 @@ def scaled_dot_product_attention(q, k, v, mask=None, is_causal=False,
     `dense_attention`, the counterpart of `_xla_attention`, as the
     reference computes them outside its Pallas kernel.  Each call sent
     there is counted as `attention_dispatch_dense`.  q/k/v: (batch, seq,
-    heads, head_dim)."""
+    heads, head_dim).  `heads_total` / `head_offset` place q's heads
+    among a tensor-parallel model's (flash_forward): the dense path's
+    dropout draws from a generator, not the hash, and refuses them."""
     key_bias = _mask_as_key_bias(mask, q.shape[0], k.shape[1])
     if (mask is not None and key_bias is None) or (
             q.is_cuda and not _flash_takes((q.dtype, k.dtype, v.dtype),
                                            q.shape[-1])):
+        if dropout_p > 0.0 and (heads_total or head_offset):
+            raise NotImplementedError(
+                "dense attention's dropout draws from a generator: a "
+                "tensor-parallel rank's heads need the flash kernels' hash "
+                "(a key-padding mask or none, bf16, a kernel head_dim)")
         profiler.stat_add("attention_dispatch_dense")
         return dense_attention(q, k, v, mask=mask, is_causal=is_causal,
                                scale=scale, dropout_p=dropout_p,
                                dropout_seed=dropout_seed)
     return flash_attention(q, k, v, key_bias=key_bias, is_causal=is_causal,
                            scale=scale, dropout_p=dropout_p,
-                           dropout_seed=dropout_seed)
+                           dropout_seed=dropout_seed,
+                           heads_total=heads_total, head_offset=head_offset)
 
 
 def dense_attention(q, k, v, mask=None, is_causal=False, scale=None,

@@ -118,16 +118,17 @@ def _ffn_keep(seed, t0, f0, block_t, block_f, dropout_p,
 
 
 def ffn_forward_reference(x, w1, b1, w2, b2, activation="gelu",
-                          dropout_p=0.0, seed=0):
+                          dropout_p=0.0, seed=0, col_offset=0):
     """Plain PyTorch version of the FFN forward kernel.  x (T, H) ->
     (T, H) in x's dtype.  Both products accumulate in f32; the hidden
     tile is activated in f32 and cast to x's dtype before the second
-    product, as in the kernel."""
+    product, as in the kernel.  The dropout hash takes d_ff column c as
+    column `col_offset + c` (a tensor-parallel rank's columns)."""
     pre = x.float() @ w1.float() + b1.float()
     h = _act(pre, activation)
     if dropout_p > 0.0:
-        keep = _ffn_keep(seed, 0, 0, x.shape[0], w1.shape[1], dropout_p,
-                         device=x.device)
+        keep = _ffn_keep(seed, 0, col_offset, x.shape[0], w1.shape[1],
+                         dropout_p, device=x.device)
         h = torch.where(keep, h / (1.0 - dropout_p), torch.zeros_like(h))
     out = h.to(x.dtype).float() @ w2.float() + b2.float()
     return out.to(x.dtype)
@@ -139,7 +140,7 @@ def _lib():
     if fn.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [vp] * 7 + [ci] * 5 + [
-            ctypes.c_uint, ctypes.c_float, ctypes.c_uint, vp]
+            ctypes.c_uint, ctypes.c_float, ctypes.c_uint, ci, vp]
         fn.restype = ci
     return lib
 
@@ -180,7 +181,8 @@ def _aligned(a: torch.Tensor) -> torch.Tensor:
     return a if a.data_ptr() % 16 == 0 else a.clone()
 
 
-def _ffn_forward_cuda(x, w1, b1, w2, b2, activation, dropout_p, seed):
+def _ffn_forward_cuda(x, w1, b1, w2, b2, activation, dropout_p, seed,
+                      col_offset=0):
     t, h = x.shape
     f = w1.shape[1]
     ts = (x, w1, b1, w2, b2)
@@ -209,7 +211,7 @@ def _ffn_forward_cuda(x, w1, b1, w2, b2, activation, dropout_p, seed):
         x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
         b2.data_ptr(), out.data_ptr(), None if ws is None else ws.data_ptr(),
         t, h, f, _ACT_IDS[activation], n_split, thresh,
-        float(1.0 - dropout_p), int(seed) & _M32, stream)
+        float(1.0 - dropout_p), int(seed) & _M32, int(col_offset), stream)
     check(lib, err, "ffn_fwd")
     FFN_FWD.add()
     return out
@@ -221,20 +223,22 @@ def _ffn_forward_cuda(x, w1, b1, w2, b2, activation, dropout_p, seed):
 @torch.library.custom_op("paddle_tpu_torch::ffn_forward", mutates_args=())
 def _ffn_forward_op(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
                     w2: torch.Tensor, b2: torch.Tensor, activation: str,
-                    dropout_p: float, seed: int) -> torch.Tensor:
+                    dropout_p: float, seed: int,
+                    col_offset: int = 0) -> torch.Tensor:
     if x.is_cuda:
         raise RuntimeError("ffn_forward: no CUDA implementation reached")
     return ffn_forward_reference(x, w1, b1, w2, b2, activation, dropout_p,
-                                 seed)
+                                 seed, col_offset)
 
 
 @_ffn_forward_op.register_kernel("cuda")
-def _(x, w1, b1, w2, b2, activation, dropout_p, seed):
-    return _ffn_forward_cuda(x, w1, b1, w2, b2, activation, dropout_p, seed)
+def _(x, w1, b1, w2, b2, activation, dropout_p, seed, col_offset=0):
+    return _ffn_forward_cuda(x, w1, b1, w2, b2, activation, dropout_p, seed,
+                             col_offset)
 
 
 @_ffn_forward_op.register_fake
-def _(x, w1, b1, w2, b2, activation, dropout_p, seed):
+def _(x, w1, b1, w2, b2, activation, dropout_p, seed, col_offset=0):
     return x.new_empty((x.shape[0], w2.shape[1]))
 
 
@@ -242,10 +246,15 @@ register_grads(_ffn_forward_op, ffn_forward_reference)
 
 
 def ffn_forward(x, w1, b1, w2, b2, activation="gelu", dropout_p=0.0,
-                seed=0):
+                seed=0, col_offset=0):
     """x (T, H) -> (T, H), through the operator
     `paddle_tpu_torch::ffn_forward`: the CUDA kernel for CUDA tensors,
-    the plain version for CPU tensors (and nothing else for either)."""
+    the plain version for CPU tensors (and nothing else for either).
+    `col_offset`: the dropout hash takes d_ff column c as col_offset + c
+    (a tensor-parallel rank's columns); 0 gives the one-process bits."""
+    if col_offset:
+        return _ffn_forward_op(x, w1, b1, w2, b2, str(activation),
+                               float(dropout_p), int(seed), int(col_offset))
     return _ffn_forward_op(x, w1, b1, w2, b2, str(activation),
                            float(dropout_p), int(seed))
 
@@ -253,7 +262,7 @@ def ffn_forward(x, w1, b1, w2, b2, activation="gelu", dropout_p=0.0,
 # -- backward -----------------------------------------------------------------
 
 def ffn_backward_reference(x, w1, b1, w2, b2, seed, g, activation="gelu",
-                           dropout_p=0.0):
+                           dropout_p=0.0, col_offset=0):
     """Plain PyTorch version of the two FFN backward kernels (paddle_tpu's
     `_ffn_backward`): the hidden tile is recomputed from x, never saved.
     Returns (dx, dw1, db1, dw2, db2) in the dtypes of x, w1, b1, w2, b2;
@@ -263,8 +272,8 @@ def ffn_backward_reference(x, w1, b1, w2, b2, seed, g, activation="gelu",
     h = _act(pre, activation)
     dh = g.float() @ w2.float().t()
     if dropout_p > 0.0:
-        keep = _ffn_keep(seed, 0, 0, x.shape[0], w1.shape[1], dropout_p,
-                         device=x.device)
+        keep = _ffn_keep(seed, 0, col_offset, x.shape[0], w1.shape[1],
+                         dropout_p, device=x.device)
         h = torch.where(keep, h / (1.0 - dropout_p), torch.zeros_like(h))
         dh = torch.where(keep, dh / (1.0 - dropout_p), torch.zeros_like(dh))
     dpre = dh * _act_grad(pre, activation)
@@ -279,7 +288,7 @@ def ffn_backward_reference(x, w1, b1, w2, b2, seed, g, activation="gelu",
 def _bwd_lib():
     lib = library("ffn_bwd")
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    tail = [ctypes.c_uint, ctypes.c_float, ctypes.c_uint, vp]
+    tail = [ctypes.c_uint, ctypes.c_float, ctypes.c_uint, ci, vp]
     if lib.ffn_bwd_dw_bf16.argtypes is None:
         lib.ffn_bwd_dw_bf16.argtypes = [vp] * 9 + [ci] * 5 + tail
         lib.ffn_bwd_dw_bf16.restype = ci
@@ -320,7 +329,8 @@ def _dx_plan(t: int, h: int, f: int):
                 dx_grid=(h // _DX_BLOCK_N, mt), workspace_bytes=t * f * 2)
 
 
-def _ffn_bwd_launchers(x, w1, b1, w2, b2, seed, g, activation, dropout_p):
+def _ffn_bwd_launchers(x, w1, b1, w2, b2, seed, g, activation, dropout_p,
+                       col_offset=0):
     """Check the operands and allocate the outputs; return
     ((dx, dw1, db1, dw2, db2), launch_dw, launch_dx), each launcher
     running its kernels once (the dW launcher: the dW pass and its reduce
@@ -350,7 +360,8 @@ def _ffn_bwd_launchers(x, w1, b1, w2, b2, seed, g, activation, dropout_p):
                      device=x.device)
     db2 = g.float().sum(0).to(b2.dtype)
     thresh = _threshold(dropout_p) if dropout_p > 0.0 else 0
-    rng = (thresh, float(1.0 / (1.0 - dropout_p)), int(seed) & _M32)
+    rng = (thresh, float(1.0 / (1.0 - dropout_p)), int(seed) & _M32,
+           int(col_offset))
     # the stream is read at each launch, so a launcher runs on the stream
     # current when it is called (a CUDA graph's capture stream included)
     stream = lambda: torch.cuda.current_stream(x.device).cuda_stream
@@ -390,15 +401,15 @@ def _ffn_backward_cuda(*args):
 
 
 def ffn_backward(x, w1, b1, w2, b2, seed, g, activation="gelu",
-                 dropout_p=0.0):
+                 dropout_p=0.0, col_offset=0):
     """(dx, dw1, db1, dw2, db2) of ffn_forward: the CUDA kernels for CUDA
     tensors, the plain version for CPU tensors (and nothing else for
-    either)."""
+    either); `col_offset` as ffn_forward's."""
     if x.is_cuda:
         return _ffn_backward_cuda(x, w1, b1, w2, b2, seed, g, activation,
-                                  float(dropout_p))
+                                  float(dropout_p), col_offset)
     return ffn_backward_reference(x, w1, b1, w2, b2, seed, g, activation,
-                                  float(dropout_p))
+                                  float(dropout_p), col_offset)
 
 
 class FusedFFNFunction(torch.autograd.Function):
@@ -407,18 +418,20 @@ class FusedFFNFunction(torch.autograd.Function):
     seed; the hidden activation is recomputed, never kept."""
 
     @staticmethod
-    def forward(ctx, x, w1, b1, w2, b2, activation, dropout_p, seed):
+    def forward(ctx, x, w1, b1, w2, b2, activation, dropout_p, seed,
+                col_offset=0):
         ctx.save_for_backward(x, w1, b1, w2, b2)
-        ctx.args = (seed, activation, dropout_p)
-        return ffn_forward(x, w1, b1, w2, b2, activation, dropout_p, seed)
+        ctx.args = (seed, activation, dropout_p, col_offset)
+        return ffn_forward(x, w1, b1, w2, b2, activation, dropout_p, seed,
+                           col_offset)
 
     @staticmethod
     def backward(ctx, g):
         x, w1, b1, w2, b2 = ctx.saved_tensors
-        seed, activation, dropout_p = ctx.args
+        seed, activation, dropout_p, col_offset = ctx.args
         grads = ffn_backward(x, w1, b1, w2, b2, seed, g, activation,
-                             dropout_p)
-        return (*grads, None, None, None)
+                             dropout_p, col_offset)
+        return (*grads, None, None, None, None)
 
 
 # -- the library arm: cuBLAS products around one element pass -----------------
@@ -432,28 +445,29 @@ def _drop_kept(x, keep, dropout_p):
 
 
 def ffn_act_fwd_reference(pre, b1, activation="gelu", dropout_p=0.0,
-                          seed=0):
+                          seed=0, col_offset=0):
     """Plain PyTorch version of `ffn_act_fwd`: h = drop(act(pre + b1)) in
     f32, rounded once to pre's dtype; drop keeps a value where
-    `_ffn_keep(seed, 0, 0, T, F, p)` holds and divides it by 1 - p."""
+    `_ffn_keep(seed, 0, col_offset, T, F, p)` holds and divides it by
+    1 - p."""
     a = _act(pre.float() + b1.float(), activation)
     if dropout_p > 0.0:
-        keep = _ffn_keep(seed, 0, 0, pre.shape[0], pre.shape[1], dropout_p,
-                         device=pre.device)
+        keep = _ffn_keep(seed, 0, col_offset, pre.shape[0], pre.shape[1],
+                         dropout_p, device=pre.device)
         a = _drop_kept(a, keep, dropout_p)
     return a.to(pre.dtype)
 
 
 def ffn_act_bwd_reference(pre, b1, dh, activation="gelu", dropout_p=0.0,
-                          seed=0):
+                          seed=0, col_offset=0):
     """Plain PyTorch version of `ffn_act_bwd`: (dpre, h) with dpre =
     drop(dh) * act'(pre + b1) in f32 and h as `ffn_act_fwd_reference`
     gives it, each rounded once to pre's dtype."""
     x = pre.float() + b1.float()
     a, d = _act(x, activation), dh.float()
     if dropout_p > 0.0:
-        keep = _ffn_keep(seed, 0, 0, pre.shape[0], pre.shape[1], dropout_p,
-                         device=pre.device)
+        keep = _ffn_keep(seed, 0, col_offset, pre.shape[0], pre.shape[1],
+                         dropout_p, device=pre.device)
         a, d = _drop_kept(a, keep, dropout_p), _drop_kept(d, keep, dropout_p)
     return (d * _act_grad(x, activation)).to(pre.dtype), a.to(pre.dtype)
 
@@ -465,7 +479,7 @@ _ACT_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 def _act_lib():
     lib = library("ffn_act")
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    tail = [ci, ci, ci, ctypes.c_uint, ctypes.c_float, ctypes.c_uint, vp]
+    tail = [ci, ci, ci, ctypes.c_uint, ctypes.c_float, ctypes.c_uint, ci, vp]
     if lib.ffn_act_fwd.argtypes is None:
         lib.ffn_act_fwd.argtypes = [ci] + [vp] * 3 + [ctypes.c_longlong] + tail
         lib.ffn_act_fwd.restype = ci
@@ -490,19 +504,20 @@ def _act_operands(pre, b1, others, activation):
     return tuple(a.contiguous() for a in ts)
 
 
-def _act_rng(dropout_p, seed):
+def _act_rng(dropout_p, seed, col_offset=0):
     drop = dropout_p > 0.0
     return (int(drop), _threshold(dropout_p) if drop else 0,
-            float(1.0 - dropout_p), int(seed) & _M32)
+            float(1.0 - dropout_p), int(seed) & _M32, int(col_offset))
 
 
-def _ffn_act_fwd_cuda(pre, b1, activation, dropout_p, seed):
+def _ffn_act_fwd_cuda(pre, b1, activation, dropout_p, seed, col_offset=0):
     pre, b1 = _act_operands(pre, b1, (), activation)
     h = torch.empty_like(pre)
     lib = _act_lib()
     err = lib.ffn_act_fwd(
         _ACT_DTYPES[pre.dtype], pre.data_ptr(), b1.data_ptr(), h.data_ptr(),
-        *pre.shape, _ACT_IDS[activation], *_act_rng(float(dropout_p), seed),
+        *pre.shape, _ACT_IDS[activation],
+        *_act_rng(float(dropout_p), seed, col_offset),
         torch.cuda.current_stream(pre.device).cuda_stream)
     check(lib, err, "ffn_act_fwd")
     FFN_ACT_FWD.add()
@@ -513,49 +528,58 @@ def _ffn_act_fwd_cuda(pre, b1, activation, dropout_p, seed):
 # attention.py's flash_forward).
 @torch.library.custom_op("paddle_tpu_torch::ffn_act_fwd", mutates_args=())
 def _ffn_act_fwd_op(pre: torch.Tensor, b1: torch.Tensor, activation: str,
-                    dropout_p: float, seed: int) -> torch.Tensor:
+                    dropout_p: float, seed: int,
+                    col_offset: int = 0) -> torch.Tensor:
     if pre.is_cuda:
         raise RuntimeError("ffn_act_fwd: no CUDA implementation reached")
-    return ffn_act_fwd_reference(pre, b1, activation, dropout_p, seed)
+    return ffn_act_fwd_reference(pre, b1, activation, dropout_p, seed,
+                                 col_offset)
 
 
 @_ffn_act_fwd_op.register_kernel("cuda")
-def _(pre, b1, activation, dropout_p, seed):
-    return _ffn_act_fwd_cuda(pre, b1, activation, dropout_p, seed)
+def _(pre, b1, activation, dropout_p, seed, col_offset=0):
+    return _ffn_act_fwd_cuda(pre, b1, activation, dropout_p, seed,
+                             col_offset)
 
 
 @_ffn_act_fwd_op.register_fake
-def _(pre, b1, activation, dropout_p, seed):
+def _(pre, b1, activation, dropout_p, seed, col_offset=0):
     return pre.new_empty(pre.shape)
 
 
 register_grads(_ffn_act_fwd_op, ffn_act_fwd_reference)
 
 
-def ffn_act_fwd(pre, b1, activation="gelu", dropout_p=0.0, seed=0):
+def ffn_act_fwd(pre, b1, activation="gelu", dropout_p=0.0, seed=0,
+                col_offset=0):
     """h = drop(act(pre + b1)), (T, F), through the operator
     `paddle_tpu_torch::ffn_act_fwd`: the kernel `ffn_act_fwd`
     (csrc/ffn_act.cu) for CUDA tensors, the plain version for CPU
-    tensors (and nothing else for either)."""
+    tensors (and nothing else for either).  `col_offset` as
+    ffn_forward's."""
+    if col_offset:
+        return _ffn_act_fwd_op(pre, b1, str(activation), float(dropout_p),
+                               int(seed), int(col_offset))
     return _ffn_act_fwd_op(pre, b1, str(activation), float(dropout_p),
                            int(seed))
 
 
-def ffn_act_bwd(pre, b1, dh, activation="gelu", dropout_p=0.0, seed=0):
+def ffn_act_bwd(pre, b1, dh, activation="gelu", dropout_p=0.0, seed=0,
+                col_offset=0):
     """(dpre, h): dpre = drop(dh) * act'(pre + b1) and the forward's h,
     recomputed in the same pass: the kernel `ffn_act_bwd` for CUDA
     tensors, the plain version for CPU tensors (and nothing else for
     either)."""
     if not pre.is_cuda:
         return ffn_act_bwd_reference(pre, b1, dh, activation,
-                                     float(dropout_p), seed)
+                                     float(dropout_p), seed, col_offset)
     pre, b1, dh = _act_operands(pre, b1, (dh,), activation)
     dpre, h = torch.empty_like(pre), torch.empty_like(pre)
     lib = _act_lib()
     err = lib.ffn_act_bwd(
         _ACT_DTYPES[pre.dtype], pre.data_ptr(), b1.data_ptr(), dh.data_ptr(),
         dpre.data_ptr(), h.data_ptr(), *pre.shape, _ACT_IDS[activation],
-        *_act_rng(float(dropout_p), seed),
+        *_act_rng(float(dropout_p), seed, col_offset),
         torch.cuda.current_stream(pre.device).cuda_stream)
     check(lib, err, "ffn_act_bwd")
     FFN_ACT_BWD.add()
@@ -572,23 +596,25 @@ class FFNLibraryFunction(torch.autograd.Function):
     in f32."""
 
     @staticmethod
-    def forward(ctx, x, w1, b1, w2, b2, activation, dropout_p, seed):
+    def forward(ctx, x, w1, b1, w2, b2, activation, dropout_p, seed,
+                col_offset=0):
         pre = torch.matmul(x, w1)
-        h = ffn_act_fwd(pre, b1, activation, dropout_p, seed)
+        h = ffn_act_fwd(pre, b1, activation, dropout_p, seed, col_offset)
         ctx.save_for_backward(x, w1, b1, w2, pre)
-        ctx.args = (activation, dropout_p, seed, b2.dtype)
+        ctx.args = (activation, dropout_p, seed, b2.dtype, col_offset)
         return torch.addmm(b2, h, w2)
 
     @staticmethod
     def backward(ctx, g):
         x, w1, b1, w2, pre = ctx.saved_tensors
-        activation, dropout_p, seed, b2_dtype = ctx.args
+        activation, dropout_p, seed, b2_dtype, col_offset = ctx.args
         dpre, h = ffn_act_bwd(pre, b1, torch.matmul(g, w2.t()), activation,
-                              dropout_p, seed)
+                              dropout_p, seed, col_offset)
         return (torch.matmul(dpre, w1.t()), torch.matmul(x.t(), dpre),
                 dpre.sum(0, dtype=torch.float32).to(b1.dtype),
                 torch.matmul(h.t(), g),
-                g.sum(0, dtype=torch.float32).to(b2_dtype), None, None, None)
+                g.sum(0, dtype=torch.float32).to(b2_dtype), None, None, None,
+                None)
 
 
 # -- the dispatch -------------------------------------------------------------
@@ -619,7 +645,7 @@ def _ffn_arm(dtypes, h: int, f: int) -> str:
 
 
 def fused_ffn(x, w1, b1, w2, b2, activation="gelu", dropout_p=0.0,
-              dropout_seed=None):
+              dropout_seed=None, col_offset=0):
     """dropout(act(x @ w1 + b1), p) @ w2 + b2 over any leading dims,
     differentiable in x and the four weights.  x: (..., H); w1 (H, F);
     w2 (F, H).  Returns (..., H).
@@ -628,7 +654,8 @@ def fused_ffn(x, w1, b1, w2, b2, activation="gelu", dropout_p=0.0,
     `FFNLibraryFunction`; never chosen after a failure, so a kernel that
     fails to build or launch raises.  Each call is counted as
     `ffn_dispatch_kernel` or `ffn_dispatch_library` (the reference's
-    `ffn_dispatch_xla`)."""
+    `ffn_dispatch_xla`).  `col_offset`: the d_ff columns' place among a
+    tensor-parallel model's, for the dropout hash (ffn_forward)."""
     lead = x.shape[:-1]
     seed = 0 if dropout_seed is None else int(dropout_seed)
     arm = _ffn_arm((x.dtype, w1.dtype, b1.dtype, w2.dtype, b2.dtype),
@@ -636,5 +663,5 @@ def fused_ffn(x, w1, b1, w2, b2, activation="gelu", dropout_p=0.0,
     profiler.stat_add(f"ffn_dispatch_{arm}")
     fn = FusedFFNFunction if arm == "kernel" else FFNLibraryFunction
     out = fn.apply(x.reshape(-1, x.shape[-1]), w1, b1, w2, b2, activation,
-                   float(dropout_p), seed)
+                   float(dropout_p), seed, int(col_offset))
     return out.reshape(*lead, x.shape[-1])

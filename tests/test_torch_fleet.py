@@ -5,8 +5,9 @@ reference's fleet_meta_optimizer_base.py pattern: build, minimize,
 compare) gives the reference's main and startup Program JSON and
 applied_meta_list, with UserDefinedRoleMaker(worker_num=2) where the
 strategy needs several workers (test_distributed.py:97); the
-dropped-candidate warning; the strategies and names that wait for
-ROADMAP queue 1 item 10b raise naming it; the role makers, get_cluster
+dropped-candidate warning; Fleet's sharding strategy annotating what
+the reference's does; the strategies and names that wait for ROADMAP
+queue 1 item 10b (ii)-(iv) raise naming it; the role makers, get_cluster
 and the trainer environment; the backend rule (nccl on CUDA, gloo on
 the CPU or when asked; two NCCL ranks on one card refused).  Then two
 spawns at once: distributed.launch of a two-rank script (tests/
@@ -144,8 +145,26 @@ def test_a_dropped_candidate_warns_and_flips_its_flag():
 
 @pytest.mark.parametrize("field", ["sharding", "pipeline"])
 def test_the_model_parallel_strategies_raise_naming_10b(field):
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        _minimized(TF, Tfleet, TU, {field: True}, ADAM, 2)
+    """`pipeline` waits for ROADMAP queue 1 item 10b (iv) and raises;
+    `sharding` is taken since 10b (i): the program and the applied list
+    are the reference's, and the same accumulators carry its ZeRO
+    annotation (stages 1 and 3; the run is in test_torch_spmd.py)."""
+    if field == "pipeline":
+        with pytest.raises(NotImplementedError, match="item 10b"):
+            _minimized(TF, Tfleet, TU, {field: True}, ADAM, 2)
+        return
+    for stage in (1, 3):
+        kw = {field: True, "sharding_configs": {"stage": stage}}
+        got = [_minimized(pkg, fleet, un, kw, ADAM, 2)
+               for pkg, fleet, un in ((JF, Jfleet, JU), (TF, Tfleet, TU))]
+        (jm, _, japplied, _), (tm, _, tapplied, _) = got
+        assert tapplied == japplied == ["ShardingOptimizer"]
+        assert _json(tm) == _json(jm)
+        marked = [{n: getattr(v, "_sharding_axes", None)
+                   for n, v in m.global_block().vars.items()
+                   if getattr(v, "_sharding_axes", None)} for m in (jm, tm)]
+        assert marked[1] == marked[0] and marked[1]
+        assert any(".w_0" == n[-4:] for n in marked[1]) == (stage == 3)
 
 
 def test_the_other_10b_names_raise():
@@ -158,10 +177,14 @@ def test_the_other_10b_names_raise():
         _minimized(TF, Tfleet, TU, {"localsgd": True,
                                     "localsgd_configs": {"k_steps": 2}},
                    SGD, 2)
-    for cls in (PipelineOptimizer, ShardingOptimizer):
+    for cls in (PipelineOptimizer,):
         with pytest.raises(NotImplementedError, match="item 10b"):
             cls(None).minimize_impl(None)
-    for axes in ({"data": 1, "tp": 2}, {"fsdp": 2}, {"pipe": 2}):
+    # ShardingOptimizer and the fsdp / tp axes are taken
+    # (test_torch_spmd.py); the sequence and pipeline axes are not
+    assert ShardingOptimizer(None).meta_optimizers_white_list == [
+        "GraphExecutionOptimizer"]
+    for axes in ({"data": 1, "seq": 2}, {"sp": 2}, {"pipe": 2}):
         with pytest.raises(NotImplementedError, match="item 10b"):
             M.make_mesh(axes, devices=range(2))
     bs = TF.BuildStrategy()
@@ -170,7 +193,7 @@ def test_the_other_10b_names_raise():
         TF.CompiledProgram(TF.Program(), bs).with_data_parallel()
     model = TB.BertForPretraining(TB.BertConfig.tiny(), device="cpu")
     with pytest.raises(NotImplementedError, match="item 10b"):
-        TB.build_pretrain_step(model, mp_axis="mp")
+        TB.build_pretrain_step(model, sp_axis="sp")
 
 
 def test_a_world_of_one_is_todays_program():

@@ -269,13 +269,15 @@ def test_loss_is_a_0d_tensor_and_state_is_updated_in_place():
 
 
 @pytest.mark.parametrize("option", [
-    dict(remat=True), "mesh_tp", dict(mp_axis="mp"),
+    dict(remat=True), "mesh_seq", dict(mp_axis="mp", sp_axis="sp"),
     dict(sp_axis="sp"), dict(use_ring_attention=True),
     dict(use_ulysses=True), "moe"])
 def test_unsupported_options_raise(option):
-    """The model-parallel options wait for ROADMAP queue 1 item 10b; a
-    data-parallel mesh is taken (test_torch_data_parallel.py), one with
-    a model-parallel axis is refused when it is made."""
+    """The options of the later model-parallel steps wait for ROADMAP
+    queue 1 item 10b (iii) (sequence parallelism) and (iv) (MoE), remat
+    for queue 1 item 1; a data- and tensor-parallel mesh is taken
+    (test_torch_data_parallel.py, test_torch_spmd.py), one with a
+    sequence axis is refused when it is made."""
     from paddle_tpu_torch.parallel import mesh as M
 
     model = TB.BertForPretraining(TB.BertConfig.tiny(**NO_DROP),
@@ -283,9 +285,10 @@ def test_unsupported_options_raise(option):
     if option == "moe":
         model.bert.config.moe_experts = 4
         option = {}
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        if option == "mesh_tp":
-            option = dict(mesh=M.make_mesh({"dp": 1, "tp": 2},
+    item = r"queue 1 item 1\)" if option == dict(remat=True) else "item 10b"
+    with pytest.raises(NotImplementedError, match=item):
+        if option == "mesh_seq":
+            option = dict(mesh=M.make_mesh({"dp": 1, "seq": 2},
                                            devices=range(2)))
         TB.build_pretrain_step(model, **option)
 

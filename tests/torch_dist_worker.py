@@ -400,6 +400,192 @@ def suite_dp(rank, world, workdir):
     _save(workdir, "dp", rank, out, meta)
 
 
+# -- suite: spmd (world 4) -----------------------------------------------------
+
+def tiny_transformer(fluid):
+    """The reference's build_tiny_transformer (test_spmd_sharding.py:142):
+    embedding -> fc relu -> layer_norm -> fc, the vocab-split, row / col
+    split and replicated rules at once."""
+    ids = fluid.data("ids", [-1, 1], "int64")
+    label = fluid.data("label", [-1, 1], "int64")
+    emb = fluid.layers.embedding(ids, size=[32, 16])
+    h = fluid.layers.reshape(emb, [-1, 16])
+    h = fluid.layers.fc(h, 64, act="relu")
+    h = fluid.layers.layer_norm(h)
+    pred = fluid.layers.fc(h, 8)
+    return fluid.layers.reduce_mean(
+        fluid.layers.loss.softmax_with_cross_entropy(pred, label))
+
+
+def tiny_data():
+    """The reference's batch (test_spmd_sharding.py:194): 16 rows."""
+    rng = np.random.RandomState(0)
+    return (rng.randint(0, 32, size=(16, 1)).astype("int64"),
+            rng.randint(0, 8, size=(16, 1)).astype("int64"))
+
+
+def tiny_program(fluid, unique_name, fleet=None, stage=None, world=1,
+                 rank=0):
+    """The tiny transformer with Adam 0.01 (seed 7), minimized plainly or
+    through Fleet's sharding strategy at `stage`."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), unique_name.guard():
+        loss = tiny_transformer(fluid)
+        main.random_seed = startup.random_seed = 7
+        opt = fluid.optimizer.Adam(0.01)
+        if stage is not None:
+            st = fleet.DistributedStrategy()
+            st.sharding = True
+            st.sharding_configs = {"stage": stage}
+            fleet.fleet.init(role_maker=fleet.UserDefinedRoleMaker(
+                worker_num=world, current_id=rank), strategy=st)
+            opt = fleet.fleet.distributed_optimizer(opt, st)
+        opt.minimize(loss)
+    return main, startup, loss
+
+
+SPMD_RUNS = {"fsdp_tp": {"data": 1, "fsdp": 2, "tp": 2},
+             "data_fsdp": {"data": 2, "fsdp": 2},
+             "stage1": None, "stage3": None}
+MOMENT = "fc_0.w_0_moment1_0"
+
+
+def _spmd_static(rank, world, workdir, out, meta):
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch import convert, profiler
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.fluid import unique_name
+
+    init = np.load(os.path.join(workdir, "tiny_startup.npz"))
+    ids, label = tiny_data()
+    for tag, axes in SPMD_RUNS.items():
+        stage = {"stage1": 1, "stage3": 3}.get(tag)
+        main, startup, loss = tiny_program(fluid, unique_name, fleet, stage,
+                                           world, rank)
+        exe, scope = fluid.Executor(fluid.CPUPlace()), fluid.Scope()
+        exe.run(startup, scope=scope)
+        convert.load_jax_scope(scope, {k: init[k] for k in init.files})
+        bs = fluid.BuildStrategy()
+        bs.mesh_axes = axes
+        prog = fluid.CompiledProgram(main).with_data_parallel(
+            loss_name=loss.name, build_strategy=bs)
+        before = profiler.get_int_stats()
+        losses = []
+        for _ in range(4):
+            (lo,) = exe.run(prog, feed={"ids": ids, "label": label},
+                            fetch_list=[loss], scope=scope)
+            losses.append(float(np.asarray(lo).reshape(-1)[0]))
+        after = profiler.get_int_stats()
+        mesh = prog._mesh
+        out[f"{tag}.losses"] = np.array(losses)
+        out[f"{tag}.moment_shard"] = scope.get(MOMENT).numpy()
+        full = convert.gather_sharded_scope(scope, main, mesh)
+        out[f"{tag}.moment"] = full[MOMENT]
+        out[f"{tag}.params"] = np.concatenate(
+            [full[p.name].reshape(-1) for p in main.all_parameters()])
+        if tag == "fsdp_tp":
+            # the reference's full arrays into the sharded scope and back
+            convert.load_jax_scope_sharded(
+                scope, {k: init[k] for k in init.files}, main, mesh)
+            back = convert.gather_sharded_scope(scope, main, mesh)
+            meta["roundtrip"] = all(np.array_equal(back[k], init[k])
+                                    for k in init.files)
+            meta["roundtrip_shard"] = list(scope.get(MOMENT).shape)
+        meta[tag] = {
+            "mesh": mesh.shape,
+            "state_bytes": sum(scope.get(n).numel()
+                               * scope.get(n).element_size()
+                               for n in scope.local_var_names()
+                               if "_moment" in n or "pow_acc" in n),
+            "full_bytes": sum(a.nbytes for n, a in full.items()
+                              if "_moment" in n or "pow_acc" in n),
+            "stats": {k: after[k] - before.get(k, 0) for k in after
+                      if k == "spmd_specs_applied"
+                      or k.startswith("collective_bytes_spmd_")}}
+    fleet.fleet.__init__()
+
+
+def _spmd_placements(rank, world, workdir, out, meta):
+    """The arm's shards against DTensor's for a case whose shard order
+    shows: dim 0 over ("fsdp", "tp"), and dims 0 and 1 over fsdp and
+    tp."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from paddle_tpu_torch.parallel import compiler as C
+    from paddle_tpu_torch.parallel import mesh as M
+    from paddle_tpu_torch.parallel import spec_layout as SL
+
+    mesh = M.make_mesh({"data": 1, "fsdp": 2, "tp": 2})
+    full = torch.arange(8 * 6, dtype=torch.float32).reshape(8, 6)
+    for tag, spec in (("joint", SL.P(("fsdp", "tp"))),
+                      ("split", SL.P("fsdp", "tp"))):
+        mine = C.shard_of(full, spec, mesh)
+        dt = distribute_tensor(full, mesh.device_mesh,
+                               SL.placements(spec, mesh)).to_local()
+        out[f"place.{tag}"] = mine.numpy()
+        out[f"place.{tag}.dtensor"] = dt.numpy()
+        out[f"place.{tag}.gathered"] = C.gather_full(mine, spec,
+                                                     mesh).numpy()
+    meta["coords"] = {a: M.axis_rank(mesh, a) for a in mesh.axis_names}
+
+
+BERT_TP_RUNS = {"mp4": ({"dp": 1, "mp": 4}, 0.0),
+                "dp2_mp2": ({"dp": 2, "mp": 2}, 0.0),
+                "mp4_drop": ({"dp": 1, "mp": 4}, 0.1)}
+
+
+def _spmd_bert(rank, world, workdir, out, meta):
+    """BERT-tiny's tensor-parallel step, 4 f32 steps at lr 1e-3 on the
+    batch of the reference's parity oracle; at dropout 0.1 rank 0 also
+    takes the one-process step."""
+    from paddle_tpu_torch.convert import gather_shards, load_jax_state
+    from paddle_tpu_torch.models import bert as TB
+    from paddle_tpu_torch.parallel import mesh as M
+
+    init = np.load(os.path.join(workdir, "bert_init.npz"))
+    batch = np.load(os.path.join(workdir, "bert_batch.npz"))
+    batch = {k: batch[k] for k in batch.files}
+
+    def model(p):
+        cfg = TB.BertConfig.tiny(hidden_dropout_prob=p,
+                                 attention_probs_dropout_prob=p)
+        return load_jax_state(TB.BertForPretraining(cfg, device="cpu"),
+                              {k: init[k] for k in init.files})
+
+    for tag, (axes, p) in BERT_TP_RUNS.items():
+        mesh = M.make_mesh(axes)
+        step, state = TB.build_pretrain_step(model(p), bf16=False, mesh=mesh,
+                                             dp_axis="dp", mp_axis="mp")
+        mine = M.shard_host_batch(mesh, batch)
+        losses = []
+        for _ in range(4):
+            state, loss = step(state, mine, 1e-3)
+            losses.append(float(loss))
+        out[f"{tag}.losses"] = np.array(losses)
+        out[f"{tag}.params"] = np.concatenate(
+            [gather_shards(state["params"][k], step.specs[k], mesh)
+             .reshape(-1) for k in sorted(state["params"])])
+        meta[tag] = {
+            "split": sorted(k for k, sp in step.specs.items() if tuple(sp)),
+            "param_bytes": sum(v.numel() * 4
+                               for v in state["params"].values())}
+        if p and rank == 0:
+            one, st1 = TB.build_pretrain_step(model(p), bf16=False)
+            ref = []
+            for _ in range(4):
+                st1, loss = one(st1, batch, 1e-3)
+                ref.append(float(loss))
+            out[f"{tag}.one_process"] = np.array(ref)
+
+
+def suite_spmd(rank, world, workdir):
+    out, meta = {}, {}
+    _spmd_static(rank, world, workdir, out, meta)
+    _spmd_placements(rank, world, workdir, out, meta)
+    _spmd_bert(rank, world, workdir, out, meta)
+    _save(workdir, "spmd", rank, out, meta)
+
+
 # -- launch and spawn -----------------------------------------------------------
 
 def launched(workdir):
@@ -438,7 +624,8 @@ def spawned(workdir, fail_rank):
         sys.exit(5)
 
 
-SUITES = {"collective": suite_collective, "dp": suite_dp}
+SUITES = {"collective": suite_collective, "dp": suite_dp,
+          "spmd": suite_spmd}
 
 
 def main(argv):
