@@ -18,7 +18,9 @@ the inference C ABI from a ctypes host and a pure-C host, train MNIST
 from files through the 1.x readers and PyReader, train BERT-base and the
 static ResNet-50 data-parallel over torch.distributed, train BERT-base
 tensor-parallel and the static ResNet-50 with its state sharded (ZeRO
-through Fleet, data x fsdp x tp through the compiler's SPMD arm), and
+through Fleet, data x fsdp x tp through the compiler's SPMD arm), with
+int8 quantized gradient collectives and a sharded checkpoint resumed,
+train BERT-base sequence-parallel (ring and Ulysses attention), and
 check what comes out.
 
     python3 chip_smoke.py
@@ -455,7 +457,11 @@ Phases, in order (any failure exits non-zero and prints no result):
               one-process forwards of the same rows, finite losses; then
               one step with BuildStrategy.sync_batch_norm, whose rank-mean
               loss is within DIST_SBN_RTOL of the whole batch's
-              one-process forward
+              one-process forward; (d) the same Fleet path with
+              FLAGS_quant_collectives=int8 (the gradients' c_allreduce_sum
+              as int8 blocks and fp32 scales), its losses within
+              QUANT_HEALTH_RTOL of full width and its wire bytes
+              QUANT_MIN_DROP fewer
  29. spmd     model parallelism (parallel/, models/bert.py mp_axis):
               the flash kernels at a tensor-parallel rank's heads (q/k/v
               (32, 512, 3, 64), heads 6-8 of 12, dropout 0.1) and the FFN
@@ -482,7 +488,34 @@ Phases, in order (any failure exits non-zero and prints no result):
               share) and through BuildStrategy.mesh_axes {data: 1, fsdp:
               2, tp: 2} ({data: 1, fsdp: 2} on two ranks; the fc weight
               and its velocity one shard a rank, the losses within
-              SPMD_RESNET_RTOL of the same mesh with every spec P())
+              SPMD_RESNET_RTOL of the same mesh with every spec P()), and
+              {data: 1, fsdp: ranks} with FLAGS_quant_collectives=int8
+              against full width (the gradients over the batch axes as
+              int8, losses within
+              QUANT_HEALTH_RTOL of full width, their wire bytes
+              QUANT_MIN_DROP fewer); a sharded checkpoint on the SPMD arm
+              (the tiny transformer over {data: 1, fsdp: ranks} through
+              train_from_dataset, a checkpoint a step, stopped after
+              step SPMD_CKPT_PREEMPT and resumed by a fresh Executor:
+              the uninterrupted run's losses and state bit for bit;
+              writer ms and bytes a rank)
+ 30. seq      sequence parallelism (parallel/ring_attention.py,
+              ulysses.py, models/bert.py sp_axis): the flash kernels at
+              the ring's block shapes (q/k/v (32, 512/n, 12, 64): the
+              blocks merged by their LSE against one launch over the
+              keys, the diagonal block causal, a block's backward against
+              the final O and LSE, the skipped blocks of a causal ring
+              counted by its plan) and Ulysses' head groups ((32, 512,
+              12/n, 64), key padding), and the FFN kernels on a sequence
+              rank's tokens under the hash's row map, against their plain
+              versions, timed there; then the spmd phase's ranks:
+              BERT-base's sequence-parallel step over {dp: 1, sp: ranks}
+              with ring attention (rows unpadded) and with Ulysses, full
+              width, B=32, S=512, hidden dropout 0.1, SEQ_STEPS steps,
+              each rank's launches counted, step ms, the bytes the ring
+              and the all-to-alls move a step, the masters the same on
+              every rank, the losses within SEQ_LOSS_RTOL and the masters
+              within SEQ_MASTER_ATOL of rank 0's one-process step
 
 The last two lines of stdout are a {"kernels": [...]} summary and the
 {"ok": true, "device": {...}} result.
@@ -491,7 +524,8 @@ The last two lines of stdout are a {"kernels": [...]} summary and the
 kernel is built: none is on that path); `--ctr` the card and ctr phases;
 `--feed` the card and feed phases; `--deploy` the card, build and deploy
 phases; `--capi` the card, build and capi phases; `--dist` the card,
-build and dist phases; `--spmd` the card, build and spmd phases.
+build and dist phases; `--spmd` the card, build and spmd phases;
+`--seq` the card, build and seq phases.
 
 `python3 chip_smoke.py --tensor-methods-ab` runs instead only the
 host-bound decode, seq2seq and srl phases, in turns with the `matmul` /
@@ -8088,7 +8122,37 @@ def _dist_forward_loss(fluid, x, y):
     return float(np.asarray(loss).reshape(-1)[0])
 
 
-def _dist_resnet(world, rank, dev, sync_bn):
+def _quant_env(on: bool) -> None:
+    """FLAGS_quant_collectives through its environment variable (read at
+    each collective, PADDLE_QUANT_COLLECTIVES)."""
+    if on:
+        os.environ["PADDLE_QUANT_COLLECTIVES"] = "int8"
+    else:
+        os.environ.pop("PADDLE_QUANT_COLLECTIVES", None)
+
+
+# the reference's health bound of the quantized collectives
+# (tests/test_quant_collectives.py): int8 losses within 5 % of full width,
+# and the gradients' wire bytes at least 3.5x fewer
+QUANT_HEALTH_RTOL = 0.05
+QUANT_MIN_DROP = 3.5
+
+
+def _quant_health(what, q, full, key):
+    """Hold an int8 run against its full-width twin: losses within
+    QUANT_HEALTH_RTOL, the counted wire bytes QUANT_MIN_DROP fewer."""
+    rel = np.abs(np.array(q["losses"]) - np.array(full["losses"])) \
+        / np.abs(np.array(full["losses"]))
+    fb, qb = sum(full[key].values()), sum(q[key].values())
+    q["rel_err_full_width"] = rel.tolist()
+    q["wire_drop"] = fb / max(qb, 1)
+    if rel.max() > QUANT_HEALTH_RTOL or fb < QUANT_MIN_DROP * qb:
+        raise AssertionError(f"{what}: losses {q['losses']} against full "
+                             f"width {full['losses']} (rel {rel}), wire "
+                             f"bytes {qb} against {fb}")
+
+
+def _dist_resnet(world, rank, dev, sync_bn, quant=False):
     """BASELINE configs[4]'s Fleet path on the static ResNet-50:
     fleet.init(is_collective=True) -> distributed_optimizer(Momentum) ->
     GraphExecutionOptimizer -> GradAllReduce ->
@@ -8097,7 +8161,9 @@ def _dist_resnet(world, rank, dev, sync_bn):
     DIST_STEPS steps, one c_allreduce_sum a parameter gradient, the
     parameters' bits the same on every rank after each step, step 1's
     loss a one-process forward of the same rows.  `sync_bn`: one step
-    with BuildStrategy.sync_batch_norm (the sync_batch_norm rules)."""
+    with BuildStrategy.sync_batch_norm (the sync_batch_norm rules).
+    `quant`: with FLAGS_quant_collectives=int8 (the gradients'
+    c_allreduce_sum as int8 blocks), their bytes counted."""
     from paddle_tpu_torch import fluid
     from paddle_tpu_torch.distributed import fleet
 
@@ -8126,19 +8192,29 @@ def _dist_resnet(world, rank, dev, sync_bn):
     feed = {"image": torch.from_numpy(x[rank * k:(rank + 1) * k]).to(dev),
             "label": torch.from_numpy(y[rank * k:(rank + 1) * k]).to(dev)}
     losses, host_ms = [], []
-    for _ in range(1 if sync_bn else DIST_STEPS):
-        h0 = time.perf_counter()
-        (loss, _) = exe.run(prog, feed=feed, fetch_list=fetches, scope=scope)
-        host_ms.append((time.perf_counter() - h0) * 1e3)
-        losses.append(float(np.asarray(loss).reshape(-1)[0]))
-        _same_on_every_rank(_fingerprint([scope.get(n) for n in params]),
-                            f"resnet step {len(losses)}")
+    _quant_env(quant)
+    before = profiler.get_int_stats()
+    try:
+        for _ in range(1 if sync_bn else DIST_STEPS):
+            h0 = time.perf_counter()
+            (loss, _) = exe.run(prog, feed=feed, fetch_list=fetches,
+                                scope=scope)
+            host_ms.append((time.perf_counter() - h0) * 1e3)
+            losses.append(float(np.asarray(loss).reshape(-1)[0]))
+            _same_on_every_rank(_fingerprint([scope.get(n) for n in params]),
+                                f"resnet step {len(losses)}")
+    finally:
+        _quant_env(False)
+    after = profiler.get_int_stats()
+    wire = {k: after[k] - before.get(k, 0) for k in after
+            if k == "collective_bytes_c_allreduce_sum"}
     if not all(np.isfinite(losses)):
         raise AssertionError(f"resnet losses {losses}")
     out = dict(losses=losses, host_step_ms=host_ms, rows=k,
                allreduce_ops=n_allreduce, grads=len(params),
                allreduce_bytes=4 * sum(int(scope.get(n).numel())
-                                       for n in params))
+                                       for n in params),
+               wire_bytes=wire)
     if not sync_bn:
         want = _dist_forward_loss(fluid, feed["image"], feed["label"])
         if abs(losses[0] - want) > DIST_FWD_RTOL * abs(want):
@@ -8173,6 +8249,10 @@ def dist_rank(workdir, tag, parts):
     if "resnet" in parts:
         out["resnet"] = _dist_resnet(world, rank, dev, sync_bn=False)
         out["resnet_sync_bn"] = _dist_resnet(world, rank, dev, sync_bn=True)
+        out["resnet_int8"] = _dist_resnet(world, rank, dev, sync_bn=False,
+                                          quant=True)
+        _quant_health("dist resnet int8", out["resnet_int8"],
+                      out["resnet"], "wire_bytes")
     out["rank_s"] = time.perf_counter() - t0
     with open(os.path.join(workdir, f"{tag}.{rank}.json"), "w") as f:
         json.dump(out, f)
@@ -8296,6 +8376,15 @@ def dist():
                         f"{x['allreduce_ops']} c_allreduce_sum for "
                         f"{x['grads']} gradients, {x['allreduce_bytes']} "
                         f"bytes a step")
+                for r, x in enumerate(r["resnet_int8"] for r in runs):
+                    log(f"dist {tag} rank {r}: static ResNet-50 Fleet with "
+                        f"FLAGS_quant_collectives=int8: losses "
+                        f"{x['losses']} (rel err against full width "
+                        f"{x['rel_err_full_width']}, bound "
+                        f"{QUANT_HEALTH_RTOL}); c_allreduce_sum wire bytes "
+                        f"{x['wire_bytes']} in {DIST_STEPS} steps, "
+                        f"{x['wire_drop']:.2f}x fewer than full width; host "
+                        f"ms a step {[round(v, 1) for v in x['host_step_ms']]}")
         want, whole = _dist_one_process(fluid, bert_runs, sbn_runs)
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -8657,7 +8746,7 @@ def _spmd_resnet(world, rank, dev):
     axes = {"data": 1, "fsdp": 2, "tp": 2} if world == 4 else \
         {"data": 1, "fsdp": 2}
 
-    def run(stage=None, mesh_axes=None, replicate=False):
+    def run(stage=None, mesh_axes=None, replicate=False, quant=False):
         opt = fluid.optimizer.Momentum(
             learning_rate=0.1, momentum=0.9,
             regularization=fluid.regularizer.L2Decay(1e-4))
@@ -8680,6 +8769,8 @@ def _spmd_resnet(world, rank, dev):
             loss_name=fetches[0].name)
         feed = mine if (stage is None and mesh_axes is None) else whole
         losses, host_ms = [], []
+        _quant_env(quant)
+        before = profiler.get_int_stats()
         try:
             for _ in range(SPMD_RESNET_STEPS):
                 h0 = time.perf_counter()
@@ -8689,6 +8780,8 @@ def _spmd_resnet(world, rank, dev):
                 losses.append(float(np.asarray(loss).reshape(-1)[0]))
         finally:
             spec_layout.clear_specs()
+            _quant_env(False)
+        after = profiler.get_int_stats()
         fc = next(p.name for p in main.all_parameters()
                   if p.name.startswith("fc") and len(p.shape) == 2)
         acc = [n for n in scope.local_var_names() if "_velocity" in n]
@@ -8698,7 +8791,13 @@ def _spmd_resnet(world, rank, dev):
                    fc=fc, fc_shape=list(scope.get(fc).shape),
                    fc_full=list(main.global_block().var(fc).shape),
                    fc_velocity_shape=list(scope.get(
-                       fc + "_velocity_0").shape))
+                       fc + "_velocity_0").shape),
+                   # the gradients' traffic (the forward's gathers of
+                   # sharded weights stay full width)
+                   spmd_bytes={k: after[k] - before.get(k, 0) for k in after
+                               if k.startswith("collective_bytes_spmd_")
+                               and k.endswith(("all_reduce",
+                                               "reduce_scatter"))})
         if not all(np.isfinite(losses)):
             raise AssertionError(f"resnet losses {losses}")
         del exe, scope
@@ -8708,6 +8807,13 @@ def _spmd_resnet(world, rank, dev):
     runs = {"plain": run(), "stage1": run(stage=1), "stage3": run(stage=3),
             "mesh": run(mesh_axes=axes),
             "mesh_replicated": run(mesh_axes=axes, replicate=True)}
+    # int8 over the batch axes alone ({data: 1, fsdp: ranks}): the tp
+    # axis's average of its ranks' copies stays full width
+    fsdp = {"data": 1, "fsdp": world}
+    runs["fsdp"] = runs["mesh"] if fsdp == axes else run(mesh_axes=fsdp)
+    runs["fsdp_int8"] = run(mesh_axes=fsdp, quant=True)
+    _quant_health("resnet fsdp int8", runs["fsdp_int8"], runs["fsdp"],
+                  "spmd_bytes")
     for tag, base in (("stage1", "plain"), ("stage3", "plain"),
                       ("mesh", "mesh_replicated")):
         got, want = np.array(runs[tag]["losses"]), np.array(
@@ -8729,6 +8835,91 @@ def _spmd_resnet(world, rank, dev):
                              f"and its velocity {m['fc_velocity_shape']}")
     runs["mesh_axes"] = axes
     return runs
+
+
+SPMD_CKPT_STEPS, SPMD_CKPT_PREEMPT = 4, 2
+
+
+def _spmd_ckpt(world, rank, workdir):
+    """A sharded checkpoint on the SPMD arm: the tiny transformer of
+    tests/torch_dist_worker.py over {data: 1, fsdp: ranks} through
+    train_from_dataset with a checkpoint a step (every rank writes the
+    vars dealt to it, the fsdp-split ones gathered whole, host 0
+    commits): one pass whole, one stopped after step SPMD_CKPT_PREEMPT
+    (an exception from step_callback on every rank), a fresh Executor,
+    scope and CompiledProgram resuming it.  The resumed run's losses,
+    parameters and moments must be the uninterrupted run's bits."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    import torch_dist_worker as TW
+
+    from paddle_tpu_torch import convert, fluid
+
+    files = TW.ckpt_files(os.path.join(workdir, f"ckpt_data.{rank}"),
+                          n_files=2 * world, lines=16)
+    axes = {"data": 1, "fsdp": world}
+
+    def run(ckpt, preempt_at=None):
+        main, startup, loss = TW.tiny_program(fluid, unique_name)
+        exe, scope = fluid.Executor(), fluid.Scope()
+        exe.run(startup, scope=scope)
+        bs = fluid.BuildStrategy()
+        bs.mesh_axes = axes
+        prog = fluid.CompiledProgram(main).with_data_parallel(
+            loss_name=loss.name, build_strategy=bs)
+        ds = fluid.DatasetFactory().create_dataset("InMemoryDataset")
+        ds.set_batch_size(8)
+        ds.set_use_var([main.global_block().var("ids"),
+                        main.global_block().var("label")])
+        ds.set_filelist(files)
+        ds.load_into_memory()
+        losses = {}
+
+        def cb(step, k, outs):
+            losses[k] = float(np.asarray(outs[0]).reshape(-1)[0])
+            if k == preempt_at:
+                raise KeyboardInterrupt("preempted")
+
+        try:
+            exe.train_from_dataset(prog, ds, scope=scope, fetch_list=[loss],
+                                   checkpoint_dir=ckpt,
+                                   checkpoint_every_steps=1,
+                                   checkpoint_keep=10, step_callback=cb)
+        except KeyboardInterrupt:
+            pass
+        return losses, convert.gather_sharded_scope(scope, main, prog._mesh)
+
+    root = os.path.join(workdir, "ckpt_spmd")
+    before = profiler.get_int_stats()
+    t_before = profiler.get_time_stats()
+    whole, wfull = run(os.path.join(root, "whole"))
+    saves = profiler.get_int_stats().get("ckpt_saves_total", 0) \
+        - before.get("ckpt_saves_total", 0)
+    t_after = profiler.get_time_stats()
+    part, _ = run(os.path.join(root, "cut"), SPMD_CKPT_PREEMPT)
+    rest, rfull = run(os.path.join(root, "cut"))
+    same = sorted(wfull) == sorted(rfull) and all(
+        np.array_equal(wfull[n], rfull[n]) for n in wfull)
+    steps = list(range(1, SPMD_CKPT_STEPS + 1))
+    ok = (sorted(whole) == steps and sorted(rest) == steps[SPMD_CKPT_PREEMPT:]
+          and all(rest[k] == whole[k] for k in rest)
+          and all(part[k] == whole[k] for k in part) and same)
+    cut = os.path.join(root, "cut")
+    last = os.path.join(cut, sorted(d for d in os.listdir(cut)
+                                    if d.startswith("ckpt-"))[-1])
+    sizes = {f: os.path.getsize(os.path.join(last, f))
+             for f in os.listdir(last) if f.startswith("shard_")}
+    manifest = json.load(open(os.path.join(last, "manifest.json")))
+    out = dict(mesh=axes, whole=whole, part=part, rest=rest, same_bits=same,
+               saves=saves, shard_bytes=sizes.get(
+                   f"shard_{rank:05d}.npz", 0),
+               total_bytes=sum(sizes.values()),
+               writer_ms=(t_after.get("ckpt_save_ms", 0.0)
+                          - t_before.get("ckpt_save_ms", 0.0))
+               / max(saves, 1),
+               mesh_axes=manifest.get("mesh_axes"))
+    if not ok or manifest.get("mesh_axes") != axes:
+        raise AssertionError(f"spmd ckpt rank {rank}: {out}")
+    return out
 
 
 def spmd_rank(workdir, tag, parts):
@@ -8757,6 +8948,8 @@ def spmd_rank(workdir, tag, parts):
                                        0.0, batch, rank == 0)
     if "resnet" in parts:
         out["resnet"] = _spmd_resnet(world, rank, dev)
+    if "ckpt" in parts:
+        out["ckpt"] = _spmd_ckpt(world, rank, workdir)
     out["rank_s"] = time.perf_counter() - t0
     with open(os.path.join(workdir, f"{tag}.{rank}.json"), "w") as f:
         json.dump(out, f)
@@ -8800,7 +8993,8 @@ def spmd():
     try:
         for backend, n, gpus in _spmd_plan(cards):
             tag = f"{backend}{n}"
-            parts = ("bert", "resnet") + (("bert_dp_mp",) if n == 4 else ())
+            parts = ("bert", "resnet", "ckpt") + (("bert_dp_mp",) if n == 4
+                                                  else ())
             env = {"PADDLE_DISTRI_BACKEND": backend,
                    "PYTHONPATH": os.pathsep.join(
                        [root] + [p for p in os.environ.get(
@@ -8853,16 +9047,536 @@ def spmd():
                         + f", accumulator bytes {x[t]['acc_bytes']}, host "
                         f"ms {[round(v, 1) for v in x[t]['host_step_ms']]}"
                         for t in ("plain", "stage1", "stage3", "mesh",
-                                  "mesh_replicated"))
+                                  "mesh_replicated", "fsdp", "fsdp_int8"))
                     + f"; mesh {x['mesh_axes']}: {x['mesh']['fc']} "
                     f"{x['mesh']['fc_shape']} of {x['mesh']['fc_full']}, "
-                    f"its velocity {x['mesh']['fc_velocity_shape']}")
+                    f"its velocity {x['mesh']['fc_velocity_shape']}; "
+                    f"FLAGS_quant_collectives=int8 on {{data: 1, fsdp: "
+                    f"{len(runs)}}}: losses rel err against full width "
+                    f"{x['fsdp_int8']['rel_err_full_width']} (bound "
+                    f"{QUANT_HEALTH_RTOL}), gradient wire bytes "
+                    f"{x['fsdp_int8']['spmd_bytes']} against "
+                    f"{x['fsdp']['spmd_bytes']} "
+                    f"({x['fsdp_int8']['wire_drop']:.2f}x fewer)")
+            for r, x in enumerate(run["ckpt"] for run in runs):
+                log(f"spmd {tag} rank {r}: sharded checkpoint of the tiny "
+                    f"transformer on the SPMD arm {x['mesh']}: losses "
+                    f"{x['whole']} uninterrupted, {x['part']} then "
+                    f"{x['rest']} stopped after step {SPMD_CKPT_PREEMPT} "
+                    f"and resumed; the resumed parameters and moments the "
+                    f"uninterrupted run's bits {x['same_bits']}; "
+                    f"{x['saves']} saves, writer ms a save "
+                    f"{x['writer_ms']:.3f}, bytes a rank a save "
+                    f"{x['shard_bytes']} (of {x['total_bytes']})")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     log("spmd summary: " + json.dumps(dict(card=card, cards=cards,
                                            kernels=tp_rows, runs=results),
                                       default=str))
     return launches, tp_rows
+
+
+# -- sequence parallelism over torch.distributed (phase 30) ----------------------
+
+# the ranks as the spmd phase's: one NCCL group of 4 with four cards, else
+# two gloo ranks sharing card 0; BERT-base at full width, B=32, S=512,
+# hidden dropout 0.1 and attention dropout 0 (ring and Ulysses refuse it)
+SEQ_STEPS = 2
+SEQ_BATCH = 32
+SEQ_DROPOUT = 0.1
+SEQ_MODES = ("ring", "ulysses")
+# the sequence-parallel step (bf16 forward) against one process's on the
+# same batch and seed: the loss, relative, every step (the ring merges
+# bf16 block outputs by their LSE, where one process runs one launch over
+# the keys); and per master leaf, |sp - one process| over |one process's
+# update| (the drift).  A planted fault, rank-local hidden dropout masks
+# (each rank draws the mask of its own tokens' shape, not the whole
+# batch's slice) on the Ulysses step, must exceed both limits.  They sit
+# between the readings on NVIDIA H100 80GB HBM3 cards (700 W; PERF.md),
+# two gloo ranks on one / four NCCL ranks: sound loss rel err at most
+# 3.1e-4 / 3.1e-4 (ring), drift 0.19 / 0.18 (ring); the planted fault's
+# loss 3.8e-3 / 1.2e-2, drift 1.12 / 1.26
+SEQ_LOSS_RTOL = 1e-3
+SEQ_DRIFT_LIMIT = 0.5
+
+
+def _sp_flash(g, n, rows):
+    """The flash kernels at the sequence-parallel shapes of n ranks
+    (BERT-base, B=32, S=512): ring blocks q/k/v (32, 512/n, 12, 64) and
+    Ulysses' head groups (32, 512, 12/n, 64) with key padding, dropout 0.
+    Held against the plain versions: a visiting block at offset 0 (the
+    launch of each ring step) and one launch over the whole keys, O and
+    LSE; the last rank's n blocks merged by their LSE (`merge_blocks`)
+    against that whole launch; the diagonal block in the kernel's causal
+    mode; a visiting block's
+    and the diagonal block's backward against the final O and LSE; the
+    skipped blocks of a causal ring counted by its plan; Ulysses'
+    forward and backward.  Then each timed, beside SDPA at that shape."""
+    from paddle_tpu_torch.parallel.ring_attention import (_blocks,
+                                                          merge_blocks)
+
+    b, s, h, d = 32, SEQ, 12, 64
+    sl, hl, r, scale = s // n, h // n, n - 1, d ** -0.5
+    q, k, v, gr = (_rand(g, b, s, h, d) for _ in range(4))
+    blk = lambda x, j: x[:, j * sl:(j + 1) * sl].contiguous()
+    qr, gq = blk(q, r), blk(gr, r)
+    whole, whole_lse = A.flash_forward(qr, k, v, None, 0, False, None, scale)
+    acc = lse = None
+    for j in range(n):
+        acc, lse = merge_blocks(acc, lse, *A.flash_forward(
+            qr, blk(k, j), blk(v, j), None, 0, False, 0, scale))
+    merged = acc.to(q.dtype)
+    kr, vr, k0, v0 = blk(k, r), blk(v, r), blk(k, 0), blk(v, 0)
+    # the launch each ring step makes: a visiting block at offset 0
+    ov, lv = A.flash_forward(qr, k0, v0, None, 0, False, 0, scale)
+    od, ld = A.flash_forward(qr, kr, vr, None, 0, True, 0, scale)
+    g0 = A.flash_backward(qr, k0, v0, None, 0, merged, lse, gq, False, 0,
+                          scale)
+    gd = A.flash_backward(qr, kr, vr, None, 0, merged, lse, gq, True, 0,
+                          scale)
+    qu, ku, vu, gu = (x[:, :, :hl].contiguous() for x in (q, k, v, gr))
+    bias = _padding_bias(g, b, s)
+    ou, lu = A.flash_forward(qu, ku, vu, bias, 0, False, None, scale)
+    guly = A.flash_backward(qu, ku, vu, bias, 0, ou, lu, gu, False, None,
+                            scale)
+    torch.cuda.synchronize()
+    ref_ov, ref_lv = A.flash_forward_reference(qr, k0, v0, None, 0, False, 0,
+                                               scale)
+    ref_whole, ref_whole_lse = A.flash_forward_reference(
+        qr, k, v, None, 0, False, None, scale)
+    ref_od, ref_ld = A.flash_forward_reference(qr, kr, vr, None, 0, True, 0,
+                                               scale)
+    ref_g0 = A.flash_backward_reference(qr, k0, v0, None, 0, merged, lse, gq,
+                                        False, 0, scale)
+    ref_gd = A.flash_backward_reference(qr, kr, vr, None, 0, merged, lse, gq,
+                                        True, 0, scale)
+    ref_ou, ref_lu = A.flash_forward_reference(qu, ku, vu, bias, 0, False,
+                                               None, scale)
+    ref_gu = A.flash_backward_reference(qu, ku, vu, bias, 0, ou, lu, gu,
+                                        False, None, scale)
+    checks = {
+        "visiting O": close(ov, ref_ov, **BF16_TOL),
+        "visiting LSE": close(lv, ref_lv, **LSE_TOL),
+        "whole O": close(whole, ref_whole, **BF16_TOL),
+        "whole LSE": close(whole_lse, ref_whole_lse, **LSE_TOL),
+        "merge O": close(merged, whole, **BF16_TOL),
+        "merge LSE": close(lse, whole_lse, **LSE_TOL),
+        "diagonal O": close(od, ref_od, **BF16_TOL),
+        "diagonal LSE": close(ld, ref_ld, **LSE_TOL),
+        "ulysses O": close(ou, ref_ou, **BF16_TOL),
+        "ulysses LSE": close(lu, ref_lu, **LSE_TOL)}
+    for tag, got, want in (("visiting", g0, ref_g0), ("diagonal", gd, ref_gd),
+                           ("ulysses", guly, ref_gu)):
+        for name, a, w in zip(("dq", "dk", "dv"), got, want):
+            checks[f"{tag} {name}"] = close_grad(a, w)
+    # a causal ring launches rank j's first j + 1 blocks and skips the rest
+    plan = [len(list(_blocks(n, j, True))) for j in range(n)]
+    checks["causal plan"] = (plan == list(range(1, n + 1)), 0.0)
+    ok = all(c[0] for c in checks.values())
+    log(f"seq flash at {n} ranks: " + "; ".join(
+        f"{k} err {v[1]:.3g}" for k, v in checks.items())
+        + f"; causal ring blocks launched by rank {plan} of {n} "
+        f"{'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        raise AssertionError("the flash kernels at the sequence-parallel "
+                             "shapes")
+    _, dkv_ring, dq_ring = A._flash_bwd_launchers(
+        qr, k0, v0, None, 0, merged, lse, gq, False, 0, scale, 0.0)
+    _, dkv_uly, dq_uly = A._flash_bwd_launchers(
+        qu, ku, vu, bias, 0, ou, lu, gu, False, 0, scale, 0.0)
+    keep = (bias == 0)[:, None, None, :]
+
+    def sdpa_arms(qq, kk, vv, gg, mask):
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (qq, kk, vv))
+        f = lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask)
+        return f, lambda: torch.autograd.grad(f(), (qt, kt, vt),
+                                              gg.transpose(1, 2))
+
+    ring_sdpa, ring_sdpa_fb = sdpa_arms(qr, k0, v0, gq, None)
+    uly_sdpa, uly_sdpa_fb = sdpa_arms(qu, ku, vu, gu, keep)
+    arms = {"ring_fwd": lambda: A.flash_forward(qr, k0, v0, None, 0, False,
+                                                0, scale),
+            "ring_dkv": dkv_ring, "ring_dq": dq_ring,
+            "ring_sdpa": ring_sdpa, "ring_sdpa_fb": ring_sdpa_fb,
+            "uly_fwd": lambda: A.flash_forward(qu, ku, vu, bias, 0, False,
+                                               None, scale),
+            "uly_dkv": dkv_uly, "uly_dq": dq_uly,
+            "uly_sdpa": uly_sdpa, "uly_sdpa_fb": uly_sdpa_fb}
+    times = K4.graphs_ms({key: (lambda fn=fn: [fn() for _ in range(2)])
+                          for key, fn in arms.items()}, 2)
+    plain = {
+        "ring_fwd": time_ms(lambda: A.flash_forward_reference(
+            qr, k0, v0, None, 0, False, 0, scale), iters=2, warmup=1),
+        "ring_bwd": time_ms(lambda: A.flash_backward_reference(
+            qr, k0, v0, None, 0, merged, lse, gq, False, 0, scale), iters=2,
+            warmup=1),
+        "uly_fwd": time_ms(lambda: A.flash_forward_reference(
+            qu, ku, vu, bias, 0, False, None, scale), iters=2, warmup=1),
+        "uly_bwd": time_ms(lambda: A.flash_backward_reference(
+            qu, ku, vu, bias, 0, ou, lu, gu, False, None, scale), iters=2,
+            warmup=1)}
+    errs = {("ring", "flash_fwd"): ("visiting O", "diagonal O"),
+            ("ring", "flash_bwd_dkv"): ("visiting dk", "visiting dv",
+                                        "diagonal dk", "diagonal dv"),
+            ("ring", "flash_bwd_dq"): ("visiting dq", "diagonal dq"),
+            ("ulysses", "flash_fwd"): ("ulysses O",),
+            ("ulysses", "flash_bwd_dkv"): ("ulysses dk", "ulysses dv"),
+            ("ulysses", "flash_bwd_dq"): ("ulysses dq",)}
+    for mode, tag, sk, heads, kb in (("ring", "ring", sl, h, 0),
+                                     ("ulysses", "uly", s, hl, 1)):
+        sq = sl if mode == "ring" else s
+        qb = b * sq * heads * d * 2
+        kvb = b * sk * heads * d * 2
+        product = 2 * b * heads * sq * sk * d
+        rows_bytes = 2 * b * heads * sq * 4 + kb * b * sk * 4
+        shape = (f"q ({b},{sq},{heads},{d}) k/v ({b},{sk},{heads},{d}) "
+                 f"bf16" + (", key padding" if kb else "")
+                 + f", {n} ranks")
+        lib_b = times[f"{tag}_sdpa_fb"] - times[f"{tag}_sdpa"]
+        for name, key, n_products, nbytes, plain_ms, lib in (
+                ("flash_fwd", "fwd", 2, 2 * qb + 2 * kvb + kb * b * sk * 4
+                 + b * heads * sq * 4, plain[f"{tag}_fwd"],
+                 times[f"{tag}_sdpa"]),
+                ("flash_bwd_dkv", "dkv", 4, 2 * qb + 4 * kvb + rows_bytes,
+                 plain[f"{tag}_bwd"], lib_b),
+                ("flash_bwd_dq", "dq", 3, 3 * qb + 2 * kvb + rows_bytes,
+                 plain[f"{tag}_bwd"], lib_b)):
+            bound_ms, bound_by = bound(n_products * product, nbytes)
+            rows[name][mode] = dict(
+                ms=times[f"{tag}_{key}"], plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=lib,
+                shape=shape, max_abs_err=max(
+                    checks[c][1] for c in errs[mode, name]))
+
+
+def _sp_ffn(g, n, rows):
+    """The FFN kernels on a sequence rank's tokens (the last of n): x
+    (32 * 512/n, 768), d_ff 3072, dropout 0.1, the hash's row map
+    (period 512/n, stride 512, offset the rank's first token): ffn_act's
+    masks the whole batch's sliced bit for bit, ffn_fwd and both
+    backward kernels against their plain versions under the map (and
+    other bits than without it); then timed at that shape."""
+    b, hid, ff, p, seed = 32, 768, 3072, SEQ_DROPOUT, 33
+    sl = SEQ // n
+    t, rmap = b * sl, (sl, SEQ, (n - 1) * sl)
+    pre_w, b1 = _rand(g, b * SEQ, ff, scale=2.0), _rand(g, ff, scale=0.1)
+    h_w = F.ffn_act_fwd(pre_w, b1, "gelu", p, seed)
+    mine = lambda x: x.view(b, SEQ, -1)[:, rmap[2]:rmap[2] + sl].reshape(
+        t, -1).contiguous()
+    pre = mine(pre_w)
+    h = F.ffn_act_fwd(pre, b1, "gelu", p, seed, 0, rmap)
+    torch.cuda.synchronize()
+    same = torch.equal(h, mine(h_w))
+    del pre_w, h_w
+    x = _rand(g, t, hid)
+    w1, w2 = _rand(g, hid, ff, scale=0.03), _rand(g, ff, hid, scale=0.03)
+    b2 = torch.zeros(hid, dtype=torch.bfloat16, device="cuda")
+    go = _rand(g, t, hid)
+    out = F.ffn_forward(x, w1, b1, w2, b2, "gelu", p, seed, 0, rmap)
+    out0 = F.ffn_forward(x, w1, b1, w2, b2, "gelu", p, seed)
+    grads = F.ffn_backward(x, w1, b1, w2, b2, seed, go, "gelu", p, 0, rmap)
+    torch.cuda.synchronize()
+    ok_f, err_f = close(out, F.ffn_forward_reference(
+        x, w1, b1, w2, b2, "gelu", p, seed, 0, *rmap), **BF16_TOL)
+    want = F.ffn_backward_reference(x, w1, b1, w2, b2, seed, go, "gelu", p,
+                                    0, rmap)
+    gchecks = {k: close_grad(a, w_) for k, a, w_ in zip(
+        ("dx", "dw1", "db1", "dw2", "db2"), grads, want)}
+    moved = not torch.equal(out, out0)
+    ok = same and ok_f and moved and all(c[0] for c in gchecks.values())
+    log(f"seq ffn at the last of {n} sequence ranks (T={t}, row map "
+        f"{rmap}, p={p}): ffn_act's bits the whole batch's sliced {same}; "
+        f"ffn_fwd err {err_f:.3g}, other bits than no map {moved}; "
+        + " ".join(f"{k} err {c[1]:.3g}" for k, c in gchecks.items())
+        + f" {'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        raise AssertionError("the FFN kernels under a sequence row map")
+    _, launch_dw, launch_dx = F._ffn_bwd_launchers(
+        x, w1, b1, w2, b2, seed, go, "gelu", p, 0, rmap)
+    gelu = torch.nn.functional.gelu
+    times = K4.graphs_ms({
+        "fwd": lambda: [F.ffn_forward(x, w1, b1, w2, b2, "gelu", p, seed, 0,
+                                      rmap) for _ in range(2)],
+        "dw": lambda: [launch_dw() for _ in range(2)],
+        "dx": lambda: [launch_dx() for _ in range(2)],
+        "library_fwd": lambda: [torch.addmm(b2, gelu(torch.addmm(b1, x, w1)),
+                                            w2) for _ in range(2)]}, 2)
+    plain_f = time_ms(lambda: F.ffn_forward_reference(
+        x, w1, b1, w2, b2, "gelu", p, seed, 0, *rmap), iters=2, warmup=1)
+    plain_b = time_ms(lambda: F.ffn_backward_reference(
+        x, w1, b1, w2, b2, seed, go, "gelu", p, 0, rmap), iters=2, warmup=1)
+    mm = 2 * t * hid * ff
+    act_bytes, weight_bytes = t * hid * 2, hid * ff * 2
+    shape = (f"x ({t},{hid}) W1 ({hid},{ff}) W2 ({ff},{hid}) bf16, the last "
+             f"of {n} sequence ranks' tokens, gelu, dropout {p}")
+    for name, key, flops, nbytes, plain_ms, lib, err in (
+            ("ffn_fwd", "fwd", 2 * mm,
+             2 * act_bytes + 2 * weight_bytes + (ff + hid) * 2, plain_f,
+             times["library_fwd"], err_f),
+            ("ffn_bwd_dw", "dw", 4 * mm,
+             2 * act_bytes + 4 * weight_bytes + 2 * ff * 2, plain_b, None,
+             max(gchecks[k][1] for k in ("dw1", "db1", "dw2"))),
+            ("ffn_bwd_dx", "dx", 3 * mm,
+             3 * act_bytes + 2 * weight_bytes + ff * 2, plain_b, None,
+             gchecks["dx"][1])):
+        bound_ms, bound_by = bound(flops, nbytes)
+        rows[name]["sequence"] = dict(
+            ms=times[key], plain_ms=plain_ms, bound_ms=bound_ms,
+            bound_by=bound_by, library_ms=lib, shape=shape, max_abs_err=err)
+
+
+# leaves whose gradient is 0 in exact arithmetic (a key bias adds the
+# same score to every key of a row, and the softmax drops it): their
+# update is rounding noise that AdamW scales to the learning rate
+SEQ_DRIFT_EXEMPT = ("self_attn.k_proj.bias",)
+
+
+def _master_drift(got, want, init):
+    """Per master leaf, |got - want| over |want - init| (Frobenius): how
+    far a run's masters stand from one process's, against how far one
+    process's moved.  Returns (the largest over the leaves not in
+    SEQ_DRIFT_EXEMPT, its leaf, the median over every leaf)."""
+    drift = {}
+    for k, w in want.items():
+        moved = float((w - init[k]).norm())
+        off = float((got[k] - w).norm())
+        drift[k] = off / moved if moved else (0.0 if off == 0 else
+                                              float("inf"))
+    held = {k: v for k, v in drift.items()
+            if not k.endswith(SEQ_DRIFT_EXEMPT)}
+    worst = max(held, key=held.get)
+    return held[worst], worst, float(np.median(list(drift.values())))
+
+
+class _rank_local_masks:
+    """The planted fault of the seq phase's control run: every dropout
+    draws the mask of the rank's own tokens' shape, as if the rank's
+    tokens were the whole sequence (F.dropout's sequence slice undone)."""
+
+    def __enter__(self):
+        self.body = pF._dropout_body
+        pF._dropout_body = lambda x, p, training, upscale, gen, seq=None: \
+            self.body(x, p, training, upscale, gen, None)
+
+    def __exit__(self, *exc):
+        pF._dropout_body = self.body
+
+
+def _seq_bert(world, rank, dev, mode, one_process, control=False):
+    """BERT-base's sequence-parallel step at full width on {dp: 1, sp:
+    ranks} with `mode` attention (ring: the batch's rows unpadded), bf16
+    over f32 masters, hidden dropout SEQ_DROPOUT: SEQ_STEPS steps on this
+    rank's tokens, the launch counters at 0 just before and read just
+    after; the masters' bits the same on every rank.  With `control`,
+    then the same steps again from the start with the planted fault
+    (`_rank_local_masks`).  With `one_process` (rank 0) the one-process
+    step on the whole batch, after, and each run's losses and master
+    drift against it."""
+    from paddle_tpu_torch.parallel import mesh as M
+
+    cfg = bert.BertConfig.base(hidden_dropout_prob=SEQ_DROPOUT,
+                               attention_probs_dropout_prob=0.0)
+    model = bert.BertForPretraining(cfg, seed=0)
+    mesh = M.make_mesh({"dp": 1, "sp": world})
+    build = lambda: bert.build_pretrain_step(
+        model, mesh=mesh, dp_axis="dp", sp_axis="sp",
+        use_ring_attention=mode == "ring", use_ulysses=mode == "ulysses")
+    step, state = build()
+    init = {k: v.clone() for k, v in state["params"].items()} \
+        if one_process else None
+    fb = bert.fake_batch(cfg, SEQ_BATCH, SEQ, num_masked=DIST_BERT_MASKED,
+                         seed=11)
+    if mode == "ring":
+        fb["attention_mask"][:] = 1
+    mine = {k: torch.from_numpy(v).to(dev) for k, v in M.shard_host_batch(
+        mesh, fb, seq_keys=bert.SEQ_KEYS).items()}
+    torch.cuda.synchronize()
+    before = profiler.get_int_stats()
+    for c in COUNTERS.values():
+        c.reset()
+    # -- the main path: counters at 0 before, read right after --------------
+    losses, step_ms = [], []
+    for _ in range(SEQ_STEPS):
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        state, loss = step(state, mine, TRAIN_LR)
+        e1.record()
+        torch.cuda.synchronize()
+        step_ms.append(e0.elapsed_time(e1))
+        losses.append(float(loss))
+    launches = {k: c.value for k, c in COUNTERS.items()}
+    # ------------------------------------------------------------------------
+    after = profiler.get_int_stats()
+    blocks = world if mode == "ring" else 1  # non-causal: every block
+    want = {k: LAYERS * SEQ_STEPS * (blocks if k.startswith("flash") else 1)
+            for k in TRAIN_KERNELS}
+    got = {k: launches.get(k, 0) for k in want}
+    others = {k: v for k, v in launches.items() if k not in want and v}
+    if got != want or others:
+        raise AssertionError(f"{mode}: launches {launches} (want {want})")
+    _same_on_every_rank(_fingerprint([state["params"][k]
+                                      for k in sorted(state["params"])]),
+                        f"BERT sp {mode}: masters")
+    moved = {k: (after.get(k, 0) - before.get(k, 0)) // SEQ_STEPS
+             for k in ("seq_parallel_ring_bytes",
+                       "seq_parallel_all_to_all_bytes")}
+    out = dict(mode=mode, losses=losses, step_ms=step_ms, launches=launches,
+               tokens=list(mine["input_ids"].shape), bytes_a_step=moved)
+    runs = {"sound": (losses, state["params"])}
+    del state, step
+    if control:
+        step, state = build()
+        planted = []
+        with _rank_local_masks():
+            for _ in range(SEQ_STEPS):
+                state, loss = step(state, mine, TRAIN_LR)
+                planted.append(float(loss))
+        runs["planted"] = (planted, state["params"])
+        del state, step
+    del mine
+    if one_process:
+        step1, st1 = bert.build_pretrain_step(model)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in fb.items()}
+        ref = []
+        for _ in range(SEQ_STEPS):
+            st1, loss = step1(st1, batch, TRAIN_LR)
+            ref.append(float(loss))
+        out["one_process"] = ref
+        for tag, (run_losses, masters) in runs.items():
+            worst, leaf, median = _master_drift(masters, st1["params"], init)
+            out[tag] = dict(losses=run_losses, loss_rel=max(
+                abs(a - b) / abs(b) for a, b in zip(run_losses, ref)),
+                drift=worst, drift_leaf=leaf, drift_median=median)
+        del st1, step1, batch
+    del runs, init, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def seq_rank(workdir, tag, parts):
+    """One rank of the seq phase (started by distributed.spawn), as
+    spmd_rank: writes what it measured to workdir/tag.RANK.json.  The
+    last mode of `parts` also runs the planted-fault control."""
+    import paddle_tpu_torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    F.enable_fused_ffn()
+    env = dist.init_parallel_env()
+    dev = dist.parallel.device()
+    rank, world = env.rank, env.world_size
+    out = dict(rank=rank, world=world, backend=dist.parallel.backend(),
+               device=str(dev), card=card_line())
+    t0 = time.perf_counter()
+    for mode in parts:
+        out[mode] = _seq_bert(world, rank, dev, mode, rank == 0,
+                              control=mode == parts[-1])
+    out["rank_s"] = time.perf_counter() - t0
+    with open(os.path.join(workdir, f"{tag}.{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_parallel_env()
+
+
+@phase("seq")
+def seq():
+    """Phase 30: sequence parallelism.  The flash and FFN kernels at the
+    ring's, Ulysses' and a sequence rank's shapes against their plain
+    versions, timed there; then ranks started by distributed.spawn:
+    BERT-base's sequence-parallel step over {dp: 1, sp: ranks} with ring
+    attention and with Ulysses at full width (B=32, S=512, hidden
+    dropout 0.1), its losses and master drift against the one-process
+    step, and a planted fault that the drift must catch.
+    Returns (rank 0's launches of both runs, the kernels' rows at the
+    sequence-parallel shapes)."""
+    import importlib
+
+    import paddle_tpu_torch.distributed as dist_mod
+
+    cards = torch.cuda.device_count()
+    plan = _spmd_plan(cards)
+    g = torch.Generator().manual_seed(30)
+    sp_rows = {n: {} for n in TRAIN_KERNELS}
+    _sp_flash(g, plan[0][1], sp_rows)
+    torch.cuda.empty_cache()
+    _sp_ffn(g, plan[0][1], sp_rows)
+    torch.cuda.empty_cache()
+    for name, modes in sp_rows.items():
+        for mode, r in modes.items():
+            lib = "none" if r["library_ms"] is None else \
+                f"{r['library_ms']:.4f}"
+            log(f"seq {name} {mode}: {r['ms']:.4f} ms (plain "
+                f"{r['plain_ms']:.4f}, library {lib}, bound "
+                f"{r['bound_ms']:.4f} {r['bound_by']}) at {r['shape']}")
+    card = card_line()
+    rank_fn = importlib.import_module("chip_smoke").seq_rank
+    root = str(Path(__file__).resolve().parent)
+    work = tempfile.mkdtemp(prefix="seq_")
+    launches, results = None, {}
+    try:
+        for backend, n, gpus in plan:
+            tag = f"{backend}{n}"
+            env = {"PADDLE_DISTRI_BACKEND": backend,
+                   "PYTHONPATH": os.pathsep.join(
+                       [root] + [p for p in os.environ.get(
+                           "PYTHONPATH", "").split(os.pathsep) if p])}
+            t0 = time.perf_counter()
+            dist_mod.spawn(rank_fn, args=(work, tag, SEQ_MODES), nprocs=n,
+                           gpus=gpus, env=env)
+            wall = time.perf_counter() - t0
+            runs = [json.load(open(os.path.join(work, f"{tag}.{r}.json")))
+                    for r in range(n)]
+            results[tag] = runs
+            log(f"seq {tag}: backend {backend}, world {n}, cards {gpus}; "
+                f"spawn to exit {wall:.1f} s; ranks "
+                f"{[round(r['rank_s'], 1) for r in runs]} s of work")
+            launches = {k: sum(runs[0][m]["launches"][k] for m in SEQ_MODES)
+                        for k in runs[0][SEQ_MODES[0]]["launches"]}
+            for mode in SEQ_MODES:
+                b = [r[mode] for r in runs]
+                for r, x in enumerate(b):
+                    log(f"seq {tag} rank {r}: BERT-base {mode} B={SEQ_BATCH}"
+                        f" tokens {x['tokens']} of S={SEQ}: losses "
+                        f"{x['losses']}; step ms (CUDA events) "
+                        f"{[round(v, 3) for v in x['step_ms']]}; bytes a "
+                        f"step {x['bytes_a_step']}; launches "
+                        f"{x['launches']}")
+                x = b[0]
+                log(f"seq {tag}: BERT-base {mode} losses {x['losses']} "
+                    f"against one process {x['one_process']}: rel err "
+                    f"{x['sound']['loss_rel']:.3g} (rtol {SEQ_LOSS_RTOL}); "
+                    f"master drift {x['sound']['drift']:.4g} at "
+                    f"{x['sound']['drift_leaf']} (median "
+                    f"{x['sound']['drift_median']:.4g}, limit "
+                    f"{SEQ_DRIFT_LIMIT})")
+                if "planted" in x:
+                    c = x["planted"]
+                    log(f"seq {tag}: control, {mode} with rank-local "
+                        f"dropout masks: losses {c['losses']}, rel err "
+                        f"{c['loss_rel']:.3g}; master drift "
+                        f"{c['drift']:.4g} at {c['drift_leaf']} (median "
+                        f"{c['drift_median']:.4g}): caught by the loss "
+                        f"{c['loss_rel'] > SEQ_LOSS_RTOL}, by the drift "
+                        f"{c['drift'] > SEQ_DRIFT_LIMIT}")
+            for mode in SEQ_MODES:
+                x = runs[0][mode]
+                if x["sound"]["loss_rel"] > SEQ_LOSS_RTOL or \
+                        x["sound"]["drift"] > SEQ_DRIFT_LIMIT:
+                    raise AssertionError(f"{tag} {mode}: the sequence-"
+                                         "parallel step parts from one "
+                                         "process")
+                c = x.get("planted")
+                if c is not None and (c["loss_rel"] <= SEQ_LOSS_RTOL or
+                                      c["drift"] <= SEQ_DRIFT_LIMIT):
+                    raise AssertionError(f"{tag} {mode}: a check passes "
+                                         "the planted fault")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log("seq summary: " + json.dumps(dict(card=card, cards=cards,
+                                          kernels=sp_rows, runs=results),
+                                     default=str))
+    return launches, sp_rows
 
 
 def tensor_methods_ab(cycles=2):
@@ -8947,6 +9661,9 @@ def main():
     if "--spmd" in sys.argv[1:]:
         spmd()
         sys.exit(1 if FAILURES else 0)
+    if "--seq" in sys.argv[1:]:
+        seq()
+        sys.exit(1 if FAILURES else 0)
     if "--tensor-methods-ab" in sys.argv[1:]:
         tensor_methods_ab()
         sys.exit(1 if FAILURES else 0)
@@ -8979,12 +9696,13 @@ def main():
     feed_path = feed()
     dist_path = dist()
     spmd_out = spmd()
+    seq_out = seq()
     if FAILURES or None in (rows, probed, served, decoded, trained, library,
                             resnet_path, fluid_path, wmt_paths, hapi_path,
                             dygraph_path, s2s_paths, srl_paths,
                             mobile_paths, gan_path, static_paths, amp_path,
                             ssd_path, ctr_path, deploy_path, capi_path,
-                            feed_path, dist_path, spmd_out):
+                            feed_path, dist_path, spmd_out, seq_out):
         log(f"FAILED phases: {FAILURES}")
         print(f"FAILED phases: {FAILURES}", file=sys.stderr, flush=True)
         sys.exit(1)
@@ -8996,7 +9714,8 @@ def main():
              **srl_paths, **mobile_paths, "cyclegan": gan_path,
              **static_paths, "fluid_amp": amp_path, "ssd": ssd_path,
              "ctr": ctr_path, "deploy": deploy_path, "capi": capi_path,
-             "feed": feed_path, "dist": dist_path, "spmd": spmd_out[0]}
+             "feed": feed_path, "dist": dist_path, "spmd": spmd_out[0],
+             "seq": seq_out[0]}
     for r in rows:
         # `launches` is the count on the path where the kernel runs: the
         # probe for its three kernels, the decode path for ragged_paged,
@@ -9013,6 +9732,10 @@ def main():
             # its time, bound and library call at a tensor-parallel
             # rank's shape and offsets (the spmd phase)
             r["tensor_parallel"] = spmd_out[1][name]
+        if name in seq_out[1]:
+            # the same at the ring's, Ulysses' and a sequence rank's
+            # shapes (the seq phase)
+            r["sequence_parallel"] = seq_out[1][name]
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

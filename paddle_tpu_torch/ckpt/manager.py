@@ -16,9 +16,11 @@ training:
   sees is this enqueue, plus backpressure when `max_in_flight` snapshots
   are pending (`ckpt_stall_ms`).
 * **Writer thread** (`_write_job`): wait on the snapshot's event, write
-  `shard_00000.npz`, fsync, write the manifest last, fsync, and publish
-  the tmp dir with one atomic rename (`ckpt.manifest`).  Then remove
-  checkpoints older than `keep` and any tmp dirs a killed run left.
+  this host's `shard_<index>.npz`, fsync, meet the other hosts (every
+  shard on disk before the manifest names it), and on host 0 write the
+  manifest last, fsync, and publish the tmp dir with one atomic rename
+  (`ckpt.manifest`).  Then remove checkpoints older than `keep` and any
+  tmp dirs a killed run left.
   The pinned buffers come from PyTorch's caching host allocator, which
   keeps them when a write is done, so a steady cadence allocates no new
   pinned memory.
@@ -30,12 +32,29 @@ thread a job), `ckpt_snapshot_bytes` (bytes copied but not yet written),
 `ckpt_snapshots_total`, `ckpt_saves_total`, `ckpt_gc_count`,
 `ckpt_restore_count`.
 
-One process: `process_count` above 1 raises NotImplementedError until
-ROADMAP queue 1 item 10b (ii) brings per-host shards and their barrier, so
-the rendezvous before the commit has nothing to wait for, and the
-manifest records no mesh axes.  Restore returns `(state, manifest)` with every value a CPU
-tensor of the manifest's dtype; it refuses partial checkpoints and (with
-`strict_topology`) ones written by another process count.
+Several processes (the reference's per-host shards): host i (the
+group's rank, or `process_index`) writes `shard_<i>.npz` holding the
+whole vars that `manifest.shard_assignment` deals to it, host 0 commits.
+A var laid out over the mesh arrives as this rank's shard: a DTensor
+(its placements) or a tensor named in `save_async`'s `specs` (the SPMD
+arm's scope).  Every rank gathers each such var in one fixed order (by
+name) on the training thread, its owner keeps the whole, and the
+manifest records its `spec` and, when some var has one, the live
+`mesh_axes`.  The hosts meet before the commit through the group's store
+(`comm.store_barrier`), not a collective: the writer thread's rendezvous
+cannot then fall out of step with the training thread's collectives.
+Without a live group the rendezvous is a no-op (a mocked topology).  So a
+checkpoint written by the port is read by `paddle_tpu.ckpt` and the
+other way round.
+
+Restore returns `(state, manifest)` with every value a CPU tensor of the
+manifest's dtype; it refuses partial checkpoints and (with
+`strict_topology`) ones written by another process count or under other
+mesh axes, naming both.  A checkpoint that records its mesh axes, restored
+by as many processes, is read owned-shards-only: each host reads only its
+own file (`_AutoCheckpoint` exchanges them so that every rank seats its
+slices).  `strict_topology=False` loads the weights whatever the
+topology.
 """
 
 from __future__ import annotations
@@ -54,29 +73,57 @@ from . import manifest as mf
 from .manifest import CheckpointError
 from .writer import WriterPool
 
-MULTI_PROCESS = ("checkpoints over more than one process (per-host shards "
-                 "and their barrier) wait for ROADMAP queue 1 item 10b (ii)")
-
-
 def _host_topology(process_index, process_count) -> Tuple[int, int]:
     from ..dataset.feed_pipeline import host_topology
 
-    index, count = host_topology(process_index, process_count)
-    if count > 1:
-        raise NotImplementedError(f"{count} processes: {MULTI_PROCESS}")
-    return index, count
+    return host_topology(process_index, process_count)
+
+
+def _current_mesh_axes() -> Optional[Dict[str, int]]:
+    """{axis: size} of the current mesh (parallel/mesh.current_mesh), or
+    None outside one: the manifest records it, and restore checks it."""
+    from ..parallel import mesh as mesh_lib
+
+    m = mesh_lib.current_mesh()
+    if m is None:
+        return None
+    return {str(k): int(v) for k, v in m.shape.items()}
 
 
 def _barrier(count: int, tag: str) -> None:
-    """Rendezvous before the commit: a no-op for one process (more are
-    refused by `_host_topology`)."""
-    if count > 1:
-        raise NotImplementedError(f"{tag}: {MULTI_PROCESS}")
+    """Rendezvous before host 0 commits: every shard on (shared) disk
+    before the manifest names it.  One process, or no live group (a
+    mocked topology): a no-op."""
+    from ..distributed import comm
+
+    if count > 1 and comm.live():
+        comm.store_barrier(tag, count)
 
 
 def _var_meta(name: str, val, shard: int) -> Dict[str, Any]:
     return {"shape": list(val.shape), "dtype": mf.dtype_name(val),
             "shard": shard}
+
+
+def _whole(val, spec):
+    """(the whole tensor, its spec or None) of a value laid out over the
+    mesh: a DTensor by its placements, a tensor named in `specs` (this
+    rank's shard) by gathering over the current mesh; else (val, None).
+    Every rank calls this for the same vars in the same order."""
+    from torch.distributed.tensor import DTensor
+
+    from ..parallel import spec_layout
+
+    if isinstance(val, DTensor):
+        sp = spec_layout.spec_from_placements(
+            val.placements, val.device_mesh.mesh_dim_names)
+        return val.full_tensor(), (sp if tuple(sp) else None)
+    if spec is not None and tuple(spec):
+        from ..parallel import compiler, mesh as mesh_lib
+
+        return compiler.gather_full(val, spec,
+                                    mesh_lib.current_mesh()), spec
+    return val, None
 
 
 class _Snapshot:
@@ -114,41 +161,56 @@ class CheckpointManager:
 
     # -- save (training thread) ----------------------------------------------
     def save_async(self, state: Dict[str, Any], step: int,
-                   meta: Optional[Dict[str, Any]] = None) -> None:
+                   meta: Optional[Dict[str, Any]] = None,
+                   specs: Optional[Dict[str, Any]] = None) -> None:
         """Snapshot `state` at this step boundary and return; the write
-        happens on the writer thread."""
+        happens on the writer thread.  `specs` maps the names of the
+        values that are this rank's shards over the current mesh to their
+        PartitionSpecs (a DTensor carries its own)."""
         flow = obs.TRACER.new_flow() if obs.TRACER.enabled else 0
         with obs.span("ckpt.snapshot", flow=flow), \
                 profiler.timed("ckpt_stall_ms"):
-            snap, var_meta = self._snapshot(state)
+            snap, var_meta = self._snapshot(state, specs or {})
         job_meta = dict(meta or {})
         step = int(step)
+        # the layout, read on the training thread: the writer records the
+        # topology the snapshot was taken under
+        mesh_axes = _current_mesh_axes()
         profiler.stat_add("ckpt_snapshot_bytes", snap.nbytes)
         self._pool.submit(
-            lambda: self._write_job(snap, var_meta, step, job_meta),
+            lambda: self._write_job(snap, var_meta, step, job_meta,
+                                    mesh_axes),
             flow=flow)
         profiler.stat_add("ckpt_snapshots_total")
 
     def save(self, state: Dict[str, Any], step: int,
-             meta: Optional[Dict[str, Any]] = None) -> str:
+             meta: Optional[Dict[str, Any]] = None,
+             specs: Optional[Dict[str, Any]] = None) -> str:
         """Synchronous save: snapshot, write, commit; returns the committed
         checkpoint's path."""
-        self.save_async(state, step, meta)
+        self.save_async(state, step, meta, specs)
         self.wait()
         return os.path.join(self.root, mf.checkpoint_dir_name(step))
 
-    def _snapshot(self, state: Dict[str, Any]):
-        """This step's copy of `state` (see the module's docstring) and
-        the manifest's description of every var."""
+    def _snapshot(self, state: Dict[str, Any], specs: Dict[str, Any]):
+        """This host's copy of its vars of `state` (see the module's
+        docstring) and the manifest's description of every var."""
+        from ..parallel import spec_layout
+
         assignment = mf.shard_assignment(state.keys(), self._count)
         snap, var_meta, on_card = _Snapshot(), {}, []
-        for name in sorted(state):
+        for name in sorted(state):  # one collective order on every rank
             val = state[name]
             if val is None:
                 continue
             if not isinstance(val, torch.Tensor):
                 val = np.array(val)
+                spec = None
+            else:
+                val, spec = _whole(val, specs.get(name))
             var_meta[name] = _var_meta(name, val, assignment[name])
+            if spec is not None:
+                var_meta[name]["spec"] = spec_layout.spec_to_json(spec)
             if assignment[name] != self._index:
                 continue
             if isinstance(val, torch.Tensor) and val.is_cuda:
@@ -184,7 +246,8 @@ class CheckpointManager:
 
     # -- write (writer thread) -----------------------------------------------
     def _write_job(self, snap: _Snapshot, var_meta, step: int,
-                   meta: Dict[str, Any]) -> None:
+                   meta: Dict[str, Any],
+                   mesh_axes: Optional[Dict[str, int]] = None) -> None:
         tmp = os.path.join(self.root, mf.tmp_dir_name(step))
         os.makedirs(tmp, exist_ok=True)
         try:
@@ -200,8 +263,18 @@ class CheckpointManager:
         finally:
             profiler.stat_add("ckpt_snapshot_bytes", -snap.nbytes)
             snap.values.clear()  # the pinned buffers go back to the cache
-        _barrier(self._count, f"ckpt-shards-{step}")
-        mf.write_manifest(tmp, {
+        _barrier(self._count, f"ckpt-shards:{self.root}:{step}")
+        if self._index == 0:
+            self._commit(tmp, var_meta, step, meta, mesh_axes)
+        # host 0 commits; every host returns once the checkpoint is
+        # published (so that a synchronous save reads back on each)
+        _barrier(self._count, f"ckpt-commit:{self.root}:{step}")
+        profiler.stat_add("ckpt_saves_total")
+
+    def _commit(self, tmp, var_meta, step, meta, mesh_axes) -> None:
+        """Host 0: the manifest written last, the tmp dir published, the
+        retention applied."""
+        manifest = {
             "format": mf.MANIFEST_FORMAT,
             "step": step,
             "time": time.time(),
@@ -210,13 +283,17 @@ class CheckpointManager:
             "vars": var_meta,
             "flag_signature": mf.flag_signature(),
             "meta": meta,
-        })
+        }
+        # the layout only where the state is laid out (some var carries a
+        # spec): a replicated checkpoint keeps the merge-all format
+        if mesh_axes and any("spec" in m for m in var_meta.values()):
+            manifest["mesh_axes"] = mesh_axes
+        mf.write_manifest(tmp, manifest)
         final = os.path.join(self.root, mf.checkpoint_dir_name(step))
         if os.path.exists(final):
             shutil.rmtree(final)
         os.replace(tmp, final)  # atomic publish: manifest exists => complete
         mf.fsync_dir(self.root)
-        profiler.stat_add("ckpt_saves_total")
         self._gc(step)
 
     def _gc(self, committed_step: int) -> None:
@@ -265,7 +342,10 @@ class CheckpointManager:
                 ) -> Tuple[Dict[str, torch.Tensor], Dict[str, Any]]:
         """`(state, manifest)` from `path` (default: the newest complete
         checkpoint under the root).  Refuses partial checkpoints and, with
-        `strict_topology`, ones written by another process count."""
+        `strict_topology`, ones written by another process count or under
+        other mesh axes; a checkpoint that records its mesh axes, restored
+        by as many processes (more than one), loads this host's own shard
+        file only."""
         if path is None:
             path = self.latest()
             if path is None:
@@ -280,7 +360,20 @@ class CheckpointManager:
                 f"per-host shards do not re-deal across host counts "
                 f"(restore with strict_topology=False to load weights "
                 f"only, e.g. for serving reload)")
-        state = _load_shards(path, manifest)
+        saved_axes = manifest.get("mesh_axes")
+        live_axes = _current_mesh_axes()
+        if strict_topology and saved_axes and live_axes \
+                and dict(saved_axes) != dict(live_axes):
+            raise CheckpointError(
+                f"{path}: topology mismatch — checkpoint expects mesh "
+                f"axes {dict(saved_axes)}, found {dict(live_axes)}; the "
+                f"recorded partition layout does not re-seat across mesh "
+                f"shapes (restore with strict_topology=False to load "
+                f"weights only)")
+        owned_only = bool(saved_axes) and strict_topology \
+            and saved_count == self._count and self._count > 1
+        state = _load_shards(path, manifest,
+                             self._index if owned_only else None)
         sig, saved_sig = mf.flag_signature(), manifest.get(
             "flag_signature", "")
         if saved_sig and saved_sig != sig:
@@ -292,12 +385,20 @@ class CheckpointManager:
         return state, manifest
 
 
-def _load_shards(path: str, manifest: Dict[str, Any]
-                 ) -> Dict[str, torch.Tensor]:
-    """Every shard file merged into one state dict of CPU tensors."""
+def _load_shards(path: str, manifest: Dict[str, Any],
+                 index: Optional[int] = None) -> Dict[str, torch.Tensor]:
+    """Every shard file merged into one state dict of CPU tensors; with
+    `index`, only host `index`'s file, holding the vars the manifest
+    deals to it (the owned-shards-only restore)."""
     var_meta = manifest.get("vars", {})
+    shards = manifest.get("shards", [])
+    expected = list(var_meta)
+    if index is not None:
+        shards = [s for s in shards if s == mf.shard_file(index)]
+        expected = [n for n, m in var_meta.items()
+                    if int(m.get("shard", 0)) == index]
     state: Dict[str, torch.Tensor] = {}
-    for shard in manifest.get("shards", []):
+    for shard in shards:
         with np.load(os.path.join(path, shard)) as data:
             for key in data.files:
                 name = mf.decode_name(key)
@@ -305,7 +406,7 @@ def _load_shards(path: str, manifest: Dict[str, Any]
                 meta = var_meta.get(name)
                 state[name] = mf.to_torch(
                     arr, meta["dtype"] if meta else str(arr.dtype))
-    missing = [n for n in var_meta if n not in state]
+    missing = [n for n in expected if n not in state]
     if missing:
         raise CheckpointError(
             f"{path}: partial checkpoint — manifest describes vars "
@@ -341,7 +442,15 @@ def write_state(path: str, state: Dict[str, Any],
         if assignment[name] == index:
             arrays[mf.encode_name(name)] = mf.to_numpy(val)
     mf.write_npz_atomic(os.path.join(tmp, mf.shard_file(index)), arrays)
-    _barrier(count, f"ckpt-state-{os.path.basename(path)}")
+    _barrier(count, f"ckpt-state:{path}")
+    if index == 0:
+        _commit_state(path, tmp, parent, count, var_meta, meta)
+    _barrier(count, f"ckpt-state-commit:{path}")
+
+
+def _commit_state(path, tmp, parent, count, var_meta, meta) -> None:
+    """Host 0 of write_state: the manifest written last, the tmp dir
+    published at `path`."""
     mf.write_manifest(tmp, {
         "format": mf.MANIFEST_FORMAT,
         "step": -1,

@@ -45,7 +45,7 @@ constexpr int THREADS = 256;
 struct Drop {
   uint32_t seed, thresh;
   float keep;     // 1 - p, the divisor of a kept value
-  uint32_t col0;  // the hash's first column (a tensor-parallel rank's)
+  ffn::DropIdx idx;  // where the elements sit in the one-process hash
 };
 
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -78,7 +78,9 @@ __device__ __forceinline__ float fwd_value(float pre, float b, uint32_t t,
                                            uint32_t c, const Drop& d) {
   const float a = ffn::act<ACT>(pre + b);
   if (!DROP) return a;
-  return ffn::keep_hash(d.seed, t, c + d.col0) >= d.thresh ? a / d.keep : 0.f;
+  return ffn::keep_hash(d.seed, d.idx.row(t), c + d.idx.col0) >= d.thresh
+             ? a / d.keep
+             : 0.f;
 }
 
 // dpre, and the forward's value into *h
@@ -89,7 +91,8 @@ __device__ __forceinline__ float bwd_value(float pre, float b, float dh,
   const float x = pre + b;
   float a = ffn::act<ACT>(x);
   if (DROP) {
-    const bool kept = ffn::keep_hash(d.seed, t, c + d.col0) >= d.thresh;
+    const bool kept =
+        ffn::keep_hash(d.seed, d.idx.row(t), c + d.idx.col0) >= d.thresh;
     dh = kept ? dh / d.keep : 0.f;
     a = kept ? a / d.keep : 0.f;
   }
@@ -212,7 +215,7 @@ void launch_act(bool drop, bool vec, const void* pre, const void* b1,
 template <typename T>
 int run(const void* pre, const void* b1, const void* dh, void* out, void* h,
         long long T_, int F, int act_id, int drop, unsigned int thresh,
-        float keep_prob, unsigned int seed, int col0, void* stream) {
+        float keep_prob, unsigned int seed, const int* idx, void* stream) {
   if (T_ < 0 || F < 1 || (dh != nullptr && h == nullptr))
     return (int)cudaErrorInvalidValue;
   const long long n = T_ * F;
@@ -220,7 +223,9 @@ int run(const void* pre, const void* b1, const void* dh, void* out, void* h,
   const bool vec = F % kVec<T> == 0 && aligned16(pre) && aligned16(b1) &&
                    aligned16(out) &&
                    (dh == nullptr || (aligned16(dh) && aligned16(h)));
-  const Drop d{seed, thresh, keep_prob, (uint32_t)col0};
+  const Drop d{seed, thresh, keep_prob,
+               ffn::DropIdx{(uint32_t)idx[0], (uint32_t)idx[1],
+                            (uint32_t)idx[2], (uint32_t)idx[3]}};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (act_id) {
     case ffn::ACT_GELU:
@@ -247,14 +252,14 @@ enum { DT_BF16 = 0, DT_F32 = 1 };
 int run_dtype(int dtype, const void* pre, const void* b1, const void* dh,
               void* out, void* h, long long T_, int F, int act_id, int drop,
               unsigned int thresh, float keep_prob, unsigned int seed,
-              int col0, void* stream) {
+              const int* idx, void* stream) {
   switch (dtype) {
     case DT_BF16:
       return run<__nv_bfloat16>(pre, b1, dh, out, h, T_, F, act_id, drop,
-                                thresh, keep_prob, seed, col0, stream);
+                                thresh, keep_prob, seed, idx, stream);
     case DT_F32:
       return run<float>(pre, b1, dh, out, h, T_, F, act_id, drop, thresh,
-                        keep_prob, seed, col0, stream);
+                        keep_prob, seed, idx, stream);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -270,14 +275,18 @@ const char* error_string(int err) {
 // dtype: 0 bf16, 1 f32 (every operand).  act_id: 0 gelu (A-S
 // erf), 1 gelu_tanh, 2 relu.  drop: 1 when p > 0; a value is then kept
 // where the hash is >= drop_thresh and divided by keep_prob = 1 - p; the
-// hash takes column c as col0 + c (a tensor-parallel rank's d_ff columns).
+// hash takes column c as col0 + c (a tensor-parallel rank's d_ff columns)
+// and row t as ffn::DropIdx::row(t) of row_period / row_stride /
+// row_offset (a sequence-parallel rank's tokens; period 0 keeps t).
 // T x F values; one launch.
 int ffn_act_fwd(int dtype, const void* pre, const void* b1, void* h,
                 long long T, int F, int act_id, int drop,
                 unsigned int drop_thresh, float keep_prob, unsigned int seed,
-                int col0, void* stream) {
+                int col0, int row_period, int row_stride, int row_offset,
+                void* stream) {
+  const int idx[4] = {col0, row_period, row_stride, row_offset};
   return run_dtype(dtype, pre, b1, nullptr, h, nullptr, T, F, act_id, drop,
-                   drop_thresh, keep_prob, seed, col0, stream);
+                   drop_thresh, keep_prob, seed, idx, stream);
 }
 
 // The gradient: dpre from pre, b1 and dh, and h (the forward's output,
@@ -285,10 +294,12 @@ int ffn_act_fwd(int dtype, const void* pre, const void* b1, void* h,
 int ffn_act_bwd(int dtype, const void* pre, const void* b1, const void* dh,
                 void* dpre, void* h, long long T, int F, int act_id,
                 int drop, unsigned int drop_thresh, float keep_prob,
-                unsigned int seed, int col0, void* stream) {
+                unsigned int seed, int col0, int row_period, int row_stride,
+                int row_offset, void* stream) {
   if (dh == nullptr) return (int)cudaErrorInvalidValue;
+  const int idx[4] = {col0, row_period, row_stride, row_offset};
   return run_dtype(dtype, pre, b1, dh, dpre, h, T, F, act_id, drop,
-                   drop_thresh, keep_prob, seed, col0, stream);
+                   drop_thresh, keep_prob, seed, idx, stream);
 }
 
 }  // extern "C"

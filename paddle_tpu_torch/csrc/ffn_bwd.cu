@@ -137,7 +137,7 @@ ffn_bwd_dpre_kernel(const __grid_constant__ CUtensorMap tm_x,
                     const __grid_constant__ CUtensorMap tm_w2,
                     const bf16* __restrict__ b1, bf16* __restrict__ dpre,
                     int T, int H, int F, uint32_t drop_thresh,
-                    float inv_keep, uint32_t seed, uint32_t drop_col0) {
+                    float inv_keep, uint32_t seed, DropIdx drop_idx) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + DpRing::BAR);
@@ -210,7 +210,11 @@ ffn_bwd_dpre_kernel(const __grid_constant__ CUtensorMap tm_x,
     // element i sits at row r0 (+8 for i % 4 >= 2), column (i/4)*8 + cq +
     // i%2; the math runs unguarded (a column past F reads a zero bias) so
     // that the compiler can interleave the elements, and only the stores
-    // are guarded
+    // are guarded.  The two rows' places in the hash are mapped once,
+    // outside the loop (the row map divides)
+    const uint32_t hash_row[2] = {
+        drop_idx.row((uint32_t)(t0 + 64 * c + r0)),
+        drop_idx.row((uint32_t)(t0 + 64 * c + r0 + 8))};
 #pragma unroll
     for (int i = 0; i < 64; i += 2) {
       const int t = t0 + 64 * c + r0 + ((i / 2) % 2) * 8;
@@ -225,7 +229,8 @@ ffn_bwd_dpre_kernel(const __grid_constant__ CUtensorMap tm_x,
         float d = dh[i + e];
         if (drop_thresh != 0u) {
           const bool keep =
-              keep_hash(seed, (uint32_t)t, (uint32_t)(f + e) + drop_col0) >=
+              keep_hash(seed, hash_row[(i / 2) % 2],
+                        (uint32_t)(f + e) + drop_idx.col0) >=
               drop_thresh;
           d = keep ? d * inv_keep : 0.f;
         }
@@ -369,7 +374,7 @@ ffn_bwd_dw_kernel(const __grid_constant__ CUtensorMap tm_x,
                   const __grid_constant__ CUtensorMap tm_w2,
                   const bf16* __restrict__ b1, float* __restrict__ ws, int T,
                   int F, int tiles_per_split, uint32_t drop_thresh,
-                  float inv_keep, uint32_t seed, uint32_t drop_col0) {
+                  float inv_keep, uint32_t seed, DropIdx drop_idx) {
   using P = DwPlan<H>;
   using namespace hopper;
   extern __shared__ unsigned char smem_raw[];
@@ -492,8 +497,8 @@ ffn_bwd_dw_kernel(const __grid_constant__ CUtensorMap tm_x,
         float hv = act<ACT>(pv);
         if (drop_thresh != 0u) {
           const bool keep =
-              keep_hash(seed, (uint32_t)(i * BT + t),
-                        (uint32_t)(f0 + n) + drop_col0) >= drop_thresh;
+              keep_hash(seed, drop_idx.row((uint32_t)(i * BT + t)),
+                        (uint32_t)(f0 + n) + drop_idx.col0) >= drop_thresh;
           hv = keep ? hv * inv_keep : 0.f;
           d = keep ? d * inv_keep : 0.f;
         }
@@ -586,8 +591,7 @@ struct Args {
   uint32_t drop_thresh;
   float inv_keep;
   uint32_t seed;
-  uint32_t drop_col0;  // the hash's first d_ff column (a tensor-parallel
-                       // rank's; 0 outside tensor parallelism)
+  DropIdx drop_idx;  // where the elements sit in the one-process hash
   cudaStream_t stream;
 };
 
@@ -618,7 +622,7 @@ cudaError_t launch_dx(const Args& a, int H, bf16* dx, bf16* dpre) {
   ffn_bwd_dpre_kernel<ACT><<<dim3((a.F + GN - 1) / GN, mt), GTHREADS,
                              DpRing::BYTES, a.stream>>>(
       mx, mg, m1, m2, a.b1, dpre, a.T, H, a.F, a.drop_thresh, a.inv_keep,
-      a.seed, a.drop_col0);
+      a.seed, a.drop_idx);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   ffn_bwd_dx_kernel<<<dim3(H / GN, mt), GTHREADS, DxRing::BYTES, a.stream>>>(
@@ -651,7 +655,7 @@ cudaError_t launch_dw(const Args& a, bf16* dw1, bf16* db1, bf16* dw2,
   dim3 grid(a.F / BFW, splits);
   ffn_bwd_dw_kernel<H, ACT><<<grid, 384, P::BYTES, a.stream>>>(
       mx, mg, m1, m2, a.b1, ws, a.T, a.F, per_split, a.drop_thresh,
-      a.inv_keep, a.seed, a.drop_col0);
+      a.inv_keep, a.seed, a.drop_idx);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const long long HF = (long long)H * a.F;
@@ -679,12 +683,12 @@ cudaError_t dispatch_dw(int act_id, const Args& a, bf16* dw1, bf16* db1,
 
 Args make_args(const void* x, const void* g, const void* w1, const void* b1,
                const void* w2, int T, int F, unsigned int drop_thresh,
-               float inv_keep, unsigned int seed, int drop_col0,
+               float inv_keep, unsigned int seed, DropIdx drop_idx,
                void* stream) {
   return Args{static_cast<const bf16*>(x), static_cast<const bf16*>(g),
               static_cast<const bf16*>(w1), static_cast<const bf16*>(b1),
               static_cast<const bf16*>(w2), T, F, drop_thresh, inv_keep,
-              seed, (uint32_t)drop_col0, static_cast<cudaStream_t>(stream)};
+              seed, drop_idx, static_cast<cudaStream_t>(stream)};
 }
 
 }  // namespace
@@ -696,17 +700,22 @@ const char* error_string(int err) {
 }
 
 // act_id: 0 gelu (A-S erf), 1 gelu_tanh, 2 relu; inv_keep = 1 / (1 - p);
-// drop_col0: the dropout hash takes d_ff column f as drop_col0 + f.
+// drop_col0: the dropout hash takes d_ff column f as drop_col0 + f;
+// row_period / row_stride / row_offset: token t as DropIdx::row(t).
 // ws: n_split x (2*H*F + F) f32 scratch.  Two launches: the dW pass and
 // the reduce over splits.
 int ffn_bwd_dw_bf16(const void* x, const void* g, const void* w1,
                     const void* b1, const void* w2, void* dw1, void* db1,
                     void* dw2, void* ws, int T, int H, int F, int act_id,
                     int n_split, unsigned int drop_thresh, float inv_keep,
-                    unsigned int seed, int drop_col0, void* stream) {
+                    unsigned int seed, int drop_col0, int row_period,
+                    int row_stride, int row_offset, void* stream) {
   if (T < 1 || n_split < 1) return (int)cudaErrorInvalidValue;
-  const Args a = make_args(x, g, w1, b1, w2, T, F, drop_thresh, inv_keep,
-                           seed, drop_col0, stream);
+  const Args a = make_args(
+      x, g, w1, b1, w2, T, F, drop_thresh, inv_keep, seed,
+      DropIdx{(uint32_t)drop_col0, (uint32_t)row_period,
+              (uint32_t)row_stride, (uint32_t)row_offset},
+      stream);
   bf16 *d1 = static_cast<bf16*>(dw1), *d2 = static_cast<bf16*>(dw2);
   bf16* db = static_cast<bf16*>(db1);
   float* w = static_cast<float*>(ws);
@@ -726,11 +735,15 @@ int ffn_bwd_dx_bf16(const void* x, const void* g, const void* w1,
                     const void* b1, const void* w2, void* dx, void* dpre,
                     int T, int H, int F, int act_id,
                     unsigned int drop_thresh, float inv_keep,
-                    unsigned int seed, int drop_col0, void* stream) {
+                    unsigned int seed, int drop_col0, int row_period,
+                    int row_stride, int row_offset, void* stream) {
   if (T < 1 || H < GN || H > 1024 || H % GN != 0 || F < KS || F % KS != 0)
     return (int)cudaErrorInvalidValue;
-  const Args a = make_args(x, g, w1, b1, w2, T, F, drop_thresh, inv_keep,
-                           seed, drop_col0, stream);
+  const Args a = make_args(
+      x, g, w1, b1, w2, T, F, drop_thresh, inv_keep, seed,
+      DropIdx{(uint32_t)drop_col0, (uint32_t)row_period,
+              (uint32_t)row_stride, (uint32_t)row_offset},
+      stream);
   bf16* o = static_cast<bf16*>(dx);
   bf16* dp = static_cast<bf16*>(dpre);
   switch (act_id) {

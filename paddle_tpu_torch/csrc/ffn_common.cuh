@@ -22,6 +22,18 @@ __device__ __forceinline__ uint32_t keep_hash(uint32_t seed, uint32_t r,
   return x;
 }
 
+// Where an element sits in the one-process FFN's dropout hash: a
+// tensor-parallel rank's d_ff column f is column col0 + f; a
+// sequence-parallel rank's token t (its tokens of each sequence, `period`
+// of them, starting at token `offset` of a sequence of `stride`) is token
+// (t / period) * stride + offset + t % period; period 0 keeps t.
+struct DropIdx {
+  uint32_t col0, period, stride, offset;
+  __host__ __device__ __forceinline__ uint32_t row(uint32_t t) const {
+    return period ? (t / period) * stride + offset + t % period : t;
+  }
+};
+
 // paddle_tpu/ops/pallas/ffn.py::_erf (Abramowitz-Stegun 7.1.26)
 __device__ __forceinline__ float as_erf(float x) {
   const float a1 = 0.254829592f, a2 = -0.284496736f, a3 = 1.421413741f;

@@ -130,7 +130,7 @@ ffn_fwd_kernel(const __grid_constant__ CUtensorMap tm_x,
                const bf16* __restrict__ b1, const bf16* __restrict__ b2,
                bf16* __restrict__ out, float* __restrict__ ws, int T, int F,
                int steps_per_split, uint32_t drop_thresh, float keep_prob,
-               uint32_t seed, uint32_t drop_col0) {
+               uint32_t seed, DropIdx drop_idx) {
   using P = Plan<H>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -248,8 +248,8 @@ ffn_fwd_kernel(const __grid_constant__ CUtensorMap tm_x,
             float hv = act<ACT>(pre[j * 4 + hr * 2 + e] + bias);
             if (drop_thresh != 0u) {
               const bool keep =
-                  keep_hash(seed, (uint32_t)(t0 + row),
-                            (uint32_t)f + drop_col0) >= drop_thresh;
+                  keep_hash(seed, drop_idx.row((uint32_t)(t0 + row)),
+                            (uint32_t)f + drop_idx.col0) >= drop_thresh;
               hv = keep ? hv / keep_prob : 0.f;
             }
             v[e] = hv;
@@ -335,7 +335,7 @@ template <int H, int ACT>
 cudaError_t launch(const void* x, const void* w1, const void* b1,
                    const void* w2, const void* b2, void* out, void* ws, int T,
                    int F, int n_split, uint32_t drop_thresh, float keep_prob,
-                   uint32_t seed, uint32_t drop_col0, cudaStream_t stream) {
+                   uint32_t seed, DropIdx drop_idx, cudaStream_t stream) {
   using P = Plan<H>;
   static bool configured = false;
   if (!configured) {
@@ -357,7 +357,7 @@ cudaError_t launch(const void* x, const void* w1, const void* b1,
   ffn_fwd_kernel<H, ACT><<<grid, THREADS, P::BYTES, stream>>>(
       mx, m1, m2, static_cast<const bf16*>(b1), static_cast<const bf16*>(b2),
       static_cast<bf16*>(out), static_cast<float*>(ws), T, F, per,
-      drop_thresh, keep_prob, seed, drop_col0);
+      drop_thresh, keep_prob, seed, drop_idx);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
   const long long n = (long long)T * H;
@@ -374,18 +374,18 @@ cudaError_t launch_act(int act_id, const void* x, const void* w1,
                        const void* b1, const void* w2, const void* b2,
                        void* out, void* ws, int T, int F, int n_split,
                        uint32_t drop_thresh, float keep_prob, uint32_t seed,
-                       uint32_t drop_col0, cudaStream_t s) {
+                       DropIdx drop_idx, cudaStream_t s) {
   switch (act_id) {
     case ACT_GELU:
       return launch<H, ACT_GELU>(x, w1, b1, w2, b2, out, ws, T, F, n_split,
-                                 drop_thresh, keep_prob, seed, drop_col0, s);
+                                 drop_thresh, keep_prob, seed, drop_idx, s);
     case ACT_GELU_TANH:
       return launch<H, ACT_GELU_TANH>(x, w1, b1, w2, b2, out, ws, T, F,
                                       n_split, drop_thresh, keep_prob, seed,
-                                      drop_col0, s);
+                                      drop_idx, s);
     case ACT_RELU:
       return launch<H, ACT_RELU>(x, w1, b1, w2, b2, out, ws, T, F, n_split,
-                                 drop_thresh, keep_prob, seed, drop_col0, s);
+                                 drop_thresh, keep_prob, seed, drop_idx, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -403,36 +403,41 @@ const char* error_string(int err) {
 // scratch, unused when n_split is 1.  One launch, or two with the reduce
 // over splits.  drop_col0: the dropout hash takes d_ff column f as
 // drop_col0 + f (a tensor-parallel rank's columns; 0 outside tensor
-// parallelism).
+// parallelism); row_period / row_stride / row_offset: it takes token t as
+// DropIdx::row(t) (a sequence-parallel rank's tokens; period 0 outside
+// sequence parallelism).
 int ffn_fwd_bf16(const void* x, const void* w1, const void* b1,
                  const void* w2, const void* b2, void* out, void* ws, int T,
                  int H, int F, int act_id, int n_split,
                  unsigned int drop_thresh, float keep_prob, unsigned int seed,
-                 int drop_col0, void* stream) {
+                 int drop_col0, int row_period, int row_stride,
+                 int row_offset, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const DropIdx drop_idx{(uint32_t)drop_col0, (uint32_t)row_period,
+                         (uint32_t)row_stride, (uint32_t)row_offset};
   if (T < 1 || F < 64 || F % 64 != 0 || n_split < 1)
     return (int)cudaErrorInvalidValue;
   switch (H) {
     case 128:
       return launch_act<128>(act_id, x, w1, b1, w2, b2, out, ws, T, F,
                              n_split, drop_thresh, keep_prob, seed,
-                             drop_col0, s);
+                             drop_idx, s);
     case 256:
       return launch_act<256>(act_id, x, w1, b1, w2, b2, out, ws, T, F,
                              n_split, drop_thresh, keep_prob, seed,
-                             drop_col0, s);
+                             drop_idx, s);
     case 512:
       return launch_act<512>(act_id, x, w1, b1, w2, b2, out, ws, T, F,
                              n_split, drop_thresh, keep_prob, seed,
-                             drop_col0, s);
+                             drop_idx, s);
     case 768:
       return launch_act<768>(act_id, x, w1, b1, w2, b2, out, ws, T, F,
                              n_split, drop_thresh, keep_prob, seed,
-                             drop_col0, s);
+                             drop_idx, s);
     case 1024:
       return launch_act<1024>(act_id, x, w1, b1, w2, b2, out, ws, T, F,
                               n_split, drop_thresh, keep_prob, seed,
-                             drop_col0, s);
+                             drop_idx, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -12,7 +12,9 @@ bits), so a world-one NCCL group sends every rule through NCCL.
 Every function is out of place, and the differentiable ones carry the
 adjoint collective as their backward, as `jax.vjp` of `psum` is `psum`:
 all-reduce <-> all-reduce, all-gather <-> reduce-scatter, all-to-all <->
-all-to-all, broadcast <-> the root's share of an all-reduce.
+all-to-all (the tiled form with its dims swapped), the ring's step
+forward <-> its step back, broadcast <-> the root's share of an
+all-reduce.
 
 Gloo on CUDA tensors (asked for by PADDLE_DISTRI_BACKEND=gloo) runs on
 CPU copies, as gloo stages CUDA tensors through the host itself; NCCL
@@ -30,6 +32,8 @@ import torch
 from . import parallel
 
 _COMM_STREAMS: Dict[int, object] = {}
+# tag -> the times this rank has called store_barrier(tag) on this group
+_STORE_BARRIERS: Dict[str, int] = {}
 
 
 def _dist():
@@ -43,6 +47,7 @@ def live() -> bool:
 
 def reset() -> None:
     _COMM_STREAMS.clear()
+    _STORE_BARRIERS.clear()
     from ..parallel import mesh
 
     mesh.set_current_mesh(None)
@@ -169,6 +174,83 @@ def recv(like: torch.Tensor, src: int, group=None) -> torch.Tensor:
     return back(t)
 
 
+def _ring_step(x: torch.Tensor, group, to: int) -> torch.Tensor:
+    """x sent to group rank + `to` and the value of group rank - `to`
+    received (mod n), in one `batch_isend_irecv`; a group of one returns
+    x."""
+    n = world(group)
+    if n == 1:
+        return x
+    r = rank(group)
+    t, back = _staged(x.detach().contiguous())
+    out = torch.empty_like(t)
+    d = _dist()
+    reqs = d.batch_isend_irecv([
+        d.P2POp(d.isend, t, global_rank(group, (r + to) % n), group),
+        d.P2POp(d.irecv, out, global_rank(group, (r - to) % n), group)])
+    for q in reqs:
+        q.wait()
+    return back(out)
+
+
+def ring_shift(x: torch.Tensor, group=None) -> torch.Tensor:
+    """One step of the ring: x to group rank + 1, rank - 1's received
+    (the counterpart of `lax.ppermute` with perm [(i, i + 1 mod n)])."""
+    return _ring_step(x, group, 1)
+
+
+def ring_shift_back(x: torch.Tensor, group=None) -> torch.Tensor:
+    """The ring's adjoint step: x to group rank - 1, rank + 1's
+    received."""
+    return _ring_step(x, group, -1)
+
+
+def all_to_all_tiled(x: torch.Tensor, split_dim: int, concat_dim: int,
+                     group=None) -> torch.Tensor:
+    """`lax.all_to_all(x, split_axis, concat_axis, tiled=True)`: x cut
+    into n blocks along `split_dim`, block k sent to rank k, the blocks
+    received concatenated along `concat_dim` in rank order."""
+    n = world(group)
+    if n == 1:
+        return x
+    if x.shape[split_dim] % n:
+        raise ValueError(f"all_to_all: dim {split_dim} of {tuple(x.shape)} "
+                         f"does not split over {n} ranks")
+    k = x.shape[split_dim] // n
+    # (n, ...) with block k leading: one all_to_all_single of dim 0
+    blocks = x.unflatten(split_dim, (n, k)).movedim(split_dim, 0)
+    got = all_to_all(blocks.contiguous(), group)  # (n, ...) by sender
+    # dims of `got`: 0 the sender, then x's dims with split_dim of size
+    # k; the sender goes just before concat_dim, as its major part
+    return got.movedim(0, concat_dim).flatten(
+        concat_dim, concat_dim + 1).contiguous()
+
+
+STORE_BARRIER_TIMEOUT_S = 1800.0
+
+
+def store_barrier(tag: str, count: int) -> None:
+    """A rendezvous of `count` ranks through the group's store, not a
+    collective: it may be called from another thread than the one that
+    issues the group's collectives (the checkpoint writer's), whose
+    collectives it then cannot put out of step.  Every rank calls it the
+    same number of times with a tag."""
+    import time
+
+    from torch.distributed import distributed_c10d as c10d
+
+    store = c10d._get_default_store()
+    uses = _STORE_BARRIERS[tag] = _STORE_BARRIERS.get(tag, 0) + 1
+    key = f"paddle_tpu_torch/barrier/{tag}"
+    store.add(key, 1)
+    deadline = time.monotonic() + STORE_BARRIER_TIMEOUT_S
+    while store.add(key, 0) < count * uses:
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"store barrier {tag!r}: {count} ranks did "
+                               f"not arrive in {STORE_BARRIER_TIMEOUT_S} s")
+        time.sleep(0.002)
+
+
 def barrier(group=None) -> None:
     if parallel.backend() == "nccl":
         dev = parallel.device()
@@ -284,6 +366,41 @@ class _GatherLast(torch.autograd.Function):
     def backward(ctx, g):
         w, r = ctx.width, ctx.rank
         return g[..., r * w:(r + 1) * w].contiguous(), None
+
+
+class _RingShift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return ring_shift(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ring_shift_back(g, ctx.group), None
+
+
+class _AllToAllTiled(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, split_dim, concat_dim, group):
+        ctx.args = (split_dim, concat_dim, group)
+        return all_to_all_tiled(x, split_dim, concat_dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        split_dim, concat_dim, group = ctx.args
+        return (all_to_all_tiled(g, concat_dim, split_dim, group), None,
+                None, None)
+
+
+def ring_shift_diff(x, group=None):
+    """`ring_shift` whose backward is the step back (ppermute's adjoint)."""
+    return _RingShift.apply(x, group)
+
+
+def all_to_all_tiled_diff(x, split_dim: int, concat_dim: int, group=None):
+    """`all_to_all_tiled` whose backward is the all-to-all with the dims
+    swapped."""
+    return _AllToAllTiled.apply(x, int(split_dim), int(concat_dim), group)
 
 
 def copy_to_group(x, group=None):

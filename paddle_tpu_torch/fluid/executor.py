@@ -459,12 +459,20 @@ class _AutoCheckpoint:
     - it is a later one: this pass ran before the preemption (restore,
       consume the epoch counter, `skip_pass`);
     - it is older than the live in-process state: ignored (a live job
-      never moves backwards)."""
+      never moves backwards).
+
+    On the SPMD arm (a CompiledProgram whose scope holds each rank's
+    shards) a save names the sharded vars' specs, so the manager gathers
+    them whole and records the layout; a resume of a checkpoint that
+    records its mesh reads each rank's own shard file, the owners
+    broadcast their vars, and every rank seats its slices (the
+    reference's `_apply_state` and `_seat_state`)."""
 
     def __init__(self, exe, program, scope, dataset, manager,
-                 every_steps: int, every_secs: float):
+                 every_steps: int, every_secs: float, compiled=None):
         self._exe = exe
         self._program = program
+        self._compiled = compiled
         self._scope = scope
         self._dataset = dataset
         self.manager = manager
@@ -479,7 +487,8 @@ class _AutoCheckpoint:
 
     @staticmethod
     def setup(exe, program, scope, dataset, checkpoint_dir, every_steps,
-              every_secs, keep, resume) -> Optional["_AutoCheckpoint"]:
+              every_secs, keep, resume, compiled=None
+              ) -> Optional["_AutoCheckpoint"]:
         if checkpoint_dir is None:
             checkpoint_dir = flags.flag("ckpt_dir", "") or None
         if not checkpoint_dir:
@@ -494,7 +503,7 @@ class _AutoCheckpoint:
             else bool(resume)
         manager = CheckpointManager(checkpoint_dir, keep=keep)
         self = _AutoCheckpoint(exe, program, scope, dataset, manager,
-                               every_steps, every_secs)
+                               every_steps, every_secs, compiled)
         if resume:
             self._try_resume()
         return self
@@ -512,7 +521,7 @@ class _AutoCheckpoint:
         if feed_epoch < ds_next:
             return  # the live in-process state is ahead of the checkpoint
         state, _ = self.manager.restore(path)
-        self._apply_state(state)
+        self._apply_state(state, manifest)
         self._exe._step = int(meta.get("executor_step", 0))
         saved_seed = meta.get("feed_seed")
         live_seed = int(getattr(self._dataset, "_seed", 0))
@@ -531,17 +540,40 @@ class _AutoCheckpoint:
         self.restored_from = path
         profiler.stat_add("ckpt_resume_count")
 
-    def _apply_state(self, state) -> None:
+    def _apply_state(self, state, manifest) -> None:
         """Each persistable var of the program that the checkpoint holds,
-        in the var's dtype, onto the Executor's device."""
+        in the var's dtype, onto the Executor's device.  An owned-only
+        restore (a checkpoint that records its mesh, over several ranks)
+        is exchanged first: each var broadcast from its owner, in the
+        manifest's order; a var with a spec is seated as this rank's slice
+        under the live mesh."""
+        from ..parallel import compiler, mesh as mesh_lib, spec_layout
+
+        var_meta = manifest.get("vars", {})
+        mesh = mesh_lib.current_mesh()
+        if manifest.get("mesh_axes") and len(state) < len(var_meta):
+            from ..distributed import comm
+
+            dev = self._exe.device
+            for name in sorted(var_meta):
+                m = var_meta[name]
+                src = state.get(name)
+                if src is None:
+                    src = torch.zeros(m["shape"],
+                                      dtype=getattr(torch, m["dtype"]))
+                state[name] = comm.broadcast(src.to(dev), int(m["shard"]))
         persist = {v.name: v for v in self._program.list_vars()
                    if v.persistable}
         for name, val in state.items():
             var = persist.get(name)
             if var is None:
                 continue
-            val = val.to(core.torch_dtype(var.dtype))
-            self._scope.set(name, self._exe._to_device(val))
+            val = self._exe._to_device(val.to(core.torch_dtype(var.dtype)))
+            spec = var_meta.get(name, {}).get("spec")
+            if spec and mesh is not None and manifest.get("mesh_axes"):
+                val = compiler.shard_of(val, spec_layout.spec_from_json(spec),
+                                        mesh)
+            self._scope.set(name, val)
 
     def bind_epoch(self, dataset) -> None:
         """The feed epoch the pipeline opened."""
@@ -581,12 +613,17 @@ class _AutoCheckpoint:
         for name in _persistable_names(self._program):
             if scope.has(name) and scope.get(name) is not None:
                 state[name] = scope.get(name)
+        specs = {}
+        if self._compiled is not None:
+            from ..parallel import compiler
+
+            specs = compiler.sharded_vars(self._compiled, scope)
         self.manager.save_async(state, step=self._exe._step, meta={
             "feed_epoch": int(self.epoch or 0),
             "step_in_epoch": self.step_in_epoch,
             "executor_step": int(self._exe._step),
             "feed_seed": int(getattr(self._dataset, "_seed", 0)),
-        })
+        }, specs=specs)
         self._steps_since_save = 0
         self._last_save_t = time.perf_counter()
 
@@ -931,7 +968,9 @@ class Executor:
             program, CompiledProgram) else program
         scope = scope if scope is not None else global_scope()
         ckpt = None if checkpoint is None else _AutoCheckpoint.setup(
-            self, block_program, scope, dataset, **checkpoint)
+            self, block_program, scope, dataset, **checkpoint,
+            compiled=program if isinstance(program, CompiledProgram)
+            else None)
         if ckpt is not None and ckpt.skip_pass:
             ckpt.manager.close()
             return None  # this pass ran before the checkpoint was taken

@@ -9,11 +9,14 @@ unknown names raise, as in the reference.  Three kinds:
   `op_callstack` (the construction stack on every appended op),
   `cudnn_deterministic` (torch.backends.cudnn.deterministic) and the
   `ckpt_*` flags of train_from_dataset's auto-checkpoint, seeded as in
-  the reference from PADDLE_CKPT_* before FLAGS_ckpt_*;
+  the reference from PADDLE_CKPT_* before FLAGS_ckpt_*, and
+  `quant_collectives` / `quant_collectives_min_bytes` (the int8
+  collectives of parallel/quant_collectives.py, which read
+  PADDLE_QUANT_COLLECTIVES* first at each call);
 - kept for parity, as the reference keeps them (allocator and threading
   knobs that neither package acts on): any value is accepted;
-- the reference's machinery that the port lacks (telemetry, quantized
-  collectives, the AOT cache, autotuning, the program verifier and
+- the reference's machinery that the port lacks (telemetry, the AOT
+  cache, autotuning, the program verifier and
   transform passes, per-op numerics): the default is accepted, and
   another value raises NotImplementedError naming its ROADMAP item, when
   it is set and, for a value from the environment, where the machinery
@@ -30,7 +33,6 @@ _REGISTRY: Dict[str, dict] = {}
 
 # ROADMAP items of the machinery behind the flags the port lacks
 _AOT = "queue 1 item 11 (fluid/aot_cache.py)"
-_COLL = "queue 1 item 10b (ii) (quantized collectives)"
 _TOOLS = "queue 1 item 13 (tooling: obs, analysis, transforms, tune)"
 
 
@@ -90,6 +92,9 @@ _define("eager_delete_tensor_gb", 0.0, "GC threshold")
 _define("fraction_of_gpu_memory_to_use", 0.92, "device memory fraction")
 _define("paddle_num_threads", 1, "intra-op host threads")
 _define("sync_nccl_allreduce", True, "collective sync mode")
+_define("quant_collectives", "off", "quantized collectives: off | int8")
+_define("quant_collectives_min_bytes", 1024,
+        "quantized collectives' floor: smaller payloads stay full width")
 _define("benchmark", False, "per-op benchmark mode")
 _define("max_inplace_grad_add", 0, "grad accumulation inplace threshold")
 _define("sort_sum_gradient", False, "deterministic gradient sum order")
@@ -111,10 +116,6 @@ _define("obs_flight_dir", "artifacts/flight", "flight-recorder dir",
 _define("obs_flight_keep", 5, "flight-recorder retention", unported=_TOOLS)
 _define("obs_flight_min_interval_s", 60.0, "flight-recorder rate limit",
         unported=_TOOLS)
-_define("quant_collectives", "off", "quantized collectives",
-        unported=_COLL)
-_define("quant_collectives_min_bytes", 1024,
-        "quantized collectives' floor", unported=_COLL)
 _define("aot_cache", "on", "persistent AOT executable cache",
         unported=_AOT)
 _define("aot_cache_dir", "artifacts/aot_cache", "AOT cache root",
@@ -130,8 +131,7 @@ _define("autotune_max_candidates", 6, "candidates a search",
 COMPILE_FLAGS = ("check_numerics", "verify_program", "graph_transforms",
                  "transform_debug", "aot_cache", "aot_cache_dir", "autotune",
                  "autotune_dir", "autotune_trial_steps",
-                 "autotune_max_candidates", "quant_collectives",
-                 "quant_collectives_min_bytes")
+                 "autotune_max_candidates")
 # checked at each train_from_dataset, where the reference arms them
 LOOP_FLAGS = ("obs_sample_s", "obs_http_port", "obs_flight_dir",
               "obs_flight_keep", "obs_flight_min_interval_s")

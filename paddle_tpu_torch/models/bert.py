@@ -13,8 +13,9 @@ CUDA unless device="cpu") and cast to `dtype`.
 
 `build_pretrain_step` is the train step: forward, backward and AdamW over
 fp32 masters, the forward on their bf16 cast, data-parallel over a
-mesh's `dp_axis` and tensor-parallel over its `mp_axis` (Megatron's
-layout, `bert_param_spec`).
+mesh's `dp_axis`, tensor-parallel over its `mp_axis` (Megatron's
+layout, `bert_param_spec`) and sequence-parallel over its `sp_axis`
+(ring or Ulysses attention, or K/V gathered at attention).
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ from ..nn import (GELU, Dropout, Embedding, LayerNorm, Linear, ReLU, Tanh,
 from ..nn import functional as F
 from ..nn.initializer import TruncatedNormal
 from ..nn.layer.transformer import tensor_parallel, tp_context
+from ..ops.kernels import attention
 
 
 class BertConfig:
@@ -68,6 +70,14 @@ class BertConfig:
                  max_position_embeddings=128)
         d.update(kw)
         return BertConfig(**d)
+
+
+# the batch leaves whose dim 1 is the sequence: a sequence-parallel step
+# is fed its tokens of these (`mesh.shard_host_batch(..., seq_keys=
+# SEQ_KEYS)`, the reference's P(dp, sp) of the ids and masks), the
+# masked positions and the labels whole
+SEQ_KEYS = ("input_ids", "attention_mask", "token_type_ids",
+            "position_ids")
 
 
 def _init(cfg):
@@ -114,8 +124,11 @@ class BertEmbeddings(nn.Module):
 
     def forward(self, input_ids, token_type_ids=None, position_ids=None):
         if position_ids is None:
-            position_ids = torch.arange(input_ids.shape[1],
-                                        device=input_ids.device)[None, :]
+            # a sequence rank's tokens sit at their global positions
+            sp = attention.seq_split()
+            first = 0 if sp is None else sp.rank * input_ids.shape[1]
+            position_ids = first + torch.arange(
+                input_ids.shape[1], device=input_ids.device)[None, :]
         if token_type_ids is None:
             token_type_ids = torch.zeros_like(input_ids)
         s = (self._words(input_ids)
@@ -164,6 +177,16 @@ class BertModel(nn.Module):
                 attention_mask=None):
         emb = self.embeddings(input_ids, token_type_ids, position_ids)
         encoded = self.encoder(emb, attention_mask)
+        sp = attention.seq_split()
+        if sp is not None:
+            # the heads read the whole sequence (the pooler's CLS token
+            # lives on sequence rank 0, the masked positions anywhere):
+            # the encoder's output gathered over the split, whose
+            # backward sums each rank's share back to its tokens
+            from ..distributed import comm
+
+            encoded = comm.all_gather_diff(
+                encoded.movedim(1, 0).contiguous(), sp.group).movedim(0, 1)
         pooled = self.pooler(encoded)
         return encoded, pooled
 
@@ -346,15 +369,45 @@ def build_pretrain_step(model: BertForPretraining, weight_decay=0.01,
     one-process step's masks.  The axis must divide the heads and
     d_ff (ValueError).
 
-    `remat` waits for ROADMAP queue 1 item 1; `sp_axis` with ring or
-    Ulysses attention for item 10b (iii); Switch-MoE models for item
+    `sp_axis` (an axis of `mesh`) makes it sequence-parallel over that
+    axis too (the reference's batch layout P(dp, sp)): each rank is fed
+    its tokens of its rows (`mesh.shard_host_batch(mesh, batch,
+    seq_keys=SEQ_KEYS)` cuts the ids and the attention mask along the
+    sequence; the masked positions, their labels and the NSP labels stay
+    whole over the axis).  The layers run on the rank's tokens at their
+    global positions, with the one-process hidden dropout masks, inside
+    `ops.kernels.attention.sequence_split`; attention takes ring
+    attention (`use_ring_attention`), Ulysses' all-to-alls
+    (`use_ulysses`), or else the rank's queries against K/V gathered over
+    the axis (the layout the reference leaves to GSPMD); the encoder's
+    output is gathered over the axis before the pooler and the heads
+    (CLS lives on sequence rank 0, a masked position anywhere).  Each
+    rank's loss is the whole batch's; its backward is taken of the loss
+    over the axis's size and every gradient is summed over the axis, so
+    the ranks hold the one-process gradient.  The reference's refusals
+    stand (ValueError): attention dropout with ring or Ulysses, both at
+    once, a head count Ulysses cannot split.  Under ring attention the
+    reference drops the attention mask; the port raises when a row of
+    the batch is padded (where dropping it would change the answer), and
+    it refuses attention dropout over a split without ring or Ulysses
+    (the kernels' hash would index each rank's queries from 0): ROADMAP
+    queue 3 items 49-50.
+
+    `remat` waits for ROADMAP queue 1 item 1, Switch-MoE models for item
     10b (iv): they raise NotImplementedError."""
     cfg = model.bert.config
+    attn_p = cfg.attention_probs_dropout_prob
+    if use_ring_attention and attn_p:
+        raise ValueError(
+            "use_ring_attention requires attention_probs_dropout_prob=0 "
+            "(attention dropout is not supported by the ring path yet)")
+    if use_ulysses and attn_p:
+        raise ValueError(
+            "use_ulysses requires attention_probs_dropout_prob=0 "
+            "(attention dropout is not supported by the all-to-all path)")
+    if use_ulysses and use_ring_attention:
+        raise ValueError("choose ONE of use_ulysses/use_ring_attention")
     later = [("remat", remat, "queue 1 item 1"),
-             ("sp_axis", sp_axis is not None, "queue 1 item 10b (iii)"),
-             ("use_ring_attention", use_ring_attention,
-              "queue 1 item 10b (iii)"),
-             ("use_ulysses", use_ulysses, "queue 1 item 10b (iii)"),
              ("moe_experts", getattr(cfg, "moe_experts", 0),
               "queue 1 item 10b (iv)")]
     missing = [f"{k} (ROADMAP {item})" for k, v, item in later if v]
@@ -369,17 +422,20 @@ def build_pretrain_step(model: BertForPretraining, weight_decay=0.01,
     names = list(full)
     group, n_dp, rank = None, 1, 0
     mp = None  # (group, rank, size) of the tensor axis
+    sp, sp_mode = None, None  # (group, rank, size) of the sequence axis
     specs = {}
-    if mp_axis is not None and mesh is None:
-        raise ValueError("mp_axis needs a mesh")
+    for name, axis in (("mp_axis", mp_axis), ("sp_axis", sp_axis)):
+        if axis is not None and mesh is None:
+            raise ValueError(f"{name} needs a mesh")
     if mesh is not None:
         from ..distributed import comm
         from ..parallel import mesh as M
 
         if mesh.data_axis != dp_axis and dp_axis not in mesh.axis_names:
             raise ValueError(f"dp_axis {dp_axis!r} is not an axis of {mesh}")
-        if mp_axis is not None and mp_axis not in mesh.axis_names:
-            raise ValueError(f"mp_axis {mp_axis!r} is not an axis of {mesh}")
+        for name, axis in (("mp_axis", mp_axis), ("sp_axis", sp_axis)):
+            if axis is not None and axis not in mesh.axis_names:
+                raise ValueError(f"{name} {axis!r} is not an axis of {mesh}")
         n_dp = int(mesh.shape.get(dp_axis, mesh.data_size))
         if n_dp > 1:
             group = M.axis_group(mesh, dp_axis)
@@ -399,6 +455,23 @@ def build_pretrain_step(model: BertForPretraining, weight_decay=0.01,
                   n_mp)
             specs = {k: mp_spec(k, tuple(v.shape), mesh, mp_axis)
                      for k, v in full.items()}
+        n_sp = int(mesh.shape[sp_axis]) if sp_axis is not None else 1
+        if n_sp > 1:
+            sp_mode = ("ring" if use_ring_attention else
+                       "ulysses" if use_ulysses else "gather")
+            heads = cfg.num_attention_heads // (mp[2] if mp else 1)
+            if sp_mode == "ulysses" and heads % n_sp:
+                raise ValueError(
+                    f"ulysses needs num_heads {heads} (a tensor rank's) "
+                    f"divisible by the {sp_axis} axis size {n_sp}; use "
+                    "ring attention otherwise")
+            if sp_mode == "gather" and attn_p:
+                raise NotImplementedError(
+                    "attention dropout over a sequence split without ring "
+                    "or Ulysses: the kernels' hash would index each rank's "
+                    "queries from 0 (ROADMAP queue 3 item 50)")
+            sp = (M.axis_group(mesh, sp_axis), M.axis_rank(mesh, sp_axis),
+                  n_sp)
         if comm.live():
             # every rank starts from global rank 0's masters
             with torch.no_grad():
@@ -425,7 +498,15 @@ def build_pretrain_step(model: BertForPretraining, weight_decay=0.01,
         cast = {k: v.to(torch.bfloat16) if bf16 and v.dtype == torch.float32
                 else v for k, v in masters.items()}
         am = batch.get("attention_mask")
-        if am is not None:
+        if am is not None and sp_mode == "ring":
+            am = None  # no row is padded (`_ring_mask_check`)
+        elif am is not None:
+            if sp is not None:
+                # every rank's keys are the whole sequence's
+                from ..distributed import comm
+
+                am = comm.all_gather(am.movedim(1, 0).contiguous(),
+                                     sp[0]).movedim(0, 1)
             am = (am != 0)[:, None, None, :]
         (mlm, nsp), _ = functional_call(
             model, cast, batch["input_ids"], batch["token_type_ids"],
@@ -435,14 +516,25 @@ def build_pretrain_step(model: BertForPretraining, weight_decay=0.01,
 
     def step_fn(state, batch, lr):
         t = state["t"] + 1
+        if sp_mode == "ring":
+            _ring_mask_check(batch.get("attention_mask"), sp[0], dev)
         batch = {k: _to_device(v, dev) for k, v in batch.items()}
         leaves = [state["params"][k].detach().requires_grad_(True)
                   for k in names]
-        with F.rng_scope(_dropout_seed(t, rank)), (
-                tensor_parallel(*mp) if mp is not None
-                else contextlib.nullcontext()):
+        with contextlib.ExitStack() as scopes:
+            scopes.enter_context(F.rng_scope(_dropout_seed(t, rank)))
+            if mp is not None:
+                scopes.enter_context(tensor_parallel(*mp))
+            if sp is not None:
+                scopes.enter_context(attention.sequence_split(
+                    sp_mode, mesh, sp_axis))
             loss = loss_fn(dict(zip(names, leaves)), batch)
-        grads = [g.float() for g in torch.autograd.grad(loss, leaves)]
+        # every sequence rank's loss is the whole batch's: the backward of
+        # its share, the gradients summed over the axis
+        grads = [g.float() for g in torch.autograd.grad(
+            loss if sp is None else loss / sp[2], leaves)]
+        if sp is not None:
+            grads = _sp_sum(grads, sp[0])
         if mp is not None:
             grads = _mp_reduce(grads, names, partial, whole, mp[0], mp[2])
         if n_dp > 1:
@@ -472,6 +564,39 @@ def build_pretrain_step(model: BertForPretraining, weight_decay=0.01,
     step_fn.specs = specs
     step_fn.mesh = mesh
     return step_fn, state
+
+
+def _ring_mask_check(am, group, dev):
+    """Under ring attention the reference drops the attention mask; the
+    port raises where that would change the answer: a padded row on any
+    rank of the sequence axis (one MAX all-reduce of a flag over it)."""
+    if am is None:
+        return
+    from ..distributed import comm
+
+    padded = bool((np.asarray(am) == 0).any()) if not isinstance(
+        am, torch.Tensor) else bool((am == 0).any())
+    flag = torch.tensor([float(padded)], device=dev)
+    if float(comm.all_reduce(flag, "max", group)[0]):
+        raise ValueError(
+            "use_ring_attention: the ring takes no attention mask (the "
+            "reference drops it), and a row of this batch is padded, where "
+            "dropping it would change the answer (ROADMAP queue 3 item 49); "
+            "feed unpadded rows or use_ulysses")
+
+
+def _sp_sum(grads, group):
+    """Every gradient summed over the sequence axis, in one flat f32
+    all-reduce."""
+    from ..distributed import comm
+
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    comm.all_reduce_(flat, "sum", group)
+    out, off = [], 0
+    for g in grads:
+        out.append(flat[off:off + g.numel()].view_as(g))
+        off += g.numel()
+    return out
 
 
 # the replicated biases a column-parallel layer slices: their gradient

@@ -160,6 +160,13 @@ def rng_scope(seed: int):
         _RNG.host = old
 
 
+def _seq_tokens():
+    """(rank, size) of the enclosing sequence split
+    (`ops.kernels.attention.sequence_split`), or None."""
+    split = _attn.seq_split()
+    return None if split is None else (split.rank, split.size)
+
+
 def _host_generator(generator: Optional[torch.Generator]):
     """The scope's host generator, else the layer's own (None = torch's
     default CPU generator)."""
@@ -175,17 +182,25 @@ def _device_generator(host: torch.Generator,
     return torch.Generator(device=device).manual_seed(seed)
 
 
-def _dropout_body(x, p, training, upscale, gen):
+def _dropout_body(x, p, training, upscale, gen, seq=None):
     """The dropout op's computation (the body of F.dropout and of the
     dropout rule): (out, keep mask or None).  Eval or p == 0: x, times
     1 - p for downscale_in_infer in eval.  Training: a mask drawn from
     `gen` on x's device; kept elements are x / (1 - p) (upscale_in_train)
-    or x, dropped ones 0."""
+    or x, dropped ones 0.  `seq` (rank, size): x is that sequence rank's
+    slice of dim 1, and the mask that of the whole, sliced."""
     if not training or p == 0.0:
         if upscale or p == 0.0:
             return x, None
         return x * (1.0 - p), None
-    keep = torch.rand(x.shape, generator=gen, device=x.device) >= p
+    if seq is not None and x.dim() >= 2:
+        rank, size = seq
+        whole = list(x.shape)
+        whole[1] *= size
+        keep = (torch.rand(whole, generator=gen, device=x.device) >= p)[
+            :, rank * x.shape[1]:(rank + 1) * x.shape[1]]
+    else:
+        keep = torch.rand(x.shape, generator=gen, device=x.device) >= p
     kept = x / (1.0 - p) if upscale else x
     return torch.where(keep, kept, torch.zeros_like(x)), keep
 
@@ -213,7 +228,8 @@ def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
         gen = _host_generator(generator)
         if gen is not None and gen.device != x.device:
             gen = _device_generator(gen, x.device)
-    return _dropout_body(x, p, training, mode == "upscale_in_train", gen)[0]
+    return _dropout_body(x, p, training, mode == "upscale_in_train", gen,
+                         _seq_tokens())[0]
 
 
 def _kernel_seed(generator=None) -> int:
@@ -250,12 +266,18 @@ def fused_feedforward(x, w1, b1, w2, b2, activation="gelu",
     `ops.kernels.ffn.fused_ffn` (the library arm by default, the kernels
     once opted in); differentiable in x and the four weights.
     `col_offset`: the d_ff columns' global index in the dropout hash (a
-    tensor-parallel rank's columns)."""
+    tensor-parallel rank's columns); inside a sequence split
+    (`ops.kernels.attention.sequence_split`), x (B, S/size, H) is a
+    sequence rank's and its tokens hash by their global index."""
     p = act_dropout if training else 0.0
     seed = _kernel_seed(generator) if p > 0.0 else None
+    seq, row_map = _seq_tokens(), None
+    if seq is not None and p > 0.0 and x.dim() >= 3:
+        sl = x.shape[-2]
+        row_map = (sl, sl * seq[1], sl * seq[0])
     return _ffn.fused_ffn(x, w1, b1, w2, b2, activation=activation,
                           dropout_p=p, dropout_seed=seed,
-                          col_offset=col_offset)
+                          col_offset=col_offset, row_map=row_map)
 
 
 # -- convolution and pooling --------------------------------------------------

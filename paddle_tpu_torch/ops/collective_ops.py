@@ -20,6 +20,15 @@ exp(sum(log x)), `c_broadcast` the root's value (its masked sum),
 port's append_backward differentiates through a rule, its backward is
 the adjoint collective (comm.py), as `jax.vjp` of `psum` is `psum`.
 
+Each rule that moves data counts its payload under
+`collective_bytes_<op type>` (and `collective_count_<op type>`) at each
+run, the reference's `_record_wire` (its counts are taken once a trace).
+With `FLAGS_quant_collectives=int8` (parallel/quant_collectives.py) a
+float payload of at least `min_bytes()` crosses `c_allreduce_sum`,
+`mp_allreduce_sum`, `c_reducescatter` and `c_allgather` as int8 codes and
+fp32 scales, and the count is their `wire_bytes`, as the reference's.
+The quantized forms' backward is the full-width adjoint collective.
+
 `use_calc_stream=False` issues the collective on the port's comm stream
 (comm.comm_stream); the fences c_sync_calc_stream / c_wait_calc_stream
 make the comm stream wait for the compute stream, c_sync_comm_stream /
@@ -44,6 +53,46 @@ def _group(ctx, op):
     return group, comm.world(group)
 
 
+def _record_wire(op, x, wire_bytes=None):
+    """Count this rule's payload: the logical bytes, or `wire_bytes` of a
+    quantized transfer."""
+    from .. import profiler
+
+    n = x.numel() * x.element_size() if wire_bytes is None else wire_bytes
+    profiler.stat_add(f"collective_bytes_{op.type}", int(n))
+    profiler.stat_add(f"collective_count_{op.type}")
+
+
+def _quant_cfg(x):
+    """The quant_collectives module when this payload goes int8 (the mode
+    int8, a float dtype, at least min_bytes), else None."""
+    from ..parallel import quant_collectives as qc
+
+    if qc.mode() != "int8" or not x.is_floating_point():
+        return None
+    if x.numel() * x.element_size() < qc.min_bytes():
+        return None
+    return qc
+
+
+def _full_sum(x, group):
+    return comm.all_reduce(x, "sum", group)
+
+
+class _Quantized(torch.autograd.Function):
+    """A quantized collective forward, the full-width adjoint backward
+    (all-reduce <-> all-reduce, reduce-scatter <-> all-gather)."""
+
+    @staticmethod
+    def forward(ctx, x, fwd, bwd, group):
+        ctx.bwd, ctx.group = bwd, group
+        return fwd(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.bwd(g, ctx.group), None, None, None
+
+
 def _issue(op, fn, x, *args):
     if not op.attr("use_calc_stream", True) and x.is_cuda:
         return comm.on_comm_stream(fn, x, *args)
@@ -51,10 +100,18 @@ def _issue(op, fn, x, *args):
 
 
 def _sum_allreduce(ctx, op, ins):
+    """The sum all-reduce, int8 through quant_allreduce_sum where
+    `_quant_cfg` takes the payload (the reference's two phases)."""
     x = first(ins, "X")
     g = _group(ctx, op)
     if g is None:
         return {"Out": [x]}
+    qc = _quant_cfg(x)
+    if qc is not None:
+        _record_wire(op, x, qc.wire_bytes(x, axis_size=g[1]))
+        return {"Out": [_issue(op, _Quantized.apply, x,
+                               qc.quant_allreduce_sum, _full_sum, g[0])]}
+    _record_wire(op, x)
     return {"Out": [_issue(op, comm.all_reduce_sum, x, g[0])]}
 
 
@@ -64,6 +121,7 @@ def _allreduce(mode):
         g = _group(ctx, op)
         if g is None:
             return {"Out": [x]}
+        _record_wire(op, x)
         return {"Out": [_issue(op, comm.all_reduce, x, mode, g[0])]}
 
     return rule
@@ -84,6 +142,7 @@ def _c_allreduce_prod(ctx, op, ins):
     if g is None:
         return {"Out": [x]}
     group, n = g
+    _record_wire(op, x)
     if n == 1:
         return {"Out": [_issue(op, comm.all_reduce_sum, x, group)]}
     return {"Out": [torch.exp(_issue(op, comm.all_reduce_sum, torch.log(x),
@@ -93,8 +152,13 @@ def _c_allreduce_prod(ctx, op, ins):
 @register_op("c_reduce_sum")
 def _c_reduce_sum(ctx, op, ins):
     # the reference's psum: every rank keeps the sum, the root's
-    # consumers included
-    return _sum_allreduce(ctx, op, ins)
+    # consumers included (full width, as the reference's)
+    x = first(ins, "X")
+    g = _group(ctx, op)
+    if g is None:
+        return {"Out": [x]}
+    _record_wire(op, x)
+    return {"Out": [_issue(op, comm.all_reduce_sum, x, g[0])]}
 
 
 @register_op("c_broadcast")
@@ -103,27 +167,43 @@ def _c_broadcast(ctx, op, ins):
     g = _group(ctx, op)
     if g is None:
         return {"Out": [x]}
+    _record_wire(op, x)
     return {"Out": [_issue(op, comm.broadcast_diff, x, op.attr("root", 0),
                            g[0])]}
 
 
 @register_op("c_allgather")
 def _c_allgather(ctx, op, ins):
-    """The ranks' X along dim 0, in rank order."""
+    """The ranks' X along dim 0, in rank order (int8 where `_quant_cfg`
+    takes the payload)."""
     x = first(ins, "X")
     g = _group(ctx, op)
     if g is None:
         return {"Out": [x]}
+    qc = _quant_cfg(x)
+    if qc is not None and x.dim():
+        _record_wire(op, x, qc.wire_bytes(x))
+        return {"Out": [_issue(op, _Quantized.apply, x, qc.quant_allgather,
+                               comm.reduce_scatter, g[0])]}
+    _record_wire(op, x)
     return {"Out": [_issue(op, comm.all_gather_diff, x, g[0])]}
 
 
 @register_op("c_reducescatter")
 def _c_reducescatter(ctx, op, ins):
-    """This rank's dim-0 block of the ranks' sum."""
+    """This rank's dim-0 block of the ranks' sum (int8 where `_quant_cfg`
+    takes the payload and its rows split over the group)."""
     x = first(ins, "X")
     g = _group(ctx, op)
     if g is None:
         return {"Out": [x]}
+    qc = _quant_cfg(x)
+    if qc is not None and x.dim() and x.shape[0] % g[1] == 0:
+        _record_wire(op, x, qc.wire_bytes(x, axis_size=g[1]))
+        return {"Out": [_issue(op, _Quantized.apply, x,
+                               qc.quant_reducescatter, comm.all_gather,
+                               g[0])]}
+    _record_wire(op, x)
     return {"Out": [_issue(op, comm.reduce_scatter_diff, x, g[0])]}
 
 
@@ -139,6 +219,7 @@ def _c_concat(ctx, op, ins):
     g = _group(ctx, op)
     if g is None:
         return {"Out": [x]}
+    _record_wire(op, x)
     return {"Out": [_issue(op, _gather_last, x, g[0])]}
 
 
@@ -166,6 +247,7 @@ def _alltoall(ctx, op, ins):
     g = _group(ctx, op)
     if g is None:
         return {"Out": [x]}
+    _record_wire(op, x)
     return {"Out": [_issue(op, comm.all_to_all_diff, x, g[0])]}
 
 

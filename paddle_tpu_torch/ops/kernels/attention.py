@@ -30,8 +30,10 @@ package drop the same probabilities for the same seed.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
-from typing import Optional, Tuple
+import threading
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -611,11 +613,141 @@ def _flash_takes(dtypes, head_dim: int) -> bool:
             and head_dim in _KERNEL_HEAD_DIMS)
 
 
+# -- sequence-parallel scopes ----------------------------------------------------
+
+class SeqSplit(NamedTuple):
+    """A sequence split: this thread's activations (B, S/size, ...) are
+    tokens [rank S/size, (rank + 1) S/size) of each sequence, over the
+    ranks of `mesh`'s `axis` (`group`).  `mode` routes attention: "ring",
+    "ulysses" or "gather" (K/V gathered over the axis).  Dropout draws
+    the whole sequence's mask and keeps the rank's tokens, and the fused
+    FFN's dropout hash takes them by their global index
+    (`nn.functional.dropout`, `fused_feedforward`)."""
+    mode: str
+    mesh: object
+    axis: str
+    group: object
+    rank: int
+    size: int
+
+
+_SEQ_CTX = threading.local()  # per thread, like F.rng_scope
+
+
+@contextlib.contextmanager
+def sequence_split(mode, mesh, axis="sp"):
+    """Enter the sequence split of `mesh`'s `axis` (SeqSplit) for this
+    thread; yields it."""
+    from ...parallel import mesh as mesh_lib
+
+    old = getattr(_SEQ_CTX, "split", None)
+    _SEQ_CTX.split = SeqSplit(mode, mesh, axis,
+                              mesh_lib.axis_group(mesh, axis),
+                              mesh_lib.axis_rank(mesh, axis),
+                              int(mesh.shape[axis]))
+    try:
+        yield _SEQ_CTX.split
+    finally:
+        _SEQ_CTX.split = old
+
+
+def seq_split() -> Optional[SeqSplit]:
+    """The enclosing `sequence_split`, or None."""
+    return getattr(_SEQ_CTX, "split", None)
+
+
+def ring_attention_scope(mesh, axis="sp"):
+    """Route the attention calls made inside through ring attention over
+    `mesh`'s `axis` (parallel/ring_attention.py): q/k/v are then the
+    rank's sequence shards.  Model code stays as it is: the layers reach
+    it through `scaled_dot_product_attention`."""
+    return sequence_split("ring", mesh, axis)
+
+
+def ulysses_attention_scope(mesh, axis="sp"):
+    """Route the attention calls made inside through Ulysses' all-to-all
+    sequence parallelism (parallel/ulysses.py).  Key-padding masks are
+    taken (each rank sees every key of its head group); attention dropout
+    is not."""
+    return sequence_split("ulysses", mesh, axis)
+
+
+def gathered_kv_scope(mesh, axis="sp"):
+    """Route the attention calls made inside through the sequence-split
+    layout the reference leaves to GSPMD (a batch cut over `axis` with
+    neither ring nor Ulysses): the rank's queries against K/V all-gathered
+    over the axis, in the flash kernels with the causal offset of the
+    rank's first query; the gather's backward sums dK / dV back to their
+    owners.  Attention dropout is refused: the kernels' hash would index
+    the rank's queries from 0."""
+    return sequence_split("gather", mesh, axis)
+
+
+def _seq_parallel(q, k, v, mask, is_causal, scale, dropout_p):
+    """The attention of an active sequence-parallel scope (None without
+    one), with the reference's refusals."""
+    split = seq_split()
+    if split is None:
+        return None
+    if split.mode == "ulysses":
+        if dropout_p != 0.0:
+            raise ValueError(
+                "ulysses_attention_scope is active but attention dropout "
+                "is not supported by the all-to-all path; set attention "
+                "dropout to 0 or exit the scope.")
+        key_mask = _mask_as_key_bias(mask, q.shape[0],
+                                     k.shape[1] * split.size)
+        if mask is not None and key_mask is None:
+            raise ValueError(
+                "ulysses_attention_scope supports key-padding masks "
+                "(constant over query/head dims); got mask shape "
+                f"{tuple(mask.shape)}")
+        from ...parallel.ulysses import ulysses_attention_local
+
+        return ulysses_attention_local(q, k, v, split.group, mask=key_mask,
+                                       is_causal=is_causal, scale=scale)
+    if split.mode == "ring":
+        if mask is not None or dropout_p != 0.0:
+            raise ValueError(
+                "ring_attention_scope is active but this attention call "
+                "cannot be ring-routed: attention masks and attention "
+                "dropout are not supported by the ring path yet. Set "
+                "attention dropout to 0 (and drop the mask) or exit the "
+                "scope.")
+        from ...parallel.ring_attention import ring_attention_local
+
+        return ring_attention_local(q, k, v, split.group, is_causal, scale)
+    if dropout_p != 0.0:
+        raise NotImplementedError(
+            "attention dropout over a sequence split without ring or "
+            "Ulysses: the kernels' hash would draw the rank's queries as "
+            "the first ones (ROADMAP queue 3)")
+    from ...distributed import comm
+
+    kf, vf = (comm.all_gather_diff(x.movedim(1, 0).contiguous(), split.group)
+              .movedim(0, 1) for x in (k, v))
+    profiler.stat_add("seq_parallel_gather_bytes",
+                      2 * kf.numel() * kf.element_size())
+    key_bias = _mask_as_key_bias(mask, q.shape[0], kf.shape[1])
+    if mask is not None and key_bias is None:
+        raise ValueError("a sequence split takes key-padding masks only; "
+                         f"got mask shape {tuple(mask.shape)}")
+    if key_bias is not None:
+        key_bias = key_bias.detach()
+    return FlashAttentionFunction.apply(
+        q, kf, vf, key_bias, 0, is_causal,
+        split.rank * q.shape[1], scale, 0.0, 0, 0)
+
+
 def scaled_dot_product_attention(q, k, v, mask=None, is_causal=False,
                                  scale=None, dropout_p=0.0,
                                  dropout_seed=None, heads_total=0,
                                  head_offset=0):
-    """Dispatcher, as paddle_tpu's (attention.py:1152-1161): a key-padding
+    """Dispatcher, as paddle_tpu's (attention.py:1110-1161): inside
+    `ulysses_attention_scope`, `ring_attention_scope` or
+    `gathered_kv_scope` the sequence-parallel path of the scope (with the
+    reference's refusals: the ring takes no mask and no attention
+    dropout, Ulysses key-padding masks only and no dropout); else a key-padding
     mask (any form constant over query and head dims, bool or additive)
     or no mask runs in the flash kernels as a key bias (their plain
     versions for CPU tensors); any other mask (per query, per head, or a
@@ -627,6 +759,9 @@ def scaled_dot_product_attention(q, k, v, mask=None, is_causal=False,
     heads, head_dim).  `heads_total` / `head_offset` place q's heads
     among a tensor-parallel model's (flash_forward): the dense path's
     dropout draws from a generator, not the hash, and refuses them."""
+    seq = _seq_parallel(q, k, v, mask, is_causal, scale, dropout_p)
+    if seq is not None:
+        return seq
     key_bias = _mask_as_key_bias(mask, q.shape[0], k.shape[1])
     if (mask is not None and key_bias is None) or (
             q.is_cuda and not _flash_takes((q.dtype, k.dtype, v.dtype),

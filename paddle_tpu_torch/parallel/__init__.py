@@ -1,15 +1,17 @@
 """Data and model parallelism over the process group (counterpart of
-paddle_tpu/parallel): the mesh over data x fsdp x tp, the spec rules and
-layouts, and the compiler's arms.  Pipeline, ring and Ulysses attention,
-MoE, LocalSGD's step and quantized collectives wait for ROADMAP queue 1
-item 10b (ii)-(iv)."""
+paddle_tpu/parallel): the mesh over data x fsdp x tp x seq, the spec
+rules and layouts, the compiler's arms, the int8 quantized collectives,
+and ring and Ulysses attention.  Pipeline, MoE and LocalSGD's step wait
+for ROADMAP queue 1 item 10b (iv)."""
 
-from . import spec_layout, spec_rules  # noqa: F401
+from . import quant_collectives, spec_layout, spec_rules  # noqa: F401
 from .compiler import CompiledProgram  # noqa: F401
 from .mesh import (DATA_AXIS, FSDP_AXIS, MODEL_AXIS, PIPE_AXIS,  # noqa
                    SEQ_AXIS, TP_AXIS, Mesh, axis_group, axis_rank,
                    batch_spec, current_mesh, global_mesh, make_mesh,
-                   set_current_mesh, shard_host_batch)
+                   seq_axis, set_current_mesh, shard_host_batch)
+from .ring_attention import ring_attention, ring_attention_local  # noqa
+from .ulysses import ulysses_attention, ulysses_attention_local  # noqa
 from .spec_layout import (DEFAULT_LAYOUT, PartitionSpec, SpecLayout,  # noqa
                           clear_specs, mesh_axes_dict, placements,
                           register_spec, registered_specs, spec_for,

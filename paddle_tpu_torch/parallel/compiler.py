@@ -29,7 +29,11 @@ collective mode does, and has three arms:
   over the batch axes (a mean: the loss is the batch's mean) down to its
   shard, all-reduces the replicated ones, and runs the optimize ops on
   the shards.  As the reference's exe.run, it takes the global batch;
-  its fetches are the rank's own (the loss of its rows).
+  its fetches are the rank's own (the loss of its rows).  With
+  `FLAGS_quant_collectives=int8` and batch axes above 1, each parameter
+  gradient the wire takes (`_quantizes`) crosses the batch axes as
+  `quant_allreduce_sum / nbatch` (the reference's quantized SPMD step),
+  and `collective_bytes_spmd_all_reduce` counts its int8 wire.
 
 With no group, or a group of one, `Executor.run(compiled, ...)` runs the
 program itself, so the same seed and feeds give today's bits.  One
@@ -318,6 +322,49 @@ def reduce_to_shard(g, spec, mesh, batch_axes, n_batch: int):
     return x.div_(n) if n > 1 else x
 
 
+def _quantizes(g, n_batch: int) -> bool:
+    """Whether the SPMD arm sends this gradient over the batch axes as
+    int8 (FLAGS_quant_collectives=int8, the reference's
+    `_quant_grad_split`): batch axes above 1, a float payload of at least
+    `min_bytes()`."""
+    from . import quant_collectives as qc
+
+    return (n_batch > 1 and qc.mode() == "int8" and g.is_floating_point()
+            and g.numel() * g.element_size() >= qc.min_bytes())
+
+
+def quantized_to_shard(g, spec, mesh, batch_axes, n_batch: int):
+    """`reduce_to_shard` through the int8 wire: the batch axes' mean of g
+    by `quant_allreduce_sum / n_batch` over their joint group (every
+    rank of the group gets the same bits), this rank's block of each
+    split dim, and the average over the other axes above 1 that the spec
+    does not name (full width, as `reduce_to_shard`)."""
+    from ..distributed import comm
+    from ..profiler import stat_add
+    from . import quant_collectives as qc
+
+    stat_add("collective_bytes_spmd_all_reduce",
+             qc.wire_bytes(g, axis_size=n_batch))
+    x = qc.quant_allreduce_sum(g, mesh_lib.axes_group(mesh, batch_axes))
+    x = x / torch.tensor(float(n_batch), dtype=x.dtype, device=x.device)
+    named = set()
+    for dim, entry in enumerate(tuple(spec)):
+        axes = spec_rules.entry_names(entry)
+        named.update(axes)
+        idx, n = mesh_lib.block_index(mesh, axes)
+        if n > 1:
+            k = x.shape[dim] // n
+            x = x.narrow(dim, idx * k, k)
+    x = x.contiguous()
+    copies = [a for a in _spread(mesh, named) if a not in batch_axes]
+    for a in copies:
+        _count_bytes("all_reduce", x)
+        comm.all_reduce_(x, "sum", mesh_lib.axis_group(mesh, a))
+    if copies:
+        x.div_(math.prod(int(mesh.shape[a]) for a in copies))
+    return x
+
+
 def _mean_replicated(grads, mesh):
     """Each replicated gradient's mean over the batch axes, averaged over
     the mesh's other axes too (as `reduce_to_shard`): one flat f32
@@ -495,13 +542,21 @@ class _SpmdStep:
                     else shard_of(state[n], want, mesh)  # ZeRO-1's slice
             elif n in env:
                 env_b[n] = env[n]
+        # FLAGS_quant_collectives=int8: a parameter gradient the wire
+        # takes crosses the batch axes as int8 blocks, then the update
+        # runs on the shards as below
+        quant = [n for n in self.param_grads
+                 if n in env and _quantizes(env[n], n_batch)]
+        for n in quant:
+            env_b[n] = quantized_to_shard(env[n], self.param_grads[n], mesh,
+                                          batch_axes, n_batch)
         sharded = [n for n, sp in self.param_grads.items()
-                   if tuple(sp) and n in env]
+                   if tuple(sp) and n in env and n not in env_b]
         for n in sharded:
             env_b[n] = reduce_to_shard(env[n], self.param_grads[n], mesh,
                                        batch_axes, n_batch)
         repl = [n for n, sp in self.param_grads.items()
-                if not tuple(sp) and n in env]
+                if not tuple(sp) and n in env and n not in env_b]
         env_b.update(zip(repl, _mean_replicated([env[n] for n in repl],
                                                 mesh)))
         run_ops(self.block, self.ops_b, env_b, seed, device, self.frees_b)
@@ -519,6 +574,19 @@ class _SpmdStep:
         fetches = [env_b[n] if n in env_b else env[n]
                    for n in self.fetch_names]
         return fetches, new_state
+
+
+def sharded_vars(compiled, scope) -> Dict[str, object]:
+    """{name: PartitionSpec} of the vars `scope` holds as this rank's
+    shards on the SPMD arm (the checkpoint manager gathers them whole)."""
+    out = {}
+    for plan in compiled._spmd_plans.values():
+        for n, sp in plan.spec.items():
+            v = scope.get(n) if scope.has(n) else None
+            if isinstance(v, torch.Tensor) \
+                    and tuple(v.shape) != plan.full_shape[n]:
+                out[n] = sp
+    return out
 
 
 def _run_spmd(compiled, executor, feed, fetch_list, scope, return_numpy):

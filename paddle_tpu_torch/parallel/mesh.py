@@ -8,10 +8,13 @@ than one is running (ranks laid out row-major over the axes, in the
 order the axes are named, as the reference reshapes its device list).
 
 Axis names (the reference's): "data" (or "dp"), "fsdp", "tp" (or "mp",
-the tensor axis of the BERT step), "model", "pipe", "seq".  A mesh may
-give data, fsdp, tp, mp and other axes any size; "seq" / "sp" above 1
-waits for ROADMAP queue 1 item 10b (iii), "pipe" / "pp" and "model" for
-item 10b (iv), and raise.
+the tensor axis of the BERT step), "seq" (or "sp", the sequence axis of
+ring and Ulysses attention), "model", "pipe".  A mesh may give data,
+fsdp, tp, mp, seq, sp and other axes any size; "pipe" / "pp" and "model"
+above 1 wait for ROADMAP queue 1 item 10b (iv), and raise.  A batch's
+leading dim splits over data x fsdp (`batch_spec`), and a sequence
+leaf's dim 1 over the sequence axis (`batch_spec(..., seq=True)`;
+`shard_host_batch` cuts the leaves its caller names).
 """
 
 from __future__ import annotations
@@ -32,11 +35,10 @@ PIPE_AXIS = "pipe"
 SEQ_AXIS = "seq"
 
 DATA_AXES = (DATA_AXIS, "dp")
+SEQ_AXES = (SEQ_AXIS, "sp")
 # axes of size above 1 that wait for a later step of ROADMAP queue 1
 # item 10b
-LATER = {SEQ_AXIS: "(iii), sequence parallelism",
-         "sp": "(iii), sequence parallelism",
-         PIPE_AXIS: "(iv), the pipeline",
+LATER = {PIPE_AXIS: "(iv), the pipeline",
          "pp": "(iv), the pipeline",
          MODEL_AXIS: "(iv), with the collective rules' model rings"}
 
@@ -52,6 +54,7 @@ class Mesh:
         self.axis_names = tuple(axes)
         self.shape = dict(axes)
         self.device_mesh = device_mesh
+        self._axes_groups = {}  # axes -> group (axes_group)
 
     @property
     def data_axis(self) -> str:
@@ -132,6 +135,35 @@ def axis_group(mesh: Mesh, axis: str):
     return mesh.device_mesh.get_group(axis)
 
 
+def axes_group(mesh: Mesh, axes):
+    """The process group of this rank's ranks along several axes at once
+    (those that differ from it only in `axes`): `axis_group` for one
+    axis above 1, else a group made once a mesh by
+    `torch.distributed.new_group` over every such line (each rank makes
+    all of them, in one order).  None without a device mesh or with no
+    axis above 1."""
+    axes = tuple(a for a in mesh.axis_names
+                 if a in axes and int(mesh.shape[a]) > 1)
+    if mesh.device_mesh is None or not axes:
+        return None
+    if len(axes) == 1:
+        return axis_group(mesh, axes[0])
+    cache = mesh._axes_groups
+    if axes not in cache:
+        names = list(mesh.axis_names)
+        inner = [names.index(a) for a in axes]
+        outer = [i for i in range(len(names)) if i not in inner]
+        ranks = mesh.device_mesh.mesh.cpu().numpy().transpose(
+            outer + inner).reshape(-1, math.prod(int(mesh.shape[a])
+                                                 for a in axes))
+        me = torch.distributed.get_rank()
+        for line in ranks:
+            g = torch.distributed.new_group([int(r) for r in line])
+            if me in line:
+                cache[axes] = g
+    return cache[axes]
+
+
 def axis_rank(mesh: Mesh, axis: str) -> int:
     """This rank's index along `axis` (0 without a device mesh or for an
     axis the mesh lacks)."""
@@ -155,15 +187,25 @@ def batch_axes(mesh: Mesh, nrows: Optional[int]) -> Tuple[str, ...]:
     return ()
 
 
-def batch_spec(mesh: Mesh, nrows: int) -> P:
+def seq_axis(mesh: Mesh) -> Optional[str]:
+    """The mesh's sequence axis ("seq" or "sp") above 1, else None."""
+    return next((a for a in mesh.axis_names
+                 if a in SEQ_AXES and int(mesh.shape[a]) > 1), None)
+
+
+def batch_spec(mesh: Mesh, nrows: int, seq: bool = False) -> P:
     """PartitionSpec of a batch's leading dim (the reference's
     `batch_spec`): P("data", "fsdp") composed when both are present and
     divide, P("data") (or the axis left) when only that divides, P()
-    else."""
+    else.  With `seq`, the spec of a sequence leaf (B, S, ...): dim 1 over
+    the mesh's sequence axis too, where it has one (the reference's
+    P(dp, sp) of the BERT step's ids and masks)."""
     axes = batch_axes(mesh, nrows)
-    if not axes:
-        return P()
-    return P(axes if len(axes) > 1 else axes[0])
+    lead = (axes if len(axes) > 1 else axes[0]) if axes else None
+    sa = seq_axis(mesh) if seq else None
+    if sa is not None:
+        return P(lead, sa)
+    return P(lead) if lead is not None else P()
 
 
 def block_index(mesh: Mesh, axes: Tuple[str, ...]) -> Tuple[int, int]:
@@ -176,19 +218,25 @@ def block_index(mesh: Mesh, axes: Tuple[str, ...]) -> Tuple[int, int]:
     return idx, n
 
 
-def shard_host_batch(mesh: Mesh, tree, axis: str = DATA_AXIS):
-    """This rank's rows of a global batch: each leaf (numpy array or
+def shard_host_batch(mesh: Mesh, tree, axis: str = DATA_AXIS,
+                     seq_keys=()):
+    """This rank's piece of a global batch: each leaf (numpy array or
     tensor, or a dict / list / tuple of them) cut along dim 0 over the
     batch axes (`batch_axes`: data x fsdp where both divide the rows),
     block `block_index` over them; the tp (or mp) ranks of one batch
-    index get the same rows.  `axis` is the reference's argument, the
-    data axis's name; the data axis the mesh names is used.  The rows
-    must split over the data axis at least."""
+    index get the same rows.  On a mesh with a sequence axis, a dict's
+    leaves under `seq_keys` (the caller's sequence leaves, (B, S, ...):
+    `models.bert.SEQ_KEYS` for the BERT step) are cut along dim 1 over it
+    too (rank j of n takes tokens [j S/n, (j + 1) S/n)), the others only
+    by rows.  `axis` is the reference's argument, the data axis's name;
+    the data axis the mesh names is used.  The rows must split over the
+    data axis at least, and a sequence leaf over the sequence axis."""
     del axis
+    sa = seq_axis(mesh)
 
-    def cut(x):
+    def cut(x, key=None):
         if isinstance(x, dict):
-            return {k: cut(v) for k, v in x.items()}
+            return {k: cut(v, k) for k, v in x.items()}
         if isinstance(x, (list, tuple)):
             return type(x)(cut(v) for v in x)
         if not isinstance(x, (np.ndarray, torch.Tensor)):
@@ -199,9 +247,16 @@ def shard_host_batch(mesh: Mesh, tree, axis: str = DATA_AXIS):
             raise ValueError(f"a batch of {rows} rows does not split over "
                              f"{mesh.data_size} ranks")
         r, n = block_index(mesh, axes)
-        if n == 1:
-            return x
-        k = rows // n
-        return x[r * k:(r + 1) * k]
+        if n > 1:
+            k = rows // n
+            x = x[r * k:(r + 1) * k]
+        if sa is not None and key in seq_keys:
+            j, m = axis_rank(mesh, sa), int(mesh.shape[sa])
+            if x.shape[1] % m:
+                raise ValueError(f"{key}: a sequence of {x.shape[1]} does "
+                                 f"not split over {m} ranks")
+            k = x.shape[1] // m
+            x = x[:, j * k:(j + 1) * k]
+        return x
 
     return cut(tree)

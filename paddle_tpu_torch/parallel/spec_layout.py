@@ -181,3 +181,21 @@ def placements(spec, mesh) -> tuple:
                 "other ranks than the spec")
     return tuple(Shard(where[n]) if n in where else Replicate()
                  for n in names)
+
+
+def spec_from_placements(placements_, axis_names) -> P:
+    """The PartitionSpec of DTensor `placements_` over a mesh whose dims
+    are named `axis_names` (the inverse of `placements`): tensor dim d
+    gets the axes that `Shard(d)`, in mesh order, trailing replicated
+    dims left out.  The counterpart of `jax.Array.sharding.spec`."""
+    from torch.distributed.tensor import Shard
+
+    entries: Dict[int, List[str]] = {}
+    for name, pl in zip(axis_names, placements_):
+        if isinstance(pl, Shard):
+            entries.setdefault(int(pl.dim), []).append(str(name))
+    if not entries:
+        return P()
+    return P(*[None if d not in entries else
+               (entries[d][0] if len(entries[d]) == 1 else tuple(entries[d]))
+               for d in range(max(entries) + 1)])

@@ -189,8 +189,17 @@ def _topology(tmp_path, m):
         m.restore()
     loose, _ = m.restore(strict_topology=False)
     _same_bits(loose, _port(_state()))
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        CheckpointManager(str(tmp_path), process_index=0, process_count=2)
+    # two hosts (mocked: no live group, so their rendezvous is a no-op):
+    # each writes its shard, host 0 commits last, the restore merges both
+    root = str(tmp_path / "two")
+    for host in (1, 0):
+        CheckpointManager(root, process_index=host,
+                          process_count=2).save(_port(_state()), step=2)
+    two = CheckpointManager(root, process_index=0, process_count=2)
+    back, manifest = two.restore()
+    assert manifest["shards"] == ["shard_00000.npz", "shard_00001.npz"]
+    assert {v["shard"] for v in manifest["vars"].values()} == {0, 1}
+    _same_bits(back, _port(_state()))
 
 
 def _roundtrip(tmp_path, m):

@@ -51,8 +51,7 @@ WORKER = os.path.join(os.path.dirname(__file__), "torch_dist_worker.py")
 SPAWN_TIMEOUT_S = 240
 
 
-def start_ranks(suite, world, workdir):
-    """Start `world` ranks of the worker's `suite`; finish_ranks waits."""
+def _rank_env():
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         [os.path.dirname(os.path.dirname(os.path.abspath(__file__)))]
@@ -60,11 +59,26 @@ def start_ranks(suite, world, workdir):
     for k in ("PADDLE_TRAINER_ID", "PADDLE_TRAINERS_NUM",
               "PADDLE_TRAINER_ENDPOINTS", "PADDLE_DISTRI_BACKEND"):
         env.pop(k, None)
+    return env
+
+
+def start_ranks(suite, world, workdir):
+    """Start `world` ranks of the worker's `suite`; finish_ranks waits."""
     procs = [subprocess.Popen([sys.executable, WORKER, suite, str(r),
-                               str(world), str(workdir)], env=env,
+                               str(world), str(workdir)], env=_rank_env(),
                               stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
              for r in range(world)]
+    return suite, world, workdir, procs
+
+
+def fork_ranks(suite, world, workdir):
+    """As start_ranks, but the ranks are forked from one process that
+    imports torch and the port once (the worker's `forked`)."""
+    procs = [subprocess.Popen([sys.executable, WORKER, "forked", suite,
+                               str(world), str(workdir)], env=_rank_env(),
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)]
     return suite, world, workdir, procs
 
 

@@ -181,19 +181,22 @@ def test_the_other_10b_names_raise():
         with pytest.raises(NotImplementedError, match="item 10b"):
             cls(None).minimize_impl(None)
     # ShardingOptimizer and the fsdp / tp axes are taken
-    # (test_torch_spmd.py); the sequence and pipeline axes are not
+    # (test_torch_spmd.py), the sequence axes too
+    # (test_torch_seq_parallel.py); the pipeline axis is not
     assert ShardingOptimizer(None).meta_optimizers_white_list == [
         "GraphExecutionOptimizer"]
-    for axes in ({"data": 1, "seq": 2}, {"sp": 2}, {"pipe": 2}):
-        with pytest.raises(NotImplementedError, match="item 10b"):
-            M.make_mesh(axes, devices=range(2))
+    for axes in ({"data": 1, "seq": 2}, {"sp": 2}):
+        assert M.make_mesh(axes, devices=range(2)).shape == axes
+    with pytest.raises(NotImplementedError, match="item 10b"):
+        M.make_mesh({"pipe": 2}, devices=range(2))
     bs = TF.BuildStrategy()
     bs.mesh_axes = {"model": 2}
     with pytest.raises(NotImplementedError, match="item 10b"):
         TF.CompiledProgram(TF.Program(), bs).with_data_parallel()
     model = TB.BertForPretraining(TB.BertConfig.tiny(), device="cpu")
+    model.bert.config.moe_experts = 4
     with pytest.raises(NotImplementedError, match="item 10b"):
-        TB.build_pretrain_step(model, sp_axis="sp")
+        TB.build_pretrain_step(model)
 
 
 def test_a_world_of_one_is_todays_program():

@@ -43,8 +43,7 @@ AMP = ["AmpScaler", "amp_guard", "cast_inputs_if_amp"]
 UNPORTED = {"check_numerics": True, "verify_program": "off",
             "graph_transforms": "off", "transform_debug": True,
             "obs_http_port": 0,
-            "obs_flight_dir": "x", "quant_collectives": "int8",
-            "quant_collectives_min_bytes": 1, "aot_cache": "off",
+            "obs_flight_dir": "x", "aot_cache": "off",
             "aot_cache_dir": "y", "autotune": "force",
             "autotune_trial_steps": 1}
 PARITY = {"allocator_strategy": "naive_best_fit",
@@ -98,6 +97,30 @@ def test_a_flag_of_missing_machinery_takes_its_default_only(name):
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
         T.set_flags({f"FLAGS_{name}": UNPORTED[name]})
     assert TFL.get_flags(name) == default
+
+
+# the int8 quantized collectives (parallel/quant_collectives.py) read
+# these flags where PADDLE_QUANT_COLLECTIVES* are unset
+QUANT = {"quant_collectives": ("int8", "mode", "int8"),
+         "quant_collectives_min_bytes": (64, "min_bytes", 64)}
+
+
+@pytest.mark.parametrize("name", sorted(QUANT))
+def test_the_quantized_collectives_flags_take_values(name, monkeypatch):
+    from paddle_tpu_torch.parallel import quant_collectives as qc
+
+    for env in ("PADDLE_QUANT_COLLECTIVES",
+                "PADDLE_QUANT_COLLECTIVES_MIN_BYTES"):
+        monkeypatch.delenv(env, raising=False)
+    value, reader, want = QUANT[name]
+    default = TFL.get_flags(f"FLAGS_{name}")
+    try:
+        T.set_flags({f"FLAGS_{name}": value})
+        assert TFL.get_flags(f"FLAGS_{name}") == value
+        assert getattr(qc, reader)() == want
+    finally:
+        T.set_flags({f"FLAGS_{name}": default})
+    assert getattr(qc, reader)() == default
 
 
 def test_a_flag_of_missing_machinery_from_the_environment_raises_at_use(

@@ -268,18 +268,12 @@ def test_loss_is_a_0d_tensor_and_state_is_updated_in_place():
     assert not torch.equal(before, snapshot)
 
 
-@pytest.mark.parametrize("option", [
-    dict(remat=True), "mesh_seq", dict(mp_axis="mp", sp_axis="sp"),
-    dict(sp_axis="sp"), dict(use_ring_attention=True),
-    dict(use_ulysses=True), "moe"])
+@pytest.mark.parametrize("option", [dict(remat=True), "moe"])
 def test_unsupported_options_raise(option):
     """The options of the later model-parallel steps wait for ROADMAP
-    queue 1 item 10b (iii) (sequence parallelism) and (iv) (MoE), remat
-    for queue 1 item 1; a data- and tensor-parallel mesh is taken
-    (test_torch_data_parallel.py, test_torch_spmd.py), one with a
-    sequence axis is refused when it is made."""
-    from paddle_tpu_torch.parallel import mesh as M
-
+    queue 1 item 10b (iv) (MoE), remat for queue 1 item 1; data-, tensor-
+    and sequence-parallel meshes are taken (test_torch_data_parallel.py,
+    test_torch_spmd.py, test_torch_seq_parallel.py)."""
     model = TB.BertForPretraining(TB.BertConfig.tiny(**NO_DROP),
                                   device="cpu")
     if option == "moe":
@@ -287,9 +281,54 @@ def test_unsupported_options_raise(option):
         option = {}
     item = r"queue 1 item 1\)" if option == dict(remat=True) else "item 10b"
     with pytest.raises(NotImplementedError, match=item):
-        if option == "mesh_seq":
-            option = dict(mesh=M.make_mesh({"dp": 1, "seq": 2},
-                                           devices=range(2)))
+        TB.build_pretrain_step(model, **option)
+
+
+@pytest.mark.parametrize("option", [
+    "mesh_seq", dict(mp_axis="mp", sp_axis="sp"), dict(sp_axis="sp"),
+    dict(use_ring_attention=True), dict(use_ulysses=True)])
+def test_the_sequence_options_of_one_process_are_its_step(option):
+    """The sequence-parallel options (ROADMAP queue 1 item 10b (iii)) on
+    one process: a mesh with a sequence axis, mp and sp axes of one, and
+    ring or Ulysses attention without a mesh (the reference routes
+    through them only under a mesh) give the one-process step's bits;
+    tests/test_torch_seq_parallel.py runs them over four ranks."""
+    from paddle_tpu_torch.parallel import mesh as M
+
+    batch = {k: torch.from_numpy(v) for k, v in _batch(2).items()}
+    if option == "mesh_seq":
+        option = dict(mesh=M.make_mesh({"dp": 1, "seq": 2},
+                                       devices=range(2)))
+    elif "sp_axis" in option:
+        axes = {"dp": 1, "mp": 1, "sp": 1} if "mp_axis" in option else \
+            {"dp": 1, "sp": 1}
+        option = dict(option, mesh=M.make_mesh(axes))
+    runs = []
+    for kw in ({}, option):
+        model = TB.BertForPretraining(TB.BertConfig.tiny(**NO_DROP),
+                                      device="cpu", seed=4)
+        step, st = TB.build_pretrain_step(model, bf16=False, **kw)
+        st, loss = step(st, batch, LR)
+        runs.append((loss, st["params"]))
+    assert torch.equal(runs[0][0], runs[1][0])
+    for k, v in runs[0][1].items():
+        assert torch.equal(v, runs[1][1][k]), k
+
+
+@pytest.mark.parametrize("option,match", [
+    (dict(use_ring_attention=True), "requires attention_probs_dropout"),
+    (dict(use_ulysses=True), "requires attention_probs_dropout"),
+    (dict(use_ring_attention=True, use_ulysses=True), "choose ONE"),
+    (dict(sp_axis="sp"), "sp_axis needs a mesh")])
+def test_the_references_sequence_refusals_stand(option, match):
+    """The reference's refusals (models/bert.py:276-287): ring or Ulysses
+    with attention dropout, and both at once; and the port's own,
+    `sp_axis` without a mesh (ROADMAP queue 3 item 51: the reference
+    ignores it)."""
+    drop = dict(NO_DROP, attention_probs_dropout_prob=0.1) \
+        if "requires" in match else NO_DROP
+    model = TB.BertForPretraining(TB.BertConfig.tiny(**drop), device="cpu")
+    with pytest.raises(ValueError, match=match):
         TB.build_pretrain_step(model, **option)
 
 
